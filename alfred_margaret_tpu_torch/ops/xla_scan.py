@@ -1,0 +1,116 @@
+"""Stream layout: a corpus cut into overlap-warmed streams, staged on a device.
+
+Counterpart of ``alfred_margaret_tpu/ops/xla_scan.py`` (``StreamPlan``,
+``_stream_validity``, ``build_streams``, ``stage_streams_device``).  That
+module imports ``jax`` at the top, so the numpy planners are copied here
+(``tests/test_torch_layout.py`` pins each copy to its original) and the
+device staging is redone in torch.
+
+Layout: one haystack is split into S streams of L emission bytes, each
+preceded by K = max_needle_bytes - 1 warm-up bytes replayed from the previous
+stream.  Streams are time-major ``[T, S]`` uint8 and stream ``s`` emits
+matches ending at t in ``[warm[s], vend[s])``.  The warm-up replay is exact
+because an Aho-Corasick state depends on the last max_needle_bytes bytes
+only.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Tuple
+
+import numpy as np
+import torch
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclass(frozen=True)
+class StreamPlan:
+    """How a flat byte array is laid out into overlap-warmed streams."""
+
+    n: int  # total input bytes
+    n_streams: int  # S
+    emit_len: int  # L: emission bytes per stream (last stream may emit less)
+    overlap: int  # K: warm-up bytes (max_needle_bytes - 1)
+    time_len: int  # T >= K + L, padded stream length
+
+
+def _stream_validity(n: int, S: int, L: int, K: int):
+    """Per-stream (warm_start, valid_end) int32 arrays.
+
+    Emission is valid for t in [warm_start, valid_end).  Fully padded
+    streams (emit_begin >= n) get warm = vend = 0: their windows are
+    right-padding zeros, which must never be scanned live (needles may
+    contain NUL bytes), and their counts are left out of every reduction."""
+    idx = np.arange(S, dtype=np.int64)
+    emit_begin = idx * L
+    emit_end = np.minimum(emit_begin + L, n)
+    warm_start = np.minimum(K, emit_begin)
+    valid_end = warm_start + np.maximum(0, emit_end - emit_begin)
+    empty = emit_begin >= n
+    warm_start[empty] = 0
+    valid_end[empty] = 0
+    return warm_start.astype(np.int32), valid_end.astype(np.int32)
+
+
+def _n_fix(S: int, L: int, K: int) -> int:
+    """Head streams whose window would start in the left padding; they read
+    from data[0] instead (the reference layout: start = max(0, i*L - K))."""
+    return 1 if L >= K else min(S, _ceil_div(K, L))
+
+
+def build_streams(data: np.ndarray, plan: StreamPlan) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Lay out ``data`` into time-major streams on the host.
+
+    Returns ``(streams_ts, warm_start, valid_end)``: ``streams_ts`` is uint8
+    [T, S] and stream s emits for t in [warm_start[s], valid_end[s])."""
+    n, S, L, K, T = plan.n, plan.n_streams, plan.emit_len, plan.overlap, plan.time_len
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    # Stream i reads pad[i*L : i*L + T] = data[i*L - K : i*L - K + T].
+    pad = np.zeros(K + max((S - 1) * L + T, n), dtype=np.uint8)
+    pad[K : K + n] = data
+    windows = np.lib.stride_tricks.sliding_window_view(pad, T)[:: max(1, L)][:S]
+    streams = windows.T.copy()  # [T, S]
+    for i in range(_n_fix(S, L, K)):
+        streams[:, i] = pad[K : K + T]
+    warm_start, valid_end = _stream_validity(n, S, L, K)
+    # Zero every window's tail past its valid end: the tail holds bytes of
+    # later streams (T is padded, head streams are shifted), and pads must
+    # be inert for every stream.
+    streams[np.arange(T, dtype=np.int32)[:, None] >= valid_end[None, :]] = 0
+    return streams, warm_start, valid_end
+
+
+def stage_streams_device(data: np.ndarray, plan: StreamPlan, device: torch.device):
+    """Upload the corpus once and window it on ``device``.
+
+    Returns ``(streams [T, S] uint8 tensor on device, warm_start, valid_end)``
+    with the host int32 arrays of ``_stream_validity``; byte for byte the
+    same streams as ``build_streams``.  The host does no windowing: it sends
+    the n corpus bytes, and the device builds the [T, S] layout with one
+    strided view and one transpose copy.
+    """
+    n, S, L, K, T = plan.n, plan.n_streams, plan.emit_len, plan.overlap, plan.time_len
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    if not data.flags.writeable:
+        data = data.copy()  # torch.from_numpy needs a writable buffer
+    rows = max(S + _ceil_div(T, L), _ceil_div(K + n, L)) + 1
+    pad = torch.zeros(rows * L, dtype=torch.uint8, device=device)
+    pad[K : K + n] = torch.from_numpy(data).to(device)
+    # Window s is pad[s*L : s*L + T]; rows * L >= (S - 1) * L + T.
+    # clone, not contiguous(): with S = 1 the transpose is already contiguous
+    # and contiguous() would return a view of pad.
+    streams = pad.unfold(0, T, L)[:S].T.clone(memory_format=torch.contiguous_format)
+    n_fix = _n_fix(S, L, K)
+    streams[:, :n_fix] = pad[K : K + T].unsqueeze(1)
+    warm_start, valid_end = _stream_validity(n, S, L, K)
+    vend = torch.from_numpy(valid_end).to(device)
+    t_idx = torch.arange(T, dtype=torch.int32, device=device).unsqueeze(1)
+    streams.masked_fill_(t_idx >= vend.unsqueeze(0), 0)
+    return streams, warm_start, valid_end
+
+
+__all__ = ["StreamPlan", "build_streams", "stage_streams_device"]

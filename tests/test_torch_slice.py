@@ -1,0 +1,222 @@
+"""The PyTorch port's count slice end to end on the CPU.
+
+``Searcher`` (build, stage, count_matches) on ``device="cpu"`` against the
+JAX package's ``Searcher`` with the scalar ``python`` engine; the dispatcher's
+choice of bitap, dense or ``CapacityError``; the engine's backends, staged
+haystack checks and unported operations; and that the port never imports
+``jax``.  Tolerance: exact equality of every count.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import alfred_margaret_tpu as jamt
+from alfred_margaret_tpu.bench.dataformat import synth_corpus
+from alfred_margaret_tpu.models import ac
+from alfred_margaret_tpu.native.build import NativeUnavailable
+from alfred_margaret_tpu.ops import bitap_scan as jbitap
+from alfred_margaret_tpu.ops.comb_scan import make_pallas_engine
+
+import alfred_margaret_tpu_torch as port
+from alfred_margaret_tpu_torch import CASE_SENSITIVE, IGNORE_CASE, MatchEngine, Searcher, make_engine
+from alfred_margaret_tpu_torch.kernels import build
+from alfred_margaret_tpu_torch.ops.bitap_scan import BitapAcEngine
+from alfred_margaret_tpu_torch.ops.pallas_scan import CapacityError, DenseAcEngine
+from alfred_margaret_tpu_torch.utils import device as device_mod
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+NEEDLES3 = ["tshirt", "shirts", "shorts"]
+TWO_WORDS = ["alpha", "bravo", "charlie", "delta", "echo", "foxtrot", "golf"]
+THREE_WORDS = TWO_WORDS + ["hotel", "india", "juliett", "kilo", "lima", "mike"]
+PACK30 = [bytes([97 + i % 11, 98 + (i * 3) % 9, 99 + i % 7]).decode() for i in range(30)]
+_RNG0 = np.random.default_rng(0)
+BIG = ["".join(chr(97 + c) for c in _RNG0.integers(0, 26, size=8)) for _ in range(300)]
+
+
+def _machine(needles):
+    return ac.build([(n, i) for i, n in enumerate(needles)])
+
+
+SLICE_CASES = [
+    ("bench_bitap", NEEDLES3, synth_corpus(NEEDLES3, 1 << 16, hit_fraction=0.02, seed=3)),
+    ("two_words", TWO_WORDS, synth_corpus(TWO_WORDS, 1 << 15, hit_fraction=0.05, seed=4)),
+    ("nul_dense", ["a\x00b", "\x00\x00", "xyz"],
+     synth_corpus(["a\x00b", "\x00\x00", "xyz"], 1 << 14, hit_fraction=0.05, seed=5)),
+    ("thirty_dense", PACK30, synth_corpus(PACK30, 1 << 15, hit_fraction=0.05, seed=6)),
+    ("tiny_python", NEEDLES3, b"short tshirts and shorts"),
+    ("empty", NEEDLES3, b""),
+]
+
+
+@pytest.mark.parametrize("name,needles,hay", SLICE_CASES, ids=[c[0] for c in SLICE_CASES])
+def test_searcher_counts_match_jax_searcher(name, needles, hay):
+    ref = jamt.Searcher.build(jamt.CASE_SENSITIVE, needles, engine="python")
+    want = ref.count_matches(hay)
+    s = Searcher.build(CASE_SENSITIVE, needles, device="cpu")
+    assert s.count_matches(hay) == want
+    staged = s.stage(hay)
+    assert s.count_matches(staged) == want
+    if len(hay) >= port.engine.AUTO_PYTHON_THRESHOLD:
+        assert staged.device is not None  # device-staged streams
+    sv = Searcher.build_with_values(CASE_SENSITIVE, [(n, i) for i, n in enumerate(needles)],
+                                    engine="device", device="cpu")
+    assert sv.count_matches(hay) == want
+
+
+@pytest.mark.parametrize(
+    "needles,expect",
+    [
+        (NEEDLES3, BitapAcEngine),
+        (TWO_WORDS, BitapAcEngine),
+        (THREE_WORDS, DenseAcEngine),  # 3 registers: over the port's 2-word bitap budget
+        (["a\x00b"], DenseAcEngine),  # NUL: pads must clear bitap registers
+        (["", "a"], DenseAcEngine),  # empty needle
+        (PACK30, DenseAcEngine),  # the JAX package sends this set to comb/comb16
+    ],
+)
+def test_dispatcher_choice(needles, expect):
+    eng = make_engine(_machine(needles), "cpu")
+    assert type(eng) is expect
+
+
+@pytest.mark.parametrize("needles", [NEEDLES3, TWO_WORDS, THREE_WORDS, ["x", "x", "yy"], PACK30])
+def test_port_bitap_choice_implies_jax_bitap(needles):
+    m = _machine(needles)
+    if isinstance(make_engine(m, "cpu"), BitapAcEngine):
+        jeng = make_pallas_engine(m, interpret=True, n_streams=128, t_tile=32)
+        assert isinstance(jeng, jbitap.BitapAcEngine)
+
+
+def test_dispatcher_amt_bitap_off(monkeypatch):
+    monkeypatch.setenv("AMT_BITAP", "0")
+    assert type(make_engine(_machine(NEEDLES3), "cpu")) is DenseAcEngine
+
+
+def test_dispatcher_capacity_error():
+    with pytest.raises(CapacityError, match="item 12"):
+        make_engine(_machine(BIG), "cpu")
+
+
+def test_match_engine_backends_agree():
+    m = _machine(NEEDLES3)
+    hay = synth_corpus(NEEDLES3, 1 << 14, hit_fraction=0.05, seed=9)
+    want = ac.count_matches(m, hay)
+    backends = ["python", "device", "auto"]
+    try:
+        from alfred_margaret_tpu.native import build as native_build
+
+        native_build.load()
+        backends.append("cpp")
+    except NativeUnavailable:
+        pass
+    for b in backends:
+        assert MatchEngine(m, b, device="cpu").count(hay, CASE_SENSITIVE) == want, b
+    auto = MatchEngine(m, device="cpu")
+    assert auto._pick(100) == "python" and auto._pick(1 << 14) == "device"
+    with pytest.raises(ValueError):
+        MatchEngine(m, "pallas", device="cpu")
+
+
+def test_staged_haystack_checks():
+    a = Searcher.build(CASE_SENSITIVE, NEEDLES3, device="cpu")
+    b = Searcher.build(CASE_SENSITIVE, NEEDLES3, device="cpu")
+    staged = a.stage(b"tshirts " * 1000)
+    with pytest.raises(ValueError, match="different searcher"):
+        b.count_matches(staged)
+    # Another searcher over the same machine shares the staging.
+    c = Searcher(CASE_SENSITIVE, a.needles, machine=a.automaton, device="cpu")
+    assert c.count_matches(staged) == a.count_matches(staged) == 2000
+    staged.case = IGNORE_CASE
+    with pytest.raises(ValueError, match="different case mode"):
+        a.count_matches(staged)
+
+
+def test_unported_operations_raise():
+    s = Searcher.build(CASE_SENSITIVE, NEEDLES3, device="cpu")
+    for call, item in [
+        (lambda: s.contains_any(b"tshirt"), "item 9"),
+        (lambda: s.contains_all(b"tshirt"), "item 10"),
+        (lambda: s.all_matches(b"tshirt"), "item 10"),
+        (lambda: s.all_matches_arrays(b"tshirt"), "item 10"),
+        (lambda: s.map_searcher(str), "item 8"),
+        (lambda: s + s, "item 8"),
+        (lambda: Searcher.from_json(s.to_json()), "item 8"),
+        (lambda: s.distributed(None), "item 16"),
+        (lambda: Searcher.build(IGNORE_CASE, NEEDLES3, device="cpu"), "item 11"),
+    ]:
+        with pytest.raises(NotImplementedError, match=item):
+            call()
+    assert s.num_needles == 3 and s.device == torch.device("cpu")
+    assert s == Searcher.build(CASE_SENSITIVE, NEEDLES3, device="cpu")
+
+
+def test_devices_are_explicit():
+    with pytest.raises(ValueError):
+        device_mod.resolve_device("meta")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="is_available"):
+            Searcher.build(CASE_SENSITIVE, NEEDLES3, device="cuda")
+    with pytest.raises(TypeError):
+        Searcher.build(CASE_SENSITIVE, NEEDLES3)  # no device given
+
+
+def test_toolchain_report_keys():
+    rep = port.toolchain_report()
+    assert set(rep) == {"torch", "torch_cuda", "gpu", "gpu_count", "nvidia_smi", "nvcc"}
+    assert rep["torch"] == torch.__version__
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(build, "_BUILT", None)
+    monkeypatch.setattr(build, "_BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(build, "nvcc_path", lambda: None)
+    with pytest.raises(build.KernelBuildError, match="nvcc not found"):
+        build.load()
+    assert build.sources() and all(p.endswith(".cu") for p in build.sources())
+
+
+_SUBPROCESS_SLICE = """
+import sys
+import numpy as np
+import alfred_margaret_tpu_torch as port
+from alfred_margaret_tpu.models import ac
+needles = ["tshirt", "shirts", "shorts"]
+hay = b"short tshirts and shorts galore " * 300
+s = port.Searcher.build(port.CASE_SENSITIVE, needles, device="cpu")
+got = s.count_matches(s.stage(hay))
+assert got == ac.count_matches(s.automaton, hay), got
+import os
+os.environ["AMT_BITAP"] = "0"
+d = port.Searcher(port.CASE_SENSITIVE, s.needles, machine=s.automaton, device="cpu")
+assert d.count_matches(hay) == got
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
+print("ok", got)
+"""
+
+
+def test_port_never_imports_jax():
+    env = {k: v for k, v in os.environ.items() if not k.startswith("JAX")}
+    proc = subprocess.run(
+        [sys.executable, "-c", _SUBPROCESS_SLICE],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.startswith("ok ")
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    # A directory holding chip_smoke.py and nothing else of the repo.
+    script = tmp_path / "chip_smoke.py"
+    script.write_text(open(os.path.join(REPO, "chip_smoke.py")).read())
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, str(script)], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
