@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from . import build
+from .common import check_streams, check_tables, launch, on_cpu
 
 #: Registers per stream the kernel supports (kMaxWords in the .cu).
 MAX_WORDS = 8
@@ -20,16 +20,15 @@ MAX_FIELDS = MAX_WORDS * 30
 
 
 def _check_inputs(streams, btab, seed, endmask, field_start, field_bit, field_weight, warm):
-    if streams.dtype != torch.uint8 or streams.dim() != 2:
-        raise ValueError("streams must be a [T, S] uint8 tensor")
+    _, S = check_streams(streams)
     if btab.dim() != 2 or btab.shape[1] != 256:
         raise ValueError("btab must be [V, 256]")
-    V, S, F = btab.shape[0], streams.shape[1], field_bit.numel()
+    V, F = btab.shape[0], field_bit.numel()
     if not 1 <= V <= MAX_WORDS:
         raise ValueError(f"V = {V} words; the kernel takes 1..{MAX_WORDS}")
     if F > MAX_FIELDS:
         raise ValueError(f"{F} fields; the kernel takes at most {MAX_FIELDS}")
-    want = {
+    check_tables(streams.device, {
         "btab": (btab, (V, 256)),
         "seed": (seed, (V,)),
         "endmask": (endmask, (V,)),
@@ -37,15 +36,7 @@ def _check_inputs(streams, btab, seed, endmask, field_start, field_bit, field_we
         "field_bit": (field_bit, (F,)),
         "field_weight": (field_weight, (F,)),
         "warm": (warm, (S,)),
-    }
-    for name, (x, shape) in want.items():
-        if x.dtype != torch.int32 or tuple(x.shape) != shape:
-            raise ValueError(f"{name} must be int32 of shape {shape}")
-    for name, x in [("streams", streams)] + [(k, v[0]) for k, v in want.items()]:
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if x.device != streams.device:
-            raise ValueError(f"{name} is on {x.device}, streams on {streams.device}")
+    })
 
 
 def bitap_count_plain(streams, btab, seed, endmask, field_start, field_bit, field_weight, warm):
@@ -79,24 +70,19 @@ def bitap_count(streams, btab, seed, endmask, field_start, field_bit, field_weig
     count fields are ``field_bit``/``field_weight`` [field_start[w],
     field_start[w + 1]) and ``endmask[w]`` is the OR of their end bits."""
     _check_inputs(streams, btab, seed, endmask, field_start, field_bit, field_weight, warm)
-    if streams.device.type == "cpu":
+    if on_cpu(streams):
         return bitap_count_plain(
             streams, btab, seed, endmask, field_start, field_bit, field_weight, warm
         )
-    if streams.device.type != "cuda":
-        raise ValueError(f"unsupported device {streams.device}")
-    lib = build.load().lib
     T, S = streams.shape
     out = torch.empty(S, dtype=torch.int32, device=streams.device)
-    with torch.cuda.device(streams.device):
-        err = lib.amt_bitap_count(
-            streams.data_ptr(), T, S,
-            btab.data_ptr(), seed.data_ptr(), endmask.data_ptr(),
-            field_start.data_ptr(), field_bit.data_ptr(), field_weight.data_ptr(),
-            btab.shape[0], field_bit.numel(),
-            warm.data_ptr(), out.data_ptr(), torch.cuda.current_stream().cuda_stream,
-        )
-    build.check(err)
+    launch(
+        "amt_bitap_count", streams.device,
+        streams.data_ptr(), T, S,
+        btab.data_ptr(), seed.data_ptr(), endmask.data_ptr(),
+        field_start.data_ptr(), field_bit.data_ptr(), field_weight.data_ptr(),
+        btab.shape[0], field_bit.numel(), warm.data_ptr(), out.data_ptr(),
+    )
     bitap_count.launches += 1
     return out
 

@@ -1,11 +1,12 @@
 """Build the port's CUDA kernels with nvcc at first use and load them with ctypes.
 
-All of ``csrc/*.cu`` is compiled by one ``nvcc`` call for ``sm_90a`` into a
-shared library with a plain C interface, cached under ``_build/`` by a hash
-of the sources and flags (the same scheme as
-``alfred_margaret_tpu/native/build.py``).  No PyTorch header is compiled, so
-the build takes seconds.  Every pointer and the CUDA stream go to C as
-``ctypes.c_void_p``; each launcher returns its ``cudaError_t``.
+Each of ``csrc/*.cu`` is compiled for ``sm_90a`` by its own ``nvcc``
+process, all started together, and one more ``nvcc`` call links the objects
+into a shared library with a plain C interface, cached under ``_build/`` by
+a hash of the sources and flags (the same scheme as
+``alfred_margaret_tpu/native/build.py``).  No PyTorch header is compiled.
+Every pointer and the CUDA stream go to C as ``ctypes.c_void_p``; each
+launcher returns its ``cudaError_t``.
 """
 
 from __future__ import annotations
@@ -28,8 +29,9 @@ _BUILD_DIR = os.path.join(_PKG, "_build")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+LINK_FLAGS = ("-shared",)
 
 
 class KernelBuildError(RuntimeError):
@@ -53,7 +55,7 @@ def sources() -> list:
 
 
 def _so_path(srcs) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for path in srcs:
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
@@ -79,8 +81,77 @@ def _bind(lib: ctypes.CDLL) -> None:
         i, i,  # n_words, n_fields
         p, p, p,  # warm, out, stream
     ]
+    lib.amt_dense_contains.restype = i
+    lib.amt_dense_contains.argtypes = [
+        p, i, i,  # streams, T, S
+        p, p, i, p,  # classmap, table, table_words, vend
+        i, i, i,  # packing, state_bits, absorb
+        i, i, p, p,  # s0, s1, out, stream
+    ]
+    for name in ("amt_bitap_contains", "amt_bitap_presence"):
+        fn = getattr(lib, name)
+        fn.restype = i
+        fn.argtypes = [
+            p, i, i,  # streams, T, S
+            p, p, p, i,  # btab, seed, endmask, n_words
+            p, p,  # out, stream
+        ]
+    lib.amt_matchbits_dense.restype = i
+    lib.amt_matchbits_dense.argtypes = [
+        p, i, i, p, p,  # streams, T, S, warm, vend
+        p, p, i, i, i,  # classmap, table, table_words, packing, state_bits
+        p, p, p,  # counts, bits, stream
+    ]
+    lib.amt_matchbits_bitap.restype = i
+    lib.amt_matchbits_bitap.argtypes = [
+        p, i, i, p, p,  # streams, T, S, warm, vend
+        p, p, p, p, p, i,  # btab, seed, endmask, field_bit, field_weight, n_fields
+        p, p, p,  # counts, bits, stream
+    ]
     lib.amt_error_string.restype = ctypes.c_char_p
     lib.amt_error_string.argtypes = [i]
+
+
+def _compile(nvcc: str, srcs, so: str) -> str:
+    """One nvcc process per source, all running at once, then one link;
+    returns nvcc's output.  Raises ``KernelBuildError`` if any step fails."""
+    tmp = f"{so}.{os.getpid()}"
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in srcs]
+    procs = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for src, obj in zip(srcs, objs)
+    ]
+    log, failed = [], []
+    try:
+        for src, proc in zip(srcs, procs):
+            out, _ = proc.communicate(timeout=600)
+            log.append(f"== {os.path.basename(src)}\n{out}")
+            if proc.returncode != 0:
+                failed.append(f"{os.path.basename(src)} (exit {proc.returncode})")
+    finally:
+        for proc in procs:  # stop every compiler still running after a timeout
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    try:
+        if failed:
+            raise KernelBuildError(f"nvcc failed on {', '.join(failed)}:\n" + "\n".join(log))
+        proc = subprocess.run(
+            [nvcc, *LINK_FLAGS, "-o", f"{tmp}.so", *objs],
+            capture_output=True, text=True, timeout=600,
+        )
+        log.append(f"== link\n{proc.stdout}{proc.stderr}")
+        if proc.returncode != 0:
+            raise KernelBuildError(f"nvcc link exited {proc.returncode}:\n" + "\n".join(log))
+        os.replace(f"{tmp}.so", so)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    return "\n".join(log)
 
 
 def load() -> Built:
@@ -97,19 +168,9 @@ def load() -> Built:
             if nvcc is None:
                 raise KernelBuildError("nvcc not found (CUDA_HOME, /usr/local/cuda, PATH)")
             os.makedirs(_BUILD_DIR, exist_ok=True)
-            tmp = f"{so}.{os.getpid()}.tmp"
             t0 = time.perf_counter()
-            proc = subprocess.run(
-                [nvcc, *NVCC_FLAGS, "-o", tmp, *srcs],
-                capture_output=True,
-                text=True,
-                timeout=600,
-            )
+            log = _compile(nvcc, srcs, so)
             seconds = time.perf_counter() - t0
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise KernelBuildError(f"nvcc exited {proc.returncode}:\n{log}")
-            os.replace(tmp, so)
         lib = ctypes.CDLL(so)
         _bind(lib)
         _BUILT = Built(lib=lib, path=so, seconds=seconds, log=log)

@@ -10,35 +10,31 @@ from __future__ import annotations
 
 import torch
 
-from . import build
+from .common import check_packed, check_streams, check_tables, launch, on_cpu
 
-#: Table words the kernel holds in shared memory (kMaxTableWords in the .cu):
+#: Table words the kernels hold in shared memory (kMaxTableWords in the .cu):
 #: MAX_ROWS rows of 128 entries.
 MAX_TABLE_WORDS = 48 * 128
 
 
-def _check_inputs(streams, classmap, table, warm, vend, packing, state_bits):
-    if packing not in (1, 2):
-        raise ValueError(f"packing must be 1 or 2, got {packing}")
-    if not 0 < state_bits < 32:
-        raise ValueError(f"state_bits out of range: {state_bits}")
-    if streams.dtype != torch.uint8 or streams.dim() != 2:
-        raise ValueError("streams must be a [T, S] uint8 tensor")
-    S = streams.shape[1]
-    want = {"classmap": (classmap, (256,)), "warm": (warm, (S,)), "vend": (vend, (S,))}
-    for name, (x, shape) in want.items():
-        if x.dtype != torch.int32 or tuple(x.shape) != shape:
-            raise ValueError(f"{name} must be int32 of shape {shape}")
-    if table.dtype != torch.int32 or table.dim() != 1:
-        raise ValueError("table must be a 1-D int32 tensor")
-    if not 0 < table.numel() <= MAX_TABLE_WORDS:
-        raise ValueError(f"table must hold 1..{MAX_TABLE_WORDS} words, got {table.numel()}")
-    for name, x in (("streams", streams), ("classmap", classmap), ("table", table),
-                    ("warm", warm), ("vend", vend)):
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if x.device != streams.device:
-            raise ValueError(f"{name} is on {x.device}, streams on {streams.device}")
+def check_dense(streams, classmap, table, packing, state_bits, **vectors):
+    """The checks of the dense kernels (B1, B3, B6's dense step): streams,
+    the packed table and class map, and ``[S]`` vectors such as ``warm``."""
+    _, S = check_streams(streams)
+    check_packed(table, packing, state_bits, MAX_TABLE_WORDS)
+    check_tables(streams.device, {
+        "classmap": (classmap, (256,)), "table": (table, (table.numel(),)),
+        **{name: (x, (S,)) for name, x in vectors.items()},
+    })
+
+
+def lookup_plain(tab, idx, packing: int):
+    """Packed entries at flat entry indices ``idx`` of ``tab`` (the table as
+    int64 masked to its unsigned 32-bit words): one entry per word, or two
+    16-bit entries per word, low half first."""
+    if packing == 1:
+        return tab[idx]
+    return (tab[idx >> 1] >> ((idx & 1) << 4)) & 0xFFFF
 
 
 def dense_count_plain(streams, classmap, table, warm, vend, packing: int, state_bits: int):
@@ -52,11 +48,7 @@ def dense_count_plain(streams, classmap, table, warm, vend, packing: int, state_
     sbase = torch.zeros(S, dtype=torch.int64, device=dev)
     counts = torch.zeros(S, dtype=torch.int64, device=dev)
     for t in range(T):
-        idx = sbase + cm[streams[t].long()]
-        if packing == 1:
-            v = tab[idx]
-        else:
-            v = (tab[idx >> 1] >> ((idx & 1) << 4)) & 0xFFFF
+        v = lookup_plain(tab, sbase + cm[streams[t].long()], packing)
         sbase = v & mask
         live = (warm <= t) & (t < vend)
         counts += torch.where(live, v >> state_bits, 0)
@@ -70,23 +62,17 @@ def dense_count(streams, classmap, table, warm, vend, packing: int, state_bits: 
     ``classmap`` [256] maps bytes to classes; ``table`` holds the packed
     entries ``count << state_bits | next_state * k`` (``packing`` 1: one per
     int32, 2: two 16-bit entries per int32, low half first)."""
-    _check_inputs(streams, classmap, table, warm, vend, packing, state_bits)
-    if streams.device.type == "cpu":
+    check_dense(streams, classmap, table, packing, state_bits, warm=warm, vend=vend)
+    if on_cpu(streams):
         return dense_count_plain(streams, classmap, table, warm, vend, packing, state_bits)
-    if streams.device.type != "cuda":
-        raise ValueError(f"unsupported device {streams.device}")
-    lib = build.load().lib
     T, S = streams.shape
     out = torch.empty(S, dtype=torch.int32, device=streams.device)
-    with torch.cuda.device(streams.device):
-        err = lib.amt_dense_count(
-            streams.data_ptr(), T, S,
-            classmap.data_ptr(), table.data_ptr(), table.numel(),
-            warm.data_ptr(), vend.data_ptr(),
-            packing, state_bits,
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream,
-        )
-    build.check(err)
+    launch(
+        "amt_dense_count", streams.device,
+        streams.data_ptr(), T, S,
+        classmap.data_ptr(), table.data_ptr(), table.numel(),
+        warm.data_ptr(), vend.data_ptr(), packing, state_bits, out.data_ptr(),
+    )
     dense_count.launches += 1
     return out
 
@@ -94,4 +80,4 @@ def dense_count(streams, classmap, table, warm, vend, packing: int, state_bits: 
 #: Kernel launches since the last reset (CPU calls do not count).
 dense_count.launches = 0
 
-__all__ = ["dense_count", "dense_count_plain"]
+__all__ = ["dense_count", "dense_count_plain", "lookup_plain"]

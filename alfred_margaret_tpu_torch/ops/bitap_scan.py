@@ -1,13 +1,15 @@
-"""Bitap (shift-AND) count engine over the hand-written CUDA kernel B2.
+"""Bitap (shift-AND) engine over the hand-written CUDA kernels B2, B4, B6
+and B7.
 
 Counterpart of ``alfred_margaret_tpu/ops/bitap_scan.py``: ``WordLayout``,
 ``BitapLayout``, ``_pack_words``, ``_plan_tracks`` and ``plan_bitap`` are
 copied as numpy (that module imports ``jax``; ``tests/test_torch_layout.py``
 pins the copies to the originals), and ``BitapAcEngine`` takes the place of
-the JAX ``BitapAcEngine`` for ``count_staged`` and ``count``.  The
-IgnoreCase planner (``plan_bitap_ci``) and trap layouts come with the
-IgnoreCase slice; this engine raises ``NotImplementedError`` on a layout with
-trap tracks.
+the JAX ``BitapAcEngine`` for counting (B2), containsAny (B4), per-needle
+presence for containsAll (B7) and, through the dense engine's extraction
+path, the one-word bitap step of the hit bitmap (B6).  The IgnoreCase
+planner (``plan_bitap_ci``) and trap layouts come with the IgnoreCase slice;
+this engine raises ``NotImplementedError`` on a layout with trap tracks.
 
 Every unique needle is one bit track in an int32 register; a stream steps
 ``D = ((D << 1) | SEED) & B[byte]`` and each track's end bit counts its
@@ -26,6 +28,7 @@ import torch
 
 from alfred_margaret_tpu.models.ac import AcMachine
 
+from ..kernels.bitap_contains import bitap_contains, bitap_presence
 from ..kernels.bitap_count import bitap_count, bitap_count_plain
 from .pallas_scan import DenseAcEngine, StagedStreams
 
@@ -242,6 +245,47 @@ class BitapAcEngine(DenseAcEngine):
 
     def stream_counts_plain(self, st: StagedStreams) -> torch.Tensor:
         return bitap_count_plain(*self._kernel_args(st))
+
+    def sticky_bitap_args(self, st: StagedStreams) -> tuple:
+        """Arguments of ``bitap_contains`` and ``bitap_presence`` (or their
+        plain versions)."""
+        t = self.bitap_tables
+        return (st.streams, t.btab, t.seed, t.endmask)
+
+    def contains_staged(self, st: StagedStreams) -> bool:
+        """True iff a needle ends in some live stream: one sticky scan (B4)."""
+        hits = bitap_contains(*self.sticky_bitap_args(st)).cpu().numpy()
+        return bool((hits[st.live_np] != 0).any())
+
+    def contains_staged_early(self, st: StagedStreams, n_segments=None) -> bool:
+        """Bitap keeps the one-shot scan, as in the JAX package."""
+        return self.contains_staged(st)
+
+    def needle_presence_staged(self, st: StagedStreams) -> np.ndarray:
+        """bool per entry of ``machine.needles`` (duplicates share a flag):
+        whether the needle occurs.  One sticky scan (B7) gives a plane per
+        word; the host ORs each over the live streams and reads every track's
+        end bit as its needle's flag."""
+        planes = bitap_presence(*self.sticky_bitap_args(st)).cpu().numpy()
+        aggs = [
+            int(np.bitwise_or.reduce(p[st.live_np].astype(np.int64), initial=0)) for p in planes
+        ]
+        flag = {}
+        for w, wl in enumerate(self.bitap.words):
+            for key, (eb, _, _) in zip(wl.keys, wl.fields):
+                flag[key] = bool(aggs[w] & (1 << eb))
+        return np.asarray([flag[bytes(nd)] for nd in self.machine.needles], dtype=bool)
+
+    def bits_args(self, st: StagedStreams) -> tuple:
+        """Arguments of ``matchbits``: the bitap step for a one-word layout;
+        with more words the dense step, as in the JAX package."""
+        if self.bitap.n_words != 1:
+            return super().bits_args(st)
+        t = self.bitap_tables
+        return (
+            st.streams, st.warm, st.vend, "bitap",
+            t.btab, t.seed, t.endmask, t.field_start, t.field_bit, t.field_weight,
+        )
 
 
 __all__ = [

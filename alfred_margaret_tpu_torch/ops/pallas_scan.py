@@ -1,13 +1,18 @@
-"""Dense DFA count engine over the hand-written CUDA kernel B1.
+"""Dense DFA engine over the hand-written CUDA kernels B1, B3 and B6.
 
 Counterpart of ``alfred_margaret_tpu/ops/pallas_scan.py``:
-``CapacityError``, ``_zero_inert``, ``CompressedMachine.from_machine`` and
-``StagedStreams`` are copied as numpy (that module imports ``jax``;
+``CapacityError``, ``_zero_inert``, ``CompressedMachine.from_machine``,
+``_StickyView``, ``StagedStreams``, ``expand_hit_bits`` and
+``states_at_positions`` are copied as numpy (that module imports ``jax``;
 ``tests/test_torch_layout.py`` pins the copies to the originals), and
 ``DenseAcEngine`` takes the place of ``PallasAcEngine`` for ``stage``,
-``adopt_staged``, ``count_staged`` and ``count``.  The TPU-only parts are
-left out: the ``reps`` re-scan grid and the ``defer``/``nomask``/``fold``/
-``wpairs`` variants, which shave vector operations on the TPU.
+``adopt_staged``, counting (B1), containsAny over the sticky view (B3, with
+the early-exit segments) and match extraction through the hit bitmap (B6).
+The TPU-only parts are left out: the ``reps`` re-scan grid, the
+``defer``/``nomask``/``fold``/``wpairs`` variants, which shave vector
+operations on the TPU, and the two-level compaction with its capacity
+retries, which saved relay round trips.  The packed-states kernel (B5) is
+not ported yet: ROADMAP item 10.
 
 The automaton is compressed to k byte classes and packed into
 ``packed[state * k + cls] = count << state_bits | next_state * k`` so that a
@@ -17,17 +22,20 @@ step is one class lookup and one table lookup (``kernels/dense_count.py``).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from alfred_margaret_tpu.models.ac import AcMachine
+from alfred_margaret_tpu.native.cpp_engine import _default_threads
 from alfred_margaret_tpu.utils import utf8
 
+from ..kernels.dense_contains import dense_contains
 from ..kernels.dense_count import dense_count, dense_count_plain
+from ..kernels.matchbits import matchbits
 from ..utils.device import resolve_device
-from .xla_scan import StreamPlan, stage_streams_device
+from .xla_scan import StreamPlan, expand_hits, stage_streams_device
 
 #: Maximum packed-table rows of 128 int32 entries (24 KiB: the B1 kernel keeps
 #: the table in shared memory).  The value is the JAX package's, so both
@@ -167,6 +175,50 @@ class DenseTables:
         )
 
 
+class _StickyView:
+    """Absorbing-state view of an ``AcMachine`` for existence queries.
+
+    Entering any match state (``match_count > 0``) leads instead to a new
+    absorbing state that loops to itself, and all counts are dropped: the
+    final state says whether any match was seen (the reference's
+    ``containsAny`` fold, ``AhoCorasick/Searcher.hs:156-164``)."""
+
+    def __init__(self, machine: AcMachine):
+        delta = machine.delta
+        n = delta.shape[0]
+        self.absorb = n
+        d2 = np.empty((n + 1, 256), dtype=np.int32)
+        d2[:n] = np.where(machine.match_count[delta] > 0, n, delta)
+        d2[n] = n
+        self.delta = d2
+        self.match_count = np.zeros(n + 1, dtype=np.int32)
+        # Failure links (the absorbing state nominally fails to the root).
+        self.fail = (
+            np.concatenate([machine.fail, np.zeros(1, machine.fail.dtype)])
+            if machine.fail is not None
+            else None
+        )
+
+
+@dataclass
+class StickyTables(DenseTables):
+    """The B3 kernel's tables: the sticky view's packed tables and
+    ``absorb``, the final entry of a stream that saw a match (the absorbing
+    state times k).  ``convert.sticky_tables_from_jax`` builds the same from
+    the JAX engine's arrays."""
+
+    absorb: int
+
+    @staticmethod
+    def from_machine(machine: AcMachine, device) -> "StickyTables":
+        """Raises ``CapacityError`` when the view, which has one state more
+        than the machine, exceeds ``MAX_ROWS``."""
+        sv = _StickyView(machine)
+        comp = CompressedMachine.from_machine(sv)
+        t = DenseTables.from_compressed(comp, device)
+        return StickyTables(t.classmap, t.table, t.packing, t.state_bits, sv.absorb * comp.k)
+
+
 @dataclass
 class StagedStreams:
     """Device-resident stream layout, reusable across scans and engines."""
@@ -178,6 +230,12 @@ class StagedStreams:
     #: bool [S]: streams with any emission.  Counts are summed over these
     #: only (fully padded streams have warm = vend = 0).
     live_np: np.ndarray
+    warm_np: np.ndarray  # int32 [S], host copy of ``warm``
+    vend_np: np.ndarray  # int32 [S], host copy of ``vend``
+    #: Host reference to the raw corpus bytes: match extraction replays the
+    #: bytes before each hit from it to recover the hit's state (None: no
+    #: host corpus, and extraction needs B5).
+    data_np: Optional[np.ndarray]
 
 
 class DenseAcEngine:
@@ -200,6 +258,7 @@ class DenseAcEngine:
         self.S = n_streams
         self.t_tile = t_tile
         self.overlap = max(0, machine.max_needle_bytes - 1)
+        self._sticky: Optional[StickyTables] = None
 
     def _plan(self, n: int) -> StreamPlan:
         emit = max(1, -(-n // self.S))
@@ -219,6 +278,9 @@ class DenseAcEngine:
             warm=torch.from_numpy(warm).to(self.device),
             vend=torch.from_numpy(vend).to(self.device),
             live_np=vend > 0,
+            warm_np=warm,
+            vend_np=vend,
+            data_np=data,
         )
 
     def adopt_staged(self, st: Optional[StagedStreams]) -> Optional[StagedStreams]:
@@ -260,6 +322,193 @@ class DenseAcEngine:
             return 0
         return self.count_staged(self.stage(data))
 
+    # -- containsAny: the sticky scan (kernel B3) ------------------------------
+
+    #: Segment size of the early-exit containsAny scan (the JAX package's).
+    CONTAINS_SEG_BYTES = 32 << 20
+
+    def sticky_tables(self) -> StickyTables:
+        """The sticky view's tables on this engine's device, built at first
+        use; raises ``CapacityError`` when they exceed ``MAX_ROWS``."""
+        if self._sticky is None:
+            self._sticky = StickyTables.from_machine(self.machine, self.device)
+        return self._sticky
+
+    def sticky_args(self, st: StagedStreams, s0: int = 0, s1: Optional[int] = None) -> tuple:
+        """Arguments of ``dense_contains`` (or its plain version) for streams
+        ``[s0, s1)`` of ``st``."""
+        t = self.sticky_tables()
+        s1 = st.plan.n_streams if s1 is None else s1
+        return (st.streams, t.classmap, t.table, st.vend, t.packing, t.state_bits, t.absorb, s0, s1)
+
+    def _any_absorbed(self, entries: torch.Tensor, live: np.ndarray) -> bool:
+        return bool((entries.cpu().numpy()[live] == self.sticky_tables().absorb).any())
+
+    def contains_staged(self, st: StagedStreams) -> bool:
+        """True iff some live stream absorbed: one sticky scan (B3)."""
+        return self._any_absorbed(dense_contains(*self.sticky_args(st)), st.live_np)
+
+    def contains(self, text: utf8.TextLike) -> bool:
+        data = utf8.to_u8(text)
+        if len(data) == 0:
+            return False
+        return self.contains_staged(self.stage(data))
+
+    def contains_staged_early(self, st: StagedStreams, n_segments: Optional[int] = None) -> bool:
+        """``contains_staged`` as K segments of contiguous streams, in corpus
+        order, answered at the first segment with a hit.  K is the largest of
+        16, 8, 4, 2, 1 that is at most ``n_segments`` (by default one per
+        ``CONTAINS_SEG_BYTES`` of streams) and divides the stream count.
+        Every segment is queued on the current CUDA stream before the first
+        answer is copied back (each copy waits for its segment only)."""
+        S = st.plan.n_streams
+        if n_segments is None:
+            n_segments = max(1, min(16, st.plan.time_len * S // self.CONTAINS_SEG_BYTES))
+        K = next((k for k in (16, 8, 4, 2) if k <= n_segments and S % k == 0), 1)
+        if K == 1:
+            return self.contains_staged(st)
+        seg = S // K
+        outs = [dense_contains(*self.sticky_args(st, k * seg, (k + 1) * seg)) for k in range(K)]
+        return any(
+            self._any_absorbed(o, st.live_np[k * seg : (k + 1) * seg]) for k, o in enumerate(outs)
+        )
+
+    # -- allMatches and containsAll: the hit bitmap (kernel B6) ---------------
+
+    def bits_args(self, st: StagedStreams) -> tuple:
+        """Arguments of ``matchbits`` (or its plain version): the dense
+        packed-table step."""
+        t = self.tables
+        return (st.streams, st.warm, st.vend, "dense", t.classmap, t.table, t.packing, t.state_bits)
+
+    def match_positions_staged(self, st: StagedStreams) -> Tuple[np.ndarray, np.ndarray]:
+        """(end positions ascending, entered states) of every match, int64.
+
+        One B6 scan writes the hit bitmap; ``torch.nonzero`` over its words
+        and a gather of the non-zero words run on the device, and their
+        indices and values come to the host in one copy.  The host expands
+        the bits to positions inside each stream's ``[warm, vend)`` and
+        replays the corpus bytes before each position to recover its state.
+        """
+        if st.data_np is None or self.t_tile % 32:
+            raise NotImplementedError(
+                "match extraction without the host corpus, or with t_tile % 32 != 0, "
+                "needs the packed-states kernel: ROADMAP item 10 (B5)"
+            )
+        _, bits = matchbits(*self.bits_args(st))
+        S = bits.shape[1]
+        flat = bits.reshape(-1)
+        gi = torch.nonzero(flat).squeeze(1)
+        gi, wvals = torch.stack([gi, flat[gi].long()]).cpu().numpy()
+        pos = expand_hit_bits(
+            gi // S, gi % S, wvals, st.warm_np.astype(np.int64), st.vend_np.astype(np.int64),
+            st.plan.emit_len,
+        )
+        states = states_at_positions(self.machine, st.data_np, pos)
+        order = np.argsort(pos, kind="stable")
+        return pos[order], states[order]
+
+    def matches_arrays_staged(self, st: StagedStreams) -> Tuple[np.ndarray, np.ndarray]:
+        """(ends one past each match, value ids) in emission order."""
+        return expand_hits(self.machine, *self.match_positions_staged(st))
+
+    def matches_arrays(self, text: utf8.TextLike) -> Tuple[np.ndarray, np.ndarray]:
+        data = utf8.to_u8(text)
+        if len(data) == 0:
+            return np.zeros(0, np.int64), np.zeros(0, np.int32)
+        return self.matches_arrays_staged(self.stage(data))
+
+
+def _expand_hit_bits_native(t_words, s_idx, wvals, warm, vend, L):
+    """Threaded C++ bit expansion (``am_expand_hit_bits``); None when the
+    native library is unavailable (``expand_hit_bits`` then uses numpy)."""
+    lib = utf8._native_lib()  # failure-cached: one probe per process
+    if lib is None:
+        return None
+    tw = np.ascontiguousarray(t_words, dtype=np.int64)
+    si = np.ascontiguousarray(s_idx, dtype=np.int64)
+    wv = np.ascontiguousarray(np.asarray(wvals).astype(np.int64) & 0xFFFFFFFF, dtype=np.uint32)
+    warm64 = np.ascontiguousarray(warm, dtype=np.int64)
+    vend64 = np.ascontiguousarray(vend, dtype=np.int64)
+    try:
+        budget = int(np.bitwise_count(wv).sum())  # numpy >= 2.0
+    except AttributeError:  # numpy 1.x
+        budget = int(np.unpackbits(wv.view(np.uint8)).sum())
+    out = np.empty(budget, dtype=np.int64)
+    n = int(
+        lib.am_expand_hit_bits(
+            tw.ctypes.data, si.ctypes.data, wv.ctypes.data, len(wv),
+            warm64.ctypes.data, vend64.ctypes.data,
+            0, int(L), out.ctypes.data, _default_threads(),
+        )
+    )
+    return out[:n]
+
+
+def _states_at_native(machine, data: np.ndarray, pos: np.ndarray, W: int):
+    """Threaded C++ replay (``am_states_at``); None when the native library
+    is unavailable."""
+    lib = utf8._native_lib()
+    if lib is None:
+        return None
+    delta = np.ascontiguousarray(machine.delta, dtype=np.int32)
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    pos64 = np.ascontiguousarray(pos, dtype=np.int64)
+    out = np.empty(len(pos64), dtype=np.int32)
+    lib.am_states_at(
+        delta.ctypes.data, data.ctypes.data, len(data),
+        pos64.ctypes.data, len(pos64), int(W),
+        out.ctypes.data, _default_threads(),
+    )
+    return out.astype(np.int64)
+
+
+def states_at_positions(machine, data: np.ndarray, pos: np.ndarray) -> np.ndarray:
+    """Entered state at each end position, re-derived from the raw bytes.
+
+    Exact because the state after any byte is the longest needle prefix that
+    ends there, at most ``max_needle_bytes`` long: a replay from the root of
+    the last ``max_needle_bytes`` bytes lands on it."""
+    if len(pos) == 0:
+        return np.zeros(0, dtype=np.int64)
+    W = max(1, machine.max_needle_bytes)
+    native = _states_at_native(machine, data, pos, W)
+    if native is not None:
+        return native
+    flat = machine.delta.reshape(-1)
+    starts = np.asarray(pos, dtype=np.int64) - W
+    idt = np.int64 if machine.delta.size > (1 << 31) - 256 else np.int32
+    states = np.zeros(len(pos), dtype=idt)
+    for j in range(W):
+        idx = starts + j
+        valid = idx >= 0
+        b = data[np.where(valid, idx, 0)].astype(idt)
+        nxt = np.take(flat, states * 256 + b)
+        states = np.where(valid, nxt.astype(idt), states)
+    return states.astype(np.int64)
+
+
+def expand_hit_bits(t_words, s_idx, wvals, warm, vend, L):
+    """Global end positions from sparse bitmap words: word ``i`` covers time
+    steps ``[32 t_words[i], 32 t_words[i] + 32)`` of stream ``s_idx[i]``;
+    bits outside each stream's ``[warm, vend)`` (warm-up duplicates, pad
+    hits) are dropped, and positions re-base to corpus coordinates
+    ``s * L + (t - warm) + 1``.  Threaded C++ where the native library
+    loads, else ``np.unpackbits`` on the little-endian byte view."""
+    if len(wvals) == 0:
+        return np.zeros(0, dtype=np.int64)
+    native = _expand_hit_bits_native(t_words, s_idx, wvals, warm, vend, L)
+    if native is not None:
+        return native
+    wbytes = (np.asarray(wvals, dtype=np.int64) & 0xFFFFFFFF).astype("<u4").view(np.uint8)
+    j = np.flatnonzero(np.unpackbits(wbytes, bitorder="little"))
+    wi = j >> 5
+    t = t_words[wi] * 32 + (j & 31)
+    s = s_idx[wi]
+    keep = (t >= warm[s]) & (t < vend[s])
+    t, s = t[keep], s[keep]
+    return s * L + (t - warm[s]) + 1
+
 
 __all__ = [
     "MAX_ROWS",
@@ -268,4 +517,7 @@ __all__ = [
     "DenseAcEngine",
     "DenseTables",
     "StagedStreams",
+    "StickyTables",
+    "expand_hit_bits",
+    "states_at_positions",
 ]

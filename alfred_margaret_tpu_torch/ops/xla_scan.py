@@ -1,10 +1,10 @@
 """Stream layout: a corpus cut into overlap-warmed streams, staged on a device.
 
 Counterpart of ``alfred_margaret_tpu/ops/xla_scan.py`` (``StreamPlan``,
-``_stream_validity``, ``build_streams``, ``stage_streams_device``).  That
-module imports ``jax`` at the top, so the numpy planners are copied here
-(``tests/test_torch_layout.py`` pins each copy to its original) and the
-device staging is redone in torch.
+``_stream_validity``, ``build_streams``, ``stage_streams_device``,
+``expand_hits``, ``extract_matches``).  That module imports ``jax`` at the
+top, so the numpy helpers are copied here (``tests/test_torch_layout.py``
+pins each copy to its original) and the device staging is redone in torch.
 
 Layout: one haystack is split into S streams of L emission bytes, each
 preceded by K = max_needle_bytes - 1 warm-up bytes replayed from the previous
@@ -113,4 +113,41 @@ def stage_streams_device(data: np.ndarray, plan: StreamPlan, device: torch.devic
     return streams, warm_start, valid_end
 
 
-__all__ = ["StreamPlan", "build_streams", "stage_streams_device"]
+def expand_hits(machine, ends: np.ndarray, hit_states: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Expand hit (end-position, state) pairs into (ends, value_ids) with
+    CSR (emission) order within a position, the scalar fold's ordering.
+    The JAX package keeps two copies of this expansion
+    (``xla_scan.expand_hits`` and ``pallas_scan._expand_outputs``); the port
+    keeps this one."""
+    if len(ends) == 0:
+        return np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.int32)
+    hit_counts = machine.match_count[hit_states]
+    positions = np.repeat(np.asarray(ends, dtype=np.int64), hit_counts)
+    offs = machine.out_offset[hit_states]
+    total = int(hit_counts.sum())
+    base = np.repeat(offs, hit_counts)
+    ramp = np.arange(total, dtype=np.int64) - np.repeat(
+        np.cumsum(hit_counts) - hit_counts, hit_counts
+    )
+    value_ids = machine.out_values[base + ramp]
+    return positions, value_ids
+
+
+def extract_matches(machine, states: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Expand per-position states into (positions one past the end,
+    value_ids): positions ascend, and the values of one position keep CSR
+    (emission) order, the scalar fold's ordering."""
+    counts = machine.match_count[states]
+    hit_pos = np.flatnonzero(counts)
+    if len(hit_pos) == 0:
+        return np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.int32)
+    return expand_hits(machine, hit_pos + 1, states[hit_pos])
+
+
+__all__ = [
+    "StreamPlan",
+    "build_streams",
+    "expand_hits",
+    "extract_matches",
+    "stage_streams_device",
+]

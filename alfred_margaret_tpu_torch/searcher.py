@@ -2,10 +2,12 @@
 
 Counterpart of ``alfred_margaret_tpu/searcher.py:Searcher``: a subclass of
 that (jax-free) class whose engine is the port's ``MatchEngine`` on an
-explicit device.  ``build``, ``build_with_values``, ``stage`` and
-``count_matches`` work, CaseSensitive only; the needle-list accessors,
-equality and ``to_json`` are inherited.  Every other operation raises
-``NotImplementedError`` naming the ROADMAP item that brings it.
+explicit device.  ``build``, ``build_with_values``, ``stage``,
+``count_matches``, ``contains_any``, ``contains_all``, ``all_matches`` and
+``all_matches_arrays`` work, CaseSensitive only; the matching operations,
+the needle-list accessors, equality and ``to_json`` are inherited and call
+the port's engine.  Every other operation raises ``NotImplementedError``
+naming the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ def _todo(what: str, item: str):
 
 
 class Searcher(_ref.Searcher):
-    """A set of needles with values, counted by the port's kernels."""
+    """A set of needles with values, matched by the port's kernels."""
 
     def __init__(
         self,
@@ -80,10 +82,6 @@ class Searcher(_ref.Searcher):
     __add__ = _todo("__add__", "8")
     adopt_staged = _todo("adopt_staged", "8")
     distributed = _todo("distributed", "16")
-    contains_any = _todo("contains_any", "9")
-    contains_all = _todo("contains_all", "10")
-    all_matches = _todo("all_matches", "10")
-    all_matches_arrays = _todo("all_matches_arrays", "10")
 
 
 __all__ = ["Searcher"]

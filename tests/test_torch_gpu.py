@@ -8,10 +8,12 @@ on a host with an NVIDIA Hopper card from the repository root:
 (``--noconftest``: ``tests/conftest.py`` sets up JAX, which this file does
 not use.)
 
-The checks of ``chip_smoke.py``'s kernel phase at pytest size: per-stream
-counts of each kernel equal its plain version on the same device tensors
-(exact), totals equal ``ac.count_matches``, the wrappers raise on bad
-inputs, and each launch adds one to the wrapper's count.
+The checks of ``chip_smoke.py``'s kernel phase at pytest size: the outputs
+of each kernel equal its plain version's on the same device tensors (exact:
+per-stream counts, sticky entries, hit registers, presence planes, hit
+bitmaps), the answers equal ``ac.count_matches`` and ``ac.all_matches``, the
+wrappers raise on bad inputs, and each launch adds one to the wrapper's
+count.
 """
 
 import numpy as np
@@ -21,7 +23,18 @@ import torch
 from alfred_margaret_tpu.bench.dataformat import synth_corpus
 from alfred_margaret_tpu.models import ac
 
-from alfred_margaret_tpu_torch.kernels import bitap_count, dense_count
+from alfred_margaret_tpu_torch.kernels import (
+    bitap_contains,
+    bitap_contains_plain,
+    bitap_count,
+    bitap_presence,
+    bitap_presence_plain,
+    dense_contains,
+    dense_contains_plain,
+    dense_count,
+    matchbits,
+    matchbits_plain,
+)
 from alfred_margaret_tpu_torch.ops.bitap_scan import BitapAcEngine, plan_bitap
 from alfred_margaret_tpu_torch.ops.pallas_scan import DenseAcEngine
 from alfred_margaret_tpu_torch.ops.xla_scan import StreamPlan, build_streams, stage_streams_device
@@ -114,3 +127,90 @@ def test_wrappers_raise_on_bad_inputs_and_count_launches(cuda):
             with pytest.raises(ValueError):
                 fn(bad, *args[1:])
     assert (dense_count.launches, bitap_count.launches) == (d0 + 1, b0 + 1)
+
+
+@pytest.mark.parametrize("needles", [NEEDLES3, PACK30, NUL, ["needleword"]])
+@pytest.mark.parametrize("n_streams", [1024, 1000])
+def test_dense_contains_matches_plain(cuda, needles, n_streams):
+    m = _machine(needles)
+    for frac in (0.0, 0.001):
+        data = np.frombuffer(synth_corpus(needles, 1 << 18, hit_fraction=frac, seed=5), np.uint8)
+        eng = DenseAcEngine(m, device=cuda, n_streams=n_streams)
+        st = eng.stage(data)
+        args = eng.sticky_args(st)
+        k = dense_contains(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(k, dense_contains_plain(*args))
+        seg = n_streams // 4
+        parts = [dense_contains(*eng.sticky_args(st, s, min(s + seg, n_streams)))
+                 for s in range(0, n_streams, seg)]
+        assert torch.equal(torch.cat(parts), k)
+        want = ac.count_matches(m, data.tobytes()) > 0
+        assert eng.contains_staged(st) == eng.contains_staged_early(st, n_segments=4) == want
+
+
+@pytest.mark.parametrize("needles", [NEEDLES3, ["x", "x", "yy", "x"], TWO_WORDS, TWO_WORDS + ["hotel", "india", "juliett", "kilo", "lima", "mike"]])
+@pytest.mark.parametrize("n_streams", [1024, 1000])
+def test_bitap_sticky_kernels_match_plain(cuda, needles, n_streams):
+    m = _machine(needles)
+    data = np.frombuffer(synth_corpus(needles, 1 << 18, hit_fraction=0.001, seed=6), np.uint8)
+    eng = BitapAcEngine(m, device=cuda, n_streams=n_streams)
+    st = eng.stage(data)
+    args = eng.sticky_bitap_args(st)
+    hits, planes = bitap_contains(*args), bitap_presence(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(hits, bitap_contains_plain(*args))
+    assert torch.equal(planes, bitap_presence_plain(*args))
+    assert planes.shape == (eng.bitap.n_words, n_streams)
+    assert eng.contains_staged(st) == (ac.count_matches(m, data.tobytes()) > 0)
+    seen = {x.value for x in ac.all_matches(m, data.tobytes())}
+    present = eng.needle_presence_staged(st)
+    assert present.tolist() == [i in seen for i in range(len(needles))]
+
+
+@pytest.mark.parametrize("kind,needles", [
+    ("bitap", NEEDLES3), ("bitap", ["x", "x", "yy", "x"]), ("bitap", TWO_WORDS),
+    ("dense", NEEDLES3), ("dense", PACK30), ("dense", NUL),
+])
+@pytest.mark.parametrize("n_streams", [1024, 1000])
+def test_matchbits_matches_plain(cuda, kind, needles, n_streams):
+    m = _machine(needles)
+    data = np.frombuffer(synth_corpus(needles, 1 << 18, hit_fraction=0.03, seed=7), np.uint8)
+    cls = BitapAcEngine if kind == "bitap" else DenseAcEngine
+    eng = cls(m, device=cuda, n_streams=n_streams)
+    st = eng.stage(data)
+    args = eng.bits_args(st)
+    counts, bits = matchbits(*args)
+    torch.cuda.synchronize()
+    pc, pb = matchbits_plain(*args)
+    live = torch.from_numpy(st.live_np).to(cuda)
+    assert torch.equal(counts[live], pc[live])
+    assert torch.equal(bits, pb)
+    ends, vids = eng.matches_arrays_staged(st)
+    want = ac.all_matches(m, data.tobytes())
+    assert len(ends) == len(want) > 0
+    assert [(int(e), int(v)) for e, v in zip(ends, vids)] == [(x.pos, x.value) for x in want]
+
+
+def test_new_wrappers_count_launches_and_raise(cuda):
+    m = _machine(NEEDLES3)
+    data = np.frombuffer(b"tshirts and shorts " * 100, np.uint8)
+    dense = DenseAcEngine(m, device=cuda, n_streams=256)
+    bitap = BitapAcEngine(m, device=cuda, n_streams=256)
+    st = dense.stage(data)
+    calls = [
+        (dense_contains, dense_contains_plain, dense.sticky_args(st)),
+        (bitap_contains, bitap_contains_plain, bitap.sticky_bitap_args(st)),
+        (bitap_presence, bitap_presence_plain, bitap.sticky_bitap_args(st)),
+        (matchbits, matchbits_plain, bitap.bits_args(st)),
+        (matchbits, matchbits_plain, dense.bits_args(st)),
+    ]
+    for fn, plain, args in calls:
+        before = fn.launches
+        fn(*args)
+        plain(*args)
+        assert fn.launches == before + 1
+        bad_args = (st.streams.cpu(),) + tuple(args[1:])
+        with pytest.raises(ValueError):
+            fn(*bad_args)
+        assert fn.launches == before + 1

@@ -1,22 +1,27 @@
-"""The PyTorch port's copied planners against the JAX package's originals.
+"""The PyTorch port's copied helpers against the JAX package's originals.
 
-The port copies the numpy stream planner, the dense-table compressor and the
-bitap track planner (their JAX modules import ``jax``, which the port must
-not).  Each copy must give exactly the original's output; the torch staging
-must give ``build_streams``'s bytes; and the JAX engines' tables passed
-through ``convert.py`` must equal the port's own.
+The port copies the numpy stream planner, the dense-table compressor, the
+bitap track planner, the sticky view and the extraction helpers (their JAX
+modules import ``jax``, which the port must not).  Each copy must give
+exactly the original's output, on the native and the numpy paths where there
+are both; the torch staging must give ``build_streams``'s bytes; and the JAX
+engines' tables passed through ``convert.py`` must equal the port's own.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from alfred_margaret_tpu.bench.dataformat import synth_corpus
 from alfred_margaret_tpu.models import ac
+from alfred_margaret_tpu.native.build import NativeUnavailable
 from alfred_margaret_tpu.ops import bitap_scan as jbitap
 from alfred_margaret_tpu.ops import pallas_scan as jdense
 from alfred_margaret_tpu.ops import xla_scan as jxla
+from alfred_margaret_tpu.utils import utf8
 
 from alfred_margaret_tpu_torch import convert
+from alfred_margaret_tpu_torch import engine as tengine
 from alfred_margaret_tpu_torch.ops import bitap_scan as tbitap
 from alfred_margaret_tpu_torch.ops import pallas_scan as tdense
 from alfred_margaret_tpu_torch.ops import xla_scan as txla
@@ -237,3 +242,107 @@ def test_convert_rejects_bad_shapes():
         convert.dense_tables_from_jax(np.zeros((2, 64), np.int32), np.zeros((1, 128)), 7, 7, 1, CPU)
     with pytest.raises(ValueError):
         convert.dense_tables_from_jax(np.zeros((2, 128), np.int32), np.zeros((1, 128)), 70, 7, 1, CPU)
+
+
+# -- containsAny and extraction helpers ----------------------------------------------
+
+EXTRACT_NEEDLES = [
+    ["tshirt", "shirts", "shorts"],
+    ["ab", "b", "abc", "zz", "b"],  # suffixes and a duplicate: several outputs per state
+    [b"a\x00b", b"\x00\x00", b"xyz"],
+    ["", "a"],  # the empty needle rides the root
+    PACK_NEEDLES,
+]
+
+
+@pytest.mark.parametrize("needles", EXTRACT_NEEDLES)
+def test_sticky_view_matches_jax(needles):
+    m = _machine(needles)
+    want, got = jdense._StickyView(m), tdense._StickyView(m)
+    assert got.absorb == want.absorb
+    for f in ("delta", "match_count", "fail"):
+        assert getattr(got, f).dtype == getattr(want, f).dtype, f
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+
+
+@pytest.mark.parametrize("needles", EXTRACT_NEEDLES)
+def test_expanders_match_jax(needles):
+    m = _machine(needles)
+    rng = np.random.default_rng(3)
+    states = rng.integers(0, m.delta.shape[0], size=700).astype(np.int32)
+    for w, g in zip(jxla.extract_matches(m, states), txla.extract_matches(m, states)):
+        assert w.dtype == g.dtype
+        np.testing.assert_array_equal(g, w)
+    hs = states[m.match_count[states] > 0].astype(np.int64)
+    ends = np.sort(rng.choice(10**6, size=len(hs), replace=False)).astype(np.int64)
+    got = txla.expand_hits(m, ends, hs)
+    for want in (jxla.expand_hits(m, ends, hs), jdense._expand_outputs(m, ends, hs)):
+        for w, g in zip(want, got):
+            assert w.dtype == g.dtype
+            np.testing.assert_array_equal(g, w)
+    for g in txla.expand_hits(m, ends[:0], hs[:0]):
+        assert len(g) == 0
+
+
+def _bit_words(seed, S=64, n=400):
+    rng = np.random.default_rng(seed)
+    gi = np.sort(rng.choice(40 * S, size=n, replace=False)).astype(np.int64)
+    wvals = rng.integers(-(1 << 31), 1 << 31, size=n, dtype=np.int64).astype(np.int32)
+    warm = rng.integers(0, 9, size=S).astype(np.int64)
+    vend = np.minimum(warm + rng.integers(0, 1300, size=S), 40 * 32).astype(np.int64)
+    vend[-3:] = warm[-3:] = 0  # fully padded streams
+    return gi // S, gi % S, wvals, warm, vend, 1290
+
+
+@pytest.mark.parametrize("native", [True, False], ids=["native", "numpy"])
+def test_expand_hit_bits_matches_jax(native, monkeypatch):
+    if not native:
+        monkeypatch.setattr(utf8, "_native_lib", lambda: None)
+    assert (utf8._native_lib() is not None) == native
+    for seed in range(3):
+        args = _bit_words(seed)
+        want = jdense.expand_hit_bits(*args)
+        got = tdense.expand_hit_bits(*args)
+        assert got.dtype == want.dtype == np.int64 and len(got) > 0
+        np.testing.assert_array_equal(got, want)
+    t_words, s_idx, wvals, warm, vend, L = _bit_words(0)
+    assert len(tdense.expand_hit_bits(t_words[:0], s_idx[:0], wvals[:0], warm, vend, L)) == 0
+
+
+@pytest.mark.parametrize("native", [True, False], ids=["native", "numpy"])
+@pytest.mark.parametrize("needles", EXTRACT_NEEDLES[:3])
+def test_states_at_positions_matches_jax(needles, native, monkeypatch):
+    if not native:
+        monkeypatch.setattr(utf8, "_native_lib", lambda: None)
+    assert (utf8._native_lib() is not None) == native
+    m = _machine(needles)
+    data = np.frombuffer(synth_corpus([n if isinstance(n, str) else n.decode("latin-1")
+                                       for n in needles], 1 << 12, hit_fraction=0.1, seed=2),
+                         np.uint8)
+    pos = np.random.default_rng(1).integers(1, len(data) + 1, size=300).astype(np.int64)
+    want = jdense.states_at_positions(m, data, pos)
+    got = tdense.states_at_positions(m, data, pos)
+    assert got.dtype == want.dtype == np.int64
+    np.testing.assert_array_equal(got, want)
+    scalar = np.empty(len(data), dtype=np.int64)
+    s = 0
+    for i, b in enumerate(data):
+        s = m.delta[s, b]
+        scalar[i] = s
+    np.testing.assert_array_equal(got, scalar[pos - 1])
+
+
+def test_port_cpp_matches_arrays_equals_original():
+    try:
+        from alfred_margaret_tpu.native.cpp_engine import CppAcEngine as Original
+
+        for needles in EXTRACT_NEEDLES:
+            m = _machine(needles)
+            hay = (b"ab abc zzb tshirts a\x00b \x00\x00xyz " * 400)
+            want = Original(m).matches_arrays(hay)
+            got = tengine.CppAcEngine(m).matches_arrays(hay)
+            for w, g in zip(want, got):
+                assert w.dtype == g.dtype
+                np.testing.assert_array_equal(g, w)
+    except NativeUnavailable:
+        pass

@@ -1,10 +1,13 @@
-"""The PyTorch port's count slice end to end on the CPU.
+"""The PyTorch port's Searcher end to end on the CPU.
 
-``Searcher`` (build, stage, count_matches) on ``device="cpu"`` against the
-JAX package's ``Searcher`` with the scalar ``python`` engine; the dispatcher's
-choice of bitap, dense or ``CapacityError``; the engine's backends, staged
-haystack checks and unported operations; and that the port never imports
-``jax``.  Tolerance: exact equality of every count.
+``Searcher`` (build, stage, count_matches, contains_any, contains_all,
+all_matches, all_matches_arrays) on ``device="cpu"`` against the JAX
+package's ``Searcher`` with the scalar ``python`` engine, on every backend of
+the port's ``MatchEngine``, staged and unstaged; the dispatcher's choice of
+bitap, dense or ``CapacityError``; the sticky-table overflow answered by
+counting; staged haystack checks and unported operations; and that the port
+never imports ``jax``.  Tolerance: exact equality of every count, flag and
+match list.
 """
 
 import os
@@ -66,6 +69,102 @@ def test_searcher_counts_match_jax_searcher(name, needles, hay):
     sv = Searcher.build_with_values(CASE_SENSITIVE, [(n, i) for i, n in enumerate(needles)],
                                     engine="device", device="cpu")
     assert sv.count_matches(hay) == want
+
+
+_BACKENDS = ["python", "device", "auto"]
+try:
+    from alfred_margaret_tpu.native import build as _native_build
+
+    _native_build.load()
+    _BACKENDS.append("cpp")
+except NativeUnavailable:
+    pass
+
+OPERATION_CASES = SLICE_CASES + [("miss", NEEDLES3, b"short shirt and sport " * 300)]
+
+
+@pytest.mark.parametrize("name,needles,hay", OPERATION_CASES, ids=[c[0] for c in OPERATION_CASES])
+def test_searcher_operations_match_jax_searcher(name, needles, hay):
+    ref = jamt.Searcher.build(jamt.CASE_SENSITIVE, needles, engine="python")
+    want_any = ref.contains_any(hay)
+    want_all = ref.contains_all(hay)
+    want_matches = ref.all_matches(hay)
+    want_ends, want_vids = ref.all_matches_arrays(hay)
+    for backend in _BACKENDS:
+        s = Searcher.build(CASE_SENSITIVE, needles, engine=backend, device="cpu")
+        for label, h in (("unstaged", hay), ("staged", s.stage(hay))):
+            where = (backend, label)
+            assert s.contains_any(h) is want_any, where
+            assert s.contains_all(h) is want_all, where
+            assert s.all_matches(h) == want_matches, where
+            ends, vids = s.all_matches_arrays(h)
+            assert ends.dtype == np.int64 and vids.dtype == np.int32, where
+            np.testing.assert_array_equal(ends, want_ends)
+            np.testing.assert_array_equal(vids, want_vids)
+    if name == "miss":
+        assert not want_any and not want_all
+
+
+def test_contains_all_needs_every_needle(monkeypatch):
+    needles = NEEDLES3 + ["SHORTS"]  # upper case: not in the lower-case corpus
+    hay = synth_corpus(NEEDLES3, 1 << 14, hit_fraction=0.05, seed=8)
+    for bitap, kind in (("1", BitapAcEngine), ("0", DenseAcEngine)):
+        monkeypatch.setenv("AMT_BITAP", bitap)
+        for backend in _BACKENDS:
+            s = Searcher.build(CASE_SENSITIVE, needles, engine=backend, device="cpu")
+            full = Searcher.build(CASE_SENSITIVE, NEEDLES3, engine=backend, device="cpu")
+            assert s.contains_all(hay) is False and s.contains_any(hay) is True
+            assert full.contains_all(full.stage(hay)) is True
+        assert type(full._engine.device_engine()) is kind
+
+
+def test_empty_haystack_and_needles():
+    for backend in _BACKENDS:
+        s = Searcher.build(CASE_SENSITIVE, NEEDLES3, engine=backend, device="cpu")
+        for h in (b"", s.stage(b"")):
+            assert s.contains_any(h) is False
+            assert s.contains_all(h) is False
+            assert s.all_matches(h) == []
+            ends, vids = s.all_matches_arrays(h)
+            assert len(ends) == len(vids) == 0
+            assert ends.dtype == np.int64 and vids.dtype == np.int32
+        none = Searcher.build(CASE_SENSITIVE, [], engine=backend, device="cpu")
+        assert none.contains_all(b"tshirt") is True and none.contains_all(b"") is True
+    for engine in ("python", "cpp", "device"):
+        if engine in _BACKENDS:
+            me = MatchEngine(_machine(NEEDLES3), engine, device="cpu")
+            assert not me.value_presence(b"", CASE_SENSITIVE).any()
+
+
+def _sticky_overflow_needles():
+    """77 random needles whose machine (303 states, 27 byte classes) fits
+    the dense table, while its sticky view, one state larger, does not."""
+    rng = np.random.default_rng(4)
+    return ["".join(chr(97 + c) for c in rng.integers(0, 26, size=int(rng.integers(3, 7))))
+            for _ in range(77)]
+
+
+def test_sticky_capacity_answers_by_count():
+    from alfred_margaret_tpu.ops.pallas_scan import CapacityError as JaxCapacityError
+    from alfred_margaret_tpu.ops.pallas_scan import PallasAcEngine
+
+    needles = _sticky_overflow_needles()
+    m = _machine(needles)
+    eng = make_engine(m, "cpu")
+    assert type(eng) is DenseAcEngine
+    with pytest.raises(CapacityError):
+        eng.sticky_tables()
+    with pytest.raises(JaxCapacityError):
+        PallasAcEngine(m, n_streams=128, interpret=True)._sticky_setup()
+    ref = jamt.Searcher.build(jamt.CASE_SENSITIVE, needles, engine="python")
+    s = Searcher.build(CASE_SENSITIVE, needles, engine="device", device="cpu")
+    hit = b"0123456789 " * 500 + needles[40].encode() + b" 0123" * 100
+    miss = b"0123456789 " * 600
+    for hay in (hit, miss):
+        want = ref.contains_any(hay)
+        assert s.contains_any(hay) is want
+        assert s.contains_any(s.stage(hay)) is want
+    assert s.contains_any(hit) is True
 
 
 @pytest.mark.parametrize(
@@ -139,10 +238,6 @@ def test_staged_haystack_checks():
 def test_unported_operations_raise():
     s = Searcher.build(CASE_SENSITIVE, NEEDLES3, device="cpu")
     for call, item in [
-        (lambda: s.contains_any(b"tshirt"), "item 9"),
-        (lambda: s.contains_all(b"tshirt"), "item 10"),
-        (lambda: s.all_matches(b"tshirt"), "item 10"),
-        (lambda: s.all_matches_arrays(b"tshirt"), "item 10"),
         (lambda: s.map_searcher(str), "item 8"),
         (lambda: s + s, "item 8"),
         (lambda: Searcher.from_json(s.to_json()), "item 8"),
@@ -194,6 +289,14 @@ import os
 os.environ["AMT_BITAP"] = "0"
 d = port.Searcher(port.CASE_SENSITIVE, s.needles, machine=s.automaton, device="cpu")
 assert d.count_matches(hay) == got
+want = ac.all_matches(s.automaton, hay)
+for eng in ("device", "cpp", "python"):
+    for srch in (port.Searcher(port.CASE_SENSITIVE, s.needles, machine=s.automaton, engine=eng,
+                               device="cpu"), d):
+        staged = srch.stage(hay)
+        assert srch.contains_any(staged) and srch.contains_all(staged)
+        assert srch.all_matches(staged) == want
+        assert len(srch.all_matches_arrays(hay)[0]) == got
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
 print("ok", got)
 """
