@@ -1,23 +1,26 @@
 """alfred_margaret_tpu_torch: the PyTorch and CUDA port of alfred_margaret_tpu.
 
-Counts all Aho-Corasick matches of a needle set over a corpus staged on an
-NVIDIA Hopper GPU, through two CUDA kernels written by hand for ``sm_90a``:
-the bitap (shift-AND) count kernel for small needle sets and the dense
-byte-class DFA count kernel for the rest.  Module names mirror the JAX
-package's, which stays the reference the port is tested against.  This
-package imports ``torch`` and never ``jax``; the automaton builder, the host
-C++ engine and the case/UTF-8 helpers are shared with the JAX package by
-import, since those modules are jax-free.
+Counts, tests for and lists the Aho-Corasick matches of a needle set over a
+corpus staged on an NVIDIA Hopper GPU, through CUDA kernels written by hand
+for ``sm_90a``, in three tiers by needle-set size: bitap (shift-AND)
+registers for small sets, the dense byte-class DFA table, and the 16-bit
+three-tier comb16 table, with its stride-2 containsAny screen, for sets of
+about 30 to 150 needles that overflow the dense table.  Module names mirror
+the JAX package's, which stays the reference the port is tested against.
+This package imports ``torch`` and nothing of ``jax`` or of the JAX package:
+the host layers it needs (automaton builder, host C++ engine, case and UTF-8
+helpers, corpus synthesis) are its own copies, pinned to the originals by
+the tests.
 
-Devices are explicit: every engine takes ``device="cuda"`` or ``"cpu"``.  On
-the CPU the kernels' plain torch versions run; the tests use them.
+Every entry point runs on ``device="cuda"`` unless the caller asks for
+``"cpu"``, where the kernels' plain torch versions run (the tests use
+them); without a CUDA device, ``"cuda"`` raises.
 """
-
-from alfred_margaret_tpu.utils.case import CASE_SENSITIVE, IGNORE_CASE, CaseSensitivity
 
 from .engine import MatchEngine
 from .ops.comb_scan import make_engine
 from .searcher import Searcher
+from .utils.case import CASE_SENSITIVE, IGNORE_CASE, CaseSensitivity
 from .utils.device import toolchain_report
 
 __all__ = [

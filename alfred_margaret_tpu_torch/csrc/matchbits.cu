@@ -2,14 +2,17 @@
 // in one scan, for Hopper.
 //
 // Replaces the Pallas TPU kernel alfred_margaret_tpu/ops/pallas_scan.py:
-// make_matchbits_kernel (launched from PallasAcEngine._get_bits_fn) with its
-// two step families: dense_bits_step_factory (the packed byte-class table) and
-// the one-word bitap step of bitap_scan.py:BitapAcEngine._bits_tables.  One
-// kernel body, templated on the step:
+// make_matchbits_kernel (launched from PallasAcEngine._get_bits_fn) with three
+// of its step families: dense_bits_step_factory (the packed byte-class table),
+// the one-word bitap step of bitap_scan.py:BitapAcEngine._bits_tables and the
+// comb16 step of comb16_scan.py:_c16_bits_tables (kernel B13).  One kernel
+// body, templated on the step:
 //   DenseStep<P>: v = entry(carry + classmap[b]); carry = v & state_mask;
 //                 cnt = v >> state_bits                  (tables as in B1)
 //   BitapStep:    D = ((D << 1) | seed) & btab[b];
 //                 cnt = sum over fields of ((D >> e) & 1) * weight  (as in B2)
+//   Comb16Step:   e = lookup(carry, b); carry = e & (2^BB - 1);
+//                 cnt = count16(e, carry)  (from the root's base; as in B8)
 // Per stream s, per step t (T % 32 == 0), with no freeze anywhere:
 //   counts[s] += cnt                        while warm[s] <= t < vend[s]
 //   bit (t & 31) of bits[(t >> 5) * S + s]  is set iff cnt > 0
@@ -19,13 +22,15 @@
 // int32; the host masks words with 0xFFFFFFFF.
 //
 // What bounds it: the step's own chain (two dependent shared-memory loads for
-// the dense step, one table load for bitap) plus one coalesced 4-byte store
+// the dense step, one table load for bitap, three to four for comb16) plus one coalesced 4-byte store
 // per stream every 32 steps (1/8 byte per corpus byte: 17.3 MB at 128 MiB).
 // The 32 stream bytes of a word are loaded ahead into registers.  The bitmap
 // is compacted on the device by the caller (torch.nonzero over the words).
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "comb16.cuh"
 
 namespace {
 
@@ -92,6 +97,19 @@ struct BitapStep {
   }
 };
 
+struct Comb16Step {
+  amt::Comb16 c;
+  uint32_t ranges[amt::kC16Ranges];
+  uint32_t bmask;
+  bool counts;
+  uint32_t carry;
+  __device__ __forceinline__ uint32_t operator()(uint32_t b) {
+    const uint32_t e = c.entry(carry, b);
+    carry = e & bmask;
+    return amt::count16(e, carry, ranges, counts);
+  }
+};
+
 template <int PACKING>
 __global__ void __launch_bounds__(kThreads) matchbits_dense_kernel(
     const uint8_t* __restrict__ streams, int T, int S, const int32_t* __restrict__ warm,
@@ -127,6 +145,25 @@ __global__ void __launch_bounds__(kThreads) matchbits_bitap_kernel(
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= S) return;
   BitapStep step{bt, fbit, fwt, n_fields, (uint32_t)seed[0], (uint32_t)endmask[0], 0u};
+  scan_bits(step, streams, T, S, s, warm, vend, counts, bits);
+}
+
+__global__ void __launch_bounds__(kThreads) matchbits_comb16_kernel(
+    const uint8_t* __restrict__ streams, int T, int S, const int32_t* __restrict__ warm,
+    const int32_t* __restrict__ vend, const int32_t* __restrict__ classmap,
+    const int32_t* __restrict__ comb, int comb_words, const int32_t* __restrict__ aux,
+    int aux_words, const int32_t* __restrict__ root_row, const int32_t* __restrict__ segtable,
+    const int32_t* __restrict__ ranges, int bb, int owner_mask, int cbit, int root_cb,
+    int32_t* __restrict__ counts, int32_t* __restrict__ bits) {
+  extern __shared__ uint32_t smem[];
+  const amt::Comb16 c = amt::load_comb16(smem, classmap, comb, comb_words, aux, aux_words,
+                                         root_row, segtable, bb, owner_mask);
+  __syncthreads();
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= S) return;
+  Comb16Step step{c, {}, (1u << bb) - 1u, cbit != 0, (uint32_t)root_cb};
+#pragma unroll
+  for (int i = 0; i < amt::kC16Ranges; ++i) step.ranges[i] = (uint32_t)ranges[i];
   scan_bits(step, streams, T, S, s, warm, vend, counts, bits);
 }
 
@@ -175,5 +212,26 @@ extern "C" int amt_matchbits_bitap(const void* streams, int T, int S, const void
       (const int32_t*)btab, (const int32_t*)seed, (const int32_t*)endmask,
       (const int32_t*)field_bit, (const int32_t*)field_weight, n_fields, (int32_t*)counts,
       (int32_t*)bits);
+  return (int)cudaGetLastError();
+}
+
+// Comb16 step (B13): the tables of amt_comb16_count.  As amt_matchbits_dense
+// otherwise.
+extern "C" int amt_matchbits_comb16(const void* streams, int T, int S, const void* warm,
+                                    const void* vend, const void* classmap, const void* comb,
+                                    int comb_words, const void* aux, int aux_words,
+                                    const void* root_row, const void* segtable,
+                                    const void* ranges, int bb, int owner_mask, int cbit,
+                                    int root_cb, void* counts, void* bits, void* stream) {
+  if (T < 0 || T % 32 || S <= 0 ||
+      !amt::comb16_args_ok(comb_words, aux_words, bb, owner_mask, cbit, root_cb))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((S + kThreads - 1) / kThreads);
+  matchbits_comb16_kernel<<<grid, kThreads, amt::comb16_smem_bytes(comb_words, aux_words),
+                            (cudaStream_t)stream>>>(
+      (const uint8_t*)streams, T, S, (const int32_t*)warm, (const int32_t*)vend,
+      (const int32_t*)classmap, (const int32_t*)comb, comb_words, (const int32_t*)aux,
+      aux_words, (const int32_t*)root_row, (const int32_t*)segtable, (const int32_t*)ranges,
+      bb, owner_mask, cbit, root_cb, (int32_t*)counts, (int32_t*)bits);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,5 @@
 """Engine dispatch of the port: count, containsAny, containsAll and matches on
-an explicit device.
+a device.
 
 Counterpart of ``alfred_margaret_tpu/engine.py:MatchEngine`` for
 CaseSensitive haystacks (``count``, ``contains_any``, ``value_presence``,
@@ -7,73 +7,83 @@ CaseSensitive haystacks (``count``, ``contains_any``, ``value_presence``,
 
 * ``python`` - the scalar oracle of ``models.ac`` (its fold, or a scalar
   state pass);
-* ``cpp``    - the shared host engine ``native.cpp_engine.CppAcEngine``;
+* ``cpp``    - the host engine ``native.cpp_engine.CppAcEngine``;
 * ``device`` - the port's kernels on ``device`` (``ops.comb_scan.make_engine``);
 * ``auto``   - ``python`` below ``AUTO_PYTHON_THRESHOLD`` bytes, else ``device``.
 
-The host/device thresholds of the JAX package were measured on a TPU; they
-get re-derived on the H100 later (ROADMAP Queue A item 7).  Staged haystacks
-are the JAX package's ``StagedHaystack`` with the same owner and case checks.
+The device is ``"cuda"`` unless the caller asks for ``"cpu"``, where the
+kernels' plain torch versions run.  The host/device thresholds of the JAX
+package were measured on a TPU; they get re-derived on the H100 later
+(ROADMAP Queue A item 7).  ``StagedHaystack`` and ``MatchSet`` are the JAX
+package's, less the IgnoreCase fields.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 
-from alfred_margaret_tpu.engine import AUTO_PYTHON_THRESHOLD, MatchSet, StagedHaystack, _has_device
-from alfred_margaret_tpu.models import ac
-from alfred_margaret_tpu.native import cpp_engine as _cpp
-from alfred_margaret_tpu.utils import utf8
-from alfred_margaret_tpu.utils.case import CASE_SENSITIVE, CaseSensitivity
-
+from .models import ac
+from .native.cpp_engine import CppAcEngine
 from .ops.bitap_scan import BitapAcEngine
 from .ops.comb_scan import make_engine
 from .ops.pallas_scan import CapacityError, StagedStreams
-from .ops.xla_scan import expand_hits, extract_matches
+from .ops.xla_scan import extract_matches
+from .utils import utf8
+from .utils.case import CASE_SENSITIVE, CaseSensitivity
 from .utils.device import resolve_device
+
+#: Inputs smaller than this run on the scalar python path under "auto"
+#: (device dispatch overhead dominates below it).
+AUTO_PYTHON_THRESHOLD = 4096
 
 _VALID_ENGINES = ("auto", "python", "cpp", "device")
 
 
-class CppAcEngine(_cpp.CppAcEngine):
-    """The shared host C++ engine.  ``matches_arrays`` is the original's
-    with the port's ``expand_hits``: the original imports it from
-    ``alfred_margaret_tpu.ops.xla_scan``, which imports ``jax``."""
+def _has_device(text) -> bool:
+    return isinstance(text, StagedHaystack) and text.device is not None
 
-    def matches_arrays(self, text: utf8.TextLike, n_threads: Optional[int] = None):
-        data = np.ascontiguousarray(utf8.to_u8(text))
-        if len(data) == 0:
-            return np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.int32)
-        nt = self.n_threads if n_threads is None else n_threads
-        cap = max(4096, len(data) // 64)
-        ct = self._class_tables(len(data))
-        while True:
-            pos = np.empty(cap, dtype=np.int64)
-            st = np.empty(cap, dtype=np.int32)
-            if ct is not None:
-                ctab, cls, n_classes = ct
-                total = int(self.lib.am_scan_hits_class_mt(
-                    ctab.ctypes.data, cls.ctypes.data, n_classes, data.ctypes.data, len(data),
-                    self.overlap, nt, pos.ctypes.data, st.ctypes.data, cap,
-                ))
-            else:
-                total = int(self.lib.am_scan_hits_mt(
-                    self.delta.ctypes.data, self.match_count.ctypes.data, self.machine.n_states,
-                    data.ctypes.data, len(data), self.overlap, nt,
-                    pos.ctypes.data, st.ctypes.data, cap,
-                ))
-            if total <= cap:
-                break
-            cap = total + 16
-        return expand_hits(self.machine, pos[:total], st[:total])
+
+@dataclass
+class StagedHaystack:
+    """A haystack prepared for repeated scans (see ``MatchEngine.stage``).
+
+    Pass it anywhere a haystack is accepted; on the ``device`` backend the
+    operations reuse the staged device streams instead of re-transferring
+    per call."""
+
+    case: CaseSensitivity
+    data: np.ndarray  # scan bytes
+    device: object = None  # backend staging handle (StagedStreams)
+    #: The machine whose engine staged this haystack (identity-checked so a
+    #: staged haystack cannot silently be scanned by a different searcher).
+    owner: object = None
+
+    def __len__(self) -> int:
+        return len(self.data)
+
+
+@dataclass
+class MatchSet:
+    """All matches of one scan, in emission order.
+
+    ends:      int64 [m] byte index one past each match end
+    value_ids: int32 [m] index into the machine's values list
+    """
+
+    ends: np.ndarray
+    value_ids: np.ndarray
+
+    def __len__(self) -> int:
+        return len(self.ends)
 
 
 class MatchEngine:
     """Runs ``machine`` over haystacks with a chosen backend."""
 
-    def __init__(self, machine: ac.AcMachine, engine: str = "auto", *, device):
+    def __init__(self, machine: ac.AcMachine, engine: str = "auto", *, device="cuda"):
         if engine not in _VALID_ENGINES:
             raise ValueError(f"unknown engine {engine!r}; expected one of {_VALID_ENGINES}")
         self.machine = machine
@@ -104,7 +114,7 @@ class MatchEngine:
         if case is not CASE_SENSITIVE:
             raise NotImplementedError("IgnoreCase is ROADMAP Queue A item 11")
         if isinstance(text, StagedHaystack):
-            if text.composed or (text.owner is not None and text.owner is not self.machine):
+            if text.owner is not None and text.owner is not self.machine:
                 # Staged streams carry THIS machine's overlap; another
                 # searcher's would miss matches across stream boundaries.
                 raise ValueError("staged haystack belongs to a different searcher")
@@ -139,7 +149,7 @@ class MatchEngine:
         """Prepare a haystack once for repeated scans; on the ``device``
         backend the streams are staged on the device here."""
         data, backend = self._prep(text, case)
-        staged = StagedHaystack(case=case, data=data, lowered=None, owner=self.machine)
+        staged = StagedHaystack(case=case, data=data, owner=self.machine)
         if backend == "device":
             staged.device = self.device_engine().stage(data)
         return staged
@@ -184,7 +194,7 @@ class MatchEngine:
                 ends, value_ids = eng.matches_arrays_staged(st)
             else:
                 ends, value_ids = eng.matches_arrays(data)
-        return MatchSet(ends=ends, value_ids=value_ids, lowered=None)
+        return MatchSet(ends=ends, value_ids=value_ids)
 
     def value_presence(self, text: utf8.TextLike, case: CaseSensitivity) -> np.ndarray:
         """bool [n_values]: which values have at least one match."""
@@ -207,4 +217,4 @@ class MatchEngine:
         return ac.presence_of_states(m, hit, len(m.values))
 
 
-__all__ = ["AUTO_PYTHON_THRESHOLD", "CppAcEngine", "MatchEngine"]
+__all__ = ["AUTO_PYTHON_THRESHOLD", "CppAcEngine", "MatchEngine", "MatchSet", "StagedHaystack"]

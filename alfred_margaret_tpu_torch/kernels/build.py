@@ -3,7 +3,7 @@
 Each of ``csrc/*.cu`` is compiled for ``sm_90a`` by its own ``nvcc``
 process, all started together, and one more ``nvcc`` call links the objects
 into a shared library with a plain C interface, cached under ``_build/`` by
-a hash of the sources and flags (the same scheme as
+a hash of the sources, their headers and the flags (the same scheme as
 ``alfred_margaret_tpu/native/build.py``).  No PyTorch header is compiled.
 Every pointer and the CUDA stream go to C as ``ctypes.c_void_p``; each
 launcher returns its ``cudaError_t``.
@@ -56,7 +56,7 @@ def sources() -> list:
 
 def _so_path(srcs) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for path in srcs:
+    for path in [*srcs, *sorted(glob.glob(os.path.join(_CSRC, "*.cuh")))]:
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())
@@ -107,6 +107,38 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, i, i, p, p,  # streams, T, S, warm, vend
         p, p, p, p, p, i,  # btab, seed, endmask, field_bit, field_weight, n_fields
         p, p, p,  # counts, bits, stream
+    ]
+    comb16 = [
+        p, p, i, p, i,  # classmap, comb, comb_words, aux, aux_words
+        p, p,  # root_row, segtable
+    ]
+    lib.amt_comb16_count.restype = i
+    lib.amt_comb16_count.argtypes = [
+        p, i, i, p, p,  # streams, T, S, warm, vend
+        *comb16, p,  # ..., ranges
+        i, i, i, i,  # BB, owner_mask, CB, root_cb
+        p, p,  # out, stream
+    ]
+    lib.amt_comb16_contains.restype = i
+    lib.amt_comb16_contains.argtypes = [
+        p, i, i, p,  # streams, T, S, vend
+        *comb16,
+        i, i, i, i,  # BB, owner_mask, root_cb, absorb
+        p, p,  # out, stream
+    ]
+    lib.amt_matchbits_comb16.restype = i
+    lib.amt_matchbits_comb16.argtypes = [
+        p, i, i, p, p,  # streams, T, S, warm, vend
+        *comb16, p,  # ..., ranges
+        i, i, i, i,  # BB, owner_mask, CB, root_cb
+        p, p, p,  # counts, bits, stream
+    ]
+    lib.amt_filter_contains.restype = i
+    lib.amt_filter_contains.argtypes = [
+        p, i, i, p,  # streams, T, S, vend
+        p, p, p, i,  # btab, seed, endmask, n_words
+        p, p, i,  # short_mask, short_const, n_shorts
+        p, p,  # out, stream
     ]
     lib.amt_error_string.restype = ctypes.c_char_p
     lib.amt_error_string.argtypes = [i]

@@ -2,9 +2,10 @@
 bitmap in one scan.
 
 Wrapper of ``csrc/matchbits.cu``, which replaces the Pallas kernel
-``alfred_margaret_tpu/ops/pallas_scan.py:make_matchbits_kernel`` with its
-two step families: the dense packed table (``dense_bits_step_factory``) and
-the one-word bitap register (``BitapAcEngine._bits_tables``).  A CUDA tensor
+``alfred_margaret_tpu/ops/pallas_scan.py:make_matchbits_kernel`` with three
+of its step families: the dense packed table (``dense_bits_step_factory``),
+the one-word bitap register (``BitapAcEngine._bits_tables``) and the 16-bit
+three-tier comb (``comb16_scan.py:_c16_bits_tables``, kernel B13).  A CUDA tensor
 launches the kernel; a CPU tensor runs :func:`matchbits_plain`.  Nothing
 falls back from one to the other.
 
@@ -13,13 +14,15 @@ falls back from one to the other.
 * ``"dense"``: ``(classmap, table, packing, state_bits)``, as for
   ``dense_count``;
 * ``"bitap"``: ``(btab, seed, endmask, field_start, field_bit,
-  field_weight)`` of a one-word layout, as for ``bitap_count``.
+  field_weight)`` of a one-word layout, as for ``bitap_count``;
+* ``"comb16"``: ``Comb16Tables.args()``, as for ``comb16_count``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .comb16 import Plain16, check_comb16
 from .common import check_streams, check_tables, launch, on_cpu
 from .dense_count import check_dense, lookup_plain
 
@@ -43,8 +46,10 @@ def _check(streams, warm, vend, step, tables):
             "field_start": (field_start, (2,)), "field_bit": (field_bit, (F,)),
             "field_weight": (field_weight, (F,)), "warm": (warm, (S,)), "vend": (vend, (S,)),
         })
+    elif step == "comb16":
+        check_comb16(streams, *tables, warm=warm, vend=vend)
     else:
-        raise ValueError(f"step must be 'dense' or 'bitap', got {step!r}")
+        raise ValueError(f"step must be 'dense', 'bitap' or 'comb16', got {step!r}")
     if streams.shape[0] % 32:
         raise ValueError(f"T = {streams.shape[0]} time steps; the kernel needs a multiple of 32")
 
@@ -60,11 +65,15 @@ def matchbits_plain(streams, warm, vend, step: str, *tables):
     ``t % 32`` of word ``t // 32`` set where ``cnt > 0`` (at every t)."""
     T, S = streams.shape
     dev = streams.device
+    carry = torch.zeros(S, dtype=torch.int64, device=dev)
     if step == "dense":
         classmap, table, packing, state_bits = tables
         cm = classmap.long()
         tab = table.long() & 0xFFFFFFFF
         mask = (1 << state_bits) - 1
+    elif step == "comb16":
+        c16 = Plain16(*tables[:-1])
+        carry += tables[-1]  # the root base
     else:
         btab, seed, _, _, field_bit, field_weight = tables
         bt = btab[0].long()
@@ -72,7 +81,6 @@ def matchbits_plain(streams, warm, vend, step: str, *tables):
         fbit = field_bit.long().unsqueeze(1)
         fwt = field_weight.long().unsqueeze(1)
     warm, vend = warm.long(), vend.long()
-    carry = torch.zeros(S, dtype=torch.int64, device=dev)
     counts = torch.zeros(S, dtype=torch.int64, device=dev)
     bits = torch.zeros(T // 32, S, dtype=torch.int64, device=dev)
     for t in range(T):
@@ -81,6 +89,8 @@ def matchbits_plain(streams, warm, vend, step: str, *tables):
             v = lookup_plain(tab, carry + cm[b], packing)
             carry = v & mask
             cnt = v >> state_bits
+        elif step == "comb16":
+            carry, cnt = c16.step(carry, b)
         else:
             carry = ((carry << 1) | sd) & bt[b]
             cnt = (((carry.unsqueeze(0) >> fbit) & 1) * fwt).sum(0)
@@ -112,11 +122,17 @@ def matchbits(streams, warm, vend, step: str, *tables):
         classmap, table, packing, state_bits = tables
         launch("amt_matchbits_dense", streams.device, *ptrs,
                classmap.data_ptr(), table.data_ptr(), table.numel(), packing, state_bits, *outs)
-    else:
+    elif step == "bitap":
         btab, seed, endmask, _, field_bit, field_weight = tables
         launch("amt_matchbits_bitap", streams.device, *ptrs,
                btab.data_ptr(), seed.data_ptr(), endmask.data_ptr(),
                field_bit.data_ptr(), field_weight.data_ptr(), field_bit.numel(), *outs)
+    else:
+        classmap, comb, aux, root_row, segtable, ranges, BB, owner_mask, CB, root_cb = tables
+        launch("amt_matchbits_comb16", streams.device, *ptrs,
+               classmap.data_ptr(), comb.data_ptr(), comb.numel(), aux.data_ptr(), aux.numel(),
+               root_row.data_ptr(), segtable.data_ptr(), ranges.data_ptr(),
+               BB, owner_mask, CB, root_cb, *outs)
     matchbits.launches += 1
     return counts, bits
 

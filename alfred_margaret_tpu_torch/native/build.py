@@ -1,0 +1,112 @@
+"""Lazy ctypes build and load of the port's host C++ engine.
+
+Compiles ``am_native.cpp`` with g++ on first use into
+``alfred_margaret_tpu_torch/_build/`` (keyed by a hash of the source), so
+importing the package never compiles anything.  A copy of
+``alfred_margaret_tpu/native/build.py`` that binds the entry points of the
+port's ``am_native.cpp`` only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from typing import Optional
+
+_DIR = os.path.dirname(os.path.abspath(__file__))
+_SRC = os.path.join(_DIR, "am_native.cpp")
+_BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
+_LOCK = threading.Lock()
+_LIB: Optional[ctypes.CDLL] = None
+
+
+class NativeUnavailable(RuntimeError):
+    pass
+
+
+def _so_path() -> str:
+    with open(_SRC, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    return os.path.join(_BUILD_DIR, f"am_native_{digest}.so")
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+    lib.am_expand_hit_bits.restype = i64
+    lib.am_expand_hit_bits.argtypes = [
+        p, p, p, i64,  # t_words (int64), s_idx (int64), wval (int32), n_words
+        p, p, i64, i64,  # warm (int64), vend (int64), S, L
+        p, i32,  # out (int64), n_threads
+    ]
+    lib.am_states_at.restype = None
+    lib.am_states_at.argtypes = [
+        p, p, i64,  # delta, data, n
+        p, i64, i32,  # pos (int64), n_pos, w
+        p, i32,  # out_states (int32), n_threads
+    ]
+    lib.am_scan_count_mt.restype = i64
+    lib.am_scan_count_mt.argtypes = [p, p, i32, p, i64, i64, i32]
+    lib.am_scan_count_class_mt.restype = i64
+    lib.am_scan_count_class_mt.argtypes = [
+        p, p, p, i64, i64, i32,  # tab, cls, data, n, overlap, n_threads
+    ]
+    lib.am_scan_hits_class_mt.restype = i64
+    lib.am_scan_hits_class_mt.argtypes = [
+        p, p, i32,  # tab, cls, n_classes
+        p, i64, i64, i32,  # data, n, overlap, n_threads
+        p, p, i64,  # out_pos, out_state, cap
+    ]
+    lib.am_scan_hits_mt.restype = i64
+    lib.am_scan_hits_mt.argtypes = [
+        p, p, i32,  # delta, match_count, n_states
+        p, i64, i64, i32,  # data, n, overlap, n_threads
+        p, p, i64,  # out_pos, out_state, cap
+    ]
+    lib.am_scan_first_hit_class.restype = i64
+    lib.am_scan_first_hit_class.argtypes = [p, p, p, i64, i64, i32]
+    lib.am_scan_first_hit.restype = i64
+    lib.am_scan_first_hit.argtypes = [p, p, p, i64, i64, i32]
+    lib.am_scan_all_values_class.restype = i64
+    lib.am_scan_all_values_class.argtypes = [
+        p, p, i32,  # tab, cls, n_classes
+        p, p, i32,  # out_offset, out_values, n_values
+        p, i64, i64, i32,  # data, n, overlap, n_threads
+        p,  # out_seen
+    ]
+    lib.am_scan_all_values.restype = i64
+    lib.am_scan_all_values.argtypes = [
+        p, p,  # delta, match_count
+        p, p, i32,  # out_offset, out_values, n_values
+        p, i64, i64, i32,  # data, n, overlap, n_threads
+        p,  # out_seen
+    ]
+
+
+def load() -> ctypes.CDLL:
+    """Build (if needed) and load the native library; raises
+    ``NativeUnavailable`` when no toolchain is present."""
+    global _LIB
+    with _LOCK:
+        if _LIB is not None:
+            return _LIB
+        so = _so_path()
+        if not os.path.exists(so):
+            cmd = ["g++", "-O3", "-std=c++17", "-march=native", "-shared", "-fPIC", "-pthread",
+                   _SRC, "-o", f"{so}.{os.getpid()}.tmp"]
+            try:
+                subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+            except (subprocess.CalledProcessError, FileNotFoundError, subprocess.TimeoutExpired) as e:
+                detail = getattr(e, "stderr", b"")
+                raise NativeUnavailable(f"native build failed: {e} {detail!r}") from e
+            os.replace(cmd[-1], so)
+        lib = ctypes.CDLL(so)
+        _bind(lib)
+        _LIB = lib
+        return lib
+
+
+__all__ = ["NativeUnavailable", "load"]

@@ -26,10 +26,9 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from alfred_margaret_tpu.models.ac import AcMachine
-
 from ..kernels.bitap_contains import bitap_contains, bitap_presence
 from ..kernels.bitap_count import bitap_count, bitap_count_plain
+from ..models.ac import AcMachine
 from .pallas_scan import DenseAcEngine, StagedStreams
 
 #: Track budget: bit 31 stays clear (the int32 sign), and the last count

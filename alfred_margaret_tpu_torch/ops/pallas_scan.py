@@ -27,13 +27,12 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from alfred_margaret_tpu.models.ac import AcMachine
-from alfred_margaret_tpu.native.cpp_engine import _default_threads
-from alfred_margaret_tpu.utils import utf8
-
 from ..kernels.dense_contains import dense_contains
 from ..kernels.dense_count import dense_count, dense_count_plain
 from ..kernels.matchbits import matchbits
+from ..models.ac import AcMachine
+from ..native.cpp_engine import _default_threads
+from ..utils import utf8
 from ..utils.device import resolve_device
 from .xla_scan import StreamPlan, expand_hits, stage_streams_device
 
@@ -248,17 +247,24 @@ class DenseAcEngine:
     ``MAX_ROWS`` rows.
     """
 
-    def __init__(self, machine: AcMachine, *, device, n_streams: int = 32768, t_tile: int = 128):
+    #: The packed-states kernel that extraction without the host corpus needs.
+    STATES_KERNEL = "B5"
+
+    def __init__(self, machine: AcMachine, *, device="cuda", n_streams: int = 32768, t_tile: int = 128):
+        self._init_streams(machine, device, n_streams, t_tile)
+        self.comp = CompressedMachine.from_machine(machine)
+        self.tables = DenseTables.from_compressed(self.comp, self.device)
+        self._sticky: Optional[StickyTables] = None
+
+    def _init_streams(self, machine: AcMachine, device, n_streams: int, t_tile: int) -> None:
+        """The machine, device and stream layout, shared by every engine."""
         if n_streams < 1 or t_tile < 1:
             raise ValueError("n_streams and t_tile must be positive")
         self.machine = machine
         self.device = resolve_device(device)
-        self.comp = CompressedMachine.from_machine(machine)
-        self.tables = DenseTables.from_compressed(self.comp, self.device)
         self.S = n_streams
         self.t_tile = t_tile
         self.overlap = max(0, machine.max_needle_bytes - 1)
-        self._sticky: Optional[StickyTables] = None
 
     def _plan(self, n: int) -> StreamPlan:
         emit = max(1, -(-n // self.S))
@@ -393,7 +399,7 @@ class DenseAcEngine:
         if st.data_np is None or self.t_tile % 32:
             raise NotImplementedError(
                 "match extraction without the host corpus, or with t_tile % 32 != 0, "
-                "needs the packed-states kernel: ROADMAP item 10 (B5)"
+                f"needs the packed-states kernel: ROADMAP item 10 ({self.STATES_KERNEL})"
             )
         _, bits = matchbits(*self.bits_args(st))
         S = bits.shape[1]

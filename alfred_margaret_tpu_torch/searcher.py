@@ -1,25 +1,26 @@
 """``Searcher`` on the port's engine.
 
-Counterpart of ``alfred_margaret_tpu/searcher.py:Searcher``: a subclass of
-that (jax-free) class whose engine is the port's ``MatchEngine`` on an
-explicit device.  ``build``, ``build_with_values``, ``stage``,
+Counterpart of ``alfred_margaret_tpu/searcher.py:Searcher``: a needle list
+with values, the automaton built from it and the port's ``MatchEngine`` on a
+device (``"cuda"`` unless the caller asks for ``"cpu"``).  Equality, hashing
+and ``to_json`` are defined by the needle list only, as in the JAX package.
+``build``, ``build_with_values``, ``save_npz``, ``load_npz``, ``stage``,
 ``count_matches``, ``contains_any``, ``contains_all``, ``all_matches`` and
-``all_matches_arrays`` work, CaseSensitive only; the matching operations,
-the needle-list accessors, equality and ``to_json`` are inherited and call
-the port's engine.  Every other operation raises ``NotImplementedError``
-naming the ROADMAP item that brings it.
+``all_matches_arrays`` work, CaseSensitive only.  Every other operation
+raises ``NotImplementedError`` naming the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
 
-from typing import Any, Iterable, Optional, Sequence, Tuple
+import json
+from typing import Any, Iterable, List, Optional, Sequence, Tuple
 
-from alfred_margaret_tpu import searcher as _ref
-from alfred_margaret_tpu.models import ac
-from alfred_margaret_tpu.utils import utf8
-from alfred_margaret_tpu.utils.case import CASE_SENSITIVE, CaseSensitivity
+import numpy as np
 
 from .engine import MatchEngine
+from .models import ac
+from .utils import utf8
+from .utils.case import CASE_SENSITIVE, CaseSensitivity
 
 
 def _todo(what: str, item: str):
@@ -30,8 +31,16 @@ def _todo(what: str, item: str):
     return method
 
 
-class Searcher(_ref.Searcher):
-    """A set of needles with values, matched by the port's kernels."""
+def _hashable(v: Any):
+    if isinstance(v, (list, np.ndarray)):
+        return tuple(v)
+    return v
+
+
+class Searcher:
+    """A set of needles with values, matched by the port's kernels.
+
+    INVARIANT: the automaton is always ``ac.build(needles)``."""
 
     def __init__(
         self,
@@ -40,19 +49,22 @@ class Searcher(_ref.Searcher):
         machine: Optional[ac.AcMachine] = None,
         engine: str = "auto",
         *,
-        device,
+        device="cuda",
     ):
         if case is not CASE_SENSITIVE:
             raise NotImplementedError("IgnoreCase is ROADMAP Queue A item 11")
         self._case = case
-        self._needles = [(utf8.to_bytes(n), v) for n, v in needles_with_values]
+        self._needles: List[Tuple[bytes, Any]] = [
+            (utf8.to_bytes(n), v) for n, v in needles_with_values
+        ]
         self._machine = machine if machine is not None else ac.build(self._needles)
         self._engine_name = engine
         self._engine = MatchEngine(self._machine, engine, device=device)
 
     @classmethod
     def build(
-        cls, case: CaseSensitivity, needles: Iterable[utf8.TextLike], engine: str = "auto", *, device
+        cls, case: CaseSensitivity, needles: Iterable[utf8.TextLike], engine: str = "auto", *,
+        device="cuda",
     ) -> "Searcher":
         return cls(case, [(utf8.to_bytes(n), ()) for n in needles], engine=engine, device=device)
 
@@ -63,20 +75,111 @@ class Searcher(_ref.Searcher):
         needles_with_values: Iterable[Tuple[utf8.TextLike, Any]],
         engine: str = "auto",
         *,
-        device,
+        device="cuda",
     ) -> "Searcher":
         return cls(
             case, [(utf8.to_bytes(n), v) for n, v in needles_with_values],
             engine=engine, device=device,
         )
 
+    # -- accessors -----------------------------------------------------------
+
+    @property
+    def needles(self) -> List[Tuple[bytes, Any]]:
+        return list(self._needles)
+
+    @property
+    def num_needles(self) -> int:
+        return len(self._needles)
+
+    @property
+    def case_sensitivity(self) -> CaseSensitivity:
+        return self._case
+
+    @property
+    def automaton(self) -> ac.AcMachine:
+        return self._machine
+
     @property
     def device(self):
         return self._engine.device
 
+    # -- equality, hashing and serialization by needles ------------------------
+
+    def _key(self):
+        return (self._case, tuple((n, _hashable(v)) for n, v in self._needles))
+
+    def __eq__(self, other: object) -> bool:
+        return isinstance(other, Searcher) and self._key() == other._key()
+
+    def __hash__(self) -> int:
+        return hash(self._key())
+
+    def __repr__(self) -> str:
+        return f"Searcher({self._case}, {self.num_needles} needles)"
+
+    def to_json(self) -> str:
+        return json.dumps(
+            {
+                "caseSensitivity": self._case.to_json(),
+                "needles": [[n.decode("utf-8"), v] for n, v in self._needles],
+            }
+        )
+
+    # -- packed-table cold-start artifact -------------------------------------
+
+    def save_npz(self, path: str) -> None:
+        """Persist the built tables (no automaton rebuild on load, unlike the
+        JSON-by-needles form).  Values must be in the typed-JSON codec's
+        closed set (scalars, bytes, containers)."""
+        ac.save_npz(self._machine, path, extra={"caseSensitivity": self._case.to_json()})
+
+    @classmethod
+    def load_npz(cls, path: str, engine: str = "auto", *, device="cuda") -> "Searcher":
+        machine, extra = ac.load_npz(path, with_extra=True)
+        case = CaseSensitivity.from_json(extra["caseSensitivity"])
+        return cls(case, list(zip(machine.needles, machine.values)), machine=machine,
+                   engine=engine, device=device)
+
+    # -- matching ------------------------------------------------------------
+
+    def stage(self, haystack: utf8.TextLike):
+        """Prepare a haystack for repeated scans (device staging done once);
+        pass the result to any matching operation."""
+        return self._engine.stage(haystack, self._case)
+
+    def contains_any(self, haystack: utf8.TextLike) -> bool:
+        """True iff any needle occurs."""
+        return self._engine.contains_any(haystack, self._case)
+
+    def contains_all(self, haystack: utf8.TextLike) -> bool:
+        """True iff every value has a match (every needle occurs, for
+        needle-id values)."""
+        if self.num_needles == 0:
+            return True
+        return bool(self._engine.value_presence(haystack, self._case).all())
+
+    def count_matches(self, haystack: utf8.TextLike) -> int:
+        return self._engine.count(haystack, self._case)
+
+    def all_matches(self, haystack: utf8.TextLike) -> List[ac.Match]:
+        """A list of ``Match(pos, value)``; bulk consumers prefer
+        :meth:`all_matches_arrays`."""
+        ms = self._engine.matches(haystack, self._case)
+        values = self._machine.values
+        return list(
+            map(ac.Match, ms.ends.tolist(), map(values.__getitem__, ms.value_ids.tolist()))
+        )
+
+    def all_matches_arrays(self, haystack: utf8.TextLike):
+        """(ends, value_ids) numpy arrays in emission order (``ends`` are
+        byte positions one past each match; ``value_ids`` index
+        :attr:`automaton` ``.values``)."""
+        ms = self._engine.matches(haystack, self._case)
+        return ms.ends, ms.value_ids
+
     build_needle_id_searcher = classmethod(_todo("build_needle_id_searcher", "8"))
     from_json = classmethod(_todo("from_json", "8"))
-    load_npz = classmethod(_todo("load_npz", "8"))
     set_case_sensitivity = _todo("set_case_sensitivity", "8 and 11")
     map_searcher = _todo("map_searcher", "8")
     __add__ = _todo("__add__", "8")

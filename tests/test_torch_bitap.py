@@ -26,6 +26,7 @@ from alfred_margaret_tpu_torch.ops.bitap_scan import (
     WordLayout,
     plan_bitap,
 )
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 CPU = torch.device("cpu")
 

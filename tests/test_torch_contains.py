@@ -30,6 +30,7 @@ from alfred_margaret_tpu_torch import convert
 from alfred_margaret_tpu_torch.kernels import bitap_contains, bitap_presence, dense_contains
 from alfred_margaret_tpu_torch.ops.bitap_scan import BitapAcEngine
 from alfred_margaret_tpu_torch.ops.pallas_scan import DenseAcEngine, _zero_inert
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 CPU = torch.device("cpu")
 NEEDLES3 = ["tshirt", "shirts", "shorts"]

@@ -20,6 +20,7 @@ from alfred_margaret_tpu.ops.pallas_scan import PallasAcEngine
 
 from alfred_margaret_tpu_torch.kernels import dense_count
 from alfred_margaret_tpu_torch.ops.pallas_scan import DenseAcEngine, _zero_inert
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 CPU = torch.device("cpu")
 

@@ -11,7 +11,8 @@ not use.)
 The checks of ``chip_smoke.py``'s kernel phase at pytest size: the outputs
 of each kernel equal its plain version's on the same device tensors (exact:
 per-stream counts, sticky entries, hit registers, presence planes, hit
-bitmaps), the answers equal ``ac.count_matches`` and ``ac.all_matches``, the
+bitmaps, comb16 final bases, screen planes), the answers equal
+``ac.count_matches``, ``ac.all_matches`` and the port's host C++ engine, the
 wrappers raise on bad inputs, and each launch adds one to the wrapper's
 count.
 """
@@ -20,22 +21,28 @@ import numpy as np
 import pytest
 import torch
 
-from alfred_margaret_tpu.bench.dataformat import synth_corpus
-from alfred_margaret_tpu.models import ac
-
+from alfred_margaret_tpu_torch.bench.dataformat import synth_corpus
 from alfred_margaret_tpu_torch.kernels import (
     bitap_contains,
     bitap_contains_plain,
     bitap_count,
     bitap_presence,
     bitap_presence_plain,
+    comb16_contains,
+    comb16_contains_plain,
+    comb16_count,
     dense_contains,
     dense_contains_plain,
     dense_count,
+    filter_contains,
+    filter_contains_plain,
     matchbits,
     matchbits_plain,
 )
+from alfred_margaret_tpu_torch.models import ac
+from alfred_margaret_tpu_torch.native.cpp_engine import CppAcEngine
 from alfred_margaret_tpu_torch.ops.bitap_scan import BitapAcEngine, plan_bitap
+from alfred_margaret_tpu_torch.ops.comb16_scan import Comb16AcEngine
 from alfred_margaret_tpu_torch.ops.pallas_scan import DenseAcEngine
 from alfred_margaret_tpu_torch.ops.xla_scan import StreamPlan, build_streams, stage_streams_device
 
@@ -213,4 +220,73 @@ def test_new_wrappers_count_launches_and_raise(cuda):
         bad_args = (st.streams.cpu(),) + tuple(args[1:])
         with pytest.raises(ValueError):
             fn(*bad_args)
+        assert fn.launches == before + 1
+
+
+def _random_needles(seed, n):
+    rng = np.random.default_rng(seed)
+    return list(dict.fromkeys(
+        "".join(chr(97 + c) for c in rng.integers(0, 26, size=rng.integers(4, 9)))
+        for _ in range(int(n * 1.1))
+    ))[:n]
+
+
+CONFIG2 = ["abc", "abcd", "bcd", "c"] + _random_needles(7, 100)[4:]
+COMB16_SETS = {
+    "config2": CONFIG2,
+    "nested": ["a", "aa", "aaa", "aaaa", "aaaaa"] + _random_needles(13, 80),
+    "n150": _random_needles(21, 150),
+    "no_shorts": [n for n in CONFIG2 if len(n) >= 4],
+    "nul": CONFIG2[:60] + ["a\x00b", "\x00\x00x"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(COMB16_SETS))
+@pytest.mark.parametrize("n_streams", [1024, 1000])
+def test_comb16_kernels_match_plain(cuda, name, n_streams):
+    needles = COMB16_SETS[name]
+    m = _machine(needles)
+    data = np.frombuffer(synth_corpus(needles, 1 << 18, hit_fraction=0.02, seed=8), np.uint8)
+    eng = Comb16AcEngine(m, device=cuda, n_streams=n_streams)
+    st = eng.stage(data)
+    live = torch.from_numpy(st.live_np).to(cuda)
+    assert _kernel_vs_plain(eng, data) > 0  # B8
+    args = eng.sticky_args(st)
+    bases = comb16_contains(*args)  # B10
+    torch.cuda.synchronize()
+    assert torch.equal(bases[live], comb16_contains_plain(*args)[live])
+    args = eng.bits_args(st)
+    counts, bits = matchbits(*args)  # B13
+    torch.cuda.synchronize()
+    pc, pb = matchbits_plain(*args)
+    assert torch.equal(counts[live], pc[live]) and torch.equal(bits, pb)
+    if eng._filter_tables is not None:  # B14
+        args = (st.streams, st.vend, *eng._filter_tables.args())
+        planes = filter_contains(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(planes, filter_contains_plain(*args))
+    else:
+        assert name == "nul"
+    host = CppAcEngine(m)
+    assert eng.contains_staged(st) == (host.first_hit(data) >= 0)
+    ends, vids = eng.matches_arrays_staged(st)
+    hends, hvids = host.matches_arrays(data)
+    assert np.array_equal(ends, hends) and np.array_equal(vids, hvids)
+
+
+def test_comb16_wrappers_count_launches_and_raise(cuda):
+    eng = Comb16AcEngine(_machine(CONFIG2), device=cuda, n_streams=256)
+    st = eng.stage(np.frombuffer(b"abcd and bcd " * 100, np.uint8))
+    calls = [
+        (comb16_count, eng._kernel_args(st)),
+        (comb16_contains, eng.sticky_args(st)),
+        (matchbits, eng.bits_args(st)),
+        (filter_contains, (st.streams, st.vend, *eng._filter_tables.args())),
+    ]
+    for fn, args in calls:
+        before = fn.launches
+        fn(*args)
+        assert fn.launches == before + 1
+        with pytest.raises(ValueError):
+            fn(st.streams.cpu(), *args[1:])
         assert fn.launches == before + 1

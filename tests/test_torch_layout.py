@@ -25,6 +25,7 @@ from alfred_margaret_tpu_torch import engine as tengine
 from alfred_margaret_tpu_torch.ops import bitap_scan as tbitap
 from alfred_margaret_tpu_torch.ops import pallas_scan as tdense
 from alfred_margaret_tpu_torch.ops import xla_scan as txla
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 CPU = torch.device("cpu")
 

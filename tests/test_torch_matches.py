@@ -24,6 +24,7 @@ from alfred_margaret_tpu.ops.pallas_scan import PallasAcEngine
 from alfred_margaret_tpu_torch.kernels import matchbits
 from alfred_margaret_tpu_torch.ops.bitap_scan import BitapAcEngine
 from alfred_margaret_tpu_torch.ops.pallas_scan import DenseAcEngine, _zero_inert
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 CPU = torch.device("cpu")
 NEEDLES3 = ["tshirt", "shirts", "shorts"]

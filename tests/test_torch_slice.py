@@ -31,6 +31,7 @@ from alfred_margaret_tpu_torch.kernels import build
 from alfred_margaret_tpu_torch.ops.bitap_scan import BitapAcEngine
 from alfred_margaret_tpu_torch.ops.pallas_scan import CapacityError, DenseAcEngine
 from alfred_margaret_tpu_torch.utils import device as device_mod
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NEEDLES3 = ["tshirt", "shirts", "shorts"]
@@ -256,8 +257,10 @@ def test_devices_are_explicit():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="is_available"):
             Searcher.build(CASE_SENSITIVE, NEEDLES3, device="cuda")
-    with pytest.raises(TypeError):
-        Searcher.build(CASE_SENSITIVE, NEEDLES3)  # no device given
+        # No device given: the card, and never a quiet fall back to the CPU.
+        with pytest.raises(RuntimeError, match="is_available"):
+            Searcher.build(CASE_SENSITIVE, NEEDLES3)
+    assert Searcher.build(CASE_SENSITIVE, NEEDLES3, device="cpu").device == torch.device("cpu")
 
 
 def test_toolchain_report_keys():
@@ -304,6 +307,7 @@ print("ok", got)
 
 def test_port_never_imports_jax():
     env = {k: v for k, v in os.environ.items() if not k.startswith("JAX")}
+    env["OMP_NUM_THREADS"] = "1"  # as the one_torch_thread fixture, for the plain versions
     proc = subprocess.run(
         [sys.executable, "-c", _SUBPROCESS_SLICE],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
