@@ -8,9 +8,13 @@ mask table (for counting, containsAny, presence and the hit bitmap's bitap
 step), ``Comb16PallasAcEngine`` a class map, comb and aux rows and a
 ``[2, 128]`` root row and segment table per table set (for counting and the
 hit bitmap's comb16 step, and, from ``_sticky_setup()``, for the sticky
-scan) and the stride-2 screen's ``[V, 128]`` pair table.  These functions take those arrays as numpy (``np.asarray`` of the
-JAX arrays) and return the tables the port's kernels read, so a test can
-feed the JAX kernel and the port the very same tables.
+scan), ``CombPallasAcEngine`` a class map, comb rows and default rows per
+table set (count, sticky, and the full machine's for the packed states),
+the stride-2 screen's ``[V, 128]`` pair table, and
+``GroupedPallasAcEngine`` the stacked ``[G, ...]`` arrays of its fused count
+and sticky table sets.  These functions take those arrays as numpy
+(``np.asarray`` of the JAX arrays) and return the tables the port's kernels
+read, so a test can feed the JAX kernel and the port the very same tables.
 """
 
 from __future__ import annotations
@@ -19,7 +23,8 @@ import numpy as np
 import torch
 
 from .ops.bitap_scan import BitapLayout, BitapTables
-from .ops.comb16_scan import Comb16StickyTables, Comb16Tables
+from .ops.comb_scan import CombStickyTables, CombTables
+from .ops.comb16_scan import Comb16GroupTables, Comb16StickyTables, Comb16Tables
 from .ops.filter_scan import FilterTables
 from .ops.pallas_scan import _STATE_BITS, _STATE_BITS16, DenseTables, StickyTables
 
@@ -87,6 +92,51 @@ def comb16_tables_from_jax(engine, device):
     return count, Comb16StickyTables(**t.__dict__, absorb=int(c["absorb_cb"]))
 
 
+def _comb_tables(cm, comb, deft, cmach, device) -> CombTables:
+    cm, comb, deft = (np.asarray(x, dtype=np.int32) for x in (cm, comb, deft))
+    want = {"classmap": (cm, (2, 128)), "comb": (comb, (cmach.rows_c, 128)),
+            "def_table": (deft, (cmach.rows_d, 128))}
+    for name, (x, shape) in want.items():
+        if x.shape != shape:
+            raise ValueError(f"{name} must be {shape}, got {x.shape}")
+    return CombTables.from_arrays(cm, comb, deft, cmach.k, cmach.owner_bits,
+                                  int(cmach.base[0]), int(cmach.def_idx[0]), device)
+
+
+def comb_tables_from_jax(engine, device):
+    """``(count tables, sticky tables, full tables)`` of a
+    ``CombPallasAcEngine``: its ``_classmap_dev``, ``_comb_dev`` and
+    ``_def_dev`` with its ``comb`` as B15 tables, its ``_sticky_setup()`` as
+    B16 tables, and its ``_full_set()`` as B17 tables."""
+    count = _comb_tables(engine._classmap_dev, engine._comb_dev, engine._def_dev, engine.comb,
+                         device)
+    c = engine._sticky_setup()
+    t = _comb_tables(c["cm"], c["comb_dev"], c["def_dev"], c["comb"], device)
+    sticky = CombStickyTables(**t.__dict__, absorb=int(c["absorb_base"]))
+    combf, (_, _, cm, comb, deft) = engine._full_set()
+    return count, sticky, _comb_tables(cm, comb, deft, combf, device)
+
+
+def comb16_group_tables_from_jax(stacked: dict, device, sticky: bool = False) -> Comb16GroupTables:
+    """A ``GroupedPallasAcEngine`` fused table set, ``_fused["stacked"]``
+    (count) or ``_fused_sticky["stacked"]`` (``sticky``): ``classmap``
+    ``[G, 2, 128]``, ``comb`` ``[G, rows_c, 128]``, ``aux`` ``[G, rows_a,
+    128]``, ``rootseg`` ``[G, 2, 128]``, ``gscal`` and ``consts``, as B9 or B11
+    tables.  (The groups' builds are not in the dict, so the probe windows
+    are not checked here; the port's own builds check them.)"""
+    cst = stacked["consts"]
+    G = np.asarray(stacked["classmap"]).shape[0]
+    want = {"classmap": (G, 2, 128), "comb": (G, cst["rows_c"], 128),
+            "aux": (G, cst["rows_a"], 128), "rootseg": (G, 2, 128)}
+    for name, shape in want.items():
+        if np.asarray(stacked[name]).shape != shape:
+            raise ValueError(f"{name} must be {shape}, got {np.asarray(stacked[name]).shape}")
+    return Comb16GroupTables.from_stacked(
+        {k: (v if k == "consts" else np.asarray(v)) for k, v in stacked.items()}, device,
+        sticky=sticky,
+    )
+
+
 def filter_tables_from_jax(engine, device) -> FilterTables:
     """The stride-2 screen of a JAX engine: ``_filter_btab`` ([V, 128], or
     one row of zeros when V = 0) with the seeds, end masks and short needles
@@ -101,6 +151,8 @@ def filter_tables_from_jax(engine, device) -> FilterTables:
 
 __all__ = [
     "bitap_tables_from_jax",
+    "comb_tables_from_jax",
+    "comb16_group_tables_from_jax",
     "comb16_tables_from_jax",
     "dense_tables_from_jax",
     "filter_tables_from_jax",

@@ -1,16 +1,18 @@
 // B14 filter_contains: the stride-2 candidate screen for Hopper.
 //
 // Replaces the Pallas TPU kernel alfred_margaret_tpu/ops/filter_scan.py:
-// make_filter_contains_kernel (launched from filter_contains, the screen the
-// comb16 engine asks before its sticky scan).  One thread per stream, one step
-// per byte pair (b1, b2) = (streams[t], streams[t + 1]), t = 2u < vend[s]:
+// make_filter_contains_kernel (launched from filter_contains: the screen that
+// the comb16 engine asks before its sticky scan, with up to 3 words, and the
+// grouped engine before its fused sticky scan, with up to 12).  One thread per
+// stream, one step per byte pair (b1, b2) = (streams[t], streams[t + 1]),
+// t = 2u < vend[s]:
 //   h    = ((b1 & 15) << 3) | (b2 & 7)
 //   D[v] = ((D[v] << 1) | seed[v]) & btab[v][h];   cand |= D[v] & endmask[v]
 //   roll = (roll << 16) | (b1 << 8) | b2
 //   exact |= (roll & mask[k]) == const[k] || ((roll >> 8) & mask[k]) == const[k]
-// for V <= 3 candidate words (a template argument) and K <= 8 short needles
-// of at most 3 bytes (masks of at most 24 bits, so the logical shift here and
-// the TPU kernel's arithmetic one agree).  From t >= vend[s] the TPU kernel
+// for V <= 12 candidate words (V a template argument) and K <= 8 short
+// needles of at most 3 bytes (masks of at most 24 bits, so the logical shift
+// here and the TPU kernel's arithmetic one agree).  From t >= vend[s] the TPU kernel
 // freezes D and roll (cut at b1, since a match can end at the last valid
 // byte); frozen registers change no plane, so the thread stops there.  The
 // TPU kernel freezes on boundary tiles only (_strict_bscal), which equals
@@ -30,7 +32,7 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kChunk = 16;  // bytes: 8 pair steps
-constexpr int kMaxWords = 3;
+constexpr int kMaxWords = 12;
 constexpr int kMaxShorts = 8;
 
 template <int V>
@@ -96,6 +98,20 @@ __global__ void __launch_bounds__(kThreads) filter_contains_kernel(
   out[(size_t)S + s] = (int32_t)cand;
 }
 
+// Launch the instance for V = n_words (V from Vmin up to kMaxWords).
+template <int Vmin>
+void launch_words(int n_words, dim3 grid, cudaStream_t st, const uint8_t* sp, int T, int S,
+                  const int32_t* vp, const int32_t* bp, const int32_t* sdp, const int32_t* ep,
+                  const int32_t* mp, const int32_t* cp, int n_shorts, int32_t* op) {
+  if constexpr (Vmin < kMaxWords) {
+    if (n_words != Vmin)
+      return launch_words<Vmin + 1>(n_words, grid, st, sp, T, S, vp, bp, sdp, ep, mp, cp,
+                                    n_shorts, op);
+  }
+  filter_contains_kernel<Vmin><<<grid, kThreads, 0, st>>>(sp, T, S, vp, bp, sdp, ep, mp, cp,
+                                                          n_shorts, op);
+}
+
 }  // namespace
 
 // out int32 [2, S].  Launch on `stream` (a cudaStream_t); returns the
@@ -108,21 +124,9 @@ extern "C" int amt_filter_contains(const void* streams, int T, int S, const void
   if (T < 0 || T % 2 || S <= 0 || n_words < 0 || n_words > kMaxWords || n_shorts < 0 ||
       n_shorts > kMaxShorts)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((S + kThreads - 1) / kThreads);
-  cudaStream_t st = (cudaStream_t)stream;
-  const uint8_t* sp = (const uint8_t*)streams;
-  const int32_t* vp = (const int32_t*)vend;
-  const int32_t* bp = (const int32_t*)btab;
-  const int32_t* sdp = (const int32_t*)seed;
-  const int32_t* ep = (const int32_t*)endmask;
-  const int32_t* mp = (const int32_t*)short_mask;
-  const int32_t* cp = (const int32_t*)short_const;
-  int32_t* op = (int32_t*)out;
-  switch (n_words) {
-    case 0: filter_contains_kernel<0><<<grid, kThreads, 0, st>>>(sp, T, S, vp, bp, sdp, ep, mp, cp, n_shorts, op); break;
-    case 1: filter_contains_kernel<1><<<grid, kThreads, 0, st>>>(sp, T, S, vp, bp, sdp, ep, mp, cp, n_shorts, op); break;
-    case 2: filter_contains_kernel<2><<<grid, kThreads, 0, st>>>(sp, T, S, vp, bp, sdp, ep, mp, cp, n_shorts, op); break;
-    default: filter_contains_kernel<3><<<grid, kThreads, 0, st>>>(sp, T, S, vp, bp, sdp, ep, mp, cp, n_shorts, op); break;
-  }
+  launch_words<0>(n_words, dim3((S + kThreads - 1) / kThreads), (cudaStream_t)stream,
+                  (const uint8_t*)streams, T, S, (const int32_t*)vend, (const int32_t*)btab,
+                  (const int32_t*)seed, (const int32_t*)endmask, (const int32_t*)short_mask,
+                  (const int32_t*)short_const, n_shorts, (int32_t*)out);
   return (int)cudaGetLastError();
 }

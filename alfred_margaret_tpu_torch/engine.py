@@ -8,7 +8,9 @@ CaseSensitive haystacks (``count``, ``contains_any``, ``value_presence``,
 * ``python`` - the scalar oracle of ``models.ac`` (its fold, or a scalar
   state pass);
 * ``cpp``    - the host engine ``native.cpp_engine.CppAcEngine``;
-* ``device`` - the port's kernels on ``device`` (``ops.comb_scan.make_engine``);
+* ``device`` - the port's kernels on ``device``: the single-pass engine of
+  ``ops.comb_scan.make_engine``, else the needle-grouped
+  ``ops.grouped.GroupedAcEngine``;
 * ``auto``   - ``python`` below ``AUTO_PYTHON_THRESHOLD`` bytes, else ``device``.
 
 The device is ``"cuda"`` unless the caller asks for ``"cpu"``, where the
@@ -29,6 +31,7 @@ from .models import ac
 from .native.cpp_engine import CppAcEngine
 from .ops.bitap_scan import BitapAcEngine
 from .ops.comb_scan import make_engine
+from .ops.grouped import GroupedAcEngine
 from .ops.pallas_scan import CapacityError, StagedStreams
 from .ops.xla_scan import extract_matches
 from .utils import utf8
@@ -93,9 +96,22 @@ class MatchEngine:
         self._cpp = None
 
     def device_engine(self):
-        """The kernel engine on ``self.device`` (built on first use)."""
+        """The kernel engine on ``self.device``, built on first use: the
+        single-pass engine of ``make_engine``, else, for a needle set that none
+        holds, the needle-grouped ``GroupedAcEngine``.  Raises
+        ``CapacityError`` where that does not build either (a machine with an
+        empty needle, which the JAX package scans with its XLA engine)."""
         if self._device_eng is None:
-            self._device_eng = make_engine(self.machine, self.device)
+            try:
+                self._device_eng = make_engine(self.machine, self.device)
+            except CapacityError as single:
+                try:
+                    self._device_eng = GroupedAcEngine(self.machine, device=self.device)
+                except CapacityError as e:
+                    raise CapacityError(
+                        f"{e}; such automata need the torch reference scan engine: "
+                        "ROADMAP Queue A item 3"
+                    ) from single
         return self._device_eng
 
     def _cpp_engine(self) -> CppAcEngine:
@@ -213,6 +229,9 @@ class MatchEngine:
             # One sticky scan: each track's end bit flags its needle, and
             # value ids are needle entries.
             return eng.needle_presence_staged(st)
+        if isinstance(eng, GroupedAcEngine):
+            # Group-local states: each group reads its own presence.
+            return eng.value_presence_staged(st, len(m.values))
         _, hit = eng.match_positions_staged(st)
         return ac.presence_of_states(m, hit, len(m.values))
 

@@ -8,7 +8,21 @@ from .bitap_contains import (
     bitap_presence_plain,
 )
 from .bitap_count import bitap_count, bitap_count_plain
+from .comb import (
+    comb_contains,
+    comb_contains_plain,
+    comb_count,
+    comb_count_plain,
+    comb_states,
+    comb_states_plain,
+)
 from .comb16 import comb16_contains, comb16_contains_plain, comb16_count, comb16_count_plain
+from .comb16_grouped import (
+    comb16_contains_grouped,
+    comb16_contains_grouped_plain,
+    comb16_count_grouped,
+    comb16_count_grouped_plain,
+)
 from .dense_contains import dense_contains, dense_contains_plain
 from .dense_count import dense_count, dense_count_plain
 from .filter_contains import filter_contains, filter_contains_plain
@@ -17,7 +31,8 @@ from .matchbits import matchbits, matchbits_plain
 #: Every kernel wrapper; each keeps its own ``launches`` count.
 WRAPPERS = (
     dense_count, bitap_count, dense_contains, bitap_contains, matchbits, bitap_presence,
-    comb16_count, comb16_contains, filter_contains,
+    comb16_count, comb16_contains, filter_contains, comb16_count_grouped,
+    comb16_contains_grouped, comb_count, comb_contains, comb_states,
 )
 
 __all__ = [
@@ -28,9 +43,19 @@ __all__ = [
     "bitap_count_plain",
     "bitap_presence",
     "bitap_presence_plain",
+    "comb_contains",
+    "comb_contains_plain",
+    "comb_count",
+    "comb_count_plain",
+    "comb_states",
+    "comb_states_plain",
     "comb16_contains",
+    "comb16_contains_grouped",
+    "comb16_contains_grouped_plain",
     "comb16_contains_plain",
     "comb16_count",
+    "comb16_count_grouped",
+    "comb16_count_grouped_plain",
     "comb16_count_plain",
     "dense_contains",
     "dense_contains_plain",

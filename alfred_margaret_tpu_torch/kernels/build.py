@@ -126,6 +126,34 @@ def _bind(lib: ctypes.CDLL) -> None:
         i, i, i, i,  # BB, owner_mask, root_cb, absorb
         p, p,  # out, stream
     ]
+    comb = [
+        p, p, i, p, i,  # classmap, comb, comb_words, def_table, def_words
+        i, i, i, i,  # k, owner_bits, root_base, root_def
+    ]
+    lib.amt_comb_count.restype = i
+    lib.amt_comb_count.argtypes = [p, i, i, p, p, *comb, p, p]  # streams, T, S, warm, vend, ...
+    lib.amt_comb_contains.restype = i
+    lib.amt_comb_contains.argtypes = [p, i, i, p, *comb, i, p, p]  # ..., vend, ..., absorb
+    lib.amt_comb_states.restype = i
+    lib.amt_comb_states.argtypes = [p, i, i, *comb, p, p]  # streams, T, S, ..., out, stream
+    grouped = [
+        i, p, p, i, p, i,  # G, classmap, comb, comb_words, aux, aux_words
+        p, p, p,  # root_row, segtable, gscal
+    ]
+    lib.amt_comb16_count_grouped.restype = i
+    lib.amt_comb16_count_grouped.argtypes = [
+        p, i, i, p, p,  # streams, T, S, warm, vend
+        *grouped, i,  # ..., gscal_width
+        i, i, i,  # BB, owner_mask, CB
+        p, p,  # out, stream
+    ]
+    lib.amt_comb16_contains_grouped.restype = i
+    lib.amt_comb16_contains_grouped.argtypes = [
+        p, i, i, p,  # streams, T, S, vend
+        *grouped,
+        i, i,  # BB, owner_mask
+        p, p,  # out, stream
+    ]
     lib.amt_matchbits_comb16.restype = i
     lib.amt_matchbits_comb16.argtypes = [
         p, i, i, p, p,  # streams, T, S, warm, vend

@@ -37,6 +37,14 @@ N_RANGES = 6
 MAX_TABLE_WORDS = 48 * 128
 
 
+def check_split(BB, owner_mask, CB) -> None:
+    """Raise ``ValueError`` unless ``(CB, OB, BB)`` is a comb16 field split
+    the kernels take: 16 bits in all, a 4- or 5-bit owner mask."""
+    OB = int(owner_mask).bit_length()
+    if owner_mask != (1 << OB) - 1 or CB not in (0, 1) or not 8 <= BB <= 15 or BB + OB + CB != 16:
+        raise ValueError(f"bad comb16 field split: BB={BB} owner_mask={owner_mask} CB={CB}")
+
+
 def check_comb16(streams, classmap, comb, aux, root_row, segtable, ranges, BB, owner_mask, CB,
                  root_cb, **vectors):
     """The checks of the comb16 kernels (B8, B10, B13): streams, tables
@@ -48,9 +56,7 @@ def check_comb16(streams, classmap, comb, aux, root_row, segtable, ranges, BB, o
     if comb.numel() + aux.numel() > MAX_TABLE_WORDS:
         raise ValueError(f"comb and aux hold {comb.numel() + aux.numel()} words; "
                          f"the kernels hold at most {MAX_TABLE_WORDS}")
-    OB = int(owner_mask).bit_length()
-    if owner_mask != (1 << OB) - 1 or CB not in (0, 1) or not 8 <= BB <= 15 or BB + OB + CB != 16:
-        raise ValueError(f"bad comb16 field split: BB={BB} owner_mask={owner_mask} CB={CB}")
+    check_split(BB, owner_mask, CB)
     if not 0 <= root_cb < (1 << BB):
         raise ValueError(f"root base {root_cb} outside the {BB}-bit base space")
     tables = {
@@ -179,6 +185,7 @@ comb16_contains.launches = 0
 __all__ = [
     "Plain16",
     "check_comb16",
+    "check_split",
     "comb16_contains",
     "comb16_contains_plain",
     "comb16_count",

@@ -25,8 +25,9 @@ import torch
 from .common import check_streams, check_tables, launch, on_cpu
 
 #: Candidate words and short needles the kernel holds (kMaxWords and
-#: kMaxShorts in the .cu; the planner's max_words and MAX_SHORTS).
-MAX_WORDS = 3
+#: kMaxShorts in the .cu): the grouped engine plans up to 12 words, the
+#: comb16 engine up to 3, and the planner takes at most MAX_SHORTS shorts.
+MAX_WORDS = 12
 MAX_SHORTS = 8
 
 
@@ -88,7 +89,7 @@ def filter_contains(streams, vend, btab, seed, endmask, short_mask, short_const)
     whether a short needle ended in ``[0, vend]`` (plane 0, 0 or 1) and the
     OR of the candidate end bits (plane 1).  ``btab`` [V, 128], ``seed`` and
     ``endmask`` [V] are the candidate words, ``short_mask`` and
-    ``short_const`` [K] the short needles (V <= 3, K <= 8)."""
+    ``short_const`` [K] the short needles (V <= 12, K <= 8)."""
     _check(streams, vend, btab, seed, endmask, short_mask, short_const)
     if on_cpu(streams):
         return filter_contains_plain(streams, vend, btab, seed, endmask, short_mask, short_const)

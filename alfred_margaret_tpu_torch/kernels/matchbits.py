@@ -134,10 +134,13 @@ def matchbits(streams, warm, vend, step: str, *tables):
                root_row.data_ptr(), segtable.data_ptr(), ranges.data_ptr(),
                BB, owner_mask, CB, root_cb, *outs)
     matchbits.launches += 1
+    matchbits.launches_by_step[step] += 1
     return counts, bits
 
 
-#: Kernel launches since the last reset (CPU calls do not count).
+#: Kernel launches since the last reset (CPU calls do not count), in all and
+#: by step family (the ``"comb16"`` step is kernel B13).
 matchbits.launches = 0
+matchbits.launches_by_step = {"dense": 0, "bitap": 0, "comb16": 0}
 
 __all__ = ["matchbits", "matchbits_plain"]

@@ -3,10 +3,13 @@ and B13: the mid-tier of needle sets too large for the dense table.
 
 Counterpart of ``alfred_margaret_tpu/ops/comb16_scan.py``: ``Comb16Machine``,
 ``_unpack16``, ``_pack16``, ``MAX_COUNT16``, ``_field_split``,
-``comb16_structure_cost``, ``_place``, ``_empty_residues``, ``build_comb16``
-and ``_build_with_fields`` are copied as numpy (that module imports ``jax``;
-``tests/test_torch_comb16.py`` pins the copies field by field), and
-``Comb16AcEngine`` takes the place of ``Comb16PallasAcEngine``.
+``comb16_structure_cost``, ``_place``, ``_empty_residues``, ``build_comb16``,
+``_build_with_fields``, ``build_comb16_uniform`` and ``build_sticky16_uniform``
+are copied as numpy (that module imports ``jax``; ``tests/test_torch_comb16.py``
+and ``tests/test_torch_grouped.py`` pin the copies field by field),
+``Comb16AcEngine`` takes the place of ``Comb16PallasAcEngine``, and
+``Comb16GroupTables`` holds the uniform builds' stacked tables for the
+grouped kernels B9 and B11 (``ops/grouped.py``).
 
 A DFA-ized Aho-Corasick row is the row of its failure state off trie edges,
 and popular failure targets ("centers") are near-copies of the root row, so
@@ -581,10 +584,169 @@ class Comb16StickyTables(Comb16Tables):
                 self.BB, self.owner_mask, self.root_cb, self.absorb)
 
 
+def build_comb16_uniform(machines, max_rows_total: int = MAX_ROWS, split=None):
+    """Comb16 table sets for a list of (needle-group) machines with one
+    UNIFORM field split, stacked for the grouped kernels:
+
+    Returns ``(c16s, stacked)`` where ``stacked`` is a dict of numpy arrays
+    ``classmap [G,2,128]``, ``comb [G,rows_c,128]``, ``aux [G,rows_a,128]``,
+    ``rootseg [G,2,128]``, ``gscal [G,1+n_ranges]`` (root base + count-range
+    thresholds, padded with the 2^BB sentinel), plus the static consts.
+    Zero row padding is safe: every group's probes stay inside its own
+    padded rows (placement bounds ``base + k`` by its row count).
+
+    ``split`` pins one ``(CB, OB, BB)`` instead of the ladder (callers that
+    partitioned against a forced split, ``ops.grouped.partition_uniform16``,
+    pass it).  Raises :class:`CapacityError` when no single split fits every
+    group."""
+    if split is not None:
+        CB, OB, BB = split
+        c16s = [build_comb16(m, max_rows_total, split=split) for m in machines]
+    else:
+        CB = 1 if any(int(np.asarray(m.match_count).max(initial=0)) > 0 for m in machines) else 0
+        last = None
+        for OB in (5, 4):
+            BB = 16 - CB - OB
+            try:
+                c16s = [build_comb16(m, max_rows_total, split=(CB, OB, BB)) for m in machines]
+                break
+            except CapacityError as e:
+                last = e
+        else:
+            raise last
+    G = len(c16s)
+    rows_c = max(c.rows_c for c in c16s)
+    rows_a = max(c.rows_a for c in c16s)
+    n_ranges = max(len(c.count_ranges) for c in c16s)
+    sentinel = 1 << BB
+    classmap = np.zeros((G, 2, 128), dtype=np.int32)
+    comb = np.zeros((G, rows_c, 128), dtype=np.int32)
+    aux = np.zeros((G, rows_a, 128), dtype=np.int32)
+    rootseg = np.zeros((G, 2, 128), dtype=np.int32)
+    gscal = np.full((G, 1 + max(1, n_ranges)), sentinel, dtype=np.int32)
+    for g, c in enumerate(c16s):
+        cm256 = np.zeros(256, dtype=np.int32)
+        cm256[: len(c.classmap)] = c.classmap
+        classmap[g] = cm256.reshape(2, 128)
+        comb[g, : c.rows_c] = c.comb.reshape(c.rows_c, 128)
+        aux[g, : c.rows_a] = c.aux.reshape(c.rows_a, 128)
+        rootseg[g] = np.stack([c.root_row, c.segtable])
+        gscal[g, 0] = int(c.base[0])
+        for ri, thr in enumerate(c.count_ranges):
+            gscal[g, 1 + ri] = int(thr)
+    consts = dict(
+        CB=CB, OB=OB, BB=BB, rows_c=rows_c, rows_a=rows_a,
+        n_ranges=max(1, n_ranges) if CB else 0,
+        owner_mask=(1 << OB) - 1, count_shift=16 - CB, seg_shift=BB - 7,
+    )
+    return c16s, dict(
+        classmap=classmap, comb=comb, aux=aux, rootseg=rootseg, gscal=gscal,
+        consts=consts,
+    )
+
+
+def build_sticky16_uniform(machines, max_rows_total: int = MAX_ROWS, split=None, views=None):
+    """Uniform comb16 STICKY tables for a list of machines: each machine's
+    absorbing view is count-quotiented, all views build with one shared
+    field split, and ``gscal`` holds per-group ``(root base, absorb base)``
+    rows.  ``views`` passes pre-minimized sticky views
+    (``ops.grouped.partition_uniform16(view="sticky")`` built them); ``split``
+    pins the field split it validated.  Returns ``(c16s, stacked)`` like
+    :func:`build_comb16_uniform`; raises :class:`CapacityError` when no
+    single split fits every view."""
+    svs = (
+        views
+        if views is not None
+        else [minimize_sticky(_StickyView(count_minimized(m))) for m in machines]
+    )
+    c16s, stacked = build_comb16_uniform(svs, max_rows_total, split=split)
+    gscal2 = np.stack(
+        [
+            stacked["gscal"][:, 0],
+            np.asarray([int(c.base[sv.absorb]) for sv, c in zip(svs, c16s)], dtype=np.int32),
+        ],
+        axis=1,
+    ).astype(np.int32)
+    stacked = dict(stacked, gscal=gscal2)
+    return c16s, stacked
+
+
+@dataclass
+class Comb16GroupTables:
+    """The tables of the grouped kernels B9 and B11 on one device: one comb16
+    table set per needle group under one field split, stacked, each group's
+    comb and aux padded with zero rows to the widest group's.
+
+    ``gscal`` holds each group's scalars: for counting ``[G, 1 + n_ranges]``
+    (its root base, then its count ranges padded with ``2**BB``), for the
+    sticky scan (``sticky``) ``[G, 2]`` (its root base and its absorbing
+    base).  ``convert.comb16_group_tables_from_jax`` builds the same from the
+    JAX engine's stacked arrays."""
+
+    classmap: torch.Tensor  # int32 [G, 256] byte -> class
+    comb: torch.Tensor  # int32 [G, rows_c * 128] 16-bit entry pairs, low half first
+    aux: torch.Tensor  # int32 [G, rows_a * 128]
+    root_row: torch.Tensor  # int32 [G, 128] direct entries
+    segtable: torch.Tensor  # int32 [G, 128] segment -> aux base of its center
+    gscal: torch.Tensor  # int32 [G, 1 + n_ranges] (count) or [G, 2] (sticky)
+    BB: int
+    owner_mask: int
+    CB: int
+    sticky: bool
+
+    @property
+    def n_groups(self) -> int:
+        return int(self.classmap.shape[0])
+
+    @staticmethod
+    def from_stacked(stacked: dict, device, *, sticky: bool = False,
+                     c16s=()) -> "Comb16GroupTables":
+        """Tables from the stacked arrays of :func:`build_comb16_uniform` or
+        :func:`build_sticky16_uniform`.  With the groups' builds ``c16s``, the
+        probe windows of ``Comb16Tables.from_arrays`` are checked per group
+        against its padded table; the root (and absorbing) bases are checked
+        against the base space always.  Raises ``CapacityError``."""
+        cst = stacked["consts"]
+        classmap = np.asarray(stacked["classmap"], dtype=np.int32)
+        comb = np.asarray(stacked["comb"], dtype=np.int32)
+        aux = np.asarray(stacked["aux"], dtype=np.int32)
+        rootseg = np.asarray(stacked["rootseg"], dtype=np.int32)
+        gscal = np.asarray(stacked["gscal"], dtype=np.int32)
+        G, BB = classmap.shape[0], int(cst["BB"])
+        if G < 1 or rootseg.shape != (G, 2, 128) or gscal.shape[0] != G:
+            raise ValueError("stacked group tables disagree on the group count")
+        if sticky and gscal.shape[1] != 2:
+            raise ValueError(f"sticky gscal must be [G, 2], got {gscal.shape}")
+        if not sticky and gscal.shape[1] - 1 > MAX_COUNT16 - 1:
+            raise CapacityError(f"{gscal.shape[1] - 1} count ranges exceed MAX_COUNT16")
+        bases = gscal[:, :2] if sticky else gscal[:, :1]
+        if (bases < 0).any() or (bases >= (1 << BB)).any():
+            raise CapacityError(f"a group's root or absorbing base is outside {BB} bits")
+        comb_entries, aux_entries = 2 * comb[0].size, 2 * aux[0].size
+        for g, c in enumerate(c16s):
+            for name, b, n in (("comb", c.base, comb_entries), ("aux", c.cbase, aux_entries)):
+                if len(b) and int(np.max(b)) + c.k > n:
+                    raise CapacityError(
+                        f"group {g}: comb16 {name} probe window {int(np.max(b))} + {c.k} "
+                        f"passes its {n} entries"
+                    )
+
+        def dev(x):
+            return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32).copy()).to(device)
+
+        return Comb16GroupTables(
+            classmap=dev(classmap.reshape(G, 256)), comb=dev(comb.reshape(G, -1)),
+            aux=dev(aux.reshape(G, -1)), root_row=dev(rootseg[:, 0]), segtable=dev(rootseg[:, 1]),
+            gscal=dev(gscal), BB=BB, owner_mask=int(cst["owner_mask"]), CB=int(cst["CB"]),
+            sticky=sticky,
+        )
+
+
 class Comb16AcEngine(DenseAcEngine):
     """``DenseAcEngine`` over comb16 tables: counts through B8, containsAny
     through the stride-2 screen (B14) and then B10, the hit bitmap through
-    B6 with the comb16 step (B13).
+    B6 with the comb16 step (B13).  ``max_rows`` and ``overlap`` are the
+    dense engine's keywords; ``max_rows`` bounds both builds.
 
     Staging, stream plans, ``adopt_staged`` and the extraction tail are the
     dense engine's.  Two table sets are built, as in the JAX engine: ``c16``
@@ -597,14 +759,14 @@ class Comb16AcEngine(DenseAcEngine):
     STATES_KERNEL = "B12"
 
     def __init__(self, machine: AcMachine, *, device="cuda", n_streams: int = 32768,
-                 t_tile: int = 128):
-        self._init_streams(machine, device, n_streams, t_tile)
-        self.c16_full = build_comb16(machine, MAX_ROWS)
+                 t_tile: int = 128, max_rows: int = MAX_ROWS, overlap: Optional[int] = None):
+        self._init_streams(machine, device, n_streams, t_tile, max_rows, overlap)
+        self.c16_full = build_comb16(machine, max_rows)
         mmin = count_minimized(machine)
         self.c16 = self.c16_full
         if mmin is not machine:
             try:
-                self.c16 = build_comb16(mmin, MAX_ROWS)
+                self.c16 = build_comb16(mmin, max_rows)
             except CapacityError:
                 pass
         self.tables = Comb16Tables.from_machine(self.c16, self.device)
@@ -666,9 +828,12 @@ class Comb16AcEngine(DenseAcEngine):
 __all__ = [
     "MAX_COUNT16",
     "Comb16AcEngine",
+    "Comb16GroupTables",
     "Comb16Machine",
     "Comb16StickyTables",
     "Comb16Tables",
     "build_comb16",
+    "build_comb16_uniform",
+    "build_sticky16_uniform",
     "comb16_structure_cost",
 ]

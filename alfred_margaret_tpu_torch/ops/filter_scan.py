@@ -1,5 +1,6 @@
 """Stride-2 candidate screen: the hit-sparse ``containsAny`` fast path of
-the comb16 engine, over the hand-written CUDA kernel B14.
+the comb16 engine (up to 3 words) and the grouped engine (up to 12 words),
+over the hand-written CUDA kernel B14.
 
 Counterpart of ``alfred_margaret_tpu/ops/filter_scan.py``: ``FilterWord``,
 ``FilterLayout``, ``_chains``, ``_entries``, ``plan_filter`` and ``_pack``
@@ -215,18 +216,19 @@ class FilterTables:
         )
 
 
-def attach_filter(engine, machine) -> bool:
-    """Plan the screen for ``machine`` and attach it to ``engine``, whose
-    ``contains_staged`` asks :func:`filter_contains` first.  Returns True when
-    attached.  ``AMT_FILTER=0`` disables it, and so does a ``t_tile`` that is
-    not a multiple of 16 (the JAX kernel's pair unroll; the port's kernel
-    needs an even stream length)."""
+def attach_filter(engine, machine, max_words: int = 3) -> bool:
+    """Plan the screen for ``machine`` in at most ``max_words`` words and
+    attach it to ``engine``, whose ``contains_staged`` asks
+    :func:`filter_contains` first.  Returns True when attached.
+    ``AMT_FILTER=0`` disables it, and so does a ``t_tile`` that is not a
+    multiple of 16 (the JAX kernel's pair unroll; the port's kernel needs an
+    even stream length)."""
     engine._filter_lay = None
     engine._filter_tables = None
     engine._filter_strikes = 0
     if os.environ.get("AMT_FILTER") == "0" or engine.t_tile % 16:
         return False
-    lay = plan_filter(machine, max_words=3)
+    lay = plan_filter(machine, max_words=max_words)
     if lay is None:
         return False
     engine._filter_lay = lay
@@ -244,9 +246,13 @@ FILTER_STRIKES = 3
 def filter_contains(engine, st) -> Optional[bool]:
     """Screen a staged corpus: True (an exact short-needle hit), False (no
     fire anywhere), or None (candidate fires, or the screen disabled itself:
-    the caller runs the exact sticky scan).  Reads live streams only."""
+    the caller runs the exact sticky scan).  Reads live streams only.
+    ``AMT_FILTER=0`` at call time skips an attached screen too, and leaves
+    its strikes alone (the control of a screened engine)."""
     tabs = getattr(engine, "_filter_tables", None)
     if tabs is None or engine._filter_strikes >= FILTER_STRIKES:
+        return None
+    if os.environ.get("AMT_FILTER") == "0":
         return None
     planes = filter_kernel(st.streams, st.vend, *tabs.args()).cpu().numpy()[:, st.live_np]
     if (planes[0] != 0).any():

@@ -243,28 +243,42 @@ class DenseAcEngine:
     ``n_streams`` streams (S) of ``ceil(n / S)`` emission bytes each, time
     padded to a ``t_tile`` multiple: the same stream plan as
     ``PallasAcEngine`` with the same arguments, so per-stream counts compare
-    one to one.  Raises ``CapacityError`` when the packed table exceeds
-    ``MAX_ROWS`` rows.
+    one to one.  ``max_rows`` (at most ``MAX_ROWS``) caps the packed table's
+    rows; ``overlap`` widens the streams' warm-up past the machine's own
+    (the grouped engine gives every group the full machine's, so that one
+    staging serves them all).  Raises ``CapacityError`` when the packed
+    table exceeds ``max_rows`` rows.
     """
 
     #: The packed-states kernel that extraction without the host corpus needs.
     STATES_KERNEL = "B5"
 
-    def __init__(self, machine: AcMachine, *, device="cuda", n_streams: int = 32768, t_tile: int = 128):
-        self._init_streams(machine, device, n_streams, t_tile)
-        self.comp = CompressedMachine.from_machine(machine)
+    def __init__(self, machine: AcMachine, *, device="cuda", n_streams: int = 32768,
+                 t_tile: int = 128, max_rows: int = MAX_ROWS, overlap: Optional[int] = None):
+        self._init_streams(machine, device, n_streams, t_tile, max_rows, overlap)
+        self.comp = CompressedMachine.from_machine(machine, max_rows)
         self.tables = DenseTables.from_compressed(self.comp, self.device)
         self._sticky: Optional[StickyTables] = None
 
-    def _init_streams(self, machine: AcMachine, device, n_streams: int, t_tile: int) -> None:
-        """The machine, device and stream layout, shared by every engine."""
+    def _init_streams(self, machine: AcMachine, device, n_streams: int, t_tile: int,
+                      max_rows: int = MAX_ROWS, overlap: Optional[int] = None) -> None:
+        """The machine, device, row budget and stream layout, shared by every
+        engine.  Raises ``ValueError`` for a ``max_rows`` outside ``1 ..
+        MAX_ROWS`` (the kernels hold their tables in shared memory) and for
+        an ``overlap`` below the machine's requirement."""
         if n_streams < 1 or t_tile < 1:
             raise ValueError("n_streams and t_tile must be positive")
+        if not 1 <= max_rows <= MAX_ROWS:
+            raise ValueError(f"max_rows must be in 1..{MAX_ROWS}, got {max_rows}")
+        need = max(0, machine.max_needle_bytes - 1)
+        if overlap is not None and overlap < need:
+            raise ValueError("overlap override below the machine's requirement")
         self.machine = machine
         self.device = resolve_device(device)
         self.S = n_streams
         self.t_tile = t_tile
-        self.overlap = max(0, machine.max_needle_bytes - 1)
+        self.max_rows = max_rows
+        self.overlap = need if overlap is None else overlap
 
     def _plan(self, n: int) -> StreamPlan:
         emit = max(1, -(-n // self.S))

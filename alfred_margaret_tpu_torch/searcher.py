@@ -6,7 +6,9 @@ device (``"cuda"`` unless the caller asks for ``"cpu"``).  Equality, hashing
 and ``to_json`` are defined by the needle list only, as in the JAX package.
 ``build``, ``build_with_values``, ``save_npz``, ``load_npz``, ``stage``,
 ``count_matches``, ``contains_any``, ``contains_all``, ``all_matches`` and
-``all_matches_arrays`` work, CaseSensitive only.  Every other operation
+``all_matches_arrays`` work, CaseSensitive only, on whichever engine
+``MatchEngine`` picks for the needle set (the needle-grouped one for sets
+that no single-pass engine holds).  Every other operation
 raises ``NotImplementedError`` naming the ROADMAP item that brings it.
 """
 

@@ -5,9 +5,9 @@ Run from the repository root on a host with one CUDA card (an H100):
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``alfred_margaret_tpu_torch/csrc``
-(one ``nvcc`` per source, all at once) and checks each of the ten kernels
-against its plain torch version on the card on twelve machines, and the
-engines' answers against the port's host C++ engine.  Then it drives three
+(one ``nvcc`` per source, all at once) and checks each of the fifteen
+kernels against its plain torch version on the card on eighteen machines, and
+the engines' answers against the port's host C++ engine.  Then it drives five
 main paths over 128 MiB corpora, each with the kernels' launch counts set to
 0 just before it and read just after (the controls' launches are read apart):
 
@@ -25,12 +25,28 @@ main paths over 128 MiB corpora, each with the kernels' launch counts set to
   corpus of config 2b with and without one needle in it, where the sticky
   scan (B10) decides; the same with ``AMT_FILTER=0`` as the control;
   ``contains_all`` true and false and ``all_matches_arrays`` (B6 with the
-  comb16 step, B13).
+  comb16 step, B13);
+* ``BASELINE.json`` config 5's first 300 needles, which overflow comb16, on
+  the comb32 engine: ``stage`` -> ``count_matches`` (B15), ``contains_any``
+  on the config-5 corpus, the digits corpus and the digits corpus with one
+  needle in it (B16), ``contains_all`` true and false and
+  ``all_matches_arrays`` (B15, then B17);
+* ``BASELINE.json`` config 5's first 1,000 needles, which no single-pass
+  engine holds, on the needle-grouped engine (seven comb32 groups and one
+  comb16 group, as in the JAX package): ``stage`` -> ``count_matches`` (B9,
+  one launch over the uniform groups), ``contains_any`` through the 12-word
+  screen (B14) and then B11 on the config-5 corpus, a fire-free corpus, the
+  digits corpus and the digits corpus with one needle of the last group;
+  ``contains_all`` true and false and ``all_matches_arrays`` (B15 and B17 for
+  each comb32 group, B13 for the comb16 group); with ``AMT_FUSED_GROUPS=0``
+  (per-group B15, B16, B8 and B10) and ``AMT_FILTER=0`` (B11 alone) as the
+  controls.
 
 Every answer must equal the host C++ engine's (and the control's), and every
 kernel of a path must have been launched by it.  Last it times every kernel
-and its plain version with CUDA events, and B8 against B1 on one 30-needle
-set that both engines hold.  Any failure raises and the exit code is
+and its plain version with CUDA events, B8 against B1 on one 30-needle
+set that both engines hold, and B9 against the per-group B15 and B8 passes
+it replaces, beside the host C++ engine's count.  Any failure raises and the exit code is
 non-zero.  Without a CUDA device it exits non-zero before printing a result.
 
 The last three lines of standard output are the kernels' JSON summary, the
@@ -88,6 +104,20 @@ def config2_needles():
     return needles
 
 
+def config5_needles(n: int):
+    """The first ``n`` needles of ``BASELINE.json`` config 5, drawn as
+    ``alfred_margaret_tpu/bench/configs.py`` draws them: config 2's 110
+    draws from ``default_rng(7)``, then 11,000 needles of 5 to 11 letters,
+    the first 10,000 distinct ones kept."""
+    rng = np.random.default_rng(7)
+    list("".join(chr(97 + c) for c in rng.integers(0, 26, size=rng.integers(4, 9)))
+         for _ in range(110))
+    return list(dict.fromkeys(
+        "".join(chr(97 + c) for c in rng.integers(0, 26, size=rng.integers(5, 12)))
+        for _ in range(11000)
+    ))[:n]
+
+
 def fire_free(n: int, seed: int = 0) -> bytes:
     """``n`` random bytes over ``b"0 "``: no chain of config 2's screen fires."""
     rng = np.random.default_rng(seed)
@@ -111,6 +141,8 @@ def main() -> int:
     from alfred_margaret_tpu_torch.native.cpp_engine import CppAcEngine
     from alfred_margaret_tpu_torch.ops.bitap_scan import BitapAcEngine, plan_bitap
     from alfred_margaret_tpu_torch.ops.comb16_scan import Comb16AcEngine
+    from alfred_margaret_tpu_torch.ops.comb_scan import CombAcEngine
+    from alfred_margaret_tpu_torch.ops.grouped import GroupedAcEngine
     from alfred_margaret_tpu_torch.ops.pallas_scan import DenseAcEngine, _zero_inert
     from alfred_margaret_tpu_torch.utils.device import nvidia_smi_line
 
@@ -131,7 +163,8 @@ def main() -> int:
             print("  ptxas:", line.split(":", 1)[-1].strip() if "ptxas" in line else line)
     native_build.load()  # the host C++ engine every answer is held against
 
-    # B13 is B6's wrapper with the comb16 step: its errors are kept apart.
+    # B13 is B6's wrapper with the comb16 step: its errors and launches are
+    # kept apart.
     max_err = {**{w.__name__: 0 for w in K.WRAPPERS}, "matchbits_comb16": 0}
 
     def same(name, k, p, label):
@@ -152,8 +185,15 @@ def main() -> int:
         return int(k[torch.from_numpy(st.live_np).to(dev)].long().sum())
 
     def check_sticky_and_bits(eng, st, label):
-        """B3 (dense), B4 + B7 (bitap) or B10 + B14 (comb16), and B6 or B13,
-        against their plain versions on the same staged streams."""
+        """B3 (dense), B4 + B7 (bitap) or B10 + B14 (comb16), and B6 or B13;
+        or B16 and B17 (comb32); against their plain versions on the same
+        staged streams."""
+        if isinstance(eng, CombAcEngine):
+            args = eng.sticky_args(st)
+            same("comb_contains", K.comb_contains(*args), K.comb_contains_plain(*args), label)
+            args = eng.states_args(st)
+            same("comb_states", K.comb_states(*args), K.comb_states_plain(*args), label)
+            return "comb32 states"
         if isinstance(eng, BitapAcEngine):
             args = eng.sticky_bitap_args(st)
             same("bitap_contains", K.bitap_contains(*args), K.bitap_contains_plain(*args), label)
@@ -224,6 +264,11 @@ def main() -> int:
         ("comb16_count", "150 needles", random_needles(21, 150)),
         ("comb16_count", "97 needles, no short one", n97),
         ("comb16_count", "NUL needles, no screen", c2[:60] + ["a\x00b", "\x00\x00x"]),
+        ("comb_count", "200 needles", random_needles(22, 200)),
+        ("comb_count", "config 5, 300 needles", config5_needles(300)),
+        ("comb_count", "nested, counts of 5", ["a", "aa", "aaa", "aaaa", "aaaaa"]
+         + random_needles(31, 120)),
+        ("comb_count", "NUL needles", random_needles(22, 200)[:150] + ["a\x00b", "\x00\x00x"]),
     ]
     for seed, (name, label, needles) in enumerate(cases):
         m = machine_of(needles)
@@ -236,6 +281,10 @@ def main() -> int:
         elif name == "dense_count":
             eng = DenseAcEngine(m, device=dev)
             extra = f"packing={eng.comp.packing} zero_inert={_zero_inert(m)}"
+        elif name == "comb_count":
+            eng = CombAcEngine(m, device=dev)
+            extra = (f"rows={eng.comb.rows_c}+{eng.comb.rows_d} D={eng.comb.D} "
+                     f"max_count={int(m.match_count.max())}")
         else:
             eng = Comb16AcEngine(m, device=dev)
             lay = eng._filter_lay
@@ -247,8 +296,11 @@ def main() -> int:
             check(eng.comp.packing == 2, "packing-2 case planned to packing 1")
         if "NUL" in label:
             check(not _zero_inert(m), "NUL case is zero-inert")
-        if label.startswith("nested"):
+        if label.startswith("nested") and name == "comb16_count":
             check(len(eng.c16.count_ranges) == 4, "nested case has no 4 count ranges")
+        if name == "comb_count" and label in ("200 needles", "config 5, 300 needles"):
+            check(type(Searcher.build(CASE_SENSITIVE, needles)._engine.device_engine())
+                  is CombAcEngine, f"{label}: the dispatcher does not take comb32")
         if name == "comb16_count":
             check(("NUL" in label) == (eng._filter_tables is None), f"{label}: screen planned wrong")
         st = eng.stage(data)
@@ -257,16 +309,89 @@ def main() -> int:
         check(total == ref, f"{name} {label}: kernel {total} != host C++ {ref}")
         step = check_sticky_and_bits(eng, st, label)
         any_, n_present, n_matches = check_answers(eng, st, m, data, label)
-        print(f"check {name:12s} {label:30s} {extra:26s} count={total} host_cpp={ref} "
+        print(f"check {name:12s} {label:30s} {extra:30s} count={total} host_cpp={ref} "
               f"contains={any_} present={n_present}/{len(m.values)} matches={n_matches} "
               f"bits_step={step} ok")
+
+    def check_grouped(eng, st, data, label):
+        """B9, B11 and B14 against their plain versions on the same staged
+        streams, and the grouped engine's answers against the host C++
+        engine's."""
+        m = eng.machine
+        same("comb16_count_grouped", eng.stream_counts(st), eng.stream_counts_plain(st), label)
+        args = eng.sticky_args(st)
+        same("comb16_contains_grouped", K.comb16_contains_grouped(*args),
+             K.comb16_contains_grouped_plain(*args), label)
+        if eng._filter_tables is not None:
+            args = (st.streams, st.vend, *eng._filter_tables.args())
+            same("filter_contains", K.filter_contains(*args), K.filter_contains_plain(*args),
+                 label)
+        host = CppAcEngine(m)
+        total = eng.count_staged(st)
+        check(total == host.count(data), f"{label}: count {total} != host C++")
+        any_ = eng.contains_staged(st)
+        check(any_ == (host.first_hit(data) >= 0), f"{label}: contains != host C++")
+        pres = eng.value_presence_staged(st, len(m.values))
+        check(np.array_equal(pres, host.value_presence(data, len(m.values))),
+              f"{label}: presence != host C++")
+        ends, vids = eng.matches_arrays_staged(st)
+        hends, hvids = host.matches_arrays(data)
+        check(np.array_equal(ends, hends) and np.array_equal(vids, hvids),
+              f"{label}: matches ({len(ends)}) != host C++ ({len(hends)})")
+        return total, any_, int(pres.sum()), len(ends)
+
+    # The grouped engine on config 5's first 1,000 needles (the main path's
+    # engine, built here once) and on a NUL-bearing set that is not
+    # zero-inert.
+    n1000 = config5_needles(1000)
+    t0 = time.perf_counter()
+    s1000 = Searcher.build(CASE_SENSITIVE, n1000)
+    eng5 = s1000._engine.device_engine()
+    groups_s = time.perf_counter() - t0
+    fused5, sticky5 = eng5._fused_setup(), eng5._fused_sticky_setup()
+    build5_s = time.perf_counter() - t0
+    check(type(eng5) is GroupedAcEngine, f"1,000 needles took {type(eng5).__name__}")
+    check(fused5 is not None and sticky5 is not None, "1,000 needles: a fused setup is off")
+    lay5 = eng5._filter_lay
+    check(lay5 is not None and lay5.n_words == 12, "1,000 needles: not a 12-word screen")
+    kinds = {}
+    for e in eng5.engines:
+        kinds[type(e).__name__] = kinds.get(type(e).__name__, 0) + 1
+    f5, y5 = fused5.tables, sticky5.tables
+    print(f"grouped build: {len(n1000)} needles, {s1000.automaton.n_states} states -> "
+          f"{eng5.n_groups} groups {kinds} (summed rows {eng5.total_rows}) in {groups_s:.1f} s; "
+          f"fused count G={f5.n_groups} rows {f5.comb.shape[1] // 128}+{f5.aux.shape[1] // 128}"
+          f"+2 BB={f5.BB} and sticky G={y5.n_groups} rows {y5.comb.shape[1] // 128}+"
+          f"{y5.aux.shape[1] // 128}+2 BB={y5.BB} in {build5_s - groups_s:.1f} s; screen "
+          f"{lay5.n_words} words {len(lay5.shorts)} shorts; {build5_s:.1f} s host in all",
+          flush=True)
+    nul_needles = n1000[:300] + ["a\x00b", "\x00\x00x"]
+    eng_nul = GroupedAcEngine(machine_of(nul_needles), device=dev)
+    check(eng_nul._fused_setup() is not None and eng_nul._fused_sticky_setup() is not None
+          and not _zero_inert(eng_nul.machine), "NUL grouped set: fused setups or NUL")
+    for seed, (label, eng, needles) in enumerate((
+            ("1,000 needles of config 5", eng5, n1000), ("300 + NUL needles", eng_nul, nul_needles))):
+        data = np.frombuffer(
+            synth_corpus(needles, CHECK_BYTES, hit_fraction=0.02, seed=20 + seed), np.uint8)
+        total, any_, n_present, n_matches = check_grouped(eng, eng.stage(data), data, label)
+        print(f"check grouped      {label:30s} groups={eng.n_groups} fused G="
+              f"{eng._fused.tables.n_groups}/{eng._fused_sticky.tables.n_groups} count={total} "
+              f"contains={any_} present={n_present}/{len(eng.machine.values)} "
+              f"matches={n_matches} ok")
 
     def zero_counts():
         for w in K.WRAPPERS:
             w.launches = 0
+        for step in K.matchbits.launches_by_step:
+            K.matchbits.launches_by_step[step] = 0
 
     def read_counts():
-        return {w.__name__: w.launches for w in K.WRAPPERS}
+        """Each wrapper's launches; B6's with the comb16 step count as B13's
+        (``matchbits_comb16``), as its wrapper counts them apart."""
+        counts = {w.__name__: w.launches for w in K.WRAPPERS}
+        counts["matchbits_comb16"] = K.matchbits.launches_by_step["comb16"]
+        counts["matchbits"] -= counts["matchbits_comb16"]
+        return counts
 
     def tally(into, used):
         for k, v in used.items():
@@ -453,9 +578,9 @@ def main() -> int:
         "contains_any fire-free": {"filter_contains"},  # no fire: the screen says False
         "contains_any digits (2b)": {"filter_contains", "comb16_contains"},  # candidates
         "contains_any digits + 1 needle": {"filter_contains", "comb16_contains"},
-        "contains_all true": {"matchbits"},
-        "contains_all false": {"matchbits"},
-        "all_matches_arrays": {"matchbits"},
+        "contains_all true": {"matchbits_comb16"},
+        "contains_all false": {"matchbits_comb16"},
+        "all_matches_arrays": {"matchbits_comb16"},
     }
     for op, who, used in run_ops(ops2, want2):
         if who == "main path":
@@ -464,7 +589,7 @@ def main() -> int:
         else:
             check(set(used) == {"comb16_contains"}, f"{op} ({who}): launched {used}")
             tally(c16_control, used)
-    for name in ("comb16_count", "comb16_contains", "matchbits", "filter_contains"):
+    for name in ("comb16_count", "comb16_contains", "matchbits_comb16", "filter_contains"):
         check(c16_main.get(name, 0) > 0, f"{name} was not launched by the comb16 path")
     print(f"comb16 path: every answer == host C++ == AMT_FILTER=0 control; "
           f"launches {c16_main}, control {c16_control}")
@@ -499,6 +624,163 @@ def main() -> int:
         tally(dense_main, used)
     print(f"dense path: every answer == host C++; launches {dense_main}")
 
+    # -- the comb32 path: config 5's first 300 needles at 128 MiB -------------
+    t0 = time.perf_counter()
+    n300 = config5_needles(300)
+    s300 = Searcher.build(CASE_SENSITIVE, n300)
+    absent300 = Searcher.build(CASE_SENSITIVE, n300 + ["SHORTS"])
+    eng3 = s300._engine.device_engine()
+    for s in (s300, absent300):
+        check(type(s._engine.device_engine()) is CombAcEngine,
+              f"config 5's 300 needles took {type(s._engine.device_engine()).__name__}")
+    data3 = np.frombuffer(synth_corpus(n300, CORPUS_BYTES, hit_fraction=0.01, seed=13), np.uint8)
+    tail3 = np.frombuffer(" ".join(n300).encode(), np.uint8)  # every needle: containsAll true
+    data3_all = np.concatenate([data3[: CORPUS_BYTES - len(tail3)], tail3])
+    corpora3 = {"config 5, 300": data3, "digits (2b)": digits,
+                "digits + 1 needle": digits[:half] + n300[-1].encode() + digits[half:]}
+    host3 = CppAcEngine(s300.automaton)
+    want3 = {f"contains_any {k}": host3.first_hit(v) >= 0 for k, v in corpora3.items()}
+    want3["count_matches"] = host3.count(data3)
+    want3["contains_all true"] = bool(host3.value_presence(data3_all, len(n300)).all())
+    want3["contains_all false"] = bool(
+        CppAcEngine(absent300.automaton).value_presence(data3, len(n300) + 1).all())
+    want3["all_matches_arrays"] = host3.matches_arrays(data3)
+    check([want3[f"contains_any {k}"] for k in corpora3] == [True, False, True]
+          and want3["contains_all true"] and not want3["contains_all false"]
+          and want3["count_matches"] > 0, f"host C++ answers are not the expected ones: {want3}")
+    print(f"comb32 path: engine and host C++ answers in {time.perf_counter() - t0:.1f} s; "
+          f"states={eng3.comb.n_states} (full {eng3.comb_full.n_states}) k={eng3.comb.k} "
+          f"rows={eng3.comb.rows_c}+{eng3.comb.rows_d} (full {eng3.comb_full.rows_c}+"
+          f"{eng3.comb_full.rows_d}) D={eng3.comb.D}", flush=True)
+    zero_counts()
+    t0 = time.perf_counter()
+    st3 = {k: s300.stage(v) for k, v in corpora3.items()}
+    staged3_all = s300.stage(data3_all)
+    staged_absent3 = absent300.stage(data3)
+    torch.cuda.synchronize()
+    stage3_s = time.perf_counter() - t0
+    ops3 = [("count_matches", "main path", lambda: s300.count_matches(st3["config 5, 300"]))]
+    ops3 += [(f"contains_any {k}", "main path", (lambda v=v: s300.contains_any(v)))
+             for k, v in st3.items()]
+    ops3 += [
+        ("contains_all true", "main path", lambda: s300.contains_all(staged3_all)),
+        ("contains_all false", "main path", lambda: absent300.contains_all(staged_absent3)),
+        ("all_matches_arrays", "main path", lambda: s300.all_matches_arrays(st3["config 5, 300"])),
+    ]
+    # The kernels each operation must launch, and no other: B15 then B17 for
+    # the extraction.
+    extract32 = {"comb_count": 1, "comb_states": 1}
+    expect3 = {"count_matches": {"comb_count": 1}, "contains_all true": extract32,
+               "contains_all false": extract32, "all_matches_arrays": extract32,
+               **{f"contains_any {k}": {"comb_contains": 1} for k in corpora3}}
+    c32_main = {}
+    for op, who, used in run_ops(ops3, want3):
+        check(used == expect3[op], f"{op}: launched {used}, expected {expect3[op]}")
+        tally(c32_main, used)
+    print(f"comb32 path: stage 5 x {CORPUS_BYTES} bytes {stage3_s:.3f} s; every answer == "
+          f"host C++; launches {c32_main}")
+
+    # -- the grouped path: config 5's first 1,000 needles at 128 MiB ----------
+    t0 = time.perf_counter()
+    data5 = np.frombuffer(
+        synth_corpus(n1000[:500], CORPUS_BYTES, hit_fraction=0.01, seed=11), np.uint8)
+    # The config-5 corpus with every needle written over its end (containsAll
+    # true).
+    tail = np.frombuffer(" ".join(n1000).encode(), np.uint8)
+    data5_all = np.concatenate([data5[: CORPUS_BYTES - len(tail)], tail])
+    last5 = n1000[sticky5.groups[-1][-1]].encode()  # a needle of the last sticky group
+    corpora5 = {"config 5": data5, "fire-free": clean, "digits (2b)": digits,
+                "digits + 1 needle": digits[:half] + last5 + digits[half:]}
+    host5 = CppAcEngine(s1000.automaton)
+    want5 = {f"contains_any {k}": host5.first_hit(v) >= 0 for k, v in corpora5.items()}
+    want5["contains_all true"] = bool(host5.value_presence(data5_all, len(n1000)).all())
+    want5["contains_all false"] = bool(host5.value_presence(data5, len(n1000)).all())
+    want5["all_matches_arrays"] = host5.matches_arrays(data5)
+    want5["count_matches"] = host5.count(data5)
+    host_count_ms = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        host5.count(data5)
+        host_count_ms.append((time.perf_counter() - t1) * 1e3)
+    host_count_ms = min(host_count_ms)
+    check([want5[f"contains_any {k}"] for k in corpora5] == [True, False, False, True]
+          and want5["contains_all true"] and not want5["contains_all false"]
+          and want5["count_matches"] > 0, f"host C++ answers are not the expected ones: {want5}")
+    print(f"grouped path: corpora and host C++ answers in {time.perf_counter() - t0:.1f} s; "
+          f"host C++ count {host_count_ms:.1f} ms ({CORPUS_BYTES} bytes, "
+          f"{want5['count_matches']} matches, host clock)", flush=True)
+
+    zero_counts()
+    t0 = time.perf_counter()
+    st5 = {k: s1000.stage(v) for k, v in corpora5.items()}
+    staged5_all = s1000.stage(data5_all)
+    torch.cuda.synchronize()
+    stage5_s = time.perf_counter() - t0
+
+    def under(env, fn):
+        def call():
+            with mock.patch.dict(os.environ, env):
+                return fn()
+        return call
+
+    per_group = {"AMT_FUSED_GROUPS": "0", "AMT_FILTER": "0"}
+    ops5 = [("count_matches", "main path", lambda: s1000.count_matches(st5["config 5"]))]
+    ops5 += [(f"contains_any {k}", "main path", (lambda v=v: s1000.contains_any(v)))
+             for k, v in st5.items()]
+    ops5 += [
+        ("contains_all true", "main path", lambda: s1000.contains_all(staged5_all)),
+        ("contains_all false", "main path", lambda: s1000.contains_all(st5["config 5"])),
+        ("all_matches_arrays", "main path", lambda: s1000.all_matches_arrays(st5["config 5"])),
+        ("count_matches", "AMT_FUSED_GROUPS=0",
+         under(per_group, lambda: s1000.count_matches(st5["config 5"]))),
+    ]
+    ops5 += [(f"contains_any {k}", "AMT_FUSED_GROUPS=0",
+              under(per_group, lambda v=v: s1000.contains_any(v))) for k, v in st5.items()]
+    ops5 += [(f"contains_any {k}", "AMT_FILTER=0",
+              under({"AMT_FILTER": "0"}, lambda v=v: s1000.contains_any(v)))
+             for k, v in st5.items()]
+    # The kernels each main-path operation must launch, and no other: each
+    # extraction runs B15 for every comb32 group, B17 for those with matches,
+    # and B13 for every comb16 group.
+    n_c32 = sum(type(e) is CombAcEngine for e in eng5.engines)
+    n_c16 = sum(type(e) is Comb16AcEngine for e in eng5.engines)
+    check((n_c32, n_c16) == (7, 1), f"1,000 needles: {n_c32} comb32 and {n_c16} comb16 groups "
+          "(the JAX package's engine has 7 and 1)")
+    extract5 = {"comb_count", "comb_states", "matchbits_comb16"}
+    expect5 = {
+        "count_matches": {"comb16_count_grouped"},
+        "contains_any config 5": {"filter_contains", "comb16_contains_grouped"},  # candidates
+        "contains_any fire-free": {"filter_contains"},  # no fire: the screen says False
+        "contains_any digits (2b)": {"filter_contains", "comb16_contains_grouped"},
+        "contains_any digits + 1 needle": {"filter_contains", "comb16_contains_grouped"},
+        "contains_all true": extract5,
+        "contains_all false": extract5,
+        "all_matches_arrays": extract5,
+    }
+    control_kernels = {
+        "AMT_FUSED_GROUPS=0": {"comb_count", "comb16_count", "comb_contains", "comb16_contains"},
+        "AMT_FILTER=0": {"comb16_contains_grouped"},
+    }
+    g_main, g_control = {}, {}
+    for op, who, used in run_ops(ops5, want5):
+        if who == "main path":
+            check(set(used) == expect5[op], f"{op}: launched {used}, expected {expect5[op]}")
+            if op == "count_matches":
+                check(used == {"comb16_count_grouped": 1}, f"count launched {used}")
+            if set(used) == extract5:
+                check(used["comb_count"] == n_c32 and used["matchbits_comb16"] == n_c16
+                      and 0 < used["comb_states"] <= n_c32, f"{op}: a group was skipped: {used}")
+            tally(g_main, used)
+        else:
+            check(used and set(used) <= control_kernels[who], f"{op} ({who}): launched {used}")
+            tally(g_control, used)
+    for name in ("comb16_count_grouped", "comb16_contains_grouped", "filter_contains",
+                 "comb_count", "comb_states", "matchbits_comb16"):
+        check(g_main.get(name, 0) > 0, f"{name} was not launched by the grouped path")
+    print(f"grouped path: stage 5 x {CORPUS_BYTES} bytes {stage5_s:.3f} s; every answer == "
+          f"host C++ == AMT_FUSED_GROUPS=0 control == AMT_FILTER=0 control; launches "
+          f"{g_main}, control {g_control}")
+
     # -- timing at the main paths' shapes --------------------------------------
     def timed(fn, runs):
         fn()  # warm-up
@@ -521,7 +803,13 @@ def main() -> int:
     def first_hit_steps(bits_eng, sst):
         """int64 [S]: the steps each stream of ``sst`` must read to answer
         containsAny for ``bits_eng``'s machine: up to its first match end
-        (from the hit bitmap), else its ``vend``."""
+        (from the hit bitmap, or comb32's packed states), else its ``vend``."""
+        vend = sst.vend.long()
+        if isinstance(bits_eng, CombAcEngine):
+            hit = (K.comb_states(*bits_eng.states_args(sst)) >> 27) > 0  # [T, S]
+            t = torch.argmax(hit.int(), dim=0)  # first hit (0 when none)
+            return torch.where(hit.any(0) & (t < vend), t + 1, vend).clamp(
+                max=sst.plan.time_len)
         _, bits = K.matchbits(*bits_eng.bits_args(sst))
         w = bits.long() & 0xFFFFFFFF  # [T/32, S]
         nz = w != 0
@@ -529,7 +817,6 @@ def main() -> int:
         low = w.gather(0, word.unsqueeze(0)).squeeze(0)
         bit = torch.log2((low & -low).double().clamp(min=1)).long()
         t = word * 32 + bit
-        vend = sst.vend.long()
         return torch.where(nz.any(0) & (t < vend), t + 1, vend).clamp(max=sst.plan.time_len)
 
     def bound(stream_bytes, other_bytes, ops):
@@ -541,7 +828,11 @@ def main() -> int:
         return (b, "bytes") if b >= o else (o, "operations")
 
     def table_bytes(args):
-        return sum(a.numel() * a.element_size() for a in args[1:] if torch.is_tensor(a))
+        tabs = [a for a in args[1:] if torch.is_tensor(a)]
+        for a in args[1:]:  # the grouped kernels' tables
+            if hasattr(a, "gscal"):
+                tabs += [a.classmap, a.comb, a.aux, a.root_row, a.segtable, a.gscal]
+        return sum(a.numel() * a.element_size() for a in tabs)
 
     def n_live_bytes(sst):
         return int(sst.vend.clamp(max=sst.plan.time_len).long().sum())
@@ -554,6 +845,15 @@ def main() -> int:
     need_digits = int(first_hit_steps(eng2, st_digits).sum())
     need_c2 = int(first_hit_steps(eng2, st_c2).sum())
     T2 = st_c2.plan.time_len
+    st5c, st5d = st5["config 5"].device, st5["digits (2b)"].device
+    G5, Y5 = f5.n_groups, y5.n_groups
+    # B11 must read each stream up to the first match of any group's needle.
+    need5 = int(torch.stack([first_hit_steps(e, st5c) for e in eng5.engines]).min(0).values.sum())
+    need5d = n_live_bytes(st5d)
+    st3c, st3d = st3["config 5, 300"].device, st3["digits (2b)"].device
+    need3 = int(first_hit_steps(eng3, st3c).sum())
+    need3d = int(first_hit_steps(eng3, st3d).sum())
+    T3 = st3c.plan.time_len
     # (name, kernel, plain, args, what, stream bytes the function needs,
     #  output bytes, operations: one 32-bit state update per byte and word)
     timings = {}
@@ -591,6 +891,26 @@ def main() -> int:
         ("filter_contains", K.filter_contains, K.filter_contains_plain,
          (st_c2.streams, st_c2.vend, *eng2._filter_tables.args()), "config 2",
          n_live_bytes(st_c2), 8 * S, n_live_bytes(st_c2) // 2 * (lay.n_words + 2 * len(lay.shorts))),
+        ("filter_contains", K.filter_contains, K.filter_contains_plain,
+         (st5c.streams, st5c.vend, *eng5._filter_tables.args()), "config 5, 12 words",
+         n_live_bytes(st5c), 8 * S, n_live_bytes(st5c) // 2 * (lay5.n_words + 2 * len(lay5.shorts))),
+        ("comb16_count_grouped", K.comb16_count_grouped, K.comb16_count_grouped_plain,
+         (st5c.streams, st5c.warm, st5c.vend, f5), "config 5", n_live_bytes(st5c), 4 * S,
+         n_live_bytes(st5c) * G5),
+        ("comb16_contains_grouped", K.comb16_contains_grouped, K.comb16_contains_grouped_plain,
+         (st5d.streams, st5d.vend, y5), "config 5, digits corpus: full scan", need5d, 4 * S,
+         need5d * Y5),
+        ("comb16_contains_grouped", K.comb16_contains_grouped, K.comb16_contains_grouped_plain,
+         (st5c.streams, st5c.vend, y5), "config 5 corpus: stops at the first match", need5,
+         4 * S, need5 * Y5),
+        ("comb_count", K.comb_count, K.comb_count_plain, eng3._kernel_args(st3c),
+         "config 5, 300 needles", n_live_bytes(st3c), 4 * S, n_live_bytes(st3c)),
+        ("comb_contains", K.comb_contains, K.comb_contains_plain, eng3.sticky_args(st3d),
+         "300 needles, digits corpus: full scan", need3d, 4 * S, need3d),
+        ("comb_contains", K.comb_contains, K.comb_contains_plain, eng3.sticky_args(st3c),
+         "300 needles, config 5 corpus: first match", need3, 4 * S, need3),
+        ("comb_states", K.comb_states, K.comb_states_plain, eng3.states_args(st3c),
+         "config 5, 300 needles", T3 * S, 4 * T3 * S, T3 * S),
     )
     for name, kernel, plain, args, what, sbytes, obytes, ops in rows:
         k, p = kernel(*args), plain(*args)
@@ -624,6 +944,21 @@ def main() -> int:
           f"count {ref30}: B1 dense_count {b1[0]:.4f} / {b1[1]:.4f} ms, B8 comb16_count "
           f"{b8[0]:.4f} / {b8[1]:.4f} ms (turns B1, B8, B8, B1; {card})")
 
+    # B9 against the per-group passes it replaces (the AMT_FUSED_GROUPS=0
+    # control: one B15 or B8 launch per group), on the config-5 corpus.
+    check(eng5.count_staged(st5c) == want5["count_matches"], "grouped count after timing")
+    turns5 = []
+    for label, fn in (("B9", lambda: eng5.stream_counts(st5c)),
+                      ("per-group", lambda: [e.stream_counts(st5c) for e in eng5.engines]),
+                      ("per-group", lambda: [e.stream_counts(st5c) for e in eng5.engines]),
+                      ("B9", lambda: eng5.stream_counts(st5c))):
+        turns5.append((label, timed(fn, KERNEL_RUNS)))
+    b9 = [ms for label, ms in turns5 if label == "B9"]
+    b8s = [ms for label, ms in turns5 if label == "per-group"]
+    print(f"time 1,000 needles, count: B9 over {G5} uniform groups {b9[0]:.4f} / {b9[1]:.4f} ms, "
+          f"per-group passes over {eng5.n_groups} groups {b8s[0]:.4f} / {b8s[1]:.4f} ms (turns B9, "
+          f"per-group, per-group, B9; {card}); host C++ count {host_count_ms:.1f} ms host clock")
+
     # The extraction path's stages after the B6 kernel (bitap step).
     _, bits = K.matchbits(*bitap_eng.bits_args(st))
     flat = bits.reshape(-1)
@@ -640,13 +975,15 @@ def main() -> int:
     compact_ms = (time.perf_counter() - t0) * 1e3 / KERNEL_RUNS
     print(f"time compaction (torch.nonzero over {flat.numel()} words + gather + one copy of "
           f"{wv.shape[1]} words to the host) {compact_ms:.3f} ms host clock ({card})")
-    for label, eng, sst, n in (("bench", bitap_eng, st, got), ("config 2", eng2, st_c2, got2)):
+    for label, eng, sst, n in (("bench", bitap_eng, st, got), ("config 2", eng2, st_c2, got2),
+                               ("config 5, 300, comb32", eng3, st3c, want3["count_matches"]),
+                               ("config 5, grouped", eng5, st5c, want5["count_matches"])):
         t0 = time.perf_counter()
         for _ in range(3):
             eng.matches_arrays_staged(sst)
         extract_ms = (time.perf_counter() - t0) * 1e3 / 3
-        print(f"time all_matches_arrays staged, {label} (B6 + compaction + host expansion of "
-              f"{n} matches) {extract_ms:.3f} ms host clock ({card})")
+        print(f"time all_matches_arrays staged, {label} (kernels + compaction + host expansion "
+              f"of {n} matches) {extract_ms:.3f} ms host clock ({card})")
 
     # name: (source, TPU kernel it replaces, wrapper, the timing of its main path)
     table = {
@@ -661,17 +998,21 @@ def main() -> int:
                             "config 2, digits corpus: full scan"),
         "matchbits_comb16": ("matchbits.cu", "comb16_scan.py:1382", "config 2, comb16 step"),
         "filter_contains": ("filter_contains.cu", "filter_scan.py:191", "config 2"),
+        "comb16_count_grouped": ("comb16_grouped.cu", "comb16_scan.py:682", "config 5"),
+        "comb16_contains_grouped": ("comb16_grouped.cu", "comb16_scan.py:778",
+                                    "config 5, digits corpus: full scan"),
+        "comb_count": ("comb_scan.cu", "comb_scan.py:389", "config 5, 300 needles"),
+        "comb_contains": ("comb_scan.cu", "comb_scan.py:466",
+                          "300 needles, digits corpus: full scan"),
+        "comb_states": ("comb_scan.cu", "comb_scan.py:529", "config 5, 300 needles"),
     }
-    # Launches from the main paths (the comb16 path's B6 launches ran the
-    # comb16 step: they are B13's), and apart from them the controls'.
-    launches = tally(tally({}, bench_main), dense_main)
-    launches.update({n: c16_main.get(n, 0) for n in ("comb16_count", "comb16_contains",
-                                                      "filter_contains")})
-    launches["matchbits_comb16"] = c16_main.get("matchbits", 0)
-    control = tally({}, bench_control)
-    control.update({n: c16_control.get(n, 0) for n in ("comb16_count", "comb16_contains",
-                                                        "filter_contains")})
-    control["matchbits_comb16"] = c16_control.get("matchbits", 0)
+    # Launches counted by the wrappers during the main paths, and apart from
+    # them the controls'.
+    launches, control = {}, {}
+    for path in (bench_main, dense_main, c16_main, c32_main, g_main):
+        tally(launches, path)
+    for path in (bench_control, c16_control, g_control):
+        tally(control, path)
     kernels = []
     for name, (src, where, what) in table.items():
         ms, plain_ms, bms, by = timings[(name, what)]
@@ -693,6 +1034,19 @@ def main() -> int:
                 "bound_ms_first_match"], _ = timings[(name, "config 2 corpus: stops at the first match")]
         if name == "comb16_count":
             entry["ms_30_needles"], entry["ms_30_needles_b1"] = b8, b1
+        if name == "filter_contains":
+            entry["ms_12_words"], entry["plain_ms_12_words"], entry["bound_ms_12_words"], _ = (
+                timings[(name, "config 5, 12 words")])
+        if name == "comb16_count_grouped":
+            entry.update(groups=G5, ms_turns=b9, ms_per_group_control=b8s,
+                         per_group_passes=eng5.n_groups, host_cpp_count_ms=host_count_ms)
+        if name == "comb_contains":
+            entry["ms_first_match"], entry["plain_ms_first_match"], entry[
+                "bound_ms_first_match"], _ = timings[(name, "300 needles, config 5 corpus: first match")]
+        if name == "comb16_contains_grouped":
+            entry["groups"] = Y5
+            entry["ms_first_match"], entry["plain_ms_first_match"], entry[
+                "bound_ms_first_match"], _ = timings[(name, "config 5 corpus: stops at the first match")]
         kernels.append(entry)
 
     print(json.dumps({"kernels": kernels}))

@@ -15,7 +15,8 @@
   (which emulates the kernel exactly), the scalar fold and the port's C++
   engine, on those sets, a NUL-bearing set and 150 needles; and the probe
   windows' fit on seeded sets of 30 to 150 needles.
-* The dispatcher: bitap, then dense, then comb16, then ``CapacityError``.
+* The dispatcher: bitap, then dense, then comb16, then comb32, then
+  ``CapacityError``, on which ``MatchEngine`` builds the grouped engine.
 
 Tolerance: exact equality of every array, count, base and bit.
 """
@@ -33,7 +34,7 @@ from alfred_margaret_tpu.ops.pallas_scan import CapacityError as JaxCapacityErro
 from alfred_margaret_tpu.ops.pallas_scan import _StickyView as JaxStickyView
 from alfred_margaret_tpu.ops.pallas_scan import _boundary_scalars
 
-from alfred_margaret_tpu_torch import convert
+from alfred_margaret_tpu_torch import MatchEngine, convert
 from alfred_margaret_tpu_torch.kernels import comb16_contains, comb16_count, matchbits
 from alfred_margaret_tpu_torch.kernels.comb16 import comb16_contains_plain
 from alfred_margaret_tpu_torch.models import ac
@@ -42,6 +43,7 @@ from alfred_margaret_tpu_torch.native.cpp_engine import CppAcEngine
 from alfred_margaret_tpu_torch.ops import comb16_scan as t16
 from alfred_margaret_tpu_torch.ops import comb_scan as tcomb
 from alfred_margaret_tpu_torch.ops.bitap_scan import BitapAcEngine, plan_bitap
+from alfred_margaret_tpu_torch.ops.grouped import GroupedAcEngine
 from alfred_margaret_tpu_torch.ops.pallas_scan import CapacityError, DenseAcEngine, _StickyView
 from alfred_margaret_tpu_torch.ops.pallas_scan import _zero_inert
 
@@ -441,6 +443,12 @@ def test_dispatcher_sends_large_sets_to_comb16(name):
 
 
 def test_dispatcher_names_the_grouped_engine():
+    # N200 overflows comb16 and takes comb32; in 12 rows nothing holds it,
+    # and the error names the grouped engine, whose two groups fit comb16.
     _, tm = _machines(N200)
-    with pytest.raises(CapacityError, match="ROADMAP Queue A item 12"):
-        tcomb.make_engine(tm, "cpu")
+    assert type(tcomb.make_engine(tm, "cpu")) is tcomb.CombAcEngine
+    assert type(MatchEngine(tm, "device", device="cpu").device_engine()) is tcomb.CombAcEngine
+    with pytest.raises(CapacityError, match="the grouped engine"):
+        tcomb.make_engine(tm, "cpu", max_rows=12)
+    grouped = GroupedAcEngine(tm, device="cpu", max_rows=12)
+    assert [type(e) for e in grouped.engines] == [t16.Comb16AcEngine] * 2

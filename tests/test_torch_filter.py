@@ -182,8 +182,9 @@ def test_filter_wrapper_checks_inputs():
         (0, st.streams[:31].contiguous()),  # odd T
         (0, st.streams.int()),  # dtype
         (1, st.vend[:3]),  # vend shape
-        (2, torch.zeros(4, 128, dtype=torch.int32)),  # V over the kernel's 3 words
+        (2, torch.zeros(4, 128, dtype=torch.int32)),  # btab rows != the words' count
         (3, args[3][:1]),  # seed shape
+        (3, torch.zeros(13, dtype=torch.int32)),  # V over the kernel's 12 words
         (5, torch.zeros(9, dtype=torch.int32)),  # K over the kernel's 8 shorts
     ]
     for i, v in bad:

@@ -11,7 +11,8 @@ not use.)
 The checks of ``chip_smoke.py``'s kernel phase at pytest size: the outputs
 of each kernel equal its plain version's on the same device tensors (exact:
 per-stream counts, sticky entries, hit registers, presence planes, hit
-bitmaps, comb16 final bases, screen planes), the answers equal
+bitmaps, comb16 and comb32 final bases, comb32 packed states, screen planes,
+the grouped kernels' summed counts and hit masks), the answers equal
 ``ac.count_matches``, ``ac.all_matches`` and the port's host C++ engine, the
 wrappers raise on bad inputs, and each launch adds one to the wrapper's
 count.
@@ -29,8 +30,16 @@ from alfred_margaret_tpu_torch.kernels import (
     bitap_presence,
     bitap_presence_plain,
     comb16_contains,
+    comb16_contains_grouped,
+    comb16_contains_grouped_plain,
     comb16_contains_plain,
     comb16_count,
+    comb16_count_grouped,
+    comb_contains,
+    comb_contains_plain,
+    comb_count,
+    comb_states,
+    comb_states_plain,
     dense_contains,
     dense_contains_plain,
     dense_count,
@@ -43,6 +52,9 @@ from alfred_margaret_tpu_torch.models import ac
 from alfred_margaret_tpu_torch.native.cpp_engine import CppAcEngine
 from alfred_margaret_tpu_torch.ops.bitap_scan import BitapAcEngine, plan_bitap
 from alfred_margaret_tpu_torch.ops.comb16_scan import Comb16AcEngine
+from alfred_margaret_tpu_torch.ops.comb_scan import CombAcEngine
+from alfred_margaret_tpu_torch.ops.filter_scan import attach_filter
+from alfred_margaret_tpu_torch.ops.grouped import GroupedAcEngine
 from alfred_margaret_tpu_torch.ops.pallas_scan import DenseAcEngine
 from alfred_margaret_tpu_torch.ops.xla_scan import StreamPlan, build_streams, stage_streams_device
 
@@ -290,3 +302,140 @@ def test_comb16_wrappers_count_launches_and_raise(cuda):
         with pytest.raises(ValueError):
             fn(st.streams.cpu(), *args[1:])
         assert fn.launches == before + 1
+
+
+def _config5(n):
+    """The first ``n`` needles of ``BASELINE.json`` config 5 (drawn as
+    ``alfred_margaret_tpu/bench/configs.py`` draws them)."""
+    rng = np.random.default_rng(7)
+    list("".join(chr(97 + c) for c in rng.integers(0, 26, size=rng.integers(4, 9)))
+         for _ in range(110))
+    return list(dict.fromkeys(
+        "".join(chr(97 + c) for c in rng.integers(0, 26, size=rng.integers(5, 12)))
+        for _ in range(11000)
+    ))[:n]
+
+
+#: Needle sets that overflow one table at ``max_rows`` and engage both fused
+#: kernels: random needles, and NUL-bearing ones (not zero-inert).
+GROUPED_SETS = {
+    "mid": (_random_needles(17, 150), 5),
+    "nul": (_random_needles(9, 60) + ["a\x00b", "\x00\x00x"], 4),
+}
+
+
+@pytest.mark.parametrize("name", sorted(GROUPED_SETS))
+@pytest.mark.parametrize("n_streams", [1024, 1000])
+def test_grouped_kernels_match_plain(cuda, name, n_streams):
+    needles, max_rows = GROUPED_SETS[name]
+    m = _machine(needles)
+    data = np.frombuffer(synth_corpus(needles, 1 << 18, hit_fraction=0.02, seed=8), np.uint8)
+    eng = GroupedAcEngine(m, device=cuda, max_rows=max_rows, n_streams=n_streams)
+    st = eng.stage(data)
+    assert eng._fused_setup() is not None and eng._fused_sticky_setup() is not None
+    counts = eng.stream_counts(st)  # B9
+    torch.cuda.synchronize()
+    assert torch.equal(counts, eng.stream_counts_plain(st))
+    args = eng.sticky_args(st)
+    hits = comb16_contains_grouped(*args)  # B11
+    torch.cuda.synchronize()
+    assert torch.equal(hits, comb16_contains_grouped_plain(*args))
+    host = CppAcEngine(m)
+    assert eng.count_staged(st) == host.count(data) > 0
+    assert eng.contains_staged(st) == (host.first_hit(data) >= 0)
+    ends, vids = eng.matches_arrays_staged(st)
+    hends, hvids = host.matches_arrays(data)
+    assert np.array_equal(ends, hends) and np.array_equal(vids, hvids)
+    assert np.array_equal(eng.value_presence_staged(st, len(needles)),
+                          host.value_presence(data, len(needles)))
+
+
+def test_filter_twelve_words_matches_plain(cuda):
+    m = _machine(_config5(1000))
+    eng = DenseAcEngine(_machine(["zz"]), device=cuda, n_streams=1000,
+                        overlap=m.max_needle_bytes - 1)
+    assert attach_filter(eng, m, max_words=12) and eng._filter_lay.n_words == 12
+    digits = b"0123456789 ,;:!" * 20000
+    for data in (digits, digits[:100000] + b"qwertyuiop" + digits, synth_corpus(
+            _config5(1000)[:500], 1 << 18, hit_fraction=0.01, seed=11)):
+        st = eng.stage(np.frombuffer(data, np.uint8))
+        args = (st.streams, st.vend, *eng._filter_tables.args())
+        planes = filter_contains(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(planes, filter_contains_plain(*args))
+
+
+def test_grouped_wrappers_count_launches_and_raise(cuda):
+    needles, max_rows = GROUPED_SETS["mid"]
+    eng = GroupedAcEngine(_machine(needles), device=cuda, max_rows=max_rows, n_streams=256)
+    st = eng.stage(np.frombuffer(" ".join(needles).encode() * 3, np.uint8))
+    assert eng._fused_sticky_setup() is not None
+    calls = [
+        (comb16_count_grouped, (st.streams, st.warm, st.vend, eng._fused.tables)),
+        (comb16_contains_grouped, eng.sticky_args(st)),
+    ]
+    for fn, args in calls:
+        before = fn.launches
+        fn(*args)
+        assert fn.launches == before + 1
+        with pytest.raises(ValueError):
+            fn(st.streams.cpu(), *args[1:])
+        assert fn.launches == before + 1
+
+
+#: Needle sets that overflow comb16 and take comb32: random needles, config
+#: 5's first 300, counts of up to 5 per state, and NUL-bearing needles (not
+#: zero-inert).
+COMB32_SETS = {
+    "n200": _random_needles(22, 200),
+    "config5_300": _config5(300),
+    "nested": ["a", "aa", "aaa", "aaaa", "aaaaa"] + _random_needles(31, 120),
+    "nul": _random_needles(22, 200)[:150] + ["a\x00b", "\x00\x00x"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(COMB32_SETS))
+@pytest.mark.parametrize("n_streams", [1024, 1000])
+def test_comb32_kernels_match_plain(cuda, name, n_streams):
+    needles = COMB32_SETS[name]
+    m = _machine(needles)
+    data = np.frombuffer(synth_corpus([x for x in needles if "\x00" not in x], 1 << 18,
+                                      hit_fraction=0.02, seed=8), np.uint8)
+    eng = CombAcEngine(m, device=cuda, n_streams=n_streams)
+    st = eng.stage(data)
+    live = torch.from_numpy(st.live_np).to(cuda)
+    assert _kernel_vs_plain(eng, data) > 0  # B15
+    args = eng.sticky_args(st)
+    bases = comb_contains(*args)  # B16
+    torch.cuda.synchronize()
+    assert torch.equal(bases[live], comb_contains_plain(*args)[live])
+    args = eng.states_args(st)
+    pk = comb_states(*args)  # B17
+    torch.cuda.synchronize()
+    assert torch.equal(pk, comb_states_plain(*args))
+    host = CppAcEngine(m)
+    assert eng.contains_staged(st) == (host.first_hit(data) >= 0)
+    ends, vids = eng.matches_arrays_staged(st)
+    hends, hvids = host.matches_arrays(data)
+    assert np.array_equal(ends, hends) and np.array_equal(vids, hvids)
+
+
+def test_comb32_wrappers_count_launches_and_raise(cuda):
+    eng = CombAcEngine(_machine(COMB32_SETS["n200"]), device=cuda, n_streams=256)
+    st = eng.stage(np.frombuffer(" ".join(COMB32_SETS["n200"]).encode() * 3, np.uint8))
+    calls = [
+        (comb_count, eng._kernel_args(st)),
+        (comb_contains, eng.sticky_args(st)),
+        (comb_states, eng.states_args(st)),
+    ]
+    for fn, args in calls:
+        before = fn.launches
+        fn(*args)
+        assert fn.launches == before + 1
+        with pytest.raises(ValueError):
+            fn(st.streams.cpu(), *args[1:])
+        assert fn.launches == before + 1
+    by_step = dict(matchbits.launches_by_step)
+    c16 = Comb16AcEngine(_machine(CONFIG2), device=cuda, n_streams=256)
+    matchbits(*c16.bits_args(c16.stage(np.frombuffer(b"abcd " * 100, np.uint8))))
+    assert matchbits.launches_by_step == {**by_step, "comb16": by_step["comb16"] + 1}

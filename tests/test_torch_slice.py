@@ -4,7 +4,9 @@
 all_matches, all_matches_arrays) on ``device="cpu"`` against the JAX
 package's ``Searcher`` with the scalar ``python`` engine, on every backend of
 the port's ``MatchEngine``, staged and unstaged; the dispatcher's choice of
-bitap, dense or ``CapacityError``; the sticky-table overflow answered by
+bitap, dense, comb32 or ``CapacityError``, on which ``MatchEngine`` builds
+the grouped engine (and refuses a large set with an empty needle); the
+sticky-table overflow answered by
 counting; staged haystack checks and unported operations; and that the port
 never imports ``jax``.  Tolerance: exact equality of every count, flag and
 match list.
@@ -23,12 +25,14 @@ from alfred_margaret_tpu.bench.dataformat import synth_corpus
 from alfred_margaret_tpu.models import ac
 from alfred_margaret_tpu.native.build import NativeUnavailable
 from alfred_margaret_tpu.ops import bitap_scan as jbitap
-from alfred_margaret_tpu.ops.comb_scan import make_pallas_engine
+from alfred_margaret_tpu.ops.comb_scan import CombPallasAcEngine, make_pallas_engine
 
 import alfred_margaret_tpu_torch as port
 from alfred_margaret_tpu_torch import CASE_SENSITIVE, IGNORE_CASE, MatchEngine, Searcher, make_engine
 from alfred_margaret_tpu_torch.kernels import build
 from alfred_margaret_tpu_torch.ops.bitap_scan import BitapAcEngine
+from alfred_margaret_tpu_torch.ops.comb_scan import CombAcEngine
+from alfred_margaret_tpu_torch.ops.grouped import GroupedAcEngine
 from alfred_margaret_tpu_torch.ops.pallas_scan import CapacityError, DenseAcEngine
 from alfred_margaret_tpu_torch.utils import device as device_mod
 from _torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
@@ -39,7 +43,10 @@ TWO_WORDS = ["alpha", "bravo", "charlie", "delta", "echo", "foxtrot", "golf"]
 THREE_WORDS = TWO_WORDS + ["hotel", "india", "juliett", "kilo", "lima", "mike"]
 PACK30 = [bytes([97 + i % 11, 98 + (i * 3) % 9, 99 + i % 7]).decode() for i in range(30)]
 _RNG0 = np.random.default_rng(0)
-BIG = ["".join(chr(97 + c) for c in _RNG0.integers(0, 26, size=8)) for _ in range(300)]
+#: 300 random 8-letter needles, which comb32 holds, and 600, which no
+#: single-pass engine holds.
+LARGE = ["".join(chr(97 + c) for c in _RNG0.integers(0, 26, size=8)) for _ in range(600)]
+BIG = LARGE[:300]
 
 
 def _machine(needles):
@@ -198,8 +205,24 @@ def test_dispatcher_amt_bitap_off(monkeypatch):
 
 
 def test_dispatcher_capacity_error():
-    with pytest.raises(CapacityError, match="item 12"):
-        make_engine(_machine(BIG), "cpu")
+    # 300 needles overflow comb16 and take comb32, as in the JAX package;
+    # for 600, make_engine stays single-pass and raises, and the MatchEngine
+    # then builds the grouped engine.
+    m = _machine(BIG)
+    assert type(make_engine(m, "cpu")) is CombAcEngine
+    assert type(make_pallas_engine(m, interpret=True)) is CombPallasAcEngine
+    m = _machine(LARGE)
+    with pytest.raises(CapacityError, match="the grouped engine"):
+        make_engine(m, "cpu")
+    assert type(MatchEngine(m, "device", device="cpu").device_engine()) is GroupedAcEngine
+
+
+def test_dispatcher_empty_needle_in_a_large_set():
+    # An empty needle's matches depend on every group's states: no grouped
+    # engine, and the JAX package's fallback (its XLA engine) is not ported.
+    me = MatchEngine(_machine([""] + LARGE), "device", device="cpu")
+    with pytest.raises(CapacityError, match="empty needle.*ROADMAP Queue A item 3"):
+        me.device_engine()
 
 
 def test_match_engine_backends_agree():
