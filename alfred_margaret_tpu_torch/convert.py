@@ -7,8 +7,8 @@ table (for counting, for the hit bitmap's dense step, and, from
 mask table (for counting, containsAny, presence and the hit bitmap's bitap
 step), ``Comb16PallasAcEngine`` a class map, comb and aux rows and a
 ``[2, 128]`` root row and segment table per table set (for counting and the
-hit bitmap's comb16 step, and, from ``_sticky_setup()``, for the sticky
-scan), ``CombPallasAcEngine`` a class map, comb rows and default rows per
+hit bitmap's comb16 step, from ``_sticky_setup()`` for the sticky scan,
+and from ``_full_set()`` for the packed states), ``CombPallasAcEngine`` a class map, comb rows and default rows per
 table set (count, sticky, and the full machine's for the packed states),
 the stride-2 screen's ``[V, 128]`` pair table, and
 ``GroupedPallasAcEngine`` the stacked ``[G, ...]`` arrays of its fused count
@@ -92,6 +92,13 @@ def comb16_tables_from_jax(engine, device):
     return count, Comb16StickyTables(**t.__dict__, absorb=int(c["absorb_cb"]))
 
 
+def comb16_full_tables_from_jax(engine, device) -> Comb16Tables:
+    """The full machine's tables of a ``Comb16PallasAcEngine``, its
+    ``_full_set()`` with ``_consts`` of that set, as B12 tables."""
+    c16f, (_, _, cm, comb, aux, rootseg) = engine._full_set()
+    return _c16_tables(cm, comb, aux, rootseg, engine._consts(c16f), c16f, device)
+
+
 def _comb_tables(cm, comb, deft, cmach, device) -> CombTables:
     cm, comb, deft = (np.asarray(x, dtype=np.int32) for x in (cm, comb, deft))
     want = {"classmap": (cm, (2, 128)), "comb": (comb, (cmach.rows_c, 128)),
@@ -152,6 +159,7 @@ def filter_tables_from_jax(engine, device) -> FilterTables:
 __all__ = [
     "bitap_tables_from_jax",
     "comb_tables_from_jax",
+    "comb16_full_tables_from_jax",
     "comb16_group_tables_from_jax",
     "comb16_tables_from_jax",
     "dense_tables_from_jax",

@@ -1,5 +1,5 @@
-// The three-tier 16-bit comb lookup, shared by B8 and B10 (comb16_scan.cu)
-// and by B13, the comb16 step of B6 (matchbits.cu).
+// The three-tier 16-bit comb lookup, shared by B8, B10 and B12
+// (comb16_scan.cu) and by B13, the comb16 step of B6 (matchbits.cu).
 //
 // The tables are those of alfred_margaret_tpu/ops/comb16_scan.py:
 // Comb16Machine: a byte class map, the comb and aux tables of 16-bit entries

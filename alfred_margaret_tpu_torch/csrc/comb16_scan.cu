@@ -1,5 +1,5 @@
-// B8 comb16_count and B10 comb16_contains: the 16-bit three-tier comb DFA
-// scans for Hopper.
+// B8 comb16_count, B10 comb16_contains and B12 comb16_states: the 16-bit
+// three-tier comb DFA scans for Hopper.
 //
 // Replace the Pallas TPU kernels alfred_margaret_tpu/ops/comb16_scan.py:
 // _make_c16_count_kernel (launched from Comb16PallasAcEngine._get_count_fn)
@@ -28,6 +28,14 @@
 // into registers so that the device-memory loads overlap the chain.  Left
 // for later: several streams per thread, and the compare chains of the TPU
 // kernel in place of the root and segment loads.
+//
+// B12 comb16_states replaces _make_c16_states_kernel (launched from
+// Comb16PallasAcEngine._get_states_fn): the same lookup over the FULL
+// machine's tables (the host maps an entry's base back to a state, which the
+// count-minimized tables cannot), from cb = root_cb, and every step t < T
+// writes out[t * S + s] = e & 0xFFFF (the root row's direct entries are
+// 32-bit words) with no [warm, vend) window; the host picks it.  It moves 5
+// bytes per step against B8's one; the lookup chain is B8's.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -113,6 +121,42 @@ __global__ void __launch_bounds__(kThreads) comb16_contains_kernel(
   out[s] = (int32_t)cb;
 }
 
+__global__ void __launch_bounds__(kThreads) comb16_states_kernel(
+    const uint8_t* __restrict__ streams, int T, int S, const int32_t* __restrict__ classmap,
+    const int32_t* __restrict__ comb, int comb_words, const int32_t* __restrict__ aux,
+    int aux_words, const int32_t* __restrict__ root_row, const int32_t* __restrict__ segtable,
+    int bb, int owner_mask, int root_cb, int32_t* __restrict__ out) {
+  extern __shared__ uint32_t smem[];
+  const amt::Comb16 c = amt::load_comb16(smem, classmap, comb, comb_words, aux, aux_words,
+                                         root_row, segtable, bb, owner_mask);
+  __syncthreads();
+
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= S) return;
+  const uint32_t bmask = (1u << bb) - 1u;
+  const uint8_t* col = streams + s;
+  int32_t* dst = out + s;
+  uint32_t cb = (uint32_t)root_cb;
+
+  int t = 0;
+  for (; t + kChunk <= T; t += kChunk) {
+    uint8_t b[kChunk];
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) b[j] = col[(size_t)(t + j) * S];
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) {
+      const uint32_t e = c.entry(cb, b[j]) & 0xFFFFu;
+      cb = e & bmask;
+      dst[(size_t)(t + j) * S] = (int32_t)e;
+    }
+  }
+  for (; t < T; ++t) {
+    const uint32_t e = c.entry(cb, col[(size_t)t * S]) & 0xFFFFu;
+    cb = e & bmask;
+    dst[(size_t)t * S] = (int32_t)e;
+  }
+}
+
 }  // namespace
 
 // B8: out int32 [S].  Launch on `stream` (a cudaStream_t); returns the
@@ -152,5 +196,24 @@ extern "C" int amt_comb16_contains(const void* streams, int T, int S, const void
       (const int32_t*)comb, comb_words, (const int32_t*)aux, aux_words,
       (const int32_t*)root_row, (const int32_t*)segtable, bb, owner_mask, root_cb,
       (uint32_t)absorb, (int32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// B12: out int32 [T, S], the 16-bit entry at every step.  `cbit` only takes
+// part in the check of the field split.  As amt_comb16_count otherwise.
+extern "C" int amt_comb16_states(const void* streams, int T, int S, const void* classmap,
+                                 const void* comb, int comb_words, const void* aux,
+                                 int aux_words, const void* root_row, const void* segtable,
+                                 int bb, int owner_mask, int cbit, int root_cb, void* out,
+                                 void* stream) {
+  if (T < 0 || S <= 0 ||
+      !amt::comb16_args_ok(comb_words, aux_words, bb, owner_mask, cbit, root_cb))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((S + kThreads - 1) / kThreads);
+  comb16_states_kernel<<<grid, kThreads, amt::comb16_smem_bytes(comb_words, aux_words),
+                         (cudaStream_t)stream>>>(
+      (const uint8_t*)streams, T, S, (const int32_t*)classmap, (const int32_t*)comb, comb_words,
+      (const int32_t*)aux, aux_words, (const int32_t*)root_row, (const int32_t*)segtable, bb,
+      owner_mask, root_cb, (int32_t*)out);
   return (int)cudaGetLastError();
 }

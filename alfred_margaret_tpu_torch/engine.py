@@ -8,9 +8,13 @@ CaseSensitive haystacks (``count``, ``contains_any``, ``value_presence``,
 * ``python`` - the scalar oracle of ``models.ac`` (its fold, or a scalar
   state pass);
 * ``cpp``    - the host engine ``native.cpp_engine.CppAcEngine``;
+* ``xla``    - the reference scan engine ``ops.xla_scan.XlaAcEngine`` on
+  ``device`` (torch gathers, one time step at a time; no kernel);
 * ``device`` - the port's kernels on ``device``: the single-pass engine of
   ``ops.comb_scan.make_engine``, else the needle-grouped
-  ``ops.grouped.GroupedAcEngine``;
+  ``ops.grouped.GroupedAcEngine``, else, for a set that no grouping holds
+  (a large set with an empty needle), ``XlaAcEngine``, as the JAX package
+  falls back to its XLA engine;
 * ``auto``   - ``python`` below ``AUTO_PYTHON_THRESHOLD`` bytes, else ``device``.
 
 The device is ``"cuda"`` unless the caller asks for ``"cpu"``, where the
@@ -33,7 +37,7 @@ from .ops.bitap_scan import BitapAcEngine
 from .ops.comb_scan import make_engine
 from .ops.grouped import GroupedAcEngine
 from .ops.pallas_scan import CapacityError, StagedStreams
-from .ops.xla_scan import extract_matches
+from .ops.xla_scan import XlaAcEngine, extract_matches
 from .utils import utf8
 from .utils.case import CASE_SENSITIVE, CaseSensitivity
 from .utils.device import resolve_device
@@ -42,7 +46,7 @@ from .utils.device import resolve_device
 #: (device dispatch overhead dominates below it).
 AUTO_PYTHON_THRESHOLD = 4096
 
-_VALID_ENGINES = ("auto", "python", "cpp", "device")
+_VALID_ENGINES = ("auto", "python", "cpp", "xla", "device")
 
 
 def _has_device(text) -> bool:
@@ -59,7 +63,9 @@ class StagedHaystack:
 
     case: CaseSensitivity
     data: np.ndarray  # scan bytes
-    device: object = None  # backend staging handle (StagedStreams)
+    #: Backend staging handle (StagedStreams); None on the host backends and
+    #: on the reference scan engine, which keeps only the bytes.
+    device: object = None
     #: The machine whose engine staged this haystack (identity-checked so a
     #: staged haystack cannot silently be scanned by a different searcher).
     owner: object = None
@@ -94,25 +100,28 @@ class MatchEngine:
         self.device = resolve_device(device)
         self._device_eng = None
         self._cpp = None
+        self._xla = None
 
     def device_engine(self):
-        """The kernel engine on ``self.device``, built on first use: the
+        """The engine of the ``device`` backend, built on first use: the
         single-pass engine of ``make_engine``, else, for a needle set that none
-        holds, the needle-grouped ``GroupedAcEngine``.  Raises
-        ``CapacityError`` where that does not build either (a machine with an
-        empty needle, which the JAX package scans with its XLA engine)."""
+        holds, the needle-grouped ``GroupedAcEngine``, else (a machine with an
+        empty needle, which no grouping can split) the reference scan engine,
+        as the JAX package does (``alfred_margaret_tpu/engine.py:220-227``)."""
         if self._device_eng is None:
             try:
                 self._device_eng = make_engine(self.machine, self.device)
-            except CapacityError as single:
+            except CapacityError:
                 try:
                     self._device_eng = GroupedAcEngine(self.machine, device=self.device)
-                except CapacityError as e:
-                    raise CapacityError(
-                        f"{e}; such automata need the torch reference scan engine: "
-                        "ROADMAP Queue A item 3"
-                    ) from single
+                except CapacityError:
+                    self._device_eng = self._xla_engine()
         return self._device_eng
+
+    def _xla_engine(self) -> XlaAcEngine:
+        if self._xla is None:
+            self._xla = XlaAcEngine(self.machine, device=self.device)
+        return self._xla
 
     def _cpp_engine(self) -> CppAcEngine:
         if self._cpp is None:
@@ -126,7 +135,8 @@ class MatchEngine:
 
     def _prep(self, text: utf8.TextLike, case: CaseSensitivity):
         """(scan bytes, backend): a haystack staged on the device goes to the
-        ``device`` backend."""
+        ``device`` backend, and the ``device`` backend whose engine is the
+        reference scan engine is the ``xla`` backend."""
         if case is not CASE_SENSITIVE:
             raise NotImplementedError("IgnoreCase is ROADMAP Queue A item 11")
         if isinstance(text, StagedHaystack):
@@ -139,7 +149,12 @@ class MatchEngine:
             data = text.data
         else:
             data = utf8.to_u8(text)
-        return data, "device" if _has_device(text) else self._pick(len(data))
+        if _has_device(text):
+            return data, "device"
+        backend = self._pick(len(data))
+        if backend == "device" and isinstance(self.device_engine(), XlaAcEngine):
+            return data, "xla"
+        return data, backend
 
     def _staged(self, eng, text) -> Optional[StagedStreams]:
         """The device streams of a staged haystack, adopted by ``eng``; None
@@ -163,7 +178,8 @@ class MatchEngine:
 
     def stage(self, text: utf8.TextLike, case: CaseSensitivity) -> StagedHaystack:
         """Prepare a haystack once for repeated scans; on the ``device``
-        backend the streams are staged on the device here."""
+        backend the streams are staged on the device here (the reference
+        scan engine keeps only the bytes, as the JAX package's does)."""
         data, backend = self._prep(text, case)
         staged = StagedHaystack(case=case, data=data, owner=self.machine)
         if backend == "device":
@@ -176,6 +192,8 @@ class MatchEngine:
             return ac.count_matches(self.machine, data, CASE_SENSITIVE)
         if backend == "cpp":
             return self._cpp_engine().count(data)
+        if backend == "xla":
+            return self._xla_engine().count(data)
         eng = self.device_engine()
         st = self._staged(eng, text)
         return eng.count_staged(st) if st is not None else eng.count(data)
@@ -186,6 +204,8 @@ class MatchEngine:
             return bool(ac.run_text(False, lambda _acc, _m: ac.Done(True), self.machine, data))
         if backend == "cpp":
             return self._cpp_engine().first_hit(data) >= 0
+        if backend == "xla":
+            return self._xla_engine().count(data) > 0
         eng = self.device_engine()
         st = self._staged(eng, text)
         try:
@@ -201,6 +221,8 @@ class MatchEngine:
         data, backend = self._prep(text, case)
         if backend == "python":
             ends, value_ids = extract_matches(self.machine, self._python_states(data))
+        elif backend == "xla":
+            ends, value_ids = extract_matches(self.machine, self._xla_engine().final_states(data))
         elif backend == "cpp":
             ends, value_ids = self._cpp_engine().matches_arrays(data)
         else:
@@ -221,6 +243,9 @@ class MatchEngine:
             return ac.presence_of_states(m, states[m.match_count[states] > 0], len(m.values))
         if backend == "cpp":
             return self._cpp_engine().value_presence(data, len(m.values))
+        if backend == "xla":
+            hit = np.flatnonzero(self._xla_engine().state_hits(data))
+            return ac.presence_of_states(m, hit, len(m.values))
         eng = self.device_engine()
         st = self._staged(eng, text)
         if st is None:

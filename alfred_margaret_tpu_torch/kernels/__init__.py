@@ -16,7 +16,14 @@ from .comb import (
     comb_states,
     comb_states_plain,
 )
-from .comb16 import comb16_contains, comb16_contains_plain, comb16_count, comb16_count_plain
+from .comb16 import (
+    comb16_contains,
+    comb16_contains_plain,
+    comb16_count,
+    comb16_count_plain,
+    comb16_states,
+    comb16_states_plain,
+)
 from .comb16_grouped import (
     comb16_contains_grouped,
     comb16_contains_grouped_plain,
@@ -24,7 +31,7 @@ from .comb16_grouped import (
     comb16_count_grouped_plain,
 )
 from .dense_contains import dense_contains, dense_contains_plain
-from .dense_count import dense_count, dense_count_plain
+from .dense_count import dense_count, dense_count_plain, dense_states, dense_states_plain
 from .filter_contains import filter_contains, filter_contains_plain
 from .matchbits import matchbits, matchbits_plain
 
@@ -32,7 +39,7 @@ from .matchbits import matchbits, matchbits_plain
 WRAPPERS = (
     dense_count, bitap_count, dense_contains, bitap_contains, matchbits, bitap_presence,
     comb16_count, comb16_contains, filter_contains, comb16_count_grouped,
-    comb16_contains_grouped, comb_count, comb_contains, comb_states,
+    comb16_contains_grouped, comb_count, comb_contains, comb_states, dense_states, comb16_states,
 )
 
 __all__ = [
@@ -57,10 +64,14 @@ __all__ = [
     "comb16_count_grouped",
     "comb16_count_grouped_plain",
     "comb16_count_plain",
+    "comb16_states",
+    "comb16_states_plain",
     "dense_contains",
     "dense_contains_plain",
     "dense_count",
     "dense_count_plain",
+    "dense_states",
+    "dense_states_plain",
     "filter_contains",
     "filter_contains_plain",
     "matchbits",

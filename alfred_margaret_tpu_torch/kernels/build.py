@@ -73,6 +73,13 @@ def _bind(lib: ctypes.CDLL) -> None:
         i, i,  # packing, state_bits
         p, p,  # out, stream
     ]
+    lib.amt_dense_states.restype = i
+    lib.amt_dense_states.argtypes = [
+        p, i, i,  # streams, T, S
+        p, p, i,  # classmap, table, table_words
+        i, i,  # packing, state_bits
+        p, p,  # out, stream
+    ]
     lib.amt_bitap_count.restype = i
     lib.amt_bitap_count.argtypes = [
         p, i, i,  # streams, T, S
@@ -124,6 +131,13 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, i, i, p,  # streams, T, S, vend
         *comb16,
         i, i, i, i,  # BB, owner_mask, root_cb, absorb
+        p, p,  # out, stream
+    ]
+    lib.amt_comb16_states.restype = i
+    lib.amt_comb16_states.argtypes = [
+        p, i, i,  # streams, T, S
+        *comb16,
+        i, i, i, i,  # BB, owner_mask, CB, root_cb
         p, p,  # out, stream
     ]
     comb = [

@@ -1,9 +1,9 @@
-"""B8 ``comb16_count`` and B10 ``comb16_contains``: the three-tier 16-bit
-comb DFA scans.
+"""B8 ``comb16_count``, B10 ``comb16_contains`` and B12 ``comb16_states``: the
+three-tier 16-bit comb DFA scans.
 
 Wrappers of ``csrc/comb16_scan.cu``, which replaces the Pallas kernels
-``alfred_margaret_tpu/ops/comb16_scan.py:_make_c16_count_kernel`` (B8) and
-``_make_c16_contains_kernel`` (B10).  A CUDA tensor launches the kernel; a CPU
+``alfred_margaret_tpu/ops/comb16_scan.py:_make_c16_count_kernel`` (B8),
+``_make_c16_contains_kernel`` (B10) and ``_make_c16_states_kernel`` (B12).  A CUDA tensor launches the kernel; a CPU
 tensor runs the plain torch version.  Nothing falls back from one to the
 other.
 
@@ -178,9 +178,45 @@ def comb16_contains(streams, vend, classmap, comb, aux, root_row, segtable, BB, 
     return out
 
 
+def comb16_states_plain(streams, classmap, comb, aux, root_row, segtable, BB, owner_mask, CB,
+                        root_cb):
+    """Plain torch version of B12: the 16-bit entry of every step."""
+    T, S = streams.shape
+    p = Plain16(classmap, comb, aux, root_row, segtable, None, BB, owner_mask, CB)
+    cb = torch.full((S,), root_cb, dtype=torch.int64, device=streams.device)
+    out = torch.empty(T, S, dtype=torch.int64, device=streams.device)
+    for t in range(T):
+        out[t] = p.entry(cb, streams[t].long()) & 0xFFFF
+        cb = out[t] & ((1 << BB) - 1)
+    return out.to(torch.int32)
+
+
+def comb16_states(streams, classmap, comb, aux, root_row, segtable, BB, owner_mask, CB, root_cb):
+    """int32 [T, S]: the 16-bit entry (count bit at 15 when ``CB``, base in
+    the low ``BB`` bits) of the state each stream of ``streams`` ([T, S]
+    uint8) enters at every step t, scanned from ``root_cb`` with no emission
+    window.  ``CB`` is only checked with the field split."""
+    check_comb16(streams, classmap, comb, aux, root_row, segtable, None, BB, owner_mask, CB,
+                 root_cb)
+    if on_cpu(streams):
+        return comb16_states_plain(streams, classmap, comb, aux, root_row, segtable, BB,
+                                   owner_mask, CB, root_cb)
+    T, S = streams.shape
+    out = torch.empty(T, S, dtype=torch.int32, device=streams.device)
+    launch(
+        "amt_comb16_states", streams.device,
+        streams.data_ptr(), T, S,
+        classmap.data_ptr(), comb.data_ptr(), comb.numel(), aux.data_ptr(), aux.numel(),
+        root_row.data_ptr(), segtable.data_ptr(), BB, owner_mask, CB, root_cb, out.data_ptr(),
+    )
+    comb16_states.launches += 1
+    return out
+
+
 #: Kernel launches since the last reset (CPU calls do not count).
 comb16_count.launches = 0
 comb16_contains.launches = 0
+comb16_states.launches = 0
 
 __all__ = [
     "Plain16",
@@ -190,4 +226,6 @@ __all__ = [
     "comb16_contains_plain",
     "comb16_count",
     "comb16_count_plain",
+    "comb16_states",
+    "comb16_states_plain",
 ]

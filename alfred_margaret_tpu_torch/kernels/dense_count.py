@@ -1,9 +1,11 @@
-"""B1 ``dense_count``: per-stream match counts of the packed byte-class DFA.
+"""B1 ``dense_count``: per-stream match counts of the packed byte-class DFA,
+and B5 ``dense_states``: its packed entry at every step.
 
-Wrapper of ``csrc/dense_count.cu``, which replaces the Pallas kernel
-``alfred_margaret_tpu/ops/pallas_scan.py:_make_count_kernel``.  A CUDA tensor
-launches the kernel; a CPU tensor runs :func:`dense_count_plain`, the same
-function as a torch loop over time.  Nothing falls back from one to the other.
+Wrappers of ``csrc/dense_count.cu``, which replaces the Pallas kernels
+``alfred_margaret_tpu/ops/pallas_scan.py:_make_count_kernel`` (B1) and
+``_make_states_kernel`` (B5).  A CUDA tensor launches the kernel; a CPU tensor
+runs the plain version, the same function as a torch loop over time.  Nothing
+falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -77,7 +79,41 @@ def dense_count(streams, classmap, table, warm, vend, packing: int, state_bits: 
     return out
 
 
+def dense_states_plain(streams, classmap, table, packing: int, state_bits: int):
+    """Plain torch version of B5: the entry of every step."""
+    T, S = streams.shape
+    cm = classmap.long()
+    tab = table.long() & 0xFFFFFFFF
+    mask = (1 << state_bits) - 1
+    sbase = torch.zeros(S, dtype=torch.int64, device=streams.device)
+    out = torch.empty(T, S, dtype=torch.int64, device=streams.device)
+    for t in range(T):
+        out[t] = lookup_plain(tab, sbase + cm[streams[t].long()], packing)
+        sbase = out[t] & mask
+    return out.to(torch.int32)
+
+
+def dense_states(streams, classmap, table, packing: int, state_bits: int):
+    """int32 [T, S]: the packed entry ``count << state_bits | next_state * k``
+    of the state each stream of ``streams`` ([T, S] uint8) enters at every
+    step t, scanned from the root with no emission window (packing 2: the
+    16-bit entry, zero-extended)."""
+    check_dense(streams, classmap, table, packing, state_bits)
+    if on_cpu(streams):
+        return dense_states_plain(streams, classmap, table, packing, state_bits)
+    T, S = streams.shape
+    out = torch.empty(T, S, dtype=torch.int32, device=streams.device)
+    launch(
+        "amt_dense_states", streams.device,
+        streams.data_ptr(), T, S,
+        classmap.data_ptr(), table.data_ptr(), table.numel(), packing, state_bits, out.data_ptr(),
+    )
+    dense_states.launches += 1
+    return out
+
+
 #: Kernel launches since the last reset (CPU calls do not count).
 dense_count.launches = 0
+dense_states.launches = 0
 
-__all__ = ["dense_count", "dense_count_plain", "lookup_plain"]
+__all__ = ["dense_count", "dense_count_plain", "dense_states", "dense_states_plain", "lookup_plain"]

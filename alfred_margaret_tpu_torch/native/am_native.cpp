@@ -400,6 +400,31 @@ int64_t am_scan_count_mt(const int32_t* delta, const int32_t* match_count,
   return total;
 }
 
+// Multithreaded per-position states (overlap decomposition + interleaving).
+void am_scan_states_mt(const int32_t* delta, int32_t n_states,
+                       const uint8_t* data, int64_t n, int64_t overlap,
+                       int32_t n_threads, int32_t* out_states) {
+  (void)n_states;
+  if (n_threads <= 1 || n < (int64_t)n_threads * 4096) {
+    scan_interleaved(delta, data, 0, n, overlap,
+                     [&](int, int64_t i, int32_t s) { out_states[i] = s; });
+    return;
+  }
+  int64_t chunk = (n + n_threads - 1) / n_threads;
+  std::vector<std::thread> threads;
+  for (int t = 0; t < n_threads; t++) {
+    threads.emplace_back([&, t]() {
+      int64_t emit_begin = (int64_t)t * chunk;
+      int64_t emit_end = emit_begin + chunk;
+      if (emit_end > n) emit_end = n;
+      if (emit_begin >= n) return;
+      scan_interleaved(delta, data, emit_begin, emit_end, overlap,
+                       [&](int, int64_t i, int32_t s) { out_states[i] = s; });
+    });
+  }
+  for (auto& th : threads) th.join();
+}
+
 // Any-hit scan: the host analogue of the reference's `Done True`
 // early-exit fold (containsAny, Searcher.hs:156-164).  Parallel chunks
 // with overlap warm-up; every thread aborts as soon as any thread finds a

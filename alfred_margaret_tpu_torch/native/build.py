@@ -50,6 +50,12 @@ def _bind(lib: ctypes.CDLL) -> None:
     ]
     lib.am_scan_count_mt.restype = i64
     lib.am_scan_count_mt.argtypes = [p, p, i32, p, i64, i64, i32]
+    lib.am_scan_states_mt.restype = None
+    lib.am_scan_states_mt.argtypes = [
+        p, i32,  # delta, n_states
+        p, i64, i64, i32,  # data, n, overlap, n_threads
+        p,  # out_states (int32)
+    ]
     lib.am_scan_count_class_mt.restype = i64
     lib.am_scan_count_class_mt.argtypes = [
         p, p, p, i64, i64, i32,  # tab, cls, data, n, overlap, n_threads

@@ -1,8 +1,9 @@
 """ctypes-backed host engine over the dense DFA tables.
 
 The port's copy of the parts of ``alfred_margaret_tpu/native/cpp_engine.py``
-it calls: ``CppAcEngine`` (count, first hit, value presence and match
-arrays, with the lazily built byte-class tables) and ``_default_threads``.
+it calls: ``CppAcEngine`` (count, per-position states, first hit, value
+presence and match arrays, with the lazily built byte-class tables) and
+``_default_threads``.
 The same table layout and emission semantics as the device kernels (match
 counts per post-byte state), so results are bit-identical: the port's
 ``cpp`` backend, and the reference every device answer is held against.
@@ -112,6 +113,20 @@ class CppAcEngine:
             self.delta.ctypes.data, self.match_count.ctypes.data, self.machine.n_states,
             data.ctypes.data, len(data), self.overlap, nt,
         ))
+
+    def final_states(self, text: utf8.TextLike, n_threads: Optional[int] = None) -> np.ndarray:
+        """int32 [n]: the state after every byte of ``text`` (the host
+        oracle of the engines' ``final_states``)."""
+        data = np.ascontiguousarray(utf8.to_u8(text))
+        out = np.empty(len(data), dtype=np.int32)
+        if len(data) == 0:
+            return out
+        nt = self.n_threads if n_threads is None else n_threads
+        self.lib.am_scan_states_mt(
+            self.delta.ctypes.data, self.machine.n_states, data.ctypes.data, len(data),
+            self.overlap, nt, out.ctypes.data,
+        )
+        return out
 
     def matches_arrays(self, text: utf8.TextLike, n_threads: Optional[int] = None):
         """(ends one past each match, value ids) in emission order: a

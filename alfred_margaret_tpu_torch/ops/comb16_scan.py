@@ -1,5 +1,5 @@
-"""16-bit three-tier comb engine over the hand-written CUDA kernels B8, B10
-and B13: the mid-tier of needle sets too large for the dense table.
+"""16-bit three-tier comb engine over the hand-written CUDA kernels B8, B10,
+B12 and B13: the mid-tier of needle sets too large for the dense table.
 
 Counterpart of ``alfred_margaret_tpu/ops/comb16_scan.py``: ``Comb16Machine``,
 ``_unpack16``, ``_pack16``, ``MAX_COUNT16``, ``_field_split``,
@@ -25,11 +25,11 @@ and a state is carried as its base.  Counts of 2 and more ride in base
 ranges: ``count = count_bit + sum(base >= r for r in count_ranges)``.  The
 count, contains and hit-bitmap kernels run on tables of the count-minimized
 machine (``models/minimize.py``); match extraction replays the full machine
-on the host, as the dense engine does.  The TPU-only parts are left out: the
-compare chains that replace the root and segment gathers
-(``AMT_C16_CHAINS``), the ``fold``/``wpairs`` class lookups, the ``reps``
-re-scan grid and the boundary-tile split.  The packed-states kernel B12 is
-not ported yet (ROADMAP item 10).
+on the host, as the dense engine does, and the packed-states kernel B12
+scans the tables of the full machine, whose bases name states.  The
+TPU-only parts are left out: the compare chains that replace the root and
+segment gathers (``AMT_C16_CHAINS``), the ``fold``/``wpairs`` class lookups,
+the ``reps`` re-scan grid and the boundary-tile split.
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..kernels.comb16 import comb16_contains, comb16_count, comb16_count_plain
+from ..kernels.comb16 import comb16_contains, comb16_count, comb16_count_plain, comb16_states
 from ..models.ac import AcMachine
 from ..models.minimize import count_minimized, minimize_sticky
 from .comb_scan import _center_candidates, _choose_classes, _mism_matrix
@@ -745,18 +745,17 @@ class Comb16GroupTables:
 class Comb16AcEngine(DenseAcEngine):
     """``DenseAcEngine`` over comb16 tables: counts through B8, containsAny
     through the stride-2 screen (B14) and then B10, the hit bitmap through
-    B6 with the comb16 step (B13).  ``max_rows`` and ``overlap`` are the
-    dense engine's keywords; ``max_rows`` bounds both builds.
+    B6 with the comb16 step (B13), per-position states through B12.
+    ``max_rows`` and ``overlap`` are the dense engine's keywords;
+    ``max_rows`` bounds both builds.
 
-    Staging, stream plans, ``adopt_staged`` and the extraction tail are the
-    dense engine's.  Two table sets are built, as in the JAX engine: ``c16``
-    from the count-minimized machine, which the kernels scan, and
-    ``c16_full`` from the full machine, which the packed-states kernel B12
-    will scan; building both here makes a machine whose full table does not
+    Staging, stream plans, ``adopt_staged``, the extraction routes and the
+    ``final_states`` stitch are the dense engine's.  Two table sets are
+    built, as in the JAX engine: ``c16`` from the count-minimized machine,
+    which B8, B10 and B13 scan, and ``c16_full`` from the full machine, which
+    B12 scans; building both here makes a machine whose full table does not
     fit fail at construction.  Raises ``CapacityError`` when a build does
     not fit."""
-
-    STATES_KERNEL = "B12"
 
     def __init__(self, machine: AcMachine, *, device="cuda", n_streams: int = 32768,
                  t_tile: int = 128, max_rows: int = MAX_ROWS, overlap: Optional[int] = None):
@@ -770,6 +769,9 @@ class Comb16AcEngine(DenseAcEngine):
             except CapacityError:
                 pass
         self.tables = Comb16Tables.from_machine(self.c16, self.device)
+        self.full_tables = (self.tables if self.c16 is self.c16_full
+                            else Comb16Tables.from_machine(self.c16_full, self.device))
+        self._inv_base = torch.from_numpy(self.c16_full.inv_base).to(self.device)
         self._sticky: Optional[Comb16StickyTables] = None
         attach_filter(self, machine)
 
@@ -823,6 +825,31 @@ class Comb16AcEngine(DenseAcEngine):
         """Arguments of ``matchbits``: the comb16 step (B13) on the
         count-minimized tables."""
         return (st.streams, st.warm, st.vend, "comb16", *self.tables.args())
+
+    # -- per-position states: kernel B12 on the full machine's tables ---------
+
+    def states_args(self, st: StagedStreams) -> tuple:
+        """Arguments of ``comb16_states`` (or its plain version)."""
+        t = self.full_tables
+        return (st.streams, t.classmap, t.comb, t.aux, t.root_row, t.segtable, t.BB,
+                t.owner_mask, t.CB, t.root_cb)
+
+    def packed_states(self, st: StagedStreams) -> torch.Tensor:
+        """int32 [T, S] on the device: the full set's 16-bit entry of every
+        step (B12)."""
+        return comb16_states(*self.states_args(st))
+
+    @property
+    def count_shift(self) -> int:
+        """The count bit of the full set's entries.  The JAX engine masks
+        with the count-minimized set's (``comb16_scan.py:1018``); the two are
+        equal, since CB is 0 or 1 for both sets, 1 exactly where some state
+        matches, and minimizing keeps every state's count."""
+        return self.c16_full.count_shift
+
+    def _pk_states(self, pk: torch.Tensor) -> torch.Tensor:
+        """States of the full set's entries: its inverse base table."""
+        return self._inv_base[pk.long() & self.c16_full.base_mask]
 
 
 __all__ = [

@@ -20,7 +20,8 @@ the count-minimized machine's tables, and the packed-states kernel B17 the
 full machine's, whose bases name the states; as in the JAX package this
 engine has no hit bitmap, so ``match_positions_staged`` runs B15 (whose
 count, where zero, skips the rest) and B17, and compacts B17's entries on
-the device.  The TPU-only parts are left out: the ``reps`` re-scan grid, the
+the device (``pallas_scan.compact_packed``); ``final_states`` stitches B17's
+entries.  The TPU-only parts are left out: the ``reps`` re-scan grid, the
 ``fold``/``wpairs`` class lookups and the boundary-tile split.
 
 The dispatcher.  The JAX package ranks its engines by the TPU's table
@@ -405,7 +406,8 @@ class CombStickyTables(CombTables):
 
 class CombAcEngine(DenseAcEngine):
     """``DenseAcEngine`` over comb32 tables: counts through B15, containsAny
-    through B16, match positions through B15 and B17.  ``max_rows`` and
+    through B16, match positions through B15 and B17, per-position states
+    through B17.  ``max_rows`` and
     ``overlap`` are the dense engine's keywords; ``max_rows`` bounds both
     builds.
 
@@ -415,8 +417,6 @@ class CombAcEngine(DenseAcEngine):
     full machine, which B17 scans; building both here makes a machine whose
     full table does not fit fail at construction.  Raises ``CapacityError``
     when a build does not fit."""
-
-    STATES_KERNEL = "B17"
 
     def __init__(self, machine: AcMachine, *, device="cuda", n_streams: int = 32768,
                  t_tile: int = 128, max_rows: int = MAX_ROWS, overlap: Optional[int] = None):
@@ -432,6 +432,7 @@ class CombAcEngine(DenseAcEngine):
         self.tables = CombTables.from_machine(self.comb, self.device)
         self.full_tables = (self.tables if self.comb is self.comb_full
                             else CombTables.from_machine(self.comb_full, self.device))
+        self._inv_base = torch.from_numpy(self.comb_full.inv_base).to(self.device)
         self._sticky: Optional[CombStickyTables] = None
 
     # -- counting: kernel B15 ------------------------------------------------
@@ -473,7 +474,7 @@ class CombAcEngine(DenseAcEngine):
         """Comb32 keeps the one-shot scan, as in the JAX package."""
         return self.contains_staged(st)
 
-    # -- allMatches and containsAll: the packed states (kernel B17) ---------
+    # -- states, allMatches and containsAll: the packed states (kernel B17) --
 
     def bits_args(self, st: StagedStreams) -> tuple:
         """Comb32 has no hit-bitmap step, as in the JAX package."""
@@ -484,29 +485,23 @@ class CombAcEngine(DenseAcEngine):
         machine's tables."""
         return (st.streams, *self.full_tables.args())
 
-    def match_positions_staged(self, st: StagedStreams) -> Tuple[np.ndarray, np.ndarray]:
-        """(end positions ascending, entered states) of every match, int64.
+    def packed_states(self, st: StagedStreams) -> torch.Tensor:
+        """int32 [T, S] on the device: the full machine's packed entry of
+        every step (B17)."""
+        return comb_states(*self.states_args(st))
 
-        B15 counts the matches first, as the JAX engine does to size its
-        compaction; where there are none, nothing else runs.  Else B17 writes
-        every step's packed entry; the entries whose count is non-zero inside
-        each stream's ``[warm, vend)`` are found on the device and come to
-        the host with their flat indices in one copy, and the full machine's
-        inverse base table names their states."""
-        if self.count_staged(st) == 0:
-            return np.zeros(0, np.int64), np.zeros(0, np.int64)
-        pk = comb_states(*self.states_args(st))
-        T, S = pk.shape
-        t = torch.arange(T, dtype=torch.int32, device=pk.device).unsqueeze(1)
-        hit = ((pk >> COUNT_SHIFT) > 0) & (t >= st.warm.unsqueeze(0)) & (t < st.vend.unsqueeze(0))
-        flat = pk.reshape(-1)
-        gi = torch.nonzero(hit.reshape(-1)).squeeze(1)
-        gi, vals = torch.stack([gi, flat[gi].long()]).cpu().numpy()
-        s = gi % S
-        pos = s * st.plan.emit_len + (gi // S - st.warm_np[s].astype(np.int64)) + 1
-        states = self.comb_full.inv_base[vals & BASE_MASK].astype(np.int64)
-        order = np.argsort(pos, kind="stable")
-        return pos[order], states[order]
+    #: The lowest bit of a packed entry's count field.
+    count_shift = COUNT_SHIFT
+
+    def _pk_states(self, pk: torch.Tensor) -> torch.Tensor:
+        """States of the full machine's entries: its inverse base table."""
+        return self._inv_base[pk.long() & BASE_MASK]
+
+    def match_positions_staged(self, st: StagedStreams) -> Tuple[np.ndarray, np.ndarray]:
+        """(end positions ascending, entered states) of every match, int64:
+        always through the packed states (B15, then B17 where it counts
+        matches), as comb32 has no bitmap step."""
+        return self.match_positions_packed(st)
 
 
 def plan_pallas(machine, max_rows: int = MAX_ROWS):

@@ -1,4 +1,4 @@
-"""Dense DFA engine over the hand-written CUDA kernels B1, B3 and B6.
+"""Dense DFA engine over the hand-written CUDA kernels B1, B3, B5 and B6.
 
 Counterpart of ``alfred_margaret_tpu/ops/pallas_scan.py``:
 ``CapacityError``, ``_zero_inert``, ``CompressedMachine.from_machine``,
@@ -7,12 +7,13 @@ Counterpart of ``alfred_margaret_tpu/ops/pallas_scan.py``:
 ``tests/test_torch_layout.py`` pins the copies to the originals), and
 ``DenseAcEngine`` takes the place of ``PallasAcEngine`` for ``stage``,
 ``adopt_staged``, counting (B1), containsAny over the sticky view (B3, with
-the early-exit segments) and match extraction through the hit bitmap (B6).
-The TPU-only parts are left out: the ``reps`` re-scan grid, the
-``defer``/``nomask``/``fold``/``wpairs`` variants, which shave vector
-operations on the TPU, and the two-level compaction with its capacity
-retries, which saved relay round trips.  The packed-states kernel (B5) is
-not ported yet: ROADMAP item 10.
+the early-exit segments), per-position states (B5: ``final_states``) and
+match extraction, through the hit bitmap (B6) or, without the host corpus
+or with ``t_tile % 32 != 0``, through the packed states (B1 to size it, then
+B5 and ``compact_packed``).  The TPU-only parts are left out: the ``reps``
+re-scan grid, the ``defer``/``nomask``/``fold``/``wpairs`` variants, which
+shave vector operations on the TPU, and the compactions' capacity retries,
+which saved relay round trips.
 
 The automaton is compressed to k byte classes and packed into
 ``packed[state * k + cls] = count << state_bits | next_state * k`` so that a
@@ -28,13 +29,13 @@ import numpy as np
 import torch
 
 from ..kernels.dense_contains import dense_contains
-from ..kernels.dense_count import dense_count, dense_count_plain
+from ..kernels.dense_count import dense_count, dense_count_plain, dense_states
 from ..kernels.matchbits import matchbits
 from ..models.ac import AcMachine
 from ..native.cpp_engine import _default_threads
 from ..utils import utf8
 from ..utils.device import resolve_device
-from .xla_scan import StreamPlan, expand_hits, stage_streams_device
+from .xla_scan import StreamPlan, emission_index, expand_hits, stage_streams_device
 
 #: Maximum packed-table rows of 128 int32 entries (24 KiB: the B1 kernel keeps
 #: the table in shared memory).  The value is the JAX package's, so both
@@ -233,8 +234,27 @@ class StagedStreams:
     vend_np: np.ndarray  # int32 [S], host copy of ``vend``
     #: Host reference to the raw corpus bytes: match extraction replays the
     #: bytes before each hit from it to recover the hit's state (None: no
-    #: host corpus, and extraction needs B5).
+    #: host corpus, and extraction goes through the packed states).
     data_np: Optional[np.ndarray]
+
+
+def compact_packed(pk: torch.Tensor, st: StagedStreams, count_shift: int, decode):
+    """(end positions ascending, entered states), int64, of every match in
+    the packed entries ``pk`` ([T, S] int32, a count field from bit
+    ``count_shift`` up): the entries with a non-zero count inside each
+    stream's ``[warm, vend)`` are found on the device (``torch.nonzero``),
+    ``decode`` maps them to states there, and flat indices and states come to
+    the host in one copy.  The port of ``_get_extract_fn``
+    (``pallas_scan.py:1077``), without its fixed capacity."""
+    T, S = pk.shape
+    t = torch.arange(T, dtype=torch.int32, device=pk.device).unsqueeze(1)
+    hit = ((pk >> count_shift) > 0) & (t >= st.warm.unsqueeze(0)) & (t < st.vend.unsqueeze(0))
+    gi = torch.nonzero(hit.reshape(-1)).squeeze(1)
+    gi, states = torch.stack([gi, decode(pk.reshape(-1)[gi]).long()]).cpu().numpy()
+    s = gi % S
+    pos = s * st.plan.emit_len + (gi // S - st.warm_np[s].astype(np.int64)) + 1
+    order = np.argsort(pos, kind="stable")
+    return pos[order], states[order]
 
 
 class DenseAcEngine:
@@ -249,9 +269,6 @@ class DenseAcEngine:
     staging serves them all).  Raises ``CapacityError`` when the packed
     table exceeds ``max_rows`` rows.
     """
-
-    #: The packed-states kernel that extraction without the host corpus needs.
-    STATES_KERNEL = "B5"
 
     def __init__(self, machine: AcMachine, *, device="cuda", n_streams: int = 32768,
                  t_tile: int = 128, max_rows: int = MAX_ROWS, overlap: Optional[int] = None):
@@ -393,7 +410,52 @@ class DenseAcEngine:
             self._any_absorbed(o, st.live_np[k * seg : (k + 1) * seg]) for k, o in enumerate(outs)
         )
 
-    # -- allMatches and containsAll: the hit bitmap (kernel B6) ---------------
+    # -- per-position states: the packed entries (kernel B5) -----------------
+
+    def states_args(self, st: StagedStreams) -> tuple:
+        """Arguments of ``dense_states`` (or its plain version)."""
+        t = self.tables
+        return (st.streams, t.classmap, t.table, t.packing, t.state_bits)
+
+    def packed_states(self, st: StagedStreams) -> torch.Tensor:
+        """int32 [T, S] on the device: the packed entry of every step (B5)."""
+        return dense_states(*self.states_args(st))
+
+    @property
+    def count_shift(self) -> int:
+        """The lowest bit of a packed entry's count field."""
+        return self.comp.state_bits
+
+    def _pk_states(self, pk: torch.Tensor) -> torch.Tensor:
+        """Entered states of packed entries ``pk`` (on the device)."""
+        return (pk.long() & self.comp.state_mask) // self.comp.k
+
+    def final_states_staged(self, st: StagedStreams) -> np.ndarray:
+        """int32 [n]: the state after every corpus byte.  The packed entries
+        of each stream's emission window are gathered in corpus order on the
+        device and come to the host in one copy."""
+        if st.plan.n == 0:
+            return np.zeros(0, dtype=np.int32)
+        pk = self.packed_states(st).reshape(-1)[emission_index(st.plan, st.warm)]
+        return self._pk_states(pk).to(torch.int32).cpu().numpy()
+
+    def final_states(self, text: utf8.TextLike) -> np.ndarray:
+        data = utf8.to_u8(text)
+        if len(data) == 0:
+            return np.zeros(0, dtype=np.int32)
+        return self.final_states_staged(self.stage(data))
+
+    def match_positions_packed(self, st: StagedStreams) -> Tuple[np.ndarray, np.ndarray]:
+        """``match_positions_staged`` through the packed states, which needs
+        no host corpus: the engine's count kernel runs first, as the JAX
+        engine's does to size its compaction, and where it counts nothing,
+        nothing else runs; else the packed-states kernel and
+        ``compact_packed``."""
+        if self.count_staged(st) == 0:
+            return np.zeros(0, np.int64), np.zeros(0, np.int64)
+        return compact_packed(self.packed_states(st), st, self.count_shift, self._pk_states)
+
+    # -- allMatches and containsAll: the hit bitmap (B6) or the packed states --
 
     def bits_args(self, st: StagedStreams) -> tuple:
         """Arguments of ``matchbits`` (or its plain version): the dense
@@ -404,17 +466,17 @@ class DenseAcEngine:
     def match_positions_staged(self, st: StagedStreams) -> Tuple[np.ndarray, np.ndarray]:
         """(end positions ascending, entered states) of every match, int64.
 
-        One B6 scan writes the hit bitmap; ``torch.nonzero`` over its words
-        and a gather of the non-zero words run on the device, and their
+        Where the staging holds its host corpus and ``t_tile`` is a multiple
+        of 32, one B6 scan writes the hit bitmap; ``torch.nonzero`` over its
+        words and a gather of the non-zero words run on the device, and their
         indices and values come to the host in one copy.  The host expands
         the bits to positions inside each stream's ``[warm, vend)`` and
         replays the corpus bytes before each position to recover its state.
+        Else ``match_positions_packed``, as in the JAX package
+        (``pallas_scan.py:1519``, ``:1431``).
         """
         if st.data_np is None or self.t_tile % 32:
-            raise NotImplementedError(
-                "match extraction without the host corpus, or with t_tile % 32 != 0, "
-                f"needs the packed-states kernel: ROADMAP item 10 ({self.STATES_KERNEL})"
-            )
+            return self.match_positions_packed(st)
         _, bits = matchbits(*self.bits_args(st))
         S = bits.shape[1]
         flat = bits.reshape(-1)
@@ -538,6 +600,7 @@ __all__ = [
     "DenseTables",
     "StagedStreams",
     "StickyTables",
+    "compact_packed",
     "expand_hit_bits",
     "states_at_positions",
 ]

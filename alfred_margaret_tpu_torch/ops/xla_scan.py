@@ -1,10 +1,13 @@
-"""Stream layout: a corpus cut into overlap-warmed streams, staged on a device.
+"""Stream layout: a corpus cut into overlap-warmed streams, staged on a device;
+and the reference scan engine, ``XlaAcEngine``.
 
 Counterpart of ``alfred_margaret_tpu/ops/xla_scan.py`` (``StreamPlan``,
-``_stream_validity``, ``build_streams``, ``stage_streams_device``,
-``expand_hits``, ``extract_matches``).  That module imports ``jax`` at the
-top, so the numpy helpers are copied here (``tests/test_torch_layout.py``
-pins each copy to its original) and the device staging is redone in torch.
+``_round_up``, ``plan_streams``, ``_stream_validity``, ``build_streams``,
+``stage_streams_device``, ``XlaAcEngine``, ``expand_hits``,
+``extract_matches``).  That module imports ``jax`` at the top, so the numpy
+helpers are copied here (``tests/test_torch_layout.py`` pins each copy to its
+original), and the device staging and the engine's ``lax.scan`` loops are
+redone in torch.
 
 Layout: one haystack is split into S streams of L emission bytes, each
 preceded by K = max_needle_bytes - 1 warm-up bytes replayed from the previous
@@ -17,14 +20,21 @@ only.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..utils import utf8
+from ..utils.device import resolve_device
+
 
 def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def _round_up(x: int, m: int) -> int:
+    return _ceil_div(x, m) * m
 
 
 @dataclass(frozen=True)
@@ -36,6 +46,35 @@ class StreamPlan:
     emit_len: int  # L: emission bytes per stream (last stream may emit less)
     overlap: int  # K: warm-up bytes (max_needle_bytes - 1)
     time_len: int  # T >= K + L, padded stream length
+
+
+def plan_streams(
+    n: int,
+    overlap: int,
+    n_streams: Optional[int] = None,
+    max_streams: int = 1024,
+    min_emit: int = 512,
+) -> StreamPlan:
+    """The reference scan engine's stream decomposition of an ``n``-byte
+    input: as many streams as ``max_streams`` allows while each emits at
+    least ``min_emit`` bytes and the warm-up stays under ~12.5% of the
+    emission (the kernel engines plan their own, ``DenseAcEngine._plan``)."""
+    if n <= 0:
+        return StreamPlan(n=n, n_streams=1, emit_len=1, overlap=overlap, time_len=1 + overlap)
+    if n_streams is None:
+        by_overlap = n // max(1, 8 * overlap) if overlap > 0 else max_streams
+        n_streams = int(min(max_streams, max(1, min(n // min_emit, by_overlap))))
+        if n_streams >= 8:
+            n_streams = max(8, (n_streams // 8) * 8)
+    n_streams = max(1, min(n_streams, n))
+    emit_len = _ceil_div(n, n_streams)
+    return StreamPlan(
+        n=n,
+        n_streams=n_streams,
+        emit_len=emit_len,
+        overlap=overlap,
+        time_len=emit_len + overlap,
+    )
 
 
 def _stream_validity(n: int, S: int, L: int, K: int):
@@ -113,6 +152,96 @@ def stage_streams_device(data: np.ndarray, plan: StreamPlan, device: torch.devic
     return streams, warm_start, valid_end
 
 
+def emission_index(plan: StreamPlan, warm: torch.Tensor) -> torch.Tensor:
+    """int64 [n] on ``warm``'s device: the flat ``[T, S]`` index of the step
+    that emits each corpus position (stream ``i // L``, step ``warm + i %
+    L``), the stitch of the JAX engines' ``final_states``."""
+    i = torch.arange(plan.n, dtype=torch.int64, device=warm.device)
+    s = i // plan.emit_len
+    t = warm.long()[s] + (i - s * plan.emit_len)
+    return t * plan.n_streams + s
+
+
+class XlaAcEngine:
+    """The reference scan engine: the full byte DFA over ``plan_streams``'s
+    streams on ``device``, one gather of ``delta[state * 256 + byte]`` per
+    time step for all streams at once.
+
+    The port of the JAX engine (``xla_scan.py:269``), whose scans are
+    ``lax.scan`` loops outside any Pallas kernel (``_scan_count``,
+    ``_scan_states``, ``_scan_state_hits``): here a Python loop launches a
+    few torch ops per step, so its wall grows with the stream length.  It
+    holds any machine, whatever its size, and serves the sets that no kernel
+    table and no needle grouping holds (a large set with an empty needle).
+    ``bucket`` rounds the emission length up to a multiple of 512, as the
+    JAX engine does to bound its compiled shapes, so both scan the same
+    streams."""
+
+    def __init__(self, machine, max_streams: int = 1024, bucket: bool = True, *, device="cuda"):
+        self.machine = machine
+        self.device = resolve_device(device)
+        self.delta = torch.from_numpy(
+            np.ascontiguousarray(machine.delta, dtype=np.int64).reshape(-1)).to(self.device)
+        self.match_count = torch.from_numpy(
+            np.asarray(machine.match_count, dtype=np.int64)).to(self.device)
+        self.n_states = int(machine.delta.shape[0])
+        self.overlap = max(0, machine.max_needle_bytes - 1)
+        self.max_streams = max_streams
+        self.bucket = bucket
+
+    def _streams(self, data: np.ndarray):
+        """(plan, streams [T, S] as int64 on the device, the [T, S] emission
+        mask)."""
+        plan = plan_streams(len(data), self.overlap, None, self.max_streams)
+        if self.bucket:
+            emit = max(1, _round_up(plan.emit_len, 512))
+            plan = StreamPlan(n=plan.n, n_streams=plan.n_streams, emit_len=emit,
+                              overlap=plan.overlap, time_len=emit + plan.overlap)
+        streams, warm, vend = stage_streams_device(data, plan, self.device)
+        t = torch.arange(plan.time_len, device=self.device).unsqueeze(1)
+        warm = torch.from_numpy(warm).to(self.device)
+        valid = (t >= warm) & (t < torch.from_numpy(vend).to(self.device))
+        return plan, streams.long(), valid, warm
+
+    def _scan(self, streams: torch.Tensor):
+        """Yield the [S] states after each time step, from the root."""
+        states = torch.zeros(streams.shape[1], dtype=torch.int64, device=self.device)
+        for row in streams:
+            states = self.delta[states * 256 + row]
+            yield states
+
+    def count(self, text: utf8.TextLike) -> int:
+        data = utf8.to_u8(text)
+        if len(data) == 0:
+            return 0
+        _, streams, valid, _ = self._streams(data)
+        counts = torch.zeros(streams.shape[1], dtype=torch.int64, device=self.device)
+        for states, v in zip(self._scan(streams), valid):
+            counts += torch.where(v, self.match_count[states], 0)
+        return int(counts.sum())
+
+    def final_states(self, text: utf8.TextLike) -> np.ndarray:
+        """int32 [n]: the DFA state after each byte of ``text``."""
+        data = utf8.to_u8(text)
+        if len(data) == 0:
+            return np.zeros(0, dtype=np.int32)
+        plan, streams, _, warm = self._streams(data)
+        states_ts = torch.stack(list(self._scan(streams)))
+        return states_ts.reshape(-1)[emission_index(plan, warm)].to(torch.int32).cpu().numpy()
+
+    def state_hits(self, text: utf8.TextLike) -> np.ndarray:
+        """bool [n_states]: which states were entered at emission positions
+        (the root never counts)."""
+        hits = torch.zeros(self.n_states, dtype=torch.bool, device=self.device)
+        data = utf8.to_u8(text)
+        if len(data) > 0:
+            _, streams, valid, _ = self._streams(data)
+            for states, v in zip(self._scan(streams), valid):
+                hits[torch.where(v, states, 0)] = True
+            hits[0] = False
+        return hits.cpu().numpy()
+
+
 def expand_hits(machine, ends: np.ndarray, hit_states: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """Expand hit (end-position, state) pairs into (ends, value_ids) with
     CSR (emission) order within a position, the scalar fold's ordering.
@@ -146,8 +275,11 @@ def extract_matches(machine, states: np.ndarray) -> Tuple[np.ndarray, np.ndarray
 
 __all__ = [
     "StreamPlan",
+    "XlaAcEngine",
     "build_streams",
+    "emission_index",
     "expand_hits",
     "extract_matches",
+    "plan_streams",
     "stage_streams_device",
 ]

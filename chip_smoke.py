@@ -5,11 +5,13 @@ Run from the repository root on a host with one CUDA card (an H100):
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``alfred_margaret_tpu_torch/csrc``
-(one ``nvcc`` per source, all at once) and checks each of the fifteen
-kernels against its plain torch version on the card on eighteen machines, and
-the engines' answers against the port's host C++ engine.  Then it drives five
-main paths over 128 MiB corpora, each with the kernels' launch counts set to
-0 just before it and read just after (the controls' launches are read apart):
+(one ``nvcc`` per source, all at once) and checks each of the seventeen
+kernels against its plain torch version on the card on nineteen machines, and
+the engines' answers (``final_states`` and the extraction without the host
+corpus too) against the port's host C++ engine.  Then it drives eight main
+paths, each with the kernels' launch counts set to 0 just before it and read
+just after (the controls' launches are read apart), the first seven over
+128 MiB corpora:
 
 * the benchmark's 3 needles (``bench.py``): ``stage`` -> ``count_matches``
   (B2, and B1 as the dense control), ``contains_any`` on a hit and a miss
@@ -40,7 +42,22 @@ main paths over 128 MiB corpora, each with the kernels' launch counts set to
   ``contains_all`` true and false and ``all_matches_arrays`` (B15 and B17 for
   each comb32 group, B13 for the comb16 group); with ``AMT_FUSED_GROUPS=0``
   (per-group B15, B16, B8 and B10) and ``AMT_FILTER=0`` (B11 alone) as the
-  controls.
+  controls;
+* per-position states: ``final_states_staged`` on the bench needles (B5 on
+  the bitap engine's dense tables), the 30 dense needles (B5), config 2
+  (B12) and config 5's first 300 (B17), each equal to the host C++ engine's
+  ``final_states``;
+* extraction through the packed states, on stagings without their host
+  corpus: the 30 dense needles (B1, then B5), config 2 (B8, then B12) and,
+  through ``all_matches_arrays``, config 5's 1,000 needles on the corpus
+  that holds every one (each comb32 group's B15 and B17, the comb16 group's
+  B8 and B12), each equal to the bitmap route's (or the host's) answer; and a 30-needle engine with ``t_tile=48`` (count
+  and matches, B1 and B5);
+* the reference scan engine (``XlaAcEngine``, no kernel) that the
+  dispatcher takes for an empty needle beside config 5's first 1,000, at
+  4 MiB: ``count_matches``, ``contains_any``, ``contains_all`` and
+  ``all_matches_arrays`` equal to the host C++ engine's, and to the python
+  oracle's on the first 64 KiB.
 
 Every answer must equal the host C++ engine's (and the control's), and every
 kernel of a path must have been launched by it.  Last it times every kernel
@@ -54,6 +71,7 @@ card's ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
 {...}}``.
 """
 
+import dataclasses
 import json
 import os
 import sys
@@ -68,6 +86,8 @@ NEEDLES = ["tshirt", "shirts", "shorts"]
 MISS_NEEDLES = ["Tshirt9", "SHORTS"]
 CORPUS_BYTES = 128 << 20
 CHECK_BYTES = 4 << 20  # corpus of the per-kernel checks
+REFERENCE_BYTES = 4 << 20  # corpus of the reference scan engine
+ORACLE_BYTES = 64 << 10  # the part of it the python oracle scans
 KERNEL_RUNS = 20
 PLAIN_RUNS = 2
 #: The corpus of ``alfred_margaret_tpu/bench/configs.py`` config 2b.
@@ -144,6 +164,7 @@ def main() -> int:
     from alfred_margaret_tpu_torch.ops.comb_scan import CombAcEngine
     from alfred_margaret_tpu_torch.ops.grouped import GroupedAcEngine
     from alfred_margaret_tpu_torch.ops.pallas_scan import DenseAcEngine, _zero_inert
+    from alfred_margaret_tpu_torch.ops.xla_scan import XlaAcEngine
     from alfred_margaret_tpu_torch.utils.device import nvidia_smi_line
 
     dev = torch.device("cuda", 0)
@@ -186,13 +207,11 @@ def main() -> int:
 
     def check_sticky_and_bits(eng, st, label):
         """B3 (dense), B4 + B7 (bitap) or B10 + B14 (comb16), and B6 or B13;
-        or B16 and B17 (comb32); against their plain versions on the same
-        staged streams."""
+        or B16 (comb32); against their plain versions on the same staged
+        streams."""
         if isinstance(eng, CombAcEngine):
             args = eng.sticky_args(st)
             same("comb_contains", K.comb_contains(*args), K.comb_contains_plain(*args), label)
-            args = eng.states_args(st)
-            same("comb_states", K.comb_states(*args), K.comb_states_plain(*args), label)
             return "comb32 states"
         if isinstance(eng, BitapAcEngine):
             args = eng.sticky_bitap_args(st)
@@ -220,6 +239,28 @@ def main() -> int:
         same(name, counts, pcounts, label + " counts")
         same(name, bits, pbits, label + " bitmap")
         return args[3]
+
+    def states_kernel(eng):
+        """(name, kernel, plain) of ``eng``'s packed-states kernel."""
+        if isinstance(eng, CombAcEngine):
+            return "comb_states", K.comb_states, K.comb_states_plain
+        if isinstance(eng, Comb16AcEngine):
+            return "comb16_states", K.comb16_states, K.comb16_states_plain
+        return "dense_states", K.dense_states, K.dense_states_plain
+
+    def check_states(eng, st, m, data, label):
+        """B5, B12 or B17 against its plain version; ``final_states`` against
+        the host C++ engine's; and the extraction without the host corpus
+        against the one with it (the bitmap route, but on comb32)."""
+        name, kernel, plain = states_kernel(eng)
+        args = eng.states_args(st)
+        same(name, kernel(*args), plain(*args), label)
+        check(np.array_equal(eng.final_states_staged(st), CppAcEngine(m).final_states(data)),
+              f"{label}: final_states != host C++")
+        bare = eng.match_positions_staged(dataclasses.replace(st, data_np=None))
+        check(all(np.array_equal(a, b) for a, b in zip(bare, eng.match_positions_staged(st))),
+              f"{label}: extraction without the host corpus != with it")
+        return name
 
     def check_answers(eng, st, m, data, label):
         """The engine's answers against the host C++ engine's."""
@@ -258,6 +299,7 @@ def main() -> int:
         ("dense_count", "bench needles, AMT_BITAP=0", NEEDLES),
         ("dense_count", "30 needles, packing 2", pk2),
         ("dense_count", "NUL needles, not zero-inert", ["a\x00b", "\x00\x00", "xyz"]),
+        ("dense_count", "30 random needles", random_needles(30, 30)),
         ("comb16_count", "config 2, 100 needles", c2),
         ("comb16_count", "nested, 4 count ranges", ["a", "aa", "aaa", "aaaa", "aaaaa"]
          + random_needles(13, 80)),
@@ -308,10 +350,11 @@ def main() -> int:
         ref = CppAcEngine(m).count(data)
         check(total == ref, f"{name} {label}: kernel {total} != host C++ {ref}")
         step = check_sticky_and_bits(eng, st, label)
+        states = check_states(eng, st, m, data, label)
         any_, n_present, n_matches = check_answers(eng, st, m, data, label)
         print(f"check {name:12s} {label:30s} {extra:30s} count={total} host_cpp={ref} "
               f"contains={any_} present={n_present}/{len(m.values)} matches={n_matches} "
-              f"bits_step={step} ok")
+              f"bits_step={step} states={states} ok")
 
     def check_grouped(eng, st, data, label):
         """B9, B11 and B14 against their plain versions on the same staged
@@ -338,6 +381,17 @@ def main() -> int:
         hends, hvids = host.matches_arrays(data)
         check(np.array_equal(ends, hends) and np.array_equal(vids, hvids),
               f"{label}: matches ({len(ends)}) != host C++ ({len(hends)})")
+        # Without the host corpus every group extracts through its packed
+        # states; the comb16 groups' B12 against its plain version.
+        bare = dataclasses.replace(st, data_np=None)
+        bends, bvids = eng.matches_arrays_staged(bare)
+        check(np.array_equal(bends, hends) and np.array_equal(bvids, hvids),
+              f"{label}: matches without the host corpus != host C++")
+        check(np.array_equal(eng.value_presence_staged(bare, len(m.values)), pres),
+              f"{label}: presence without the host corpus != with it")
+        for g, e in enumerate(eng.engines):
+            if type(e) is Comb16AcEngine:
+                check_states(e, st, e.machine, data, f"{label}, comb16 group {g}")
         return total, any_, int(pres.sum()), len(ends)
 
     # The grouped engine on config 5's first 1,000 needles (the main path's
@@ -781,6 +835,127 @@ def main() -> int:
           f"host C++ == AMT_FUSED_GROUPS=0 control == AMT_FILTER=0 control; launches "
           f"{g_main}, control {g_control}")
 
+    def launched(fn):
+        """(result, wall seconds, kernels launched) of ``fn()``, run with the
+        counts set to 0 just before it and read just after."""
+        zero_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return out, wall, {k: v for k, v in read_counts().items() if v}
+
+    # -- per-position states at 128 MiB: B5, B12 and B17 ----------------------
+    states_main = {}
+    for label, eng, sst, want_states, expect in (
+            ("bench needles, bitap engine", bitap_eng, st, host.final_states(data),
+             {"dense_states": 1}),
+            ("30 needles, dense engine", dense30, staged30.device, host30.final_states(data30),
+             {"dense_states": 1}),
+            ("config 2, comb16 engine", eng2, st2["config 2"].device, host2.final_states(data2),
+             {"comb16_states": 1}),
+            ("config 5's 300, comb32 engine", eng3, st3["config 5, 300"].device,
+             host3.final_states(data3), {"comb_states": 1})):
+        fs, wall, used = launched(lambda: eng.final_states_staged(sst))
+        check(fs.dtype == np.int32 and np.array_equal(fs, want_states),
+              f"final_states ({label}) != host C++")
+        check(used == expect, f"final_states ({label}): launched {used}, expected {expect}")
+        tally(states_main, used)
+        print(f"op final_states {label:34s} {wall * 1e3:10.3f} ms wall  -> {len(fs)} "
+              f"states == host C++; launches {used} ({card})", flush=True)
+
+    # -- extraction through the packed states, without the host corpus --------
+    extract_main = {}
+
+    def bare(sst):
+        return dataclasses.replace(sst, data_np=None)
+
+    for label, eng, sst, expect in (
+            ("30 needles, dense engine", dense30, staged30.device,
+             {"dense_count": 1, "dense_states": 1}),
+            ("config 2, comb16 engine", eng2, st2["config 2"].device,
+             {"comb16_count": 1, "comb16_states": 1})):
+        bits_route, bits_wall, _ = launched(lambda: eng.match_positions_staged(sst))
+        packed, wall, used = launched(lambda: eng.match_positions_staged(bare(sst)))
+        _, wall2, _ = launched(lambda: eng.match_positions_staged(bare(sst)))
+        _, bits_wall2, _ = launched(lambda: eng.match_positions_staged(sst))
+        check(all(np.array_equal(a, b) for a, b in zip(packed, bits_route)) and len(packed[0]) > 0,
+              f"packed-states extraction ({label}) != the bitmap route")
+        check(used == expect, f"packed-states extraction ({label}): launched {used}")
+        tally(extract_main, used)
+        print(f"op match_positions_staged {label:26s} without the host corpus {wall * 1e3:.3f} / "
+              f"{wall2 * 1e3:.3f} ms, bitmap route {bits_wall * 1e3:.3f} / {bits_wall2 * 1e3:.3f} "
+              f"ms wall (turns bitmap, packed, packed, bitmap) -> {len(packed[0])} matches; "
+              f"launches {used} ({card})", flush=True)
+    # The corpus with every needle in it: every group has matches.
+    bare5 = dataclasses.replace(staged5_all, device=bare(staged5_all.device))
+    (pends, pvids), wall, used = launched(lambda: s1000.all_matches_arrays(bare5))
+    hends, hvids = host5.matches_arrays(data5_all)
+    check(np.array_equal(pends, hends) and np.array_equal(pvids, hvids),
+          "grouped all_matches_arrays without the host corpus != host C++")
+    check(used == {"comb_count": n_c32, "comb_states": n_c32, "comb16_count": n_c16,
+                   "comb16_states": n_c16}, f"grouped packed extraction launched {used}")
+    tally(extract_main, used)
+    print(f"op all_matches_arrays 1,000 needles (all in the corpus), grouped, without the host corpus "
+          f"{wall * 1e3:.3f} ms wall -> {len(pends)} matches == host C++; launches {used} ({card})",
+          flush=True)
+    e48 = DenseAcEngine(m30, device=dev, t_tile=48)
+    st48 = e48.stage(data30)
+    (n48, (pends, pvids)), wall, used = launched(
+        lambda: (e48.count_staged(st48), e48.matches_arrays_staged(st48)))
+    hends, hvids = want30["all_matches_arrays"]
+    check(n48 == want30["count_matches"] and np.array_equal(pends, hends)
+          and np.array_equal(pvids, hvids), "t_tile=48 engine != the default engine")
+    check(used == {"dense_count": 2, "dense_states": 1}, f"t_tile=48 engine launched {used}")
+    tally(extract_main, used)
+    print(f"op count + matches 30 needles, t_tile=48 ({st48.plan}) {wall * 1e3:.3f} ms wall -> "
+          f"{n48} matches == default engine; launches {used} ({card})", flush=True)
+
+    # -- the reference scan engine: an empty needle beside 1,000 --------------
+    n_ref = [""] + n1000
+    data_ref = np.frombuffer(
+        synth_corpus(n1000[:500], REFERENCE_BYTES, hit_fraction=0.01, seed=17), np.uint8)
+    s_ref = Searcher.build(CASE_SENSITIVE, n_ref)
+    eng_ref = s_ref._engine.device_engine()
+    check(type(eng_ref) is XlaAcEngine and eng_ref.device == dev,
+          f"an empty needle beside 1,000 took {type(eng_ref).__name__}")
+    host_ref = CppAcEngine(s_ref.automaton)
+    oracle = Searcher.build(CASE_SENSITIVE, n_ref, engine="python")
+    staged_ref = s_ref.stage(data_ref)
+    check(staged_ref.device is None, "the reference engine staged streams")
+    ref_main = {}
+    for label, hay, want_ref in (
+            ("host C++", data_ref, {
+                "count_matches": host_ref.count(data_ref),
+                "contains_any": host_ref.first_hit(data_ref) >= 0,
+                "contains_all": bool(host_ref.value_presence(data_ref, len(n_ref)).all()),
+                "all_matches_arrays": host_ref.matches_arrays(data_ref)}),
+            ("python oracle", data_ref[:ORACLE_BYTES], None)):
+        if want_ref is None:
+            want_ref = {"count_matches": oracle.count_matches(hay),
+                        "contains_any": oracle.contains_any(hay),
+                        "contains_all": oracle.contains_all(hay),
+                        "all_matches_arrays": oracle.all_matches_arrays(hay)}
+        h = staged_ref if hay is data_ref else hay
+        for op in ("count_matches", "contains_any", "contains_all", "all_matches_arrays"):
+            res, wall, used = launched(lambda: getattr(s_ref, op)(h))
+            w = want_ref[op]
+            ok = (all(np.array_equal(a, b) for a, b in zip(res, w)) if isinstance(w, tuple)
+                  else res == w)
+            check(ok, f"reference engine {op} != {label}")
+            check(not used, f"reference engine {op} launched {used}")
+            tally(ref_main, used)
+            print(f"op {op:20s} reference engine, {len(hay)} bytes {wall * 1e3:10.3f} ms wall "
+                  f"== {label} ({card})", flush=True)
+    t0 = time.perf_counter()
+    ref_count = eng_ref.count(data_ref)
+    torch.cuda.synchronize()
+    ref_ms = (time.perf_counter() - t0) * 1e3
+    check(ref_count == host_ref.count(data_ref), "reference engine count after timing")
+    print(f"time XlaAcEngine count, {len(n_ref)} needles ({s_ref.automaton.n_states} states), "
+          f"{REFERENCE_BYTES} bytes: {ref_ms:.1f} ms wall host clock, "
+          f"{REFERENCE_BYTES / ref_ms / 1e6:.4f} GB/s ({card})", flush=True)
+
     # -- timing at the main paths' shapes --------------------------------------
     def timed(fn, runs):
         fn()  # warm-up
@@ -911,6 +1086,10 @@ def main() -> int:
          "300 needles, config 5 corpus: first match", need3, 4 * S, need3),
         ("comb_states", K.comb_states, K.comb_states_plain, eng3.states_args(st3c),
          "config 5, 300 needles", T3 * S, 4 * T3 * S, T3 * S),
+        ("dense_states", K.dense_states, K.dense_states_plain, bitap_eng.states_args(st),
+         "bench needles", T * S, 4 * T * S, T * S),
+        ("comb16_states", K.comb16_states, K.comb16_states_plain, eng2.states_args(st_c2),
+         "config 2", T2 * S, 4 * T2 * S, T2 * S),
     )
     for name, kernel, plain, args, what, sbytes, obytes, ops in rows:
         k, p = kernel(*args), plain(*args)
@@ -1005,11 +1184,14 @@ def main() -> int:
         "comb_contains": ("comb_scan.cu", "comb_scan.py:466",
                           "300 needles, digits corpus: full scan"),
         "comb_states": ("comb_scan.cu", "comb_scan.py:529", "config 5, 300 needles"),
+        "dense_states": ("dense_count.cu", "pallas_scan.py:496", "bench needles"),
+        "comb16_states": ("comb16_scan.cu", "comb16_scan.py:917", "config 2"),
     }
     # Launches counted by the wrappers during the main paths, and apart from
     # them the controls'.
     launches, control = {}, {}
-    for path in (bench_main, dense_main, c16_main, c32_main, g_main):
+    for path in (bench_main, dense_main, c16_main, c32_main, g_main, states_main, extract_main,
+                 ref_main):
         tally(launches, path)
     for path in (bench_control, c16_control, g_control):
         tally(control, path)
@@ -1048,6 +1230,8 @@ def main() -> int:
             entry["ms_first_match"], entry["plain_ms_first_match"], entry[
                 "bound_ms_first_match"], _ = timings[(name, "config 5 corpus: stops at the first match")]
         kernels.append(entry)
+    for name in ("dense_states", "comb16_states"):
+        check(launches.get(name, 0) > 0, f"{name} was not launched by the states paths")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -383,16 +383,23 @@ def test_probe_windows_fit_every_build():
 
 
 def test_extraction_needs_b12():
+    # Without the host corpus, or with t_tile % 32 != 0, extraction goes
+    # through the full set's packed states (B8 to size it, then B12) and
+    # gives the bitmap route's answer.
     _, tm = _machines(CONFIG2)
     hay = np.frombuffer(_corpus(CONFIG2, 4 << 10, seed=4), np.uint8)
+    host = CppAcEngine(tm).matches_arrays(hay)
     odd = t16.Comb16AcEngine(tm, device=CPU, n_streams=128, t_tile=48)
-    with pytest.raises(NotImplementedError, match=r"item 10 \(B12\)"):
-        odd.match_positions_staged(odd.stage(hay))
+    for got, want in zip(odd.matches_arrays_staged(odd.stage(hay)), host):
+        np.testing.assert_array_equal(got, want)
     eng = t16.Comb16AcEngine(tm, device=CPU, n_streams=128, t_tile=32)
     st = eng.stage(hay)
+    bits_route = eng.match_positions_staged(st)
     st.data_np = None
-    with pytest.raises(NotImplementedError, match=r"item 10 \(B12\)"):
-        eng.matches_arrays_staged(st)
+    for got, want in zip(eng.match_positions_staged(st), bits_route):
+        np.testing.assert_array_equal(got, want)
+    for got, want in zip(eng.matches_arrays_staged(st), host):
+        np.testing.assert_array_equal(got, want)
 
 
 def test_comb16_wrappers_check_inputs():

@@ -11,8 +11,10 @@ not use.)
 The checks of ``chip_smoke.py``'s kernel phase at pytest size: the outputs
 of each kernel equal its plain version's on the same device tensors (exact:
 per-stream counts, sticky entries, hit registers, presence planes, hit
-bitmaps, comb16 and comb32 final bases, comb32 packed states, screen planes,
-the grouped kernels' summed counts and hit masks), the answers equal
+bitmaps, comb16 and comb32 final bases, dense, comb16 and comb32 packed
+states, screen planes, the grouped kernels' summed counts and hit masks),
+``final_states`` and the extraction without the host corpus equal the host
+C++ engine's, the reference scan engine runs on the card, the answers equal
 ``ac.count_matches``, ``ac.all_matches`` and the port's host C++ engine, the
 wrappers raise on bad inputs, and each launch adds one to the wrapper's
 count.
@@ -35,6 +37,8 @@ from alfred_margaret_tpu_torch.kernels import (
     comb16_contains_plain,
     comb16_count,
     comb16_count_grouped,
+    comb16_states,
+    comb16_states_plain,
     comb_contains,
     comb_contains_plain,
     comb_count,
@@ -43,6 +47,8 @@ from alfred_margaret_tpu_torch.kernels import (
     dense_contains,
     dense_contains_plain,
     dense_count,
+    dense_states,
+    dense_states_plain,
     filter_contains,
     filter_contains_plain,
     matchbits,
@@ -56,7 +62,12 @@ from alfred_margaret_tpu_torch.ops.comb_scan import CombAcEngine
 from alfred_margaret_tpu_torch.ops.filter_scan import attach_filter
 from alfred_margaret_tpu_torch.ops.grouped import GroupedAcEngine
 from alfred_margaret_tpu_torch.ops.pallas_scan import DenseAcEngine
-from alfred_margaret_tpu_torch.ops.xla_scan import StreamPlan, build_streams, stage_streams_device
+from alfred_margaret_tpu_torch.ops.xla_scan import (
+    StreamPlan,
+    XlaAcEngine,
+    build_streams,
+    stage_streams_device,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -439,3 +450,73 @@ def test_comb32_wrappers_count_launches_and_raise(cuda):
     c16 = Comb16AcEngine(_machine(CONFIG2), device=cuda, n_streams=256)
     matchbits(*c16.bits_args(c16.stage(np.frombuffer(b"abcd " * 100, np.uint8))))
     assert matchbits.launches_by_step == {**by_step, "comb16": by_step["comb16"] + 1}
+
+
+#: Machines of the packed-states kernels: B5 on the bitap, packing-2 and NUL
+#: dense tables, B12 on comb16 sets with and without a minimized table set.
+STATES_SETS = {
+    "bitap": (BitapAcEngine, NEEDLES3),
+    "packing2": (DenseAcEngine, PACK30),
+    "nul": (DenseAcEngine, NUL),
+    "config2": (Comb16AcEngine, CONFIG2),
+    "nested16": (Comb16AcEngine, COMB16_SETS["nested"]),
+    "n200": (CombAcEngine, COMB32_SETS["n200"]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(STATES_SETS))
+@pytest.mark.parametrize("n_streams", [1024, 1000])
+def test_states_kernels_match_plain(cuda, name, n_streams):
+    import dataclasses
+
+    engine, needles = STATES_SETS[name]
+    m = _machine(needles)
+    data = np.frombuffer(synth_corpus([x for x in needles if "\x00" not in x], 1 << 18,
+                                      hit_fraction=0.02, seed=9), np.uint8)
+    eng = engine(m, device=cuda, n_streams=n_streams)
+    st = eng.stage(data)
+    args = eng.states_args(st)
+    kernel, plain = {
+        BitapAcEngine: (dense_states, dense_states_plain),
+        DenseAcEngine: (dense_states, dense_states_plain),
+        Comb16AcEngine: (comb16_states, comb16_states_plain),
+        CombAcEngine: (comb_states, comb_states_plain),
+    }[engine]
+    pk = kernel(*args)  # B5, B12 or B17
+    torch.cuda.synchronize()
+    assert pk.shape == (st.plan.time_len, n_streams) and torch.equal(pk, plain(*args))
+    host = CppAcEngine(m)
+    assert np.array_equal(eng.final_states_staged(st), host.final_states(data))
+    with_host = eng.match_positions_staged(st)
+    bare = eng.match_positions_staged(dataclasses.replace(st, data_np=None))
+    assert all(np.array_equal(a, b) for a, b in zip(bare, with_host))
+    ends, vids = eng.matches_arrays_staged(dataclasses.replace(st, data_np=None))
+    hends, hvids = host.matches_arrays(data)
+    assert len(ends) > 0 and np.array_equal(ends, hends) and np.array_equal(vids, hvids)
+
+
+def test_states_wrappers_count_launches_and_raise(cuda):
+    d = DenseAcEngine(_machine(PACK30), device=cuda, n_streams=256)
+    c = Comb16AcEngine(_machine(CONFIG2), device=cuda, n_streams=256)
+    hay = np.frombuffer(b"abcd and bcd " * 100, np.uint8)
+    for fn, args in ((dense_states, d.states_args(d.stage(hay))),
+                     (comb16_states, c.states_args(c.stage(hay)))):
+        before = fn.launches
+        fn(*args)
+        assert fn.launches == before + 1
+        with pytest.raises(ValueError):
+            fn(args[0].cpu(), *args[1:])
+        assert fn.launches == before + 1
+
+
+def test_reference_engine_on_the_card(cuda):
+    needles = [""] + _random_needles(3, 600)
+    m = _machine(needles)
+    data = synth_corpus(needles[1:], 1 << 16, hit_fraction=0.02, seed=4)
+    eng = XlaAcEngine(m, device=cuda)
+    host = CppAcEngine(m)
+    assert eng.count(data) == host.count(data)
+    assert np.array_equal(eng.final_states(data), host.final_states(data))
+    hit = np.flatnonzero(eng.state_hits(data))
+    assert np.array_equal(ac.presence_of_states(m, hit, len(needles)),
+                          host.value_presence(data, len(needles)))

@@ -37,7 +37,7 @@ from alfred_margaret_tpu_torch.bench import dataformat as tdata
 from alfred_margaret_tpu_torch.models import ac
 from alfred_margaret_tpu_torch.native import build as tnative
 from alfred_margaret_tpu_torch.native.cpp_engine import CppAcEngine
-from alfred_margaret_tpu_torch.ops import bitap_scan, comb16_scan, comb_scan, pallas_scan
+from alfred_margaret_tpu_torch.ops import bitap_scan, comb16_scan, comb_scan, pallas_scan, xla_scan
 from alfred_margaret_tpu_torch.utils import case as tcase
 from alfred_margaret_tpu_torch.utils import utf8 as tutf8
 
@@ -144,6 +144,10 @@ def test_cpp_engine_matches_original(name, needles):
             for w, g in zip(want_eng.matches_arrays(h), got_eng.matches_arrays(h)):
                 assert g.dtype == w.dtype
                 np.testing.assert_array_equal(g, w)
+            for nt in (None, 1):
+                got, want = got_eng.final_states(h, nt), want_eng.final_states(h, nt)
+                assert got.dtype == want.dtype == np.int32
+                np.testing.assert_array_equal(got, want)
         assert got_eng._class_state == want_eng._class_state
     assert tnative.load() is tnative.load()
     assert os.path.dirname(tnative._so_path()).endswith(os.path.join("alfred_margaret_tpu_torch",
@@ -272,7 +276,8 @@ def test_chip_smoke_names_no_jax_module():
 def test_entry_points_default_to_cuda():
     for fn in (port.Searcher.__init__, port.Searcher.build, port.Searcher.build_with_values,
                port.Searcher.load_npz, port.MatchEngine.__init__, port.make_engine, comb_scan.make_engine,
-               pallas_scan.DenseAcEngine.__init__, comb16_scan.Comb16AcEngine.__init__):
+               pallas_scan.DenseAcEngine.__init__, comb16_scan.Comb16AcEngine.__init__,
+               xla_scan.XlaAcEngine.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
     if torch.cuda.is_available():
         return
@@ -282,6 +287,7 @@ def test_entry_points_default_to_cuda():
                  lambda: port.MatchEngine(m),
                  lambda: port.make_engine(m),
                  lambda: bitap_scan.BitapAcEngine(m),
+                 lambda: xla_scan.XlaAcEngine(m),
                  lambda: comb16_scan.Comb16AcEngine(ac.build([(n, 0) for n in CONFIG2]))):
         with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
             call()

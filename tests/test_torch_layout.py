@@ -1,12 +1,15 @@
 """The PyTorch port's copied helpers against the JAX package's originals.
 
-The port copies the numpy stream planner, the dense-table compressor, the
+The port copies the numpy stream planners (the kernel engines' and the
+reference scan engine's ``plan_streams``), the dense-table compressor, the
 bitap track planner, the sticky view and the extraction helpers (their JAX
 modules import ``jax``, which the port must not).  Each copy must give
 exactly the original's output, on the native and the numpy paths where there
 are both; the torch staging must give ``build_streams``'s bytes; and the JAX
 engines' tables passed through ``convert.py`` must equal the port's own.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -91,6 +94,18 @@ def test_stream_validity_matches_jax(n, S, L, K):
     for w, g in zip(jxla._stream_validity(n, S, L, K), txla._stream_validity(n, S, L, K)):
         assert w.dtype == g.dtype
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("n,overlap,kw", [
+    (0, 3, {}), (1, 0, {}), (100, 5, {}), (5000, 0, {}), (5000, 7, {}), (1 << 20, 9, {}),
+    (1 << 20, 200, {}), (4000, 5, {"n_streams": 13}), (30, 2, {"n_streams": 64}),
+    (1 << 16, 3, {"max_streams": 64, "min_emit": 100}),
+])
+def test_plan_streams_matches_jax(n, overlap, kw):
+    got, want = txla.plan_streams(n, overlap, **kw), jxla.plan_streams(n, overlap, **kw)
+    assert dataclasses.astuple(got) == dataclasses.astuple(want)
+    for x, m in ((0, 512), (1, 512), (512, 512), (513, 512), (7, 3)):
+        assert txla._round_up(x, m) == jxla._round_up(x, m)
 
 
 def test_engine_plan_matches_jax_layout():

@@ -21,7 +21,7 @@ from alfred_margaret_tpu.models import ac
 from alfred_margaret_tpu.ops.bitap_scan import BitapAcEngine as JaxBitapAcEngine
 from alfred_margaret_tpu.ops.pallas_scan import PallasAcEngine
 
-from alfred_margaret_tpu_torch.kernels import matchbits
+from alfred_margaret_tpu_torch.kernels import dense_states, matchbits
 from alfred_margaret_tpu_torch.ops.bitap_scan import BitapAcEngine
 from alfred_margaret_tpu_torch.ops.pallas_scan import DenseAcEngine, _zero_inert
 from _torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
@@ -134,17 +134,27 @@ def test_matches_arrays_empty_and_miss():
         assert ends.dtype == np.int64 and vids.dtype == np.int32
 
 
-def test_extraction_without_bitmap_needs_b5():
+def test_extraction_without_bitmap_needs_b5(monkeypatch):
+    # Without the host corpus, or with t_tile % 32 != 0, extraction goes
+    # through the packed states (B5) and gives the bitmap route's answer.
     m = _machine(NEEDLES3)
     hay = np.frombuffer(b"a tshirt " * 50, np.uint8)
+    want = ac.all_matches(m, hay)
+    calls = []
+    monkeypatch.setattr(DenseAcEngine, "packed_states",
+                        lambda self, st: calls.append(1) or dense_states(*self.states_args(st)))
     odd = DenseAcEngine(m, device=CPU, n_streams=128, t_tile=24)
-    with pytest.raises(NotImplementedError, match=r"item 10 \(B5\)"):
-        odd.match_positions_staged(odd.stage(hay))
+    ends, vids = odd.matches_arrays_staged(odd.stage(hay))
+    assert [(int(e), int(v)) for e, v in zip(ends, vids)] == [(x.pos, x.value) for x in want]
+    assert len(calls) == 1
     eng = BitapAcEngine(m, device=CPU, n_streams=128, t_tile=32)
     st = eng.stage(hay)
+    bits_route = eng.match_positions_staged(st)
+    assert len(calls) == 1
     st.data_np = None
-    with pytest.raises(NotImplementedError, match=r"item 10 \(B5\)"):
-        eng.matches_arrays_staged(st)
+    for got, w in zip(eng.match_positions_staged(st), bits_route):
+        np.testing.assert_array_equal(got, w)
+    assert len(calls) == 2
 
 
 def test_matchbits_input_checks():

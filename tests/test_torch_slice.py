@@ -5,7 +5,8 @@ all_matches, all_matches_arrays) on ``device="cpu"`` against the JAX
 package's ``Searcher`` with the scalar ``python`` engine, on every backend of
 the port's ``MatchEngine``, staged and unstaged; the dispatcher's choice of
 bitap, dense, comb32 or ``CapacityError``, on which ``MatchEngine`` builds
-the grouped engine (and refuses a large set with an empty needle); the
+the grouped engine (and, for a large set with an empty needle, the
+reference scan engine); the
 sticky-table overflow answered by
 counting; staged haystack checks and unported operations; and that the port
 never imports ``jax``.  Tolerance: exact equality of every count, flag and
@@ -34,6 +35,7 @@ from alfred_margaret_tpu_torch.ops.bitap_scan import BitapAcEngine
 from alfred_margaret_tpu_torch.ops.comb_scan import CombAcEngine
 from alfred_margaret_tpu_torch.ops.grouped import GroupedAcEngine
 from alfred_margaret_tpu_torch.ops.pallas_scan import CapacityError, DenseAcEngine
+from alfred_margaret_tpu_torch.ops.xla_scan import XlaAcEngine
 from alfred_margaret_tpu_torch.utils import device as device_mod
 from _torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
@@ -219,10 +221,15 @@ def test_dispatcher_capacity_error():
 
 def test_dispatcher_empty_needle_in_a_large_set():
     # An empty needle's matches depend on every group's states: no grouped
-    # engine, and the JAX package's fallback (its XLA engine) is not ported.
-    me = MatchEngine(_machine([""] + LARGE), "device", device="cpu")
-    with pytest.raises(CapacityError, match="empty needle.*ROADMAP Queue A item 3"):
-        me.device_engine()
+    # engine, and the device backend falls back to the reference scan engine,
+    # as the JAX package falls back to its XLA engine.
+    m = _machine([""] + LARGE)
+    with pytest.raises(CapacityError, match="empty needle"):
+        GroupedAcEngine(m, device="cpu")
+    me = MatchEngine(m, "device", device="cpu")
+    assert type(me.device_engine()) is XlaAcEngine
+    hay = synth_corpus(LARGE, 1 << 13, hit_fraction=0.05, seed=12)
+    assert me.count(hay, CASE_SENSITIVE) == ac.count_matches(m, hay)
 
 
 def test_match_engine_backends_agree():
