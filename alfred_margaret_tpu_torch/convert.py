@@ -60,13 +60,14 @@ def sticky_tables_from_jax(cm, tab, n_states: int, k: int, packing: int, absorb:
 
 
 def bitap_tables_from_jax(btab, layout: BitapLayout, device) -> BitapTables:
-    """``BitapAcEngine._btab_dev`` ([2V, 128]) as B2 tables for ``layout``
-    (the layout supplies seeds and count fields)."""
+    """``BitapAcEngine._btab_dev`` ([2 VT, 128], VT the layout's match words
+    and trap register) as B2, B4 and B7 tables for ``layout`` (the layout
+    supplies seeds, count fields and trap masks)."""
     btab = np.asarray(btab, dtype=np.int32)
-    V = layout.n_words
-    if btab.shape != (2 * V, 128):
-        raise ValueError(f"btab must be [{2 * V}, 128] for {V} words, got {btab.shape}")
-    return BitapTables.from_layout(layout, device, btab=btab.reshape(V, 256))
+    VT = len(layout.all_words())
+    if btab.shape != (2 * VT, 128):
+        raise ValueError(f"btab must be [{2 * VT}, 128] for {VT} words, got {btab.shape}")
+    return BitapTables.from_layout(layout, device, btab=btab.reshape(VT, 256))
 
 
 def _c16_tables(cm, comb, aux, rootseg, consts: dict, c16, device) -> Comb16Tables:

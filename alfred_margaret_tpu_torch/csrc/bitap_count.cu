@@ -2,8 +2,8 @@
 //
 // Replaces the Pallas TPU kernel alfred_margaret_tpu/ops/bitap_scan.py:
 // _make_bitap_count_kernel (launched from BitapAcEngine._get_bitap_count_fn),
-// CaseSensitive layouts without a trap register.  One thread per stream keeps
-// V <= 8 uint32 registers; the byte -> track-mask tables btab[V][256] sit in
+// with its trap part.  One thread per stream keeps V <= 8 uint32 registers
+// (V <= 3 with a trap); the byte -> track-mask tables btab[V][256] sit in
 // shared memory.
 //
 // Per stream s, per step t over b = streams[t * S + s]:
@@ -16,6 +16,17 @@
 // the same integers as the TPU kernel's flush blocks of `unroll` steps, which
 // only saved vector operations.  Right-pad bytes are zero and btab[w][0] == 0
 // (no needle holds NUL), so the pads clear every register and count nothing.
+//
+// The trap part (TRAP = true, amt_bitap_count_trap) serves the byte-class
+// IgnoreCase layouts: trap tracks watch for the length-changing unlowerings
+// (İ, Kelvin K, Å, ẞ, ...) that a fixed-width track cannot hold, either in
+// the spare high bits of the match words or in a standalone trap register,
+// which is one more word with endmask 0 and no fields.  Every step also does
+//   tr |= D[w] & trapmask[w]                             for every word w
+// with no warm masking (the TPU kernel masks only the counts), and
+// trap_out[s] = tr.  A stream whose trap is non-zero may under-count; the
+// engine recovers it on the host or re-scans with the dense kernel.  With
+// TRAP = false the template compiles to the kernel without a trap.
 //
 // What bounds it: the registers carry no table load (the mask load depends on
 // the input byte only), so a step costs one byte read from device memory plus
@@ -34,14 +45,17 @@ constexpr int kChunk = 16;
 constexpr int kMaxWords = 8;
 // 30 track bits per word (bit 31 stays clear), at most one field per bit.
 constexpr int kMaxFields = kMaxWords * 30;
+// Words of a trap layout: the 2-word budget plus a trap register.
+constexpr int kMaxTrapWords = 3;
 
-template <int V>
+template <int V, bool TRAP>
 __global__ void __launch_bounds__(kThreads) bitap_count_kernel(
     const uint8_t* __restrict__ streams, int T, int S,
     const int32_t* __restrict__ btab, const int32_t* __restrict__ seed,
     const int32_t* __restrict__ endmask, const int32_t* __restrict__ field_start,
     const int32_t* __restrict__ field_bit, const int32_t* __restrict__ field_weight,
-    int n_fields, const int32_t* __restrict__ warm, int32_t* __restrict__ out) {
+    int n_fields, const int32_t* __restrict__ warm, const int32_t* __restrict__ trapmask,
+    int32_t* __restrict__ out, int32_t* __restrict__ trap_out) {
   __shared__ uint32_t bt[V * 256];
   __shared__ uint32_t fbit[kMaxFields];
   __shared__ uint32_t fwt[kMaxFields];
@@ -54,23 +68,28 @@ __global__ void __launch_bounds__(kThreads) bitap_count_kernel(
 
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= S) return;
-  uint32_t sd[V], em[V], D[V];
+  uint32_t sd[V], em[V], D[V], tm[V];
   int f0[V + 1];
 #pragma unroll
   for (int w = 0; w < V; ++w) {
     sd[w] = (uint32_t)seed[w];
     em[w] = (uint32_t)endmask[w];
+    if constexpr (TRAP) tm[w] = (uint32_t)trapmask[w];
     D[w] = 0u;
   }
 #pragma unroll
   for (int w = 0; w <= V; ++w) f0[w] = field_start[w];
   const int w0 = warm[s];
   const uint8_t* col = streams + s;
-  uint32_t count = 0;
+  uint32_t count = 0, tr = 0;
 
   auto step = [&](uint32_t b, int t) {
 #pragma unroll
     for (int w = 0; w < V; ++w) D[w] = ((D[w] << 1) | sd[w]) & bt[w * 256 + b];
+    if constexpr (TRAP) {
+#pragma unroll
+      for (int w = 0; w < V; ++w) tr |= D[w] & tm[w];
+    }
     if (t >= w0) {
 #pragma unroll
       for (int w = 0; w < V; ++w) {
@@ -91,14 +110,17 @@ __global__ void __launch_bounds__(kThreads) bitap_count_kernel(
   }
   for (; t < T; ++t) step(col[(size_t)t * S], t);
   out[s] = (int32_t)count;
+  if constexpr (TRAP) trap_out[s] = (int32_t)tr;
 }
 
-template <int V>
+template <int V, bool TRAP = false>
 void launch(dim3 grid, cudaStream_t st, const uint8_t* sp, int T, int S,
             const int32_t* bt, const int32_t* sd, const int32_t* em,
             const int32_t* fs, const int32_t* fb, const int32_t* fw,
-            int n_fields, const int32_t* wp, int32_t* op) {
-  bitap_count_kernel<V><<<grid, kThreads, 0, st>>>(sp, T, S, bt, sd, em, fs, fb, fw, n_fields, wp, op);
+            int n_fields, const int32_t* wp, int32_t* op,
+            const int32_t* tm = nullptr, int32_t* tp = nullptr) {
+  bitap_count_kernel<V, TRAP><<<grid, kThreads, 0, st>>>(sp, T, S, bt, sd, em, fs, fb, fw,
+                                                         n_fields, wp, tm, op, tp);
 }
 
 }  // namespace
@@ -134,6 +156,39 @@ extern "C" int amt_bitap_count(const void* streams, int T, int S,
     case 6: launch<6>(grid, st, sp, T, S, bt, sd, em, fs, fb, fw, n_fields, wp, op); break;
     case 7: launch<7>(grid, st, sp, T, S, bt, sd, em, fs, fb, fw, n_fields, wp, op); break;
     default: launch<8>(grid, st, sp, T, S, bt, sd, em, fs, fb, fw, n_fields, wp, op); break;
+  }
+  return (int)cudaGetLastError();
+}
+
+// The trap part: as amt_bitap_count over n_words <= 3 words (a standalone trap
+// register included), with trapmask [n_words] and trap_out [S] int32.
+extern "C" int amt_bitap_count_trap(const void* streams, int T, int S,
+                                    const void* btab, const void* seed,
+                                    const void* endmask, const void* field_start,
+                                    const void* field_bit, const void* field_weight,
+                                    int n_words, int n_fields, const void* warm,
+                                    const void* trapmask, void* out, void* trap_out,
+                                    void* stream) {
+  if (T < 0 || S <= 0 || n_words < 1 || n_words > kMaxTrapWords || n_fields < 0 ||
+      n_fields > kMaxFields)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((S + kThreads - 1) / kThreads);
+  cudaStream_t st = (cudaStream_t)stream;
+  const uint8_t* sp = (const uint8_t*)streams;
+  const int32_t* bt = (const int32_t*)btab;
+  const int32_t* sd = (const int32_t*)seed;
+  const int32_t* em = (const int32_t*)endmask;
+  const int32_t* fs = (const int32_t*)field_start;
+  const int32_t* fb = (const int32_t*)field_bit;
+  const int32_t* fw = (const int32_t*)field_weight;
+  const int32_t* wp = (const int32_t*)warm;
+  const int32_t* tm = (const int32_t*)trapmask;
+  int32_t* op = (int32_t*)out;
+  int32_t* tp = (int32_t*)trap_out;
+  switch (n_words) {
+    case 1: launch<1, true>(grid, st, sp, T, S, bt, sd, em, fs, fb, fw, n_fields, wp, op, tm, tp); break;
+    case 2: launch<2, true>(grid, st, sp, T, S, bt, sd, em, fs, fb, fw, n_fields, wp, op, tm, tp); break;
+    default: launch<3, true>(grid, st, sp, T, S, bt, sd, em, fs, fb, fw, n_fields, wp, op, tm, tp); break;
   }
   return (int)cudaGetLastError();
 }

@@ -88,6 +88,14 @@ def _bind(lib: ctypes.CDLL) -> None:
         i, i,  # n_words, n_fields
         p, p, p,  # warm, out, stream
     ]
+    lib.amt_bitap_count_trap.restype = i
+    lib.amt_bitap_count_trap.argtypes = [
+        p, i, i,  # streams, T, S
+        p, p, p,  # btab, seed, endmask
+        p, p, p,  # field_start, field_bit, field_weight
+        i, i,  # n_words, n_fields
+        p, p, p, p, p,  # warm, trapmask, out, trap_out, stream
+    ]
     lib.amt_dense_contains.restype = i
     lib.amt_dense_contains.argtypes = [
         p, i, i,  # streams, T, S
@@ -103,6 +111,18 @@ def _bind(lib: ctypes.CDLL) -> None:
             p, p, p, i,  # btab, seed, endmask, n_words
             p, p,  # out, stream
         ]
+    lib.amt_bitap_contains_trap.restype = i
+    lib.amt_bitap_contains_trap.argtypes = [
+        p, i, i,  # streams, T, S
+        p, p, p, p, i,  # btab, seed, endmask, trapmask, n_words
+        p, p, p,  # out, trap_out, stream
+    ]
+    lib.amt_bitap_presence_trap.restype = i
+    lib.amt_bitap_presence_trap.argtypes = [
+        p, i, i,  # streams, T, S
+        p, p, p, p, i,  # btab, seed, endmask, trapmask, n_words
+        p, p,  # out, stream
+    ]
     lib.amt_matchbits_dense.restype = i
     lib.amt_matchbits_dense.argtypes = [
         p, i, i, p, p,  # streams, T, S, warm, vend

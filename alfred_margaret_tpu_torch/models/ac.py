@@ -3,8 +3,9 @@
 The port's copy of the parts of ``alfred_margaret_tpu/models/ac.py`` it uses:
 ``AcMachine``, ``Match``, ``Step``, ``Done``, ``build``,
 ``validate_machine``, ``save_npz`` / ``load_npz`` (without the Replacer's
-payloads), the CaseSensitive scalar fold (``run_text``, ``all_matches``,
-``count_matches``) and ``presence_of_states``.
+payloads), the scalar fold in both case modes (``run_with_case``,
+``run_text``, ``run_lower``, ``all_matches``, ``count_matches``),
+``needle_casings`` and ``presence_of_states``.
 ``tests/test_torch_host.py`` pins each to its original on seeded needle sets.
 
 Every (state, byte) pair is resolved through the failure chains at build time
@@ -26,7 +27,7 @@ from typing import Any, Callable, Iterable, List, NamedTuple, Optional, Sequence
 import numpy as np
 
 from ..utils import utf8
-from ..utils.case import CASE_SENSITIVE, CaseSensitivity
+from ..utils.case import CASE_SENSITIVE, IGNORE_CASE, CaseSensitivity
 
 
 class Match(NamedTuple):
@@ -77,9 +78,9 @@ class AcMachine:
     edge_dst: np.ndarray = field(repr=False, default=None)
     fail: np.ndarray = field(repr=False, default=None)
     cp_complete: np.ndarray = field(repr=False, default=None)
-    #: True for composed case-folding DFAs (IgnoreCase, which the port does
-    #: not build yet): ``needles`` are then the original-case needles while
-    #: the delta does the folding, so no planner may match needle bytes.
+    #: True for composed case-folding DFAs (``models.case_dfa``):
+    #: ``needles`` are then the original-case needles while the delta does
+    #: the folding, so no planner may match needle bytes.
     composed_ci: bool = False
 
     @property
@@ -342,10 +343,24 @@ def build(needles_with_values: Iterable[Tuple[utf8.TextLike, Any]]) -> AcMachine
     )
 
 
-def run_text(seed: Any, f: Callable[[Any, Match], Any], machine: AcMachine, text: utf8.TextLike) -> Any:
+# ---------------------------------------------------------------------------
+# Scalar fold API (the oracle; mirrors runWithCase, Automaton.hs:442-534)
+# ---------------------------------------------------------------------------
+
+
+def run_with_case(
+    case: CaseSensitivity,
+    seed: Any,
+    f: Callable[[Any, Match], Any],
+    machine: AcMachine,
+    text: utf8.TextLike,
+) -> Any:
     """Fold ``f`` over matches in order; ``f`` returns ``Step(acc)`` to
-    continue or ``Done(acc)`` to stop early.  CaseSensitive: the alphabet is
-    bytes, so matches are collected after every byte."""
+    continue or ``Done(acc)`` to early-exit (``Automaton.hs:442-534``).
+
+    IgnoreCase lowers each haystack code point on the fly; match positions are
+    always raw byte offsets one past the match end.
+    """
     data = utf8.to_bytes(text)
     delta = machine.delta
     out_offset = machine.out_offset
@@ -354,6 +369,32 @@ def run_text(seed: Any, f: Callable[[Any, Match], Any], machine: AcMachine, text
     state = 0
     offset = 0
     n = len(data)
+    if case is IGNORE_CASE:
+        # Strict streaming lowering (utf8.decode_strict): valid minimal
+        # sequences lower per code point, everything else passes through
+        # byte-for-byte — identical to every other IgnoreCase
+        # implementation (transducers, composed case-folding DFA).  Match
+        # positions are raw byte offsets one past the unit containing the
+        # match end (the reference's code-unit-granular matchPos,
+        # Automaton.hs:99-102).
+        while offset < n:
+            n_units, cp, valid = utf8.decode_strict(data, offset)
+            offset += n_units
+            emit = utf8.unicode2utf8(int(utf8.LOWER_TABLE[cp])) if valid else (cp,)
+            for b in emit:
+                state = delta[state, b]
+                lo, hi = out_offset[state], out_offset[state + 1]
+                for k in range(lo, hi):
+                    nxt = f(seed, Match(offset, values[out_values[k]]))
+                    if isinstance(nxt, Done):
+                        return nxt.acc
+                    seed = nxt.acc if isinstance(nxt, Step) else nxt
+        return seed
+    # CaseSensitive: plain per-byte fold — the alphabet of this build is
+    # bytes, so matches are collected after every byte (the reference
+    # collects per code point, Automaton.hs:468-534; identical on needles
+    # that are whole-code-point strings, and byte-granular — matching the
+    # vectorized engines — on arbitrary byte needles).
     while offset < n:
         state = delta[state, data[offset]]
         offset += 1
@@ -366,26 +407,30 @@ def run_text(seed: Any, f: Callable[[Any, Match], Any], machine: AcMachine, text
     return seed
 
 
-def _case_sensitive(case: CaseSensitivity) -> None:
-    if case is not CASE_SENSITIVE:
-        raise NotImplementedError("IgnoreCase is ROADMAP Queue A item 11")
+def run_text(seed: Any, f: Callable[[Any, Match], Any], machine: AcMachine, text: utf8.TextLike) -> Any:
+    """Case-sensitive fold (``runText``, ``Automaton.hs:539-541``)."""
+    return run_with_case(CASE_SENSITIVE, seed, f, machine, text)
+
+
+def run_lower(seed: Any, f: Callable[[Any, Match], Any], machine: AcMachine, text: utf8.TextLike) -> Any:
+    """Fold over the on-the-fly lowercased text (``runLower``,
+    ``Automaton.hs:551-553``). Needles must already be lowercase."""
+    return run_with_case(IGNORE_CASE, seed, f, machine, text)
 
 
 def all_matches(machine: AcMachine, text: utf8.TextLike, case: CaseSensitivity = CASE_SENSITIVE) -> List[Match]:
     """Collect every match in order (overlaps included)."""
-    _case_sensitive(case)
     out: List[Match] = []
 
     def f(acc, m):
         acc.append(m)
         return Step(acc)
 
-    return run_text(out, f, machine, text)
+    return run_with_case(case, out, f, machine, text)
 
 
 def count_matches(machine: AcMachine, text: utf8.TextLike, case: CaseSensitivity = CASE_SENSITIVE) -> int:
-    """Count every match."""
-    _case_sensitive(case)
+    """Count every match (the benchmark metric)."""
 
     class Box:
         n = 0
@@ -394,7 +439,23 @@ def count_matches(machine: AcMachine, text: utf8.TextLike, case: CaseSensitivity
         acc.n += 1
         return Step(acc)
 
-    return run_text(Box(), f, machine, text).n
+    return run_with_case(case, Box(), f, machine, text).n
+
+
+def needle_casings(needle: str) -> List[str]:
+    """All strings that lowercase (per code point) to the given lowercase
+    needle (``Automaton.hs:562-566``); empty if the needle is not lowercase.
+
+        needle_casings("abc") == ["abc","abC","aBc","aBC","Abc","AbC","ABc","ABC"]
+        needle_casings("ABC") == []
+    """
+    results = [""]
+    for c in needle:
+        options = utf8.unlower_code_point(c)
+        results = [prefix + o for prefix in results for o in options]
+        if not results:
+            return []
+    return results
 
 
 __all__ = [
@@ -406,8 +467,11 @@ __all__ = [
     "build",
     "count_matches",
     "load_npz",
+    "needle_casings",
     "presence_of_states",
+    "run_lower",
     "run_text",
+    "run_with_case",
     "save_npz",
     "validate_machine",
 ]

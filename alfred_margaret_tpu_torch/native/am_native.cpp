@@ -5,10 +5,12 @@
 // device answer against it, and it expands hit bitmaps and replays hit states
 // for match extraction.
 //
-// A copy of the scan and extraction part of alfred_margaret_tpu/native/
-// am_native.cpp (the lowering transducer, splicing and the prefilter stay
-// there); tests/test_torch_host.py holds each entry point against the
-// original's.
+// A copy of the scan, extraction and lowering parts of alfred_margaret_tpu/
+// native/am_native.cpp (splicing and the prefilter stay there): the
+// IgnoreCase lowering transducer (am_lower_transform, am_lower_bytes,
+// am_lower_ascii, am_is_ascii) lowers haystacks for the lowering path.
+// tests/test_torch_host.py and tests/test_torch_case.py hold each entry point
+// against the original's.
 //
 // Built with: g++ -O3 -std=c++17 -shared -fPIC (see build.py). Plain C ABI,
 // loaded via ctypes.
@@ -649,6 +651,221 @@ int64_t am_expand_hit_bits(const int64_t* t_words, const int64_t* s_idx,
     for (auto& th : threads) th.join();
   }
   return kept[(size_t)n_threads];
+}
+
+
+// Strict streaming decode at data[i]: returns the sequence length (1-4)
+// and writes the scalar value, or -1 when data[i] does not start a valid
+// minimal sequence (overlong / surrogate / > U+10FFFF / truncated /
+// orphan continuation).  Must match utf8.decode_strict exactly — this one
+// definition governs every IgnoreCase implementation (scalar oracle,
+// vectorized + native transducers, composed case-folding DFA).
+static inline int strict_decode(const uint8_t* d, int64_t i, int64_t n,
+                                uint32_t* cp) {
+  uint8_t b0 = d[i];
+  if (b0 < 0x80) {
+    *cp = b0;
+    return 1;
+  }
+  if (b0 >= 0xC2 && b0 <= 0xDF) {
+    if (i + 1 < n && (d[i + 1] & 0xC0) == 0x80) {
+      *cp = ((uint32_t)(b0 & 0x1F) << 6) | (d[i + 1] & 0x3F);
+      return 2;
+    }
+    return -1;
+  }
+  if (b0 >= 0xE0 && b0 <= 0xEF) {
+    if (i + 2 < n) {
+      uint8_t d1 = d[i + 1];
+      uint8_t lo = (b0 == 0xE0) ? 0xA0 : 0x80;
+      uint8_t hi = (b0 == 0xED) ? 0x9F : 0xBF;
+      if (d1 >= lo && d1 <= hi && (d[i + 2] & 0xC0) == 0x80) {
+        *cp = ((uint32_t)(b0 & 0x0F) << 12) | ((uint32_t)(d1 & 0x3F) << 6) |
+              (d[i + 2] & 0x3F);
+        return 3;
+      }
+    }
+    return -1;
+  }
+  if (b0 >= 0xF0 && b0 <= 0xF4) {
+    if (i + 3 < n) {
+      uint8_t d1 = d[i + 1];
+      uint8_t lo = (b0 == 0xF0) ? 0x90 : 0x80;
+      uint8_t hi = (b0 == 0xF4) ? 0x8F : 0xBF;
+      if (d1 >= lo && d1 <= hi && (d[i + 2] & 0xC0) == 0x80 &&
+          (d[i + 3] & 0xC0) == 0x80) {
+        *cp = ((uint32_t)(b0 & 0x07) << 18) | ((uint32_t)(d1 & 0x3F) << 12) |
+              ((uint32_t)(d[i + 2] & 0x3F) << 6) | (d[i + 3] & 0x3F);
+        return 4;
+      }
+    }
+    return -1;
+  }
+  return -1;
+}
+
+// Encode a lowered scalar value; width chosen by value, matching
+// utf8.lower_units_np (u64: width in the top byte, bytes little-endian).
+static inline uint64_t encode_lowered(uint32_t lc) {
+  if (lc < 0x80u) return ((uint64_t)1 << 56) | lc;
+  if (lc < 0x800u)
+    return ((uint64_t)2 << 56) | (uint64_t)(0xC0 | (lc >> 6)) |
+           ((uint64_t)(0x80 | (lc & 0x3F)) << 8);
+  if (lc < 0x10000u)
+    return ((uint64_t)3 << 56) | (uint64_t)(0xE0 | (lc >> 12)) |
+           ((uint64_t)(0x80 | ((lc >> 6) & 0x3F)) << 8) |
+           ((uint64_t)(0x80 | (lc & 0x3F)) << 16);
+  return ((uint64_t)4 << 56) | (uint64_t)(0xF0 | (lc >> 18)) |
+         ((uint64_t)(0x80 | ((lc >> 12) & 0x3F)) << 8) |
+         ((uint64_t)(0x80 | ((lc >> 6) & 0x3F)) << 16) |
+         ((uint64_t)(0x80 | (lc & 0x3F)) << 24);
+}
+
+// Length of the pure-ASCII prefix of the next 64 bytes (0..64).  Lets the
+// transducers bulk-lower ASCII runs and pay the scalar decode only for the
+// actual non-ASCII unit, instead of re-probing a full 64-byte window after
+// every decoded code point (which made mixed text ~30x slower than ASCII).
+static inline int64_t ascii_prefix_len64(const uint8_t* p) {
+  uint64_t w[8];
+  memcpy(w, p, 64);
+  for (int t = 0; t < 8; t++) {
+    uint64_t m = w[t] & 0x8080808080808080ull;
+    if (m) return (int64_t)t * 8 + (__builtin_ctzll(m) >> 3);
+  }
+  return 64;
+}
+
+// UTF-8 simple-lowercase transducer, bit-identical to the vectorized numpy
+// path (utils/utf8.py lower_units_np): STRICT STREAMING semantics — only
+// minimal encodings of scalar values decode and map through lower_map
+// (int32[0x110000]); every other byte (overlong, surrogate, truncated,
+// orphan continuation, 0xF5+ lead) passes through unchanged as its own
+// unit.  The reference never faces malformed input (Haskell Text is
+// well-formed UTF-8, Utf8.hs:17-19); this is our contract for raw bytes.
+//
+// Outputs: lowered bytes -> out (capacity out_cap, must include >= 8
+// slack bytes); per-unit raw byte start -> raw_start; per-unit raw byte
+// length -> raw_len; per-unit output byte length -> out_len.  Returns the
+// unit count, or -1 if out_cap would overflow.  *out_nbytes receives the
+// lowered byte count.
+int64_t am_lower_transform(const int32_t* lower_map, const uint64_t* emap,
+                           const uint8_t* data, int64_t n, uint8_t* out,
+                           int64_t out_cap, int32_t* raw_start,
+                           int32_t* raw_len, int32_t* out_len,
+                           int64_t* out_nbytes) {
+  int64_t n_cps = 0;
+  int64_t o = 0;
+  int64_t i = 0;
+  while (i < n) {
+    if (i + 64 <= n) {
+      int64_t k = ascii_prefix_len64(data + i);
+      if (k) {
+        if (o + k > out_cap) return -1;
+        for (int64_t t = 0; t < k; t++) {
+          uint8_t b = data[i + t];
+          out[o + t] = (uint8_t)(b + (((uint8_t)(b - 'A') < 26u) ? 0x20 : 0));
+          raw_start[n_cps + t] = (int32_t)(i + t);
+          raw_len[n_cps + t] = 1;
+          out_len[n_cps + t] = 1;
+        }
+        i += k;
+        o += k;
+        n_cps += k;
+        continue;
+      }
+    }
+    uint32_t cp;
+    int l = strict_decode(data, i, n, &cp);
+    if (l < 0) {
+      if (o + 1 > out_cap) return -1;
+      out[o] = data[i];
+      raw_start[n_cps] = (int32_t)i;
+      raw_len[n_cps] = 1;
+      out_len[n_cps] = 1;
+      n_cps++;
+      o++;
+      i++;
+      continue;
+    }
+    uint64_t e = (cp < 0x10000u) ? emap[cp]
+                                 : encode_lowered((uint32_t)lower_map[cp]);
+    if (o + 8 > out_cap) return -1;
+    memcpy(out + o, &e, 8);
+    int ol = (int)(e >> 56);
+    raw_start[n_cps] = (int32_t)i;
+    raw_len[n_cps] = l;
+    out_len[n_cps] = ol;
+    n_cps++;
+    o += ol;
+    i += l;
+  }
+  *out_nbytes = o;
+  return n_cps;
+}
+
+// Metadata-free lowercase transducer: same strict-streaming byte semantics
+// as am_lower_transform but emits only the lowered bytes — for count /
+// containsAny, which never map positions back to raw coordinates.
+// ``emap`` is a caller-built BMP table of pre-encoded lowered sequences
+// (u64: output length in the top byte, up to 4 UTF-8 bytes little-endian
+// below; 8 bytes are always stored, the width advances the cursor).
+// Returns 0, or -1 if out_cap (which must include >= 8 slack bytes) would
+// overflow.
+int32_t am_lower_bytes(const int32_t* lower_map, const uint64_t* emap,
+                       const uint8_t* data, int64_t n, uint8_t* out,
+                       int64_t out_cap, int64_t* out_nbytes) {
+  int64_t i = 0, o = 0;
+  while (i < n) {
+    if (i + 64 <= n) {
+      int64_t k = ascii_prefix_len64(data + i);
+      if (k) {
+        if (o + k > out_cap) return -1;
+        for (int64_t t = 0; t < k; t++) {
+          uint8_t b = data[i + t];
+          out[o + t] = (uint8_t)(b + (((uint8_t)(b - 'A') < 26u) ? 0x20 : 0));
+        }
+        i += k;
+        o += k;
+        continue;
+      }
+    }
+    uint32_t cp;
+    int l = strict_decode(data, i, n, &cp);
+    if (l < 0) {
+      if (o + 1 > out_cap) return -1;
+      out[o++] = data[i++];
+      continue;
+    }
+    uint64_t e = (cp < 0x10000u) ? emap[cp]
+                                 : encode_lowered((uint32_t)lower_map[cp]);
+    if (o + 8 > out_cap) return -1;
+    memcpy(out + o, &e, 8);
+    o += (int64_t)(e >> 56);
+    i += l;
+  }
+  *out_nbytes = o;
+  return 0;
+}
+
+// ASCII byte-LUT map (A-Z += 0x20) -- the pure-ASCII fast path.
+void am_lower_ascii(const uint8_t* data, int64_t n, uint8_t* out) {
+  for (int64_t i = 0; i < n; i++) {
+    uint8_t b = data[i];
+    out[i] = (b >= 'A' && b <= 'Z') ? (uint8_t)(b + 0x20) : b;
+  }
+}
+
+// Returns 1 iff all bytes < 0x80.
+int32_t am_is_ascii(const uint8_t* data, int64_t n) {
+  int64_t i = 0;
+  const uint64_t* p = reinterpret_cast<const uint64_t*>(data);
+  int64_t words = n / 8;
+  uint64_t acc = 0;
+  for (int64_t w = 0; w < words; w++) acc |= p[w];
+  if (acc & 0x8080808080808080ull) return 0;
+  for (i = words * 8; i < n; i++)
+    if (data[i] & 0x80) return 0;
+  return 1;
 }
 
 }  // extern "C"

@@ -83,6 +83,20 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, i64, i64, i32,  # data, n, overlap, n_threads
         p,  # out_seen
     ]
+    lib.am_lower_transform.restype = i64
+    lib.am_lower_transform.argtypes = [
+        p, p,  # lower_map (int32 [0x110000]), emap (uint64 [0x10000])
+        p, i64,  # data, n
+        p, i64,  # out, out_cap
+        p, p, p,  # raw_start, raw_len, out_len (int32 per unit)
+        p,  # out_nbytes (int64)
+    ]
+    lib.am_lower_bytes.restype = i32
+    lib.am_lower_bytes.argtypes = [p, p, p, i64, p, i64, p]  # ..., out, out_cap, out_nbytes
+    lib.am_lower_ascii.restype = None
+    lib.am_lower_ascii.argtypes = [p, i64, p]
+    lib.am_is_ascii.restype = i32
+    lib.am_is_ascii.argtypes = [p, i64]
     lib.am_scan_all_values.restype = i64
     lib.am_scan_all_values.argtypes = [
         p, p,  # delta, match_count

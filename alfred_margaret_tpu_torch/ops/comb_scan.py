@@ -52,7 +52,7 @@ import torch
 from ..kernels.comb import comb_contains, comb_count, comb_count_plain, comb_states
 from ..models.ac import AcMachine
 from ..models.minimize import count_minimized, minimize_sticky
-from .bitap_scan import BitapAcEngine, plan_bitap
+from .bitap_scan import BitapAcEngine, plan_bitap, plan_bitap_ci
 from .pallas_scan import (
     MAX_ROWS,
     CapacityError,
@@ -555,8 +555,11 @@ def plan_pallas(machine, max_rows: int = MAX_ROWS):
 def make_engine(machine: AcMachine, device="cuda", *, max_rows: int = MAX_ROWS,
                 overlap: Optional[int] = None, **kw):
     """The single-pass engine for ``machine``: ``BitapAcEngine`` when
-    ``plan_bitap`` fits ``BITAP_MAX_WORDS`` words (``AMT_BITAP=0`` disables
-    it), else ``DenseAcEngine`` when its table fits ``max_rows`` rows, else
+    ``plan_bitap`` fits ``BITAP_MAX_WORDS`` words, or, for a composed
+    IgnoreCase machine, ``plan_bitap_ci`` does (a standalone trap register
+    counting as one more word, by the JAX rule of ``plan_bitap_auto``;
+    ``AMT_BITAP=0`` disables both), else ``DenseAcEngine`` when its table
+    fits ``max_rows`` rows, else
     ``Comb16AcEngine``, else ``CombAcEngine``.  ``max_rows``, ``overlap``
     and ``kw`` (``n_streams``, ``t_tile``) go to the engine.  Never builds
     the grouped engine (which calls this per group); raises
@@ -568,6 +571,10 @@ def make_engine(machine: AcMachine, device="cuda", *, max_rows: int = MAX_ROWS,
     lay = None
     if os.environ.get("AMT_BITAP") != "0":
         lay = plan_bitap(machine, max_words=BITAP_MAX_WORDS)
+        if lay is None and machine.composed_ci:
+            lay = plan_bitap_ci(machine, max_words=BITAP_MAX_WORDS)
+            if lay is not None and lay.trap is not None and lay.n_words + 1 > BITAP_MAX_WORDS:
+                lay = None  # the trap register is one word more than the budget
     if lay is not None:
         return BitapAcEngine(machine, layout=lay, **kw)
     try:

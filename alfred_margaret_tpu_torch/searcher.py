@@ -4,12 +4,17 @@ Counterpart of ``alfred_margaret_tpu/searcher.py:Searcher``: a needle list
 with values, the automaton built from it and the port's ``MatchEngine`` on a
 device (``"cuda"`` unless the caller asks for ``"cpu"``).  Equality, hashing
 and ``to_json`` are defined by the needle list only, as in the JAX package.
-``build``, ``build_with_values``, ``save_npz``, ``load_npz``, ``stage``,
-``count_matches``, ``contains_any``, ``contains_all``, ``all_matches`` and
-``all_matches_arrays`` work, CaseSensitive only, on whichever engine
-``MatchEngine`` picks for the needle set (the needle-grouped one for sets
-that no single-pass engine holds).  Every other operation
-raises ``NotImplementedError`` naming the ROADMAP item that brings it.
+``build``, ``build_with_values``, ``save_npz``, ``load_npz``,
+``set_case_sensitivity``, ``stage``, ``count_matches``, ``contains_any``,
+``contains_all``, ``all_matches`` and ``all_matches_arrays`` work, in both
+case modes, on whichever engine ``MatchEngine`` picks for the needle set
+(the needle-grouped one for sets that no single-pass engine holds; for
+IgnoreCase the composed case DFA or the lowering path).  Every other
+operation raises ``NotImplementedError`` naming the ROADMAP item that brings
+it.
+
+As in the reference, an ``IGNORE_CASE`` searcher expects lowercase needles:
+uppercase needles never match (``Searcher.hs:108-118``).
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ import numpy as np
 from .engine import MatchEngine
 from .models import ac
 from .utils import utf8
-from .utils.case import CASE_SENSITIVE, CaseSensitivity
+from .utils.case import CaseSensitivity
 
 
 def _todo(what: str, item: str):
@@ -53,8 +58,6 @@ class Searcher:
         *,
         device="cuda",
     ):
-        if case is not CASE_SENSITIVE:
-            raise NotImplementedError("IgnoreCase is ROADMAP Queue A item 11")
         self._case = case
         self._needles: List[Tuple[bytes, Any]] = [
             (utf8.to_bytes(n), v) for n, v in needles_with_values
@@ -105,6 +108,13 @@ class Searcher:
     @property
     def device(self):
         return self._engine.device
+
+    def set_case_sensitivity(self, case: CaseSensitivity) -> "Searcher":
+        """Switch case mode without re-capitalizing needles; with IGNORE_CASE
+        the caller must be sure the needles are lowercase already
+        (``Searcher.hs:139-145``)."""
+        return Searcher(case, self._needles, machine=self._machine, engine=self._engine_name,
+                        device=self.device)
 
     # -- equality, hashing and serialization by needles ------------------------
 
@@ -182,7 +192,6 @@ class Searcher:
 
     build_needle_id_searcher = classmethod(_todo("build_needle_id_searcher", "8"))
     from_json = classmethod(_todo("from_json", "8"))
-    set_case_sensitivity = _todo("set_case_sensitivity", "8 and 11")
     map_searcher = _todo("map_searcher", "8")
     __add__ = _todo("__add__", "8")
     adopt_staged = _todo("adopt_staged", "8")

@@ -7,8 +7,9 @@ Run from the repository root on a host with one CUDA card (an H100):
 It builds the port's CUDA kernels from ``alfred_margaret_tpu_torch/csrc``
 (one ``nvcc`` per source, all at once) and checks each of the seventeen
 kernels against its plain torch version on the card on nineteen machines, and
-the engines' answers (``final_states`` and the extraction without the host
-corpus too) against the port's host C++ engine.  Then it drives eight main
+the trap parts of B2, B4 and B7 on three IgnoreCase layouts, and the
+engines' answers (``final_states`` and the extraction without the host
+corpus too) against the port's host C++ engine.  Then it drives nine main
 paths, each with the kernels' launch counts set to 0 just before it and read
 just after (the controls' launches are read apart), the first seven over
 128 MiB corpora:
@@ -57,11 +58,26 @@ just after (the controls' launches are read apart), the first seven over
   dispatcher takes for an empty needle beside config 5's first 1,000, at
   4 MiB: ``count_matches``, ``contains_any``, ``contains_all`` and
   ``all_matches_arrays`` equal to the host C++ engine's, and to the python
-  oracle's on the first 64 KiB.
+  oracle's on the first 64 KiB;
+* IgnoreCase: the bench needles over the bench corpus with its letters
+  uppercased at random (128 MiB), on the composed case DFA's byte-class
+  bitap with a trap embedded in its word (B2, B4, B7 with their trap parts;
+  B6's dense step for extraction), with ``AMT_BITAP=0`` (B1, B3 and B6 on
+  the composed machine) as the control; the same corpus with ``TSHİRT``
+  written into 100 streams (the trapped streams re-counted on the host) and
+  into 1,000 (the dense fallback, B1); config 2's 100 needles on the
+  composed machine's comb16 tables (B8, B10, B13); and the lowering path:
+  config 5's first 600 needles, whose composed machine no single-pass
+  engine holds, lowered on the host (32 MiB) and scanned by the grouped
+  engine.  Answers against the host C++ engine on the composed machine (or,
+  on the lowering path, on the lowered bytes with the ends mapped back), and
+  the python IgnoreCase oracle on 64 KiB with the case probes (İ, Ⱥ, Kelvin
+  K, Å, ẞ).
 
 Every answer must equal the host C++ engine's (and the control's), and every
 kernel of a path must have been launched by it.  Last it times every kernel
-and its plain version with CUDA events, B8 against B1 on one 30-needle
+(the trap parts on the IgnoreCase bench staging, with an embedded trap and
+with a trap register) and its plain version with CUDA events, B8 against B1 on one 30-needle
 set that both engines hold, and B9 against the per-group B15 and B8 passes
 it replaces, beside the host C++ engine's count.  Any failure raises and the exit code is
 non-zero.  Without a CUDA device it exits non-zero before printing a result.
@@ -87,6 +103,7 @@ MISS_NEEDLES = ["Tshirt9", "SHORTS"]
 CORPUS_BYTES = 128 << 20
 CHECK_BYTES = 4 << 20  # corpus of the per-kernel checks
 REFERENCE_BYTES = 4 << 20  # corpus of the reference scan engine
+LOWERING_BYTES = 32 << 20  # corpus of the IgnoreCase lowering path
 ORACLE_BYTES = 64 << 10  # the part of it the python oracle scans
 KERNEL_RUNS = 20
 PLAIN_RUNS = 2
@@ -152,19 +169,21 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
-    from alfred_margaret_tpu_torch import CASE_SENSITIVE, Searcher, toolchain_report
+    from alfred_margaret_tpu_torch import (
+        CASE_SENSITIVE, IGNORE_CASE, MatchEngine, Searcher, toolchain_report)
     from alfred_margaret_tpu_torch import kernels as K
     from alfred_margaret_tpu_torch.bench.dataformat import synth_corpus
     from alfred_margaret_tpu_torch.kernels import build
-    from alfred_margaret_tpu_torch.models import ac
+    from alfred_margaret_tpu_torch.models import ac, case_dfa
     from alfred_margaret_tpu_torch.native import build as native_build
     from alfred_margaret_tpu_torch.native.cpp_engine import CppAcEngine
-    from alfred_margaret_tpu_torch.ops.bitap_scan import BitapAcEngine, plan_bitap
+    from alfred_margaret_tpu_torch.ops.bitap_scan import BitapAcEngine, plan_bitap, plan_bitap_ci
     from alfred_margaret_tpu_torch.ops.comb16_scan import Comb16AcEngine
     from alfred_margaret_tpu_torch.ops.comb_scan import CombAcEngine
     from alfred_margaret_tpu_torch.ops.grouped import GroupedAcEngine
     from alfred_margaret_tpu_torch.ops.pallas_scan import DenseAcEngine, _zero_inert
     from alfred_margaret_tpu_torch.ops.xla_scan import XlaAcEngine
+    from alfred_margaret_tpu_torch.utils import utf8
     from alfred_margaret_tpu_torch.utils.device import nvidia_smi_line
 
     dev = torch.device("cuda", 0)
@@ -184,9 +203,12 @@ def main() -> int:
             print("  ptxas:", line.split(":", 1)[-1].strip() if "ptxas" in line else line)
     native_build.load()  # the host C++ engine every answer is held against
 
-    # B13 is B6's wrapper with the comb16 step: its errors and launches are
-    # kept apart.
-    max_err = {**{w.__name__: 0 for w in K.WRAPPERS}, "matchbits_comb16": 0}
+    # B13 is B6's wrapper with the comb16 step, and the trap parts of B2, B4
+    # and B7 are their wrappers given a trap mask: their errors and launches
+    # are kept apart.
+    TRAP_WRAPPERS = (K.bitap_count, K.bitap_contains, K.bitap_presence)
+    max_err = {**{w.__name__: 0 for w in K.WRAPPERS}, "matchbits_comb16": 0,
+               **{w.__name__ + "_trap": 0 for w in TRAP_WRAPPERS}}
 
     def same(name, k, p, label):
         """Kernel output ``k`` equals plain output ``p`` exactly, on every
@@ -436,15 +458,22 @@ def main() -> int:
     def zero_counts():
         for w in K.WRAPPERS:
             w.launches = 0
+        for w in TRAP_WRAPPERS:
+            w.launches_trap = 0
         for step in K.matchbits.launches_by_step:
             K.matchbits.launches_by_step[step] = 0
 
     def read_counts():
         """Each wrapper's launches; B6's with the comb16 step count as B13's
-        (``matchbits_comb16``), as its wrapper counts them apart."""
+        (``matchbits_comb16``), and B2's, B4's and B7's with a trap mask as
+        their trap parts' (``bitap_count_trap``, ...), as the wrappers count
+        them apart."""
         counts = {w.__name__: w.launches for w in K.WRAPPERS}
         counts["matchbits_comb16"] = K.matchbits.launches_by_step["comb16"]
         counts["matchbits"] -= counts["matchbits_comb16"]
+        for w in TRAP_WRAPPERS:
+            counts[w.__name__ + "_trap"] = w.launches_trap
+            counts[w.__name__] -= w.launches_trap
         return counts
 
     def tally(into, used):
@@ -956,6 +985,282 @@ def main() -> int:
           f"{REFERENCE_BYTES} bytes: {ref_ms:.1f} ms wall host clock, "
           f"{REFERENCE_BYTES / ref_ms / 1e6:.4f} GB/s ({card})", flush=True)
 
+    # -- IgnoreCase ------------------------------------------------------------
+    def scramble(raw, seed):
+        """``raw`` with its ASCII letters uppercased at random (seeded)."""
+        a = np.frombuffer(raw, np.uint8).copy() if isinstance(raw, bytes) else raw.copy()
+        flip = np.random.default_rng(seed).integers(0, 2, size=len(a), dtype=np.uint8) == 1
+        a[flip & (a >= 97) & (a <= 122)] -= 32
+        return a
+
+    def composed_of(s, label):
+        """``s``'s composed engine, built and timed here."""
+        t0 = time.perf_counter()
+        ci = s._engine._composed(IGNORE_CASE)
+        check(ci is not None, f"{label}: no composed engine")
+        print(f"IgnoreCase {label}: compose_build {s.automaton.n_states} -> {ci.machine.n_states} "
+              f"states + {type(ci.device_engine()).__name__} tables "
+              f"{time.perf_counter() - t0:.3f} s host", flush=True)
+        return ci
+
+    def host_answers(host, hay, n_values, want=None):
+        """count, contains_any, contains_all and all_matches_arrays of the
+        host C++ engine ``host`` over ``hay``."""
+        want = {} if want is None else want
+        want["count_matches"] = host.count(hay)
+        want["contains_any"] = host.first_hit(hay) >= 0
+        want["contains_all"] = bool(host.value_presence(hay, n_values).all())
+        want["all_matches_arrays"] = host.matches_arrays(hay)
+        return want
+
+    def oracle_check(s, hay, label):
+        """``s`` on ``hay`` (staged, so composed where ``s`` composes) against
+        the scalar IgnoreCase oracle."""
+        m = s.automaton
+        h = s.stage(hay)
+        want_n = ac.count_matches(m, hay, IGNORE_CASE)
+        want_ends = [x.pos for x in ac.all_matches(m, hay, IGNORE_CASE)]
+        got_n = s.count_matches(h)
+        check(got_n == want_n, f"{label}: count {got_n} != python oracle {want_n}")
+        check(s.all_matches_arrays(h)[0].tolist() == want_ends, f"{label}: ends != python oracle")
+        check(s.contains_any(h) == (want_n > 0), f"{label}: contains_any != python oracle")
+        print(f"IgnoreCase {label}: {len(hay)} bytes, {want_n} matches == python oracle "
+              f"(composed={h.composed})", flush=True)
+
+    PROBES = "TSHİRT ȺSHIRTS SHORTS Å STRAẞE ẞ KSHIRT tshirts SHİRTS ".encode()
+    ci_main, ci_control = {}, {}
+
+    # Phase 1: the bench needles under IgnoreCase at 128 MiB, case-scrambled.
+    t0 = time.perf_counter()
+    data_ci = scramble(data, 31)
+    s_ci = Searcher.build(IGNORE_CASE, NEEDLES)
+    miss_ci = Searcher.build(IGNORE_CASE, ["tshirt9", "shorts9"])  # no digit in the corpus
+    absent_ci = Searcher.build(IGNORE_CASE, NEEDLES + ["shorts9"])
+    ci1 = composed_of(s_ci, "bench needles")
+    for s, label in ((miss_ci, "miss needles"), (absent_ci, "absent needle")):
+        composed_of(s, label)
+    eng_ci = ci1.device_engine()
+    lay_ci = eng_ci.bitap if isinstance(eng_ci, BitapAcEngine) else None
+    check(lay_ci is not None and lay_ci.ci and lay_ci.trap is None
+          and any(w.trap_endmask for w in lay_ci.words),
+          f"IgnoreCase bench: not the byte-class bitap with an embedded trap ({type(eng_ci)})")
+    with mock.patch.dict(os.environ, {"AMT_BITAP": "0"}):  # the control: B1 on composed tables
+        ci1_dense = MatchEngine(ci1.machine, device=dev)
+        check(type(ci1_dense.device_engine()) is DenseAcEngine, "IgnoreCase control is not dense")
+    host_ci = CppAcEngine(ci1.machine)
+    want_ci = host_answers(host_ci, data_ci, len(NEEDLES))
+    want_ci["contains_any miss"] = CppAcEngine(miss_ci._engine._ci.machine).first_hit(data_ci) >= 0
+    want_ci["contains_all false"] = bool(CppAcEngine(absent_ci._engine._ci.machine).value_presence(
+        data_ci, len(NEEDLES) + 1).all())
+    check(want_ci["count_matches"] > 0 and want_ci["contains_any"] and want_ci["contains_all"]
+          and not want_ci["contains_any miss"] and not want_ci["contains_all false"],
+          f"IgnoreCase host C++ answers are not the expected ones")
+    check(want_ci["count_matches"] == got, "IgnoreCase count != the CaseSensitive count of the "
+          "unscrambled corpus")
+    print(f"IgnoreCase bench: corpus, engines and host C++ answers in "
+          f"{time.perf_counter() - t0:.1f} s; layout {lay_ci.n_words} word, trap_endmask "
+          f"{[hex(w.trap_endmask) for w in lay_ci.words]}", flush=True)
+    zero_counts()
+    t0 = time.perf_counter()
+    staged_ci = s_ci.stage(data_ci)
+    torch.cuda.synchronize()
+    stage_ci_s = time.perf_counter() - t0
+    staged_miss_ci = miss_ci.stage(data_ci)
+    staged_absent_ci = absent_ci.stage(data_ci)
+    check(staged_ci.composed and not any(read_counts().values()),
+          "IgnoreCase staging is not composed (or launched a kernel)")
+    st_ci = staged_ci.device
+    print(f"IgnoreCase bench: stage {CORPUS_BYTES} bytes {stage_ci_s:.3f} s ({st_ci.plan})",
+          flush=True)
+    ctrl = lambda op: (lambda: getattr(ci1_dense, op)(staged_ci, CASE_SENSITIVE))  # noqa: E731
+    ops_ci = [
+        ("count_matches", "main path", lambda: s_ci.count_matches(staged_ci)),
+        ("count_matches", "AMT_BITAP=0", ctrl("count")),
+        ("contains_any", "main path", lambda: s_ci.contains_any(staged_ci)),
+        ("contains_any", "AMT_BITAP=0", ctrl("contains_any")),
+        ("contains_any miss", "main path", lambda: miss_ci.contains_any(staged_miss_ci)),
+        ("contains_all", "main path", lambda: s_ci.contains_all(staged_ci)),
+        ("contains_all", "AMT_BITAP=0", lambda: bool(ci1_dense.value_presence(
+            staged_ci, CASE_SENSITIVE).all())),
+        ("contains_all false", "main path", lambda: absent_ci.contains_all(staged_absent_ci)),
+        ("all_matches_arrays", "main path", lambda: s_ci.all_matches_arrays(staged_ci)),
+        ("all_matches_arrays", "AMT_BITAP=0",
+         lambda: dataclasses.astuple(ci1_dense.matches(staged_ci, CASE_SENSITIVE))[:2]),
+    ]
+    expect_ci = {"count_matches": {"bitap_count_trap": 1},
+                 "contains_any": {"bitap_contains_trap": 1},
+                 "contains_any miss": {"bitap_contains_trap": 1},
+                 "contains_all": {"bitap_presence_trap": 1},
+                 "contains_all false": {"bitap_presence_trap": 1},
+                 "all_matches_arrays": {"matchbits": 1}}  # trap layouts take the dense step
+    for op, who, used in run_ops(ops_ci, want_ci):
+        if who == "main path":
+            check(used == expect_ci[op], f"IgnoreCase {op}: launched {used}, "
+                  f"expected {expect_ci[op]}")
+            tally(ci_main, used)
+        else:
+            check(used and set(used) <= {"dense_count", "dense_contains", "matchbits"},
+                  f"IgnoreCase {op} ({who}): launched {used}")
+            tally(ci_control, used)
+    pre = np.concatenate([data_ci[:ORACLE_BYTES], np.frombuffer(PROBES, np.uint8)])
+    oracle_check(s_ci, pre.tobytes(), "bench needles, 64 KiB + probes")
+
+    # Phase 2: TSHİRT written into < 1% of the live streams (host recount of
+    # the trapped streams) and into > 1% (the dense fallback, B1).
+    L_ci, S_ci = st_ci.plan.emit_len, st_ci.plan.n_streams
+    tword = "TSHİRT".encode()
+
+    def with_traps(n_hit, seed):
+        a = data_ci.copy()
+        for s in np.random.default_rng(seed).choice(S_ci, n_hit, replace=False):
+            a[s * L_ci + 100: s * L_ci + 100 + len(tword)] = np.frombuffer(tword, np.uint8)
+        return a
+
+    # 100 of 32768 streams is under the 1% the host recount takes.
+    for label, n_hit, route in (("few", min(100, S_ci // 200), "host recount"),
+                                ("many", min(1000, S_ci), "dense fallback")):
+        hay = with_traps(n_hit, 40 + n_hit)
+        want_t = host_answers(host_ci, hay, len(NEEDLES))
+        sst = s_ci.stage(hay)
+        _, trap = eng_ci.stream_counts(sst.device)
+        trapped = eng_ci._trapped_streams(trap.cpu().numpy(), sst.device)
+        n_trapped = int((trap.cpu().numpy()[sst.device.live_np] != 0).sum())
+        took = "host recount" if trapped is not None else "dense fallback"
+        check(took == route and n_trapped >= n_hit,
+              f"trap corpus ({label}): {n_trapped} trapped streams took the {took}")
+        count_kernels = {"bitap_count_trap": 1, **({"dense_count": 1} if route != "host recount"
+                                                   else {})}
+        expect_t = {"count_matches": count_kernels, "contains_any": {"bitap_contains_trap": 1},
+                    "contains_all": {"bitap_presence_trap": 1, "matchbits": 1},
+                    "all_matches_arrays": {"matchbits": 1}}
+        check(eng_ci.needle_presence_staged(sst.device) is None,
+              f"trap corpus ({label}): presence flags did not decline")
+        ops_t = [(op, f"trapped {label}", (lambda op=op: getattr(s_ci, op)(sst)))
+                 for op in expect_t]
+        for op, who, used in run_ops(ops_t, want_t):
+            check(used == expect_t[op], f"trap corpus ({label}) {op}: launched {used}, "
+                  f"expected {expect_t[op]}")
+            tally(ci_main, used)
+        print(f"IgnoreCase trap corpus ({label}): TSHİRT in {n_hit} streams, {n_trapped} of "
+              f"{int(sst.device.live_np.sum())} live streams trapped -> {took}; every answer == "
+              f"host C++ on the composed machine", flush=True)
+    oracle_check(s_ci, (pre.tobytes() + "KSHIRT İ Ⱥ Å ẞ ".encode()) * 2,
+                 "bench needles, probes with traps")
+
+    # Phase 3: config 2 under IgnoreCase, the composed machine on comb16.
+    t0 = time.perf_counter()
+    data2_ci = scramble(data2, 32)
+    s2_ci = Searcher.build(IGNORE_CASE, c2)
+    absent2_ci = Searcher.build(IGNORE_CASE, c2 + ["shorts9"])
+    ci2 = composed_of(s2_ci, "config 2")
+    composed_of(absent2_ci, "config 2 + absent")
+    eng2_ci = ci2.device_engine()
+    check(type(eng2_ci) is Comb16AcEngine and eng2_ci._filter_tables is None,
+          f"IgnoreCase config 2 took {type(eng2_ci).__name__} (or a screen)")
+    host2_ci = CppAcEngine(ci2.machine)
+    want2_ci = host_answers(host2_ci, data2_ci, len(c2))
+    want2_ci["contains_all false"] = bool(CppAcEngine(absent2_ci._engine._ci.machine)
+                                          .value_presence(data2_ci, len(c2) + 1).all())
+    check(want2_ci["count_matches"] == got2 and want2_ci["contains_all"]
+          and not want2_ci["contains_all false"], "IgnoreCase config 2 host answers")
+    staged2_ci = s2_ci.stage(data2_ci)
+    staged2_absent = absent2_ci.stage(data2_ci)
+    torch.cuda.synchronize()
+    print(f"IgnoreCase config 2: {ci2.machine.n_states} composed states, comb16 rows "
+          f"{eng2_ci.c16.rows_c}+{eng2_ci.c16.rows_a}; corpora, host answers and staging in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    ops2_ci = [(op, "main path", (lambda op=op: getattr(s2_ci, op)(staged2_ci)))
+               for op in ("count_matches", "contains_any", "contains_all", "all_matches_arrays")]
+    ops2_ci.append(("contains_all false", "main path", lambda: absent2_ci.contains_all(
+        staged2_absent)))
+    # The absent needle's composed machine (548 states) overflows comb16.
+    absent2_kernels = ({"comb_count", "comb_states"}
+                       if type(absent2_ci._engine._ci.device_engine()) is CombAcEngine
+                       else {"matchbits_comb16"})
+    expect2_ci = {"count_matches": {"comb16_count"}, "contains_any": {"comb16_contains"},
+                  "contains_all": {"matchbits_comb16"}, "contains_all false": absent2_kernels,
+                  "all_matches_arrays": {"matchbits_comb16"}}
+    for op, who, used in run_ops(ops2_ci, want2_ci):
+        check(set(used) == expect2_ci[op], f"IgnoreCase config 2 {op}: launched {used}")
+        tally(ci_main, used)
+    oracle_check(s2_ci, data2_ci[:ORACLE_BYTES].tobytes() + PROBES, "config 2, 64 KiB + probes")
+
+    # Phase 4: the lowering path, config 5's first 600 needles at 32 MiB.
+    n600 = config5_needles(600)
+    s600 = Searcher.build(IGNORE_CASE, n600)
+    t0 = time.perf_counter()
+    check(s600._engine._composed(IGNORE_CASE) is None,
+          "config 5's 600 needles composed: the grouped engine would scan them case-sensitively")
+    gate_s = time.perf_counter() - t0
+    data600 = scramble(synth_corpus(n600, LOWERING_BYTES, hit_fraction=0.01, seed=15), 33)
+    t0 = time.perf_counter()
+    lt600 = utf8.lower_transform(data600)
+    lower_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    staged600 = s600.stage(data600)
+    torch.cuda.synchronize()
+    stage600_s = time.perf_counter() - t0
+    eng600 = s600._engine.device_engine()
+    check(type(eng600) is GroupedAcEngine and not staged600.composed
+          and staged600.lowered is not None, "config 5's 600 needles: not the lowering path")
+    host600 = CppAcEngine(s600.automaton)
+    want600 = {"count_matches": host600.count(lt600.lowered)}
+    e6, v6 = host600.matches_arrays(lt600.lowered)
+    want600["all_matches_arrays"] = (lt600.map_ends_to_raw(e6) if len(e6) else e6, v6)
+    check(want600["count_matches"] > 0, "config 5's 600 needles: no match")
+    print(f"IgnoreCase lowering path: config 5's 600 needles ({s600.automaton.n_states} states): "
+          f"compose gate {gate_s:.3f} s host (declined); lower_transform {LOWERING_BYTES} bytes "
+          f"{lower_s * 1e3:.1f} ms host; stage (lowering, grouped build of {eng600.n_groups} "
+          f"groups, device staging) {stage600_s:.1f} s", flush=True)
+    ops600 = [(op, "main path", (lambda op=op: getattr(s600, op)(staged600)))
+              for op in ("count_matches", "all_matches_arrays")]
+    for op, who, used in run_ops(ops600, want600):
+        check(used and set(used) <= {"comb16_count_grouped", "comb_count", "comb_states",
+                                     "matchbits_comb16", "comb16_count", "comb16_states"},
+              f"lowering path {op}: launched {used}")
+        tally(ci_main, used)
+    oracle_check(s600, data600[:ORACLE_BYTES].tobytes() + PROBES, "config 5's 600, 64 KiB")
+
+    # Phase 5: B2, B4 and B7 with trap tables against their plain versions.
+    reg_needles = ["tshirt", "shirts", "shorts", "kilo", "café"]
+    for seed, (label, needles) in enumerate((("trapless", ["dress", "shoe", "glove"]),
+                                             ("embedded trap", NEEDLES),
+                                             ("trap register", reg_needles))):
+        m = machine_of(needles)
+        cm = case_dfa.compose_build(list(zip(m.needles, m.values)), machine=m)
+        e = BitapAcEngine(cm, layout=plan_bitap_ci(cm, max_words=2), device=dev)
+        lay_k = e.bitap
+        shape = (any(w.trap_endmask for w in lay_k.words), lay_k.trap is not None)
+        check(shape == {"trapless": (False, False), "embedded trap": (True, False),
+                        "trap register": (False, True)}[label], f"{label}: layout {shape}")
+        hay = scramble(synth_corpus(needles, CHECK_BYTES, hit_fraction=0.02, seed=50 + seed), seed)
+        hay = np.concatenate([hay, np.frombuffer(PROBES * 3, np.uint8)])
+        sst = e.stage(hay)
+        suffix = "_trap" if lay_k.has_trap else ""
+        kargs, sargs = e._kernel_args(sst), e.sticky_bitap_args(sst)
+        for name, kernel, plain, args in (
+                ("bitap_count", K.bitap_count, K.bitap_count_plain, kargs),
+                ("bitap_contains", K.bitap_contains, K.bitap_contains_plain, sargs),
+                ("bitap_presence", K.bitap_presence, K.bitap_presence_plain, sargs)):
+            k, p = kernel(*args), plain(*args)
+            for a, b in zip(k if isinstance(k, tuple) else (k,), p if isinstance(p, tuple) else (p,)):
+                same(name + suffix, a, b, f"IgnoreCase {label}")
+        hci = CppAcEngine(cm)
+        n = e.count_staged(sst)
+        check(n == hci.count(hay) and e.contains_staged(sst) == (hci.first_hit(hay) >= 0),
+              f"IgnoreCase {label}: answers != host C++")
+        pres = e.needle_presence_staged(sst)
+        check((pres is None) == lay_k.has_trap, f"IgnoreCase {label}: presence with a trap")
+        print(f"check bitap{suffix:5s} IgnoreCase {label:14s} V={lay_k.n_words} VT="
+              f"{len(lay_k.all_words())} count={n} == host C++ ok", flush=True)
+    # The trap-register layout's kernels at the bench shape, for timing.
+    m_reg = machine_of(reg_needles)
+    cm_reg = case_dfa.compose_build(list(zip(m_reg.needles, m_reg.values)), machine=m_reg)
+    eng_reg = BitapAcEngine(cm_reg, layout=plan_bitap_ci(cm_reg, max_words=2), device=dev)
+    check(eng_reg.adopt_staged(st_ci) is st_ci, "trap register engine cannot adopt the staging")
+    for name in ("bitap_count_trap", "bitap_contains_trap", "bitap_presence_trap"):
+        check(ci_main.get(name, 0) > 0, f"{name} was not launched by the IgnoreCase path")
+
     # -- timing at the main paths' shapes --------------------------------------
     def timed(fn, runs):
         fn()  # warm-up
@@ -1017,6 +1322,8 @@ def main() -> int:
     S = st.plan.n_streams
     T = st.plan.time_len
     need_bench = int(first_hit_steps(bitap_eng, st).sum())
+    need_ci = int(first_hit_steps(eng_ci, st_ci).sum())
+    VT_ci, VT_reg = len(lay_ci.all_words()), len(eng_reg.bitap.all_words())
     need_digits = int(first_hit_steps(eng2, st_digits).sum())
     need_c2 = int(first_hit_steps(eng2, st_c2).sum())
     T2 = st_c2.plan.time_len
@@ -1090,6 +1397,21 @@ def main() -> int:
          "bench needles", T * S, 4 * T * S, T * S),
         ("comb16_states", K.comb16_states, K.comb16_states_plain, eng2.states_args(st_c2),
          "config 2", T2 * S, 4 * T2 * S, T2 * S),
+        ("bitap_count_trap", K.bitap_count, K.bitap_count_plain, eng_ci._kernel_args(st_ci),
+         "IgnoreCase bench needles, embedded trap", n_live_bytes(st_ci), 8 * S,
+         n_live_bytes(st_ci) * VT_ci),
+        ("bitap_count_trap", K.bitap_count, K.bitap_count_plain, eng_reg._kernel_args(st_ci),
+         "IgnoreCase 5 needles, trap register", n_live_bytes(st_ci), 8 * S,
+         n_live_bytes(st_ci) * VT_reg),
+        ("bitap_contains_trap", K.bitap_contains, K.bitap_contains_plain,
+         eng_ci.sticky_bitap_args(st_ci), "IgnoreCase bench needles, embedded trap", need_ci,
+         8 * S, need_ci * VT_ci),
+        ("bitap_presence_trap", K.bitap_presence, K.bitap_presence_plain,
+         eng_ci.sticky_bitap_args(st_ci), "IgnoreCase bench needles, embedded trap",
+         n_live_bytes(st_ci), 4 * S * VT_ci, n_live_bytes(st_ci) * VT_ci),
+        ("bitap_presence_trap", K.bitap_presence, K.bitap_presence_plain,
+         eng_reg.sticky_bitap_args(st_ci), "IgnoreCase 5 needles, trap register",
+         n_live_bytes(st_ci), 4 * S * VT_reg, n_live_bytes(st_ci) * VT_reg),
     )
     for name, kernel, plain, args, what, sbytes, obytes, ops in rows:
         k, p = kernel(*args), plain(*args)
@@ -1186,14 +1508,20 @@ def main() -> int:
         "comb_states": ("comb_scan.cu", "comb_scan.py:529", "config 5, 300 needles"),
         "dense_states": ("dense_count.cu", "pallas_scan.py:496", "bench needles"),
         "comb16_states": ("comb16_scan.cu", "comb16_scan.py:917", "config 2"),
+        "bitap_count_trap": ("bitap_count.cu", "bitap_scan.py:352",
+                             "IgnoreCase bench needles, embedded trap"),
+        "bitap_contains_trap": ("bitap_contains.cu", "bitap_scan.py:466",
+                                "IgnoreCase bench needles, embedded trap"),
+        "bitap_presence_trap": ("bitap_contains.cu", "bitap_scan.py:551",
+                                "IgnoreCase bench needles, embedded trap"),
     }
     # Launches counted by the wrappers during the main paths, and apart from
     # them the controls'.
     launches, control = {}, {}
     for path in (bench_main, dense_main, c16_main, c32_main, g_main, states_main, extract_main,
-                 ref_main):
+                 ref_main, ci_main):
         tally(launches, path)
-    for path in (bench_control, c16_control, g_control):
+    for path in (bench_control, c16_control, g_control, ci_control):
         tally(control, path)
     kernels = []
     for name, (src, where, what) in table.items():
@@ -1225,6 +1553,9 @@ def main() -> int:
         if name == "comb_contains":
             entry["ms_first_match"], entry["plain_ms_first_match"], entry[
                 "bound_ms_first_match"], _ = timings[(name, "300 needles, config 5 corpus: first match")]
+        if name in ("bitap_count_trap", "bitap_presence_trap"):
+            entry["ms_trap_register"], entry["plain_ms_trap_register"], entry[
+                "bound_ms_trap_register"], _ = timings[(name, "IgnoreCase 5 needles, trap register")]
         if name == "comb16_contains_grouped":
             entry["groups"] = Y5
             entry["ms_first_match"], entry["plain_ms_first_match"], entry[

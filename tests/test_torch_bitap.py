@@ -117,11 +117,22 @@ def test_ineligible_machine_raises():
 
 
 def test_trap_layout_not_implemented():
+    """A layout with a standalone trap register builds tables over both words
+    and counts: the register (endmask 0, no fields) never counts, and a
+    trap that never fires leaves the count exact."""
     m = _machine(NEEDLES3)
     lay = plan_bitap(m)
     trap = WordLayout(seed=1, endmask=2, btab=np.zeros(256, np.int64), fields=())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        BitapAcEngine(m, layout=BitapLayout(words=lay.words, unroll=lay.unroll, trap=trap), device=CPU)
+    eng = BitapAcEngine(m, layout=BitapLayout(words=lay.words, unroll=lay.unroll, trap=trap),
+                        device=CPU, n_streams=8, t_tile=8)
+    t = eng.bitap_tables
+    assert t.btab.shape == (2, 256) and t.endmask.tolist() == [lay.words[0].endmask, 0]
+    assert t.trapmask.tolist() == [0, 2] and t.field_start.tolist()[-2:] == [3, 3]
+    hay = b"tshirts shorts " * 40
+    st = eng.stage(hay)
+    counts, trapped = eng.stream_counts(st)
+    assert not trapped.any()
+    assert eng.count_staged(st) == int(counts.sum()) == ac.count_matches(m, hay)
 
 
 def test_wrapper_input_checks():

@@ -520,3 +520,79 @@ def test_reference_engine_on_the_card(cuda):
     hit = np.flatnonzero(eng.state_hits(data))
     assert np.array_equal(ac.presence_of_states(m, hit, len(needles)),
                           host.value_presence(data, len(needles)))
+
+
+# -- IgnoreCase: the trap parts of B2, B4 and B7 ------------------------------------
+
+#: (needles, embedded trap, trap register) of the three byte-class layouts.
+CI_LAYOUTS = [
+    (["dress", "shoe", "shorts"], False, False),
+    (["kilo", "fix"], True, False),
+    (["tshirt", "shirts", "shorts", "kilo", "café"], False, True),
+]
+
+
+def _ci_engine(needles, device, n_streams):
+    from alfred_margaret_tpu_torch.models import case_dfa
+    from alfred_margaret_tpu_torch.ops.bitap_scan import plan_bitap_ci
+
+    m = _machine(needles)
+    cm = case_dfa.compose_build(list(zip(m.needles, m.values)), machine=m)
+    return m, BitapAcEngine(cm, layout=plan_bitap_ci(cm, max_words=2), device=device,
+                            n_streams=n_streams)
+
+
+def _ci_corpus(needles, seed, traps):
+    rng = np.random.default_rng(seed)
+    text = bytearray(synth_corpus(needles, 1 << 18, hit_fraction=0.02, seed=seed))
+    for i in np.flatnonzero(rng.random(len(text)) < 0.5):
+        if 97 <= text[i] <= 122:
+            text[i] -= 32
+    for k, t in enumerate(traps):
+        pos = (k + 1) * len(text) // (len(traps) + 1)
+        text[pos:pos] = t.encode()
+    return bytes(text)
+
+
+@pytest.mark.parametrize("needles,embedded,register", CI_LAYOUTS)
+@pytest.mark.parametrize("n_streams", [1024, 1000])
+def test_trap_kernels_match_plain(cuda, needles, embedded, register, n_streams):
+    from alfred_margaret_tpu_torch.kernels import bitap_count_plain
+    from alfred_margaret_tpu_torch.utils.case import IGNORE_CASE
+
+    m, eng = _ci_engine(needles, cuda, n_streams)
+    lay = eng.bitap
+    assert (any(w.trap_endmask for w in lay.words), lay.trap is not None) == (embedded, register)
+    data = _ci_corpus(needles, 8, ["KİLO", "KKILO FİX", "Å STRAẞE"])
+    st = eng.stage(data)
+    kargs, sargs = eng._kernel_args(st), eng.sticky_bitap_args(st)
+    before = (bitap_count.launches_trap, bitap_contains.launches_trap, bitap_presence.launches_trap)
+    outs = [(bitap_count(*kargs), bitap_count_plain(*kargs)),
+            (bitap_contains(*sargs), bitap_contains_plain(*sargs)),
+            (bitap_presence(*sargs), bitap_presence_plain(*sargs))]
+    torch.cuda.synchronize()
+    for k, p in outs:
+        for a, b in zip(k if isinstance(k, tuple) else (k,), p if isinstance(p, tuple) else (p,)):
+            assert torch.equal(a.cpu(), b.cpu())
+    after = (bitap_count.launches_trap, bitap_contains.launches_trap, bitap_presence.launches_trap)
+    assert after == tuple(b + lay.has_trap for b in before)
+    exp = ac.count_matches(m, data, IGNORE_CASE)
+    assert eng.count_staged(st) == exp > 0 and eng.contains_staged(st)
+    if lay.has_trap:
+        assert outs[0][0][1].any() and eng.needle_presence_staged(st) is None
+
+
+def test_ignore_case_searcher_on_the_card(cuda):
+    from alfred_margaret_tpu_torch import IGNORE_CASE, Searcher
+
+    needles = ["kilo", "fix", "tshirt"]
+    data = _ci_corpus(needles, 9, ["KİLO", "FİX"])
+    s = Searcher.build(IGNORE_CASE, needles)
+    assert s.device == cuda
+    st = s.stage(data)
+    assert st.composed and isinstance(s._engine._ci.device_engine(), BitapAcEngine)
+    m = s.automaton
+    assert s.count_matches(st) == ac.count_matches(m, data, IGNORE_CASE)
+    ends, _ = s.all_matches_arrays(st)
+    assert ends.tolist() == [x.pos for x in ac.all_matches(m, data, IGNORE_CASE)]
+    assert s.contains_any(st) and s.contains_all(st)

@@ -171,10 +171,11 @@ def test_engine_types_match_jax():
     def fields(cls):
         return [f.name for f in dataclasses.fields(cls)]
 
-    # The JAX package's, less the IgnoreCase fields.
-    assert fields(tengine.StagedHaystack) == [
-        f for f in fields(jengine.StagedHaystack) if f not in ("lowered", "composed")]
-    assert fields(tengine.MatchSet) == [f for f in fields(jengine.MatchSet) if f != "lowered"]
+    # The JAX package's, IgnoreCase fields included.
+    assert fields(tengine.StagedHaystack) == fields(jengine.StagedHaystack)
+    assert fields(tengine.MatchSet) == fields(jengine.MatchSet)
+    assert tengine.MatchEngine.AUTO_COMPOSE_BYTES == jengine.MatchEngine.AUTO_COMPOSE_BYTES
+    assert tengine.COMPOSED_CI_MAX_STATES == jamt.utils.config.DEFAULT.composed_ci_max_states
     staged = tengine.StagedHaystack(case=port.CASE_SENSITIVE, data=np.zeros(7, np.uint8))
     assert len(staged) == 7 and not tengine._has_device(staged) and not tengine._has_device(b"x")
     staged.device = object()
@@ -283,6 +284,7 @@ def test_entry_points_default_to_cuda():
         return
     m = ac.build([("tshirt", 0)])
     for call in (lambda: port.Searcher.build(port.CASE_SENSITIVE, ["tshirt"]),
+                 lambda: port.Searcher.build(port.IGNORE_CASE, ["tshirt"]),
                  lambda: port.Searcher(port.CASE_SENSITIVE, [(b"tshirt", 0)]),
                  lambda: port.MatchEngine(m),
                  lambda: port.make_engine(m),

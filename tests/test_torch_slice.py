@@ -273,7 +273,6 @@ def test_unported_operations_raise():
         (lambda: s + s, "item 8"),
         (lambda: Searcher.from_json(s.to_json()), "item 8"),
         (lambda: s.distributed(None), "item 16"),
-        (lambda: Searcher.build(IGNORE_CASE, NEEDLES3, device="cpu"), "item 11"),
     ]:
         with pytest.raises(NotImplementedError, match=item):
             call()
