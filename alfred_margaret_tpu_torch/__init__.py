@@ -8,7 +8,8 @@ three-tier comb16 table, with its stride-2 containsAny screen, for sets of
 about 30 to 150 needles that overflow the dense table, and the
 needle-grouped engine for larger sets (a thousand needles and more), which
 counts and answers containsAny over all its groups in one fused launch
-each.  Module names mirror
+each; ``parallel`` shards the scan over a mesh of devices (which may
+repeat: eight shards on one card).  Module names mirror
 the JAX package's, which stays the reference the port is tested against.
 This package imports ``torch`` and nothing of ``jax`` or of the JAX package:
 the host layers it needs (automaton builder, host C++ engine, case and UTF-8
@@ -20,6 +21,7 @@ Every entry point runs on ``device="cuda"`` unless the caller asks for
 them); without a CUDA device, ``"cuda"`` raises.
 """
 
+from . import parallel
 from .engine import MatchEngine
 from .ops.comb_scan import make_engine
 from .ops.grouped import GroupedAcEngine
@@ -35,5 +37,6 @@ __all__ = [
     "MatchEngine",
     "Searcher",
     "make_engine",
+    "parallel",
     "toolchain_report",
 ]

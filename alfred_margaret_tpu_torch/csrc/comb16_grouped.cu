@@ -1,11 +1,14 @@
 // B9 comb16_count_grouped and B11 comb16_contains_grouped: the fused
-// single-launch comb16 scans over G needle groups, for Hopper.
+// single-launch comb16 scans over G needle groups, for Hopper; and B11's
+// one-group mode, comb16_contains_base.
 //
 // Replace the Pallas TPU kernels alfred_margaret_tpu/ops/comb16_scan.py:
 // _make_c16_count_kernel_dyn (B9, launched from
-// GroupedPallasAcEngine._get_fused_count_fn) and
-// _make_c16_contains_kernel_dyn with n_groups > 1 (B11, from
-// _get_fused_contains_fn).  The TPU kernels walk a sequential grid of
+// GroupedPallasAcEngine._get_fused_count_fn and, with one group, from the
+// sharded engine's count step) and _make_c16_contains_kernel_dyn (B11: with
+// n_groups > 1 from _get_fused_contains_fn; with n_groups == 1 from the
+// sharded engine's sticky step, parallel/shard.py:616, where it writes each
+// stream's final carried base and the absorb compare runs outside it).  The TPU kernels walk a sequential grid of
 // G * n_tiles segments, group-major, reloading group g's table block for each
 // of its segments and carrying counts or hit flags in scratch from one segment
 // to the next.  Here the groups are a grid dimension: the CTA (g, j) loads
@@ -24,6 +27,10 @@
 // until vend[s] or the group's absorbing base gscal[g][1], which loops to
 // itself; out[s] = 1 (zeroed by the wrapper) if the final base is the
 // absorbing one.  Every writer stores 1, so the races are benign.
+// B11's one-group mode (G = 1): the same scan, out[s] = the final base.  The
+// scan may stop at the absorbing base because that base loops to itself: the
+// base after vend[s] steps is the absorbing one all the same.  A stream with
+// vend[s] = 0 keeps the root base.
 //
 // What bounds them: per step B8's dependent chain of shared-memory loads,
 // G times per stream byte: the kernels are latency-bound, like B8, and read
@@ -124,6 +131,37 @@ __global__ void __launch_bounds__(kThreads) comb16_contains_grouped_kernel(
   if (cb == absorb) out[s] = 1;
 }
 
+__global__ void __launch_bounds__(kThreads) comb16_contains_base_kernel(
+    const uint8_t* __restrict__ streams, int T, int S, const int32_t* __restrict__ vend,
+    const int32_t* __restrict__ classmap, const int32_t* __restrict__ comb, int comb_words,
+    const int32_t* __restrict__ aux, int aux_words, const int32_t* __restrict__ root_row,
+    const int32_t* __restrict__ segtable, const int32_t* __restrict__ gscal, int bb,
+    int owner_mask, int32_t* __restrict__ out) {
+  extern __shared__ uint32_t smem[];
+  const amt::Comb16 c = amt::load_comb16(smem, classmap, comb, comb_words, aux, aux_words,
+                                         root_row, segtable, bb, owner_mask);
+  __syncthreads();
+
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= S) return;
+  const uint32_t bmask = (1u << bb) - 1u;
+  const uint32_t absorb = (uint32_t)gscal[1] & bmask;
+  const int v0 = min(vend[s], T);
+  const uint8_t* col = streams + s;
+  uint32_t cb = (uint32_t)gscal[0] & bmask;
+
+  int t = 0;
+  for (; t + kChunk <= v0 && cb != absorb; t += kChunk) {
+    uint8_t b[kChunk];
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) b[j] = col[(size_t)(t + j) * S];
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) cb = c.entry(cb, b[j]) & bmask;
+  }
+  for (; t < v0 && cb != absorb; ++t) cb = c.entry(cb, col[(size_t)t * S]) & bmask;
+  out[s] = (int32_t)cb;
+}
+
 // Groups ride in the grid's x dimension, blocks of streams in y (at most
 // 65535 of them).
 bool grid_ok(int G, int S) { return G > 0 && S > 0 && (S + kThreads - 1) / kThreads <= 65535; }
@@ -169,6 +207,27 @@ extern "C" int amt_comb16_contains_grouped(const void* streams, int T, int S, co
   comb16_contains_grouped_kernel<<<grid, kThreads,
                                    amt::comb16_smem_bytes(comb_words, aux_words),
                                    (cudaStream_t)stream>>>(
+      (const uint8_t*)streams, T, S, (const int32_t*)vend, (const int32_t*)classmap,
+      (const int32_t*)comb, comb_words, (const int32_t*)aux, aux_words,
+      (const int32_t*)root_row, (const int32_t*)segtable, (const int32_t*)gscal, bb, owner_mask,
+      (int32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// B11's one-group mode: out int32 [S], each stream's final base; the tables
+// of one group (classmap [256], comb [comb_words], aux [aux_words], root_row
+// and segtable [128], gscal [2] = root base, absorbing base).  As
+// amt_comb16_count_grouped otherwise.
+extern "C" int amt_comb16_contains_base(const void* streams, int T, int S, const void* vend,
+                                        const void* classmap, const void* comb, int comb_words,
+                                        const void* aux, int aux_words, const void* root_row,
+                                        const void* segtable, const void* gscal, int bb,
+                                        int owner_mask, void* out, void* stream) {
+  if (T < 0 || !grid_ok(1, S) || !amt::comb16_args_ok(comb_words, aux_words, bb, owner_mask, 0, 0))
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (S + kThreads - 1) / kThreads;
+  comb16_contains_base_kernel<<<blocks, kThreads, amt::comb16_smem_bytes(comb_words, aux_words),
+                                (cudaStream_t)stream>>>(
       (const uint8_t*)streams, T, S, (const int32_t*)vend, (const int32_t*)classmap,
       (const int32_t*)comb, comb_words, (const int32_t*)aux, aux_words,
       (const int32_t*)root_row, (const int32_t*)segtable, (const int32_t*)gscal, bb, owner_mask,

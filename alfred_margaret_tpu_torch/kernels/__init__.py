@@ -25,6 +25,8 @@ from .comb16 import (
     comb16_states_plain,
 )
 from .comb16_grouped import (
+    comb16_contains_base,
+    comb16_contains_base_plain,
     comb16_contains_grouped,
     comb16_contains_grouped_plain,
     comb16_count_grouped,
@@ -40,6 +42,7 @@ WRAPPERS = (
     dense_count, bitap_count, dense_contains, bitap_contains, matchbits, bitap_presence,
     comb16_count, comb16_contains, filter_contains, comb16_count_grouped,
     comb16_contains_grouped, comb_count, comb_contains, comb_states, dense_states, comb16_states,
+    comb16_contains_base,
 )
 
 __all__ = [
@@ -57,6 +60,8 @@ __all__ = [
     "comb_states",
     "comb_states_plain",
     "comb16_contains",
+    "comb16_contains_base",
+    "comb16_contains_base_plain",
     "comb16_contains_grouped",
     "comb16_contains_grouped_plain",
     "comb16_contains_plain",

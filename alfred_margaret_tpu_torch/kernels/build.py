@@ -188,6 +188,13 @@ def _bind(lib: ctypes.CDLL) -> None:
         i, i,  # BB, owner_mask
         p, p,  # out, stream
     ]
+    lib.amt_comb16_contains_base.restype = i
+    lib.amt_comb16_contains_base.argtypes = [
+        p, i, i, p,  # streams, T, S, vend
+        *grouped[1:],  # one group's tables
+        i, i,  # BB, owner_mask
+        p, p,  # out, stream
+    ]
     lib.amt_matchbits_comb16.restype = i
     lib.amt_matchbits_comb16.argtypes = [
         p, i, i, p, p,  # streams, T, S, warm, vend

@@ -1,9 +1,11 @@
 """B9 ``comb16_count_grouped`` and B11 ``comb16_contains_grouped``: the fused
-comb16 scans over G needle groups in one launch.
+comb16 scans over G needle groups in one launch; and B11's one-group mode,
+``comb16_contains_base``, the sharded engine's comb16 sticky step.
 
 Wrappers of ``csrc/comb16_grouped.cu``, which replaces the Pallas kernels
 ``alfred_margaret_tpu/ops/comb16_scan.py:_make_c16_count_kernel_dyn`` (B9)
-and ``_make_c16_contains_kernel_dyn`` with ``n_groups > 1`` (B11).  A CUDA
+and ``_make_c16_contains_kernel_dyn`` (B11: ``n_groups > 1``, and with
+``n_groups == 1`` its final-base mode).  A CUDA
 tensor launches the kernel; a CPU tensor runs the plain torch version.
 Nothing falls back from one to the other.
 
@@ -18,7 +20,10 @@ B8 and B10 do (``kernels/comb16.py``) from its root base ``gscal[g, 0]``:
   ``[warm[s], vend[s])``, group g's count ranges being ``gscal[g, 1:]``
   (padded with ``2**BB``);
 * B11 is 1 where some group's base, held from ``vend[s]`` on, is its
-  absorbing base ``gscal[g, 1]``, else 0.
+  absorbing base ``gscal[g, 1]``, else 0;
+* B11's one-group mode (G = 1) is that final base itself, as the TPU kernel
+  writes it for the sharded engine, which compares it with ``gscal[0, 1]``
+  outside the kernel.
 """
 
 from __future__ import annotations
@@ -162,11 +167,52 @@ def comb16_contains_grouped(streams, vend, tables):
     return out
 
 
+def comb16_contains_base_plain(streams, vend, tables):
+    """Plain torch version of B11's one-group mode: the B10 scan of the one
+    group, the base held where ``t >= vend``."""
+    p = _PlainGroups(tables)
+    bmask = (1 << tables.BB) - 1
+    vend = vend.long()
+    cb = tables.gscal.long()[:, :1].expand(-1, streams.shape[1]).clone()
+    for t in range(streams.shape[0]):
+        cb = torch.where(t < vend, p.entry(cb, streams[t].long()) & bmask, cb)
+    return cb[0].to(torch.int32)
+
+
+def comb16_contains_base(streams, vend, tables):
+    """int32 [S]: the final base of each stream of ``streams`` ([T, S]
+    uint8), scanned from the root base ``gscal[0, 0]`` over ``t < vend[s]``
+    with the sticky tables of ``tables``, a one-group
+    ``ops.comb16_scan.Comb16GroupTables``.  A stream saw a match iff its base
+    is the absorbing base ``gscal[0, 1]``; a stream with ``vend`` 0 keeps the
+    root base."""
+    _check(streams, tables, True, vend=vend)
+    if tables.n_groups != 1:
+        raise ValueError(f"B11's one-group mode takes one group, got {tables.n_groups}")
+    if on_cpu(streams):
+        return comb16_contains_base_plain(streams, vend, tables)
+    T, S = streams.shape
+    out = torch.empty(S, dtype=torch.int32, device=streams.device)
+    launch(
+        "amt_comb16_contains_base", streams.device,
+        streams.data_ptr(), T, S, vend.data_ptr(),
+        tables.classmap.data_ptr(), tables.comb.data_ptr(), tables.comb.shape[1],
+        tables.aux.data_ptr(), tables.aux.shape[1], tables.root_row.data_ptr(),
+        tables.segtable.data_ptr(), tables.gscal.data_ptr(), tables.BB, tables.owner_mask,
+        out.data_ptr(),
+    )
+    comb16_contains_base.launches += 1
+    return out
+
+
 #: Kernel launches since the last reset (CPU calls do not count).
 comb16_count_grouped.launches = 0
 comb16_contains_grouped.launches = 0
+comb16_contains_base.launches = 0
 
 __all__ = [
+    "comb16_contains_base",
+    "comb16_contains_base_plain",
     "comb16_contains_grouped",
     "comb16_contains_grouped_plain",
     "comb16_count_grouped",

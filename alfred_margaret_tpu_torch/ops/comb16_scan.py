@@ -34,6 +34,7 @@ the ``reps`` re-scan grid and the boundary-tile split.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -697,6 +698,18 @@ class Comb16GroupTables:
     @property
     def n_groups(self) -> int:
         return int(self.classmap.shape[0])
+
+    def group(self, g: int, device=None) -> "Comb16GroupTables":
+        """Group ``g``'s tables alone (``G = 1``), on ``device`` (default:
+        where these are): the sharded engine's per-shard tables."""
+
+        def one(x):
+            x = x[g : g + 1].contiguous()
+            return x if device is None else x.to(device)
+
+        return dataclasses.replace(
+            self, classmap=one(self.classmap), comb=one(self.comb), aux=one(self.aux),
+            root_row=one(self.root_row), segtable=one(self.segtable), gscal=one(self.gscal))
 
     @staticmethod
     def from_stacked(stacked: dict, device, *, sticky: bool = False,

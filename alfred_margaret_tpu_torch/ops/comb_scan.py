@@ -52,7 +52,7 @@ import torch
 from ..kernels.comb import comb_contains, comb_count, comb_count_plain, comb_states
 from ..models.ac import AcMachine
 from ..models.minimize import count_minimized, minimize_sticky
-from .bitap_scan import BitapAcEngine, plan_bitap, plan_bitap_ci
+from .bitap_scan import BitapAcEngine, BitapLayout, plan_bitap, plan_bitap_ci
 from .pallas_scan import (
     MAX_ROWS,
     CapacityError,
@@ -552,6 +552,35 @@ def plan_pallas(machine, max_rows: int = MAX_ROWS):
     return min(options, key=lambda o: (o[1], rank[o[0]]))
 
 
+def bitap_word_budget(gcost) -> int:
+    """The JAX package's bitap register budget for a set whose cheapest
+    single-pass table costs ``gcost`` TPU gathers per byte (None: nothing
+    fits): 0.9 gcost words, at least 2 and at most 8.  The law was measured
+    on the TPU; the sharded engine keeps it so that it takes the JAX
+    engine's per-shard steps (ROADMAP item 7 re-derives it)."""
+    return 8 if gcost is None else max(2, min(8, 9 * int(gcost) // 10))
+
+
+def plan_bitap_auto(machine: AcMachine, max_rows: int = MAX_ROWS) -> Optional[BitapLayout]:
+    """The JAX package's ``plan_bitap_auto``: a bitap layout under
+    :func:`bitap_word_budget`, the byte-class one for a composed IgnoreCase
+    machine, or None (``AMT_BITAP=0``; a standalone trap register that
+    passes the budget)."""
+    if os.environ.get("AMT_BITAP") == "0":
+        return None
+    try:
+        _, gcost = plan_pallas(machine, max_rows)
+    except CapacityError:
+        gcost = None
+    budget = bitap_word_budget(gcost)
+    lay = plan_bitap(machine, max_words=budget)
+    if lay is None and machine.composed_ci:
+        lay = plan_bitap_ci(machine, max_words=budget)
+    if lay is not None and lay.trap is not None and lay.n_words + 1 > max(2, budget):
+        lay = None
+    return lay
+
+
 def make_engine(machine: AcMachine, device="cuda", *, max_rows: int = MAX_ROWS,
                 overlap: Optional[int] = None, **kw):
     """The single-pass engine for ``machine``: ``BitapAcEngine`` when
@@ -605,6 +634,8 @@ __all__ = [
     "CombTables",
     "build_comb",
     "comb_structure_cost",
+    "bitap_word_budget",
     "make_engine",
+    "plan_bitap_auto",
     "plan_pallas",
 ]

@@ -9,9 +9,9 @@ and ``to_json`` are defined by the needle list only, as in the JAX package.
 ``contains_all``, ``all_matches`` and ``all_matches_arrays`` work, in both
 case modes, on whichever engine ``MatchEngine`` picks for the needle set
 (the needle-grouped one for sets that no single-pass engine holds; for
-IgnoreCase the composed case DFA or the lowering path).  Every other
-operation raises ``NotImplementedError`` naming the ROADMAP item that brings
-it.
+IgnoreCase the composed case DFA or the lowering path); ``distributed``
+gives the sharded engine of ``parallel``.  Every other operation raises
+``NotImplementedError`` naming the ROADMAP item that brings it.
 
 As in the reference, an ``IGNORE_CASE`` searcher expects lowercase needles:
 uppercase needles never match (``Searcher.hs:108-118``).
@@ -24,10 +24,10 @@ from typing import Any, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .engine import MatchEngine
-from .models import ac
+from .engine import COMPOSED_CI_MAX_STATES, MatchEngine
+from .models import ac, case_dfa
 from .utils import utf8
-from .utils.case import CaseSensitivity
+from .utils.case import IGNORE_CASE, CaseSensitivity
 
 
 def _todo(what: str, item: str):
@@ -190,12 +190,40 @@ class Searcher:
         ms = self._engine.matches(haystack, self._case)
         return ms.ends, ms.value_ids
 
+    def distributed(self, mesh, inner: str = "auto", **kw):
+        """A ``parallel.DistributedAcEngine`` scanning this searcher's
+        automaton over a ``(data, seq, needle)`` mesh (``parallel.make_mesh``):
+        counts reduced over the shards, match sets identical to the single
+        device's for any mesh shape.
+
+        An IgnoreCase searcher scans the raw bytes with the composed case
+        DFA (``models.case_dfa``), its needle groups composed too, under the
+        JAX package's gate: whole-code-point needles and at most
+        ``COMPOSED_CI_MAX_STATES`` states; else ``ValueError``.  Unlike
+        ``MatchEngine._composed`` it does not ask for a single-pass engine:
+        the mesh builds each needle group's own composed machine."""
+        from .parallel import DistributedAcEngine
+
+        machine, sub_build = self._machine, None
+        if self._case is IGNORE_CASE:
+            m = self._machine
+            why = "whole-code-point needles and at most %d states" % COMPOSED_CI_MAX_STATES
+            if m.n_states > COMPOSED_CI_MAX_STATES or not case_dfa.eligible(m.needles):
+                raise ValueError(f"IgnoreCase distributed scans need the composed case DFA ({why})")
+            try:
+                machine = case_dfa.compose_build(list(zip(m.needles, m.values)), machine=m)
+            except ValueError as e:
+                raise ValueError(
+                    f"IgnoreCase distributed scans need the composed case DFA ({why}): {e}"
+                ) from e
+            sub_build = case_dfa.compose_build  # needle groups stay composed
+        return DistributedAcEngine(machine, mesh, inner=inner, sub_build=sub_build, **kw)
+
     build_needle_id_searcher = classmethod(_todo("build_needle_id_searcher", "8"))
     from_json = classmethod(_todo("from_json", "8"))
     map_searcher = _todo("map_searcher", "8")
     __add__ = _todo("__add__", "8")
     adopt_staged = _todo("adopt_staged", "8")
-    distributed = _todo("distributed", "16")
 
 
 __all__ = ["Searcher"]

@@ -6,10 +6,11 @@ Run from the repository root on a host with one CUDA card (an H100):
 
 It builds the port's CUDA kernels from ``alfred_margaret_tpu_torch/csrc``
 (one ``nvcc`` per source, all at once) and checks each of the seventeen
-kernels against its plain torch version on the card on nineteen machines, and
+kernels (and B11's one-group mode, on the mesh phase's tables) against its
+plain torch version on the card on nineteen machines, and
 the trap parts of B2, B4 and B7 on three IgnoreCase layouts, and the
 engines' answers (``final_states`` and the extraction without the host
-corpus too) against the port's host C++ engine.  Then it drives nine main
+corpus too) against the port's host C++ engine.  Then it drives ten main
 paths, each with the kernels' launch counts set to 0 just before it and read
 just after (the controls' launches are read apart), the first seven over
 128 MiB corpora:
@@ -72,7 +73,23 @@ just after (the controls' launches are read apart), the first seven over
   engine.  Answers against the host C++ engine on the composed machine (or,
   on the lowering path, on the lowered bytes with the ends mapped back), and
   the python IgnoreCase oracle on 64 KiB with the case probes (İ, Ⱥ, Kelvin
-  K, Å, ẞ).
+  K, Å, ẞ);
+* the sharded engine (``parallel.DistributedAcEngine`` through
+  ``Searcher.distributed``) on meshes of eight shards of the one card
+  (``make_mesh(["cuda:0"] * 8, ...)``), each operation launching its step
+  once per shard: the bench needles on (4,2,1) (count S2, ``contains_any``
+  on a hit and a miss S3, ``contains_all`` true and false and
+  ``all_matches_arrays`` S8; ``AMT_BITAP=0`` as the control, S1 and S6);
+  the same under IgnoreCase on the composed machine (S2 and S3 with their
+  trap parts; ``TSHİRT`` in 100 streams, the host recount, and in 1,000, the
+  dense fallback, S1 and S6); 30 random needles on (2,2,2) (the uniform
+  comb16 count S5 and B11's one-group mode S4; ``AMT_DIST_COMB16=0`` as the
+  control); config 2 on (2,1,4) (S5, S4 on its corpus and a fire-free one,
+  S8, and at 16 MiB without the host corpus the states route S7); and one
+  count inside a one-rank NCCL group, its reduction an ``all_reduce`` of a
+  CUDA tensor.  Every mesh answer must equal the single-device
+  ``Searcher``'s; each launch site's kernel is held against its plain version
+  on one shard and timed there.
 
 Every answer must equal the host C++ engine's (and the control's), and every
 kernel of a path must have been launched by it.  Last it times every kernel
@@ -92,6 +109,7 @@ import json
 import os
 import sys
 import time
+from types import SimpleNamespace
 from unittest import mock
 
 import numpy as np
@@ -159,6 +177,274 @@ def fire_free(n: int, seed: int = 0) -> bytes:
     """``n`` random bytes over ``b"0 "``: no chain of config 2's screen fires."""
     rng = np.random.default_rng(seed)
     return rng.choice(np.frombuffer(b"0 ", np.uint8), n).astype(np.uint8).tobytes()
+
+
+#: The sharded engine's launch sites: wrapper (trap parts apart) -> (site,
+#: line of its ``pl.pallas_call`` in ``alfred_margaret_tpu/parallel/shard.py``).
+MESH_SITES = {
+    "dense_count": ("S1", 325), "bitap_count": ("S2", 434), "bitap_count_trap": ("S2", 434),
+    "bitap_contains": ("S3", 509), "bitap_contains_trap": ("S3", 509),
+    "comb16_contains_base": ("S4", 616), "comb16_count_grouped": ("S5", 696),
+    "dense_contains": ("S6", 997), "dense_states": ("S7", 1134), "matchbits": ("S8", 1219),
+}
+MESH_STATES_BYTES = 16 << 20  # corpus of the states route: [G, T, S] int32 on the host
+
+
+def mesh_phase(h):
+    """The sharded engine on meshes of the one card (``make_mesh([dev] * 8)``):
+    each operation against the single-device ``Searcher``'s answer, with the
+    kernels it must launch (8 shards, one launch each); each launch site's
+    kernel against its plain version on shard 0, timed; and a one-rank NCCL
+    group around a count.  ``h`` carries ``main``'s helpers and stagings.
+    Returns (main-path launches, control launches, per-site timings)."""
+    import tempfile
+
+    import torch
+
+    from alfred_margaret_tpu_torch import CASE_SENSITIVE, Searcher
+    from alfred_margaret_tpu_torch.bench.dataformat import synth_corpus
+    from alfred_margaret_tpu_torch.parallel import DistributedAcEngine, init_distributed, make_mesh
+    from alfred_margaret_tpu_torch.parallel.shard import PLAIN
+
+    dev, card = h.dev, h.card
+
+    def mesh(d, s, n):
+        return make_mesh([dev] * (d * s * n), data=d, seq=s, needle=n)
+
+    def engine_under(env, machine, m):
+        with mock.patch.dict(os.environ, env):
+            return DistributedAcEngine(machine, m)
+
+    def routes(eng, count, sticky, label):
+        check(eng.inner == "pallas" and (eng.count_route(), eng.sticky_route()) == (count, sticky),
+              f"mesh {label}: inner {eng.inner}, routes {eng.count_route()}/{eng.sticky_route()}")
+
+    def staged(eng, corpora, label):
+        t0 = time.perf_counter()
+        out = [eng.stage(c) for c in corpora]
+        torch.cuda.synchronize()
+        sst = out[0]
+        T, SL = sst.plan.time_len, sst.plan.n_streams // eng.n_stream_shards
+        print(f"mesh {label}: staged {len(corpora)} x {len(corpora[0])} bytes in "
+              f"{time.perf_counter() - t0:.3f} s: {sst.plan}, {len(sst.blocks)} blocks of "
+              f"[{T}, {SL}] on {sorted({str(d) for _, d in sst.blocks})}", flush=True)
+        return out
+
+    main, control = {}, {}
+
+    def drive(rows, want):
+        """Each ``(operation, who, call, kernels)``: the answer equals
+        ``want[operation]`` and the launches are exactly ``kernels``."""
+        expect = {(op, who): k for op, who, _, k in rows}
+        for op, who, used in h.run_ops([(op, who, call) for op, who, call, _ in rows], want):
+            check(used == expect[(op, who)],
+                  f"mesh {op} ({who}): launched {used}, expected {expect[(op, who)]}")
+            h.tally(control if "=0" in who else main, used)
+
+    m421, m222, m214 = mesh(4, 2, 1), mesh(2, 2, 2), mesh(2, 1, 4)
+    N = 8  # shards, one launch each per step
+
+    # -- the bench needles on (4,2,1): bitap (S2, S3), bitmap (S8) ----------
+    eb = h.searcher.distributed(m421)
+    e_miss, e_absent = h.miss.distributed(m421), h.absent.distributed(m421)
+    routes(eb, "bitap", "bitap", "bench needles")
+    eb_dense = engine_under({"AMT_BITAP": "0"}, h.searcher.automaton, m421)
+    e_miss_dense = engine_under({"AMT_BITAP": "0"}, h.miss.automaton, m421)
+    routes(eb_dense, "dense", "dense", "bench needles, AMT_BITAP=0")
+    h.zero_counts()
+    sb, s_miss, s_absent = (staged(e, [h.data], f"bench, {lbl}")[0] for e, lbl in (
+        (eb, "3 needles"), (e_miss, "miss needles"), (e_absent, "absent needle")))
+    check(not any(h.read_counts().values()), "mesh staging launched a kernel")
+    s = h.searcher
+    want = {"count_matches": s.count_matches(h.staged),
+            "contains_any hit": s.contains_any(h.staged),
+            "contains_any miss": h.miss.contains_any(h.staged_miss),
+            "contains_all true": s.contains_all(h.staged),
+            "contains_all false": h.absent.contains_all(h.staged_absent),
+            "all_matches_arrays": s.all_matches_arrays(h.staged)}
+    check(want["contains_any hit"] and not want["contains_any miss"] and want["contains_all true"]
+          and not want["contains_all false"], f"single-device bench answers: {want}")
+    who, ctrl = "mesh (4,2,1)", "mesh AMT_BITAP=0"
+    drive([
+        ("count_matches", who, lambda: eb.count(sb), {"bitap_count": N}),
+        ("count_matches", ctrl, lambda: eb_dense.count(sb), {"dense_count": N}),
+        ("contains_any hit", who, lambda: eb.contains_any(sb), {"bitap_contains": N}),
+        ("contains_any hit", ctrl, lambda: eb_dense.contains_any(sb), {"dense_contains": N}),
+        ("contains_any miss", who, lambda: e_miss.contains_any(s_miss), {"bitap_contains": N}),
+        ("contains_any miss", ctrl, lambda: e_miss_dense.contains_any(s_miss),
+         {"dense_contains": N}),
+        ("contains_all true", who, lambda: eb.contains_all(sb), {"matchbits": N}),
+        ("contains_all false", who, lambda: e_absent.contains_all(s_absent), {"matchbits": N}),
+        ("all_matches_arrays", who, lambda: eb.matches_arrays(sb), {"matchbits": N}),
+    ], want)
+
+    # -- IgnoreCase on (4,2,1): the trap parts of S2 and S3, the recovery ------
+    eci, e_miss_ci = h.s_ci.distributed(m421), h.miss_ci.distributed(m421)
+    lay = eci._bitap_lay
+    check(lay is not None and lay.ci and lay.has_trap and eci.machine.composed_ci,
+          "mesh IgnoreCase: not the byte-class bitap with a trap")
+    few, many = h.trap_hays["few"], h.trap_hays["many"]
+    h.zero_counts()
+    s_ci, s_few, s_many = staged(eci, [h.data_ci, few[0], many[0]], "IgnoreCase bench")
+    s_miss_many = staged(e_miss_ci, [many[0]], "IgnoreCase miss needles")[0]
+    for sst, label, route in ((s_few, "few", "host recount"), (s_many, "many", "dense fallback")):
+        trap = eci.stream_counts(sst)[1]
+        took = "host recount" if eci._trapped_stream_idx(sst, trap) is not None else "dense fallback"
+        check(took == route, f"mesh trap corpus ({label}): took the {took}")
+        print(f"mesh IgnoreCase trap corpus ({label}): {int((trap != 0).sum())} trapped streams "
+              f"-> {took}", flush=True)
+    sc = h.s_ci
+    want_ci = {"count_matches": sc.count_matches(h.staged_ci),
+               "contains_any": sc.contains_any(h.staged_ci),
+               "count_matches, TSHİRT in 100 streams": sc.count_matches(few[1]),
+               "contains_any, TSHİRT in 100 streams": sc.contains_any(few[1]),
+               "count_matches, TSHİRT in 1,000 streams": sc.count_matches(many[1]),
+               "contains_any miss, TSHİRT in 1,000": h.miss_ci.contains_any(many[0])}
+    check(not want_ci["contains_any miss, TSHİRT in 1,000"], "miss needles hit the trap corpus")
+    trap_count, trap_contains = {"bitap_count_trap": N}, {"bitap_contains_trap": N}
+    drive([
+        ("count_matches", who, lambda: eci.count(s_ci), trap_count),
+        ("contains_any", who, lambda: eci.contains_any(s_ci), trap_contains),
+        ("count_matches, TSHİRT in 100 streams", who, lambda: eci.count(s_few), trap_count),
+        ("contains_any, TSHİRT in 100 streams", who, lambda: eci.contains_any(s_few),
+         trap_contains),
+        ("count_matches, TSHİRT in 1,000 streams", who, lambda: eci.count(s_many),
+         {**trap_count, "dense_count": N}),
+        ("contains_any miss, TSHİRT in 1,000", who, lambda: e_miss_ci.contains_any(s_miss_many),
+         {**trap_contains, "dense_contains": N}),
+    ], want_ci)
+
+    # -- 30 random needles on (2,2,2): comb16 count (S5) and sticky (S4) --------
+    n30 = random_needles(3, 30)
+    s30 = Searcher.build(CASE_SENSITIVE, n30)
+    data30 = np.frombuffer(synth_corpus(n30, h.corpus_bytes, hit_fraction=0.01, seed=19),
+                           np.uint8)
+    e30 = s30.distributed(m222)
+    routes(e30, "comb16", "comb16", "30 needles")
+    e30_dense = engine_under({"AMT_DIST_COMB16": "0"}, s30.automaton, m222)
+    routes(e30_dense, "dense", "dense", "30 needles, AMT_DIST_COMB16=0")
+    h.zero_counts()
+    s30m = staged(e30, [data30], "30 needles")[0]
+    st30 = s30.stage(data30)
+    want30 = {"count_matches": s30.count_matches(st30), "contains_any": s30.contains_any(st30),
+              "all_matches_arrays": s30.all_matches_arrays(st30)}
+    check(want30["count_matches"] > 0, "30 needles: no match")
+    who, ctrl = "mesh (2,2,2)", "mesh AMT_DIST_COMB16=0"
+    drive([
+        ("count_matches", who, lambda: e30.count(s30m), {"comb16_count_grouped": N}),
+        ("count_matches", ctrl, lambda: e30_dense.count(s30m), {"dense_count": N}),
+        ("contains_any", who, lambda: e30.contains_any(s30m), {"comb16_contains_base": N}),
+        ("contains_any", ctrl, lambda: e30_dense.contains_any(s30m), {"dense_contains": N}),
+        ("all_matches_arrays", who, lambda: e30.matches_arrays(s30m), {"matchbits": N}),
+    ], want30)
+
+    # -- config 2 on (2,1,4): S5, S4 to vend, S8, and the states route (S7) ----
+    ec2 = h.s100.distributed(m214)
+    routes(ec2, "comb16", "comb16", "config 2")
+    h.zero_counts()
+    sc2, sff, s16 = staged(ec2, [h.data2, h.clean, h.data2[:MESH_STATES_BYTES]], "config 2")
+    d16 = h.data2[:MESH_STATES_BYTES]
+    want2 = {"count_matches": h.s100.count_matches(h.st2["config 2"]),
+             "contains_any": h.s100.contains_any(h.st2["config 2"]),
+             "contains_any fire-free": h.s100.contains_any(h.st2["fire-free"]),
+             "all_matches_arrays": h.s100.all_matches_arrays(h.st2["config 2"]),
+             "all_matches_arrays, 16 MiB": h.s100.all_matches_arrays(h.s100.stage(d16))}
+    check(want2["contains_any"] and not want2["contains_any fire-free"],
+          "single-device config 2 answers")
+    bare16 = dataclasses.replace(s16, data_np=None)  # no host corpus: the states route
+    who = "mesh (2,1,4)"
+    drive([
+        ("count_matches", who, lambda: ec2.count(sc2), {"comb16_count_grouped": N}),
+        ("contains_any", who, lambda: ec2.contains_any(sc2), {"comb16_contains_base": N}),
+        ("contains_any fire-free", who, lambda: ec2.contains_any(sff),
+         {"comb16_contains_base": N}),
+        ("all_matches_arrays", who, lambda: ec2.matches_arrays(sc2), {"matchbits": N}),
+        ("all_matches_arrays, 16 MiB", who, lambda: ec2.matches_arrays(s16), {"matchbits": N}),
+        ("all_matches_arrays, 16 MiB", who + " states", lambda: ec2.matches_arrays(bare16),
+         {"dense_states": N}),
+    ], want2)
+
+    # -- a one-rank NCCL group around one (4,2,1) count ----------------------
+    reduced = []
+    real_all_reduce = torch.distributed.all_reduce
+
+    def spy(t, *a, **kw):
+        reduced.append((t.device.type, str(t.dtype)))
+        return real_all_reduce(t, *a, **kw)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        world = init_distributed("file://" + os.path.join(tmp, "rendezvous"), world_size=1,
+                                 rank=0)
+        try:
+            en = h.searcher.distributed(make_mesh([dev] * 8, data=4, seq=2))
+            with mock.patch.object(torch.distributed, "all_reduce", spy):
+                h.zero_counts()
+                t0 = time.perf_counter()
+                n = en.count(sb)
+                wall = time.perf_counter() - t0
+                used = {k: v for k, v in h.read_counts().items() if v}
+            backend = torch.distributed.get_backend()
+        finally:
+            torch.distributed.destroy_process_group()
+    check(world == 1 and n == want["count_matches"], f"NCCL group count {n}")
+    check(reduced == [(dev.type, "torch.int64")], f"the count reduced {reduced}")
+    check(used == {"bitap_count": N}, f"NCCL group count launched {used}")
+    h.tally(main, used)
+    print(f"op count_matches mesh (4,2,1), one-rank group {backend!r} {wall * 1e3:10.3f} ms wall "
+          f"-> {n}; all_reduce of {reduced} ({card})", flush=True)
+
+    for name in MESH_SITES:
+        check(main.get(name, 0) > 0, f"{name} ({MESH_SITES[name][0]}) was not launched by the "
+              "mesh operations")
+
+    # -- each site's kernel against its plain version on shard 0, timed -------
+    def live_bytes(eng, sst):
+        i, _, d = eng.shards()[0]
+        return int(sst.blocks[(i, d)].vend.clamp(max=sst.plan.time_len).long().sum())
+
+    sites = {}
+    for name, eng, sst, step, what, words in (
+            ("dense_count", eb_dense, sb, "count", "bench needles", 1),
+            ("bitap_count", eb, sb, "count", "bench needles", eb._bitap_lay.n_words),
+            ("bitap_count_trap", eci, s_ci, "count", "IgnoreCase bench, embedded trap",
+             len(lay.all_words())),
+            ("bitap_contains", e_miss, s_miss, "sticky", "miss needles: full scan",
+             e_miss._bitap_lay.n_words),
+            ("bitap_contains_trap", e_miss_ci, s_miss_many, "sticky",
+             "IgnoreCase miss needles: full scan", len(e_miss_ci._bitap_lay.all_words())),
+            ("comb16_contains_base", ec2, sff, "sticky", "config 2, fire-free: full scan", 1),
+            ("comb16_count_grouped", ec2, sc2, "count", "config 2", 1),
+            ("dense_contains", e_miss_dense, s_miss, "sticky", "miss needles: full scan", 1),
+            ("dense_states", ec2, s16, "states", "config 2, 16 MiB", 1),
+            ("matchbits", eb, sb, "bits", "bench needles, dense step", 1)):
+        i, g, d = eng.shards()[0]
+        kernel, args = eng.shard_call(step, sst, i, g, d)
+        check(kernel.__name__ == name.replace("_trap", ""), f"{name}: shard 0 runs {kernel}")
+        plain = PLAIN[kernel]
+        k, p = kernel(*args), plain(*args)
+        for a, b in zip(k if isinstance(k, tuple) else (k,), p if isinstance(p, tuple) else (p,)):
+            h.same(name, a, b, f"mesh {what}, shard 0")
+        T, SL = sst.plan.time_len, sst.plan.n_streams // eng.n_stream_shards
+        if step in ("states", "bits"):
+            sbytes, ops = T * SL, T * SL
+            obytes = 4 * T * SL if step == "states" else 4 * SL + T // 32 * SL * 4
+        else:
+            sbytes = live_bytes(eng, sst)
+            ops = sbytes * words
+            obytes = 4 * SL * (2 if name.endswith("_trap") else 1)
+        ms = h.timed(lambda: kernel(*args), KERNEL_RUNS)
+        plain_ms = h.timed(lambda: plain(*args), PLAIN_RUNS)
+        bms, by = h.bound(sbytes, obytes + h.table_bytes(args), ops)
+        site, line = MESH_SITES[name]
+        sites[name] = {"site": site, "replaces": f"alfred_margaret_tpu/parallel/shard.py:{line}",
+                       "what": what, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                       "bound_by": by, "shard": [T, SL]}
+        print(f"time mesh {site} {name:22s} {what:36s} {ms:10.4f} ms per shard launch "
+              f"[T, S_local] = [{T}, {SL}], plain {plain_ms:.1f} ms, bound {bms:.4f} ms by {by} "
+              f"({ms / bms:.1f}x; {card})", flush=True)
+    print(f"mesh: every answer == the single-device Searcher; launches {main}, "
+          f"control {control}", flush=True)
+    return main, control, sites
 
 
 def main() -> int:
@@ -1117,11 +1403,13 @@ def main() -> int:
         return a
 
     # 100 of 32768 streams is under the 1% the host recount takes.
+    trap_hays = {}  # label: (corpus, its staging), for the mesh phase
     for label, n_hit, route in (("few", min(100, S_ci // 200), "host recount"),
                                 ("many", min(1000, S_ci), "dense fallback")):
         hay = with_traps(n_hit, 40 + n_hit)
         want_t = host_answers(host_ci, hay, len(NEEDLES))
         sst = s_ci.stage(hay)
+        trap_hays[label] = (hay, sst)
         _, trap = eng_ci.stream_counts(sst.device)
         trapped = eng_ci._trapped_streams(trap.cpu().numpy(), sst.device)
         n_trapped = int((trap.cpu().numpy()[sst.device.live_np] != 0).sum())
@@ -1486,6 +1774,18 @@ def main() -> int:
         print(f"time all_matches_arrays staged, {label} (kernels + compaction + host expansion "
               f"of {n} matches) {extract_ms:.3f} ms host clock ({card})")
 
+    # -- the sharded engine on meshes of the card -------------------------------
+    mesh_main, mesh_control, mesh_sites = mesh_phase(SimpleNamespace(
+        dev=dev, card=card, zero_counts=zero_counts, read_counts=read_counts, tally=tally,
+        run_ops=run_ops, same=same, timed=timed, bound=bound, table_bytes=table_bytes,
+        corpus_bytes=CORPUS_BYTES, data=data, searcher=searcher, miss=miss, absent=absent,
+        staged=staged, staged_miss=staged_miss, staged_absent=staged_absent, data_ci=data_ci,
+        s_ci=s_ci, miss_ci=miss_ci, staged_ci=staged_ci, trap_hays=trap_hays, s100=s100,
+        data2=data2, clean=clean, st2=st2))
+    b11 = mesh_sites["comb16_contains_base"]
+    timings[("comb16_contains_base", b11["what"])] = (
+        b11["ms"], b11["plain_ms"], b11["bound_ms"], b11["bound_by"])
+
     # name: (source, TPU kernel it replaces, wrapper, the timing of its main path)
     table = {
         "bitap_count": ("bitap_count.cu", "bitap_scan.py:352", "bench needles"),
@@ -1502,6 +1802,7 @@ def main() -> int:
         "comb16_count_grouped": ("comb16_grouped.cu", "comb16_scan.py:682", "config 5"),
         "comb16_contains_grouped": ("comb16_grouped.cu", "comb16_scan.py:778",
                                     "config 5, digits corpus: full scan"),
+        "comb16_contains_base": ("comb16_grouped.cu", "comb16_scan.py:778", b11["what"]),
         "comb_count": ("comb_scan.cu", "comb_scan.py:389", "config 5, 300 needles"),
         "comb_contains": ("comb_scan.cu", "comb_scan.py:466",
                           "300 needles, digits corpus: full scan"),
@@ -1519,9 +1820,9 @@ def main() -> int:
     # them the controls'.
     launches, control = {}, {}
     for path in (bench_main, dense_main, c16_main, c32_main, g_main, states_main, extract_main,
-                 ref_main, ci_main):
+                 ref_main, ci_main, mesh_main):
         tally(launches, path)
-    for path in (bench_control, c16_control, g_control, ci_control):
+    for path in (bench_control, c16_control, g_control, ci_control, mesh_control):
         tally(control, path)
     kernels = []
     for name, (src, where, what) in table.items():
@@ -1560,6 +1861,9 @@ def main() -> int:
             entry["groups"] = Y5
             entry["ms_first_match"], entry["plain_ms_first_match"], entry[
                 "bound_ms_first_match"], _ = timings[(name, "config 5 corpus: stops at the first match")]
+        if name in mesh_sites:  # its launches on the meshes, one shard's launch timed
+            entry["mesh"] = dict(mesh_sites[name], launches=mesh_main.get(name, 0),
+                                 control_launches=mesh_control.get(name, 0))
         kernels.append(entry)
     for name in ("dense_states", "comb16_states"):
         check(launches.get(name, 0) > 0, f"{name} was not launched by the states paths")

@@ -20,6 +20,8 @@ wrappers raise on bad inputs, and each launch adds one to the wrapper's
 count.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -596,3 +598,85 @@ def test_ignore_case_searcher_on_the_card(cuda):
     ends, _ = s.all_matches_arrays(st)
     assert ends.tolist() == [x.pos for x in ac.all_matches(m, data, IGNORE_CASE)]
     assert s.contains_any(st) and s.contains_all(st)
+
+
+# -- the sharded engine on one card ---------------------------------------------------
+
+
+def _shard_launches_match_plain(eng, st, step):
+    """Each shard's launch of ``step`` equals its plain version; returns the
+    kernels launched."""
+    from alfred_margaret_tpu_torch.parallel.shard import PLAIN
+
+    kernels = set()
+    for i, g, dev in eng.shards():
+        kernel, args = eng.shard_call(step, st, i, g, dev)
+        out = kernel(*args)
+        torch.cuda.synchronize()
+        plain = PLAIN[kernel](*args)
+        for a, b in zip(out if isinstance(out, tuple) else (out,),
+                        plain if isinstance(plain, tuple) else (plain,)):
+            assert torch.equal(a, b), (kernel.__name__, i, g)
+        kernels.add(kernel.__name__)
+    return kernels
+
+
+def test_mesh_on_one_card(cuda):
+    """A (2,1,2) mesh of cuda:0: each shard's count, sticky, states and bitmap
+    launches equal their plain versions, and the answers the host C++
+    engine's."""
+    from alfred_margaret_tpu_torch.parallel import DistributedAcEngine, make_mesh
+
+    needles = _random_needles(3, 30)
+    m = _machine(needles)
+    data = np.frombuffer(synth_corpus(needles, 1 << 20, hit_fraction=0.01, seed=12), np.uint8)
+    eng = DistributedAcEngine(m, make_mesh([cuda] * 4, data=2, needle=2))
+    assert eng.inner == "pallas" and eng.count_route() == "comb16"
+    st = eng.stage(data)
+    assert {dev for _, dev in st.blocks} == {cuda}
+    assert _shard_launches_match_plain(eng, st, "count") == {"comb16_count_grouped"}
+    sticky = {"comb16": "comb16_contains_base", "dense": "dense_contains"}[eng.sticky_route()]
+    assert _shard_launches_match_plain(eng, st, "sticky") == {sticky}
+    assert _shard_launches_match_plain(eng, st, "states") == {"dense_states"}
+    assert _shard_launches_match_plain(eng, st, "bits") == {"matchbits"}
+    host = CppAcEngine(m)
+    assert eng.count_staged(st) == host.count(data) > 0
+    assert eng.contains_any(st) is True
+    ends, vids = eng.matches_arrays(st)
+    hends, hvids = host.matches_arrays(data)
+    assert np.array_equal(ends, hends) and np.array_equal(vids, hvids)
+
+
+def test_b11_one_group_kernel_matches_plain(cuda):
+    """B11's one-group mode on config 2's four needle groups ((2,1,4) on
+    cuda:0) over a hit corpus and the digits corpus: each shard's final bases
+    equal the plain version's; the wrapper counts its launches and raises on
+    a CPU tensor and on more than one group."""
+    from alfred_margaret_tpu_torch.kernels import comb16_contains_base
+    from alfred_margaret_tpu_torch.parallel import DistributedAcEngine, make_mesh
+
+    m = _machine(CONFIG2)
+    eng = DistributedAcEngine(m, make_mesh([cuda] * 8, data=2, needle=4))
+    assert eng.sticky_route() == "comb16"
+    host = CppAcEngine(m)
+    for data in (synth_corpus(CONFIG2, 1 << 20, hit_fraction=0.01, seed=4),
+                 b"0123456789 ,;:!" * 50000):
+        data = np.frombuffer(data, np.uint8)
+        st = eng.stage(data)
+        assert _shard_launches_match_plain(eng, st, "sticky") == {"comb16_contains_base"}
+        assert eng.contains_any(st) == (host.first_hit(data) >= 0)
+        assert eng.count_staged(st) == host.count(data)
+    i, g, dev = eng.shards()[0]
+    _, args = eng.shard_call("sticky", st, i, g, dev)
+    before = comb16_contains_base.launches
+    comb16_contains_base(*args)
+    assert comb16_contains_base.launches == before + 1
+    with pytest.raises(ValueError):
+        comb16_contains_base(args[0].cpu(), *args[1:])
+    every = eng._sticky16_tables()  # the four groups' tables, on the host
+    every = dataclasses.replace(every, **{
+        k: getattr(every, k).to(cuda)
+        for k in ("classmap", "comb", "aux", "root_row", "segtable", "gscal")})
+    with pytest.raises(ValueError, match="one group"):
+        comb16_contains_base(args[0], args[1], every)
+    assert comb16_contains_base.launches == before + 1

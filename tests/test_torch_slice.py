@@ -272,10 +272,13 @@ def test_unported_operations_raise():
         (lambda: s.map_searcher(str), "item 8"),
         (lambda: s + s, "item 8"),
         (lambda: Searcher.from_json(s.to_json()), "item 8"),
-        (lambda: s.distributed(None), "item 16"),
     ]:
         with pytest.raises(NotImplementedError, match=item):
             call()
+    # Sharding (item 16) is ported: tests/test_torch_parallel.py.
+    from alfred_margaret_tpu_torch.parallel import DistributedAcEngine, make_mesh
+
+    assert isinstance(s.distributed(make_mesh(["cpu"] * 2)), DistributedAcEngine)
     assert s.num_needles == 3 and s.device == torch.device("cpu")
     assert s == Searcher.build(CASE_SENSITIVE, NEEDLES3, device="cpu")
 
