@@ -11,12 +11,11 @@
 // stream's final carried base and the absorb compare runs outside it).  The TPU kernels walk a sequential grid of
 // G * n_tiles segments, group-major, reloading group g's table block for each
 // of its segments and carrying counts or hit flags in scratch from one segment
-// to the next.  Here the groups are a grid dimension: the CTA (g, j) loads
-// group g's tables (one comb16 set of at most 48 rows plus the 1.5 KiB of
-// class map, root row and segment table) into shared memory and scans streams
-// [128 j, 128 j + 128) with the lookup of comb16.cuh, one stream per thread.
-// The group index is the fastest grid dimension, so the G CTAs that read one
-// block of streams are scheduled together and share its bytes in L2.
+// to the next.  Here B11 takes the groups as a grid dimension: the CTA (g, j)
+// loads group g's tables (one comb16 set of at most 48 rows plus the 1.5 KiB
+// of class map, root row and segment table) into shared memory and scans
+// streams [128 j, 128 j + 128) with the lookup of comb16.cuh, one stream per
+// thread.  B9 takes a chunk of groups per CTA (below).
 //
 // B9, per group g, per stream s, per step t < vend[s]: the scan of B8 on
 // group g's tables from its root base gscal[g][0], its count ranges
@@ -32,69 +31,213 @@
 // base after vend[s] steps is the absorbing one all the same.  A stream with
 // vend[s] = 0 keeps the root base.
 //
-// What bounds them: per step B8's dependent chain of shared-memory loads,
-// G times per stream byte: the kernels are latency-bound, like B8, and read
-// each stream byte G times (from L2 after the first CTA of a block).  Left for
-// later: several streams per thread, and stopping B11's groups once another
-// group hit the stream.
+// What bounds B11: per step B8's dependent chain of shared-memory loads, G
+// times per stream byte: it is latency-bound, like B8, and reads each stream
+// byte G times (from L2 after the first CTA of a block).  Left for later:
+// several streams per thread, and stopping B11's groups once another group
+// hit the stream.
+//
+// B9 (redesigned for Hopper).  With a CTA per (group, 128 streams) it issued
+// five shared-memory loads per group step (class, comb, segment, aux, root),
+// each split into several bank wavefronts by the lanes' differing states and
+// bytes, and read every stream byte G times.  comb16_count_chunk_kernel:
+//   * a CTA holds a chunk of `chunk` groups' tables (the wrapper sizes the
+//     chunk to a shared-memory budget; config 5's 11 groups fit one), and
+//     each thread steps its stream's chunk chains on every byte: chunk-way
+//     independent chains, each byte read once per CTA;
+//   * the byte's classes come from a byte-packed [ceil(chunk / 4)][256]
+//     table, one word for four groups (one group: the class map replicated
+//     per bank, one wavefront a warp), off the state's chain;
+//   * the CTA widens the comb, aux and root entries to 32 bits as it loads
+//     them, each carrying the aux centre of its base (the segment table's
+//     word), so the segment lookup leaves the chain: a group step is three
+//     loads, two of them on the chain;
+//   * bytes are staged a tile of 32 steps ahead with cp.async and each
+//     stream may be split into `segments` pieces (stage.cuh), as for B15.
+// What remains is the SM's shared-memory pipe: about three wavefronts for
+// each of the comb and aux probes of every group step.
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "comb16.cuh"
+#include "stage.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kChunk = 16;
 
-__global__ void __launch_bounds__(kThreads) comb16_count_grouped_kernel(
+// ---- B9 -------------------------------------------------------------------
+constexpr int kMaxChunk = 16;
+constexpr int kMaxSegments = 64;
+constexpr int kRangeSlots = 8;  // a group's count ranges, padded with 2^BB
+
+// Shared-memory words of one group's tables: the comb, aux and root
+// entries widened to 32-bit words, entry | (aux centre of its base << 16).
+inline __host__ __device__ int group_words(int comb_words, int aux_words) {
+  return 2 * comb_words + 2 * aux_words + 128;
+}
+
+// A block's tables for a chunk of `chunk` groups: the class words (one
+// group: the class map replicated per bank; more: [ceil(chunk / 4)][256]
+// words, byte r of word (q, b) the class of byte b in group 4q + r), the
+// count ranges, then each group's tables; in 32-bit words, rounded up to 16
+// bytes.  Two tiles of stream bytes follow.
+inline __host__ __device__ int class_words(int chunk) {
+  return chunk == 1 ? amt::kRepWords : 256 * ((chunk + 3) / 4);
+}
+inline __host__ __device__ int chunk_table_words(int chunk, int comb_words, int aux_words) {
+  return (class_words(chunk) + chunk * kRangeSlots + chunk * group_words(comb_words, aux_words) +
+          3) & ~3;
+}
+size_t chunk_smem_bytes(int chunk, int comb_words, int aux_words) {
+  return (size_t)chunk_table_words(chunk, comb_words, aux_words) * sizeof(uint32_t) +
+         amt::kStageBytes;
+}
+
+// B9: block (x, y, z) scans streams [128 x, 128 x + 128), segment y, with
+// groups [z * chunk, z * chunk + chunk) (kMaxGc >= chunk), one thread per
+// stream stepping every group of the chunk on each byte.
+template <int kMaxGc>
+__global__ void __launch_bounds__(kThreads) comb16_count_chunk_kernel(
     const uint8_t* __restrict__ streams, int T, int S, const int32_t* __restrict__ warm,
-    const int32_t* __restrict__ vend, const int32_t* __restrict__ classmap,
+    const int32_t* __restrict__ vend, int G, const int32_t* __restrict__ classmap,
     const int32_t* __restrict__ comb, int comb_words, const int32_t* __restrict__ aux,
     int aux_words, const int32_t* __restrict__ root_row, const int32_t* __restrict__ segtable,
     const int32_t* __restrict__ gscal, int gscal_width, int bb, int owner_mask, int cbit,
-    int32_t* __restrict__ out) {
-  extern __shared__ uint32_t smem[];
-  const int g = blockIdx.x;
-  const amt::Comb16 c = amt::load_comb16(
-      smem, classmap + (size_t)g * 256, comb + (size_t)g * comb_words, comb_words,
-      aux + (size_t)g * aux_words, aux_words, root_row + (size_t)g * 128,
-      segtable + (size_t)g * 128, bb, owner_mask);
-  __syncthreads();
+    int overlap, int segments, int chunk, int tile, int32_t* __restrict__ out) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  __shared__ int stop_slot;
+  const int g0 = blockIdx.z * chunk;
+  const int gc = min(chunk, G - g0);  // this block's groups
+  const int nw = (gc + 3) >> 2;
+  const int gw = group_words(comb_words, aux_words);
+  const uint32_t bmask = (1u << bb) - 1u, om = (uint32_t)owner_mask;
+  const int segshift = bb - 7;
+  uint32_t* cls_tab = smem;
+  uint32_t* rng = cls_tab + class_words(chunk);
+  uint32_t* gt = rng + chunk * kRangeSlots;
+  uint8_t* tiles =
+      reinterpret_cast<uint8_t*>(smem + chunk_table_words(chunk, comb_words, aux_words));
 
-  const int s = blockIdx.y * blockDim.x + threadIdx.x;
-  if (s >= S) return;
-  const int32_t* gs = gscal + (size_t)g * gscal_width;
-  const uint32_t bmask = (1u << bb) - 1u;
-  uint32_t r[amt::kC16Ranges];
+  if (kMaxGc == 1) {
+    amt::load_rep_classes(cls_tab, classmap + (size_t)g0 * 256);
+  } else {
+    for (int i = threadIdx.x; i < 256 * nw; i += blockDim.x) {
+      const int q = i >> 8, b = i & 255;
+      uint32_t w = 0;
 #pragma unroll
-  for (int i = 0; i < amt::kC16Ranges; ++i)
-    r[i] = i + 1 < gscal_width ? (uint32_t)gs[i + 1] : (1u << bb);
-  const bool counts = cbit != 0;
-  const int w0 = warm[s];
-  const int v0 = min(vend[s], T);
-  const uint8_t* col = streams + s;
-  uint32_t cb = (uint32_t)gs[0] & bmask, count = 0;
-
-  int t = 0;
-  for (; t + kChunk <= v0; t += kChunk) {
-    uint8_t b[kChunk];
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) b[j] = col[(size_t)(t + j) * S];
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) {
-      const uint32_t e = c.entry(cb, b[j]);
-      cb = e & bmask;
-      count += (t + j >= w0) ? amt::count16(e, cb, r, counts) : 0u;
+      for (int r = 0; r < 4; ++r)
+        if (4 * q + r < gc) w |= ((uint32_t)classmap[(size_t)(g0 + 4 * q + r) * 256 + b] & 0xFFu) << (8 * r);
+      cls_tab[i] = w;
     }
   }
-  for (; t < v0; ++t) {
-    const uint32_t e = c.entry(cb, col[(size_t)t * S]);
-    cb = e & bmask;
-    count += (t >= w0) ? amt::count16(e, cb, r, counts) : 0u;
+  for (int i = threadIdx.x; i < gc * kRangeSlots; i += blockDim.x) {
+    const int g = i / kRangeSlots, r = i % kRangeSlots;
+    rng[i] = r + 1 < gscal_width ? (uint32_t)gscal[(size_t)(g0 + g) * gscal_width + r + 1]
+                                 : (1u << bb);
   }
+  for (int g = 0; g < gc; ++g) {
+    uint32_t* tab = gt + g * gw;
+    const int32_t* cg = comb + (size_t)(g0 + g) * comb_words;
+    const int32_t* ag = aux + (size_t)(g0 + g) * aux_words;
+    const int32_t* rg = root_row + (size_t)(g0 + g) * 128;
+    const int32_t* sg = segtable + (size_t)(g0 + g) * 128;
+    auto widen = [&](uint32_t e) { return e | ((uint32_t)sg[(e & bmask) >> segshift] << 16); };
+    for (int i = threadIdx.x; i < 2 * comb_words; i += blockDim.x)
+      tab[i] = widen(((uint32_t)cg[i >> 1] >> ((i & 1) << 4)) & 0xFFFFu);
+    for (int i = threadIdx.x; i < 2 * aux_words; i += blockDim.x)
+      tab[2 * comb_words + i] = widen(((uint32_t)ag[i >> 1] >> ((i & 1) << 4)) & 0xFFFFu);
+    for (int i = threadIdx.x; i < 128; i += blockDim.x)
+      tab[2 * comb_words + 2 * aux_words + i] = widen((uint32_t)rg[i] & 0xFFFFu);
+  }
+
+  const amt::SegSteps seg = amt::segment_steps(blockIdx.y, segments, T, overlap);
+  const int s0 = blockIdx.x * kThreads;
+  const int s = s0 + threadIdx.x;
+  int lo = INT_MAX, hi = 0;  // the steps this thread counts
+  if (s < S && cbit) {
+    lo = max(seg.lo, warm[s]);
+    hi = min(seg.hi, min(vend[s], T));
+  }
+  const int stop = amt::block_stop(&stop_slot, lo, hi);  // also orders the table loads
+
+  const int nr = gscal_width - 1;
+  const uint32_t lane = threadIdx.x & 31u;
+  uint32_t cb[kMaxGc], cv[kMaxGc], r0[kMaxGc];
+#pragma unroll
+  for (int g = 0; g < kMaxGc; ++g) {
+    cb[g] = cv[g] = 0;
+    r0[g] = 1u << bb;
+    if (g < gc) {
+      cb[g] = (uint32_t)gscal[(size_t)(g0 + g) * gscal_width] & bmask;
+      cv[g] = (uint32_t)segtable[(size_t)(g0 + g) * 128 + (cb[g] >> segshift)];
+      r0[g] = rng[g * kRangeSlots];
+    }
+  }
+  uint32_t count = 0;
+  auto scan = [&](const uint8_t* tile, int t0, int rows) {
+    const uint8_t* col = tile + threadIdx.x;
+#pragma unroll 2
+    for (int j = 0; j < rows; ++j) {
+      const uint32_t b = col[j * amt::kRowBytes];
+      uint32_t pw[(kMaxGc + 3) / 4];
+      if (kMaxGc == 1) {
+        pw[0] = amt::rep_class(cls_tab, b, lane);
+      } else {
+#pragma unroll
+        for (int q = 0; q < (kMaxGc + 3) / 4; ++q) pw[q] = q < nw ? cls_tab[q * 256 + b] : 0u;
+      }
+      const int t = t0 + j;
+      const bool live = t >= lo && t < hi;
+#pragma unroll
+      for (int g = 0; g < kMaxGc; ++g) {
+        if (g >= gc) break;
+        const uint32_t cls = (pw[g >> 2] >> ((g & 3) << 3)) & 0xFFu;
+        const uint32_t* tab = gt + g * gw;
+        // Comb16::entry on the widened tables: the aux centre rides in cv.
+        const uint32_t v1 = tab[cb[g] + cls];
+        const uint32_t v2 = tab[2 * comb_words + cv[g] + cls];
+        const uint32_t vr = tab[2 * comb_words + 2 * aux_words + cls];
+        const bool hit1 = (((v1 & 0xFFFFu) >> bb) & om) == (cb[g] & om);
+        const bool hit2 = (((v2 & 0xFFFFu) >> bb) & om) == (cv[g] & om);
+        const uint32_t v = hit1 ? v1 : (hit2 ? v2 : vr);
+        const uint32_t e = v & 0xFFFFu;
+        cv[g] = v >> 16;
+        cb[g] = e & bmask;
+        if (live) {
+          uint32_t n = ((e >> 15) & 1u) + (cb[g] >= r0[g] ? 1u : 0u);
+          for (int r = 1; r < nr; ++r) n += cb[g] >= rng[g * kRangeSlots + r] ? 1u : 0u;
+          count += n;
+        }
+      }
+    }
+  };
+  amt::staged_scan(tiles, tile, streams, S, s0, seg.start, stop, nullptr, scan);
   if (count) atomicAdd(out + s, (int32_t)count);
+}
+
+template <int kMaxGc, class... Args>
+int launch_chunk(dim3 grid, size_t smem, cudaStream_t stream, Args... args) {
+  auto kernel = comb16_count_chunk_kernel<kMaxGc>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, kThreads, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+// The instance whose register arrays hold `chunk` chains.
+template <class... Args>
+int launch_chunk_for(int chunk, dim3 grid, size_t smem, cudaStream_t stream, Args... args) {
+  if (chunk <= 1) return launch_chunk<1>(grid, smem, stream, args...);
+  if (chunk <= 2) return launch_chunk<2>(grid, smem, stream, args...);
+  if (chunk <= 4) return launch_chunk<4>(grid, smem, stream, args...);
+  if (chunk <= 8) return launch_chunk<8>(grid, smem, stream, args...);
+  if (chunk <= 12) return launch_chunk<12>(grid, smem, stream, args...);
+  return launch_chunk<16>(grid, smem, stream, args...);
 }
 
 __global__ void __launch_bounds__(kThreads) comb16_contains_grouped_kernel(
@@ -168,28 +311,35 @@ bool grid_ok(int G, int S) { return G > 0 && S > 0 && (S + kThreads - 1) / kThre
 
 }  // namespace
 
+
 // B9: out int32 [S], zeroed by the caller; the group tables are [G, ...]
 // row-major, gscal [G, gscal_width] with gscal_width - 1 <= 6 count ranges.
-// Launch on `stream` (a cudaStream_t); returns the cudaError_t of the launch;
-// the kernel runs asynchronously.
+// Each block takes `chunk` groups (ceil(G / chunk) chunks) and one of the
+// `segments` pieces of its streams (stage.cuh; `overlap` is the stream
+// plan's warm-up).  Launch on `stream` (a cudaStream_t); returns the
+// cudaError_t of the launch (also when the shared memory asked for is
+// refused); the kernel runs asynchronously.
 extern "C" int amt_comb16_count_grouped(const void* streams, int T, int S, const void* warm,
                                         const void* vend, int G, const void* classmap,
                                         const void* comb, int comb_words, const void* aux,
                                         int aux_words, const void* root_row,
                                         const void* segtable, const void* gscal,
                                         int gscal_width, int bb, int owner_mask, int cbit,
-                                        void* out, void* stream) {
-  if (T < 0 || !grid_ok(G, S) || gscal_width < 1 || gscal_width > 1 + amt::kC16Ranges ||
-      !amt::comb16_args_ok(comb_words, aux_words, bb, owner_mask, cbit, 0))
+                                        int overlap, int segments, int chunk, void* out,
+                                        void* stream) {
+  if (T < 0 || S <= 0 || G <= 0 || gscal_width < 1 || gscal_width > 1 + amt::kC16Ranges ||
+      !amt::comb16_args_ok(comb_words, aux_words, bb, owner_mask, cbit, 0) || overlap < 0 ||
+      segments < 1 || segments > kMaxSegments || chunk < 1 || chunk > kMaxChunk ||
+      (G + chunk - 1) / chunk > 65535)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(G, (S + kThreads - 1) / kThreads);
-  comb16_count_grouped_kernel<<<grid, kThreads, amt::comb16_smem_bytes(comb_words, aux_words),
-                                (cudaStream_t)stream>>>(
-      (const uint8_t*)streams, T, S, (const int32_t*)warm, (const int32_t*)vend,
-      (const int32_t*)classmap, (const int32_t*)comb, comb_words, (const int32_t*)aux,
-      aux_words, (const int32_t*)root_row, (const int32_t*)segtable, (const int32_t*)gscal,
-      gscal_width, bb, owner_mask, cbit, (int32_t*)out);
-  return (int)cudaGetLastError();
+  const size_t smem = chunk_smem_bytes(chunk, comb_words, aux_words);
+  const dim3 grid((S + kThreads - 1) / kThreads, segments, (G + chunk - 1) / chunk);
+  return launch_chunk_for(
+      chunk, grid, smem, (cudaStream_t)stream, (const uint8_t*)streams, T, S,
+      (const int32_t*)warm, (const int32_t*)vend, G, (const int32_t*)classmap,
+      (const int32_t*)comb, comb_words, (const int32_t*)aux, aux_words,
+      (const int32_t*)root_row, (const int32_t*)segtable, (const int32_t*)gscal, gscal_width, bb,
+      owner_mask, cbit, overlap, segments, chunk, amt::kTile, (int32_t*)out);
 }
 
 // B11: out int32 [S], zeroed by the caller: 1 where some group's sticky scan

@@ -32,16 +32,35 @@
 // of the state entered at t (its count in bits 30..27, its state through the
 // host's inverse base table).
 //
-// What bounds them: B15 and B16 run a dependent chain of shared-memory loads
+// What bounds them: B16 and B17 run a dependent chain of shared-memory loads
 // per step (class, then comb and default row), like B8, so they are
 // latency-bound, not bound by device memory; B17 also writes four bytes per
 // stream byte, coalesced across the warp.  Stream bytes are loaded kChunk
-// steps ahead into registers so that the device-memory loads overlap the
-// chain.  Left for later: several streams per thread.
+// steps ahead into registers.  Left for later: several streams per thread.
+//
+// B15 (redesigned for Hopper): with one thread per stream, 32768 streams
+// give about 8 warps per SM, and each thread waited on device memory once
+// per 16-byte chunk, in series with the chunk's steps: the kernel was bound
+// by latency with too few chains.  comb_count_seg_kernel therefore
+//   * splits each stream into `segments` pieces in the kernel
+//     (stage.cuh: each scans from the root `overlap` bytes early and counts
+//     its own steps; the per-stream sums add with one atomicAdd), so a
+//     launch runs segments x as many independent chains;
+//   * stages the block's bytes into shared memory a tile of 32 steps
+//     ahead with 16-byte cp.async copies, double-buffered, so no thread
+//     waits on device memory inside the chain;
+//   * takes the byte class off the chain: the block translates each staged
+//     tile to classes in place, through a byte-packed class map replicated
+//     per bank (one wavefront per warp whatever the bytes), before it scans.
+// What remains on the chain is the comb and default-row probe of the state,
+// two shared-memory loads per step: the SM's shared-memory pipe bounds it.
 
 #include <cstddef>
 #include <cstdint>
+#include <climits>
 #include <cuda_runtime.h>
+
+#include "stage.cuh"
 
 namespace {
 
@@ -94,6 +113,29 @@ size_t smem_bytes(int comb_words, int def_words) {
   return (size_t)(256 + comb_words + def_words) * sizeof(uint32_t);
 }
 
+// B15's step from (cb, df) on a byte class already looked up: Comb::entry
+// without its class-map read.
+__device__ __forceinline__ uint32_t comb_entry_cls(const Comb& c, uint32_t cb, uint32_t df,
+                                                   uint32_t cls) {
+  const uint32_t w = cb + cls;
+  const uint32_t v = c.comb[min(w, c.m_pad - 1u)];
+  const uint32_t r = c.def[min(df * c.k + cls, c.def_last)];
+  const bool hit = w < c.m_pad && ((v >> c.owner_shift) & c.owner_mask) == (cb & c.owner_mask);
+  return hit ? v : r;
+}
+
+// B15's shared memory: the replicated class map, the comb array and the
+// default rows (in 32-bit words, rounded up to 16 bytes), then two tiles.
+constexpr int kMaxSegments = 64;
+
+inline __host__ __device__ int seg_table_words(int comb_words, int def_words) {
+  return (amt::kRepWords + comb_words + def_words + 3) & ~3;
+}
+
+size_t seg_smem_bytes(int comb_words, int def_words) {
+  return (size_t)seg_table_words(comb_words, def_words) * sizeof(uint32_t) + amt::kStageBytes;
+}
+
 // The launchers' argument check: table sizes, the field split and the root.
 bool args_ok(int T, int S, int comb_words, int def_words, int k, int owner_bits, int root_base,
              int root_def) {
@@ -103,43 +145,49 @@ bool args_ok(int T, int S, int comb_words, int def_words, int k, int owner_bits,
          root_def < (1 << (14 - owner_bits));
 }
 
-__global__ void __launch_bounds__(kThreads) comb_count_kernel(
+__global__ void __launch_bounds__(kThreads) comb_count_seg_kernel(
     const uint8_t* __restrict__ streams, int T, int S, const int32_t* __restrict__ warm,
     const int32_t* __restrict__ vend, const int32_t* __restrict__ classmap,
     const int32_t* __restrict__ comb, int comb_words, const int32_t* __restrict__ deft,
-    int def_words, int k, int owner_bits, int root_base, int root_def,
-    int32_t* __restrict__ out) {
-  extern __shared__ uint32_t smem[];
-  const Comb c = load_comb(smem, classmap, comb, comb_words, deft, def_words, k, owner_bits);
-  __syncthreads();
+    int def_words, int k, int owner_bits, int overlap, int segments, int tile, uint32_t root_base,
+    uint32_t root_def, int32_t* __restrict__ out) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  __shared__ int stop_slot;
+  uint32_t* rep = smem;
+  uint32_t* cw = rep + amt::kRepWords;
+  uint32_t* dw = cw + comb_words;
+  amt::load_rep_classes(rep, classmap);
+  for (int i = threadIdx.x; i < comb_words; i += blockDim.x) cw[i] = (uint32_t)comb[i];
+  for (int i = threadIdx.x; i < def_words; i += blockDim.x) dw[i] = (uint32_t)deft[i];
+  const int def_bits = 14 - owner_bits;
+  const Comb c{nullptr, cw, dw, (uint32_t)comb_words, (uint32_t)(def_words - 1), (uint32_t)k,
+               (uint32_t)(kBaseBits + def_bits), (1u << owner_bits) - 1u, (1u << def_bits) - 1u};
+  uint8_t* tiles = reinterpret_cast<uint8_t*>(smem + seg_table_words(comb_words, def_words));
 
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= S) return;
-  const int w0 = warm[s];
-  const int v0 = min(vend[s], T);
-  const uint8_t* col = streams + s;
-  uint32_t cb = (uint32_t)root_base, df = (uint32_t)root_def, count = 0;
+  const amt::SegSteps seg = amt::segment_steps(blockIdx.y, segments, T, overlap);
+  const int s0 = blockIdx.x * kThreads;
+  const int s = s0 + threadIdx.x;
+  int lo = INT_MAX, hi = 0;  // the steps this thread counts
+  if (s < S) {
+    lo = max(seg.lo, warm[s]);
+    hi = min(seg.hi, min(vend[s], T));
+  }
+  const int stop = amt::block_stop(&stop_slot, lo, hi);  // also orders the table loads
 
-  int t = 0;
-  for (; t + kChunk <= v0; t += kChunk) {
-    uint8_t b[kChunk];
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) b[j] = col[(size_t)(t + j) * S];
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) {
-      const uint32_t e = c.entry(cb, df, b[j]);
+  uint32_t cb = root_base, df = root_def, count = 0;
+  auto scan = [&](const uint8_t* tile, int t0, int rows) {
+    const uint8_t* col = tile + threadIdx.x;
+#pragma unroll 4
+    for (int j = 0; j < rows; ++j) {
+      const uint32_t e = comb_entry_cls(c, cb, df, col[j * amt::kRowBytes]);
       cb = e & kBaseMask;
       df = c.def_of(e);
-      count += (t + j >= w0) ? (e >> kCountShift) : 0u;
+      const int t = t0 + j;
+      count += (t >= lo && t < hi) ? (e >> kCountShift) : 0u;
     }
-  }
-  for (; t < v0; ++t) {
-    const uint32_t e = c.entry(cb, df, col[(size_t)t * S]);
-    cb = e & kBaseMask;
-    df = c.def_of(e);
-    count += (t >= w0) ? (e >> kCountShift) : 0u;
-  }
-  out[s] = (int32_t)count;
+  };
+  amt::staged_scan(tiles, tile, streams, S, s0, seg.start, stop, rep, scan);
+  if (count) atomicAdd(out + s, (int32_t)count);
 }
 
 __global__ void __launch_bounds__(kThreads) comb_contains_kernel(
@@ -215,20 +263,29 @@ __global__ void __launch_bounds__(kThreads) comb_states_kernel(
 
 }  // namespace
 
-// B15: out int32 [S].  Launch on `stream` (a cudaStream_t); returns the
-// cudaError_t of the launch; the kernel runs asynchronously.
+// B15: out int32 [S], zeroed by the caller; each of the `segments` pieces
+// of every stream adds its count (stage.cuh; `overlap` is the stream plan's
+// warm-up, and with segments = 1 it is not read).  Launch on `stream` (a
+// cudaStream_t); returns the cudaError_t of the launch (also when the
+// shared memory asked for is refused); the kernel runs asynchronously.
 extern "C" int amt_comb_count(const void* streams, int T, int S, const void* warm,
                               const void* vend, const void* classmap, const void* comb,
                               int comb_words, const void* deft, int def_words, int k,
-                              int owner_bits, int root_base, int root_def, void* out,
-                              void* stream) {
-  if (!args_ok(T, S, comb_words, def_words, k, owner_bits, root_base, root_def))
+                              int owner_bits, int root_base, int root_def, int overlap,
+                              int segments, void* out, void* stream) {
+  if (!args_ok(T, S, comb_words, def_words, k, owner_bits, root_base, root_def) || overlap < 0 ||
+      segments < 1 || segments > kMaxSegments)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((S + kThreads - 1) / kThreads);
-  comb_count_kernel<<<grid, kThreads, smem_bytes(comb_words, def_words), (cudaStream_t)stream>>>(
+  const size_t smem = seg_smem_bytes(comb_words, def_words);
+  const cudaError_t err = cudaFuncSetAttribute(
+      comb_count_seg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((S + kThreads - 1) / kThreads, segments);
+  comb_count_seg_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)streams, T, S, (const int32_t*)warm, (const int32_t*)vend,
       (const int32_t*)classmap, (const int32_t*)comb, comb_words, (const int32_t*)deft,
-      def_words, k, owner_bits, root_base, root_def, (int32_t*)out);
+      def_words, k, owner_bits, overlap, segments, amt::kTile, (uint32_t)root_base,
+      (uint32_t)root_def, (int32_t*)out);
   return (int)cudaGetLastError();
 }
 

@@ -1,0 +1,169 @@
+// Stream staging for the segmented scans B9 and B15 (comb16_grouped.cu,
+// comb_scan.cu): a block's tile of stream bytes copied into shared memory
+// ahead of the scan, and the per-segment step ranges.
+//
+// A block owns 128 streams [s0, s0 + 128).  Step t of those streams is the
+// contiguous 128-byte run streams[t * S + s0 ...]; a tile of kTile steps is
+// staged as kTile x 128 bytes, row-major, so thread i reads its stream's
+// byte of row j at tile[j * 128 + i] (one bank wavefront per warp).  Tile
+// i + 1 is in flight while tile i is scanned (two buffers).  With S a
+// multiple of 16 and a 16-byte aligned base the rows go as 16-byte cp.async
+// copies, otherwise byte by byte (the ragged shapes only).  Bytes of streams
+// past S are not written: their threads scan but never count.
+//
+// Segments: stream steps [0, T) are cut into `segments` pieces at
+// p_i = i * T / segments.  Segment i scans from the root starting `overlap`
+// bytes early, at max(0, p_i - overlap), and counts the steps t with
+// max(p_i, warm[s]) <= t < min(p_{i+1}, vend[s]).  The stream plan warms
+// every stream with the same `overlap` bytes (max_needle_bytes - 1): after
+// overlap + 1 bytes the state of a scan restarted from the root equals the
+// state of the scan from the stream's start, so the counts are exact; they
+// add per stream.  kernels/segments.py:segment_schedule is the same split.
+
+#pragma once
+
+#include <cstddef>
+#include <cstdint>
+
+namespace amt {
+
+constexpr int kStageThreads = 128;  // streams per block
+constexpr int kRowBytes = 128;      // one step of the block's streams
+// Steps per staged tile (PERF.md section 6).  The launchers pass it to the
+// kernels as an argument: with the step count a compile-time constant, nvcc
+// schedules the scan loop otherwise, and B15 ran 3% and B9 with one group
+// 5% slower on the H100.
+constexpr int kTile = 32;
+constexpr int kTileBytes = kTile * kRowBytes;
+// Shared-memory bytes of the two tiles.
+constexpr size_t kStageBytes = 2 * kTileBytes;
+// A byte-packed class map replicated per bank: word (b >> 2) * 32 + lane
+// holds the classes of bytes 4 (b >> 2) .. + 3, so each lane reads its own
+// bank and a warp's lookup is one wavefront whatever its bytes.
+constexpr int kRepWords = 64 * 32;
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Issue the copy of steps [t0, t1) of streams [s0, s0 + 128) into `tile` and
+// commit it as one cp.async group (every thread of the block calls this).
+__device__ inline void stage_rows(uint8_t* tile, const uint8_t* __restrict__ streams, int S,
+                                  int s0, int t0, int t1, bool vec) {
+  const int rows = t1 - t0;
+  if (vec) {
+    for (int i = threadIdx.x; i < rows * 8; i += blockDim.x) {
+      const int r = i >> 3, c = (i & 7) << 4;
+      if (s0 + c < S) cp_async16(tile + r * kRowBytes + c, streams + (size_t)(t0 + r) * S + s0 + c);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * kRowBytes; i += blockDim.x) {
+      const int r = i >> 7, c = i & 127;
+      if (s0 + c < S) tile[i] = streams[(size_t)(t0 + r) * S + s0 + c];
+    }
+  }
+  cp_async_commit();
+}
+
+// True when rows can go as 16-byte copies.
+__device__ __forceinline__ bool stage_vec(const uint8_t* streams, int S) {
+  return (S & 15) == 0 && ((uintptr_t)streams & 15) == 0;
+}
+
+// Fill the replicated class map from a [256] int32 class map (classes < 256).
+__device__ inline void load_rep_classes(uint32_t* rep, const int32_t* __restrict__ classmap) {
+  for (int i = threadIdx.x; i < kRepWords; i += blockDim.x) {
+    const int w = (i >> 5) << 2;
+    rep[i] = ((uint32_t)classmap[w] & 0xFFu) | (((uint32_t)classmap[w + 1] & 0xFFu) << 8) |
+             (((uint32_t)classmap[w + 2] & 0xFFu) << 16) | (((uint32_t)classmap[w + 3] & 0xFFu) << 24);
+  }
+}
+
+__device__ __forceinline__ uint32_t rep_class(const uint32_t* rep, uint32_t b, uint32_t lane) {
+  return (rep[((b >> 2) << 5) + lane] >> ((b & 3u) << 3)) & 0xFFu;
+}
+
+// Replace the bytes of `rows` staged rows by their classes, in place, 16
+// bytes a thread at a time (the block's threads together; the caller
+// synchronises before and after).
+__device__ inline void translate_rows(uint8_t* tile, int rows, const uint32_t* rep) {
+  const uint32_t lane = threadIdx.x & 31u;
+  uint4* v = reinterpret_cast<uint4*>(tile);
+  for (int i = threadIdx.x; i < rows * 8; i += blockDim.x) {
+    uint4 x = v[i];
+    uint32_t* w = reinterpret_cast<uint32_t*>(&x);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint32_t u = w[q];
+      w[q] = rep_class(rep, u & 0xFFu, lane) | (rep_class(rep, (u >> 8) & 0xFFu, lane) << 8) |
+             (rep_class(rep, (u >> 16) & 0xFFu, lane) << 16) |
+             (rep_class(rep, u >> 24, lane) << 24);
+    }
+    v[i] = x;
+  }
+}
+
+// Segment i's steps: scan from `start`, count in [lo, hi) (before the
+// per-stream warm and vend clamps).
+struct SegSteps {
+  int start, lo, hi;
+};
+
+__device__ __forceinline__ SegSteps segment_steps(int i, int segments, int T, int overlap) {
+  const int lo = (int)((long long)i * T / segments);
+  const int hi = (int)((long long)(i + 1) * T / segments);
+  return SegSteps{max(0, lo - overlap), lo, hi};
+}
+
+// Scan steps [start, stop) of the block's streams tile by tile: each tile of
+// at most `tile` (kTile) rows is staged into one of the two buffers at
+// `tiles` while the tile before it is scanned, and scan(cur, t0, rows) runs
+// on it once it has landed.  With `xlat` (a replicated class map) the
+// tile's bytes are first replaced by their classes.  Every thread of the
+// block calls this, with the same arguments.
+template <class Scan>
+__device__ inline void staged_scan(uint8_t* tiles, int tile, const uint8_t* __restrict__ streams,
+                                   int S, int s0, int start, int stop, const uint32_t* xlat,
+                                   Scan&& scan) {
+  const int tile_bytes = tile * kRowBytes;
+  const bool vec = stage_vec(streams, S);
+  if (start < stop) stage_rows(tiles, streams, S, s0, start, min(start + tile, stop), vec);
+  int it = 0;
+  for (int t0 = start; t0 < stop; t0 += tile, ++it) {
+    const int rows = min(tile, stop - t0);
+    uint8_t* cur = tiles + (it & 1) * tile_bytes;
+    const int t1 = t0 + rows;
+    if (t1 < stop) {
+      stage_rows(tiles + ((it + 1) & 1) * tile_bytes, streams, S, s0, t1, min(t1 + tile, stop),
+                 vec);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (xlat != nullptr) {
+      translate_rows(cur, rows, xlat);
+      __syncthreads();
+    }
+    scan(cur, t0, rows);
+    __syncthreads();  // the buffer is staged into again two tiles on
+  }
+}
+
+// The last step any stream of the block counts in its segment, or 0 when
+// none counts (every thread of the block calls this; it synchronises).
+__device__ inline int block_stop(int* slot, int lo, int hi) {
+  if (threadIdx.x == 0) *slot = 0;
+  __syncthreads();
+  if (lo < hi) atomicMax(slot, hi);
+  __syncthreads();
+  return *slot;
+}
+
+}  // namespace amt

@@ -165,7 +165,11 @@ def _bind(lib: ctypes.CDLL) -> None:
         i, i, i, i,  # k, owner_bits, root_base, root_def
     ]
     lib.amt_comb_count.restype = i
-    lib.amt_comb_count.argtypes = [p, i, i, p, p, *comb, p, p]  # streams, T, S, warm, vend, ...
+    lib.amt_comb_count.argtypes = [
+        p, i, i, p, p, *comb,  # streams, T, S, warm, vend, ...
+        i, i,  # overlap, segments
+        p, p,  # out, stream
+    ]
     lib.amt_comb_contains.restype = i
     lib.amt_comb_contains.argtypes = [p, i, i, p, *comb, i, p, p]  # ..., vend, ..., absorb
     lib.amt_comb_states.restype = i
@@ -179,6 +183,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, i, i, p, p,  # streams, T, S, warm, vend
         *grouped, i,  # ..., gscal_width
         i, i, i,  # BB, owner_mask, CB
+        i, i, i,  # overlap, segments, chunk
         p, p,  # out, stream
     ]
     lib.amt_comb16_contains_grouped.restype = i

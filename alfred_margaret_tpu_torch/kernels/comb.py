@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from .common import check_streams, check_tables, launch, on_cpu
+from .segments import Design, comb_design, sm_count
 
 #: comb plus default-row words the kernels hold in shared memory
 #: (kMaxTableWords in csrc/comb_scan.cu): MAX_ROWS rows of 128 entries.
@@ -91,9 +92,10 @@ class PlainComb:
 
 
 def comb_count_plain(streams, warm, vend, classmap, comb, def_table, k, owner_bits, root_base,
-                     root_def):
+                     root_def, overlap=None):
     """Plain torch version of B15: one lookup per time step, counts added
-    where ``warm <= t < vend``."""
+    where ``warm <= t < vend``.  (``overlap`` only lets the kernel cut the
+    streams into segments.)"""
     T, S = streams.shape
     p = PlainComb(classmap, comb, def_table, k, owner_bits, root_base, root_def)
     warm, vend = warm.long(), vend.long()
@@ -106,24 +108,36 @@ def comb_count_plain(streams, warm, vend, classmap, comb, def_table, k, owner_bi
 
 
 def comb_count(streams, warm, vend, classmap, comb, def_table, k, owner_bits, root_base,
-               root_def):
+               root_def, overlap=None):
     """int32 [S] counts of the matches ending at t in [warm[s], vend[s]) of
-    each stream of ``streams`` ([T, S] uint8), scanned from the root."""
+    each stream of ``streams`` ([T, S] uint8), scanned from the root.  With
+    the stream plan's ``overlap`` the kernel may cut each stream into
+    segments (``kernels/segments.py``); without, it scans each whole."""
     check_comb(streams, classmap, comb, def_table, k, owner_bits, root_base, root_def,
                warm=warm, vend=vend)
+    if overlap is not None and overlap < 0:
+        raise ValueError(f"overlap must be >= 0, got {overlap}")
     if on_cpu(streams):
         return comb_count_plain(streams, warm, vend, classmap, comb, def_table, k, owner_bits,
                                 root_base, root_def)
     T, S = streams.shape
-    out = torch.empty(S, dtype=torch.int32, device=streams.device)
+    d = comb_count_design(streams, comb, def_table, overlap)
+    out = torch.zeros(S, dtype=torch.int32, device=streams.device)
     launch(
         "amt_comb_count", streams.device,
         streams.data_ptr(), T, S, warm.data_ptr(), vend.data_ptr(),
         classmap.data_ptr(), comb.data_ptr(), comb.numel(), def_table.data_ptr(),
-        def_table.numel(), k, owner_bits, root_base, root_def, out.data_ptr(),
+        def_table.numel(), k, owner_bits, root_base, root_def, overlap or 0, d.segments,
+        out.data_ptr(),
     )
     comb_count.launches += 1
     return out
+
+
+def comb_count_design(streams, comb, def_table, overlap=None) -> Design:
+    """The segments ``comb_count`` cuts these CUDA streams into."""
+    T, S = streams.shape
+    return comb_design(S, T, overlap, comb.numel(), def_table.numel(), sm_count(streams.device))
 
 
 def comb_contains_plain(streams, vend, classmap, comb, def_table, k, owner_bits, root_base,
@@ -206,6 +220,7 @@ __all__ = [
     "comb_contains",
     "comb_contains_plain",
     "comb_count",
+    "comb_count_design",
     "comb_count_plain",
     "comb_states",
     "comb_states_plain",

@@ -32,6 +32,7 @@ import torch
 
 from .comb16 import MAX_TABLE_WORDS, N_RANGES, check_split
 from .common import check_streams, check_tables, launch, on_cpu
+from .segments import Design, grouped_design, sm_count
 
 
 def _check(streams, tables, sticky: bool, **vectors) -> None:
@@ -91,9 +92,10 @@ class _PlainGroups:
         return torch.where(hit1, e1, torch.where(hit2, e2, self.root[self.off_rs + cls]))
 
 
-def comb16_count_grouped_plain(streams, warm, vend, tables):
+def comb16_count_grouped_plain(streams, warm, vend, tables, overlap=None):
     """Plain torch version of B9: every group's B8 scan at once, one lookup
-    per time step, the counts of ``warm <= t < vend`` summed over groups."""
+    per time step, the counts of ``warm <= t < vend`` summed over groups.
+    (``overlap`` only lets the kernel cut the streams into segments.)"""
     T, S = streams.shape
     p = _PlainGroups(tables)
     bmask = (1 << tables.BB) - 1
@@ -111,14 +113,19 @@ def comb16_count_grouped_plain(streams, warm, vend, tables):
     return counts.to(torch.int32)
 
 
-def comb16_count_grouped(streams, warm, vend, tables):
+def comb16_count_grouped(streams, warm, vend, tables, overlap=None):
     """int32 [S]: per stream of ``streams`` ([T, S] uint8), the matches of
     every group ending at t in [warm[s], vend[s]), summed over the groups of
-    ``tables`` (an ``ops.comb16_scan.Comb16GroupTables`` of count tables)."""
+    ``tables`` (an ``ops.comb16_scan.Comb16GroupTables`` of count tables).
+    With the stream plan's ``overlap`` the kernel may cut each stream into
+    segments (``kernels/segments.py``); without, it scans each whole."""
     _check(streams, tables, False, warm=warm, vend=vend)
+    if overlap is not None and overlap < 0:
+        raise ValueError(f"overlap must be >= 0, got {overlap}")
     if on_cpu(streams):
         return comb16_count_grouped_plain(streams, warm, vend, tables)
     T, S = streams.shape
+    d = comb16_count_grouped_design(streams, tables, overlap)
     out = torch.zeros(S, dtype=torch.int32, device=streams.device)
     launch(
         "amt_comb16_count_grouped", streams.device,
@@ -126,10 +133,19 @@ def comb16_count_grouped(streams, warm, vend, tables):
         tables.classmap.data_ptr(), tables.comb.data_ptr(), tables.comb.shape[1],
         tables.aux.data_ptr(), tables.aux.shape[1], tables.root_row.data_ptr(),
         tables.segtable.data_ptr(), tables.gscal.data_ptr(), tables.gscal.shape[1],
-        tables.BB, tables.owner_mask, tables.CB, out.data_ptr(),
+        tables.BB, tables.owner_mask, tables.CB, overlap or 0, d.segments, d.chunk,
+        out.data_ptr(),
     )
     comb16_count_grouped.launches += 1
     return out
+
+
+def comb16_count_grouped_design(streams, tables, overlap=None) -> Design:
+    """The segments and the groups per block ``comb16_count_grouped``
+    launches with for these CUDA streams and tables."""
+    T, S = streams.shape
+    return grouped_design(S, T, overlap, tables.n_groups, tables.comb.shape[1],
+                          tables.aux.shape[1], sm_count(streams.device))
 
 
 def comb16_contains_grouped_plain(streams, vend, tables):
@@ -216,5 +232,6 @@ __all__ = [
     "comb16_contains_grouped",
     "comb16_contains_grouped_plain",
     "comb16_count_grouped",
+    "comb16_count_grouped_design",
     "comb16_count_grouped_plain",
 ]

@@ -1,0 +1,180 @@
+"""The schedule of the segmented scans B9 and B15: how each stream is cut
+into segments and how the groups of B9 are cut into chunks, the two
+numbers each launch takes from its shapes.
+
+``csrc/stage.cuh`` runs the same split on the card.  Segment i of ``k``
+covers the steps ``[p_i, p_{i+1})``, ``p_i = i * T // k``; it scans from the
+root starting ``overlap`` bytes early, at ``max(0, p_i - overlap)``, and
+counts the steps t with ``max(p_i, warm[s]) <= t < min(p_{i+1}, vend[s])``.
+``overlap`` is the stream plan's warm-up (``StreamPlan.overlap``,
+``max_needle_bytes - 1``): a scan restarted from the root that has read
+``overlap + 1`` bytes is in the state of the scan from the stream's start, as
+between the streams of the plan, so the counts are exact and add per stream.
+Without an overlap (``None``) a stream is one segment.
+
+Nothing here needs a card: the CPU tests run the plain versions over these
+schedules (:func:`run_segments`), and the sizes mirror the sources'.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, List, Optional, Tuple
+
+import torch
+
+#: kMaxSegments and kMaxChunk of the sources.
+MAX_SEGMENTS = 64
+MAX_CHUNK = 16
+#: Streams a block scans (kThreads, kRowBytes), and the steps of a staged
+#: tile (kTile; two tiles a block).
+BLOCK_STREAMS = 128
+T_TILE = 32
+#: The replicated class map (kRepWords) and a group's count-range slots.
+REP_WORDS = 64 * 32
+RANGE_SLOTS = 8
+#: Shared memory an H100 block may take, and an SM holds (the CUDA runtime
+#: reserves 1 KiB of each SM's 228 KiB per resident block).
+SMEM_PER_BLOCK = 232448
+SMEM_PER_SM = 233472
+MAX_BLOCKS_PER_SM = 16  # 2048 threads / 128
+
+
+@dataclass(frozen=True)
+class Design:
+    """What a launch of B9 or B15 takes from its shapes: ``segments`` pieces
+    per stream and ``chunk`` groups per block (B9)."""
+
+    segments: int
+    chunk: int = 1
+
+    def as_dict(self) -> dict:
+        return {"k": self.segments, "t_tile": T_TILE, "Gc": self.chunk}
+
+
+#: The shared memory a B9 block may take for its chunk of groups: seven
+#: blocks an SM at config 5's tables (four groups a block; ``PERF.md`` §6).
+B9_CHUNK_BUDGET = 32 * 1024
+#: Segments fill this many rounds of every SM's resident blocks (shorter
+#: blocks even out the SMs' ends), up to MAX_AUTO_SEGMENTS a stream.
+SEGMENT_WAVES = 6
+MAX_AUTO_SEGMENTS = 16
+
+
+def segment_schedule(T: int, segments: int, overlap: int) -> List[Tuple[int, int, int]]:
+    """``(scan start, first counted step, stop)`` of each segment of a
+    ``T``-step stream (before each stream's own ``warm`` and ``vend``)."""
+    out = []
+    for i in range(segments):
+        lo, hi = i * T // segments, (i + 1) * T // segments
+        out.append((max(0, lo - overlap), lo, hi))
+    return out
+
+
+def run_segments(plain: Callable, streams, warm, vend, *tables, overlap: int,
+                 segments: int):
+    """int32 [S]: the count kernel's plain version ``plain(streams, warm,
+    vend, *tables)`` run over each segment of :func:`segment_schedule` on its
+    own (its steps sliced out, its warm and vend moved into the slice) and
+    summed per stream: what the segmented kernels compute."""
+    T = streams.shape[0]
+    warm, vend = warm.long(), vend.long()
+    total = torch.zeros(streams.shape[1], dtype=torch.int64, device=streams.device)
+    for start, lo, hi in segment_schedule(T, segments, overlap):
+        w = (torch.clamp(warm, min=lo) - start).to(torch.int32)
+        v = (torch.clamp(vend, max=hi) - start).clamp(min=0).to(torch.int32)
+        total += plain(streams[start:hi].contiguous(), w, v, *tables).long()
+    return total.to(torch.int32)
+
+
+def group_chunks(G: int, chunk: int) -> List[Tuple[int, int]]:
+    """The ``[g0, g1)`` group ranges of B9's blocks."""
+    return [(g0, min(G, g0 + chunk)) for g0 in range(0, G, chunk)]
+
+
+def comb_smem_bytes(comb_words: int, def_words: int) -> int:
+    """B15's dynamic shared memory (``seg_smem_bytes``)."""
+    words = (REP_WORDS + comb_words + def_words + 3) & ~3
+    return 4 * words + 2 * T_TILE * BLOCK_STREAMS
+
+
+def chunk_smem_bytes(chunk: int, comb_words: int, aux_words: int) -> int:
+    """B9's dynamic shared memory for a chunk of groups (``chunk_smem_bytes``):
+    the class words, the count ranges and each group's widened comb, aux and
+    root entries (``group_words``), then two tiles."""
+    cls = REP_WORDS if chunk == 1 else 256 * ((chunk + 3) // 4)
+    group = 2 * comb_words + 2 * aux_words + 128
+    words = (cls + chunk * (RANGE_SLOTS + group) + 3) & ~3
+    return 4 * words + 2 * T_TILE * BLOCK_STREAMS
+
+
+def pick_chunk(G: int, comb_words: int, aux_words: int) -> int:
+    """Groups per B9 block: as many as fit ``B9_CHUNK_BUDGET`` bytes of
+    shared memory (at least one, at most ``MAX_CHUNK``), balanced over the
+    chunks.  Raises ``ValueError`` when one group does not fit a block."""
+    if chunk_smem_bytes(1, comb_words, aux_words) > SMEM_PER_BLOCK:
+        raise ValueError("one group's tables exceed a block's shared memory")
+    fit = 1
+    while (fit < min(G, MAX_CHUNK)
+           and chunk_smem_bytes(fit + 1, comb_words, aux_words) <= B9_CHUNK_BUDGET):
+        fit += 1
+    n_chunks = -(-G // fit)
+    return -(-G // n_chunks)
+
+
+def pick_segments(S: int, T: int, overlap: Optional[int], smem: int, n_sm: int,
+                  n_chunks: int = 1) -> int:
+    """Segments per stream: enough blocks for ``SEGMENT_WAVES`` rounds of
+    every SM's resident slots (as many blocks as its shared memory holds), at
+    most ``MAX_AUTO_SEGMENTS``; one segment without an overlap, and never a
+    segment no longer than the overlap."""
+    if overlap is None or T <= 0:
+        return 1
+    per_sm = max(1, min(MAX_BLOCKS_PER_SM, SMEM_PER_SM // (smem + 1024)))
+    blocks = -(-S // BLOCK_STREAMS) * n_chunks
+    k = max(1, min(MAX_AUTO_SEGMENTS, -(-SEGMENT_WAVES * n_sm * per_sm // blocks)))
+    while k > 1 and T // k <= overlap:
+        k -= 1
+    return k
+
+
+_SMS: dict = {}
+
+
+def sm_count(device) -> int:
+    """The SM count of a CUDA ``device``."""
+    idx = torch.device(device).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+def comb_design(S: int, T: int, overlap: Optional[int], comb_words: int, def_words: int,
+                n_sm: int) -> Design:
+    """B15's launch for ``S`` streams of ``T`` steps on ``n_sm`` SMs."""
+    return Design(pick_segments(S, T, overlap, comb_smem_bytes(comb_words, def_words), n_sm))
+
+
+def grouped_design(S: int, T: int, overlap: Optional[int], G: int, comb_words: int,
+                   aux_words: int, n_sm: int) -> Design:
+    """B9's launch for ``S`` streams of ``T`` steps and ``G`` groups."""
+    chunk = pick_chunk(G, comb_words, aux_words)
+    smem = chunk_smem_bytes(chunk, comb_words, aux_words)
+    return Design(pick_segments(S, T, overlap, smem, n_sm, n_chunks=-(-G // chunk)), chunk)
+
+
+__all__ = [
+    "Design",
+    "T_TILE",
+    "chunk_smem_bytes",
+    "comb_design",
+    "comb_smem_bytes",
+    "group_chunks",
+    "grouped_design",
+    "pick_chunk",
+    "pick_segments",
+    "run_segments",
+    "segment_schedule",
+    "sm_count",
+]

@@ -438,7 +438,9 @@ class CombAcEngine(DenseAcEngine):
     # -- counting: kernel B15 ------------------------------------------------
 
     def _kernel_args(self, st: StagedStreams) -> tuple:
-        return (st.streams, st.warm, st.vend, *self.tables.args())
+        """B15's arguments, the plan's warm-up last: the kernel may cut the
+        streams into segments that each warm up over it."""
+        return (st.streams, st.warm, st.vend, *self.tables.args(), st.plan.overlap)
 
     def stream_counts(self, st: StagedStreams) -> torch.Tensor:
         """int32 [S] per-stream counts on the device (kernel B15)."""

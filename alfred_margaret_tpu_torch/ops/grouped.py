@@ -441,7 +441,7 @@ class GroupedAcEngine:
         f = self._fused_setup()
         if f is None:
             raise CapacityError("the fused grouped count did not engage")
-        return (st.streams, st.warm, st.vend, f.tables)
+        return (st.streams, st.warm, st.vend, f.tables, st.plan.overlap)
 
     def stream_counts(self, st: StagedStreams):
         """int32 [S] per-stream counts over all groups: one B9 launch.

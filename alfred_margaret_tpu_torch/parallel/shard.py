@@ -478,7 +478,8 @@ class DistributedAcEngine:
                 return bitap_count, args if t.trapmask is None else (*args, t.trapmask)
             if route == "comb16":
                 tabs = self._cached("c16", g, dev, lambda: self._c16g.group(g, dev))
-                return comb16_count_grouped, (blk.streams, blk.warm, blk.vend, tabs)
+                return comb16_count_grouped, (blk.streams, blk.warm, blk.vend, tabs,
+                                              staged.plan.overlap)
             t = self._dense(g, dev)
             return dense_count, (blk.streams, t.classmap, t.table, blk.warm, blk.vend,
                                  t.packing, t.state_bits)

@@ -204,6 +204,7 @@ def mesh_phase(h):
     from alfred_margaret_tpu_torch import CASE_SENSITIVE, Searcher
     from alfred_margaret_tpu_torch.bench.dataformat import synth_corpus
     from alfred_margaret_tpu_torch.parallel import DistributedAcEngine, init_distributed, make_mesh
+    from alfred_margaret_tpu_torch.kernels.comb16_grouped import comb16_count_grouped_design
     from alfred_margaret_tpu_torch.parallel.shard import PLAIN
 
     dev, card = h.dev, h.card
@@ -439,6 +440,9 @@ def mesh_phase(h):
         sites[name] = {"site": site, "replaces": f"alfred_margaret_tpu/parallel/shard.py:{line}",
                        "what": what, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
                        "bound_by": by, "shard": [T, SL]}
+        if name == "comb16_count_grouped":  # S5: B9's design for one group
+            sites[name]["design"] = comb16_count_grouped_design(args[0], args[3],
+                                                                args[4]).as_dict()
         print(f"time mesh {site} {name:22s} {what:36s} {ms:10.4f} ms per shard launch "
               f"[T, S_local] = [{T}, {SL}], plain {plain_ms:.1f} ms, bound {bms:.4f} ms by {by} "
               f"({ms / bms:.1f}x; {card})", flush=True)
@@ -460,6 +464,8 @@ def main() -> int:
     from alfred_margaret_tpu_torch import kernels as K
     from alfred_margaret_tpu_torch.bench.dataformat import synth_corpus
     from alfred_margaret_tpu_torch.kernels import build
+    from alfred_margaret_tpu_torch.kernels.comb import comb_count_design
+    from alfred_margaret_tpu_torch.kernels.comb16_grouped import comb16_count_grouped_design
     from alfred_margaret_tpu_torch.models import ac, case_dfa
     from alfred_margaret_tpu_torch.native import build as native_build
     from alfred_margaret_tpu_torch.native.cpp_engine import CppAcEngine
@@ -1665,7 +1671,8 @@ def main() -> int:
          (st5c.streams, st5c.vend, *eng5._filter_tables.args()), "config 5, 12 words",
          n_live_bytes(st5c), 8 * S, n_live_bytes(st5c) // 2 * (lay5.n_words + 2 * len(lay5.shorts))),
         ("comb16_count_grouped", K.comb16_count_grouped, K.comb16_count_grouped_plain,
-         (st5c.streams, st5c.warm, st5c.vend, f5), "config 5", n_live_bytes(st5c), 4 * S,
+         (st5c.streams, st5c.warm, st5c.vend, f5, st5c.plan.overlap), "config 5",
+         n_live_bytes(st5c), 4 * S,
          n_live_bytes(st5c) * G5),
         ("comb16_contains_grouped", K.comb16_contains_grouped, K.comb16_contains_grouped_plain,
          (st5d.streams, st5d.vend, y5), "config 5, digits corpus: full scan", need5d, 4 * S,
@@ -1713,6 +1720,42 @@ def main() -> int:
         print(f"bound {name:16s} {what:44s} {bms:10.4f} ms by {by} ({sbytes} stream bytes; "
               f"{ms / bms:.1f}x the bound)")
         timings[(name, what)] = (ms, plain_ms, bms, by)
+
+    # B9 (eleven groups, and one alone as on a mesh shard) and B15 at the edge
+    # shapes of their redesign: S not a multiple of 128 (byte-wise staging
+    # where S % 16 != 0), T below a tile, ragged warm-ups and vends.
+    edge_src = np.frombuffer(synth_corpus(config5_needles(1000)[:300], 1 << 20,
+                                          hit_fraction=0.05, seed=5), np.uint8)
+
+    def edge_streams(T_e, S_e, K_e, seed):
+        rng = np.random.default_rng(seed)
+        off = rng.integers(0, len(edge_src) - T_e, S_e)
+        win = np.ascontiguousarray(edge_src[off[None, :] + np.arange(T_e)[:, None]])
+        vend_e = rng.integers(0, T_e + 1, S_e)
+        vend_e[rng.random(S_e) < 0.1] = 0
+
+        def put(x, dtype):
+            return torch.from_numpy(np.ascontiguousarray(x)).to(dev, dtype)
+
+        return (put(win, torch.uint8), put(rng.integers(0, K_e + 1, S_e), torch.int32),
+                put(vend_e, torch.int32))
+
+    over5, over3 = st5c.plan.overlap, st3c.plan.overlap
+    n_edge = 0
+    for T_e, S_e in ((20, 1000), (300, 200), (300, 1040), (1000, 4096)):
+        for label, tabs in (("G = 11", f5), ("G = 1", f5.group(0))):
+            s_e, w_e, v_e = edge_streams(T_e, S_e, over5, T_e + S_e)
+            same("comb16_count_grouped", K.comb16_count_grouped(s_e, w_e, v_e, tabs, over5),
+                 K.comb16_count_grouped_plain(s_e, w_e, v_e, tabs),
+                 f"{label}, edge shape T={T_e} S={S_e}")
+            n_edge += 1
+        s_e, w_e, v_e = edge_streams(T_e, S_e, over3, T_e * S_e)
+        targs = eng3.tables.args()
+        same("comb_count", K.comb_count(s_e, w_e, v_e, *targs, over3),
+             K.comb_count_plain(s_e, w_e, v_e, *targs), f"edge shape T={T_e} S={S_e}")
+        n_edge += 1
+    print(f"edge shapes: B9 (G = 11, G = 1) and B15 == plain on {n_edge} launches "
+          "(S 200 / 1000 / 1040 / 4096, T 20 / 300 / 1000, ragged vend)", flush=True)
 
     # B8 against B1 on the dense path's 30 needles, which both engines hold.
     comb30 = Comb16AcEngine(m30, device=dev)
@@ -1850,7 +1893,13 @@ def main() -> int:
                 timings[(name, "config 5, 12 words")])
         if name == "comb16_count_grouped":
             entry.update(groups=G5, ms_turns=b9, ms_per_group_control=b8s,
-                         per_group_passes=eng5.n_groups, host_cpp_count_ms=host_count_ms)
+                         per_group_passes=eng5.n_groups, host_cpp_count_ms=host_count_ms,
+                         design=comb16_count_grouped_design(st5c.streams, f5,
+                                                            st5c.plan.overlap).as_dict())
+        if name == "comb_count":
+            t3 = eng3.tables
+            entry["design"] = comb_count_design(st3c.streams, t3.comb, t3.def_table,
+                                                st3c.plan.overlap).as_dict()
         if name == "comb_contains":
             entry["ms_first_match"], entry["plain_ms_first_match"], entry[
                 "bound_ms_first_match"], _ = timings[(name, "300 needles, config 5 corpus: first match")]

@@ -680,3 +680,132 @@ def test_b11_one_group_kernel_matches_plain(cuda):
     with pytest.raises(ValueError, match="one group"):
         comb16_contains_base(args[0], args[1], every)
     assert comb16_contains_base.launches == before + 1
+
+
+# -- B9 and B15's segmented designs at the edge shapes ---------------------------------
+
+#: (T, S): T below a tile; S not a multiple of 128 with byte-wise staging
+#: (S % 16 != 0) and with 16-byte copies (S % 16 == 0); a full block count.
+EDGE_SHAPES = [(20, 1000), (300, 200), (300, 1040), (1000, 4096)]
+
+
+def _edge_streams(needles, T, S, K, seed, device):
+    """[T, S] windows of a hit corpus at random offsets, with random
+    warm-ups in [0, K] and ragged vends (a tenth of the streams padded)."""
+    rng = np.random.default_rng(seed)
+    data = np.frombuffer(synth_corpus([x for x in needles if "\x00" not in x], 1 << 16,
+                                      hit_fraction=0.05, seed=seed), np.uint8)
+    off = rng.integers(0, len(data) - T, S)
+    streams = np.ascontiguousarray(data[off[None, :] + np.arange(T)[:, None]])
+    warm = rng.integers(0, K + 1, S)
+    vend = rng.integers(0, T + 1, S)
+    vend[rng.random(S) < 0.1] = 0
+
+    def dev(x, dtype):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device=device, dtype=dtype)
+
+    return dev(streams, torch.uint8), dev(warm, torch.int32), dev(vend, torch.int32)
+
+
+@pytest.mark.parametrize("shape", EDGE_SHAPES)
+def test_b15_matches_plain_at_edge_shapes(cuda, shape):
+    """B15 as ``comb_count`` launches it, with the plan's overlap (the
+    streams cut into the segments its rule picks) and without (one
+    segment), equals the plain version: exact counts."""
+    from alfred_margaret_tpu_torch.kernels.comb import comb_count_plain
+
+    T, S = shape
+    for name in ("n200", "nested", "nul"):
+        m = _machine(COMB32_SETS[name])
+        eng = CombAcEngine(m, device=cuda, n_streams=1024)
+        K = m.max_needle_bytes - 1
+        streams, warm, vend = _edge_streams(COMB32_SETS[name], T, S, K, T + S, cuda)
+        tabs = eng.tables.args()
+        want = comb_count_plain(streams, warm, vend, *tabs)
+        before = comb_count.launches
+        assert torch.equal(comb_count(streams, warm, vend, *tabs, K), want), name
+        assert torch.equal(comb_count(streams, warm, vend, *tabs), want), name
+        assert comb_count.launches == before + 2
+        with pytest.raises(ValueError):
+            comb_count(streams, warm, vend, *tabs, -1)
+        assert comb_count.launches == before + 2
+
+
+_BUILT = {}
+
+
+def _as_groups(t16, G, rows=None):
+    """``G`` copies of one comb16 table set as B9's group tables, its comb
+    padded with zero rows to ``rows`` (inert: no probe window reaches past
+    the real table), its count ranges in ``gscal``."""
+    from alfred_margaret_tpu_torch.ops.comb16_scan import Comb16GroupTables
+
+    comb = t16.comb
+    if rows is not None:
+        comb = torch.nn.functional.pad(comb, (0, rows * 128 - comb.numel()))
+    root = torch.tensor([t16.root_cb], dtype=torch.int32, device=comb.device)
+
+    def stack(x):
+        return x.unsqueeze(0).expand(G, -1).contiguous()
+
+    return Comb16GroupTables(
+        classmap=stack(t16.classmap), comb=stack(comb), aux=stack(t16.aux),
+        root_row=stack(t16.root_row), segtable=stack(t16.segtable),
+        gscal=stack(torch.cat([root, t16.ranges])), BB=t16.BB, owner_mask=t16.owner_mask,
+        CB=t16.CB, sticky=False)
+
+
+@pytest.mark.parametrize("shape", EDGE_SHAPES)
+def test_b9_matches_plain_at_edge_shapes(cuda, shape):
+    """B9 as ``comb16_count_grouped`` launches it, with the plan's overlap
+    and without, equals the plain version: config 5's eleven groups (three
+    chunks of groups), one group alone (the mesh's S5), and a set with counts
+    of up to 5 (six count ranges) padded near ``MAX_ROWS`` in three groups,
+    which needs a block per group."""
+    from alfred_margaret_tpu_torch.kernels.comb16_grouped import (
+        comb16_count_grouped_design,
+        comb16_count_grouped_plain,
+    )
+
+    T, S = shape
+    if "config5" not in _BUILT:  # the grouped build takes ~20 s: once per module
+        m5 = _machine(_config5(1000))
+        _BUILT["config5"] = (m5, GroupedAcEngine(m5, device=cuda, n_streams=1024))
+    m5, eng5 = _BUILT["config5"]
+    f5 = eng5._fused_setup().tables
+    nested = _machine(COMB16_SETS["nested"])
+    big = _as_groups(Comb16AcEngine(nested, device=cuda, n_streams=1024).tables, 3, rows=46)
+    cases = [("config 5", f5, m5, _config5(1000)), ("one group", f5.group(0), m5, _config5(1000)),
+             ("near MAX_ROWS", big, nested, COMB16_SETS["nested"])]
+    for label, tabs, m, needles in cases:
+        K = m.max_needle_bytes - 1
+        streams, warm, vend = _edge_streams(needles, T, S, K, T * S, cuda)
+        want = comb16_count_grouped_plain(streams, warm, vend, tabs)
+        assert int(want.sum()) > 0
+        chunk = comb16_count_grouped_design(streams, tabs, K).chunk
+        if label != "one group":
+            assert chunk < tabs.n_groups, (label, chunk)  # several chunks of groups
+        before = comb16_count_grouped.launches
+        assert torch.equal(comb16_count_grouped(streams, warm, vend, tabs, K), want), label
+        assert torch.equal(comb16_count_grouped(streams, warm, vend, tabs), want), label
+        assert comb16_count_grouped.launches == before + 2
+        with pytest.raises(ValueError):
+            comb16_count_grouped(streams, warm, vend, tabs, -1)
+        assert comb16_count_grouped.launches == before + 2
+
+
+def test_b9_refuses_what_no_block_holds(cuda, monkeypatch):
+    """A chunk whose tables pass a block's shared memory is refused by the
+    launch, and the wrapper raises the error and counts no launch."""
+    from alfred_margaret_tpu_torch.kernels import comb16_grouped
+    from alfred_margaret_tpu_torch.kernels.segments import Design
+
+    nested = _machine(COMB16_SETS["nested"])
+    big = _as_groups(Comb16AcEngine(nested, device=cuda, n_streams=1024).tables, 8, rows=46)
+    streams, warm, vend = _edge_streams(COMB16_SETS["nested"], 64, 256, 4, 1, cuda)
+    monkeypatch.setattr(comb16_grouped, "comb16_count_grouped_design",
+                        lambda *args: Design(1, 8))
+    before = comb16_count_grouped.launches
+    with pytest.raises(RuntimeError, match="CUDA kernel launch failed"):
+        comb16_count_grouped(streams, warm, vend, big, 4)
+    assert comb16_count_grouped.launches == before
