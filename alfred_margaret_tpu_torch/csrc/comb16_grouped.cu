@@ -1,6 +1,7 @@
 // B9 comb16_count_grouped and B11 comb16_contains_grouped: the fused
 // single-launch comb16 scans over G needle groups, for Hopper; and B11's
-// one-group mode, comb16_contains_base.
+// one-group mode, comb16_contains_base.  One scan serves all three, a
+// compile-time mode of comb16_chunk_kernel.
 //
 // Replace the Pallas TPU kernels alfred_margaret_tpu/ops/comb16_scan.py:
 // _make_c16_count_kernel_dyn (B9, launched from
@@ -8,52 +9,55 @@
 // sharded engine's count step) and _make_c16_contains_kernel_dyn (B11: with
 // n_groups > 1 from _get_fused_contains_fn; with n_groups == 1 from the
 // sharded engine's sticky step, parallel/shard.py:616, where it writes each
-// stream's final carried base and the absorb compare runs outside it).  The TPU kernels walk a sequential grid of
-// G * n_tiles segments, group-major, reloading group g's table block for each
-// of its segments and carrying counts or hit flags in scratch from one segment
-// to the next.  Here B11 takes the groups as a grid dimension: the CTA (g, j)
-// loads group g's tables (one comb16 set of at most 48 rows plus the 1.5 KiB
-// of class map, root row and segment table) into shared memory and scans
-// streams [128 j, 128 j + 128) with the lookup of comb16.cuh, one stream per
-// thread.  B9 takes a chunk of groups per CTA (below).
+// stream's final carried base and the absorb compare runs outside it).  The
+// TPU kernels walk a sequential grid of G * n_tiles segments, group-major,
+// reloading group g's table block for each of its segments and carrying
+// counts or hit flags in scratch from one segment to the next.  Here a block
+// takes a chunk of groups and 128 streams, and its threads step every group
+// of the chunk on each byte (below).
 //
 // B9, per group g, per stream s, per step t < vend[s]: the scan of B8 on
 // group g's tables from its root base gscal[g][0], its count ranges
 // gscal[g][1 ..] (padded with 2^BB), counting where warm[s] <= t; the thread
 // adds its count to out[s] with one atomicAdd (out zeroed by the wrapper).
 // Integer addition is order-free, so the sum is exact.
-// B11, on the groups' sticky tables (CB = 0): the scan of B10 from gscal[g][0]
-// until vend[s] or the group's absorbing base gscal[g][1], which loops to
-// itself; out[s] = 1 (zeroed by the wrapper) if the final base is the
-// absorbing one.  Every writer stores 1, so the races are benign.
-// B11's one-group mode (G = 1): the same scan, out[s] = the final base.  The
-// scan may stop at the absorbing base because that base loops to itself: the
-// base after vend[s] steps is the absorbing one all the same.  A stream with
-// vend[s] = 0 keeps the root base.
+// B11 (sticky-any), on the groups' sticky tables (CB = 0): the scan of B10
+// from gscal[g][0] over t < vend[s]; out[s] = 1 (zeroed by the wrapper) if
+// some group reached its absorbing base gscal[g][1], which loops to itself.
+// Every writer stores 1, so the races are benign.
+// B11's one-group mode (sticky-base, G = 1): the same scan, out[s] = the
+// final base.  A stream with vend[s] = 0 keeps the root base.
 //
-// What bounds B11: per step B8's dependent chain of shared-memory loads, G
-// times per stream byte: it is latency-bound, like B8, and reads each stream
-// byte G times (from L2 after the first CTA of a block).  Left for later:
-// several streams per thread, and stopping B11's groups once another group
-// hit the stream.
-//
-// B9 (redesigned for Hopper).  With a CTA per (group, 128 streams) it issued
-// five shared-memory loads per group step (class, comb, segment, aux, root),
-// each split into several bank wavefronts by the lanes' differing states and
-// bytes, and read every stream byte G times.  comb16_count_chunk_kernel:
-//   * a CTA holds a chunk of `chunk` groups' tables (the wrapper sizes the
+// The design, for Hopper.  With a block per
+// (group, 128 streams), one dependent chain per thread and the bytes read
+// 16 steps ahead from device memory, every step waited on five
+// shared-memory loads (class, comb, segment, aux, root) split into several
+// bank wavefronts by the lanes' differing states and bytes, and each stream
+// byte was read G times.  comb16_chunk_kernel:
+//   * a block holds a chunk of `chunk` groups' tables (the wrapper sizes the
 //     chunk to a shared-memory budget; config 5's 11 groups fit one), and
 //     each thread steps its stream's chunk chains on every byte: chunk-way
-//     independent chains, each byte read once per CTA;
+//     independent chains, each byte read once per block;
 //   * the byte's classes come from a byte-packed [ceil(chunk / 4)][256]
 //     table, one word for four groups (one group: the class map replicated
 //     per bank, one wavefront a warp), off the state's chain;
-//   * the CTA widens the comb, aux and root entries to 32 bits as it loads
+//   * the block widens the comb, aux and root entries to 32 bits as it loads
 //     them, each carrying the aux centre of its base (the segment table's
 //     word), so the segment lookup leaves the chain: a group step is three
 //     loads, two of them on the chain;
 //   * bytes are staged a tile of 32 steps ahead with cp.async and each
-//     stream may be split into `segments` pieces (stage.cuh), as for B15.
+//     stream is cut into `segments` pieces (stage.cuh), as for B15.
+// The sticky modes scan each segment from max(0, p_i - overlap) up to
+// min(p_{i+1}, vend[s]) with no warm mask: an absorb reached there is a real
+// match in [0, vend), and every real match ends in some segment's own range,
+// where that segment's state is in step (stage.cuh), so it absorbs.  A
+// thread stops stepping its whole chunk once one of its groups absorbed (the
+// answer is an OR), and a block stops staging once every thread stopped (a
+// block-wide vote per tile).  Sticky-base combines the segments exactly under
+// any order of the blocks: the launcher fills out with the root base, an
+// absorbing segment stores the absorbing base with atomicExch, and the
+// segment whose own range holds step vend[s] - 1 (it has read at least
+// overlap + 1 bytes there) stores its base with atomicCAS from the root.
 // What remains is the SM's shared-memory pipe: about three wavefronts for
 // each of the comb and aux probes of every group step.
 
@@ -67,12 +71,13 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kChunk = 16;
-
-// ---- B9 -------------------------------------------------------------------
 constexpr int kMaxChunk = 16;
 constexpr int kMaxSegments = 64;
 constexpr int kRangeSlots = 8;  // a group's count ranges, padded with 2^BB
+
+// The scan's modes (a template parameter: a run-time mode flag alone slows
+// the count, PERF.md section 6).
+enum Mode : int { kCount = 0, kStickyAny = 1, kStickyBase = 2 };
 
 // Shared-memory words of one group's tables: the comb, aux and root
 // entries widened to 32-bit words, entry | (aux centre of its base << 16).
@@ -97,11 +102,12 @@ size_t chunk_smem_bytes(int chunk, int comb_words, int aux_words) {
          amt::kStageBytes;
 }
 
-// B9: block (x, y, z) scans streams [128 x, 128 x + 128), segment y, with
+// Block (x, y, z) scans streams [128 x, 128 x + 128), segment y, with
 // groups [z * chunk, z * chunk + chunk) (kMaxGc >= chunk), one thread per
-// stream stepping every group of the chunk on each byte.
-template <int kMaxGc>
-__global__ void __launch_bounds__(kThreads) comb16_count_chunk_kernel(
+// stream stepping every group of the chunk on each byte.  `warm` and `cbit`
+// are read by the count only; the sticky modes take gscal [G, 2].
+template <int kMaxGc, int kMode>
+__global__ void __launch_bounds__(kThreads) comb16_chunk_kernel(
     const uint8_t* __restrict__ streams, int T, int S, const int32_t* __restrict__ warm,
     const int32_t* __restrict__ vend, int G, const int32_t* __restrict__ classmap,
     const int32_t* __restrict__ comb, int comb_words, const int32_t* __restrict__ aux,
@@ -157,15 +163,23 @@ __global__ void __launch_bounds__(kThreads) comb16_count_chunk_kernel(
   const amt::SegSteps seg = amt::segment_steps(blockIdx.y, segments, T, overlap);
   const int s0 = blockIdx.x * kThreads;
   const int s = s0 + threadIdx.x;
-  int lo = INT_MAX, hi = 0;  // the steps this thread counts
-  if (s < S && cbit) {
-    lo = max(seg.lo, warm[s]);
+  // The count counts the steps [lo, hi); a sticky scan steps [seg.start, hi)
+  // and lowers hi to the step after the one where a group absorbed.
+  int lo = INT_MAX, hi = 0;
+  if (kMode == kCount) {
+    if (s < S && cbit) {
+      lo = max(seg.lo, warm[s]);
+      hi = min(seg.hi, min(vend[s], T));
+    }
+  } else if (s < S) {
+    lo = seg.start;
     hi = min(seg.hi, min(vend[s], T));
   }
   const int stop = amt::block_stop(&stop_slot, lo, hi);  // also orders the table loads
 
   const int nr = gscal_width - 1;
   const uint32_t lane = threadIdx.x & 31u;
+  // r0: the first count range, or the absorbing base of a sticky scan.
   uint32_t cb[kMaxGc], cv[kMaxGc], r0[kMaxGc];
 #pragma unroll
   for (int g = 0; g < kMaxGc; ++g) {
@@ -174,54 +188,109 @@ __global__ void __launch_bounds__(kThreads) comb16_count_chunk_kernel(
     if (g < gc) {
       cb[g] = (uint32_t)gscal[(size_t)(g0 + g) * gscal_width] & bmask;
       cv[g] = (uint32_t)segtable[(size_t)(g0 + g) * 128 + (cb[g] >> segshift)];
-      r0[g] = rng[g * kRangeSlots];
+      r0[g] = kMode == kCount ? rng[g * kRangeSlots]
+                              : (uint32_t)gscal[(size_t)(g0 + g) * gscal_width + 1] & bmask;
     }
   }
-  uint32_t count = 0;
-  auto scan = [&](const uint8_t* tile, int t0, int rows) {
-    const uint8_t* col = tile + threadIdx.x;
+  if constexpr (kMode == kCount) {
+    uint32_t count = 0;
+    auto scan = [&](const uint8_t* tile, int t0, int rows) {
+      const uint8_t* col = tile + threadIdx.x;
 #pragma unroll 2
-    for (int j = 0; j < rows; ++j) {
-      const uint32_t b = col[j * amt::kRowBytes];
-      uint32_t pw[(kMaxGc + 3) / 4];
-      if (kMaxGc == 1) {
-        pw[0] = amt::rep_class(cls_tab, b, lane);
-      } else {
+      for (int j = 0; j < rows; ++j) {
+        const uint32_t b = col[j * amt::kRowBytes];
+        uint32_t pw[(kMaxGc + 3) / 4];
+        if (kMaxGc == 1) {
+          pw[0] = amt::rep_class(cls_tab, b, lane);
+        } else {
 #pragma unroll
-        for (int q = 0; q < (kMaxGc + 3) / 4; ++q) pw[q] = q < nw ? cls_tab[q * 256 + b] : 0u;
-      }
-      const int t = t0 + j;
-      const bool live = t >= lo && t < hi;
+          for (int q = 0; q < (kMaxGc + 3) / 4; ++q) pw[q] = q < nw ? cls_tab[q * 256 + b] : 0u;
+        }
+        const int t = t0 + j;
+        const bool live = t >= lo && t < hi;
 #pragma unroll
-      for (int g = 0; g < kMaxGc; ++g) {
-        if (g >= gc) break;
-        const uint32_t cls = (pw[g >> 2] >> ((g & 3) << 3)) & 0xFFu;
-        const uint32_t* tab = gt + g * gw;
-        // Comb16::entry on the widened tables: the aux centre rides in cv.
-        const uint32_t v1 = tab[cb[g] + cls];
-        const uint32_t v2 = tab[2 * comb_words + cv[g] + cls];
-        const uint32_t vr = tab[2 * comb_words + 2 * aux_words + cls];
-        const bool hit1 = (((v1 & 0xFFFFu) >> bb) & om) == (cb[g] & om);
-        const bool hit2 = (((v2 & 0xFFFFu) >> bb) & om) == (cv[g] & om);
-        const uint32_t v = hit1 ? v1 : (hit2 ? v2 : vr);
-        const uint32_t e = v & 0xFFFFu;
-        cv[g] = v >> 16;
-        cb[g] = e & bmask;
-        if (live) {
-          uint32_t n = ((e >> 15) & 1u) + (cb[g] >= r0[g] ? 1u : 0u);
-          for (int r = 1; r < nr; ++r) n += cb[g] >= rng[g * kRangeSlots + r] ? 1u : 0u;
-          count += n;
+        for (int g = 0; g < kMaxGc; ++g) {
+          if (g >= gc) break;
+          const uint32_t cls = (pw[g >> 2] >> ((g & 3) << 3)) & 0xFFu;
+          const uint32_t* tab = gt + g * gw;
+          // Comb16::entry on the widened tables: the aux centre rides in cv.
+          const uint32_t v1 = tab[cb[g] + cls];
+          const uint32_t v2 = tab[2 * comb_words + cv[g] + cls];
+          const uint32_t vr = tab[2 * comb_words + 2 * aux_words + cls];
+          const bool hit1 = (((v1 & 0xFFFFu) >> bb) & om) == (cb[g] & om);
+          const bool hit2 = (((v2 & 0xFFFFu) >> bb) & om) == (cv[g] & om);
+          const uint32_t v = hit1 ? v1 : (hit2 ? v2 : vr);
+          const uint32_t e = v & 0xFFFFu;
+          cv[g] = v >> 16;
+          cb[g] = e & bmask;
+          if (live) {
+            uint32_t n = ((e >> 15) & 1u) + (cb[g] >= r0[g] ? 1u : 0u);
+            for (int r = 1; r < nr; ++r) n += cb[g] >= rng[g * kRangeSlots + r] ? 1u : 0u;
+            count += n;
+          }
         }
       }
+    };
+    amt::staged_scan(tiles, tile, streams, S, s0, seg.start, stop, nullptr, scan);
+    if (count) atomicAdd(out + s, (int32_t)count);
+  } else {
+    // The same group step; returns whether the thread is done: its steps
+    // ran out or a group absorbed.
+    auto scan = [&](const uint8_t* tile, int t0, int rows) -> bool {
+      const uint8_t* col = tile + threadIdx.x;
+#pragma unroll 2
+      for (int j = 0; j < rows; ++j) {
+        const int t = t0 + j;
+        if (t >= hi) break;
+        const uint32_t b = col[j * amt::kRowBytes];
+        uint32_t pw[(kMaxGc + 3) / 4];
+        if (kMaxGc == 1) {
+          pw[0] = amt::rep_class(cls_tab, b, lane);
+        } else {
+#pragma unroll
+          for (int q = 0; q < (kMaxGc + 3) / 4; ++q) pw[q] = q < nw ? cls_tab[q * 256 + b] : 0u;
+        }
+        bool absorbed = false;
+#pragma unroll
+        for (int g = 0; g < kMaxGc; ++g) {
+          if (g >= gc) break;
+          const uint32_t cls = (pw[g >> 2] >> ((g & 3) << 3)) & 0xFFu;
+          const uint32_t* tab = gt + g * gw;
+          const uint32_t v1 = tab[cb[g] + cls];
+          const uint32_t v2 = tab[2 * comb_words + cv[g] + cls];
+          const uint32_t vr = tab[2 * comb_words + 2 * aux_words + cls];
+          const bool hit1 = (((v1 & 0xFFFFu) >> bb) & om) == (cb[g] & om);
+          const bool hit2 = (((v2 & 0xFFFFu) >> bb) & om) == (cv[g] & om);
+          const uint32_t v = hit1 ? v1 : (hit2 ? v2 : vr);
+          cv[g] = v >> 16;
+          cb[g] = v & bmask;
+          absorbed |= cb[g] == r0[g];
+        }
+        if (absorbed) hi = t + 1;
+      }
+      return t0 + rows >= hi;
+    };
+    amt::staged_scan(tiles, tile, streams, S, s0, seg.start, stop, nullptr, scan);
+    if (s < S) {
+      bool absorbed = false;
+#pragma unroll
+      for (int g = 0; g < kMaxGc; ++g) absorbed |= g < gc && cb[g] == r0[g];
+      if (kMode == kStickyAny) {
+        if (absorbed) out[s] = 1;
+      } else if (absorbed) {
+        atomicExch(out + s, (int32_t)r0[0]);
+      } else {
+        const int v = min(vend[s], T);
+        if (v > seg.lo && v <= seg.hi)  // this segment's own range holds step v - 1
+          atomicCAS(out + s, (int32_t)((uint32_t)gscal[0] & bmask), (int32_t)cb[0]);
+      }
     }
-  };
-  amt::staged_scan(tiles, tile, streams, S, s0, seg.start, stop, nullptr, scan);
-  if (count) atomicAdd(out + s, (int32_t)count);
+  }
 }
 
-template <int kMaxGc, class... Args>
+template <int kMaxGc, int kMode, class... Args>
 int launch_chunk(dim3 grid, size_t smem, cudaStream_t stream, Args... args) {
-  auto kernel = comb16_count_chunk_kernel<kMaxGc>;
+  auto kernel = comb16_chunk_kernel<kMaxGc, kMode>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -230,84 +299,35 @@ int launch_chunk(dim3 grid, size_t smem, cudaStream_t stream, Args... args) {
 }
 
 // The instance whose register arrays hold `chunk` chains.
-template <class... Args>
+template <int kMode, class... Args>
 int launch_chunk_for(int chunk, dim3 grid, size_t smem, cudaStream_t stream, Args... args) {
-  if (chunk <= 1) return launch_chunk<1>(grid, smem, stream, args...);
-  if (chunk <= 2) return launch_chunk<2>(grid, smem, stream, args...);
-  if (chunk <= 4) return launch_chunk<4>(grid, smem, stream, args...);
-  if (chunk <= 8) return launch_chunk<8>(grid, smem, stream, args...);
-  if (chunk <= 12) return launch_chunk<12>(grid, smem, stream, args...);
-  return launch_chunk<16>(grid, smem, stream, args...);
+  if (chunk <= 1) return launch_chunk<1, kMode>(grid, smem, stream, args...);
+  if (chunk <= 2) return launch_chunk<2, kMode>(grid, smem, stream, args...);
+  if (chunk <= 4) return launch_chunk<4, kMode>(grid, smem, stream, args...);
+  if (chunk <= 8) return launch_chunk<8, kMode>(grid, smem, stream, args...);
+  if (chunk <= 12) return launch_chunk<12, kMode>(grid, smem, stream, args...);
+  return launch_chunk<16, kMode>(grid, smem, stream, args...);
 }
 
-__global__ void __launch_bounds__(kThreads) comb16_contains_grouped_kernel(
-    const uint8_t* __restrict__ streams, int T, int S, const int32_t* __restrict__ vend,
-    const int32_t* __restrict__ classmap, const int32_t* __restrict__ comb, int comb_words,
-    const int32_t* __restrict__ aux, int aux_words, const int32_t* __restrict__ root_row,
-    const int32_t* __restrict__ segtable, const int32_t* __restrict__ gscal, int bb,
-    int owner_mask, int32_t* __restrict__ out) {
-  extern __shared__ uint32_t smem[];
-  const int g = blockIdx.x;
-  const amt::Comb16 c = amt::load_comb16(
-      smem, classmap + (size_t)g * 256, comb + (size_t)g * comb_words, comb_words,
-      aux + (size_t)g * aux_words, aux_words, root_row + (size_t)g * 128,
-      segtable + (size_t)g * 128, bb, owner_mask);
-  __syncthreads();
-
-  const int s = blockIdx.y * blockDim.x + threadIdx.x;
-  if (s >= S) return;
-  const uint32_t bmask = (1u << bb) - 1u;
-  const uint32_t absorb = (uint32_t)gscal[2 * g + 1] & bmask;
-  const int v0 = min(vend[s], T);
-  const uint8_t* col = streams + s;
-  uint32_t cb = (uint32_t)gscal[2 * g] & bmask;
-
-  int t = 0;
-  for (; t + kChunk <= v0 && cb != absorb; t += kChunk) {
-    uint8_t b[kChunk];
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) b[j] = col[(size_t)(t + j) * S];
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) cb = c.entry(cb, b[j]) & bmask;
-  }
-  for (; t < v0 && cb != absorb; ++t) cb = c.entry(cb, col[(size_t)t * S]) & bmask;
-  if (cb == absorb) out[s] = 1;
-}
-
-__global__ void __launch_bounds__(kThreads) comb16_contains_base_kernel(
-    const uint8_t* __restrict__ streams, int T, int S, const int32_t* __restrict__ vend,
-    const int32_t* __restrict__ classmap, const int32_t* __restrict__ comb, int comb_words,
-    const int32_t* __restrict__ aux, int aux_words, const int32_t* __restrict__ root_row,
-    const int32_t* __restrict__ segtable, const int32_t* __restrict__ gscal, int bb,
-    int owner_mask, int32_t* __restrict__ out) {
-  extern __shared__ uint32_t smem[];
-  const amt::Comb16 c = amt::load_comb16(smem, classmap, comb, comb_words, aux, aux_words,
-                                         root_row, segtable, bb, owner_mask);
-  __syncthreads();
-
+// out[s] = the root base gscal[0] (B11's one-group mode, before its scan).
+__global__ void fill_root_kernel(int S, const int32_t* __restrict__ gscal, int bb,
+                                 int32_t* __restrict__ out) {
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= S) return;
-  const uint32_t bmask = (1u << bb) - 1u;
-  const uint32_t absorb = (uint32_t)gscal[1] & bmask;
-  const int v0 = min(vend[s], T);
-  const uint8_t* col = streams + s;
-  uint32_t cb = (uint32_t)gscal[0] & bmask;
-
-  int t = 0;
-  for (; t + kChunk <= v0 && cb != absorb; t += kChunk) {
-    uint8_t b[kChunk];
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) b[j] = col[(size_t)(t + j) * S];
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) cb = c.entry(cb, b[j]) & bmask;
-  }
-  for (; t < v0 && cb != absorb; ++t) cb = c.entry(cb, col[(size_t)t * S]) & bmask;
-  out[s] = (int32_t)cb;
+  if (s < S) out[s] = (int32_t)((uint32_t)gscal[0] & ((1u << bb) - 1u));
 }
 
-// Groups ride in the grid's x dimension, blocks of streams in y (at most
-// 65535 of them).
-bool grid_ok(int G, int S) { return G > 0 && S > 0 && (S + kThreads - 1) / kThreads <= 65535; }
+// The launchers' shared checks: shapes, the field split, segments and chunk.
+bool chunk_args_ok(int T, int S, int G, int comb_words, int aux_words, int bb, int owner_mask,
+                   int cbit, int overlap, int segments, int chunk) {
+  return T >= 0 && S > 0 && G > 0 &&
+         amt::comb16_args_ok(comb_words, aux_words, bb, owner_mask, cbit, 0) && overlap >= 0 &&
+         segments >= 1 && segments <= kMaxSegments && chunk >= 1 && chunk <= kMaxChunk &&
+         (G + chunk - 1) / chunk <= 65535;
+}
+
+dim3 chunk_grid(int S, int G, int segments, int chunk) {
+  return dim3((S + kThreads - 1) / kThreads, segments, (G + chunk - 1) / chunk);
+}
 
 }  // namespace
 
@@ -327,60 +347,62 @@ extern "C" int amt_comb16_count_grouped(const void* streams, int T, int S, const
                                         int gscal_width, int bb, int owner_mask, int cbit,
                                         int overlap, int segments, int chunk, void* out,
                                         void* stream) {
-  if (T < 0 || S <= 0 || G <= 0 || gscal_width < 1 || gscal_width > 1 + amt::kC16Ranges ||
-      !amt::comb16_args_ok(comb_words, aux_words, bb, owner_mask, cbit, 0) || overlap < 0 ||
-      segments < 1 || segments > kMaxSegments || chunk < 1 || chunk > kMaxChunk ||
-      (G + chunk - 1) / chunk > 65535)
+  if (gscal_width < 1 || gscal_width > 1 + amt::kC16Ranges ||
+      !chunk_args_ok(T, S, G, comb_words, aux_words, bb, owner_mask, cbit, overlap, segments,
+                     chunk))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = chunk_smem_bytes(chunk, comb_words, aux_words);
-  const dim3 grid((S + kThreads - 1) / kThreads, segments, (G + chunk - 1) / chunk);
-  return launch_chunk_for(
-      chunk, grid, smem, (cudaStream_t)stream, (const uint8_t*)streams, T, S,
-      (const int32_t*)warm, (const int32_t*)vend, G, (const int32_t*)classmap,
-      (const int32_t*)comb, comb_words, (const int32_t*)aux, aux_words,
-      (const int32_t*)root_row, (const int32_t*)segtable, (const int32_t*)gscal, gscal_width, bb,
-      owner_mask, cbit, overlap, segments, chunk, amt::kTile, (int32_t*)out);
+  return launch_chunk_for<kCount>(
+      chunk, chunk_grid(S, G, segments, chunk), chunk_smem_bytes(chunk, comb_words, aux_words),
+      (cudaStream_t)stream, (const uint8_t*)streams, T, S, (const int32_t*)warm,
+      (const int32_t*)vend, G, (const int32_t*)classmap, (const int32_t*)comb, comb_words,
+      (const int32_t*)aux, aux_words, (const int32_t*)root_row, (const int32_t*)segtable,
+      (const int32_t*)gscal, gscal_width, bb, owner_mask, cbit, overlap, segments, chunk,
+      amt::kTile, (int32_t*)out);
 }
 
 // B11: out int32 [S], zeroed by the caller: 1 where some group's sticky scan
-// ended on its absorbing base; gscal [G, 2].  As amt_comb16_count_grouped
+// reached its absorbing base; gscal [G, 2].  As amt_comb16_count_grouped
 // otherwise.
 extern "C" int amt_comb16_contains_grouped(const void* streams, int T, int S, const void* vend,
                                            int G, const void* classmap, const void* comb,
                                            int comb_words, const void* aux, int aux_words,
                                            const void* root_row, const void* segtable,
                                            const void* gscal, int bb, int owner_mask,
-                                           void* out, void* stream) {
-  if (T < 0 || !grid_ok(G, S) || !amt::comb16_args_ok(comb_words, aux_words, bb, owner_mask, 0, 0))
+                                           int overlap, int segments, int chunk, void* out,
+                                           void* stream) {
+  if (!chunk_args_ok(T, S, G, comb_words, aux_words, bb, owner_mask, 0, overlap, segments, chunk))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(G, (S + kThreads - 1) / kThreads);
-  comb16_contains_grouped_kernel<<<grid, kThreads,
-                                   amt::comb16_smem_bytes(comb_words, aux_words),
-                                   (cudaStream_t)stream>>>(
-      (const uint8_t*)streams, T, S, (const int32_t*)vend, (const int32_t*)classmap,
-      (const int32_t*)comb, comb_words, (const int32_t*)aux, aux_words,
-      (const int32_t*)root_row, (const int32_t*)segtable, (const int32_t*)gscal, bb, owner_mask,
+  return launch_chunk_for<kStickyAny>(
+      chunk, chunk_grid(S, G, segments, chunk), chunk_smem_bytes(chunk, comb_words, aux_words),
+      (cudaStream_t)stream, (const uint8_t*)streams, T, S, (const int32_t*)nullptr,
+      (const int32_t*)vend, G, (const int32_t*)classmap, (const int32_t*)comb, comb_words,
+      (const int32_t*)aux, aux_words, (const int32_t*)root_row, (const int32_t*)segtable,
+      (const int32_t*)gscal, 2, bb, owner_mask, 0, overlap, segments, chunk, amt::kTile,
       (int32_t*)out);
-  return (int)cudaGetLastError();
 }
 
-// B11's one-group mode: out int32 [S], each stream's final base; the tables
-// of one group (classmap [256], comb [comb_words], aux [aux_words], root_row
-// and segtable [128], gscal [2] = root base, absorbing base).  As
+// B11's one-group mode: out int32 [S], each stream's final base (filled with
+// the root base here, then combined over the segments); the tables of one
+// group (classmap [256], comb [comb_words], aux [aux_words], root_row and
+// segtable [128], gscal [2] = root base, absorbing base).  As
 // amt_comb16_count_grouped otherwise.
 extern "C" int amt_comb16_contains_base(const void* streams, int T, int S, const void* vend,
                                         const void* classmap, const void* comb, int comb_words,
                                         const void* aux, int aux_words, const void* root_row,
                                         const void* segtable, const void* gscal, int bb,
-                                        int owner_mask, void* out, void* stream) {
-  if (T < 0 || !grid_ok(1, S) || !amt::comb16_args_ok(comb_words, aux_words, bb, owner_mask, 0, 0))
+                                        int owner_mask, int overlap, int segments, void* out,
+                                        void* stream) {
+  if (!chunk_args_ok(T, S, 1, comb_words, aux_words, bb, owner_mask, 0, overlap, segments, 1))
     return (int)cudaErrorInvalidValue;
-  const int blocks = (S + kThreads - 1) / kThreads;
-  comb16_contains_base_kernel<<<blocks, kThreads, amt::comb16_smem_bytes(comb_words, aux_words),
-                                (cudaStream_t)stream>>>(
-      (const uint8_t*)streams, T, S, (const int32_t*)vend, (const int32_t*)classmap,
-      (const int32_t*)comb, comb_words, (const int32_t*)aux, aux_words,
-      (const int32_t*)root_row, (const int32_t*)segtable, (const int32_t*)gscal, bb, owner_mask,
+  fill_root_kernel<<<(S + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
+      S, (const int32_t*)gscal, bb, (int32_t*)out);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_chunk<1, kStickyBase>(
+      chunk_grid(S, 1, segments, 1), chunk_smem_bytes(1, comb_words, aux_words),
+      (cudaStream_t)stream, (const uint8_t*)streams, T, S, (const int32_t*)nullptr,
+      (const int32_t*)vend, 1, (const int32_t*)classmap, (const int32_t*)comb, comb_words,
+      (const int32_t*)aux, aux_words, (const int32_t*)root_row, (const int32_t*)segtable,
+      (const int32_t*)gscal, 2, bb, owner_mask, 0, overlap, segments, 1, amt::kTile,
       (int32_t*)out);
-  return (int)cudaGetLastError();
 }

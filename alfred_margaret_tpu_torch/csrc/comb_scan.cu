@@ -7,8 +7,9 @@
 // _make_comb_states_kernel (B17, from _get_states_fn).  They compute what those
 // kernels compute, not how: the TPU versions gather 128-lane table rows with
 // select chains and split boundary tiles from interior ones; here every stream
-// is one thread and the tables (the class map, the comb array and the default
-// rows, at most 48 rows of 128 words together, 25 KB) sit in shared memory.
+// (or every segment of it) is one thread and the tables (the class map, the
+// comb array and the default rows, at most 48 rows of 128 words together,
+// 25 KB) sit in shared memory.
 //
 // The tables are those of CombMachine: entries are int32 with bit 31 clear,
 //   [30..27] match count | [26..13+d] owner residue | [13+d-1..13] default row
@@ -30,22 +31,23 @@
 // state loops to itself, so a thread stops reading once it is there.
 // B17: every step t < T of every stream; out[t * S + s] = e, the packed entry
 // of the state entered at t (its count in bits 30..27, its state through the
-// host's inverse base table).
+// host's inverse base table), also before warm, past vend and on padding.
 //
-// What bounds them: B16 and B17 run a dependent chain of shared-memory loads
-// per step (class, then comb and default row), like B8, so they are
-// latency-bound, not bound by device memory; B17 also writes four bytes per
-// stream byte, coalesced across the warp.  Stream bytes are loaded kChunk
-// steps ahead into registers.  Left for later: several streams per thread.
+// What bounds B16: a dependent chain of shared-memory loads per step (class,
+// then comb and default row), like B8: it is latency-bound, not bound by
+// device memory.  Stream bytes are loaded kChunk steps ahead into registers.
+// Left for later: the segmented design below.
 //
-// B15 (redesigned for Hopper): with one thread per stream, 32768 streams
-// give about 8 warps per SM, and each thread waited on device memory once
-// per 16-byte chunk, in series with the chunk's steps: the kernel was bound
-// by latency with too few chains.  comb_count_seg_kernel therefore
-//   * splits each stream into `segments` pieces in the kernel
-//     (stage.cuh: each scans from the root `overlap` bytes early and counts
-//     its own steps; the per-stream sums add with one atomicAdd), so a
-//     launch runs segments x as many independent chains;
+// B15 and B17, redesigned for Hopper: with one thread per
+// stream, 32768 streams give about 8 warps per SM, and each thread waited on
+// device memory once per 16-byte chunk, in series with the chunk's steps:
+// the kernels were bound by latency with too few chains.  comb_seg_kernel,
+// one scan with a compile-time mode (count or states),
+//   * splits each stream into `segments` pieces in the kernel (stage.cuh:
+//     each scans from the root `overlap` bytes early; B15 counts its own
+//     steps and the per-stream sums add with one atomicAdd, B17 writes the
+//     rows of its own range, each row exactly once), so a launch runs
+//     segments x as many independent chains;
 //   * stages the block's bytes into shared memory a tile of 32 steps
 //     ahead with 16-byte cp.async copies, double-buffered, so no thread
 //     waits on device memory inside the chain;
@@ -53,7 +55,14 @@
 //     tile to classes in place, through a byte-packed class map replicated
 //     per bank (one wavefront per warp whatever the bytes), before it scans.
 // What remains on the chain is the comb and default-row probe of the state,
-// two shared-memory loads per step: the SM's shared-memory pipe bounds it.
+// two shared-memory loads per step: the SM's shared-memory pipe bounds B15.
+// B17 also writes four bytes per stream byte (553.6 MB at config 5's 128
+// MiB, 0.165 ms of the 0.207 ms bound at 3.35 TB/s), each warp 128
+// contiguous bytes per step, with evict-first stores: the entries are read
+// once more, by compact_packed, after the whole array passed through L2.
+// Staging a tile's entries in shared memory and writing each row as 16-byte
+// stores was slower (0.372 against 0.290 ms, PERF.md section 6): it adds a
+// shared-memory store and load per entry to the pipe that bounds the chain.
 
 #include <cstddef>
 #include <cstdint>
@@ -145,7 +154,15 @@ bool args_ok(int T, int S, int comb_words, int def_words, int k, int owner_bits,
          root_def < (1 << (14 - owner_bits));
 }
 
-__global__ void __launch_bounds__(kThreads) comb_count_seg_kernel(
+// The segmented scan's modes (a template parameter).
+enum SegMode : int { kSegCount = 0, kSegStates = 1 };
+
+// Block (x, y) scans streams [128 x, 128 x + 128), segment y.  The count
+// (B15) adds the steps [max(p_y, warm[s]), min(p_{y+1}, vend[s])); the
+// states (B17) write every row of the segment's own range [p_y, p_{y+1})
+// (warm and vend are not read).
+template <int kMode>
+__global__ void __launch_bounds__(kThreads) comb_seg_kernel(
     const uint8_t* __restrict__ streams, int T, int S, const int32_t* __restrict__ warm,
     const int32_t* __restrict__ vend, const int32_t* __restrict__ classmap,
     const int32_t* __restrict__ comb, int comb_words, const int32_t* __restrict__ deft,
@@ -167,27 +184,48 @@ __global__ void __launch_bounds__(kThreads) comb_count_seg_kernel(
   const amt::SegSteps seg = amt::segment_steps(blockIdx.y, segments, T, overlap);
   const int s0 = blockIdx.x * kThreads;
   const int s = s0 + threadIdx.x;
-  int lo = INT_MAX, hi = 0;  // the steps this thread counts
-  if (s < S) {
-    lo = max(seg.lo, warm[s]);
-    hi = min(seg.hi, min(vend[s], T));
-  }
-  const int stop = amt::block_stop(&stop_slot, lo, hi);  // also orders the table loads
-
-  uint32_t cb = root_base, df = root_def, count = 0;
-  auto scan = [&](const uint8_t* tile, int t0, int rows) {
-    const uint8_t* col = tile + threadIdx.x;
-#pragma unroll 4
-    for (int j = 0; j < rows; ++j) {
-      const uint32_t e = comb_entry_cls(c, cb, df, col[j * amt::kRowBytes]);
-      cb = e & kBaseMask;
-      df = c.def_of(e);
-      const int t = t0 + j;
-      count += (t >= lo && t < hi) ? (e >> kCountShift) : 0u;
+  uint32_t cb = root_base, df = root_def;
+  if constexpr (kMode == kSegCount) {
+    int lo = INT_MAX, hi = 0;  // the steps this thread counts
+    if (s < S) {
+      lo = max(seg.lo, warm[s]);
+      hi = min(seg.hi, min(vend[s], T));
     }
-  };
-  amt::staged_scan(tiles, tile, streams, S, s0, seg.start, stop, rep, scan);
-  if (count) atomicAdd(out + s, (int32_t)count);
+    const int stop = amt::block_stop(&stop_slot, lo, hi);  // also orders the table loads
+
+    uint32_t count = 0;
+    auto scan = [&](const uint8_t* tile, int t0, int rows) {
+      const uint8_t* col = tile + threadIdx.x;
+#pragma unroll 4
+      for (int j = 0; j < rows; ++j) {
+        const uint32_t e = comb_entry_cls(c, cb, df, col[j * amt::kRowBytes]);
+        cb = e & kBaseMask;
+        df = c.def_of(e);
+        const int t = t0 + j;
+        count += (t >= lo && t < hi) ? (e >> kCountShift) : 0u;
+      }
+    };
+    amt::staged_scan(tiles, tile, streams, S, s0, seg.start, stop, rep, scan);
+    if (count) atomicAdd(out + s, (int32_t)count);
+  } else {
+    __syncthreads();  // the table loads
+    // Entries are read once more (compact_packed) after the whole array
+    // passed through L2: evict-first stores.
+    const int lo = s < S ? seg.lo : INT_MAX;  // the rows this thread writes from
+    int32_t* dst = out + s;
+    auto scan = [&](const uint8_t* tile, int t0, int rows) {
+      const uint8_t* col = tile + threadIdx.x;
+#pragma unroll 4
+      for (int j = 0; j < rows; ++j) {
+        const uint32_t e = comb_entry_cls(c, cb, df, col[j * amt::kRowBytes]);
+        cb = e & kBaseMask;
+        df = c.def_of(e);
+        const int t = t0 + j;
+        if (t >= lo) __stcs(dst + (size_t)t * S, (int32_t)e);
+      }
+    };
+    amt::staged_scan(tiles, tile, streams, S, s0, seg.start, seg.hi, rep, scan);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads) comb_contains_kernel(
@@ -225,40 +263,22 @@ __global__ void __launch_bounds__(kThreads) comb_contains_kernel(
   out[s] = (int32_t)cb;
 }
 
-__global__ void __launch_bounds__(kThreads) comb_states_kernel(
-    const uint8_t* __restrict__ streams, int T, int S, const int32_t* __restrict__ classmap,
-    const int32_t* __restrict__ comb, int comb_words, const int32_t* __restrict__ deft,
-    int def_words, int k, int owner_bits, int root_base, int root_def,
-    int32_t* __restrict__ out) {
-  extern __shared__ uint32_t smem[];
-  const Comb c = load_comb(smem, classmap, comb, comb_words, deft, def_words, k, owner_bits);
-  __syncthreads();
-
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= S) return;
-  const uint8_t* col = streams + s;
-  int32_t* dst = out + s;
-  uint32_t cb = (uint32_t)root_base, df = (uint32_t)root_def;
-
-  int t = 0;
-  for (; t + kChunk <= T; t += kChunk) {
-    uint8_t b[kChunk];
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) b[j] = col[(size_t)(t + j) * S];
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) {
-      const uint32_t e = c.entry(cb, df, b[j]);
-      cb = e & kBaseMask;
-      df = c.def_of(e);
-      dst[(size_t)(t + j) * S] = (int32_t)e;
-    }
-  }
-  for (; t < T; ++t) {
-    const uint32_t e = c.entry(cb, df, col[(size_t)t * S]);
-    cb = e & kBaseMask;
-    df = c.def_of(e);
-    dst[(size_t)t * S] = (int32_t)e;
-  }
+template <int kMode>
+int launch_seg(size_t smem, int S, int segments, cudaStream_t stream, const void* streams, int T,
+               const void* warm, const void* vend, const void* classmap, const void* comb,
+               int comb_words, const void* deft, int def_words, int k, int owner_bits,
+               int root_base, int root_def, int overlap, void* out) {
+  auto kernel = comb_seg_kernel<kMode>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((S + kThreads - 1) / kThreads, segments);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      (const uint8_t*)streams, T, S, (const int32_t*)warm, (const int32_t*)vend,
+      (const int32_t*)classmap, (const int32_t*)comb, comb_words, (const int32_t*)deft,
+      def_words, k, owner_bits, overlap, segments, amt::kTile, (uint32_t)root_base,
+      (uint32_t)root_def, (int32_t*)out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -276,17 +296,10 @@ extern "C" int amt_comb_count(const void* streams, int T, int S, const void* war
   if (!args_ok(T, S, comb_words, def_words, k, owner_bits, root_base, root_def) || overlap < 0 ||
       segments < 1 || segments > kMaxSegments)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = seg_smem_bytes(comb_words, def_words);
-  const cudaError_t err = cudaFuncSetAttribute(
-      comb_count_seg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + kThreads - 1) / kThreads, segments);
-  comb_count_seg_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)streams, T, S, (const int32_t*)warm, (const int32_t*)vend,
-      (const int32_t*)classmap, (const int32_t*)comb, comb_words, (const int32_t*)deft,
-      def_words, k, owner_bits, overlap, segments, amt::kTile, (uint32_t)root_base,
-      (uint32_t)root_def, (int32_t*)out);
-  return (int)cudaGetLastError();
+  return launch_seg<kSegCount>(seg_smem_bytes(comb_words, def_words), S, segments,
+                               (cudaStream_t)stream, streams, T, warm, vend, classmap, comb,
+                               comb_words, deft, def_words, k, owner_bits, root_base, root_def,
+                               overlap, out);
 }
 
 // B16: out int32 [S], the final bases.  As amt_comb_count otherwise.
@@ -307,17 +320,19 @@ extern "C" int amt_comb_contains(const void* streams, int T, int S, const void* 
   return (int)cudaGetLastError();
 }
 
-// B17: out int32 [T, S], the packed entry at every step.  As amt_comb_count
+// B17: out int32 [T, S], the packed entry at every step; each of the
+// `segments` pieces writes the rows of its own range.  As amt_comb_count
 // otherwise.
 extern "C" int amt_comb_states(const void* streams, int T, int S, const void* classmap,
                                const void* comb, int comb_words, const void* deft,
                                int def_words, int k, int owner_bits, int root_base,
-                               int root_def, void* out, void* stream) {
-  if (!args_ok(T, S, comb_words, def_words, k, owner_bits, root_base, root_def))
+                               int root_def, int overlap, int segments, void* out,
+                               void* stream) {
+  if (!args_ok(T, S, comb_words, def_words, k, owner_bits, root_base, root_def) || overlap < 0 ||
+      segments < 1 || segments > kMaxSegments)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((S + kThreads - 1) / kThreads);
-  comb_states_kernel<<<grid, kThreads, smem_bytes(comb_words, def_words), (cudaStream_t)stream>>>(
-      (const uint8_t*)streams, T, S, (const int32_t*)classmap, (const int32_t*)comb, comb_words,
-      (const int32_t*)deft, def_words, k, owner_bits, root_base, root_def, (int32_t*)out);
-  return (int)cudaGetLastError();
+  return launch_seg<kSegStates>(seg_smem_bytes(comb_words, def_words), S, segments,
+                                (cudaStream_t)stream, streams, T, nullptr, nullptr, classmap,
+                                comb, comb_words, deft, def_words, k, owner_bits, root_base,
+                                root_def, overlap, out);
 }

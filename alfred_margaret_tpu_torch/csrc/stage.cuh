@@ -1,6 +1,6 @@
-// Stream staging for the segmented scans B9 and B15 (comb16_grouped.cu,
-// comb_scan.cu): a block's tile of stream bytes copied into shared memory
-// ahead of the scan, and the per-segment step ranges.
+// Stream staging for the segmented scans B9 and B11 (comb16_grouped.cu),
+// B15 and B17 (comb_scan.cu): a block's tile of stream bytes copied into
+// shared memory ahead of the scan, and the per-segment step ranges.
 //
 // A block owns 128 streams [s0, s0 + 128).  Step t of those streams is the
 // contiguous 128-byte run streams[t * S + s0 ...]; a tile of kTile steps is
@@ -9,21 +9,27 @@
 // i + 1 is in flight while tile i is scanned (two buffers).  With S a
 // multiple of 16 and a 16-byte aligned base the rows go as 16-byte cp.async
 // copies, otherwise byte by byte (the ragged shapes only).  Bytes of streams
-// past S are not written: their threads scan but never count.
+// past S are not written: their threads scan but never count or store.
 //
 // Segments: stream steps [0, T) are cut into `segments` pieces at
 // p_i = i * T / segments.  Segment i scans from the root starting `overlap`
-// bytes early, at max(0, p_i - overlap), and counts the steps t with
-// max(p_i, warm[s]) <= t < min(p_{i+1}, vend[s]).  The stream plan warms
-// every stream with the same `overlap` bytes (max_needle_bytes - 1): after
-// overlap + 1 bytes the state of a scan restarted from the root equals the
-// state of the scan from the stream's start, so the counts are exact; they
-// add per stream.  kernels/segments.py:segment_schedule is the same split.
+// bytes early, at max(0, p_i - overlap); its own range is [p_i, p_{i+1}).
+// The stream plan warms every stream with the same `overlap` bytes
+// (max_needle_bytes - 1): after overlap + 1 bytes the state of a scan
+// restarted from the root equals the state of the scan from the stream's
+// start, whatever the bytes (NUL and padding too).  So a count over the
+// steps max(p_i, warm[s]) <= t < min(p_{i+1}, vend[s]) is exact and adds
+// per stream (B9, B15); a state written for each step of the own range is
+// the stream's (B17); and a sticky scan up to min(p_{i+1}, vend[s]) absorbs
+// iff a needle ends in [0, vend) inside its scanned steps, every match
+// ending in some segment's own range (B11).  kernels/segments.py is the
+// same split.
 
 #pragma once
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 namespace amt {
 
@@ -125,12 +131,15 @@ __device__ __forceinline__ SegSteps segment_steps(int i, int segments, int T, in
 // at most `tile` (kTile) rows is staged into one of the two buffers at
 // `tiles` while the tile before it is scanned, and scan(cur, t0, rows) runs
 // on it once it has landed.  With `xlat` (a replicated class map) the
-// tile's bytes are first replaced by their classes.  Every thread of the
-// block calls this, with the same arguments.
+// tile's bytes are first replaced by their classes.  A scan that returns a
+// bool says whether its thread is done: the block stops once every thread
+// is (a vote per tile).  Every thread of the block calls this, with the
+// same arguments.
 template <class Scan>
 __device__ inline void staged_scan(uint8_t* tiles, int tile, const uint8_t* __restrict__ streams,
                                    int S, int s0, int start, int stop, const uint32_t* xlat,
                                    Scan&& scan) {
+  constexpr bool kVote = std::is_same<decltype(scan(tiles, 0, 0)), bool>::value;
   const int tile_bytes = tile * kRowBytes;
   const bool vec = stage_vec(streams, S);
   if (start < stop) stage_rows(tiles, streams, S, s0, start, min(start + tile, stop), vec);
@@ -151,8 +160,17 @@ __device__ inline void staged_scan(uint8_t* tiles, int tile, const uint8_t* __re
       translate_rows(cur, rows, xlat);
       __syncthreads();
     }
-    scan(cur, t0, rows);
-    __syncthreads();  // the buffer is staged into again two tiles on
+    if constexpr (kVote) {
+      // The barrier also frees the buffer, which is staged into again two
+      // tiles on; a block that stops lets its last copy land first.
+      if (__syncthreads_and(scan(cur, t0, rows))) {
+        cp_async_wait<0>();
+        return;
+      }
+    } else {
+      scan(cur, t0, rows);
+      __syncthreads();  // the buffer is staged into again two tiles on
+    }
   }
 }
 

@@ -173,7 +173,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.amt_comb_contains.restype = i
     lib.amt_comb_contains.argtypes = [p, i, i, p, *comb, i, p, p]  # ..., vend, ..., absorb
     lib.amt_comb_states.restype = i
-    lib.amt_comb_states.argtypes = [p, i, i, *comb, p, p]  # streams, T, S, ..., out, stream
+    lib.amt_comb_states.argtypes = [
+        p, i, i, *comb,  # streams, T, S, ...
+        i, i,  # overlap, segments
+        p, p,  # out, stream
+    ]
     grouped = [
         i, p, p, i, p, i,  # G, classmap, comb, comb_words, aux, aux_words
         p, p, p,  # root_row, segtable, gscal
@@ -191,6 +195,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, i, i, p,  # streams, T, S, vend
         *grouped,
         i, i,  # BB, owner_mask
+        i, i, i,  # overlap, segments, chunk
         p, p,  # out, stream
     ]
     lib.amt_comb16_contains_base.restype = i
@@ -198,6 +203,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, i, i, p,  # streams, T, S, vend
         *grouped[1:],  # one group's tables
         i, i,  # BB, owner_mask
+        i, i,  # overlap, segments
         p, p,  # out, stream
     ]
     lib.amt_matchbits_comb16.restype = i

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from .common import check_streams, check_tables, launch, on_cpu
+from .common import check_overlap, check_streams, check_tables, launch, on_cpu
 from .segments import Design, comb_design, sm_count
 
 #: comb plus default-row words the kernels hold in shared memory
@@ -115,8 +115,7 @@ def comb_count(streams, warm, vend, classmap, comb, def_table, k, owner_bits, ro
     segments (``kernels/segments.py``); without, it scans each whole."""
     check_comb(streams, classmap, comb, def_table, k, owner_bits, root_base, root_def,
                warm=warm, vend=vend)
-    if overlap is not None and overlap < 0:
-        raise ValueError(f"overlap must be >= 0, got {overlap}")
+    check_overlap(overlap)
     if on_cpu(streams):
         return comb_count_plain(streams, warm, vend, classmap, comb, def_table, k, owner_bits,
                                 root_base, root_def)
@@ -135,7 +134,8 @@ def comb_count(streams, warm, vend, classmap, comb, def_table, k, owner_bits, ro
 
 
 def comb_count_design(streams, comb, def_table, overlap=None) -> Design:
-    """The segments ``comb_count`` cuts these CUDA streams into."""
+    """The segments ``comb_count`` and ``comb_states`` cut these CUDA
+    streams into (the same shared memory, so the same rule)."""
     T, S = streams.shape
     return comb_design(S, T, overlap, comb.numel(), def_table.numel(), sm_count(streams.device))
 
@@ -178,8 +178,10 @@ def comb_contains(streams, vend, classmap, comb, def_table, k, owner_bits, root_
     return out
 
 
-def comb_states_plain(streams, classmap, comb, def_table, k, owner_bits, root_base, root_def):
-    """Plain torch version of B17: the entry of every step."""
+def comb_states_plain(streams, classmap, comb, def_table, k, owner_bits, root_base, root_def,
+                      overlap=None):
+    """Plain torch version of B17: the entry of every step.  (``overlap``
+    only lets the kernel cut the streams into segments.)"""
     T, S = streams.shape
     p = PlainComb(classmap, comb, def_table, k, owner_bits, root_base, root_def)
     cb, df = p.start(S, streams.device)
@@ -189,24 +191,31 @@ def comb_states_plain(streams, classmap, comb, def_table, k, owner_bits, root_ba
     return out.to(torch.int32)
 
 
-def comb_states(streams, classmap, comb, def_table, k, owner_bits, root_base, root_def):
+def comb_states(streams, classmap, comb, def_table, k, owner_bits, root_base, root_def,
+                overlap=None):
     """int32 [T, S]: the packed entry of the state each stream of
     ``streams`` ([T, S] uint8) enters at every step t, scanned from the
-    root: its match count in bits 30..27, its base in bits 12..0."""
+    root: its match count in bits 30..27, its base in bits 12..0.  With the
+    stream plan's ``overlap`` the kernel may cut each stream into segments,
+    each writing its own rows (``kernels/segments.py:stitch_segments``)."""
     check_comb(streams, classmap, comb, def_table, k, owner_bits, root_base, root_def)
+    check_overlap(overlap)
     if on_cpu(streams):
         return comb_states_plain(streams, classmap, comb, def_table, k, owner_bits, root_base,
                                  root_def)
     T, S = streams.shape
+    d = comb_count_design(streams, comb, def_table, overlap)
     out = torch.empty(T, S, dtype=torch.int32, device=streams.device)
     launch(
         "amt_comb_states", streams.device,
         streams.data_ptr(), T, S,
         classmap.data_ptr(), comb.data_ptr(), comb.numel(), def_table.data_ptr(),
-        def_table.numel(), k, owner_bits, root_base, root_def, out.data_ptr(),
+        def_table.numel(), k, owner_bits, root_base, root_def, overlap or 0, d.segments,
+        out.data_ptr(),
     )
     comb_states.launches += 1
     return out
+
 
 
 #: Kernel launches since the last reset (CPU calls do not count).

@@ -24,6 +24,11 @@ B8 and B10 do (``kernels/comb16.py``) from its root base ``gscal[g, 0]``:
 * B11's one-group mode (G = 1) is that final base itself, as the TPU kernel
   writes it for the sharded engine, which compares it with ``gscal[0, 1]``
   outside the kernel.
+
+All three run one scan of ``csrc/comb16_grouped.cu`` in three compile-time
+modes: with the stream plan's ``overlap`` it cuts each stream into segments
+and the groups into chunks (``kernels/segments.py``, whose helpers combine
+the plain versions' per-segment results as the kernel does).
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ from __future__ import annotations
 import torch
 
 from .comb16 import MAX_TABLE_WORDS, N_RANGES, check_split
-from .common import check_streams, check_tables, launch, on_cpu
+from .common import check_overlap, check_streams, check_tables, launch, on_cpu
 from .segments import Design, grouped_design, sm_count
 
 
@@ -120,12 +125,11 @@ def comb16_count_grouped(streams, warm, vend, tables, overlap=None):
     With the stream plan's ``overlap`` the kernel may cut each stream into
     segments (``kernels/segments.py``); without, it scans each whole."""
     _check(streams, tables, False, warm=warm, vend=vend)
-    if overlap is not None and overlap < 0:
-        raise ValueError(f"overlap must be >= 0, got {overlap}")
+    check_overlap(overlap)
     if on_cpu(streams):
         return comb16_count_grouped_plain(streams, warm, vend, tables)
     T, S = streams.shape
-    d = comb16_count_grouped_design(streams, tables, overlap)
+    d = comb16_grouped_design(streams, tables, overlap)
     out = torch.zeros(S, dtype=torch.int32, device=streams.device)
     launch(
         "amt_comb16_count_grouped", streams.device,
@@ -140,17 +144,19 @@ def comb16_count_grouped(streams, warm, vend, tables, overlap=None):
     return out
 
 
-def comb16_count_grouped_design(streams, tables, overlap=None) -> Design:
-    """The segments and the groups per block ``comb16_count_grouped``
-    launches with for these CUDA streams and tables."""
+
+def comb16_grouped_design(streams, tables, overlap=None) -> Design:
+    """The segments and the groups per block that B9, B11 and B11's
+    one-group mode launch with for these CUDA streams and tables."""
     T, S = streams.shape
     return grouped_design(S, T, overlap, tables.n_groups, tables.comb.shape[1],
                           tables.aux.shape[1], sm_count(streams.device))
 
 
-def comb16_contains_grouped_plain(streams, vend, tables):
+def comb16_contains_grouped_plain(streams, vend, tables, overlap=None):
     """Plain torch version of B11: every group's B10 scan at once, the base
-    held where ``t >= vend``; 1 where some group ends on its absorbing base."""
+    held where ``t >= vend``; 1 where some group ends on its absorbing base.
+    (``overlap`` only lets the kernel cut the streams into segments.)"""
     T, S = streams.shape
     p = _PlainGroups(tables)
     bmask = (1 << tables.BB) - 1
@@ -162,14 +168,18 @@ def comb16_contains_grouped_plain(streams, vend, tables):
     return (cb == gscal[:, 1:2]).any(0).to(torch.int32)
 
 
-def comb16_contains_grouped(streams, vend, tables):
+def comb16_contains_grouped(streams, vend, tables, overlap=None):
     """int32 [S]: 1 where a needle of some group of ``tables`` (an
     ``ops.comb16_scan.Comb16GroupTables`` of sticky tables) ends in
-    ``[0, vend[s])`` of stream s of ``streams`` ([T, S] uint8), else 0."""
+    ``[0, vend[s])`` of stream s of ``streams`` ([T, S] uint8), else 0.
+    With the stream plan's ``overlap`` the kernel may cut each stream into
+    segments (``kernels/segments.py:any_over_segments``)."""
     _check(streams, tables, True, vend=vend)
+    check_overlap(overlap)
     if on_cpu(streams):
         return comb16_contains_grouped_plain(streams, vend, tables)
     T, S = streams.shape
+    d = comb16_grouped_design(streams, tables, overlap)
     out = torch.zeros(S, dtype=torch.int32, device=streams.device)
     launch(
         "amt_comb16_contains_grouped", streams.device,
@@ -177,15 +187,16 @@ def comb16_contains_grouped(streams, vend, tables):
         tables.classmap.data_ptr(), tables.comb.data_ptr(), tables.comb.shape[1],
         tables.aux.data_ptr(), tables.aux.shape[1], tables.root_row.data_ptr(),
         tables.segtable.data_ptr(), tables.gscal.data_ptr(), tables.BB, tables.owner_mask,
-        out.data_ptr(),
+        overlap or 0, d.segments, d.chunk, out.data_ptr(),
     )
     comb16_contains_grouped.launches += 1
     return out
 
 
-def comb16_contains_base_plain(streams, vend, tables):
+def comb16_contains_base_plain(streams, vend, tables, overlap=None):
     """Plain torch version of B11's one-group mode: the B10 scan of the one
-    group, the base held where ``t >= vend``."""
+    group, the base held where ``t >= vend``.  (``overlap`` only lets the
+    kernel cut the streams into segments.)"""
     p = _PlainGroups(tables)
     bmask = (1 << tables.BB) - 1
     vend = vend.long()
@@ -195,27 +206,30 @@ def comb16_contains_base_plain(streams, vend, tables):
     return cb[0].to(torch.int32)
 
 
-def comb16_contains_base(streams, vend, tables):
+def comb16_contains_base(streams, vend, tables, overlap=None):
     """int32 [S]: the final base of each stream of ``streams`` ([T, S]
     uint8), scanned from the root base ``gscal[0, 0]`` over ``t < vend[s]``
     with the sticky tables of ``tables``, a one-group
     ``ops.comb16_scan.Comb16GroupTables``.  A stream saw a match iff its base
     is the absorbing base ``gscal[0, 1]``; a stream with ``vend`` 0 keeps the
-    root base."""
+    root base.  With the stream plan's ``overlap`` the kernel may cut each
+    stream into segments (``kernels/segments.py:base_over_segments``)."""
     _check(streams, tables, True, vend=vend)
     if tables.n_groups != 1:
         raise ValueError(f"B11's one-group mode takes one group, got {tables.n_groups}")
+    check_overlap(overlap)
     if on_cpu(streams):
         return comb16_contains_base_plain(streams, vend, tables)
     T, S = streams.shape
-    out = torch.empty(S, dtype=torch.int32, device=streams.device)
+    d = comb16_grouped_design(streams, tables, overlap)
+    out = torch.empty(S, dtype=torch.int32, device=streams.device)  # the root base, in the launch
     launch(
         "amt_comb16_contains_base", streams.device,
         streams.data_ptr(), T, S, vend.data_ptr(),
         tables.classmap.data_ptr(), tables.comb.data_ptr(), tables.comb.shape[1],
         tables.aux.data_ptr(), tables.aux.shape[1], tables.root_row.data_ptr(),
         tables.segtable.data_ptr(), tables.gscal.data_ptr(), tables.BB, tables.owner_mask,
-        out.data_ptr(),
+        overlap or 0, d.segments, out.data_ptr(),
     )
     comb16_contains_base.launches += 1
     return out
@@ -232,6 +246,6 @@ __all__ = [
     "comb16_contains_grouped",
     "comb16_contains_grouped_plain",
     "comb16_count_grouped",
-    "comb16_count_grouped_design",
     "comb16_count_grouped_plain",
+    "comb16_grouped_design",
 ]

@@ -44,6 +44,13 @@ def check_packed(table, packing: int, state_bits: int, max_words: int) -> None:
         raise ValueError(f"table must be 1-D with 1..{max_words} words, got {tuple(table.shape)}")
 
 
+def check_overlap(overlap) -> None:
+    """Raise ``ValueError`` unless ``overlap`` (a segmented scan's warm-up)
+    is None or >= 0."""
+    if overlap is not None and overlap < 0:
+        raise ValueError(f"overlap must be >= 0, got {overlap}")
+
+
 def on_cpu(streams) -> bool:
     """True for a CPU tensor (the wrapper runs the plain version); False for
     a CUDA tensor; raises for any other device."""
@@ -63,4 +70,4 @@ def launch(entry: str, device, *args) -> None:
     build.check(err)
 
 
-__all__ = ["check_packed", "check_streams", "check_tables", "launch", "on_cpu"]
+__all__ = ["check_overlap", "check_packed", "check_streams", "check_tables", "launch", "on_cpu"]

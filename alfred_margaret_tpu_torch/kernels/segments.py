@@ -1,19 +1,30 @@
-"""The schedule of the segmented scans B9 and B15: how each stream is cut
-into segments and how the groups of B9 are cut into chunks, the two
-numbers each launch takes from its shapes.
+"""The schedule of the segmented scans B9, B11, B15 and B17: how each
+stream is cut into segments and how the groups of B9 and B11 are cut into
+chunks, the two numbers each launch takes from its shapes.
 
 ``csrc/stage.cuh`` runs the same split on the card.  Segment i of ``k``
 covers the steps ``[p_i, p_{i+1})``, ``p_i = i * T // k``; it scans from the
-root starting ``overlap`` bytes early, at ``max(0, p_i - overlap)``, and
-counts the steps t with ``max(p_i, warm[s]) <= t < min(p_{i+1}, vend[s])``.
+root starting ``overlap`` bytes early, at ``max(0, p_i - overlap)``.
 ``overlap`` is the stream plan's warm-up (``StreamPlan.overlap``,
 ``max_needle_bytes - 1``): a scan restarted from the root that has read
 ``overlap + 1`` bytes is in the state of the scan from the stream's start, as
-between the streams of the plan, so the counts are exact and add per stream.
-Without an overlap (``None``) a stream is one segment.
+between the streams of the plan.  So, per stream:
 
-Nothing here needs a card: the CPU tests run the plain versions over these
-schedules (:func:`run_segments`), and the sizes mirror the sources'.
+* a count (B9, B15) adds the steps t with ``max(p_i, warm[s]) <= t <
+  min(p_{i+1}, vend[s])`` of every segment (:func:`run_segments`);
+* a sticky-any scan (B11) is the OR over segments of the scan of
+  ``[max(0, p_i - overlap), min(p_{i+1}, vend[s]))`` (:func:`any_over_segments`):
+  an absorb there is a real match in ``[0, vend)``, and every real match ends
+  in some segment's own range, where that segment is in step;
+* a sticky base (B11's one-group mode) is the absorbing base if some segment
+  reached it, else the base of the segment whose own range holds step
+  ``vend[s] - 1``, else (``vend`` 0) the root's (:func:`combine_bases`);
+* the states (B17) are each segment's rows of its own range
+  (:func:`stitch_segments`).
+
+Without an overlap (``None``) a stream is one segment.  Nothing here needs a
+card: the CPU tests run the plain versions over these schedules, and the
+sizes mirror the sources'.
 """
 
 from __future__ import annotations
@@ -42,8 +53,9 @@ MAX_BLOCKS_PER_SM = 16  # 2048 threads / 128
 
 @dataclass(frozen=True)
 class Design:
-    """What a launch of B9 or B15 takes from its shapes: ``segments`` pieces
-    per stream and ``chunk`` groups per block (B9)."""
+    """What a launch of B9, B11, B15 or B17 takes from its shapes:
+    ``segments`` pieces per stream and ``chunk`` groups per block (B9,
+    B11)."""
 
     segments: int
     chunk: int = 1
@@ -62,8 +74,8 @@ MAX_AUTO_SEGMENTS = 16
 
 
 def segment_schedule(T: int, segments: int, overlap: int) -> List[Tuple[int, int, int]]:
-    """``(scan start, first counted step, stop)`` of each segment of a
-    ``T``-step stream (before each stream's own ``warm`` and ``vend``)."""
+    """``(scan start, first step of its own range, stop)`` of each segment
+    of a ``T``-step stream (before each stream's own ``warm`` and ``vend``)."""
     out = []
     for i in range(segments):
         lo, hi = i * T // segments, (i + 1) * T // segments
@@ -85,6 +97,64 @@ def run_segments(plain: Callable, streams, warm, vend, *tables, overlap: int,
         v = (torch.clamp(vend, max=hi) - start).clamp(min=0).to(torch.int32)
         total += plain(streams[start:hi].contiguous(), w, v, *tables).long()
     return total.to(torch.int32)
+
+
+def _sticky_runs(plain: Callable, streams, vend, tables, overlap: int, segments: int):
+    """A sticky kernel's plain version ``plain(streams, vend, tables)`` on
+    each segment's steps ``[max(0, p_i - overlap), min(p_{i+1}, vend))``,
+    with the schedule."""
+    sched = segment_schedule(streams.shape[0], segments, overlap)
+    vend64 = vend.long()
+    outs = []
+    for start, _, hi in sched:
+        v = (torch.clamp(vend64, max=hi) - start).clamp(min=0).to(torch.int32)
+        outs.append(plain(streams[start:hi].contiguous(), v, tables))
+    return outs, sched
+
+
+def any_over_segments(plain: Callable, streams, vend, tables, *, overlap: int, segments: int):
+    """int32 [S]: a sticky-any kernel's plain version (1 where the scan hit)
+    run over each segment and OR-ed per stream: what the segmented B11
+    computes."""
+    outs, _ = _sticky_runs(plain, streams, vend, tables, overlap, segments)
+    return (torch.stack(outs) != 0).any(0).to(torch.int32)
+
+
+def combine_bases(bases, vend, schedule, root: int, absorb: int):
+    """int32 [S]: B11's one-group answer from each segment's final base
+    (``bases[i]`` [S], segment i of ``schedule`` scanned up to ``min(p_{i+1},
+    vend)``): ``absorb`` where some segment reached it, else the base of the
+    segment whose own range holds step ``vend - 1``, else ``root``."""
+    vend = vend.long().clamp(max=schedule[-1][2])
+    out = torch.full_like(vend, root)
+    hit = torch.zeros_like(vend, dtype=torch.bool)
+    for b, (_, lo, hi) in zip(bases, schedule):
+        b = b.long()
+        out = torch.where((vend > lo) & (vend <= hi), b, out)
+        hit |= b == absorb
+    return torch.where(hit, absorb, out).to(torch.int32)
+
+
+def base_over_segments(plain: Callable, streams, vend, tables, *, overlap: int, segments: int):
+    """int32 [S]: B11's one-group plain version run over each segment, the
+    bases combined by :func:`combine_bases`: what the segmented kernel
+    computes."""
+    bases, sched = _sticky_runs(plain, streams, vend, tables, overlap, segments)
+    root, absorb = (int(x) for x in tables.gscal[0, :2])
+    return combine_bases(bases, vend, sched, root, absorb)
+
+
+def stitch_segments(plain: Callable, streams, *tables, overlap: int, segments: int):
+    """int32 [T, S]: a states kernel's plain version ``plain(streams,
+    *tables)`` run over each segment from its scan start, each keeping the
+    rows of its own range ``[p_i, p_{i+1})``: what the segmented B17
+    writes."""
+    T, S = streams.shape
+    out = torch.empty(T, S, dtype=torch.int32, device=streams.device)
+    for start, lo, hi in segment_schedule(T, segments, overlap):
+        if hi > lo:
+            out[lo:hi] = plain(streams[start:hi].contiguous(), *tables)[lo - start:]
+    return out
 
 
 def group_chunks(G: int, chunk: int) -> List[Tuple[int, int]]:
@@ -152,13 +222,15 @@ def sm_count(device) -> int:
 
 def comb_design(S: int, T: int, overlap: Optional[int], comb_words: int, def_words: int,
                 n_sm: int) -> Design:
-    """B15's launch for ``S`` streams of ``T`` steps on ``n_sm`` SMs."""
+    """B15's and B17's launch for ``S`` streams of ``T`` steps on ``n_sm``
+    SMs."""
     return Design(pick_segments(S, T, overlap, comb_smem_bytes(comb_words, def_words), n_sm))
 
 
 def grouped_design(S: int, T: int, overlap: Optional[int], G: int, comb_words: int,
                    aux_words: int, n_sm: int) -> Design:
-    """B9's launch for ``S`` streams of ``T`` steps and ``G`` groups."""
+    """B9's and B11's launch for ``S`` streams of ``T`` steps and ``G``
+    groups (count or sticky tables)."""
     chunk = pick_chunk(G, comb_words, aux_words)
     smem = chunk_smem_bytes(chunk, comb_words, aux_words)
     return Design(pick_segments(S, T, overlap, smem, n_sm, n_chunks=-(-G // chunk)), chunk)
@@ -167,7 +239,10 @@ def grouped_design(S: int, T: int, overlap: Optional[int], G: int, comb_words: i
 __all__ = [
     "Design",
     "T_TILE",
+    "any_over_segments",
+    "base_over_segments",
     "chunk_smem_bytes",
+    "combine_bases",
     "comb_design",
     "comb_smem_bytes",
     "group_chunks",
@@ -177,4 +252,5 @@ __all__ = [
     "run_segments",
     "segment_schedule",
     "sm_count",
+    "stitch_segments",
 ]

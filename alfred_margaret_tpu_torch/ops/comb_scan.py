@@ -484,8 +484,9 @@ class CombAcEngine(DenseAcEngine):
 
     def states_args(self, st: StagedStreams) -> tuple:
         """Arguments of ``comb_states`` (or its plain version): the full
-        machine's tables."""
-        return (st.streams, *self.full_tables.args())
+        machine's tables, then the staging's overlap (at least this machine's:
+        a grouped engine's groups take the full set's)."""
+        return (st.streams, *self.full_tables.args(), st.plan.overlap)
 
     def packed_states(self, st: StagedStreams) -> torch.Tensor:
         """int32 [T, S] on the device: the full machine's packed entry of

@@ -466,12 +466,13 @@ class GroupedAcEngine:
     # -- containsAny: the screen (B14), then B11 or the groups' own scans -----
 
     def sticky_args(self, st: StagedStreams) -> tuple:
-        """Arguments of ``comb16_contains_grouped`` (or its plain version);
-        raises ``CapacityError`` when the fused sticky scan did not engage."""
+        """Arguments of ``comb16_contains_grouped`` (or its plain version),
+        the full machine's overlap last; raises ``CapacityError`` when the
+        fused sticky scan did not engage."""
         fs = self._fused_sticky_setup()
         if fs is None:
             raise CapacityError("the fused grouped sticky scan did not engage")
-        return (st.streams, st.vend, fs.tables)
+        return (st.streams, st.vend, fs.tables, st.plan.overlap)
 
     def contains_staged(self, st: StagedStreams) -> bool:
         """The screen's answer where it has one, else one B11 launch where

@@ -491,7 +491,7 @@ class DistributedAcEngine:
                 return bitap_contains, args if t.trapmask is None else (*args, t.trapmask)
             if route == "comb16":
                 tabs = self._cached("s16", g, dev, lambda: self._sticky16_tables().group(g, dev))
-                return comb16_contains_base, (blk.streams, blk.vend, tabs)
+                return comb16_contains_base, (blk.streams, blk.vend, tabs, staged.plan.overlap)
             if route == "dense":
                 t = self._sticky(g, dev)
                 return dense_contains, (blk.streams, t.classmap, t.table, blk.vend, t.packing,

@@ -179,6 +179,24 @@ def fire_free(n: int, seed: int = 0) -> bytes:
     return rng.choice(np.frombuffer(b"0 ", np.uint8), n).astype(np.uint8).tobytes()
 
 
+def sticky_groups(sticky16, G: int):
+    """``G`` copies of one comb16 sticky table set (``Comb16AcEngine.
+    sticky_tables()``) as B11's group tables."""
+    import torch
+
+    from alfred_margaret_tpu_torch.ops.comb16_scan import Comb16GroupTables
+
+    def stack(x):
+        return x.unsqueeze(0).expand(G, -1).contiguous()
+
+    gscal = torch.tensor([[sticky16.root_cb, sticky16.absorb]] * G, dtype=torch.int32,
+                         device=sticky16.comb.device)
+    return Comb16GroupTables(
+        classmap=stack(sticky16.classmap), comb=stack(sticky16.comb), aux=stack(sticky16.aux),
+        root_row=stack(sticky16.root_row), segtable=stack(sticky16.segtable), gscal=gscal,
+        BB=sticky16.BB, owner_mask=sticky16.owner_mask, CB=sticky16.CB, sticky=True)
+
+
 #: The sharded engine's launch sites: wrapper (trap parts apart) -> (site,
 #: line of its ``pl.pallas_call`` in ``alfred_margaret_tpu/parallel/shard.py``).
 MESH_SITES = {
@@ -204,7 +222,7 @@ def mesh_phase(h):
     from alfred_margaret_tpu_torch import CASE_SENSITIVE, Searcher
     from alfred_margaret_tpu_torch.bench.dataformat import synth_corpus
     from alfred_margaret_tpu_torch.parallel import DistributedAcEngine, init_distributed, make_mesh
-    from alfred_margaret_tpu_torch.kernels.comb16_grouped import comb16_count_grouped_design
+    from alfred_margaret_tpu_torch.kernels.comb16_grouped import comb16_grouped_design
     from alfred_margaret_tpu_torch.parallel.shard import PLAIN
 
     dev, card = h.dev, h.card
@@ -441,8 +459,9 @@ def mesh_phase(h):
                        "what": what, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
                        "bound_by": by, "shard": [T, SL]}
         if name == "comb16_count_grouped":  # S5: B9's design for one group
-            sites[name]["design"] = comb16_count_grouped_design(args[0], args[3],
-                                                                args[4]).as_dict()
+            sites[name]["design"] = comb16_grouped_design(args[0], args[3], args[4]).as_dict()
+        if name == "comb16_contains_base":  # S4: B11's one-group design
+            sites[name]["design"] = comb16_grouped_design(args[0], args[2], args[3]).as_dict()
         print(f"time mesh {site} {name:22s} {what:36s} {ms:10.4f} ms per shard launch "
               f"[T, S_local] = [{T}, {SL}], plain {plain_ms:.1f} ms, bound {bms:.4f} ms by {by} "
               f"({ms / bms:.1f}x; {card})", flush=True)
@@ -465,7 +484,7 @@ def main() -> int:
     from alfred_margaret_tpu_torch.bench.dataformat import synth_corpus
     from alfred_margaret_tpu_torch.kernels import build
     from alfred_margaret_tpu_torch.kernels.comb import comb_count_design
-    from alfred_margaret_tpu_torch.kernels.comb16_grouped import comb16_count_grouped_design
+    from alfred_margaret_tpu_torch.kernels.comb16_grouped import comb16_grouped_design
     from alfred_margaret_tpu_torch.models import ac, case_dfa
     from alfred_margaret_tpu_torch.native import build as native_build
     from alfred_margaret_tpu_torch.native.cpp_engine import CppAcEngine
@@ -1675,10 +1694,10 @@ def main() -> int:
          n_live_bytes(st5c), 4 * S,
          n_live_bytes(st5c) * G5),
         ("comb16_contains_grouped", K.comb16_contains_grouped, K.comb16_contains_grouped_plain,
-         (st5d.streams, st5d.vend, y5), "config 5, digits corpus: full scan", need5d, 4 * S,
+         eng5.sticky_args(st5d), "config 5, digits corpus: full scan", need5d, 4 * S,
          need5d * Y5),
         ("comb16_contains_grouped", K.comb16_contains_grouped, K.comb16_contains_grouped_plain,
-         (st5c.streams, st5c.vend, y5), "config 5 corpus: stops at the first match", need5,
+         eng5.sticky_args(st5c), "config 5 corpus: stops at the first match", need5,
          4 * S, need5 * Y5),
         ("comb_count", K.comb_count, K.comb_count_plain, eng3._kernel_args(st3c),
          "config 5, 300 needles", n_live_bytes(st3c), 4 * S, n_live_bytes(st3c)),
@@ -1756,6 +1775,42 @@ def main() -> int:
         n_edge += 1
     print(f"edge shapes: B9 (G = 11, G = 1) and B15 == plain on {n_edge} launches "
           "(S 200 / 1000 / 1040 / 4096, T 20 / 300 / 1000, ragged vend)", flush=True)
+
+    # B11 (config 5's sticky groups, and one alone as on a mesh shard) and
+    # B17 at the same edge shapes and one stream alone, with the plan's
+    # overlap, with none, and on single bytes (overlap 0); every stream
+    # padded (vend 0, zero bytes) too.
+    singles = ac.build([(x, i) for i, x in enumerate(["a", "e", " ", "z"])])
+    y1 = sticky_groups(Comb16AcEngine(singles, device=dev).sticky_tables(), 3)
+    s1_tabs = CombAcEngine(singles, device=dev).full_tables.args()
+    f3 = eng3.full_tables.args()
+    n_edge = 0
+    for T_e, S_e in ((20, 1000), (300, 200), (300, 1040), (1000, 4096), (300, 1)):
+        s_e, _, v_e = edge_streams(T_e, S_e, over5, T_e + S_e + 2)
+        pad = torch.zeros_like(v_e)
+        for label, tabs, over in ((f"G = {Y5}", y5, over5), ("G = 1", y5.group(0), over5),
+                                  ("G = 1, no overlap", y5.group(Y5 - 1), None),
+                                  ("singles, overlap 0", y1, 0),
+                                  ("singles G = 1, overlap 0", y1.group(0), 0)):
+            fn, plain = ((K.comb16_contains_grouped, K.comb16_contains_grouped_plain)
+                         if tabs.n_groups > 1 else
+                         (K.comb16_contains_base, K.comb16_contains_base_plain))
+            for v, pl in ((v_e, ""), (pad, ", every stream padded")):
+                same(fn.__name__, fn(s_e, v, tabs, over), plain(s_e, v, tabs),
+                     f"{label}, edge shape T={T_e} S={S_e}{pl}")
+                n_edge += 1
+        s_e, _, _ = edge_streams(T_e, S_e, over3, T_e * S_e + 3)
+        for label, tabs, over, st_e in (("300 needles", f3, over3, s_e),
+                                        ("300 needles, no overlap", f3, None, s_e),
+                                        ("300 needles, zero bytes", f3, over3,
+                                         torch.zeros_like(s_e)),
+                                        ("singles, overlap 0", s1_tabs, 0, s_e)):
+            same("comb_states", K.comb_states(st_e, *tabs, over), K.comb_states_plain(st_e, *tabs),
+                 f"{label}, edge shape T={T_e} S={S_e}")
+            n_edge += 1
+    print(f"edge shapes: B11 (G = {Y5}, G = 1) and B17 == plain on {n_edge} launches "
+          "(S 1 / 200 / 1000 / 1040 / 4096, T 20 / 300 / 1000, ragged vend, overlap 0, "
+          "every stream padded)", flush=True)
 
     # B8 against B1 on the dense path's 30 needles, which both engines hold.
     comb30 = Comb16AcEngine(m30, device=dev)
@@ -1894,8 +1949,12 @@ def main() -> int:
         if name == "comb16_count_grouped":
             entry.update(groups=G5, ms_turns=b9, ms_per_group_control=b8s,
                          per_group_passes=eng5.n_groups, host_cpp_count_ms=host_count_ms,
-                         design=comb16_count_grouped_design(st5c.streams, f5,
+                         design=comb16_grouped_design(st5c.streams, f5,
                                                             st5c.plan.overlap).as_dict())
+        if name == "comb_states":
+            t3 = eng3.full_tables
+            entry["design"] = comb_count_design(st3c.streams, t3.comb, t3.def_table,
+                                                st3c.plan.overlap).as_dict()
         if name == "comb_count":
             t3 = eng3.tables
             entry["design"] = comb_count_design(st3c.streams, t3.comb, t3.def_table,
@@ -1908,6 +1967,8 @@ def main() -> int:
                 "bound_ms_trap_register"], _ = timings[(name, "IgnoreCase 5 needles, trap register")]
         if name == "comb16_contains_grouped":
             entry["groups"] = Y5
+            entry["design"] = comb16_grouped_design(st5d.streams, y5,
+                                                    st5d.plan.overlap).as_dict()
             entry["ms_first_match"], entry["plain_ms_first_match"], entry[
                 "bound_ms_first_match"], _ = timings[(name, "config 5 corpus: stops at the first match")]
         if name in mesh_sites:  # its launches on the meshes, one shard's launch timed

@@ -763,15 +763,12 @@ def test_b9_matches_plain_at_edge_shapes(cuda, shape):
     of up to 5 (six count ranges) padded near ``MAX_ROWS`` in three groups,
     which needs a block per group."""
     from alfred_margaret_tpu_torch.kernels.comb16_grouped import (
-        comb16_count_grouped_design,
+        comb16_grouped_design,
         comb16_count_grouped_plain,
     )
 
     T, S = shape
-    if "config5" not in _BUILT:  # the grouped build takes ~20 s: once per module
-        m5 = _machine(_config5(1000))
-        _BUILT["config5"] = (m5, GroupedAcEngine(m5, device=cuda, n_streams=1024))
-    m5, eng5 = _BUILT["config5"]
+    m5, eng5 = _config5_engine(cuda)
     f5 = eng5._fused_setup().tables
     nested = _machine(COMB16_SETS["nested"])
     big = _as_groups(Comb16AcEngine(nested, device=cuda, n_streams=1024).tables, 3, rows=46)
@@ -782,7 +779,7 @@ def test_b9_matches_plain_at_edge_shapes(cuda, shape):
         streams, warm, vend = _edge_streams(needles, T, S, K, T * S, cuda)
         want = comb16_count_grouped_plain(streams, warm, vend, tabs)
         assert int(want.sum()) > 0
-        chunk = comb16_count_grouped_design(streams, tabs, K).chunk
+        chunk = comb16_grouped_design(streams, tabs, K).chunk
         if label != "one group":
             assert chunk < tabs.n_groups, (label, chunk)  # several chunks of groups
         before = comb16_count_grouped.launches
@@ -803,9 +800,121 @@ def test_b9_refuses_what_no_block_holds(cuda, monkeypatch):
     nested = _machine(COMB16_SETS["nested"])
     big = _as_groups(Comb16AcEngine(nested, device=cuda, n_streams=1024).tables, 8, rows=46)
     streams, warm, vend = _edge_streams(COMB16_SETS["nested"], 64, 256, 4, 1, cuda)
-    monkeypatch.setattr(comb16_grouped, "comb16_count_grouped_design",
+    monkeypatch.setattr(comb16_grouped, "comb16_grouped_design",
                         lambda *args: Design(1, 8))
     before = comb16_count_grouped.launches
     with pytest.raises(RuntimeError, match="CUDA kernel launch failed"):
         comb16_count_grouped(streams, warm, vend, big, 4)
     assert comb16_count_grouped.launches == before
+
+
+# -- B11 (both modes) and B17's segmented designs at the edge shapes -------------------
+
+#: The edge shapes and one stream alone.
+EDGE_SHAPES_ONE = EDGE_SHAPES + [(300, 1)]
+SINGLES = ["a", "e", " ", "z"]  # overlap 0
+
+
+def _sticky_groups(sticky16, G):
+    """``G`` copies of one comb16 sticky table set as B11's group tables."""
+    from alfred_margaret_tpu_torch.ops.comb16_scan import Comb16GroupTables
+
+    dev = sticky16.comb.device
+
+    def stack(x):
+        return x.unsqueeze(0).expand(G, -1).contiguous()
+
+    gscal = torch.tensor([[sticky16.root_cb, sticky16.absorb]] * G, dtype=torch.int32, device=dev)
+    return Comb16GroupTables(
+        classmap=stack(sticky16.classmap), comb=stack(sticky16.comb), aux=stack(sticky16.aux),
+        root_row=stack(sticky16.root_row), segtable=stack(sticky16.segtable), gscal=gscal,
+        BB=sticky16.BB, owner_mask=sticky16.owner_mask, CB=sticky16.CB, sticky=True)
+
+
+def _config5_engine(cuda):
+    if "config5" not in _BUILT:  # the grouped build takes ~20 s: once per module
+        m5 = _machine(_config5(1000))
+        _BUILT["config5"] = (m5, GroupedAcEngine(m5, device=cuda, n_streams=1024))
+    return _BUILT["config5"]
+
+
+@pytest.mark.parametrize("shape", EDGE_SHAPES_ONE)
+def test_b11_matches_plain_at_edge_shapes(cuda, shape):
+    """B11 as ``comb16_contains_grouped`` launches it and its one-group mode
+    ``comb16_contains_base``, with the plan's overlap (segments and chunks
+    of groups by the rules) and without (one segment), equal the plain
+    versions: config 5's sticky groups, one of them alone (the mesh's S4),
+    and single bytes (overlap 0) in three copies; with every stream padded,
+    no hit and the root bases."""
+    from alfred_margaret_tpu_torch.kernels.comb16_grouped import (
+        comb16_contains_base,
+        comb16_contains_base_plain,
+        comb16_grouped_design,
+    )
+
+    T, S = shape
+    m5, eng5 = _config5_engine(cuda)
+    y5 = eng5._fused_sticky_setup().tables
+    singles = _sticky_groups(
+        Comb16AcEngine(_machine(SINGLES), device=cuda, n_streams=1024).sticky_tables(), 3)
+    cases = [("config 5", y5, m5.max_needle_bytes - 1, _config5(1000)),
+             ("singles", singles, 0, SINGLES)]
+    for label, tabs, K, needles in cases:
+        streams, warm, vend = _edge_streams(needles, T, S, K, T + S + 2, cuda)
+        padded = torch.zeros_like(vend)
+        want = comb16_contains_grouped_plain(streams, vend, tabs)
+        if S > 1:
+            assert 0 < int(want.sum()) < S, label
+        assert comb16_grouped_design(streams, tabs, K).segments >= 1
+        before = comb16_contains_grouped.launches
+        assert torch.equal(comb16_contains_grouped(streams, vend, tabs, K), want), label
+        assert torch.equal(comb16_contains_grouped(streams, vend, tabs), want), label
+        assert not comb16_contains_grouped(streams, padded, tabs, K).any(), label
+        assert comb16_contains_grouped.launches == before + 3
+        with pytest.raises(ValueError):
+            comb16_contains_grouped(streams, vend, tabs, -1)
+        with pytest.raises(ValueError):
+            comb16_contains_grouped(streams.cpu(), vend, tabs, K)
+        assert comb16_contains_grouped.launches == before + 3
+        for g in (0, tabs.n_groups - 1):
+            one = tabs.group(g)
+            want = comb16_contains_base_plain(streams, vend, one)
+            before = comb16_contains_base.launches
+            assert torch.equal(comb16_contains_base(streams, vend, one, K), want), (label, g)
+            assert torch.equal(comb16_contains_base(streams, vend, one), want), (label, g)
+            roots = comb16_contains_base(streams, padded, one, K)
+            assert (roots == int(one.gscal[0, 0])).all(), (label, g)
+            assert comb16_contains_base.launches == before + 3
+            with pytest.raises(ValueError):
+                comb16_contains_base(streams, vend, one, -1)
+            assert comb16_contains_base.launches == before + 3
+
+
+@pytest.mark.parametrize("shape", EDGE_SHAPES_ONE)
+def test_b17_matches_plain_at_edge_shapes(cuda, shape):
+    """B17 as ``comb_states`` launches it, with the plan's overlap (each
+    segment writing its own rows) and without, equals the plain version in
+    every ``[T, S]`` entry; on single bytes with overlap 0, and on a stream
+    block of zero bytes (padding)."""
+    T, S = shape
+    for name, needles in (("n200", COMB32_SETS["n200"]), ("nested", COMB32_SETS["nested"]),
+                          ("nul", COMB32_SETS["nul"]), ("singles", SINGLES)):
+        m = _machine(needles)
+        eng = CombAcEngine(m, device=cuda, n_streams=1024)
+        K = m.max_needle_bytes - 1
+        assert K > 0 or name == "singles"
+        streams, _, _ = _edge_streams(needles, T, S, K, T * S + 3, cuda)
+        tabs = eng.full_tables.args()
+        want = comb_states_plain(streams, *tabs)
+        assert int((want >> 27).sum()) > 0 or S == 1, name
+        before = comb_states.launches
+        assert torch.equal(comb_states(streams, *tabs, K), want), name
+        assert torch.equal(comb_states(streams, *tabs), want), name
+        zero = torch.zeros_like(streams)
+        assert torch.equal(comb_states(zero, *tabs, K), comb_states_plain(zero, *tabs)), name
+        assert comb_states.launches == before + 3
+        with pytest.raises(ValueError):
+            comb_states(streams, *tabs, -1)
+        with pytest.raises(ValueError):
+            comb_states(streams.cpu(), *tabs, K)
+        assert comb_states.launches == before + 3

@@ -137,12 +137,14 @@ B15_CASES = {
     "ignorecase": (CI, 1300, True),
 }
 _B15 = {}
+_B15_STAGED = {}
 
 
-def _b15(name):
-    """(JAX counts, the port's staging, B15's args without the overlap) of a
-    case, built once."""
-    if name not in _B15:
+def b15_case(name):
+    """(JAX engine, its staging, the port's engine, its staging) of a case,
+    built once: the JAX comb32 engine in interpret mode and the port's on
+    the CPU, over the same corpus."""
+    if name not in _B15_STAGED:
         needles, n, composed = B15_CASES[name]
         pairs = [(x, i) for i, x in enumerate(needles)]
         jm, tm = jac.build(pairs), ac.build(pairs)
@@ -161,6 +163,15 @@ def _b15(name):
             text = a.tobytes()
         hay = (text + b"a\x00b" * 3)[:n]
         st, pst = _stage_pair(jeng, eng, hay)
+        _B15_STAGED[name] = (jeng, st, eng, pst)
+    return _B15_STAGED[name]
+
+
+def _b15(name):
+    """(JAX counts, the port's staging, B15's args without the overlap) of a
+    case, built once."""
+    if name not in _B15:
+        jeng, st, eng, pst = b15_case(name)
         T = st.plan.time_len
         want = np.asarray(jeng._get_count_fn(T)(
             jeng._bscal_for(st), jeng._classmap_dev, jeng._comb_dev, jeng._def_dev,
