@@ -1,7 +1,9 @@
 // B9 comb16_count_grouped and B11 comb16_contains_grouped: the fused
-// single-launch comb16 scans over G needle groups, for Hopper; and B11's
-// one-group mode, comb16_contains_base.  One scan serves all three, a
-// compile-time mode of comb16_chunk_kernel.
+// single-launch comb16 scans over G needle groups, for Hopper; B11's
+// one-group mode, comb16_contains_base; and B13, the comb16 step of B6's hit
+// bitmap (matchbits with step "comb16").  One scan serves all four, a
+// compile-time mode of comb16_chunk_kernel: count (B9), sticky-any (B11),
+// sticky-base (B11's one-group mode) and bits (B13, one group).
 //
 // Replace the Pallas TPU kernels alfred_margaret_tpu/ops/comb16_scan.py:
 // _make_c16_count_kernel_dyn (B9, launched from
@@ -27,6 +29,13 @@
 // Every writer stores 1, so the races are benign.
 // B11's one-group mode (sticky-base, G = 1): the same scan, out[s] = the
 // final base.  A stream with vend[s] = 0 keeps the root base.
+// B13 (bits, G = 1), replacing the comb16 step of the Pallas TPU kernel
+// alfred_margaret_tpu/ops/pallas_scan.py:make_matchbits_kernel
+// (comb16_scan.py:_c16_bits_tables): B9's count of one group from the root
+// base `root`, and at every step t bit (t & 31) of bits[(t >> 5) * S + s]
+// set iff the step counts (unmasked, as matchbits.cu's steps).  Its
+// segments are cut at word boundaries and write every word of their own
+// range (stage.cuh word_segment_steps), with no early stop.
 //
 // The design, for Hopper.  With a block per
 // (group, 128 streams), one dependent chain per thread and the bytes read
@@ -77,7 +86,7 @@ constexpr int kRangeSlots = 8;  // a group's count ranges, padded with 2^BB
 
 // The scan's modes (a template parameter: a run-time mode flag alone slows
 // the count, PERF.md section 6).
-enum Mode : int { kCount = 0, kStickyAny = 1, kStickyBase = 2 };
+enum Mode : int { kCount = 0, kStickyAny = 1, kStickyBase = 2, kBits = 3 };
 
 // Shared-memory words of one group's tables: the comb, aux and root
 // entries widened to 32-bit words, entry | (aux centre of its base << 16).
@@ -105,7 +114,10 @@ size_t chunk_smem_bytes(int chunk, int comb_words, int aux_words) {
 // Block (x, y, z) scans streams [128 x, 128 x + 128), segment y, with
 // groups [z * chunk, z * chunk + chunk) (kMaxGc >= chunk), one thread per
 // stream stepping every group of the chunk on each byte.  `warm` and `cbit`
-// are read by the count only; the sticky modes take gscal [G, 2].
+// are read by the count and bits modes only; the sticky modes take gscal
+// [G, 2].  The bits mode (G = 1) takes the root base in `root` and its count
+// ranges in gscal [kC16Ranges] (read into registers, not rng), and writes
+// the words of its segment's own range to `bits`.
 template <int kMaxGc, int kMode>
 __global__ void __launch_bounds__(kThreads) comb16_chunk_kernel(
     const uint8_t* __restrict__ streams, int T, int S, const int32_t* __restrict__ warm,
@@ -113,7 +125,8 @@ __global__ void __launch_bounds__(kThreads) comb16_chunk_kernel(
     const int32_t* __restrict__ comb, int comb_words, const int32_t* __restrict__ aux,
     int aux_words, const int32_t* __restrict__ root_row, const int32_t* __restrict__ segtable,
     const int32_t* __restrict__ gscal, int gscal_width, int bb, int owner_mask, int cbit,
-    int overlap, int segments, int chunk, int tile, int32_t* __restrict__ out) {
+    int overlap, int segments, int chunk, int tile, int32_t* __restrict__ out,
+    int32_t* __restrict__ bits, int root) {
   extern __shared__ __align__(16) uint32_t smem[];
   __shared__ int stop_slot;
   const int g0 = blockIdx.z * chunk;
@@ -145,13 +158,30 @@ __global__ void __launch_bounds__(kThreads) comb16_chunk_kernel(
     rng[i] = r + 1 < gscal_width ? (uint32_t)gscal[(size_t)(g0 + g) * gscal_width + r + 1]
                                  : (1u << bb);
   }
+  // The bits mode's count ranges (gscal holds them), and the count of a step
+  // that took entry e.
+  uint32_t rr[amt::kC16Ranges];
+#pragma unroll
+  for (int r = 0; r < amt::kC16Ranges; ++r)
+    rr[r] = kMode == kBits ? (uint32_t)gscal[r] : (1u << bb);
+  auto count_of = [&](uint32_t e) {
+    uint32_t n = (e >> 15) & 1u;
+#pragma unroll
+    for (int r = 0; r < amt::kC16Ranges; ++r) n += (e & bmask) >= rr[r] ? 1u : 0u;
+    return n;
+  };
   for (int g = 0; g < gc; ++g) {
     uint32_t* tab = gt + g * gw;
     const int32_t* cg = comb + (size_t)(g0 + g) * comb_words;
     const int32_t* ag = aux + (size_t)(g0 + g) * aux_words;
     const int32_t* rg = root_row + (size_t)(g0 + g) * 128;
     const int32_t* sg = segtable + (size_t)(g0 + g) * 128;
-    auto widen = [&](uint32_t e) { return e | ((uint32_t)sg[(e & bmask) >> segshift] << 16); };
+    auto widen = [&](uint32_t e) {
+      const uint32_t w = e | ((uint32_t)sg[(e & bmask) >> segshift] << 16);
+      // The bits mode also carries the entry's count, saturated at 3, in bits
+      // 30-31 (an aux centre is below 2^14: aux holds at most 12288 entries).
+      return kMode == kBits && cbit ? w | (min(count_of(e), 3u) << 30) : w;
+    };
     for (int i = threadIdx.x; i < 2 * comb_words; i += blockDim.x)
       tab[i] = widen(((uint32_t)cg[i >> 1] >> ((i & 1) << 4)) & 0xFFFFu);
     for (int i = threadIdx.x; i < 2 * aux_words; i += blockDim.x)
@@ -160,13 +190,15 @@ __global__ void __launch_bounds__(kThreads) comb16_chunk_kernel(
       tab[2 * comb_words + 2 * aux_words + i] = widen((uint32_t)rg[i] & 0xFFFFu);
   }
 
-  const amt::SegSteps seg = amt::segment_steps(blockIdx.y, segments, T, overlap);
+  const amt::SegSteps seg = kMode == kBits
+                                ? amt::word_segment_steps(blockIdx.y, segments, T, overlap)
+                                : amt::segment_steps(blockIdx.y, segments, T, overlap);
   const int s0 = blockIdx.x * kThreads;
   const int s = s0 + threadIdx.x;
   // The count counts the steps [lo, hi); a sticky scan steps [seg.start, hi)
   // and lowers hi to the step after the one where a group absorbed.
   int lo = INT_MAX, hi = 0;
-  if (kMode == kCount) {
+  if (kMode == kCount || kMode == kBits) {
     if (s < S && cbit) {
       lo = max(seg.lo, warm[s]);
       hi = min(seg.hi, min(vend[s], T));
@@ -175,7 +207,13 @@ __global__ void __launch_bounds__(kThreads) comb16_chunk_kernel(
     lo = seg.start;
     hi = min(seg.hi, min(vend[s], T));
   }
-  const int stop = amt::block_stop(&stop_slot, lo, hi);  // also orders the table loads
+  int stop;
+  if constexpr (kMode == kBits) {
+    stop = seg.hi;  // every word of the own range is written: no early stop
+    __syncthreads();  // the table loads
+  } else {
+    stop = amt::block_stop(&stop_slot, lo, hi);  // also orders the table loads
+  }
 
   const int nr = gscal_width - 1;
   const uint32_t lane = threadIdx.x & 31u;
@@ -186,7 +224,8 @@ __global__ void __launch_bounds__(kThreads) comb16_chunk_kernel(
     cb[g] = cv[g] = 0;
     r0[g] = 1u << bb;
     if (g < gc) {
-      cb[g] = (uint32_t)gscal[(size_t)(g0 + g) * gscal_width] & bmask;
+      cb[g] = (kMode == kBits ? (uint32_t)root : (uint32_t)gscal[(size_t)(g0 + g) * gscal_width]) &
+              bmask;
       cv[g] = (uint32_t)segtable[(size_t)(g0 + g) * 128 + (cb[g] >> segshift)];
       r0[g] = kMode == kCount ? rng[g * kRangeSlots]
                               : (uint32_t)gscal[(size_t)(g0 + g) * gscal_width + 1] & bmask;
@@ -230,6 +269,42 @@ __global__ void __launch_bounds__(kThreads) comb16_chunk_kernel(
           }
         }
       }
+    };
+    amt::staged_scan(tiles, tile, streams, S, s0, seg.start, stop, nullptr, scan);
+    if (count) atomicAdd(out + s, (int32_t)count);
+  } else if constexpr (kMode == kBits) {
+    // B13: the count's group step at every step of the segment, each tile
+    // one word of each stream (word_segment_steps), its bit set where the
+    // step counts; the count as B9's.  Tables with CB = 0 count nothing.
+    const int own = s < S ? seg.lo : INT_MAX;  // the first word this thread stores
+    int32_t* dst = bits + s;
+    if (!cbit) {
+      for (int t0 = own; t0 < seg.hi; t0 += 32) dst[(size_t)(t0 >> 5) * S] = 0;
+      return;
+    }
+    uint32_t count = 0;
+    auto scan = [&](const uint8_t* tile, int t0, int rows) {
+      const uint8_t* col = tile + threadIdx.x;
+      uint32_t word = 0;
+#pragma unroll 2
+      for (int j = 0; j < rows; ++j) {
+        const uint32_t cls = amt::rep_class(cls_tab, col[j * amt::kRowBytes], lane);
+        const uint32_t v1 = gt[cb[0] + cls];
+        const uint32_t v2 = gt[2 * comb_words + cv[0] + cls];
+        const uint32_t vr = gt[2 * comb_words + 2 * aux_words + cls];
+        const bool hit1 = (((v1 & 0xFFFFu) >> bb) & om) == (cb[0] & om);
+        const bool hit2 = (((v2 & 0xFFFFu) >> bb) & om) == (cv[0] & om);
+        const uint32_t v = hit1 ? v1 : (hit2 ? v2 : vr);
+        const uint32_t e = v & 0xFFFFu;
+        cv[0] = (v >> 16) & 0x3FFFu;
+        cb[0] = e & bmask;
+        uint32_t n = v >> 30;
+        if (n == 3u) n = count_of(e);  // three matches or more: rare
+        word |= (n != 0u ? 1u : 0u) << j;
+        const int t = t0 + j;
+        count += (t >= lo && t < hi) ? n : 0u;
+      }
+      if (t0 >= own) dst[(size_t)(t0 >> 5) * S] = (int32_t)word;
     };
     amt::staged_scan(tiles, tile, streams, S, s0, seg.start, stop, nullptr, scan);
     if (count) atomicAdd(out + s, (int32_t)count);
@@ -357,7 +432,7 @@ extern "C" int amt_comb16_count_grouped(const void* streams, int T, int S, const
       (const int32_t*)vend, G, (const int32_t*)classmap, (const int32_t*)comb, comb_words,
       (const int32_t*)aux, aux_words, (const int32_t*)root_row, (const int32_t*)segtable,
       (const int32_t*)gscal, gscal_width, bb, owner_mask, cbit, overlap, segments, chunk,
-      amt::kTile, (int32_t*)out);
+      amt::kTile, (int32_t*)out, (int32_t*)nullptr, 0);
 }
 
 // B11: out int32 [S], zeroed by the caller: 1 where some group's sticky scan
@@ -378,7 +453,7 @@ extern "C" int amt_comb16_contains_grouped(const void* streams, int T, int S, co
       (const int32_t*)vend, G, (const int32_t*)classmap, (const int32_t*)comb, comb_words,
       (const int32_t*)aux, aux_words, (const int32_t*)root_row, (const int32_t*)segtable,
       (const int32_t*)gscal, 2, bb, owner_mask, 0, overlap, segments, chunk, amt::kTile,
-      (int32_t*)out);
+      (int32_t*)out, (int32_t*)nullptr, 0);
 }
 
 // B11's one-group mode: out int32 [S], each stream's final base (filled with
@@ -404,5 +479,30 @@ extern "C" int amt_comb16_contains_base(const void* streams, int T, int S, const
       (const int32_t*)vend, 1, (const int32_t*)classmap, (const int32_t*)comb, comb_words,
       (const int32_t*)aux, aux_words, (const int32_t*)root_row, (const int32_t*)segtable,
       (const int32_t*)gscal, 2, bb, owner_mask, 0, overlap, segments, 1, amt::kTile,
-      (int32_t*)out);
+      (int32_t*)out, (int32_t*)nullptr, 0);
+}
+
+// B13, B6's comb16 step: counts int32 [S], zeroed by the caller; bits int32
+// [T / 32, S] (T % 32 == 0), every word written; the tables of
+// amt_comb16_count (classmap [256], comb, aux, root_row and segtable [128],
+// ranges [kC16Ranges] padded with 2^BB, the field split and the root base).
+// Each stream is cut into `segments` pieces at word boundaries (stage.cuh
+// word_segment_steps).  As amt_comb16_count_grouped otherwise.
+extern "C" int amt_matchbits_comb16(const void* streams, int T, int S, const void* warm,
+                                    const void* vend, const void* classmap, const void* comb,
+                                    int comb_words, const void* aux, int aux_words,
+                                    const void* root_row, const void* segtable,
+                                    const void* ranges, int bb, int owner_mask, int cbit,
+                                    int root_cb, int overlap, int segments, void* counts,
+                                    void* bits, void* stream) {
+  if (T % 32 || !amt::comb16_args_ok(comb_words, aux_words, bb, owner_mask, cbit, root_cb) ||
+      !chunk_args_ok(T, S, 1, comb_words, aux_words, bb, owner_mask, cbit, overlap, segments, 1))
+    return (int)cudaErrorInvalidValue;
+  return launch_chunk<1, kBits>(
+      chunk_grid(S, 1, segments, 1), chunk_smem_bytes(1, comb_words, aux_words),
+      (cudaStream_t)stream, (const uint8_t*)streams, T, S, (const int32_t*)warm,
+      (const int32_t*)vend, 1, (const int32_t*)classmap, (const int32_t*)comb, comb_words,
+      (const int32_t*)aux, aux_words, (const int32_t*)root_row, (const int32_t*)segtable,
+      (const int32_t*)ranges, amt::kC16Ranges, bb, owner_mask, cbit, overlap, segments, 1,
+      amt::kTile, (int32_t*)counts, (int32_t*)bits, root_cb);
 }

@@ -1,6 +1,7 @@
-// Stream staging for the segmented scans B9 and B11 (comb16_grouped.cu),
-// B15 and B17 (comb_scan.cu): a block's tile of stream bytes copied into
-// shared memory ahead of the scan, and the per-segment step ranges.
+// Stream staging for the segmented scans B9, B11 and B13 (comb16_grouped.cu),
+// B15 and B17 (comb_scan.cu) and B6 (matchbits.cu): a block's tile of stream
+// bytes copied into shared memory ahead of the scan, and the per-segment
+// step ranges.
 //
 // A block owns 128 streams [s0, s0 + 128).  Step t of those streams is the
 // contiguous 128-byte run streams[t * S + s0 ...]; a tile of kTile steps is
@@ -22,8 +23,10 @@
 // per stream (B9, B15); a state written for each step of the own range is
 // the stream's (B17); and a sticky scan up to min(p_{i+1}, vend[s]) absorbs
 // iff a needle ends in [0, vend) inside its scanned steps, every match
-// ending in some segment's own range (B11).  kernels/segments.py is the
-// same split.
+// ending in some segment's own range (B11).  The bitmap scans (B6, B13) cut
+// at word boundaries instead (word_segment_steps): each segment writes the
+// words of its own range, every one of them, and counts as B15 does.
+// kernels/segments.py is the same split.
 
 #pragma once
 
@@ -125,6 +128,18 @@ __device__ __forceinline__ SegSteps segment_steps(int i, int segments, int T, in
   const int lo = (int)((long long)i * T / segments);
   const int hi = (int)((long long)(i + 1) * T / segments);
   return SegSteps{max(0, lo - overlap), lo, hi};
+}
+
+// Segment i of the bitmap scans (T % 32 == 0): cut at word boundaries,
+// p_i = 32 * floor(i * (T / 32) / segments), and scanned from
+// max(0, (p_i - overlap) & ~31), so every staged tile of kTile = 32 steps is
+// one bitmap word of every stream and the scan has read at least overlap + 1
+// bytes by step p_i.  An empty own range scans nothing.
+__device__ __forceinline__ SegSteps word_segment_steps(int i, int segments, int T, int overlap) {
+  const int W = T >> 5;
+  const int lo = (int)((long long)i * W / segments) << 5;
+  const int hi = (int)((long long)(i + 1) * W / segments) << 5;
+  return SegSteps{lo < hi ? max(0, (lo - overlap) & ~31) : lo, lo, hi};
 }
 
 // Scan steps [start, stop) of the block's streams tile by tile: each tile of

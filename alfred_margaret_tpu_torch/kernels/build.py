@@ -127,12 +127,14 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.amt_matchbits_dense.argtypes = [
         p, i, i, p, p,  # streams, T, S, warm, vend
         p, p, i, i, i,  # classmap, table, table_words, packing, state_bits
+        i, i,  # overlap, segments
         p, p, p,  # counts, bits, stream
     ]
     lib.amt_matchbits_bitap.restype = i
     lib.amt_matchbits_bitap.argtypes = [
         p, i, i, p, p,  # streams, T, S, warm, vend
         p, p, p, p, p, i,  # btab, seed, endmask, field_bit, field_weight, n_fields
+        i, i,  # overlap, segments
         p, p, p,  # counts, bits, stream
     ]
     comb16 = [
@@ -211,6 +213,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, i, i, p, p,  # streams, T, S, warm, vend
         *comb16, p,  # ..., ranges
         i, i, i, i,  # BB, owner_mask, CB, root_cb
+        i, i,  # overlap, segments
         p, p, p,  # counts, bits, stream
     ]
     lib.amt_filter_contains.restype = i

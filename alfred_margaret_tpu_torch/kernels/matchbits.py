@@ -1,13 +1,15 @@
 """B6 ``matchbits``: exact masked counts and a one-bit-per-position hit
 bitmap in one scan.
 
-Wrapper of ``csrc/matchbits.cu``, which replaces the Pallas kernel
+Replaces the Pallas kernel
 ``alfred_margaret_tpu/ops/pallas_scan.py:make_matchbits_kernel`` with three
-of its step families: the dense packed table (``dense_bits_step_factory``),
-the one-word bitap register (``BitapAcEngine._bits_tables``) and the 16-bit
-three-tier comb (``comb16_scan.py:_c16_bits_tables``, kernel B13).  A CUDA tensor
-launches the kernel; a CPU tensor runs :func:`matchbits_plain`.  Nothing
-falls back from one to the other.
+of its step families: the dense packed table (``dense_bits_step_factory``)
+and the one-word bitap register (``BitapAcEngine._bits_tables``), both in
+``csrc/matchbits.cu``, and the 16-bit three-tier comb
+(``comb16_scan.py:_c16_bits_tables``, kernel B13), the bits mode of
+``csrc/comb16_grouped.cu``'s one-group scan.  A CUDA tensor launches the
+kernel; a CPU tensor runs :func:`matchbits_plain`.  Nothing falls back from
+one to the other.
 
 ``step`` names the family and ``tables`` its tables:
 
@@ -16,6 +18,13 @@ falls back from one to the other.
 * ``"bitap"``: ``(btab, seed, endmask, field_start, field_bit,
   field_weight)`` of a one-word layout, as for ``bitap_count``;
 * ``"comb16"``: ``Comb16Tables.args()``, as for ``comb16_count``.
+
+With the stream plan's ``overlap`` the kernels cut each stream into segments
+at word boundaries (``kernels/segments.py:bits_over_segments``): a block
+scans 128 streams of one segment, bytes staged a tile of 32 steps ahead, each
+tile one bitmap word.  What bounds them on the card is the shared-memory
+pipe (a staged byte and one table load per step; the comb16 step three),
+against the corpus bytes and the bitmap's words (17.3 MB at 128 MiB).
 """
 
 from __future__ import annotations
@@ -23,12 +32,17 @@ from __future__ import annotations
 import torch
 
 from .comb16 import Plain16, check_comb16
-from .common import check_streams, check_tables, launch, on_cpu
+from .common import check_overlap, check_streams, check_tables, launch, on_cpu
 from .dense_count import check_dense, lookup_plain
-
-#: Count fields of the one-word bitap step (kMaxWordFields in the .cu): one
-#: per track bit of a word.
-MAX_WORD_FIELDS = 30
+from .segments import (
+    MAX_WORD_FIELDS,
+    Design,
+    bitap_bits_smem_bytes,
+    bits_design,
+    chunk_smem_bytes,
+    dense_bits_smem_bytes,
+    sm_count,
+)
 
 
 def _check(streams, warm, vend, step, tables):
@@ -59,10 +73,11 @@ def _to_int32(x):
     return torch.where(x >= (1 << 31), x - (1 << 32), x).to(torch.int32)
 
 
-def matchbits_plain(streams, warm, vend, step: str, *tables):
+def matchbits_plain(streams, warm, vend, step: str, *tables, overlap=None):
     """Plain torch version of the kernel: one step of the family per time
     step, its count ``cnt`` added where ``warm <= t < vend`` and bit
-    ``t % 32`` of word ``t // 32`` set where ``cnt > 0`` (at every t)."""
+    ``t % 32`` of word ``t // 32`` set where ``cnt > 0`` (at every t).
+    (``overlap`` only lets the kernel cut the streams into segments.)"""
     T, S = streams.shape
     dev = streams.device
     carry = torch.zeros(S, dtype=torch.int64, device=dev)
@@ -99,7 +114,21 @@ def matchbits_plain(streams, warm, vend, step: str, *tables):
     return counts.to(torch.int32), _to_int32(bits)
 
 
-def matchbits(streams, warm, vend, step: str, *tables):
+def matchbits_design(streams, step: str, *tables, overlap=None) -> Design:
+    """The segments ``matchbits`` cuts these CUDA streams into for ``step``
+    and its tables (the rule of ``kernels/segments.py:bits_design``, with
+    the kernel's shared memory)."""
+    T, S = streams.shape
+    if step == "dense":
+        smem = dense_bits_smem_bytes(tables[1].numel())
+    elif step == "bitap":
+        smem = bitap_bits_smem_bytes()
+    else:
+        smem = chunk_smem_bytes(1, tables[1].numel(), tables[2].numel())
+    return bits_design(S, T, overlap, smem, sm_count(streams.device))
+
+
+def matchbits(streams, warm, vend, step: str, *tables, overlap=None):
     """``(counts, bits)`` of ``streams`` ([T, S] uint8, ``T % 32 == 0``),
     scanned from the root with the ``step`` family:
 
@@ -109,15 +138,20 @@ def matchbits(streams, warm, vend, step: str, *tables):
       match ends at ``t = 32 w + j``, unmasked, so warm-up duplicates and
       (for machines that are not zero-inert) pad hits are in it; the host
       expansion drops them.
+
+    With the stream plan's ``overlap`` the kernel may cut each stream into
+    segments; without, it scans each whole.
     """
     _check(streams, warm, vend, step, tables)
+    check_overlap(overlap)
     if on_cpu(streams):
         return matchbits_plain(streams, warm, vend, step, *tables)
     T, S = streams.shape
-    counts = torch.empty(S, dtype=torch.int32, device=streams.device)
+    d = matchbits_design(streams, step, *tables, overlap=overlap)
+    counts = torch.zeros(S, dtype=torch.int32, device=streams.device)
     bits = torch.empty(T // 32, S, dtype=torch.int32, device=streams.device)
     ptrs = (streams.data_ptr(), T, S, warm.data_ptr(), vend.data_ptr())
-    outs = (counts.data_ptr(), bits.data_ptr())
+    outs = (overlap or 0, d.segments, counts.data_ptr(), bits.data_ptr())
     if step == "dense":
         classmap, table, packing, state_bits = tables
         launch("amt_matchbits_dense", streams.device, *ptrs,
@@ -143,4 +177,4 @@ def matchbits(streams, warm, vend, step: str, *tables):
 matchbits.launches = 0
 matchbits.launches_by_step = {"dense": 0, "bitap": 0, "comb16": 0}
 
-__all__ = ["matchbits", "matchbits_plain"]
+__all__ = ["matchbits", "matchbits_design", "matchbits_plain"]

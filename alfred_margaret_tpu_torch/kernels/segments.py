@@ -1,6 +1,7 @@
-"""The schedule of the segmented scans B9, B11, B15 and B17: how each
-stream is cut into segments and how the groups of B9 and B11 are cut into
-chunks, the two numbers each launch takes from its shapes.
+"""The schedule of the segmented scans B9, B11, B15, B17 and the bitmap
+scans B6 and B13: how each stream is cut into segments and how the groups
+of B9 and B11 are cut into chunks, the two numbers each launch takes from
+its shapes.
 
 ``csrc/stage.cuh`` runs the same split on the card.  Segment i of ``k``
 covers the steps ``[p_i, p_{i+1})``, ``p_i = i * T // k``; it scans from the
@@ -20,7 +21,11 @@ between the streams of the plan.  So, per stream:
   reached it, else the base of the segment whose own range holds step
   ``vend[s] - 1``, else (``vend`` 0) the root's (:func:`combine_bases`);
 * the states (B17) are each segment's rows of its own range
-  (:func:`stitch_segments`).
+  (:func:`stitch_segments`);
+* the bitmap scans (B6, B13) cut at word boundaries instead
+  (:func:`word_segment_schedule`): each segment's count is summed as B15's
+  and the bitmap is each segment's words of its own range
+  (:func:`bits_over_segments`).
 
 Without an overlap (``None``) a stream is one segment.  Nothing here needs a
 card: the CPU tests run the plain versions over these schedules, and the
@@ -53,7 +58,7 @@ MAX_BLOCKS_PER_SM = 16  # 2048 threads / 128
 
 @dataclass(frozen=True)
 class Design:
-    """What a launch of B9, B11, B15 or B17 takes from its shapes:
+    """What a launch of B6, B9, B11, B13, B15 or B17 takes from its shapes:
     ``segments`` pieces per stream and ``chunk`` groups per block (B9,
     B11)."""
 
@@ -157,6 +162,43 @@ def stitch_segments(plain: Callable, streams, *tables, overlap: int, segments: i
     return out
 
 
+def word_segment_schedule(T: int, segments: int, overlap: int) -> List[Tuple[int, int, int]]:
+    """``(scan start, first step of its own range, stop)`` of each segment
+    of a bitmap scan over ``T`` steps (``T % 32 == 0``): cut at the words
+    ``p_i = 32 * (i * (T // 32) // segments)``, scanned from ``max(0, (p_i -
+    overlap) & ~31)`` so that every 32-step tile is one word (an empty own
+    range scans nothing); ``stage.cuh``'s ``word_segment_steps``."""
+    W = T // 32
+    out = []
+    for i in range(segments):
+        lo, hi = 32 * (i * W // segments), 32 * ((i + 1) * W // segments)
+        out.append((max(0, (lo - overlap) & ~31) if lo < hi else lo, lo, hi))
+    return out
+
+
+def bits_over_segments(plain: Callable, streams, warm, vend, step: str, *tables, overlap: int,
+                       segments: int):
+    """``(counts int32 [S], bits int32 [T / 32, S])``: the bitmap kernel's
+    plain version ``plain(streams, warm, vend, step, *tables)`` run over each
+    segment of :func:`word_segment_schedule` from its scan start (its warm
+    and vend moved into the slice), the counts summed per stream and each
+    segment keeping the words of its own range: what the segmented B6 and B13
+    compute."""
+    T, S = streams.shape
+    warm, vend = warm.long(), vend.long()
+    counts = torch.zeros(S, dtype=torch.int64, device=streams.device)
+    bits = torch.empty(T // 32, S, dtype=torch.int32, device=streams.device)
+    for start, lo, hi in word_segment_schedule(T, segments, overlap):
+        if hi == lo:
+            continue
+        w = (torch.clamp(warm, min=lo) - start).to(torch.int32)
+        v = (torch.clamp(vend, max=hi) - start).clamp(min=0).to(torch.int32)
+        c, b = plain(streams[start:hi].contiguous(), w, v, step, *tables)
+        counts += c.long()
+        bits[lo // 32:hi // 32] = b[(lo - start) // 32:]
+    return counts.to(torch.int32), bits
+
+
 def group_chunks(G: int, chunk: int) -> List[Tuple[int, int]]:
     """The ``[g0, g1)`` group ranges of B9's blocks."""
     return [(g0, min(G, g0 + chunk)) for g0 in range(0, G, chunk)]
@@ -176,6 +218,22 @@ def chunk_smem_bytes(chunk: int, comb_words: int, aux_words: int) -> int:
     group = 2 * comb_words + 2 * aux_words + 128
     words = (cls + chunk * (RANGE_SLOTS + group) + 3) & ~3
     return 4 * words + 2 * T_TILE * BLOCK_STREAMS
+
+
+#: kMaxWordFields of ``csrc/matchbits.cu``: the bitap step's count fields.
+MAX_WORD_FIELDS = 30
+
+
+def dense_bits_smem_bytes(table_words: int) -> int:
+    """B6's dense step (``matchbits.cu``): the replicated class map and the
+    packed table, then two tiles."""
+    return 4 * ((REP_WORDS + table_words + 3) & ~3) + 2 * T_TILE * BLOCK_STREAMS
+
+
+def bitap_bits_smem_bytes() -> int:
+    """B6's bitap step: the 256-word mask table and the count fields, then
+    two tiles."""
+    return 4 * ((256 + 2 * MAX_WORD_FIELDS + 3) & ~3) + 2 * T_TILE * BLOCK_STREAMS
 
 
 def pick_chunk(G: int, comb_words: int, aux_words: int) -> int:
@@ -236,15 +294,26 @@ def grouped_design(S: int, T: int, overlap: Optional[int], G: int, comb_words: i
     return Design(pick_segments(S, T, overlap, smem, n_sm, n_chunks=-(-G // chunk)), chunk)
 
 
+def bits_design(S: int, T: int, overlap: Optional[int], smem: int, n_sm: int) -> Design:
+    """B6's and B13's launch for ``S`` streams of ``T`` steps on ``n_sm`` SMs
+    with ``smem`` bytes of shared memory a block: ``pick_segments``, at most
+    one segment a word."""
+    return Design(max(1, min(pick_segments(S, T, overlap, smem, n_sm), T // 32)))
+
+
 __all__ = [
     "Design",
     "T_TILE",
     "any_over_segments",
     "base_over_segments",
+    "bitap_bits_smem_bytes",
+    "bits_design",
+    "bits_over_segments",
     "chunk_smem_bytes",
     "combine_bases",
     "comb_design",
     "comb_smem_bytes",
+    "dense_bits_smem_bytes",
     "group_chunks",
     "grouped_design",
     "pick_chunk",
@@ -253,4 +322,5 @@ __all__ = [
     "segment_schedule",
     "sm_count",
     "stitch_segments",
+    "word_segment_schedule",
 ]

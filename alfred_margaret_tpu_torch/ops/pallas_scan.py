@@ -467,7 +467,8 @@ class DenseAcEngine:
         """(end positions ascending, entered states) of every match, int64.
 
         Where the staging holds its host corpus and ``t_tile`` is a multiple
-        of 32, one B6 scan writes the hit bitmap; ``torch.nonzero`` over its
+        of 32, one B6 scan (cut into segments by the staging's overlap)
+        writes the hit bitmap; ``torch.nonzero`` over its
         words and a gather of the non-zero words run on the device, and their
         indices and values come to the host in one copy.  The host expands
         the bits to positions inside each stream's ``[warm, vend)`` and
@@ -477,7 +478,7 @@ class DenseAcEngine:
         """
         if st.data_np is None or self.t_tile % 32:
             return self.match_positions_packed(st)
-        _, bits = matchbits(*self.bits_args(st))
+        _, bits = matchbits(*self.bits_args(st), overlap=st.plan.overlap)
         S = bits.shape[1]
         flat = bits.reshape(-1)
         gi = torch.nonzero(flat).squeeze(1)

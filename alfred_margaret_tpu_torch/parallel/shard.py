@@ -461,57 +461,59 @@ class DistributedAcEngine:
 
     def shard_call(self, step: str, staged: StagedMeshCorpus, i: int, g: int, dev,
                    use_bitap: bool = True):
-        """``(kernel, args)`` of one shard's launch: ``step`` is ``"count"``,
-        ``"sticky"``, ``"states"`` or ``"bits"``, on stream block ``i``, needle
-        group ``g``, device ``dev``.  ``PLAIN[kernel](*args)`` is the same
-        function by the kernel's plain version.  The ``xla`` inner has no
-        kernel: ``(None, ...)``."""
+        """``(kernel, args, kw)`` of one shard's launch: ``step`` is
+        ``"count"``, ``"sticky"``, ``"states"`` or ``"bits"``, on stream block
+        ``i``, needle group ``g``, device ``dev``; the launch is
+        ``kernel(*args, **kw)`` (``kw`` holds B6's ``overlap``, the others
+        take theirs in ``args``), and ``PLAIN[kernel](*args, **kw)`` is the
+        same function by the kernel's plain version.  The ``xla`` inner has
+        no kernel: ``(None, ..., {})``."""
         blk = staged.blocks[(i, dev)]
         if step == "count":
             route = self.count_route(use_bitap)
             if route == "xla":
-                return None, (*self._xla_tables(g, dev), blk.streams, blk.warm, blk.vend)
+                return None, (*self._xla_tables(g, dev), blk.streams, blk.warm, blk.vend), {}
             if route == "bitap":
                 t = self._bitap(dev)
                 args = (blk.streams, t.btab, t.seed, t.endmask, t.field_start, t.field_bit,
                         t.field_weight, blk.warm)
-                return bitap_count, args if t.trapmask is None else (*args, t.trapmask)
+                return bitap_count, args if t.trapmask is None else (*args, t.trapmask), {}
             if route == "comb16":
                 tabs = self._cached("c16", g, dev, lambda: self._c16g.group(g, dev))
                 return comb16_count_grouped, (blk.streams, blk.warm, blk.vend, tabs,
-                                              staged.plan.overlap)
+                                              staged.plan.overlap), {}
             t = self._dense(g, dev)
             return dense_count, (blk.streams, t.classmap, t.table, blk.warm, blk.vend,
-                                 t.packing, t.state_bits)
+                                 t.packing, t.state_bits), {}
         if step == "sticky":
             route = self.sticky_route(use_bitap)
             if route == "bitap":
                 t = self._bitap(dev)
                 args = (blk.streams, t.btab, t.seed, t.endmask)
-                return bitap_contains, args if t.trapmask is None else (*args, t.trapmask)
+                return bitap_contains, args if t.trapmask is None else (*args, t.trapmask), {}
             if route == "comb16":
                 tabs = self._cached("s16", g, dev, lambda: self._sticky16_tables().group(g, dev))
-                return comb16_contains_base, (blk.streams, blk.vend, tabs, staged.plan.overlap)
+                return comb16_contains_base, (blk.streams, blk.vend, tabs, staged.plan.overlap), {}
             if route == "dense":
                 t = self._sticky(g, dev)
                 return dense_contains, (blk.streams, t.classmap, t.table, blk.vend, t.packing,
-                                        t.state_bits, t.absorb)
+                                        t.state_bits, t.absorb), {}
             raise ValueError("the xla inner has no sticky step")
         if step == "states":
             if self.inner != "pallas":
-                return None, (self._xla_tables(g, dev)[0], blk.streams)
+                return None, (self._xla_tables(g, dev)[0], blk.streams), {}
             t = self._dense(g, dev)
-            return dense_states, (blk.streams, t.classmap, t.table, t.packing, t.state_bits)
+            return dense_states, (blk.streams, t.classmap, t.table, t.packing, t.state_bits), {}
         if step == "bits":
             t = self._dense(g, dev)
             return matchbits, (blk.streams, blk.warm, blk.vend, "dense", t.classmap, t.table,
-                               t.packing, t.state_bits)
+                               t.packing, t.state_bits), {"overlap": staged.plan.overlap}
         raise ValueError(f"unknown step {step!r}")
 
     def _launch(self, step, staged, i, g, dev, use_bitap=True):
-        kernel, args = self.shard_call(step, staged, i, g, dev, use_bitap)
+        kernel, args, kw = self.shard_call(step, staged, i, g, dev, use_bitap)
         if kernel is not None:
-            return kernel(*args)
+            return kernel(*args, **kw)
         return local_scan_counts(*args) if step == "count" else local_scan_states(*args)
 
     def _blocks_range(self, staged, i: int) -> Tuple[int, int]:

@@ -92,7 +92,12 @@ just after (the controls' launches are read apart), the first seven over
   on one shard and timed there.
 
 Every answer must equal the host C++ engine's (and the control's), and every
-kernel of a path must have been launched by it.  Last it times every kernel
+kernel of a path must have been launched by it.  The segmented kernels (B6
+with its dense and bitap steps, B9, B11 in both modes, B13, B15 and B17) are
+also held against their plain versions at ragged edge shapes: one stream, S
+not a multiple of 128 or of 16, T of one tile or word, ragged warm-ups and
+vends, with the plan's overlap, with none and with every stream padded.
+Last it times every kernel
 (the trap parts on the IgnoreCase bench staging, with an embedded trap and
 with a trap register) and its plain version with CUDA events, B8 against B1 on one 30-needle
 set that both engines hold, and B9 against the per-group B15 and B8 passes
@@ -223,6 +228,7 @@ def mesh_phase(h):
     from alfred_margaret_tpu_torch.bench.dataformat import synth_corpus
     from alfred_margaret_tpu_torch.parallel import DistributedAcEngine, init_distributed, make_mesh
     from alfred_margaret_tpu_torch.kernels.comb16_grouped import comb16_grouped_design
+    from alfred_margaret_tpu_torch.kernels.matchbits import matchbits_design
     from alfred_margaret_tpu_torch.parallel.shard import PLAIN
 
     dev, card = h.dev, h.card
@@ -437,10 +443,10 @@ def mesh_phase(h):
             ("dense_states", ec2, s16, "states", "config 2, 16 MiB", 1),
             ("matchbits", eb, sb, "bits", "bench needles, dense step", 1)):
         i, g, d = eng.shards()[0]
-        kernel, args = eng.shard_call(step, sst, i, g, d)
+        kernel, args, kw = eng.shard_call(step, sst, i, g, d)
         check(kernel.__name__ == name.replace("_trap", ""), f"{name}: shard 0 runs {kernel}")
         plain = PLAIN[kernel]
-        k, p = kernel(*args), plain(*args)
+        k, p = kernel(*args, **kw), plain(*args, **kw)
         for a, b in zip(k if isinstance(k, tuple) else (k,), p if isinstance(p, tuple) else (p,)):
             h.same(name, a, b, f"mesh {what}, shard 0")
         T, SL = sst.plan.time_len, sst.plan.n_streams // eng.n_stream_shards
@@ -451,8 +457,8 @@ def mesh_phase(h):
             sbytes = live_bytes(eng, sst)
             ops = sbytes * words
             obytes = 4 * SL * (2 if name.endswith("_trap") else 1)
-        ms = h.timed(lambda: kernel(*args), KERNEL_RUNS)
-        plain_ms = h.timed(lambda: plain(*args), PLAIN_RUNS)
+        ms = h.timed(lambda: kernel(*args, **kw), KERNEL_RUNS)
+        plain_ms = h.timed(lambda: plain(*args, **kw), PLAIN_RUNS)
         bms, by = h.bound(sbytes, obytes + h.table_bytes(args), ops)
         site, line = MESH_SITES[name]
         sites[name] = {"site": site, "replaces": f"alfred_margaret_tpu/parallel/shard.py:{line}",
@@ -462,6 +468,8 @@ def mesh_phase(h):
             sites[name]["design"] = comb16_grouped_design(args[0], args[3], args[4]).as_dict()
         if name == "comb16_contains_base":  # S4: B11's one-group design
             sites[name]["design"] = comb16_grouped_design(args[0], args[2], args[3]).as_dict()
+        if name == "matchbits":  # S8: B6's dense step on the shard's streams
+            sites[name]["design"] = matchbits_design(args[0], *args[3:], **kw).as_dict()
         print(f"time mesh {site} {name:22s} {what:36s} {ms:10.4f} ms per shard launch "
               f"[T, S_local] = [{T}, {SL}], plain {plain_ms:.1f} ms, bound {bms:.4f} ms by {by} "
               f"({ms / bms:.1f}x; {card})", flush=True)
@@ -485,6 +493,7 @@ def main() -> int:
     from alfred_margaret_tpu_torch.kernels import build
     from alfred_margaret_tpu_torch.kernels.comb import comb_count_design
     from alfred_margaret_tpu_torch.kernels.comb16_grouped import comb16_grouped_design
+    from alfred_margaret_tpu_torch.kernels.matchbits import matchbits_design
     from alfred_margaret_tpu_torch.models import ac, case_dfa
     from alfred_margaret_tpu_torch.native import build as native_build
     from alfred_margaret_tpu_torch.native.cpp_engine import CppAcEngine
@@ -567,7 +576,7 @@ def main() -> int:
             same("dense_contains", torch.cat(parts), whole, label + ", K=4 segments")
         args = eng.bits_args(st)
         name = "matchbits_comb16" if args[3] == "comb16" else "matchbits"
-        counts, bits = K.matchbits(*args)
+        counts, bits = K.matchbits(*args, overlap=st.plan.overlap)
         pcounts, pbits = K.matchbits_plain(*args)
         same(name, counts, pcounts, label + " counts")
         same(name, bits, pbits, label + " bitmap")
@@ -1603,7 +1612,7 @@ def main() -> int:
             t = torch.argmax(hit.int(), dim=0)  # first hit (0 when none)
             return torch.where(hit.any(0) & (t < vend), t + 1, vend).clamp(
                 max=sst.plan.time_len)
-        _, bits = K.matchbits(*bits_eng.bits_args(sst))
+        _, bits = K.matchbits(*bits_eng.bits_args(sst), overlap=sst.plan.overlap)
         w = bits.long() & 0xFFFFFFFF  # [T/32, S]
         nz = w != 0
         word = torch.argmax(nz.int(), dim=0)  # first non-zero word (0 when none)
@@ -1649,6 +1658,11 @@ def main() -> int:
     need3 = int(first_hit_steps(eng3, st3c).sum())
     need3d = int(first_hit_steps(eng3, st3d).sum())
     T3 = st3c.plan.time_len
+    def bits_kernel(sst):
+        """B6 (B13) as the extraction launches it on ``sst``: with its plan's
+        overlap."""
+        return lambda *a: K.matchbits(*a, overlap=sst.plan.overlap)
+
     # (name, kernel, plain, args, what, stream bytes the function needs,
     #  output bytes, operations: one 32-bit state update per byte and word)
     timings = {}
@@ -1669,9 +1683,9 @@ def main() -> int:
         ("bitap_presence", K.bitap_presence, K.bitap_presence_plain,
          bitap_eng.sticky_bitap_args(st), "bench needles", n_live_bytes(st),
          4 * S * bitap_eng.bitap.n_words, n_live_bytes(st) * bitap_eng.bitap.n_words),
-        ("matchbits", K.matchbits, K.matchbits_plain, bitap_eng.bits_args(st),
+        ("matchbits", bits_kernel(st), K.matchbits_plain, bitap_eng.bits_args(st),
          "bench needles, bitap step", T * S, 4 * S + T // 32 * S * 4, T * S),
-        ("matchbits", K.matchbits, K.matchbits_plain, dense_eng.bits_args(st),
+        ("matchbits", bits_kernel(st), K.matchbits_plain, dense_eng.bits_args(st),
          "bench needles, dense step", T * S, 4 * S + T // 32 * S * 4, T * S),
         ("comb16_count", K.comb16_count, K.comb16_count_plain, eng2._kernel_args(st_c2),
          "config 2", n_live_bytes(st_c2), 4 * S, n_live_bytes(st_c2)),
@@ -1681,7 +1695,7 @@ def main() -> int:
         ("comb16_contains", K.comb16_contains, K.comb16_contains_plain,
          eng2.sticky_args(st_c2), "config 2 corpus: stops at the first match", need_c2, 4 * S,
          need_c2),
-        ("matchbits_comb16", K.matchbits, K.matchbits_plain, eng2.bits_args(st_c2),
+        ("matchbits_comb16", bits_kernel(st_c2), K.matchbits_plain, eng2.bits_args(st_c2),
          "config 2, comb16 step", T2 * S, 4 * S + T2 // 32 * S * 4, T2 * S),
         ("filter_contains", K.filter_contains, K.filter_contains_plain,
          (st_c2.streams, st_c2.vend, *eng2._filter_tables.args()), "config 2",
@@ -1746,10 +1760,10 @@ def main() -> int:
     edge_src = np.frombuffer(synth_corpus(config5_needles(1000)[:300], 1 << 20,
                                           hit_fraction=0.05, seed=5), np.uint8)
 
-    def edge_streams(T_e, S_e, K_e, seed):
+    def edge_streams(T_e, S_e, K_e, seed, src=edge_src):
         rng = np.random.default_rng(seed)
-        off = rng.integers(0, len(edge_src) - T_e, S_e)
-        win = np.ascontiguousarray(edge_src[off[None, :] + np.arange(T_e)[:, None]])
+        off = rng.integers(0, len(src) - T_e, S_e)
+        win = np.ascontiguousarray(src[off[None, :] + np.arange(T_e)[:, None]])
         vend_e = rng.integers(0, T_e + 1, S_e)
         vend_e[rng.random(S_e) < 0.1] = 0
 
@@ -1812,6 +1826,41 @@ def main() -> int:
           "(S 1 / 200 / 1000 / 1040 / 4096, T 20 / 300 / 1000, ragged vend, overlap 0, "
           "every stream padded)", flush=True)
 
+    # B6 (dense and bitap steps) and B13 at the edge shapes of their redesign
+    # (one stream, S not a multiple of 128 or of 16, one word), with ragged
+    # warm-ups and vends, with the plan's overlap and with none, and with
+    # every stream padded.  Each launch's bitmap lands on memory filled with
+    # ones just before (the caching allocator hands the freed blocks on), so
+    # a word no segment writes would show.
+    def poison(*shapes):
+        for shape in shapes:
+            torch.full(shape, -1, dtype=torch.int32, device=dev)
+
+    n_edge = 0
+    for T_e in (32, 320, 1024):
+        for S_e in (1, 200, 1000, 1040, 4096):
+            for label, eng_b, st_b, src in (("bench needles, dense step", dense_eng, st, data),
+                                            ("bench needles, bitap step", bitap_eng, st, data),
+                                            ("config 2, comb16 step", eng2, st_c2, data2)):
+                s_e, w_e, v_e = edge_streams(T_e, S_e, 8, 7 * T_e + S_e, src)
+                z_e, pad = torch.zeros_like(s_e), torch.zeros_like(v_e)
+                targs = eng_b.bits_args(st_b)[3:]
+                name = "matchbits_comb16" if targs[0] == "comb16" else "matchbits"
+                want = K.matchbits_plain(s_e, w_e, v_e, *targs)
+                want_pad = K.matchbits_plain(z_e, w_e, pad, *targs)
+                for streams_e, vend_e, over, ref, how in (
+                        (s_e, v_e, st_b.plan.overlap, want, "plan's overlap"),
+                        (s_e, v_e, None, want, "no overlap"),
+                        (z_e, pad, st_b.plan.overlap, want_pad, "every stream padded")):
+                    poison((S_e,), (T_e // 32, S_e))
+                    got = K.matchbits(streams_e, w_e, vend_e, *targs, overlap=over)
+                    for a, b, part in zip(got, ref, ("counts", "bitmap")):
+                        same(name, a, b, f"{label}, {how}, edge shape T={T_e} S={S_e} {part}")
+                    n_edge += 1
+    print(f"edge shapes: B6 (dense, bitap steps) and B13 == plain on {n_edge} launches "
+          "(S 1 / 200 / 1000 / 1040 / 4096, T 32 / 320 / 1024, ragged warm and vend, the "
+          "plan's overlap, none, every stream padded)", flush=True)
+
     # B8 against B1 on the dense path's 30 needles, which both engines hold.
     comb30 = Comb16AcEngine(m30, device=dev)
     st30 = staged30.device
@@ -1847,7 +1896,7 @@ def main() -> int:
           f"per-group, per-group, B9; {card}); host C++ count {host_count_ms:.1f} ms host clock")
 
     # The extraction path's stages after the B6 kernel (bitap step).
-    _, bits = K.matchbits(*bitap_eng.bits_args(st))
+    _, bits = K.matchbits(*bitap_eng.bits_args(st), overlap=st.plan.overlap)
     flat = bits.reshape(-1)
 
     def compact():
@@ -1895,7 +1944,7 @@ def main() -> int:
         "comb16_count": ("comb16_scan.cu", "comb16_scan.py:610", "config 2"),
         "comb16_contains": ("comb16_scan.cu", "comb16_scan.py:860",
                             "config 2, digits corpus: full scan"),
-        "matchbits_comb16": ("matchbits.cu", "comb16_scan.py:1382", "config 2, comb16 step"),
+        "matchbits_comb16": ("comb16_grouped.cu", "comb16_scan.py:1382", "config 2, comb16 step"),
         "filter_contains": ("filter_contains.cu", "filter_scan.py:191", "config 2"),
         "comb16_count_grouped": ("comb16_grouped.cu", "comb16_scan.py:682", "config 5"),
         "comb16_contains_grouped": ("comb16_grouped.cu", "comb16_scan.py:778",
@@ -1938,6 +1987,14 @@ def main() -> int:
         if name == "matchbits":
             entry["ms_dense_step"], entry["plain_ms_dense_step"], _, _ = timings[
                 (name, "bench needles, dense step")]
+            entry["design"] = matchbits_design(st.streams, *bitap_eng.bits_args(st)[3:],
+                                               overlap=st.plan.overlap).as_dict()
+            entry["design_dense_step"] = matchbits_design(
+                st.streams, *dense_eng.bits_args(st)[3:], overlap=st.plan.overlap).as_dict()
+            entry["ms_s8"] = mesh_sites["matchbits"]["ms"]  # the dense step on a shard
+        if name == "matchbits_comb16":
+            entry["design"] = matchbits_design(st_c2.streams, *eng2.bits_args(st_c2)[3:],
+                                               overlap=st_c2.plan.overlap).as_dict()
         if name == "comb16_contains":
             entry["ms_first_match"], entry["plain_ms_first_match"], entry[
                 "bound_ms_first_match"], _ = timings[(name, "config 2 corpus: stops at the first match")]

@@ -56,6 +56,7 @@ from alfred_margaret_tpu_torch.kernels import (
     matchbits,
     matchbits_plain,
 )
+from alfred_margaret_tpu_torch.kernels.matchbits import matchbits_design
 from alfred_margaret_tpu_torch.models import ac
 from alfred_margaret_tpu_torch.native.cpp_engine import CppAcEngine
 from alfred_margaret_tpu_torch.ops.bitap_scan import BitapAcEngine, plan_bitap
@@ -202,22 +203,34 @@ def test_bitap_sticky_kernels_match_plain(cuda, needles, n_streams):
 
 @pytest.mark.parametrize("kind,needles", [
     ("bitap", NEEDLES3), ("bitap", ["x", "x", "yy", "x"]), ("bitap", TWO_WORDS),
-    ("dense", NEEDLES3), ("dense", PACK30), ("dense", NUL),
+    ("dense", NEEDLES3), ("dense", PACK30), ("dense", NUL), ("comb16", "config 2"),
 ])
 @pytest.mark.parametrize("n_streams", [1024, 1000])
 def test_matchbits_matches_plain(cuda, kind, needles, n_streams):
+    """B6 (dense and bitap steps) and B13 (comb16 step), with the stream
+    plan's overlap (in segments) and without (one segment), equal the plain
+    version in every count and every bitmap word; the words of the bitmap
+    land on memory filled with ones first, so a word no segment writes would
+    show."""
+    needles = CONFIG2 if needles == "config 2" else needles
     m = _machine(needles)
     data = np.frombuffer(synth_corpus(needles, 1 << 18, hit_fraction=0.03, seed=7), np.uint8)
-    cls = BitapAcEngine if kind == "bitap" else DenseAcEngine
+    cls = {"bitap": BitapAcEngine, "dense": DenseAcEngine, "comb16": Comb16AcEngine}[kind]
     eng = cls(m, device=cuda, n_streams=n_streams)
     st = eng.stage(data)
     args = eng.bits_args(st)
-    counts, bits = matchbits(*args)
-    torch.cuda.synchronize()
+    assert args[3] == ("dense" if kind == "bitap" and eng.bitap.n_words > 1 else kind)
     pc, pb = matchbits_plain(*args)
-    live = torch.from_numpy(st.live_np).to(cuda)
-    assert torch.equal(counts[live], pc[live])
-    assert torch.equal(bits, pb)
+    for overlap in (st.plan.overlap, None):
+        d = matchbits_design(st.streams, *args[3:], overlap=overlap)
+        assert d.segments == 1 if overlap is None else d.segments > 1
+        del d
+        # Freed at once: the caching allocator hands these blocks to counts and bits.
+        torch.full_like(pc, -1), torch.full_like(pb, -1)
+        counts, bits = matchbits(*args, overlap=overlap)
+        torch.cuda.synchronize()
+        assert torch.equal(counts, pc)
+        assert torch.equal(bits, pb)
     ends, vids = eng.matches_arrays_staged(st)
     want = ac.all_matches(m, data.tobytes())
     assert len(ends) == len(want) > 0
@@ -281,7 +294,7 @@ def test_comb16_kernels_match_plain(cuda, name, n_streams):
     torch.cuda.synchronize()
     assert torch.equal(bases[live], comb16_contains_plain(*args)[live])
     args = eng.bits_args(st)
-    counts, bits = matchbits(*args)  # B13
+    counts, bits = matchbits(*args, overlap=st.plan.overlap)  # B13
     torch.cuda.synchronize()
     pc, pb = matchbits_plain(*args)
     assert torch.equal(counts[live], pc[live]) and torch.equal(bits, pb)
@@ -610,10 +623,10 @@ def _shard_launches_match_plain(eng, st, step):
 
     kernels = set()
     for i, g, dev in eng.shards():
-        kernel, args = eng.shard_call(step, st, i, g, dev)
-        out = kernel(*args)
+        kernel, args, kw = eng.shard_call(step, st, i, g, dev)
+        out = kernel(*args, **kw)
         torch.cuda.synchronize()
-        plain = PLAIN[kernel](*args)
+        plain = PLAIN[kernel](*args, **kw)
         for a, b in zip(out if isinstance(out, tuple) else (out,),
                         plain if isinstance(plain, tuple) else (plain,)):
             assert torch.equal(a, b), (kernel.__name__, i, g)
@@ -667,7 +680,7 @@ def test_b11_one_group_kernel_matches_plain(cuda):
         assert eng.contains_any(st) == (host.first_hit(data) >= 0)
         assert eng.count_staged(st) == host.count(data)
     i, g, dev = eng.shards()[0]
-    _, args = eng.shard_call("sticky", st, i, g, dev)
+    _, args, _ = eng.shard_call("sticky", st, i, g, dev)
     before = comb16_contains_base.launches
     comb16_contains_base(*args)
     assert comb16_contains_base.launches == before + 1
