@@ -1,12 +1,13 @@
 // B2 bitap_count: the shift-AND (bitap) count kernel for Hopper.
 //
 // Replaces the Pallas TPU kernel alfred_margaret_tpu/ops/bitap_scan.py:
-// _make_bitap_count_kernel (launched from BitapAcEngine._get_bitap_count_fn),
-// with its trap part.  One thread per stream keeps V <= 8 uint32 registers
-// (V <= 3 with a trap); the byte -> track-mask tables btab[V][256] sit in
-// shared memory.
+// _make_bitap_count_kernel (launched from BitapAcEngine._get_bitap_count_fn
+// and, per shard, from the sharded engine's bitap count,
+// parallel/shard.py:434), with its trap part.  Each stream keeps V <= 8
+// uint32 registers (V <= 3 with a trap); the byte -> track-mask tables
+// btab[V][256] and the count fields sit in shared memory.
 //
-// Per stream s, per step t over b = streams[t * S + s]:
+// Per stream s, per step t over b = streams[t * S + s], from D = 0:
 //   D[w] = ((D[w] << 1) | seed[w]) & btab[w][b]         for every word w
 //   when t >= warm[s]: for every field f of word w (end bit e, weight m)
 //     count += ((D[w] >> e) & 1) * m
@@ -15,7 +16,8 @@
 // where D[w] & endmask[w] is non-zero.  Taking the end bits every step gives
 // the same integers as the TPU kernel's flush blocks of `unroll` steps, which
 // only saved vector operations.  Right-pad bytes are zero and btab[w][0] == 0
-// (no needle holds NUL), so the pads clear every register and count nothing.
+// (no needle holds NUL), so the pads clear every register and count nothing:
+// the kernel takes no vend.
 //
 // The trap part (TRAP = true, amt_bitap_count_trap) serves the byte-class
 // IgnoreCase layouts: trap tracks watch for the length-changing unlowerings
@@ -28,47 +30,85 @@
 // engine recovers it on the host or re-scans with the dense kernel.  With
 // TRAP = false the template compiles to the kernel without a trap.
 //
-// What bounds it: the registers carry no table load (the mask load depends on
-// the input byte only), so a step costs one byte read from device memory plus
-// about 3V ALU operations; stream bytes are loaded kChunk steps ahead into
-// registers.  One-byte loads at stride S use the memory system poorly, and
-// S = 32768 streams give the card only about 248 threads per SM.  Left for
-// later: a tiled [S, T] layout with 16-byte loads and more streams per SM.
+// The design, for Hopper.  The first port ran one thread per stream over all
+// T steps, loading bytes straight from device memory a 16-step chunk ahead:
+// 32768 streams gave each SM about 8 warps, each waiting on device memory
+// once a chunk, and a 4096-stream mesh shard was 32 blocks on 132 SMs.  Now,
+// on stage.cuh's pipeline (as B6's one-word bitap step):
+//   * a block owns 128 streams and one of `segments` pieces of them: segment
+//     y scans with D = 0 from max(0, p_y - overlap), counts the steps
+//     max(p_y, warm[s]) <= t < p_{y+1} and adds them with one atomicAdd into
+//     `out`; it ORs D & trapmask over every step it scans (its warm-up too)
+//     into `trap_out` with one atomicOr; the wrapper zeroes both;
+//   * the bytes are staged a tile of 32 steps ahead with cp.async, double
+//     buffered, and read raw: the mask load depends on the byte only, so it
+//     is already off D's chain, which is ALU work.
+// Why the segments are exact.  Bit i of track word w is set at step t iff
+// the i + 1 bytes ending at t match the track's first i + 1 positions, so a
+// register depends on the last L bytes only, L the longest track.  The step
+// is monotone in D, so a register restarted from 0 holds a subset of the
+// true bits at every step (the warm-up steps add no false trap bits), and
+// from L steps on it equals the true register: by p_y when every track is at
+// most overlap + 1 bytes long.  The stream plan's overlap is
+// max_needle_bytes - 1; match tracks are needles (for a composed IgnoreCase
+// machine max_needle_bytes = max_raw_match_bytes + 4, models/case_dfa.py)
+// and trap tracks are unlowerings of needle code points, each at most
+// max_raw_match_bytes long.  So every counted step sees the true register,
+// every step of [0, T) is some segment's own step, and the trap OR over the
+// segments is the stream's.  BitapAcEngine refuses a staging whose overlap
+// is shorter than its longest track less one.
+// What bounds it: the shared-memory pipe (a staged byte and V table loads a
+// step, the loads bank-conflicting where a warp's bytes share a bank),
+// against 138 MB of corpus bytes at 128 MiB.
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "stage.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kChunk = 16;
+constexpr int kThreads = amt::kStageThreads;
 constexpr int kMaxWords = 8;
 // 30 track bits per word (bit 31 stays clear), at most one field per bit.
 constexpr int kMaxFields = kMaxWords * 30;
 // Words of a trap layout: the 2-word budget plus a trap register.
 constexpr int kMaxTrapWords = 3;
+constexpr int kMaxSegments = 64;
 
+// Shared-memory words ahead of the two tiles: the masks, then the fields'
+// end bits and weights (rounded up to 16 bytes).
+inline __host__ __device__ int table_words(int V, int n_fields) {
+  return (V * 256 + 2 * n_fields + 3) & ~3;
+}
+
+// Block (x, y): streams [128 x, 128 x + 128), segment y.
 template <int V, bool TRAP>
 __global__ void __launch_bounds__(kThreads) bitap_count_kernel(
-    const uint8_t* __restrict__ streams, int T, int S,
-    const int32_t* __restrict__ btab, const int32_t* __restrict__ seed,
-    const int32_t* __restrict__ endmask, const int32_t* __restrict__ field_start,
-    const int32_t* __restrict__ field_bit, const int32_t* __restrict__ field_weight,
-    int n_fields, const int32_t* __restrict__ warm, const int32_t* __restrict__ trapmask,
+    const uint8_t* __restrict__ streams, int T, int S, const int32_t* __restrict__ btab,
+    const int32_t* __restrict__ seed, const int32_t* __restrict__ endmask,
+    const int32_t* __restrict__ field_start, const int32_t* __restrict__ field_bit,
+    const int32_t* __restrict__ field_weight, int n_fields, const int32_t* __restrict__ warm,
+    const int32_t* __restrict__ trapmask, int overlap, int segments, int tile,
     int32_t* __restrict__ out, int32_t* __restrict__ trap_out) {
-  __shared__ uint32_t bt[V * 256];
-  __shared__ uint32_t fbit[kMaxFields];
-  __shared__ uint32_t fwt[kMaxFields];
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t* bt = smem;
+  uint32_t* fbit = bt + V * 256;
+  uint32_t* fwt = fbit + n_fields;
   for (int i = threadIdx.x; i < V * 256; i += blockDim.x) bt[i] = (uint32_t)btab[i];
   for (int i = threadIdx.x; i < n_fields; i += blockDim.x) {
     fbit[i] = (uint32_t)field_bit[i];
     fwt[i] = (uint32_t)field_weight[i];
   }
-  __syncthreads();
+  // The first tile's barrier in staged_scan orders these loads before use.
+  uint8_t* tiles = reinterpret_cast<uint8_t*>(smem + table_words(V, n_fields));
 
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= S) return;
-  uint32_t sd[V], em[V], D[V], tm[V];
+  const amt::SegSteps seg = amt::segment_steps(blockIdx.y, segments, T, overlap);
+  const int s0 = blockIdx.x * kThreads;
+  const int s = s0 + threadIdx.x;
+  const int lo = s < S ? max(seg.lo, warm[s]) : INT_MAX;  // the steps this thread counts
+  uint32_t sd[V], em[V], tm[V], D[V];
   int f0[V + 1];
 #pragma unroll
   for (int w = 0; w < V; ++w) {
@@ -79,116 +119,110 @@ __global__ void __launch_bounds__(kThreads) bitap_count_kernel(
   }
 #pragma unroll
   for (int w = 0; w <= V; ++w) f0[w] = field_start[w];
-  const int w0 = warm[s];
-  const uint8_t* col = streams + s;
-  uint32_t count = 0, tr = 0;
 
-  auto step = [&](uint32_t b, int t) {
-#pragma unroll
-    for (int w = 0; w < V; ++w) D[w] = ((D[w] << 1) | sd[w]) & bt[w * 256 + b];
-    if constexpr (TRAP) {
-#pragma unroll
-      for (int w = 0; w < V; ++w) tr |= D[w] & tm[w];
-    }
-    if (t >= w0) {
+  uint32_t count = 0, tr = 0;
+  auto scan = [&](const uint8_t* cur, int t0, int rows) {
+    const uint8_t* col = cur + threadIdx.x;
+#pragma unroll 4
+    for (int j = 0; j < rows; ++j) {
+      const uint32_t b = col[j * amt::kRowBytes];
+      uint32_t hit = 0;
 #pragma unroll
       for (int w = 0; w < V; ++w) {
-        if (D[w] & em[w]) {
-          for (int f = f0[w]; f < f0[w + 1]; ++f) count += ((D[w] >> fbit[f]) & 1u) * fwt[f];
+        D[w] = ((D[w] << 1) | sd[w]) & bt[w * 256 + b];
+        hit |= D[w] & em[w];
+        if constexpr (TRAP) tr |= D[w] & tm[w];
+      }
+      if (hit && t0 + j >= lo) {
+#pragma unroll
+        for (int w = 0; w < V; ++w) {
+          if (D[w] & em[w]) {
+            for (int f = f0[w]; f < f0[w + 1]; ++f) count += ((D[w] >> fbit[f]) & 1u) * fwt[f];
+          }
         }
       }
     }
   };
-
-  int t = 0;
-  for (; t + kChunk <= T; t += kChunk) {
-    uint8_t b[kChunk];
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) b[j] = col[(size_t)(t + j) * S];
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) step(b[j], t + j);
+  amt::staged_scan(tiles, tile, streams, S, s0, seg.start, seg.hi, nullptr, scan);
+  if (count) atomicAdd(out + s, (int32_t)count);
+  if constexpr (TRAP) {
+    if (tr && s < S) atomicOr(trap_out + s, (int32_t)tr);
   }
-  for (; t < T; ++t) step(col[(size_t)t * S], t);
-  out[s] = (int32_t)count;
-  if constexpr (TRAP) trap_out[s] = (int32_t)tr;
 }
 
-template <int V, bool TRAP = false>
-void launch(dim3 grid, cudaStream_t st, const uint8_t* sp, int T, int S,
-            const int32_t* bt, const int32_t* sd, const int32_t* em,
-            const int32_t* fs, const int32_t* fb, const int32_t* fw,
-            int n_fields, const int32_t* wp, int32_t* op,
-            const int32_t* tm = nullptr, int32_t* tp = nullptr) {
-  bitap_count_kernel<V, TRAP><<<grid, kThreads, 0, st>>>(sp, T, S, bt, sd, em, fs, fb, fw,
-                                                         n_fields, wp, tm, op, tp);
+template <int V, bool TRAP>
+int launch(const uint8_t* sp, int T, int S, const int32_t* bt, const int32_t* sd,
+           const int32_t* em, const int32_t* fs, const int32_t* fb, const int32_t* fw,
+           int n_fields, const int32_t* wp, const int32_t* tm, int overlap, int segments,
+           int32_t* op, int32_t* tp, cudaStream_t st) {
+  const size_t smem = (size_t)table_words(V, n_fields) * sizeof(uint32_t) + amt::kStageBytes;
+  auto kernel = bitap_count_kernel<V, TRAP>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3((S + kThreads - 1) / kThreads, segments), kThreads, smem, st>>>(
+      sp, T, S, bt, sd, em, fs, fb, fw, n_fields, wp, tm, overlap, segments, amt::kTile, op, tp);
+  return (int)cudaGetLastError();
+}
+
+bool args_ok(int T, int S, int n_words, int top, int n_fields, int overlap, int segments) {
+  return T >= 0 && S > 0 && n_words >= 1 && n_words <= top && n_fields >= 0 &&
+         n_fields <= kMaxFields && overlap >= 0 && segments >= 1 && segments <= kMaxSegments;
+}
+
+// The launch of V words: every template instance the launchers dispatch to.
+template <bool TRAP, int V = 1>
+int dispatch(int n_words, const uint8_t* sp, int T, int S, const int32_t* bt,
+             const int32_t* sd, const int32_t* em, const int32_t* fs, const int32_t* fb,
+             const int32_t* fw, int n_fields, const int32_t* wp, const int32_t* tm, int overlap,
+             int segments, int32_t* op, int32_t* tp, cudaStream_t st) {
+  constexpr int kTop = TRAP ? kMaxTrapWords : kMaxWords;
+  if constexpr (V < kTop) {
+    if (n_words > V)
+      return dispatch<TRAP, V + 1>(n_words, sp, T, S, bt, sd, em, fs, fb, fw, n_fields, wp, tm,
+                                   overlap, segments, op, tp, st);
+  }
+  return launch<V, TRAP>(sp, T, S, bt, sd, em, fs, fb, fw, n_fields, wp, tm, overlap, segments,
+                         op, tp, st);
 }
 
 }  // namespace
 
-// Launch on `stream` (a cudaStream_t).  Returns the cudaError_t of the launch;
-// the kernel runs asynchronously.
+// out int32 [S], zeroed by the caller.  Each stream is cut into `segments`
+// pieces (`overlap` is the stream plan's warm-up; with segments = 1 it is not
+// read).  Launch on `stream` (a cudaStream_t).  Returns the cudaError_t of
+// the launch; the kernel runs asynchronously.
 extern "C" int amt_bitap_count(const void* streams, int T, int S,
                                const void* btab, const void* seed,
                                const void* endmask, const void* field_start,
                                const void* field_bit, const void* field_weight,
                                int n_words, int n_fields, const void* warm,
-                               void* out, void* stream) {
-  if (T < 0 || S <= 0 || n_words < 1 || n_words > kMaxWords || n_fields < 0 ||
-      n_fields > kMaxFields)
+                               int overlap, int segments, void* out, void* stream) {
+  if (!args_ok(T, S, n_words, kMaxWords, n_fields, overlap, segments))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((S + kThreads - 1) / kThreads);
-  cudaStream_t st = (cudaStream_t)stream;
-  const uint8_t* sp = (const uint8_t*)streams;
-  const int32_t* bt = (const int32_t*)btab;
-  const int32_t* sd = (const int32_t*)seed;
-  const int32_t* em = (const int32_t*)endmask;
-  const int32_t* fs = (const int32_t*)field_start;
-  const int32_t* fb = (const int32_t*)field_bit;
-  const int32_t* fw = (const int32_t*)field_weight;
-  const int32_t* wp = (const int32_t*)warm;
-  int32_t* op = (int32_t*)out;
-  switch (n_words) {
-    case 1: launch<1>(grid, st, sp, T, S, bt, sd, em, fs, fb, fw, n_fields, wp, op); break;
-    case 2: launch<2>(grid, st, sp, T, S, bt, sd, em, fs, fb, fw, n_fields, wp, op); break;
-    case 3: launch<3>(grid, st, sp, T, S, bt, sd, em, fs, fb, fw, n_fields, wp, op); break;
-    case 4: launch<4>(grid, st, sp, T, S, bt, sd, em, fs, fb, fw, n_fields, wp, op); break;
-    case 5: launch<5>(grid, st, sp, T, S, bt, sd, em, fs, fb, fw, n_fields, wp, op); break;
-    case 6: launch<6>(grid, st, sp, T, S, bt, sd, em, fs, fb, fw, n_fields, wp, op); break;
-    case 7: launch<7>(grid, st, sp, T, S, bt, sd, em, fs, fb, fw, n_fields, wp, op); break;
-    default: launch<8>(grid, st, sp, T, S, bt, sd, em, fs, fb, fw, n_fields, wp, op); break;
-  }
-  return (int)cudaGetLastError();
+  return dispatch<false>(n_words, (const uint8_t*)streams, T, S, (const int32_t*)btab,
+                         (const int32_t*)seed, (const int32_t*)endmask,
+                         (const int32_t*)field_start, (const int32_t*)field_bit,
+                         (const int32_t*)field_weight, n_fields, (const int32_t*)warm, nullptr,
+                         overlap, segments, (int32_t*)out, nullptr, (cudaStream_t)stream);
 }
 
 // The trap part: as amt_bitap_count over n_words <= 3 words (a standalone trap
-// register included), with trapmask [n_words] and trap_out [S] int32.
+// register included), with trapmask [n_words] and trap_out [S] int32, zeroed
+// by the caller.
 extern "C" int amt_bitap_count_trap(const void* streams, int T, int S,
                                     const void* btab, const void* seed,
                                     const void* endmask, const void* field_start,
                                     const void* field_bit, const void* field_weight,
                                     int n_words, int n_fields, const void* warm,
-                                    const void* trapmask, void* out, void* trap_out,
-                                    void* stream) {
-  if (T < 0 || S <= 0 || n_words < 1 || n_words > kMaxTrapWords || n_fields < 0 ||
-      n_fields > kMaxFields)
+                                    const void* trapmask, int overlap, int segments,
+                                    void* out, void* trap_out, void* stream) {
+  if (!args_ok(T, S, n_words, kMaxTrapWords, n_fields, overlap, segments))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((S + kThreads - 1) / kThreads);
-  cudaStream_t st = (cudaStream_t)stream;
-  const uint8_t* sp = (const uint8_t*)streams;
-  const int32_t* bt = (const int32_t*)btab;
-  const int32_t* sd = (const int32_t*)seed;
-  const int32_t* em = (const int32_t*)endmask;
-  const int32_t* fs = (const int32_t*)field_start;
-  const int32_t* fb = (const int32_t*)field_bit;
-  const int32_t* fw = (const int32_t*)field_weight;
-  const int32_t* wp = (const int32_t*)warm;
-  const int32_t* tm = (const int32_t*)trapmask;
-  int32_t* op = (int32_t*)out;
-  int32_t* tp = (int32_t*)trap_out;
-  switch (n_words) {
-    case 1: launch<1, true>(grid, st, sp, T, S, bt, sd, em, fs, fb, fw, n_fields, wp, op, tm, tp); break;
-    case 2: launch<2, true>(grid, st, sp, T, S, bt, sd, em, fs, fb, fw, n_fields, wp, op, tm, tp); break;
-    default: launch<3, true>(grid, st, sp, T, S, bt, sd, em, fs, fb, fw, n_fields, wp, op, tm, tp); break;
-  }
-  return (int)cudaGetLastError();
+  return dispatch<true>(n_words, (const uint8_t*)streams, T, S, (const int32_t*)btab,
+                        (const int32_t*)seed, (const int32_t*)endmask,
+                        (const int32_t*)field_start, (const int32_t*)field_bit,
+                        (const int32_t*)field_weight, n_fields, (const int32_t*)warm,
+                        (const int32_t*)trapmask, overlap, segments, (int32_t*)out,
+                        (int32_t*)trap_out, (cudaStream_t)stream);
 }

@@ -1,26 +1,38 @@
 // B1 dense_count: the byte-class-compressed DFA count kernel for Hopper.
 //
 // Replaces the Pallas TPU kernel alfred_margaret_tpu/ops/pallas_scan.py:
-// _make_count_kernel (launched from PallasAcEngine._get_count_fn).  It computes
-// what that kernel computes, not how: the TPU version gathers 128-lane table
-// rows with a select chain and relies on mod-128 lane indexing; here every
-// stream is one thread and the packed table sits in shared memory.
+// _make_count_kernel (launched from PallasAcEngine._get_count_fn and, per
+// shard, from the sharded engine's dense count, parallel/shard.py:325).  It
+// computes what that kernel computes, not how: the TPU version gathers
+// 128-lane table rows with a select chain and relies on mod-128 lane
+// indexing; here the packed table sits in shared memory (dense.cuh).
 //
-// Per stream s, per step t over streams[t * S + s]:
-//   idx   = sbase + classmap[byte]
-//   v     = packing == 1 ? table[idx]
-//                        : (table[idx >> 1] >> 16 * (idx & 1)) & 0xFFFF
-//   sbase = v & state_mask              (masked on every step: no raw carry)
+// Per stream s, per step t over streams[t * S + s], from the root:
+//   v = entry(sbase + classmap[byte]);  sbase = v & state_mask
 //   count += v >> state_bits            while warm[s] <= t < vend[s]
-// and out[s] = count.  The scan stops at vend[s]: nothing after it counts.
+// and out[s] = count.  Nothing at or after vend[s] counts.
 //
-// What bounds it: each step is a dependent chain of two shared-memory loads
-// (class, then entry) per stream, so the kernel is bound by that latency, not
-// by device-memory bandwidth.  The stream bytes are loaded kChunk steps ahead
-// into registers so the device-memory loads overlap the chain.  At S = 32768
-// streams the card holds about 248 threads per SM, too few to hide the chain.
-// Left for later: a tiled [S, T] layout with 16-byte loads, several streams
-// per thread, and more streams per SM.
+// The design, for Hopper.  The first port ran one thread per stream over all
+// T steps, loading bytes straight from device memory a 16-step chunk ahead:
+// each step was a dependent chain of two shared-memory loads (class, then
+// entry), 32768 streams gave each SM about 8 warps, and a 4096-stream mesh
+// shard was 32 blocks on 132 SMs.  Now it is B15's count mode with B6's
+// dense step, on stage.cuh's pipeline:
+//   * a block owns 128 streams and one of `segments` pieces of them: segment
+//     y scans from the root at max(0, p_y - overlap) and counts the steps
+//     max(p_y, warm[s]) <= t < min(p_{y+1}, vend[s]), which is exact because
+//     the stream plan's overlap (max_needle_bytes - 1) brings a restarted
+//     scan into the stream's state by p_y; the per-stream sums add with one
+//     atomicAdd into `out`, which the wrapper zeroes;
+//   * the block stops at the last vend of its streams in the segment
+//     (amt::block_stop);
+//   * the bytes are staged a tile of 32 steps ahead with cp.async, double
+//     buffered, and each tile is translated to byte classes in place through
+//     the class map replicated per bank, so the chain is one packed-table
+//     load a step.
+// What bounds it now: the SM's shared-memory pipe (a staged class and one
+// table load per step, the load on the state's chain) against 138 MB of
+// corpus bytes at 128 MiB.
 //
 // B5 dense_states, the packed entry at every step, replaces the Pallas TPU
 // kernel pallas_scan.py:_make_states_kernel (launched from
@@ -30,63 +42,60 @@
 // (a warp's threads hold neighbouring streams, so its stores are coalesced),
 // and the host picks the window (match extraction, the final_states stitch).
 // It moves 5 bytes per step (one read, one 4-byte write), 692 MB at 128 MiB,
-// against B1's one; the lookup chain is B1's.
+// against B1's one.  It still runs one thread per stream, bytes loaded
+// kChunk steps ahead into registers, with two shared-memory loads a step.
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "dense.cuh"
+#include "stage.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = amt::kStageThreads;
 constexpr int kChunk = 16;
-// MAX_ROWS (48) rows of 128 int32 entries: 24 KiB of shared memory.
-constexpr int kMaxTableWords = 48 * 128;
+constexpr int kMaxSegments = 64;
 
-template <int PACKING>
-__device__ __forceinline__ uint32_t lookup(const uint32_t* tab, uint32_t idx) {
-  if (PACKING == 1) return tab[idx];
-  return (tab[idx >> 1] >> ((idx & 1u) << 4)) & 0xFFFFu;
-}
-
+// Block (x, y): streams [128 x, 128 x + 128), segment y.
 template <int PACKING>
 __global__ void __launch_bounds__(kThreads) dense_count_kernel(
-    const uint8_t* __restrict__ streams, int T, int S,
-    const int32_t* __restrict__ classmap, const int32_t* __restrict__ table,
-    int table_words, const int32_t* __restrict__ warm,
-    const int32_t* __restrict__ vend, int state_bits,
+    const uint8_t* __restrict__ streams, int T, int S, const int32_t* __restrict__ classmap,
+    const int32_t* __restrict__ table, int table_words, const int32_t* __restrict__ warm,
+    const int32_t* __restrict__ vend, int state_bits, int overlap, int segments, int tile,
     int32_t* __restrict__ out) {
-  __shared__ uint32_t cm[256];
-  extern __shared__ uint32_t tab[];
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) cm[i] = (uint32_t)classmap[i];
+  extern __shared__ __align__(16) uint32_t smem[];
+  __shared__ int stop_slot;
+  uint32_t* rep = smem;
+  uint32_t* tab = rep + amt::kRepWords;
+  amt::load_rep_classes(rep, classmap);
   for (int i = threadIdx.x; i < table_words; i += blockDim.x) tab[i] = (uint32_t)table[i];
-  __syncthreads();
+  uint8_t* tiles = reinterpret_cast<uint8_t*>(smem + amt::dense_words(table_words));
 
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= S) return;
-  const uint32_t mask = (1u << state_bits) - 1u;
-  const int w0 = warm[s];
-  const int v0 = min(vend[s], T);
-  const uint8_t* col = streams + s;
-  uint32_t sbase = 0, count = 0;
+  const amt::SegSteps seg = amt::segment_steps(blockIdx.y, segments, T, overlap);
+  const int s0 = blockIdx.x * kThreads;
+  const int s = s0 + threadIdx.x;
+  int lo = INT_MAX, hi = 0;  // the steps this thread counts
+  if (s < S) {
+    lo = max(seg.lo, warm[s]);
+    hi = min(seg.hi, min(vend[s], T));
+  }
+  const int stop = amt::block_stop(&stop_slot, lo, hi);  // also orders the table loads
 
-  int t = 0;
-  for (; t + kChunk <= v0; t += kChunk) {
-    uint8_t b[kChunk];
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) b[j] = col[(size_t)(t + j) * S];
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) {
-      const uint32_t v = lookup<PACKING>(tab, sbase + cm[b[j]]);
-      sbase = v & mask;
-      count += (t + j >= w0) ? (v >> state_bits) : 0u;
+  amt::DenseStep<PACKING> step{tab, (1u << state_bits) - 1u, state_bits, 0u};
+  uint32_t count = 0;
+  auto scan = [&](const uint8_t* cur, int t0, int rows) {
+    const uint8_t* col = cur + threadIdx.x;
+#pragma unroll 4
+    for (int j = 0; j < rows; ++j) {
+      const uint32_t cnt = step(col[j * amt::kRowBytes]);
+      const int t = t0 + j;
+      count += (t >= lo && t < hi) ? cnt : 0u;
     }
-  }
-  for (; t < v0; ++t) {
-    const uint32_t v = lookup<PACKING>(tab, sbase + cm[col[(size_t)t * S]]);
-    sbase = v & mask;
-    count += (t >= w0) ? (v >> state_bits) : 0u;
-  }
-  out[s] = (int32_t)count;
+  };
+  amt::staged_scan(tiles, tile, streams, S, s0, seg.start, stop, rep, scan);
+  if (count) atomicAdd(out + s, (int32_t)count);
 }
 
 template <int PACKING>
@@ -114,51 +123,52 @@ __global__ void __launch_bounds__(kThreads) dense_states_kernel(
     for (int j = 0; j < kChunk; ++j) b[j] = col[(size_t)(t + j) * S];
 #pragma unroll
     for (int j = 0; j < kChunk; ++j) {
-      const uint32_t v = lookup<PACKING>(tab, sbase + cm[b[j]]);
+      const uint32_t v = amt::dense_lookup<PACKING>(tab, sbase + cm[b[j]]);
       sbase = v & mask;
       dst[(size_t)(t + j) * S] = (int32_t)v;
     }
   }
   for (; t < T; ++t) {
-    const uint32_t v = lookup<PACKING>(tab, sbase + cm[col[(size_t)t * S]]);
+    const uint32_t v = amt::dense_lookup<PACKING>(tab, sbase + cm[col[(size_t)t * S]]);
     sbase = v & mask;
     dst[(size_t)t * S] = (int32_t)v;
   }
 }
 
 bool args_ok(int T, int S, int table_words, int packing, int state_bits) {
-  return T >= 0 && S > 0 && table_words > 0 && table_words <= kMaxTableWords &&
+  return T >= 0 && S > 0 && table_words > 0 && table_words <= amt::kMaxDenseTableWords &&
          state_bits > 0 && state_bits < 32 && (packing == 1 || packing == 2);
 }
 
 }  // namespace
 
-// Launch on `stream` (a cudaStream_t).  Returns the cudaError_t of the launch;
-// the kernel runs asynchronously.
+// out int32 [S], zeroed by the caller.  Each stream is cut into `segments`
+// pieces (`overlap` is the stream plan's warm-up; with segments = 1 it is not
+// read).  Launch on `stream` (a cudaStream_t).  Returns the cudaError_t of
+// the launch; the kernel runs asynchronously.
 extern "C" int amt_dense_count(const void* streams, int T, int S,
                                const void* classmap, const void* table,
                                int table_words, const void* warm,
                                const void* vend, int packing, int state_bits,
-                               void* out, void* stream) {
-  if (!args_ok(T, S, table_words, packing, state_bits)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((S + kThreads - 1) / kThreads);
-  const size_t smem = (size_t)table_words * sizeof(uint32_t);
-  cudaStream_t st = (cudaStream_t)stream;
-  const uint8_t* sp = (const uint8_t*)streams;
-  const int32_t* cp = (const int32_t*)classmap;
-  const int32_t* tp = (const int32_t*)table;
-  const int32_t* wp = (const int32_t*)warm;
-  const int32_t* vp = (const int32_t*)vend;
-  int32_t* op = (int32_t*)out;
-  if (packing == 1)
-    dense_count_kernel<1><<<grid, kThreads, smem, st>>>(sp, T, S, cp, tp, table_words, wp, vp, state_bits, op);
-  else
-    dense_count_kernel<2><<<grid, kThreads, smem, st>>>(sp, T, S, cp, tp, table_words, wp, vp, state_bits, op);
+                               int overlap, int segments, void* out, void* stream) {
+  if (!args_ok(T, S, table_words, packing, state_bits) || overlap < 0 || segments < 1 ||
+      segments > kMaxSegments)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      (size_t)amt::dense_words(table_words) * sizeof(uint32_t) + amt::kStageBytes;
+  auto kernel = packing == 1 ? dense_count_kernel<1> : dense_count_kernel<2>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3((S + kThreads - 1) / kThreads, segments), kThreads, smem,
+           (cudaStream_t)stream>>>((const uint8_t*)streams, T, S, (const int32_t*)classmap,
+                                   (const int32_t*)table, table_words, (const int32_t*)warm,
+                                   (const int32_t*)vend, state_bits, overlap, segments,
+                                   amt::kTile, (int32_t*)out);
   return (int)cudaGetLastError();
 }
 
-// B5: out int32 [T, S], the packed entry at every step.  As amt_dense_count
-// otherwise.
+// B5: out int32 [T, S], the packed entry at every step.
 extern "C" int amt_dense_states(const void* streams, int T, int S,
                                 const void* classmap, const void* table,
                                 int table_words, int packing, int state_bits,

@@ -50,13 +50,12 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "dense.cuh"
 #include "stage.cuh"
 
 namespace {
 
 constexpr int kThreads = amt::kStageThreads;
-// MAX_ROWS (48) rows of 128 int32 entries: 24 KiB of shared memory.
-constexpr int kMaxTableWords = 48 * 128;
 // One bitap word: at most one count field per track bit.
 constexpr int kMaxWordFields = 30;
 constexpr int kMaxSegments = 64;
@@ -100,20 +99,6 @@ __device__ __forceinline__ void bits_scan(Step step, uint8_t* tiles, int tile,
   if (count) atomicAdd(counts + s, (int32_t)count);
 }
 
-template <int PACKING>
-struct DenseStep {
-  const uint32_t* tab;
-  uint32_t mask;
-  int state_bits;
-  uint32_t carry;
-  __device__ __forceinline__ uint32_t operator()(uint32_t cls) {
-    const uint32_t idx = carry + cls;
-    const uint32_t v = PACKING == 1 ? tab[idx] : (tab[idx >> 1] >> ((idx & 1u) << 4)) & 0xFFFFu;
-    carry = v & mask;
-    return v >> state_bits;
-  }
-};
-
 struct BitapStep {
   const uint32_t* masks;
   const uint32_t* fbit;
@@ -129,10 +114,8 @@ struct BitapStep {
   }
 };
 
-// Shared-memory words ahead of the two tiles (rounded up to 16 bytes).
-inline __host__ __device__ int dense_words(int table_words) {
-  return (amt::kRepWords + table_words + 3) & ~3;
-}
+// Shared-memory words of the bitap step ahead of the two tiles (the dense
+// step's are amt::dense_words).
 constexpr int kBitapWords = (256 + 2 * kMaxWordFields + 3) & ~3;
 
 // Block (x, y): streams [128 x, 128 x + 128), segment y.
@@ -148,8 +131,8 @@ __global__ void __launch_bounds__(kThreads) matchbits_dense_kernel(
   amt::load_rep_classes(rep, classmap);
   for (int i = threadIdx.x; i < table_words; i += blockDim.x) tab[i] = (uint32_t)table[i];
   // The first tile's barrier in staged_scan orders these loads before use.
-  uint8_t* tiles = reinterpret_cast<uint8_t*>(smem + dense_words(table_words));
-  bits_scan(DenseStep<PACKING>{tab, (1u << state_bits) - 1u, state_bits, 0u}, tiles, tile,
+  uint8_t* tiles = reinterpret_cast<uint8_t*>(smem + amt::dense_words(table_words));
+  bits_scan(amt::DenseStep<PACKING>{tab, (1u << state_bits) - 1u, state_bits, 0u}, tiles, tile,
             streams, T, S, warm, vend, overlap, segments, rep, counts, bits);
 }
 
@@ -202,10 +185,11 @@ extern "C" int amt_matchbits_dense(const void* streams, int T, int S, const void
                                    int state_bits, int overlap, int segments, void* counts,
                                    void* bits, void* stream) {
   if (!shape_ok(T, S, overlap, segments) || table_words <= 0 ||
-      table_words > kMaxTableWords || state_bits <= 0 || state_bits >= 32 ||
+      table_words > amt::kMaxDenseTableWords || state_bits <= 0 || state_bits >= 32 ||
       (packing != 1 && packing != 2))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)dense_words(table_words) * sizeof(uint32_t) + amt::kStageBytes;
+  const size_t smem =
+      (size_t)amt::dense_words(table_words) * sizeof(uint32_t) + amt::kStageBytes;
   auto kernel = packing == 1 ? matchbits_dense_kernel<1> : matchbits_dense_kernel<2>;
   return launch_bits(kernel, smem, S, segments, (cudaStream_t)stream, (const uint8_t*)streams,
                      T, S, (const int32_t*)warm, (const int32_t*)vend,

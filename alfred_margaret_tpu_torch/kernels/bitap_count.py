@@ -7,13 +7,20 @@ every word's trap bits (IgnoreCase byte-class layouts).  A CUDA tensor
 launches the kernel; a CPU tensor runs :func:`bitap_count_plain`, the same
 function as a torch loop over time.  Nothing falls back from one to the
 other.
+
+With the stream plan's ``overlap`` the kernel cuts each stream into segments
+(``kernels/segments.py:bitap_over_segments``): a block scans 128 streams of
+one segment, its registers restarted ``overlap`` bytes early, bytes staged a
+tile of 32 steps ahead.  That is exact while every track, match or trap, is
+at most ``overlap + 1`` bytes long, which ``BitapAcEngine`` checks.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .common import check_streams, check_tables, launch, on_cpu
+from .common import check_overlap, check_streams, check_tables, launch, on_cpu
+from .segments import Design, bitap_smem_bytes, pick_segments, sm_count
 
 #: Registers per stream the kernel supports (kMaxWords in the .cu).
 MAX_WORDS = 8
@@ -50,8 +57,9 @@ def _check_inputs(streams, btab, seed, endmask, field_start, field_bit, field_we
 
 
 def bitap_count_plain(streams, btab, seed, endmask, field_start, field_bit, field_weight, warm,
-                      trapmask=None):
-    """Plain torch version of the kernel: V register updates per time step."""
+                      trapmask=None, overlap=None):
+    """Plain torch version of the kernel: V register updates per time step.
+    (``overlap`` only lets the kernel cut the streams into segments.)"""
     T, S = streams.shape
     V = btab.shape[0]
     dev = streams.device
@@ -83,8 +91,17 @@ def bitap_count_plain(streams, btab, seed, endmask, field_start, field_bit, fiel
     return counts.to(torch.int32), trap.to(torch.int32)
 
 
+def bitap_count_design(streams, btab, field_bit, overlap=None) -> Design:
+    """The segments ``bitap_count`` cuts these CUDA streams into for ``btab``'s
+    words and ``field_bit``'s fields (``kernels/segments.py:pick_segments``
+    with the kernel's shared memory)."""
+    T, S = streams.shape
+    smem = bitap_smem_bytes(btab.shape[0], field_bit.numel())
+    return Design(pick_segments(S, T, overlap, smem, sm_count(streams.device)))
+
+
 def bitap_count(streams, btab, seed, endmask, field_start, field_bit, field_weight, warm,
-                trapmask=None):
+                trapmask=None, overlap=None):
     """int32 [S] counts of the matches ending at t >= warm[s] of each stream of
     ``streams`` ([T, S] uint8; right-pad bytes must be zero).
 
@@ -95,26 +112,33 @@ def bitap_count(streams, btab, seed, endmask, field_start, field_bit, field_weig
     With ``trapmask`` (int32 [V], V <= 3), returns ``(counts, trap)``: trap
     is int32 [S], the OR over every step (warm-up included) and word of
     ``D[w] & trapmask[w]``.  A standalone trap register is a word with
-    ``endmask`` 0 and no fields."""
+    ``endmask`` 0 and no fields.
+
+    With the stream plan's ``overlap`` (at least the longest track less one)
+    the kernel may cut each stream into segments; without, it scans each
+    whole."""
     _check_inputs(streams, btab, seed, endmask, field_start, field_bit, field_weight, warm,
                   trapmask)
+    check_overlap(overlap)
     if on_cpu(streams):
         return bitap_count_plain(
             streams, btab, seed, endmask, field_start, field_bit, field_weight, warm, trapmask
         )
     T, S = streams.shape
-    out = torch.empty(S, dtype=torch.int32, device=streams.device)
+    d = bitap_count_design(streams, btab, field_bit, overlap)
+    out = torch.zeros(S, dtype=torch.int32, device=streams.device)
     args = (streams.data_ptr(), T, S,
             btab.data_ptr(), seed.data_ptr(), endmask.data_ptr(),
             field_start.data_ptr(), field_bit.data_ptr(), field_weight.data_ptr(),
             btab.shape[0], field_bit.numel(), warm.data_ptr())
     if trapmask is None:
-        launch("amt_bitap_count", streams.device, *args, out.data_ptr())
+        launch("amt_bitap_count", streams.device, *args, overlap or 0, d.segments,
+               out.data_ptr())
         bitap_count.launches += 1
         return out
-    trap = torch.empty(S, dtype=torch.int32, device=streams.device)
-    launch("amt_bitap_count_trap", streams.device, *args, trapmask.data_ptr(), out.data_ptr(),
-           trap.data_ptr())
+    trap = torch.zeros(S, dtype=torch.int32, device=streams.device)
+    launch("amt_bitap_count_trap", streams.device, *args, trapmask.data_ptr(), overlap or 0,
+           d.segments, out.data_ptr(), trap.data_ptr())
     bitap_count.launches += 1
     bitap_count.launches_trap += 1
     return out, trap
@@ -125,4 +149,4 @@ def bitap_count(streams, btab, seed, endmask, field_start, field_bit, field_weig
 bitap_count.launches = 0
 bitap_count.launches_trap = 0
 
-__all__ = ["bitap_count", "bitap_count_plain"]
+__all__ = ["bitap_count", "bitap_count_design", "bitap_count_plain"]

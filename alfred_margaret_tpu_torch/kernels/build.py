@@ -71,6 +71,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, p, i,  # classmap, table, table_words
         p, p,  # warm, vend
         i, i,  # packing, state_bits
+        i, i,  # overlap, segments
         p, p,  # out, stream
     ]
     lib.amt_dense_states.restype = i
@@ -86,7 +87,8 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, p, p,  # btab, seed, endmask
         p, p, p,  # field_start, field_bit, field_weight
         i, i,  # n_words, n_fields
-        p, p, p,  # warm, out, stream
+        p, i, i,  # warm, overlap, segments
+        p, p,  # out, stream
     ]
     lib.amt_bitap_count_trap.restype = i
     lib.amt_bitap_count_trap.argtypes = [
@@ -94,7 +96,8 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, p, p,  # btab, seed, endmask
         p, p, p,  # field_start, field_bit, field_weight
         i, i,  # n_words, n_fields
-        p, p, p, p, p,  # warm, trapmask, out, trap_out, stream
+        p, p, i, i,  # warm, trapmask, overlap, segments
+        p, p, p,  # out, trap_out, stream
     ]
     lib.amt_dense_contains.restype = i
     lib.amt_dense_contains.argtypes = [

@@ -6,13 +6,19 @@ Wrappers of ``csrc/dense_count.cu``, which replaces the Pallas kernels
 ``_make_states_kernel`` (B5).  A CUDA tensor launches the kernel; a CPU tensor
 runs the plain version, the same function as a torch loop over time.  Nothing
 falls back from one to the other.
+
+With the stream plan's ``overlap`` B1 cuts each stream into segments
+(``kernels/segments.py:run_segments``): a block scans 128 streams of one
+segment from the root ``overlap`` bytes early, bytes staged a tile of 32
+steps ahead and translated to classes in place.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .common import check_packed, check_streams, check_tables, launch, on_cpu
+from .common import check_overlap, check_packed, check_streams, check_tables, launch, on_cpu
+from .segments import Design, dense_bits_smem_bytes, pick_segments, sm_count
 
 #: Table words the kernels hold in shared memory (kMaxTableWords in the .cu):
 #: MAX_ROWS rows of 128 entries.
@@ -39,8 +45,10 @@ def lookup_plain(tab, idx, packing: int):
     return (tab[idx >> 1] >> ((idx & 1) << 4)) & 0xFFFF
 
 
-def dense_count_plain(streams, classmap, table, warm, vend, packing: int, state_bits: int):
-    """Plain torch version of the kernel: one gather chain per time step."""
+def dense_count_plain(streams, classmap, table, warm, vend, packing: int, state_bits: int,
+                      overlap=None):
+    """Plain torch version of the kernel: one gather chain per time step.
+    (``overlap`` only lets the kernel cut the streams into segments.)"""
     T, S = streams.shape
     dev = streams.device
     cm = classmap.long()
@@ -57,23 +65,38 @@ def dense_count_plain(streams, classmap, table, warm, vend, packing: int, state_
     return counts.to(torch.int32)
 
 
-def dense_count(streams, classmap, table, warm, vend, packing: int, state_bits: int):
+def dense_count_design(streams, table, overlap=None) -> Design:
+    """The segments ``dense_count`` cuts these CUDA streams into for
+    ``table`` (``kernels/segments.py:pick_segments`` with the kernel's shared
+    memory)."""
+    T, S = streams.shape
+    return Design(pick_segments(S, T, overlap, dense_bits_smem_bytes(table.numel()),
+                                sm_count(streams.device)))
+
+
+def dense_count(streams, classmap, table, warm, vend, packing: int, state_bits: int,
+                overlap=None):
     """int32 [S] counts of the matches ending at t in [warm[s], vend[s]) of
     each stream of ``streams`` ([T, S] uint8), scanned from the root.
 
     ``classmap`` [256] maps bytes to classes; ``table`` holds the packed
     entries ``count << state_bits | next_state * k`` (``packing`` 1: one per
-    int32, 2: two 16-bit entries per int32, low half first)."""
+    int32, 2: two 16-bit entries per int32, low half first).  With the
+    stream plan's ``overlap`` the kernel may cut each stream into segments;
+    without, it scans each whole."""
     check_dense(streams, classmap, table, packing, state_bits, warm=warm, vend=vend)
+    check_overlap(overlap)
     if on_cpu(streams):
         return dense_count_plain(streams, classmap, table, warm, vend, packing, state_bits)
     T, S = streams.shape
-    out = torch.empty(S, dtype=torch.int32, device=streams.device)
+    d = dense_count_design(streams, table, overlap)
+    out = torch.zeros(S, dtype=torch.int32, device=streams.device)
     launch(
         "amt_dense_count", streams.device,
         streams.data_ptr(), T, S,
         classmap.data_ptr(), table.data_ptr(), table.numel(),
-        warm.data_ptr(), vend.data_ptr(), packing, state_bits, out.data_ptr(),
+        warm.data_ptr(), vend.data_ptr(), packing, state_bits, overlap or 0, d.segments,
+        out.data_ptr(),
     )
     dense_count.launches += 1
     return out
@@ -116,4 +139,5 @@ def dense_states(streams, classmap, table, packing: int, state_bits: int):
 dense_count.launches = 0
 dense_states.launches = 0
 
-__all__ = ["dense_count", "dense_count_plain", "dense_states", "dense_states_plain", "lookup_plain"]
+__all__ = ["dense_count", "dense_count_design", "dense_count_plain", "dense_states",
+           "dense_states_plain", "lookup_plain"]

@@ -1,7 +1,7 @@
-"""The schedule of the segmented scans B9, B11, B15, B17 and the bitmap
-scans B6 and B13: how each stream is cut into segments and how the groups
-of B9 and B11 are cut into chunks, the two numbers each launch takes from
-its shapes.
+"""The schedule of the segmented scans B1, B2, B9, B11, B15, B17 and the
+bitmap scans B6 and B13: how each stream is cut into segments and how the
+groups of B9 and B11 are cut into chunks, the two numbers each launch takes
+from its shapes.
 
 ``csrc/stage.cuh`` runs the same split on the card.  Segment i of ``k``
 covers the steps ``[p_i, p_{i+1})``, ``p_i = i * T // k``; it scans from the
@@ -11,8 +11,11 @@ root starting ``overlap`` bytes early, at ``max(0, p_i - overlap)``.
 ``overlap + 1`` bytes is in the state of the scan from the stream's start, as
 between the streams of the plan.  So, per stream:
 
-* a count (B9, B15) adds the steps t with ``max(p_i, warm[s]) <= t <
+* a count (B1, B9, B15) adds the steps t with ``max(p_i, warm[s]) <= t <
   min(p_{i+1}, vend[s])`` of every segment (:func:`run_segments`);
+* B2, which has no ``vend``, adds the steps ``max(p_i, warm[s]) <= t <
+  p_{i+1}`` and ORs its trap plane over every step each segment scans
+  (:func:`bitap_over_segments`);
 * a sticky-any scan (B11) is the OR over segments of the scan of
   ``[max(0, p_i - overlap), min(p_{i+1}, vend[s]))`` (:func:`any_over_segments`):
   an absorb there is a real match in ``[0, vend)``, and every real match ends
@@ -58,9 +61,9 @@ MAX_BLOCKS_PER_SM = 16  # 2048 threads / 128
 
 @dataclass(frozen=True)
 class Design:
-    """What a launch of B6, B9, B11, B13, B15 or B17 takes from its shapes:
-    ``segments`` pieces per stream and ``chunk`` groups per block (B9,
-    B11)."""
+    """What a launch of B1, B2, B6, B9, B11, B13, B15 or B17 takes from its
+    shapes: ``segments`` pieces per stream and ``chunk`` groups per block
+    (B9, B11)."""
 
     segments: int
     chunk: int = 1
@@ -102,6 +105,29 @@ def run_segments(plain: Callable, streams, warm, vend, *tables, overlap: int,
         v = (torch.clamp(vend, max=hi) - start).clamp(min=0).to(torch.int32)
         total += plain(streams[start:hi].contiguous(), w, v, *tables).long()
     return total.to(torch.int32)
+
+
+def bitap_over_segments(plain: Callable, streams, tables, warm, trapmask=None, *,
+                        overlap: int, segments: int):
+    """B2's plain version ``plain(streams, *tables, warm, trapmask)`` run over
+    each segment of :func:`segment_schedule` from its scan start (its warm
+    moved into the slice, no vend): the counts summed per stream, int32
+    ``[S]``, and with a ``trapmask`` the trap planes OR-ed, ``(counts,
+    trap)``: what the segmented B2 computes."""
+    T, S = streams.shape
+    warm = warm.long()
+    total = torch.zeros(S, dtype=torch.int64, device=streams.device)
+    trap = torch.zeros(S, dtype=torch.int32, device=streams.device)
+    for start, lo, hi in segment_schedule(T, segments, overlap):
+        w = (torch.clamp(warm, min=lo) - start).to(torch.int32)
+        out = plain(streams[start:hi].contiguous(), *tables, w, trapmask)
+        if trapmask is None:
+            total += out.long()
+        else:
+            total += out[0].long()
+            trap |= out[1]
+    total = total.to(torch.int32)
+    return total if trapmask is None else (total, trap)
 
 
 def _sticky_runs(plain: Callable, streams, vend, tables, overlap: int, segments: int):
@@ -225,8 +251,8 @@ MAX_WORD_FIELDS = 30
 
 
 def dense_bits_smem_bytes(table_words: int) -> int:
-    """B6's dense step (``matchbits.cu``): the replicated class map and the
-    packed table, then two tiles."""
+    """B1 (``dense_count.cu``) and B6's dense step (``matchbits.cu``): the
+    replicated class map and the packed table, then two tiles."""
     return 4 * ((REP_WORDS + table_words + 3) & ~3) + 2 * T_TILE * BLOCK_STREAMS
 
 
@@ -234,6 +260,12 @@ def bitap_bits_smem_bytes() -> int:
     """B6's bitap step: the 256-word mask table and the count fields, then
     two tiles."""
     return 4 * ((256 + 2 * MAX_WORD_FIELDS + 3) & ~3) + 2 * T_TILE * BLOCK_STREAMS
+
+
+def bitap_smem_bytes(words: int, fields: int) -> int:
+    """B2 (``bitap_count.cu``): ``words`` mask tables of 256 words and the
+    count fields' end bits and weights, then two tiles."""
+    return 4 * ((256 * words + 2 * fields + 3) & ~3) + 2 * T_TILE * BLOCK_STREAMS
 
 
 def pick_chunk(G: int, comb_words: int, aux_words: int) -> int:
@@ -307,6 +339,8 @@ __all__ = [
     "any_over_segments",
     "base_over_segments",
     "bitap_bits_smem_bytes",
+    "bitap_over_segments",
+    "bitap_smem_bytes",
     "bits_design",
     "bits_over_segments",
     "chunk_smem_bytes",

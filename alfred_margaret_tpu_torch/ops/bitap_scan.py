@@ -287,6 +287,19 @@ def plan_bitap_ci(
     )
 
 
+def longest_track(lay: BitapLayout) -> int:
+    """Bytes of ``lay``'s longest track, match or trap: each runs from a seed
+    bit up to the next end bit of its word (tracks never span words)."""
+    n = 0
+    for wl in lay.all_words():
+        ends = wl.endmask | wl.trap_endmask
+        for e in range(32):
+            if ends >> e & 1:
+                start = (wl.seed & ((2 << e) - 1)).bit_length() - 1
+                n = max(n, e - start + 1)
+    return n
+
+
 def make_host_exact(machine: AcMachine):
     """Host composed-DFA engine for localized trap recovery (C++ when the
     toolchain exists, else None — callers fall back to the scalar scan)."""
@@ -334,6 +347,16 @@ class BitapTables:
     #: int32 [VT]: each match word's ``trap_endmask`` and the trap
     #: register's ``endmask``; None for a layout without trap tracks.
     trapmask: Optional[torch.Tensor] = None
+    #: Bytes of the layout's longest track, match or trap (``longest_track``).
+    max_track_bytes: int = 0
+
+    def check_overlap(self, overlap: int) -> None:
+        """Raise ``ValueError`` when ``overlap``, the warm-up over which B2's
+        segments restart their registers, is shorter than the longest track
+        less one: the segments would under-count."""
+        if overlap < self.max_track_bytes - 1:
+            raise ValueError(f"the staging's overlap {overlap} is below this layout's "
+                             f"longest track less one ({self.max_track_bytes - 1})")
 
     @staticmethod
     def from_layout(lay: BitapLayout, device, btab: Optional[np.ndarray] = None) -> "BitapTables":
@@ -358,6 +381,7 @@ class BitapTables:
             field_weight=i32([w for _, _, w in fields]),
             trapmask=(i32([wl.trap_endmask for wl in lay.words] + [wl.endmask for wl in reg])
                       if lay.has_trap else None),
+            max_track_bytes=longest_track(lay),
         )
 
 
@@ -384,14 +408,14 @@ class BitapAcEngine(DenseAcEngine):
         self._host_exact_eng = None
 
     def _kernel_args(self, st: StagedStreams) -> tuple:
-        """Arguments of ``bitap_count`` (or its plain version), with the trap
-        mask for a trap layout."""
+        """Arguments of ``bitap_count`` (or its plain version): the trap mask
+        (None without trap tracks), then the plan's warm-up, over which the
+        kernel's segments restart their registers (``BitapTables.check_overlap``
+        raises when it is too short)."""
         t = self.bitap_tables
-        args = (
-            st.streams, t.btab, t.seed, t.endmask,
-            t.field_start, t.field_bit, t.field_weight, st.warm,
-        )
-        return args if t.trapmask is None else (*args, t.trapmask)
+        t.check_overlap(st.plan.overlap)
+        return (st.streams, t.btab, t.seed, t.endmask, t.field_start, t.field_bit,
+                t.field_weight, st.warm, t.trapmask, st.plan.overlap)
 
     def stream_counts(self, st: StagedStreams):
         """int32 [S] per-stream counts on the device (kernel B2); for a trap

@@ -335,8 +335,11 @@ class DenseAcEngine:
         return st
 
     def _kernel_args(self, st: StagedStreams) -> tuple:
+        """B1's arguments, the plan's warm-up last: the kernel may cut the
+        streams into segments that each warm up over it."""
         t = self.tables
-        return (st.streams, t.classmap, t.table, st.warm, st.vend, t.packing, t.state_bits)
+        return (st.streams, t.classmap, t.table, st.warm, st.vend, t.packing, t.state_bits,
+                st.plan.overlap)
 
     def stream_counts(self, st: StagedStreams) -> torch.Tensor:
         """int32 [S] per-stream counts on the device (kernel B1)."""

@@ -464,10 +464,10 @@ class DistributedAcEngine:
         """``(kernel, args, kw)`` of one shard's launch: ``step`` is
         ``"count"``, ``"sticky"``, ``"states"`` or ``"bits"``, on stream block
         ``i``, needle group ``g``, device ``dev``; the launch is
-        ``kernel(*args, **kw)`` (``kw`` holds B6's ``overlap``, the others
-        take theirs in ``args``), and ``PLAIN[kernel](*args, **kw)`` is the
-        same function by the kernel's plain version.  The ``xla`` inner has
-        no kernel: ``(None, ..., {})``."""
+        ``kernel(*args, **kw)`` (``kw`` holds the ``overlap`` of B1, B2 and
+        B6; B9 and B11 take theirs in ``args``), and ``PLAIN[kernel](*args,
+        **kw)`` is the same function by the kernel's plain version.  The
+        ``xla`` inner has no kernel: ``(None, ..., {})``."""
         blk = staged.blocks[(i, dev)]
         if step == "count":
             route = self.count_route(use_bitap)
@@ -475,20 +475,22 @@ class DistributedAcEngine:
                 return None, (*self._xla_tables(g, dev), blk.streams, blk.warm, blk.vend), {}
             if route == "bitap":
                 t = self._bitap(dev)
+                t.check_overlap(staged.plan.overlap)
                 args = (blk.streams, t.btab, t.seed, t.endmask, t.field_start, t.field_bit,
-                        t.field_weight, blk.warm)
-                return bitap_count, args if t.trapmask is None else (*args, t.trapmask), {}
+                        t.field_weight, blk.warm, t.trapmask)
+                return bitap_count, args, {"overlap": staged.plan.overlap}
             if route == "comb16":
                 tabs = self._cached("c16", g, dev, lambda: self._c16g.group(g, dev))
                 return comb16_count_grouped, (blk.streams, blk.warm, blk.vend, tabs,
                                               staged.plan.overlap), {}
             t = self._dense(g, dev)
             return dense_count, (blk.streams, t.classmap, t.table, blk.warm, blk.vend,
-                                 t.packing, t.state_bits), {}
+                                 t.packing, t.state_bits), {"overlap": staged.plan.overlap}
         if step == "sticky":
             route = self.sticky_route(use_bitap)
             if route == "bitap":
                 t = self._bitap(dev)
+                t.check_overlap(staged.plan.overlap)
                 args = (blk.streams, t.btab, t.seed, t.endmask)
                 return bitap_contains, args if t.trapmask is None else (*args, t.trapmask), {}
             if route == "comb16":

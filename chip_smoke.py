@@ -92,11 +92,14 @@ just after (the controls' launches are read apart), the first seven over
   on one shard and timed there.
 
 Every answer must equal the host C++ engine's (and the control's), and every
-kernel of a path must have been launched by it.  The segmented kernels (B6
-with its dense and bitap steps, B9, B11 in both modes, B13, B15 and B17) are
-also held against their plain versions at ragged edge shapes: one stream, S
-not a multiple of 128 or of 16, T of one tile or word, ragged warm-ups and
-vends, with the plan's overlap, with none and with every stream padded.
+kernel of a path must have been launched by it.  The segmented kernels (B1,
+B2 with its trap part, B6 with its dense and bitap steps, B9, B11 in both
+modes, B13, B15 and B17) are also held against their plain versions at
+ragged edge shapes: one stream, S not a multiple of 128 or of 16, T of one
+tile or word, ragged warm-ups and vends, with the plan's overlap, with none
+and with every stream padded (B2 also on 1, 2, 3 and 8 words and its trap
+layouts, İ, Kelvin K and ẞ written across the segment cuts); the launches
+of B1, B2, S1 and S2 print their segment counts.
 Last it times every kernel
 (the trap parts on the IgnoreCase bench staging, with an embedded trap and
 with a trap register) and its plain version with CUDA events, B8 against B1 on one 30-needle
@@ -136,6 +139,19 @@ DIGITS = b"0123456789 ,;:!"
 #: tensor cores, taken as the card's rate for 32-bit integer work.
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
+#: Needles of two bitap words, and 30 needles at dense packing 2.
+TWO_WORD_NEEDLES = ["alpha", "bravo", "charlie", "delta", "echo", "foxtrot", "golf"]
+PACK2_NEEDLES = [bytes([97 + i % 11, 98 + (i * 3) % 9, 99 + i % 7]).decode() for i in range(30)]
+_RNG8 = np.random.default_rng(5)
+#: Needles of eight bitap words: distinct random six-letter words.
+EIGHT_WORD_NEEDLES = list(dict.fromkeys(
+    "".join(chr(97 + c) for c in _RNG8.integers(0, 26, size=6)) for _ in range(30)))
+#: IgnoreCase needles whose layout holds a trap register (beside one bitap
+#: word, and beside two).
+TRAP_REGISTER_NEEDLES = ["tshirt", "shirts", "shorts", "kilo", "café"]
+TRAP_REGISTER_V3_NEEDLES = TRAP_REGISTER_NEEDLES + ["alpha", "bravo", "charlie", "delta"]
+#: İ, Kelvin K and ẞ: unlowerings that change the byte length (trap tracks).
+CI_TRAPS = ("\u0130", "\u212a", "\u1e9e")
 
 
 class SmokeFailure(RuntimeError):
@@ -184,6 +200,21 @@ def fire_free(n: int, seed: int = 0) -> bytes:
     return rng.choice(np.frombuffer(b"0 ", np.uint8), n).astype(np.uint8).tobytes()
 
 
+def plant_traps(a: np.ndarray, k: int, K: int) -> None:
+    """Write İ, Kelvin K and ẞ across each cut of ``k`` segments of overlap
+    ``K`` (mid-stream for one segment) into ``a`` (uint8 [T, S], in place):
+    trap j of cut i in stream 3i + j (mod S)."""
+    from alfred_margaret_tpu_torch.kernels.segments import segment_schedule
+
+    T, S = a.shape
+    cuts = [lo for _, lo, _ in segment_schedule(T, k, K)[1:]] or [T // 2]
+    for i, p in enumerate(cuts):
+        for j, enc in enumerate(CI_TRAPS):
+            b = np.frombuffer(enc.encode(), np.uint8)
+            if 1 <= p and p - 1 + len(b) <= T:
+                a[p - 1:p - 1 + len(b), (3 * i + j) % S] = b
+
+
 def sticky_groups(sticky16, G: int):
     """``G`` copies of one comb16 sticky table set (``Comb16AcEngine.
     sticky_tables()``) as B11's group tables."""
@@ -227,7 +258,9 @@ def mesh_phase(h):
     from alfred_margaret_tpu_torch import CASE_SENSITIVE, Searcher
     from alfred_margaret_tpu_torch.bench.dataformat import synth_corpus
     from alfred_margaret_tpu_torch.parallel import DistributedAcEngine, init_distributed, make_mesh
+    from alfred_margaret_tpu_torch.kernels.bitap_count import bitap_count_design
     from alfred_margaret_tpu_torch.kernels.comb16_grouped import comb16_grouped_design
+    from alfred_margaret_tpu_torch.kernels.dense_count import dense_count_design
     from alfred_margaret_tpu_torch.kernels.matchbits import matchbits_design
     from alfred_margaret_tpu_torch.parallel.shard import PLAIN
 
@@ -470,9 +503,13 @@ def mesh_phase(h):
             sites[name]["design"] = comb16_grouped_design(args[0], args[2], args[3]).as_dict()
         if name == "matchbits":  # S8: B6's dense step on the shard's streams
             sites[name]["design"] = matchbits_design(args[0], *args[3:], **kw).as_dict()
+        if name == "dense_count":  # S1: B1's segments on the shard's streams
+            sites[name]["design"] = dense_count_design(args[0], args[2], **kw).as_dict()
+        if name.startswith("bitap_count"):  # S2
+            sites[name]["design"] = bitap_count_design(args[0], args[1], args[5], **kw).as_dict()
         print(f"time mesh {site} {name:22s} {what:36s} {ms:10.4f} ms per shard launch "
               f"[T, S_local] = [{T}, {SL}], plain {plain_ms:.1f} ms, bound {bms:.4f} ms by {by} "
-              f"({ms / bms:.1f}x; {card})", flush=True)
+              f"({ms / bms:.1f}x; {sites[name].get('design', '')}; {card})", flush=True)
     print(f"mesh: every answer == the single-device Searcher; launches {main}, "
           f"control {control}", flush=True)
     return main, control, sites
@@ -491,8 +528,10 @@ def main() -> int:
     from alfred_margaret_tpu_torch import kernels as K
     from alfred_margaret_tpu_torch.bench.dataformat import synth_corpus
     from alfred_margaret_tpu_torch.kernels import build
+    from alfred_margaret_tpu_torch.kernels.bitap_count import bitap_count_design
     from alfred_margaret_tpu_torch.kernels.comb import comb_count_design
     from alfred_margaret_tpu_torch.kernels.comb16_grouped import comb16_grouped_design
+    from alfred_margaret_tpu_torch.kernels.dense_count import dense_count_design
     from alfred_margaret_tpu_torch.kernels.matchbits import matchbits_design
     from alfred_margaret_tpu_torch.models import ac, case_dfa
     from alfred_margaret_tpu_torch.native import build as native_build
@@ -629,8 +668,7 @@ def main() -> int:
     def machine_of(needles):
         return ac.build([(n, i) for i, n in enumerate(needles)])
 
-    v2 = ["alpha", "bravo", "charlie", "delta", "echo", "foxtrot", "golf"]
-    pk2 = [bytes([97 + i % 11, 98 + (i * 3) % 9, 99 + i % 7]).decode() for i in range(30)]
+    v2, pk2 = TWO_WORD_NEEDLES, PACK2_NEEDLES
     c2 = config2_needles()
     n97 = [n for n in c2 if len(n) >= 4]
     cases = [
@@ -1544,7 +1582,7 @@ def main() -> int:
     oracle_check(s600, data600[:ORACLE_BYTES].tobytes() + PROBES, "config 5's 600, 64 KiB")
 
     # Phase 5: B2, B4 and B7 with trap tables against their plain versions.
-    reg_needles = ["tshirt", "shirts", "shorts", "kilo", "café"]
+    reg_needles = TRAP_REGISTER_NEEDLES
     for seed, (label, needles) in enumerate((("trapless", ["dress", "shoe", "glove"]),
                                              ("embedded trap", NEEDLES),
                                              ("trap register", reg_needles))):
@@ -1665,7 +1703,7 @@ def main() -> int:
 
     # (name, kernel, plain, args, what, stream bytes the function needs,
     #  output bytes, operations: one 32-bit state update per byte and word)
-    timings = {}
+    timings, designs = {}, {}
     rows = (
         ("bitap_count", K.bitap_count, K.bitap_count_plain, bitap_eng._kernel_args(st),
          "bench needles", n_live_bytes(st), 4 * S,
@@ -1753,6 +1791,13 @@ def main() -> int:
         print(f"bound {name:16s} {what:44s} {bms:10.4f} ms by {by} ({sbytes} stream bytes; "
               f"{ms / bms:.1f}x the bound)")
         timings[(name, what)] = (ms, plain_ms, bms, by)
+        if name.startswith("bitap_count"):  # B2's segments with the plan's overlap
+            designs[(name, what)] = bitap_count_design(args[0], args[1], args[5],
+                                                       args[9]).as_dict()
+        elif name == "dense_count":
+            designs[(name, what)] = dense_count_design(args[0], args[2], args[7]).as_dict()
+        if (name, what) in designs:
+            print(f"design {name:16s} {what:44s} {designs[(name, what)]}")
 
     # B9 (eleven groups, and one alone as on a mesh shard) and B15 at the edge
     # shapes of their redesign: S not a multiple of 128 (byte-wise staging
@@ -1860,6 +1905,82 @@ def main() -> int:
     print(f"edge shapes: B6 (dense, bitap steps) and B13 == plain on {n_edge} launches "
           "(S 1 / 200 / 1000 / 1040 / 4096, T 32 / 320 / 1024, ragged warm and vend, the "
           "plan's overlap, none, every stream padded)", flush=True)
+
+    # B1 and B2 at the edge shapes of their redesign: one stream, S not a
+    # multiple of 128 or of 16, T below a tile, ragged warm-ups (and vends
+    # for B1), with the plan's overlap, with none, and every stream padded
+    # (zero bytes for B2, which has no vend); single bytes at their overlap
+    # of 0; B1 at packing 1 and 2 and on NUL tables that are not zero-inert;
+    # B2 on 1, 2, 3 and 8 words and on the trap layouts, with İ, Kelvin K and
+    # ẞ written across the segment cuts.
+    count_edge = []  # (wrapper, label, engine, needles)
+    for label, needles, words in (("V = 1", NEEDLES, 1), ("V = 2", v2, 2),
+                                  ("V = 3", v2 + ["hotel", "india", "juliett"], 3),
+                                  ("V = 8", EIGHT_WORD_NEEDLES, 8), ("singles", ["a", "e", " ", "z"], 1)):
+        m = machine_of(needles)
+        e = BitapAcEngine(m, layout=plan_bitap(m, max_words=words), device=dev)
+        check(e.bitap.n_words == words, f"B2 edge {label}: {e.bitap.n_words} words")
+        count_edge.append(("bitap_count", label, e, needles))
+    for label, needles, VT in (("embedded trap", ["kilo", "straße", "fix"], 1),
+                               ("trap register", reg_needles, 2),
+                               ("trap register, 2 words", TRAP_REGISTER_V3_NEEDLES, 3)):
+        m = machine_of(needles)
+        cm = case_dfa.compose_build(list(zip(m.needles, m.values)), machine=m)
+        e = BitapAcEngine(cm, layout=plan_bitap_ci(cm, max_words=2), device=dev)
+        check(e.bitap.has_trap and len(e.bitap.all_words()) == VT, f"B2 edge {label}: layout")
+        count_edge.append(("bitap_count_trap", label, e, needles))
+    for label, needles in (("packing 1", NEEDLES), ("packing 2", pk2),
+                           ("NUL, not zero-inert", ["a\x00b", "\x00\x00", "xyz"]),
+                           ("singles", ["a", "e", " ", "z"])):
+        e = DenseAcEngine(machine_of(needles), device=dev)
+        check((e.comp.packing == 2) == (label == "packing 2")
+              and _zero_inert(e.machine) == (not label.startswith("NUL")),
+              f"B1 edge {label}: packing {e.comp.packing}")
+        count_edge.append(("dense_count", label, e, needles))
+
+    srcs = {}
+    n_edge, k_seen = 0, set()
+    for T_e in (20, 300, 1000):
+        for S_e in (1, 200, 1000, 1040, 4096):
+            for name, label, e, needles in count_edge:
+                if label not in srcs:
+                    raw = synth_corpus([x for x in needles if "\x00" not in x], 1 << 18,
+                                       hit_fraction=0.05, seed=len(srcs) + 60)
+                    srcs[label] = scramble(raw, 7) if name == "bitap_count_trap" else (
+                        np.frombuffer(raw, np.uint8))
+                K_e = e.overlap
+                s_e, w_e, v_e = edge_streams(T_e, S_e, K_e, 11 * T_e + S_e, srcs[label])
+                if name == "dense_count":
+                    t = e.tables
+                    args = (s_e, t.classmap, t.table, w_e, v_e, t.packing, t.state_bits)
+                    pad = (*args[:4], torch.zeros_like(v_e), *args[5:])
+                    fn, plain = K.dense_count, K.dense_count_plain
+                    k = dense_count_design(s_e, t.table, K_e).segments
+                else:
+                    t = e.bitap_tables
+                    k = bitap_count_design(s_e, t.btab, t.field_bit, K_e).segments
+                    if t.trapmask is not None:
+                        a_e = s_e.cpu().numpy().copy()
+                        plant_traps(a_e, k, K_e)
+                        s_e = torch.from_numpy(a_e).to(dev)
+                    args = (s_e, t.btab, t.seed, t.endmask, t.field_start, t.field_bit,
+                            t.field_weight, w_e, t.trapmask)
+                    pad = (torch.zeros_like(s_e), *args[1:])
+                    fn, plain = K.bitap_count, K.bitap_count_plain
+                k_seen.add(k)
+                for a_e, over, how in ((args, K_e, f"plan's overlap {K_e}, k = {k}"),
+                                       (args, None, "no overlap"),
+                                       (pad, K_e, "every stream padded")):
+                    got, want = fn(*a_e, overlap=over), plain(*a_e)
+                    for a, b in zip(got if isinstance(got, tuple) else (got,),
+                                    want if isinstance(want, tuple) else (want,)):
+                        same(name, a, b, f"{label}, {how}, edge shape T={T_e} S={S_e}")
+                    n_edge += 1
+    print(f"edge shapes: B1 (packing 1 / 2, NUL, singles) and B2 (V = 1 / 2 / 3 / 8, singles, "
+          f"embedded trap, trap register on 1 and 2 words) == plain on {n_edge} launches (S 1 / "
+          f"200 / 1000 / 1040 / 4096, T 20 / 300 / 1000, ragged warm and vend, the plan's overlap "
+          f"(k in {sorted(k_seen)}), none, every stream padded; traps across the cuts)",
+          flush=True)
 
     # B8 against B1 on the dense path's 30 needles, which both engines hold.
     comb30 = Comb16AcEngine(m30, device=dev)
@@ -1981,6 +2102,8 @@ def main() -> int:
             "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
             "bound_by": by, "library_ms": None,  # no PyTorch call runs an automaton
         }
+        if (name, what) in designs:
+            entry["design"] = designs[(name, what)]
         if name == "dense_contains":
             entry["ms_full_scan"], entry["plain_ms_full_scan"], entry["bound_ms_full_scan"], _ = (
                 timings[(name, "miss needles, full scan")])
@@ -2022,6 +2145,8 @@ def main() -> int:
         if name in ("bitap_count_trap", "bitap_presence_trap"):
             entry["ms_trap_register"], entry["plain_ms_trap_register"], entry[
                 "bound_ms_trap_register"], _ = timings[(name, "IgnoreCase 5 needles, trap register")]
+        if name == "bitap_count_trap":
+            entry["design_trap_register"] = designs[(name, "IgnoreCase 5 needles, trap register")]
         if name == "comb16_contains_grouped":
             entry["groups"] = Y5
             entry["design"] = comb16_grouped_design(st5d.streams, y5,

@@ -6,38 +6,46 @@ source tree, in turns, on one CUDA card.
 ``PARENT_DIR`` holds an earlier checkout's ``alfred_margaret_tpu_torch/csrc``
 (for example ``git archive <commit> alfred_margaret_tpu_torch/csrc | tar -x
 -C PARENT_DIR``, in a directory ``.gitignore`` lists).  Its sources are
-built with the port's ``nvcc`` flags and called through the launchers of the
-tree before B6 and B13 took segments (their signatures are bound below).
-At the main paths' shapes (128 MiB, S = 32768, T = 4224; the mesh's shards
-of (4,2,1) at 4096 streams and of (2,1,4) at 16384), each kernel runs in
-turns, parent, this tree, this tree, parent, ``--runs`` launches a timing
-(CUDA events), and each pair's outputs must be equal:
+built with the port's ``nvcc`` flags.  B1's and B2's launchers are called
+through the signatures of the tree before they took segments (bound below);
+every other kernel through this tree's wrappers, with the parent's library
+swapped in (their launchers did not change).  At the main paths' shapes (128
+MiB, S = 32768, T = 4224; the mesh's shards of (4,2,1) at 4096 streams and
+of (2,1,4) at 16384), each kernel runs in turns, parent, this tree, this
+tree, parent, ``--runs`` launches a timing (CUDA events), and each pair's
+outputs must be equal:
 
-* B6, the hit bitmap: the bench needles' one-word bitap step and their dense
-  step, and site S8, the dense step on shard 0 of the (4,2,1) mesh;
-* B13, B6's comb16 step: config 2's 100 needles;
-* B9, B11 (both modes, the one-group mode as site S4; the grouped mode on a
-  corpus it scans in full and on one where it stops at the first match),
-  B15, B17 and S5 (B9 with one group), which must not move.
+* B2, the bitap count: the bench needles (one word), the IgnoreCase bench
+  needles with a trap embedded in their word, and five needles with a trap
+  register; site S2 on shard 0 of the (4,2,1) mesh, with and without its
+  trap part;
+* B1, the dense count: the bench needles' dense tables, 30 needles at
+  packing 2, and site S1 on shard 0 of the (4,2,1) mesh;
+* the kernels that must not move: B6 (bitap and dense steps), S8, B13, B11
+  (both modes, the one-group mode as site S4), B17, B9, B15, S5, and B4, B5
+  and B7, which share B1's and B2's build.
 
-With ``--grid`` it also times this tree's B6 (both steps), S8 and B13 at
-other segment counts than their rule picks; with ``--walls`` the operations that launch B6 and B13 (``all_matches_arrays``
-on the bench needles and on config 2), host clock until the answer is on the
-host, with the parent's launcher swapped in for this tree's, in turns.
-Prints each timing, the card's name and power limit, and one JSON line.
-Needs one CUDA card and ``nvcc``; the parent's library goes to
+``--grid`` also times this tree's B2, B1 and S2 at other segment counts than
+their rule picks.  ``--walls`` times ``count_matches`` on the bench needles
+(one device, the (4,2,1) mesh, the ``AMT_BITAP=0`` dense control) and on the
+IgnoreCase bench needles, host clock until the answer is on the host, with
+the parent's launcher swapped in for this tree's, in turns.  Prints each
+timing, the card's name and power limit, and one JSON line.  Needs one CUDA
+card and ``nvcc``; the parent's library goes to
 ``alfred_margaret_tpu_torch/_build/parent``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import glob
 import json
 import os
 import sys
 import time
+from types import SimpleNamespace
 from unittest import mock
 
 import numpy as np
@@ -46,33 +54,21 @@ import chip_smoke as smoke
 
 
 def _bind_parent(lib) -> None:
-    """The launchers of the parent tree this script calls."""
+    """The launchers of the parent tree: this tree's signatures, but B1's and
+    B2's before they took ``overlap`` and ``segments``."""
+    from alfred_margaret_tpu_torch.kernels import build
+
+    build._bind(lib)
     p, i = ctypes.c_void_p, ctypes.c_int
-    grouped = [i, p, p, i, p, i, p, p, p]  # G, classmap, comb, cw, aux, aw, root_row, segtable, gscal
-    lib.amt_comb16_count_grouped.restype = i
-    lib.amt_comb16_count_grouped.argtypes = [p, i, i, p, p, *grouped, i, i, i, i, i, i, i, p, p]
-    lib.amt_comb16_contains_grouped.restype = i
-    lib.amt_comb16_contains_grouped.argtypes = [p, i, i, p, *grouped, i, i, i, i, i, p, p]
-    lib.amt_comb16_contains_base.restype = i
-    lib.amt_comb16_contains_base.argtypes = [p, i, i, p, *grouped[1:], i, i, i, i, p, p]
-    comb = [p, p, i, p, i, i, i, i, i]  # classmap, comb, cw, def, dw, k, owner_bits, root
-    lib.amt_comb_count.restype = i
-    lib.amt_comb_count.argtypes = [p, i, i, p, p, *comb, i, i, p, p]
-    lib.amt_comb_states.restype = i
-    lib.amt_comb_states.argtypes = [p, i, i, *comb, i, i, p, p]
-    # B6 and B13 before segments: one thread a whole stream, counts written.
-    lib.amt_matchbits_dense.restype = i
-    lib.amt_matchbits_dense.argtypes = [p, i, i, p, p, p, p, i, i, i, p, p, p]
-    lib.amt_matchbits_bitap.restype = i
-    lib.amt_matchbits_bitap.argtypes = [p, i, i, p, p, p, p, p, p, p, i, p, p, p]
-    lib.amt_matchbits_comb16.restype = i
-    lib.amt_matchbits_comb16.argtypes = [p, i, i, p, p, p, p, i, p, i, p, p, p, i, i, i, i,
-                                         p, p, p]
+    lib.amt_dense_count.argtypes = [p, i, i, p, p, i, p, p, i, i, p, p]
+    lib.amt_bitap_count.argtypes = [p, i, i, p, p, p, p, p, p, i, i, p, p, p]
+    lib.amt_bitap_count_trap.argtypes = [p, i, i, p, p, p, p, p, p, i, i, p, p, p, p, p]
 
 
 def build_parent(src_dir: str, out_dir: str):
     """Build the ``csrc/*.cu`` under ``src_dir`` with the port's flags into
-    ``out_dir``; returns (the bound library, seconds)."""
+    ``out_dir`` and bind its launchers by the parent's signatures; returns
+    (the library, seconds)."""
     from alfred_margaret_tpu_torch.kernels import build
     from alfred_margaret_tpu_torch.utils.device import nvcc_path
 
@@ -80,7 +76,7 @@ def build_parent(src_dir: str, out_dir: str):
     if not srcs:
         raise SystemExit(f"no csrc/*.cu under {src_dir}")
     os.makedirs(out_dir, exist_ok=True)
-    so = os.path.join(out_dir, "libparent.so")
+    so = os.path.join(out_dir, "libtree.so")
     t0 = time.perf_counter()
     build._compile(nvcc_path(), srcs, so)
     lib = ctypes.CDLL(so)
@@ -98,43 +94,63 @@ def main() -> int:
     ap.add_argument("parent")
     ap.add_argument("--runs", type=int, default=30)
     ap.add_argument("--walls", action="store_true",
-                    help="also time the operations that launch B6 and B13 (host clock until "
-                         "the answer is on the host) with the parent's launcher swapped in and "
-                         "with this tree's, in turns")
+                    help="also time count_matches (host clock until the answer is on the host) "
+                         "with the parent's B1 and B2 swapped in and with this tree's, in turns")
     ap.add_argument("--grid", action="store_true",
-                    help="also time this tree's B6, S8 and B13 at other segment counts than "
+                    help="also time this tree's B2, B1 and S2 at other segment counts than "
                          "their rule picks")
     a = ap.parse_args()
 
-    from alfred_margaret_tpu_torch import CASE_SENSITIVE, Searcher
+    from alfred_margaret_tpu_torch import CASE_SENSITIVE, IGNORE_CASE, Searcher
     from alfred_margaret_tpu_torch import kernels as K
     from alfred_margaret_tpu_torch.bench.dataformat import synth_corpus
     from alfred_margaret_tpu_torch.kernels import build
+    from alfred_margaret_tpu_torch.kernels.bitap_count import bitap_count_design
     from alfred_margaret_tpu_torch.kernels.comb import comb_count_design
     from alfred_margaret_tpu_torch.kernels.comb16_grouped import comb16_grouped_design
+    from alfred_margaret_tpu_torch.kernels.dense_count import dense_count_design
     from alfred_margaret_tpu_torch.kernels.matchbits import matchbits_design
-    from alfred_margaret_tpu_torch.parallel import make_mesh
+    from alfred_margaret_tpu_torch.models import ac, case_dfa
+    from alfred_margaret_tpu_torch.ops import bitap_scan, pallas_scan
+    from alfred_margaret_tpu_torch.ops.bitap_scan import BitapAcEngine, plan_bitap_ci
+    from alfred_margaret_tpu_torch.ops.pallas_scan import DenseAcEngine
+    from alfred_margaret_tpu_torch.parallel import DistributedAcEngine, make_mesh
+    from alfred_margaret_tpu_torch.parallel import shard
     from alfred_margaret_tpu_torch.utils.device import nvidia_smi_line
 
     dev = torch.device("cuda", 0)
     card = nvidia_smi_line()
     t0 = time.perf_counter()
     new = build.load()
-    plib, parent_s = build_parent(a.parent, os.path.join(os.path.dirname(new.path), "parent"))
+    out_dir = os.path.dirname(new.path)
+    plib, parent_s = build_parent(a.parent, os.path.join(out_dir, "parent"))
     print(f"built this tree and the parent in {time.perf_counter() - t0:.1f} s", flush=True)
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
 
-    def timed(fn):
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(a.runs):
+    @contextlib.contextmanager
+    def in_lib(lib):
+        """This tree's wrappers launch from ``lib`` (None: this tree's)."""
+        if lib is None:
+            yield
+            return
+        with mock.patch.object(build, "load", lambda: SimpleNamespace(lib=lib)):
+            yield
+
+    def timed(fn, lib=None):
+        with in_lib(lib):
             fn()
-        stop.record()
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(a.runs):
+                fn()
+            stop.record()
+            torch.cuda.synchronize()
         return start.elapsed_time(stop) / a.runs
+
+    def machine_of(needles):
+        return ac.build([(n, i) for i, n in enumerate(needles)])
 
     # -- the main paths' inputs ---------------------------------------------------------
     B = smoke.CORPUS_BYTES
@@ -142,13 +158,40 @@ def main() -> int:
     sb = Searcher.build(CASE_SENSITIVE, smoke.NEEDLES)
     bitap_eng = sb._engine.device_engine()
     with mock.patch.dict(os.environ, {"AMT_BITAP": "0"}):
-        dense_eng = Searcher(CASE_SENSITIVE, sb.needles, machine=sb.automaton,
-                             device="cuda")._engine.device_engine()
+        sd = Searcher(CASE_SENSITIVE, sb.needles, machine=sb.automaton, device="cuda")
+        dense_eng = sd._engine.device_engine()
+    assert isinstance(bitap_eng, BitapAcEngine) and type(dense_eng) is DenseAcEngine
     datab = np.frombuffer(synth_corpus(smoke.NEEDLES, B, hit_fraction=0.01, seed=3), np.uint8)
     stgb = sb.stage(datab)
     stb = stgb.device
-    eb = sb.distributed(make_mesh([dev] * 8, data=4, seq=2))
+    m421 = make_mesh([dev] * 8, data=4, seq=2)
+    eb = sb.distributed(m421)
+    with mock.patch.dict(os.environ, {"AMT_BITAP": "0"}):
+        eb_dense = DistributedAcEngine(sb.automaton, m421)
+    assert (eb.count_route(), eb_dense.count_route()) == ("bitap", "dense")
     sbm = eb.stage(datab)
+    # IgnoreCase: the case-scrambled bench corpus on the composed machine's
+    # byte-class bitap (an embedded trap), and five needles with a trap
+    # register scanning the same staging.
+    flip = np.random.default_rng(31).integers(0, 2, size=len(datab), dtype=np.uint8) == 1
+    data_ci = datab.copy()
+    data_ci[flip & (data_ci >= 97) & (data_ci <= 122)] -= 32
+    s_ci = Searcher.build(IGNORE_CASE, smoke.NEEDLES)
+    eng_ci = s_ci._engine._composed(IGNORE_CASE).device_engine()
+    stg_ci = s_ci.stage(data_ci)
+    st_ci = stg_ci.device
+    assert stg_ci.composed and eng_ci.bitap.has_trap and eng_ci.bitap.trap is None
+    m_reg = machine_of(smoke.TRAP_REGISTER_NEEDLES)
+    cm_reg = case_dfa.compose_build(list(zip(m_reg.needles, m_reg.values)), machine=m_reg)
+    eng_reg = BitapAcEngine(cm_reg, layout=plan_bitap_ci(cm_reg, max_words=2), device=dev)
+    assert eng_reg.adopt_staged(st_ci) is st_ci and eng_reg.bitap.trap is not None
+    eci = s_ci.distributed(m421)
+    sci_m = eci.stage(data_ci)
+    assert eci._bitap_lay.has_trap
+    pk2 = smoke.PACK2_NEEDLES
+    e30 = DenseAcEngine(machine_of(pk2), device=dev)
+    assert e30.comp.packing == 2
+    st30 = e30.stage(np.frombuffer(synth_corpus(pk2, B, hit_fraction=0.01, seed=19), np.uint8))
     n1000 = smoke.config5_needles(1000)
     s1000 = Searcher.build(CASE_SENSITIVE, n1000)
     eng5 = s1000._engine.device_engine()
@@ -165,92 +208,50 @@ def main() -> int:
     eng2 = s100._engine.device_engine()
     ec2 = s100.distributed(make_mesh([dev] * 8, data=2, seq=1, needle=4))
     data2 = np.frombuffer(synth_corpus(c2, B, hit_fraction=0.01, seed=5), np.uint8)
-    stg2 = s100.stage(data2)
-    st2 = stg2.device
+    st2 = s100.stage(data2).device
     sc2 = ec2.stage(data2)
     sff = ec2.stage(np.frombuffer(smoke.fire_free(B, seed=1), np.uint8))
-    i0, g0, d0 = ec2.shards()[0]
-    _, s4_args, _ = ec2.shard_call("sticky", sff, i0, g0, d0)
-    _, s5_args, _ = ec2.shard_call("count", sc2, i0, g0, d0)
-    ib, gb, db = eb.shards()[0]
-    _, s8_args, s8_kw = eb.shard_call("bits", sbm, ib, gb, db)
+
+    def shard0(eng, step, staged, **kw):
+        i, g, d = eng.shards()[0]
+        _, args, skw = eng.shard_call(step, staged, i, g, d, **kw)
+        return args, skw
+
+    s1_args, s1_kw = shard0(eb_dense, "count", sbm)
+    s2_args, s2_kw = shard0(eb, "count", sbm)
+    s2t_args, s2t_kw = shard0(eci, "count", sci_m)
+    s4_args, _ = shard0(ec2, "sticky", sff)
+    s5_args, _ = shard0(ec2, "count", sc2)
+    s8_args, s8_kw = shard0(eb, "bits", sbm)
     torch.cuda.synchronize()
 
-    # -- the parent's launches --------------------------------------------------------
+    # -- the parent's B1 and B2 ---------------------------------------------------------
     def ptr(x):
         return x.data_ptr()
 
-    def parent_grouped_contains(streams, vend, t, overlap=None):
-        d = comb16_grouped_design(streams, t, overlap)
-        out = torch.zeros(streams.shape[1], dtype=torch.int32, device=dev)
-        build.check(plib.amt_comb16_contains_grouped(
-            ptr(streams), *streams.shape, ptr(vend), t.n_groups, ptr(t.classmap), ptr(t.comb),
-            t.comb.shape[1], ptr(t.aux), t.aux.shape[1], ptr(t.root_row), ptr(t.segtable),
-            ptr(t.gscal), t.BB, t.owner_mask, overlap or 0, d.segments, d.chunk, ptr(out),
-            stream()))
-        return out
-
-    def parent_base(streams, vend, t, overlap=None):
-        d = comb16_grouped_design(streams, t, overlap)
-        out = torch.empty(streams.shape[1], dtype=torch.int32, device=dev)
-        build.check(plib.amt_comb16_contains_base(
-            ptr(streams), *streams.shape, ptr(vend), ptr(t.classmap), ptr(t.comb),
-            t.comb.shape[1], ptr(t.aux), t.aux.shape[1], ptr(t.root_row), ptr(t.segtable),
-            ptr(t.gscal), t.BB, t.owner_mask, overlap or 0, d.segments, ptr(out), stream()))
-        return out
-
-    def parent_count_grouped(streams, warm, vend, t, overlap=None):
-        d = comb16_grouped_design(streams, t, overlap)
-        out = torch.zeros(streams.shape[1], dtype=torch.int32, device=dev)
-        build.check(plib.amt_comb16_count_grouped(
-            ptr(streams), *streams.shape, ptr(warm), ptr(vend), t.n_groups, ptr(t.classmap),
-            ptr(t.comb), t.comb.shape[1], ptr(t.aux), t.aux.shape[1], ptr(t.root_row),
-            ptr(t.segtable), ptr(t.gscal), t.gscal.shape[1], t.BB, t.owner_mask, t.CB,
-            overlap or 0, d.segments, d.chunk, ptr(out), stream()))
-        return out
-
-    def comb_ints(cm, comb, deft, k, ob, rb, rd):
-        return (ptr(cm), ptr(comb), comb.numel(), ptr(deft), deft.numel(), k, ob, rb, rd)
-
-    def parent_comb_count(streams, warm, vend, cm, comb, deft, k, ob, rb, rd, overlap=None):
-        d = comb_count_design(streams, comb, deft, overlap)
-        out = torch.zeros(streams.shape[1], dtype=torch.int32, device=dev)
-        build.check(plib.amt_comb_count(
-            ptr(streams), *streams.shape, ptr(warm), ptr(vend),
-            *comb_ints(cm, comb, deft, k, ob, rb, rd), overlap or 0, d.segments, ptr(out),
-            stream()))
-        return out
-
-    def parent_states(streams, cm, comb, deft, k, ob, rb, rd, overlap=None):
-        d = comb_count_design(streams, comb, deft, overlap)
-        out = torch.empty(*streams.shape, dtype=torch.int32, device=dev)
-        build.check(plib.amt_comb_states(
-            ptr(streams), *streams.shape, *comb_ints(cm, comb, deft, k, ob, rb, rd),
-            overlap or 0, d.segments, ptr(out), stream()))
-        return out
-
-    def parent_bits(streams, warm, vend, step, *tables, overlap=None):
-        """The parent's B6 / B13: one thread a whole stream (no overlap)."""
+    def parent_bitap(streams, btab, seed, endmask, fs, fb, fw, warm, trapmask=None,
+                     overlap=None):
+        """The parent's B2: one thread a whole stream (no overlap)."""
         T, S = streams.shape
-        counts = torch.empty(S, dtype=torch.int32, device=dev)
-        bits = torch.empty(T // 32, S, dtype=torch.int32, device=dev)
-        head = (ptr(streams), T, S, ptr(warm), ptr(vend))
-        outs = (ptr(counts), ptr(bits), stream())
-        if step == "dense":
-            cm, tab, packing, sb_ = tables
-            err = plib.amt_matchbits_dense(*head, ptr(cm), ptr(tab), tab.numel(), packing, sb_,
-                                           *outs)
-        elif step == "bitap":
-            bt, seed, em, _, fb, fw = tables
-            err = plib.amt_matchbits_bitap(*head, ptr(bt), ptr(seed), ptr(em), ptr(fb), ptr(fw),
-                                           fb.numel(), *outs)
-        else:
-            cm, comb, aux, rr, segt, rng, BB, om, CB, root = tables
-            err = plib.amt_matchbits_comb16(*head, ptr(cm), ptr(comb), comb.numel(), ptr(aux),
-                                            aux.numel(), ptr(rr), ptr(segt), ptr(rng), BB, om, CB,
-                                            root, *outs)
-        build.check(err)
-        return counts, bits
+        out = torch.empty(S, dtype=torch.int32, device=dev)
+        head = (ptr(streams), T, S, ptr(btab), ptr(seed), ptr(endmask), ptr(fs), ptr(fb),
+                ptr(fw), btab.shape[0], fb.numel(), ptr(warm))
+        if trapmask is None:
+            build.check(plib.amt_bitap_count(*head, ptr(out), stream()))
+            return out
+        trap = torch.empty(S, dtype=torch.int32, device=dev)
+        build.check(plib.amt_bitap_count_trap(*head, ptr(trapmask), ptr(out), ptr(trap),
+                                              stream()))
+        return out, trap
+
+    def parent_dense(streams, cm, tab, warm, vend, packing, state_bits, overlap=None):
+        """The parent's B1: one thread a whole stream (no overlap)."""
+        T, S = streams.shape
+        out = torch.empty(S, dtype=torch.int32, device=dev)
+        build.check(plib.amt_dense_count(ptr(streams), T, S, ptr(cm), ptr(tab), tab.numel(),
+                                         ptr(warm), ptr(vend), packing, state_bits, ptr(out),
+                                         stream()))
+        return out
 
     def bits_kernel(overlap):
         return lambda *args, **kw: K.matchbits(*args, overlap=overlap)
@@ -258,38 +259,71 @@ def main() -> int:
     def bits_design(args, overlap):
         return matchbits_design(args[0], *args[3:], overlap=overlap)
 
+    def b2_design(args, kw=None):
+        over = kw["overlap"] if kw else args[9]
+        return bitap_count_design(args[0], args[1], args[5], over)
+
+    def b1_design(args, kw=None):
+        return dense_count_design(args[0], args[2], kw["overlap"] if kw else args[7])
+
     y5, f5 = eng5._fused_sticky_setup().tables, eng5._fused_setup().tables
     ob, o2, o8 = stb.plan.overlap, st2.plan.overlap, s8_kw["overlap"]
     bitap_args, dense_args, c16_args = (bitap_eng.bits_args(stb), dense_eng.bits_args(stb),
                                         eng2.bits_args(st2))
+    b2_args, b2t_args = bitap_eng._kernel_args(stb), eng_ci._kernel_args(st_ci)
+    b2r_args = eng_reg._kernel_args(st_ci)
+    b1_args, b1p_args = dense_eng._kernel_args(stb), e30._kernel_args(st30)
+    # (tag, what, this tree's call, the parent's call (None: this tree's wrapper
+    # on the parent's library), args, kw, this tree's design (None: one thread
+    # a whole stream))
     rows = [
-        ("B6", "bench needles, bitap step", bits_kernel(ob), parent_bits, bitap_args,
+        ("B2", "bench needles (V = 1)", K.bitap_count, parent_bitap, b2_args, {},
+         b2_design(b2_args)),
+        ("B2", "IgnoreCase bench needles, embedded trap", K.bitap_count, parent_bitap,
+         b2t_args, {}, b2_design(b2t_args)),
+        ("B2", "IgnoreCase 5 needles, trap register", K.bitap_count, parent_bitap, b2r_args, {},
+         b2_design(b2r_args)),
+        ("S2", "B2, bench needles, (4,2,1) shard 0", K.bitap_count, parent_bitap, s2_args,
+         s2_kw, b2_design(s2_args, s2_kw)),
+        ("S2", "B2 trap part, IgnoreCase bench, (4,2,1) shard 0", K.bitap_count, parent_bitap,
+         s2t_args, s2t_kw, b2_design(s2t_args, s2t_kw)),
+        ("B1", "bench needles' dense tables", K.dense_count, parent_dense, b1_args, {},
+         b1_design(b1_args)),
+        ("B1", "30 needles, packing 2", K.dense_count, parent_dense, b1p_args, {},
+         b1_design(b1p_args)),
+        ("S1", "B1, bench needles, (4,2,1) shard 0", K.dense_count, parent_dense, s1_args,
+         s1_kw, b1_design(s1_args, s1_kw)),
+        # The kernels that must not move: this tree's wrappers on either library.
+        ("B6", "bench needles, bitap step", bits_kernel(ob), None, bitap_args, {},
          bits_design(bitap_args, ob)),
-        ("B6", "bench needles, dense step", bits_kernel(ob), parent_bits, dense_args,
+        ("B6", "bench needles, dense step", bits_kernel(ob), None, dense_args, {},
          bits_design(dense_args, ob)),
-        ("S8", "B6 dense step, bench needles, (4,2,1) shard 0", bits_kernel(o8), parent_bits,
-         s8_args, bits_design(s8_args, o8)),
-        ("B13", "config 2, comb16 step", bits_kernel(o2), parent_bits, c16_args,
+        ("S8", "B6 dense step, bench needles, (4,2,1) shard 0", bits_kernel(o8), None, s8_args,
+         {}, bits_design(s8_args, o8)),
+        ("B13", "config 2, comb16 step", bits_kernel(o2), None, c16_args, {},
          bits_design(c16_args, o2)),
-        ("B11", "config 5, digits corpus: full scan", K.comb16_contains_grouped,
-         parent_grouped_contains, eng5.sticky_args(st5d),
-         comb16_grouped_design(st5d.streams, y5, st5d.plan.overlap)),
-        ("B11", "config 5 corpus: stops at the first match", K.comb16_contains_grouped,
-         parent_grouped_contains, eng5.sticky_args(st5c),
-         comb16_grouped_design(st5c.streams, y5, st5c.plan.overlap)),
+        ("B11", "config 5, digits corpus: full scan", K.comb16_contains_grouped, None,
+         eng5.sticky_args(st5d), {}, comb16_grouped_design(st5d.streams, y5, st5d.plan.overlap)),
+        ("B11", "config 5 corpus: stops at the first match", K.comb16_contains_grouped, None,
+         eng5.sticky_args(st5c), {}, comb16_grouped_design(st5c.streams, y5, st5c.plan.overlap)),
         ("S4", "B11 one-group, config 2 group 0, fire-free shard 0", K.comb16_contains_base,
-         parent_base, s4_args, comb16_grouped_design(s4_args[0], s4_args[2], s4_args[3])),
-        ("B17", "config 5, 300 needles", K.comb_states, parent_states, eng3.states_args(st3c),
+         None, s4_args, {}, comb16_grouped_design(s4_args[0], s4_args[2], s4_args[3])),
+        ("B17", "config 5, 300 needles", K.comb_states, None, eng3.states_args(st3c), {},
          comb_count_design(st3c.streams, eng3.full_tables.comb, eng3.full_tables.def_table,
                            st3c.plan.overlap)),
-        ("B9", "config 5", K.comb16_count_grouped, parent_count_grouped, eng5._count_args(st5c),
+        ("B9", "config 5", K.comb16_count_grouped, None, eng5._count_args(st5c), {},
          comb16_grouped_design(st5c.streams, f5, st5c.plan.overlap)),
-        ("B15", "config 5, 300 needles", K.comb_count, parent_comb_count,
-         eng3._kernel_args(st3c), comb_count_design(st3c.streams, eng3.tables.comb,
-                                                    eng3.tables.def_table, st3c.plan.overlap)),
-        ("S5", "B9 one group, config 2 group 0, shard 0", K.comb16_count_grouped,
-         parent_count_grouped, s5_args, comb16_grouped_design(s5_args[0], s5_args[3],
-                                                              s5_args[4])),
+        ("B15", "config 5, 300 needles", K.comb_count, None, eng3._kernel_args(st3c), {},
+         comb_count_design(st3c.streams, eng3.tables.comb, eng3.tables.def_table,
+                           st3c.plan.overlap)),
+        ("S5", "B9 one group, config 2 group 0, shard 0", K.comb16_count_grouped, None,
+         s5_args, {}, comb16_grouped_design(s5_args[0], s5_args[3], s5_args[4])),
+        ("B4", "bench needles", K.bitap_contains, None, bitap_eng.sticky_bitap_args(stb), {},
+         None),
+        ("B7", "bench needles", K.bitap_presence, None, bitap_eng.sticky_bitap_args(stb), {},
+         None),
+        ("B5", "bench needles' dense tables", K.dense_states, None, bitap_eng.states_args(stb),
+         {}, None),
     ]
 
     def same(got, ref):
@@ -299,58 +333,72 @@ def main() -> int:
         return max((int((g.long() - r.long()).abs().max()) if g.numel() else 0)
                    for g, r in zip(got, ref))
 
-    out = []
-    for tag, what, kernel, parent, args, design in rows:
-        err = same(kernel(*args), parent(*args))
+    def turns(tag, what, first, second, args, kw, lib_first, lib_second):
+        """(first's ms, second's ms), each timed twice in turns first,
+        second, second, first, after checking that they agree."""
+        with in_lib(lib_first):
+            ref = first(*args, **kw)
+        with in_lib(lib_second):
+            got = second(*args, **kw)
+        err = same(got, ref)
         if err:
-            raise SystemExit(f"{tag} {what}: this tree != parent (max err {err})")
-        turns = [(lbl, timed(lambda: fn(*args))) for lbl, fn in (
-            ("parent", parent), ("new", kernel), ("new", kernel), ("parent", parent))]
-        p_ms = [ms for lbl, ms in turns if lbl == "parent"]
-        n_ms = [ms for lbl, ms in turns if lbl == "new"]
+            raise SystemExit(f"{tag} {what}: outputs differ (max err {err})")
+        ms = [(0, timed(lambda: first(*args, **kw), lib_first)),
+              (1, timed(lambda: second(*args, **kw), lib_second)),
+              (1, timed(lambda: second(*args, **kw), lib_second)),
+              (0, timed(lambda: first(*args, **kw), lib_first))]
+        return [m for w, m in ms if w == 0], [m for w, m in ms if w == 1]
+
+    out = []
+    for tag, what, kernel, parent, args, kw, design in rows:
+        p_ms, n_ms = turns(tag, what, parent or kernel, kernel, args, kw, plib, None)
+        d = design.as_dict() if design is not None else None
         print(f"turns {tag:4s} {what:55s} parent {p_ms[0]:.4f} / {p_ms[1]:.4f} ms, new "
-              f"{n_ms[0]:.4f} / {n_ms[1]:.4f} ms ({design.as_dict()}; {card})", flush=True)
-        out.append({"kernel": tag, "what": what, "parent_ms": p_ms, "new_ms": n_ms,
-                    "design": design.as_dict(), "max_abs_err": err})
+              f"{n_ms[0]:.4f} / {n_ms[1]:.4f} ms ({d or 'unsegmented'}; {card})", flush=True)
+        out.append({"kernel": tag, "what": what, "parent_ms": p_ms, "new_ms": n_ms, "design": d})
+
     grid = []
     if a.grid:
-        def bits_at(args, overlap, k):
-            """This tree's launcher of ``args``' step at ``k`` segments."""
-            streams, warm, vend, step, *tables = args
+        def b2_at(args, kw, k):
+            """This tree's B2 launcher on ``args`` at ``k`` segments."""
+            streams, btab, seed, em, fs, fb, fw, warm, trapmask = args[:9]
+            over = kw["overlap"] if kw else args[9]
             T, S = streams.shape
             counts = torch.zeros(S, dtype=torch.int32, device=dev)
-            bits = torch.empty(T // 32, S, dtype=torch.int32, device=dev)
-            head = (ptr(streams), T, S, ptr(warm), ptr(vend))
-            tail = (overlap, k, ptr(counts), ptr(bits), stream())
-            if step == "dense":
-                cm, tab, packing, sb_ = tables
-                err = new.lib.amt_matchbits_dense(*head, ptr(cm), ptr(tab), tab.numel(), packing,
-                                                  sb_, *tail)
-            elif step == "bitap":
-                bt, seed, em, _, fb, fw = tables
-                err = new.lib.amt_matchbits_bitap(
-                    *head, ptr(bt), ptr(seed), ptr(em), ptr(fb), ptr(fw), fb.numel(), *tail)
-            else:
-                cm, comb, aux, rr, segt, rng, BB, om, CB, root = tables
-                err = new.lib.amt_matchbits_comb16(
-                    *head, ptr(cm), ptr(comb), comb.numel(), ptr(aux), aux.numel(), ptr(rr),
-                    ptr(segt), ptr(rng), BB, om, CB, root, *tail)
-            build.check(err)
-            return counts, bits
+            head = (ptr(streams), T, S, ptr(btab), ptr(seed), ptr(em), ptr(fs), ptr(fb), ptr(fw),
+                    btab.shape[0], fb.numel(), ptr(warm))
+            if trapmask is None:
+                build.check(new.lib.amt_bitap_count(*head, over, k, ptr(counts), stream()))
+                return counts
+            trap = torch.zeros(S, dtype=torch.int32, device=dev)
+            build.check(new.lib.amt_bitap_count_trap(*head, ptr(trapmask), over, k,
+                                                     ptr(counts), ptr(trap), stream()))
+            return counts, trap
 
-        for tag, args, over in (("B6 bitap", bitap_args, ob), ("B6 dense", dense_args, ob),
-                                ("S8", s8_args, o8), ("B13", c16_args, o2)):
-            ref = K.matchbits(*args, overlap=over)
+        def b1_at(args, kw, k):
+            """This tree's B1 launcher on ``args`` at ``k`` segments."""
+            streams, cm, tab, warm, vend, packing, state_bits = args[:7]
+            over = kw["overlap"] if kw else args[7]
+            T, S = streams.shape
+            counts = torch.zeros(S, dtype=torch.int32, device=dev)
+            build.check(new.lib.amt_dense_count(ptr(streams), T, S, ptr(cm), ptr(tab),
+                                                tab.numel(), ptr(warm), ptr(vend), packing,
+                                                state_bits, over, k, ptr(counts), stream()))
+            return counts
+
+        for tag, at, kernel, args, kw in (("B2", b2_at, K.bitap_count, b2_args, {}),
+                                          ("B1", b1_at, K.dense_count, b1_args, {}),
+                                          ("S2", b2_at, K.bitap_count, s2_args, s2_kw)):
+            ref = kernel(*args, **kw)
             for k in (1, 4, 8, 16, 32, 64):
-                if same(bits_at(args, over, k), ref):
+                if same(at(args, kw, k), ref):
                     raise SystemExit(f"{tag} k={k}: != the rule's launch")
-                ms = timed(lambda: bits_at(args, over, k))
+                ms = timed(lambda: at(args, kw, k))
                 grid.append({"kernel": tag, "k": k, "ms": ms})
-                print(f"grid {tag:8s} k={k:2d} {ms:.4f} ms ({card})", flush=True)
+                print(f"grid {tag:4s} k={k:2d} {ms:.4f} ms ({card})", flush=True)
+
     walls = []
     if a.walls:
-        from alfred_margaret_tpu_torch.ops import pallas_scan as ops_dense
-
         def wall_ms(fn, n=9):
             fn()
             times = []
@@ -361,31 +409,42 @@ def main() -> int:
                 times.append((time.perf_counter() - t0) * 1e3)
             return float(np.median(times))
 
+        parents = {"bitap_count": parent_bitap, "dense_count": parent_dense}
+
+        @contextlib.contextmanager
+        def parent_launchers():
+            """The engines' and the mesh's B1 and B2 swapped for the parent's."""
+            with contextlib.ExitStack() as stack:
+                for mod in (bitap_scan, pallas_scan, shard):
+                    for name, fn in parents.items():
+                        if hasattr(mod, name):
+                            stack.enter_context(mock.patch.object(mod, name, fn))
+                yield
+
         for tag, what, fn in (
-                ("B6", "bench needles all_matches_arrays (bitap step)",
-                 lambda: sb.all_matches_arrays(stgb)),
-                ("B13", "config 2 all_matches_arrays (comb16 step)",
-                 lambda: s100.all_matches_arrays(stg2))):
+                ("B2", "bench needles count_matches", lambda: sb.count_matches(stgb)),
+                ("S2", "bench needles count_matches, (4,2,1) mesh", lambda: eb.count(sbm)),
+                ("B1", "bench needles count_matches, AMT_BITAP=0", lambda: sd.count_matches(stgb)),
+                ("B2", "IgnoreCase bench needles count_matches, embedded trap",
+                 lambda: s_ci.count_matches(stg_ci))):
             got = fn()
-            with mock.patch.object(ops_dense, "matchbits", parent_bits):
+            with parent_launchers():
                 ref = fn()
-            if not all(np.array_equal(np.asarray(x), np.asarray(y)) for x, y in zip(got, ref)):
-                raise SystemExit(f"{tag} {what}: answers differ with the parent's launcher")
-            turns = []
+            if got != ref:
+                raise SystemExit(f"{tag} {what}: {got} with this tree, {ref} with the parent's")
+            ts = []
             for lbl in ("parent", "new", "new", "parent"):
-                if lbl == "parent":
-                    with mock.patch.object(ops_dense, "matchbits", parent_bits):
-                        turns.append((lbl, wall_ms(fn)))
-                else:
-                    turns.append((lbl, wall_ms(fn)))
-            p_ms = [ms for lbl, ms in turns if lbl == "parent"]
-            n_ms = [ms for lbl, ms in turns if lbl == "new"]
+                with parent_launchers() if lbl == "parent" else contextlib.nullcontext():
+                    ts.append((lbl, wall_ms(fn)))
+            p_ms = [ms for lbl, ms in ts if lbl == "parent"]
+            n_ms = [ms for lbl, ms in ts if lbl == "new"]
             print(f"wall  {tag:4s} {what:60s} parent {p_ms[0]:.3f} / {p_ms[1]:.3f} ms, new "
-                  f"{n_ms[0]:.3f} / {n_ms[1]:.3f} ms (median of 9, host clock; {card})",
-                  flush=True)
-            walls.append({"kernel": tag, "what": what, "parent_ms": p_ms, "new_ms": n_ms})
-    line = json.dumps({"turns": out, "grid": grid, "walls": walls, "card": card,
-                       "runs": a.runs, "parent_build_s": parent_s})
+                  f"{n_ms[0]:.3f} / {n_ms[1]:.3f} ms (median of 9, host clock; count {got}; "
+                  f"{card})", flush=True)
+            walls.append({"kernel": tag, "what": what, "parent_ms": p_ms, "new_ms": n_ms,
+                          "count": got})
+    line = json.dumps({"turns": out, "grid": grid, "walls": walls,
+                       "card": card, "runs": a.runs, "parent_build_s": parent_s})
     print(card)
     print(line)
     return 0

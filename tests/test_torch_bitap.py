@@ -116,7 +116,7 @@ def test_ineligible_machine_raises():
         BitapAcEngine(_machine(["a\x00b"]), device=CPU)
 
 
-def test_trap_layout_not_implemented():
+def test_trap_register_layout_counts_exactly():
     """A layout with a standalone trap register builds tables over both words
     and counts: the register (endmask 0, no fields) never counts, and a
     trap that never fires leaves the count exact."""

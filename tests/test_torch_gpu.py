@@ -72,11 +72,13 @@ from alfred_margaret_tpu_torch.ops.xla_scan import (
     stage_streams_device,
 )
 
+from _torch_count_fixtures import EMBEDDED_KSS, REGISTER, REGISTER_V3, V3, V8, plant_traps
+from _torch_count_fixtures import PACK2 as PACK30
+from _torch_count_fixtures import V2 as TWO_WORDS
+
 pytestmark = pytest.mark.gpu
 
 NEEDLES3 = ["tshirt", "shirts", "shorts"]
-TWO_WORDS = ["alpha", "bravo", "charlie", "delta", "echo", "foxtrot", "golf"]
-PACK30 = [bytes([97 + i % 11, 98 + (i * 3) % 9, 99 + i % 7]).decode() for i in range(30)]
 NUL = ["a\x00b", "\x00\x00", "xyz"]
 
 
@@ -931,3 +933,119 @@ def test_b17_matches_plain_at_edge_shapes(cuda, shape):
         with pytest.raises(ValueError):
             comb_states(streams.cpu(), *tabs, K)
         assert comb_states.launches == before + 3
+
+
+# -- B1 and B2's segmented designs at the edge shapes ---------------------------------
+
+
+def _bitap_edge_engines(cuda):
+    """(label, needles, BitapAcEngine) of B2's edge tests: 1, 2, 3 and 8
+    words, single bytes (overlap 0), and the composed IgnoreCase layouts with
+    an embedded trap and with a trap register beside one and two words."""
+    from alfred_margaret_tpu_torch.models import case_dfa
+    from alfred_margaret_tpu_torch.ops.bitap_scan import plan_bitap_ci
+
+    if "bitap" not in _BUILT:
+        out = []
+        for label, needles, words in (("V = 1", NEEDLES3, 1), ("V = 2", TWO_WORDS, 2),
+                                      ("V = 3", V3, 3), ("V = 8", V8, 8),
+                                      ("singles", SINGLES, 1)):
+            m = _machine(needles)
+            lay = plan_bitap(m, max_words=words)
+            assert lay.n_words == words, label
+            out.append((label, needles, BitapAcEngine(m, layout=lay, device=cuda,
+                                                      n_streams=1024)))
+        for label, needles, VT in (("embedded trap", EMBEDDED_KSS, 1),
+                                   ("trap register", REGISTER, 2),
+                                   ("trap register, 2 words", REGISTER_V3, 3)):
+            m = _machine(needles)
+            cm = case_dfa.compose_build(list(zip(m.needles, m.values)), machine=m)
+            eng = BitapAcEngine(cm, layout=plan_bitap_ci(cm, max_words=2), device=cuda,
+                                n_streams=1024)
+            assert eng.bitap.has_trap and len(eng.bitap.all_words()) == VT, label
+            out.append((label, needles, eng))
+        _BUILT["bitap"] = out
+    return _BUILT["bitap"]
+
+
+def _outs(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+@pytest.mark.parametrize("shape", EDGE_SHAPES_ONE)
+def test_b2_matches_plain_at_edge_shapes(cuda, shape):
+    """B2 as ``bitap_count`` launches it, with the plan's overlap (segments
+    by the rule) and without (one segment), equals the plain version: counts
+    and, on the trap layouts, the trap plane, with trap encodings written
+    across the segment cuts; zero bytes (padding) count nothing and trap
+    nothing.  Each launch adds one to the wrapper's counts."""
+    from alfred_margaret_tpu_torch.kernels import bitap_count_plain
+    from alfred_margaret_tpu_torch.kernels.bitap_count import bitap_count_design
+
+    T, S = shape
+    for label, needles, eng in _bitap_edge_engines(cuda):
+        K = eng.overlap
+        assert K >= eng.bitap_tables.max_track_bytes - 1
+        streams, warm, _ = _edge_streams(needles, T, S, K, T + 7 * S, cuda)
+        t = eng.bitap_tables
+        trap = t.trapmask is not None
+        if trap:
+            k = bitap_count_design(streams, t.btab, t.field_bit, K).segments
+            a = streams.cpu().numpy().copy()
+            plant_traps(a, k, K)
+            streams = torch.from_numpy(a).to(cuda)
+        args = (streams, t.btab, t.seed, t.endmask, t.field_start, t.field_bit, t.field_weight,
+                warm, t.trapmask)
+        want = _outs(bitap_count_plain(*args))
+        if trap and S > 1 and T > 20:
+            assert want[1].any(), label
+        before = (bitap_count.launches, bitap_count.launches_trap)
+        for over in (K, None):
+            got = _outs(bitap_count(*args, overlap=over))
+            assert len(got) == 1 + trap and all(map(torch.equal, got, want)), (label, over)
+        zero = _outs(bitap_count(torch.zeros_like(streams), *args[1:], overlap=K))
+        assert not any(x.any() for x in zero), label
+        after = (before[0] + 3, before[1] + 3 * trap)
+        assert (bitap_count.launches, bitap_count.launches_trap) == after
+        with pytest.raises(ValueError):
+            bitap_count(*args, overlap=-1)
+        with pytest.raises(ValueError):
+            bitap_count(streams.cpu(), *args[1:], overlap=K)
+        assert (bitap_count.launches, bitap_count.launches_trap) == after
+
+
+@pytest.mark.parametrize("shape", EDGE_SHAPES_ONE)
+def test_b1_matches_plain_at_edge_shapes(cuda, shape):
+    """B1 as ``dense_count`` launches it, with the plan's overlap (segments
+    by the rule) and without, equals the plain version: packing 1 and 2, a
+    NUL-bearing machine that is not zero-inert, single bytes (overlap 0);
+    every stream padded counts nothing.  Each launch adds one to the
+    wrapper's count."""
+    from alfred_margaret_tpu_torch.kernels import dense_count_plain
+    from alfred_margaret_tpu_torch.ops.pallas_scan import _zero_inert
+
+    T, S = shape
+    for label, needles in (("packing 1", NEEDLES3), ("packing 2", PACK30), ("NUL", NUL),
+                           ("singles", SINGLES)):
+        m = _machine(needles)
+        eng = DenseAcEngine(m, device=cuda, n_streams=1024)
+        assert (eng.comp.packing == 2) == (label == "packing 2")
+        assert _zero_inert(m) == (label != "NUL")
+        K = m.max_needle_bytes - 1
+        streams, warm, vend = _edge_streams(needles, T, S, K, 3 * T + S, cuda)
+        t = eng.tables
+        args = (streams, t.classmap, t.table, warm, vend, t.packing, t.state_bits)
+        want = dense_count_plain(*args)
+        if S > 1 and T > 20:
+            assert int(want.sum()) > 0, label
+        before = dense_count.launches
+        assert torch.equal(dense_count(*args, overlap=K), want), label
+        assert torch.equal(dense_count(*args), want), label
+        padded = (*args[:4], torch.zeros_like(vend), *args[5:])
+        assert not dense_count(*padded, overlap=K).any(), label
+        assert dense_count.launches == before + 3
+        with pytest.raises(ValueError):
+            dense_count(*args, overlap=-1)
+        with pytest.raises(ValueError):
+            dense_count(streams.cpu(), *args[1:], overlap=K)
+        assert dense_count.launches == before + 3
