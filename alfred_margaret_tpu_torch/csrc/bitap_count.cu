@@ -1,34 +1,47 @@
-// B2 bitap_count: the shift-AND (bitap) count kernel for Hopper.
+// B2 bitap_count and B4 bitap_contains: the shift-AND (bitap) count and
+// sticky scans for Hopper.
 //
-// Replaces the Pallas TPU kernel alfred_margaret_tpu/ops/bitap_scan.py:
-// _make_bitap_count_kernel (launched from BitapAcEngine._get_bitap_count_fn
-// and, per shard, from the sharded engine's bitap count,
-// parallel/shard.py:434), with its trap part.  Each stream keeps V <= 8
-// uint32 registers (V <= 3 with a trap); the byte -> track-mask tables
-// btab[V][256] and the count fields sit in shared memory.
+// Replace the Pallas TPU kernels alfred_margaret_tpu/ops/bitap_scan.py:
+// _make_bitap_count_kernel (B2, launched from
+// BitapAcEngine._get_bitap_count_fn and, per shard, from the sharded engine's
+// bitap count, parallel/shard.py:434) and _make_bitap_contains_kernel (B4,
+// from _get_bitap_contains_fn and, per shard, from the sharded engine's
+// bitap sticky step, parallel/shard.py:509), each with its trap part.  Each
+// stream keeps V <= 8 uint32 registers (V <= 3 with a trap, and for B4); the
+// byte -> track-mask tables btab[V][256] and B2's count fields sit in shared
+// memory.  One scan, bitap_count_kernel<V, TRAP, STICKY>, serves both: the
+// mode is a template parameter, since a run-time mode flag alone slowed
+// B9's count by 25% (PERF.md section 6).
 //
 // Per stream s, per step t over b = streams[t * S + s], from D = 0:
 //   D[w] = ((D[w] << 1) | seed[w]) & btab[w][b]         for every word w
-//   when t >= warm[s]: for every field f of word w (end bit e, weight m)
+// B2 (count): when t >= warm[s], for every field f of word w (end bit e,
+// weight m)
 //     count += ((D[w] >> e) & 1) * m
 // and out[s] = count.  The fields of word w are field_bit/field_weight
 // [field_start[w], field_start[w + 1]); they are read only on the rare steps
 // where D[w] & endmask[w] is non-zero.  Taking the end bits every step gives
 // the same integers as the TPU kernel's flush blocks of `unroll` steps, which
-// only saved vector operations.  Right-pad bytes are zero and btab[w][0] == 0
-// (no needle holds NUL), so the pads clear every register and count nothing:
-// the kernel takes no vend.
+// only saved vector operations.
+// B4 (sticky): hit |= D[w] & endmask[w] at every step, with no warm mask
+// (warm-up bytes are real corpus bytes, so a match there is a real match),
+// and out[s] = hit: non-zero iff a needle ends in the stream.
+// Right-pad bytes are zero and btab[w][0] == 0 (no needle holds NUL), so the
+// pads clear every register and count or flag nothing: the kernel takes no
+// vend.
 //
-// The trap part (TRAP = true, amt_bitap_count_trap) serves the byte-class
-// IgnoreCase layouts: trap tracks watch for the length-changing unlowerings
-// (İ, Kelvin K, Å, ẞ, ...) that a fixed-width track cannot hold, either in
-// the spare high bits of the match words or in a standalone trap register,
-// which is one more word with endmask 0 and no fields.  Every step also does
+// The trap parts (TRAP = true: amt_bitap_count_trap, amt_bitap_contains_trap)
+// serve the byte-class IgnoreCase layouts: trap tracks watch for the
+// length-changing unlowerings (İ, Kelvin K, Å, ẞ, ...) that a fixed-width
+// track cannot hold, either in the spare high bits of the match words or in
+// a standalone trap register, which is one more word with endmask 0 and no
+// fields.  Every step also does
 //   tr |= D[w] & trapmask[w]                             for every word w
-// with no warm masking (the TPU kernel masks only the counts), and
-// trap_out[s] = tr.  A stream whose trap is non-zero may under-count; the
-// engine recovers it on the host or re-scans with the dense kernel.  With
-// TRAP = false the template compiles to the kernel without a trap.
+// with no warm masking (the TPU kernels mask only the counts), and
+// trap_out[s] = tr.  A stream whose trap is non-zero may under-count or miss
+// a hit; the engine recovers it on the host or re-scans with the dense
+// kernels.  With TRAP = false the template compiles to the kernels without a
+// trap.
 //
 // The design, for Hopper.  The first port ran one thread per stream over all
 // T steps, loading bytes straight from device memory a 16-step chunk ahead:
@@ -36,10 +49,11 @@
 // once a chunk, and a 4096-stream mesh shard was 32 blocks on 132 SMs.  Now,
 // on stage.cuh's pipeline (as B6's one-word bitap step):
 //   * a block owns 128 streams and one of `segments` pieces of them: segment
-//     y scans with D = 0 from max(0, p_y - overlap), counts the steps
+//     y scans with D = 0 from max(0, p_y - overlap); B2 counts the steps
 //     max(p_y, warm[s]) <= t < p_{y+1} and adds them with one atomicAdd into
-//     `out`; it ORs D & trapmask over every step it scans (its warm-up too)
-//     into `trap_out` with one atomicOr; the wrapper zeroes both;
+//     `out`; B4 ORs D & endmask over every step it scans (its warm-up too)
+//     and sets them with one atomicOr; both OR D & trapmask over every step
+//     they scan into `trap_out` with one atomicOr; the wrapper zeroes both;
 //   * the bytes are staged a tile of 32 steps ahead with cp.async, double
 //     buffered, and read raw: the mask load depends on the byte only, so it
 //     is already off D's chain, which is ALU work.
@@ -47,16 +61,22 @@
 // the i + 1 bytes ending at t match the track's first i + 1 positions, so a
 // register depends on the last L bytes only, L the longest track.  The step
 // is monotone in D, so a register restarted from 0 holds a subset of the
-// true bits at every step (the warm-up steps add no false trap bits), and
-// from L steps on it equals the true register: by p_y when every track is at
-// most overlap + 1 bytes long.  The stream plan's overlap is
+// true bits at every step (the warm-up steps add no false end or trap bits),
+// and from L steps on it equals the true register: by p_y when every track
+// is at most overlap + 1 bytes long.  The stream plan's overlap is
 // max_needle_bytes - 1; match tracks are needles (for a composed IgnoreCase
 // machine max_needle_bytes = max_raw_match_bytes + 4, models/case_dfa.py)
 // and trap tracks are unlowerings of needle code points, each at most
 // max_raw_match_bytes long.  So every counted step sees the true register,
-// every step of [0, T) is some segment's own step, and the trap OR over the
-// segments is the stream's.  BitapAcEngine refuses a staging whose overlap
-// is shorter than its longest track less one.
+// every step of [0, T) is some segment's own step, and the OR of the hits or
+// traps over the segments is the stream's.  BitapAcEngine and the mesh
+// refuse a staging whose overlap is shorter than its longest track less one
+// (BitapTables.check_overlap).
+// B4 takes no early stop.  Stopping a block once every register has seen
+// every end bit would be exact, but B4's output is final only then, and on
+// the bench corpus (a needle word about every 700 bytes) a block of 128
+// streams almost never gets there before its end: the vote would be a
+// branch and a barrier per tile that no traffic pays back.
 // What bounds it: the shared-memory pipe (a staged byte and V table loads a
 // step, the loads bank-conflicting where a warp's bytes share a bank),
 // against 138 MB of corpus bytes at 128 MiB.
@@ -73,7 +93,7 @@ constexpr int kThreads = amt::kStageThreads;
 constexpr int kMaxWords = 8;
 // 30 track bits per word (bit 31 stays clear), at most one field per bit.
 constexpr int kMaxFields = kMaxWords * 30;
-// Words of a trap layout: the 2-word budget plus a trap register.
+// Words of a trap layout, and of B4: the 2-word budget plus a trap register.
 constexpr int kMaxTrapWords = 3;
 constexpr int kMaxSegments = 64;
 
@@ -83,8 +103,9 @@ inline __host__ __device__ int table_words(int V, int n_fields) {
   return (V * 256 + 2 * n_fields + 3) & ~3;
 }
 
-// Block (x, y): streams [128 x, 128 x + 128), segment y.
-template <int V, bool TRAP>
+// Block (x, y): streams [128 x, 128 x + 128), segment y.  STICKY (B4) reads
+// no warm and no fields.
+template <int V, bool TRAP, bool STICKY>
 __global__ void __launch_bounds__(kThreads) bitap_count_kernel(
     const uint8_t* __restrict__ streams, int T, int S, const int32_t* __restrict__ btab,
     const int32_t* __restrict__ seed, const int32_t* __restrict__ endmask,
@@ -107,9 +128,7 @@ __global__ void __launch_bounds__(kThreads) bitap_count_kernel(
   const amt::SegSteps seg = amt::segment_steps(blockIdx.y, segments, T, overlap);
   const int s0 = blockIdx.x * kThreads;
   const int s = s0 + threadIdx.x;
-  const int lo = s < S ? max(seg.lo, warm[s]) : INT_MAX;  // the steps this thread counts
   uint32_t sd[V], em[V], tm[V], D[V];
-  int f0[V + 1];
 #pragma unroll
   for (int w = 0; w < V; ++w) {
     sd[w] = (uint32_t)seed[w];
@@ -117,10 +136,15 @@ __global__ void __launch_bounds__(kThreads) bitap_count_kernel(
     if constexpr (TRAP) tm[w] = (uint32_t)trapmask[w];
     D[w] = 0u;
   }
+  uint32_t tr = 0;
+  int lo = INT_MAX;  // B2: the first step this thread counts
+  int f0[V + 1];
+  if constexpr (!STICKY) {
+    if (s < S) lo = max(seg.lo, warm[s]);
 #pragma unroll
-  for (int w = 0; w <= V; ++w) f0[w] = field_start[w];
-
-  uint32_t count = 0, tr = 0;
+    for (int w = 0; w <= V; ++w) f0[w] = field_start[w];
+  }
+  uint32_t acc = 0;  // B2: the count; B4: the OR of the end bits
   auto scan = [&](const uint8_t* cur, int t0, int rows) {
     const uint8_t* col = cur + threadIdx.x;
 #pragma unroll 4
@@ -133,30 +157,36 @@ __global__ void __launch_bounds__(kThreads) bitap_count_kernel(
         hit |= D[w] & em[w];
         if constexpr (TRAP) tr |= D[w] & tm[w];
       }
-      if (hit && t0 + j >= lo) {
+      if constexpr (STICKY) {
+        acc |= hit;
+      } else if (hit && t0 + j >= lo) {
 #pragma unroll
         for (int w = 0; w < V; ++w) {
           if (D[w] & em[w]) {
-            for (int f = f0[w]; f < f0[w + 1]; ++f) count += ((D[w] >> fbit[f]) & 1u) * fwt[f];
+            for (int f = f0[w]; f < f0[w + 1]; ++f) acc += ((D[w] >> fbit[f]) & 1u) * fwt[f];
           }
         }
       }
     }
   };
   amt::staged_scan(tiles, tile, streams, S, s0, seg.start, seg.hi, nullptr, scan);
-  if (count) atomicAdd(out + s, (int32_t)count);
+  if constexpr (STICKY) {
+    if (acc && s < S) atomicOr(out + s, (int32_t)acc);
+  } else if (acc) {
+    atomicAdd(out + s, (int32_t)acc);
+  }
   if constexpr (TRAP) {
     if (tr && s < S) atomicOr(trap_out + s, (int32_t)tr);
   }
 }
 
-template <int V, bool TRAP>
+template <int V, bool TRAP, bool STICKY>
 int launch(const uint8_t* sp, int T, int S, const int32_t* bt, const int32_t* sd,
            const int32_t* em, const int32_t* fs, const int32_t* fb, const int32_t* fw,
            int n_fields, const int32_t* wp, const int32_t* tm, int overlap, int segments,
            int32_t* op, int32_t* tp, cudaStream_t st) {
   const size_t smem = (size_t)table_words(V, n_fields) * sizeof(uint32_t) + amt::kStageBytes;
-  auto kernel = bitap_count_kernel<V, TRAP>;
+  auto kernel = bitap_count_kernel<V, TRAP, STICKY>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -171,27 +201,27 @@ bool args_ok(int T, int S, int n_words, int top, int n_fields, int overlap, int 
 }
 
 // The launch of V words: every template instance the launchers dispatch to.
-template <bool TRAP, int V = 1>
+template <bool TRAP, bool STICKY, int V = 1>
 int dispatch(int n_words, const uint8_t* sp, int T, int S, const int32_t* bt,
              const int32_t* sd, const int32_t* em, const int32_t* fs, const int32_t* fb,
              const int32_t* fw, int n_fields, const int32_t* wp, const int32_t* tm, int overlap,
              int segments, int32_t* op, int32_t* tp, cudaStream_t st) {
-  constexpr int kTop = TRAP ? kMaxTrapWords : kMaxWords;
+  constexpr int kTop = TRAP || STICKY ? kMaxTrapWords : kMaxWords;
   if constexpr (V < kTop) {
     if (n_words > V)
-      return dispatch<TRAP, V + 1>(n_words, sp, T, S, bt, sd, em, fs, fb, fw, n_fields, wp, tm,
-                                   overlap, segments, op, tp, st);
+      return dispatch<TRAP, STICKY, V + 1>(n_words, sp, T, S, bt, sd, em, fs, fb, fw, n_fields,
+                                           wp, tm, overlap, segments, op, tp, st);
   }
-  return launch<V, TRAP>(sp, T, S, bt, sd, em, fs, fb, fw, n_fields, wp, tm, overlap, segments,
-                         op, tp, st);
+  return launch<V, TRAP, STICKY>(sp, T, S, bt, sd, em, fs, fb, fw, n_fields, wp, tm, overlap,
+                                 segments, op, tp, st);
 }
 
 }  // namespace
 
-// out int32 [S], zeroed by the caller.  Each stream is cut into `segments`
-// pieces (`overlap` is the stream plan's warm-up; with segments = 1 it is not
-// read).  Launch on `stream` (a cudaStream_t).  Returns the cudaError_t of
-// the launch; the kernel runs asynchronously.
+// B2: out int32 [S], zeroed by the caller.  Each stream is cut into
+// `segments` pieces (`overlap` is the stream plan's warm-up; with
+// segments = 1 it is not read).  Launch on `stream` (a cudaStream_t).
+// Returns the cudaError_t of the launch; the kernel runs asynchronously.
 extern "C" int amt_bitap_count(const void* streams, int T, int S,
                                const void* btab, const void* seed,
                                const void* endmask, const void* field_start,
@@ -200,16 +230,17 @@ extern "C" int amt_bitap_count(const void* streams, int T, int S,
                                int overlap, int segments, void* out, void* stream) {
   if (!args_ok(T, S, n_words, kMaxWords, n_fields, overlap, segments))
     return (int)cudaErrorInvalidValue;
-  return dispatch<false>(n_words, (const uint8_t*)streams, T, S, (const int32_t*)btab,
-                         (const int32_t*)seed, (const int32_t*)endmask,
-                         (const int32_t*)field_start, (const int32_t*)field_bit,
-                         (const int32_t*)field_weight, n_fields, (const int32_t*)warm, nullptr,
-                         overlap, segments, (int32_t*)out, nullptr, (cudaStream_t)stream);
+  return dispatch<false, false>(n_words, (const uint8_t*)streams, T, S, (const int32_t*)btab,
+                                (const int32_t*)seed, (const int32_t*)endmask,
+                                (const int32_t*)field_start, (const int32_t*)field_bit,
+                                (const int32_t*)field_weight, n_fields, (const int32_t*)warm,
+                                nullptr, overlap, segments, (int32_t*)out, nullptr,
+                                (cudaStream_t)stream);
 }
 
-// The trap part: as amt_bitap_count over n_words <= 3 words (a standalone trap
-// register included), with trapmask [n_words] and trap_out [S] int32, zeroed
-// by the caller.
+// B2's trap part: as amt_bitap_count over n_words <= 3 words (a standalone
+// trap register included), with trapmask [n_words] and trap_out [S] int32,
+// zeroed by the caller.
 extern "C" int amt_bitap_count_trap(const void* streams, int T, int S,
                                     const void* btab, const void* seed,
                                     const void* endmask, const void* field_start,
@@ -219,10 +250,37 @@ extern "C" int amt_bitap_count_trap(const void* streams, int T, int S,
                                     void* out, void* trap_out, void* stream) {
   if (!args_ok(T, S, n_words, kMaxTrapWords, n_fields, overlap, segments))
     return (int)cudaErrorInvalidValue;
-  return dispatch<true>(n_words, (const uint8_t*)streams, T, S, (const int32_t*)btab,
-                        (const int32_t*)seed, (const int32_t*)endmask,
-                        (const int32_t*)field_start, (const int32_t*)field_bit,
-                        (const int32_t*)field_weight, n_fields, (const int32_t*)warm,
-                        (const int32_t*)trapmask, overlap, segments, (int32_t*)out,
-                        (int32_t*)trap_out, (cudaStream_t)stream);
+  return dispatch<true, false>(n_words, (const uint8_t*)streams, T, S, (const int32_t*)btab,
+                               (const int32_t*)seed, (const int32_t*)endmask,
+                               (const int32_t*)field_start, (const int32_t*)field_bit,
+                               (const int32_t*)field_weight, n_fields, (const int32_t*)warm,
+                               (const int32_t*)trapmask, overlap, segments, (int32_t*)out,
+                               (int32_t*)trap_out, (cudaStream_t)stream);
+}
+
+// B4: out int32 [S], zeroed by the caller, the OR of D & endmask over every
+// step and word of n_words <= 3 registers.  Segments as amt_bitap_count.
+extern "C" int amt_bitap_contains(const void* streams, int T, int S, const void* btab,
+                                  const void* seed, const void* endmask, int n_words,
+                                  int overlap, int segments, void* out, void* stream) {
+  if (!args_ok(T, S, n_words, kMaxTrapWords, 0, overlap, segments))
+    return (int)cudaErrorInvalidValue;
+  return dispatch<false, true>(n_words, (const uint8_t*)streams, T, S, (const int32_t*)btab,
+                               (const int32_t*)seed, (const int32_t*)endmask, nullptr, nullptr,
+                               nullptr, 0, nullptr, nullptr, overlap, segments, (int32_t*)out,
+                               nullptr, (cudaStream_t)stream);
+}
+
+// B4's trap part: hits as amt_bitap_contains, and trap_out int32 [S], zeroed
+// by the caller, the OR of every word's D & trapmask.
+extern "C" int amt_bitap_contains_trap(const void* streams, int T, int S, const void* btab,
+                                       const void* seed, const void* endmask,
+                                       const void* trapmask, int n_words, int overlap,
+                                       int segments, void* out, void* trap_out, void* stream) {
+  if (!args_ok(T, S, n_words, kMaxTrapWords, 0, overlap, segments))
+    return (int)cudaErrorInvalidValue;
+  return dispatch<true, true>(n_words, (const uint8_t*)streams, T, S, (const int32_t*)btab,
+                              (const int32_t*)seed, (const int32_t*)endmask, nullptr, nullptr,
+                              nullptr, 0, nullptr, (const int32_t*)trapmask, overlap, segments,
+                              (int32_t*)out, (int32_t*)trap_out, (cudaStream_t)stream);
 }

@@ -1,6 +1,6 @@
-// The three-tier 16-bit comb lookup, shared by B8, B10 and B12
+// The three-tier 16-bit comb lookup, shared by B10 and B12
 // (comb16_scan.cu); its argument checks and count ranges also serve
-// comb16_grouped.cu (B9, B11 and B13, which widen the entries instead).
+// comb16_grouped.cu (B8, B9, B11 and B13, which widen the entries instead).
 //
 // The tables are those of alfred_margaret_tpu/ops/comb16_scan.py:
 // Comb16Machine: a byte class map, the comb and aux tables of 16-bit entries
@@ -20,8 +20,9 @@
 // read on every step and selected without a branch, so the threads of a
 // warp never diverge.
 //
-// A step's count: (e >> 15) & 1 plus the count ranges that the next base
-// reaches (states with k >= 2 matches sit in base ranges), zero when CB = 0.
+// A step's count (B8, B9, B13): (e >> 15) & 1 plus the count ranges that the
+// next base reaches (states with k >= 2 matches sit in base ranges), zero
+// when CB = 0.
 
 #pragma once
 
@@ -93,16 +94,6 @@ __device__ inline Comb16 load_comb16(uint32_t* smem, const int32_t* __restrict__
   for (int i = threadIdx.x; i < comb_words; i += blockDim.x) cw[i] = (uint32_t)comb[i];
   for (int i = threadIdx.x; i < aux_words; i += blockDim.x) aw[i] = (uint32_t)aux[i];
   return Comb16{cm, root, seg, cw, aw, (uint32_t)bb, (uint32_t)owner_mask};
-}
-
-// The count of a step that entered base nb through entry e.
-__device__ __forceinline__ uint32_t count16(uint32_t e, uint32_t nb, const uint32_t (&ranges)[kC16Ranges],
-                                            bool cbit) {
-  if (!cbit) return 0u;
-  uint32_t cnt = (e >> 15) & 1u;
-#pragma unroll
-  for (int i = 0; i < kC16Ranges; ++i) cnt += nb >= ranges[i] ? 1u : 0u;
-  return cnt;
 }
 
 }  // namespace amt

@@ -1,9 +1,10 @@
 // B9 comb16_count_grouped and B11 comb16_contains_grouped: the fused
 // single-launch comb16 scans over G needle groups, for Hopper; B11's
-// one-group mode, comb16_contains_base; and B13, the comb16 step of B6's hit
-// bitmap (matchbits with step "comb16").  One scan serves all four, a
-// compile-time mode of comb16_chunk_kernel: count (B9), sticky-any (B11),
-// sticky-base (B11's one-group mode) and bits (B13, one group).
+// one-group mode, comb16_contains_base; B13, the comb16 step of B6's hit
+// bitmap (matchbits with step "comb16"); and B8 comb16_count, the count of
+// one comb16 table set.  One scan serves all five, a compile-time mode of
+// comb16_chunk_kernel: count (B9), sticky-any (B11), sticky-base (B11's
+// one-group mode), bits (B13, one group) and one-count (B8, one group).
 //
 // Replace the Pallas TPU kernels alfred_margaret_tpu/ops/comb16_scan.py:
 // _make_c16_count_kernel_dyn (B9, launched from
@@ -36,6 +37,14 @@
 // set iff the step counts (unmasked, as matchbits.cu's steps).  Its
 // segments are cut at word boundaries and write every word of their own
 // range (stage.cuh word_segment_steps), with no early stop.
+// B8 (one-count, G = 1), replacing alfred_margaret_tpu/ops/comb16_scan.py:
+// _make_c16_count_kernel (launched from Comb16PallasAcEngine._get_count_fn):
+// B13's count without its bitmap, on B9's segments (stage.cuh
+// segment_steps), each block stopping at its streams' last vend.  B8's
+// tables come as B13's do, the root base and the count ranges as arguments,
+// so the ranges sit in registers and each widened entry carries its step's
+// count (below) instead of the count mode's compares against the ranges in
+// shared memory.
 //
 // The design, for Hopper.  With a block per
 // (group, 128 streams), one dependent chain per thread and the bytes read
@@ -86,7 +95,7 @@ constexpr int kRangeSlots = 8;  // a group's count ranges, padded with 2^BB
 
 // The scan's modes (a template parameter: a run-time mode flag alone slows
 // the count, PERF.md section 6).
-enum Mode : int { kCount = 0, kStickyAny = 1, kStickyBase = 2, kBits = 3 };
+enum Mode : int { kCount = 0, kStickyAny = 1, kStickyBase = 2, kBits = 3, kCountOne = 4 };
 
 // Shared-memory words of one group's tables: the comb, aux and root
 // entries widened to 32-bit words, entry | (aux centre of its base << 16).
@@ -115,9 +124,9 @@ size_t chunk_smem_bytes(int chunk, int comb_words, int aux_words) {
 // groups [z * chunk, z * chunk + chunk) (kMaxGc >= chunk), one thread per
 // stream stepping every group of the chunk on each byte.  `warm` and `cbit`
 // are read by the count and bits modes only; the sticky modes take gscal
-// [G, 2].  The bits mode (G = 1) takes the root base in `root` and its count
-// ranges in gscal [kC16Ranges] (read into registers, not rng), and writes
-// the words of its segment's own range to `bits`.
+// [G, 2].  The bits and one-count modes (G = 1) take the root base in `root`
+// and its count ranges in gscal [kC16Ranges] (read into registers, not rng);
+// the bits mode writes the words of its segment's own range to `bits`.
 template <int kMaxGc, int kMode>
 __global__ void __launch_bounds__(kThreads) comb16_chunk_kernel(
     const uint8_t* __restrict__ streams, int T, int S, const int32_t* __restrict__ warm,
@@ -127,6 +136,9 @@ __global__ void __launch_bounds__(kThreads) comb16_chunk_kernel(
     const int32_t* __restrict__ gscal, int gscal_width, int bb, int owner_mask, int cbit,
     int overlap, int segments, int chunk, int tile, int32_t* __restrict__ out,
     int32_t* __restrict__ bits, int root) {
+  // The one-group modes whose root base and ranges are arguments, and whose
+  // widened entries carry their step's count.
+  constexpr bool kOne = kMode == kBits || kMode == kCountOne;
   extern __shared__ __align__(16) uint32_t smem[];
   __shared__ int stop_slot;
   const int g0 = blockIdx.z * chunk;
@@ -158,12 +170,12 @@ __global__ void __launch_bounds__(kThreads) comb16_chunk_kernel(
     rng[i] = r + 1 < gscal_width ? (uint32_t)gscal[(size_t)(g0 + g) * gscal_width + r + 1]
                                  : (1u << bb);
   }
-  // The bits mode's count ranges (gscal holds them), and the count of a step
-  // that took entry e.
+  // The one-group modes' count ranges (gscal holds them), and the count of a
+  // step that took entry e.
   uint32_t rr[amt::kC16Ranges];
 #pragma unroll
   for (int r = 0; r < amt::kC16Ranges; ++r)
-    rr[r] = kMode == kBits ? (uint32_t)gscal[r] : (1u << bb);
+    rr[r] = kOne ? (uint32_t)gscal[r] : (1u << bb);
   auto count_of = [&](uint32_t e) {
     uint32_t n = (e >> 15) & 1u;
 #pragma unroll
@@ -178,9 +190,10 @@ __global__ void __launch_bounds__(kThreads) comb16_chunk_kernel(
     const int32_t* sg = segtable + (size_t)(g0 + g) * 128;
     auto widen = [&](uint32_t e) {
       const uint32_t w = e | ((uint32_t)sg[(e & bmask) >> segshift] << 16);
-      // The bits mode also carries the entry's count, saturated at 3, in bits
-      // 30-31 (an aux centre is below 2^14: aux holds at most 12288 entries).
-      return kMode == kBits && cbit ? w | (min(count_of(e), 3u) << 30) : w;
+      // The one-group modes also carry the entry's count, saturated at 3, in
+      // bits 30-31 (an aux centre is below 2^14: aux holds at most 12288
+      // entries).
+      return kOne && cbit ? w | (min(count_of(e), 3u) << 30) : w;
     };
     for (int i = threadIdx.x; i < 2 * comb_words; i += blockDim.x)
       tab[i] = widen(((uint32_t)cg[i >> 1] >> ((i & 1) << 4)) & 0xFFFFu);
@@ -198,7 +211,7 @@ __global__ void __launch_bounds__(kThreads) comb16_chunk_kernel(
   // The count counts the steps [lo, hi); a sticky scan steps [seg.start, hi)
   // and lowers hi to the step after the one where a group absorbed.
   int lo = INT_MAX, hi = 0;
-  if (kMode == kCount || kMode == kBits) {
+  if (kMode == kCount || kOne) {
     if (s < S && cbit) {
       lo = max(seg.lo, warm[s]);
       hi = min(seg.hi, min(vend[s], T));
@@ -224,8 +237,7 @@ __global__ void __launch_bounds__(kThreads) comb16_chunk_kernel(
     cb[g] = cv[g] = 0;
     r0[g] = 1u << bb;
     if (g < gc) {
-      cb[g] = (kMode == kBits ? (uint32_t)root : (uint32_t)gscal[(size_t)(g0 + g) * gscal_width]) &
-              bmask;
+      cb[g] = (kOne ? (uint32_t)root : (uint32_t)gscal[(size_t)(g0 + g) * gscal_width]) & bmask;
       cv[g] = (uint32_t)segtable[(size_t)(g0 + g) * 128 + (cb[g] >> segshift)];
       r0[g] = kMode == kCount ? rng[g * kRangeSlots]
                               : (uint32_t)gscal[(size_t)(g0 + g) * gscal_width + 1] & bmask;
@@ -272,13 +284,15 @@ __global__ void __launch_bounds__(kThreads) comb16_chunk_kernel(
     };
     amt::staged_scan(tiles, tile, streams, S, s0, seg.start, stop, nullptr, scan);
     if (count) atomicAdd(out + s, (int32_t)count);
-  } else if constexpr (kMode == kBits) {
+  } else if constexpr (kOne) {
     // B13: the count's group step at every step of the segment, each tile
     // one word of each stream (word_segment_steps), its bit set where the
-    // step counts; the count as B9's.  Tables with CB = 0 count nothing.
+    // step counts; the count as B9's.  B8: the same count, no words.  Tables
+    // with CB = 0 count nothing.
+    constexpr bool kWords = kMode == kBits;
     const int own = s < S ? seg.lo : INT_MAX;  // the first word this thread stores
     int32_t* dst = bits + s;
-    if (!cbit) {
+    if (kWords && !cbit) {
       for (int t0 = own; t0 < seg.hi; t0 += 32) dst[(size_t)(t0 >> 5) * S] = 0;
       return;
     }
@@ -300,11 +314,11 @@ __global__ void __launch_bounds__(kThreads) comb16_chunk_kernel(
         cb[0] = e & bmask;
         uint32_t n = v >> 30;
         if (n == 3u) n = count_of(e);  // three matches or more: rare
-        word |= (n != 0u ? 1u : 0u) << j;
+        if constexpr (kWords) word |= (n != 0u ? 1u : 0u) << j;
         const int t = t0 + j;
         count += (t >= lo && t < hi) ? n : 0u;
       }
-      if (t0 >= own) dst[(size_t)(t0 >> 5) * S] = (int32_t)word;
+      if (kWords && t0 >= own) dst[(size_t)(t0 >> 5) * S] = (int32_t)word;
     };
     amt::staged_scan(tiles, tile, streams, S, s0, seg.start, stop, nullptr, scan);
     if (count) atomicAdd(out + s, (int32_t)count);
@@ -505,4 +519,26 @@ extern "C" int amt_matchbits_comb16(const void* streams, int T, int S, const voi
       (const int32_t*)aux, aux_words, (const int32_t*)root_row, (const int32_t*)segtable,
       (const int32_t*)ranges, amt::kC16Ranges, bb, owner_mask, cbit, overlap, segments, 1,
       amt::kTile, (int32_t*)counts, (int32_t*)bits, root_cb);
+}
+
+// B8: out int32 [S], zeroed by the caller, the counts of one comb16 table set
+// (the tables and scalars of amt_matchbits_comb16).  Each stream is cut into
+// `segments` pieces (stage.cuh segment_steps; `overlap` is the stream plan's
+// warm-up).  As amt_comb16_count_grouped otherwise.
+extern "C" int amt_comb16_count(const void* streams, int T, int S, const void* warm,
+                                const void* vend, const void* classmap, const void* comb,
+                                int comb_words, const void* aux, int aux_words,
+                                const void* root_row, const void* segtable, const void* ranges,
+                                int bb, int owner_mask, int cbit, int root_cb, int overlap,
+                                int segments, void* out, void* stream) {
+  if (!amt::comb16_args_ok(comb_words, aux_words, bb, owner_mask, cbit, root_cb) ||
+      !chunk_args_ok(T, S, 1, comb_words, aux_words, bb, owner_mask, cbit, overlap, segments, 1))
+    return (int)cudaErrorInvalidValue;
+  return launch_chunk<1, kCountOne>(
+      chunk_grid(S, 1, segments, 1), chunk_smem_bytes(1, comb_words, aux_words),
+      (cudaStream_t)stream, (const uint8_t*)streams, T, S, (const int32_t*)warm,
+      (const int32_t*)vend, 1, (const int32_t*)classmap, (const int32_t*)comb, comb_words,
+      (const int32_t*)aux, aux_words, (const int32_t*)root_row, (const int32_t*)segtable,
+      (const int32_t*)ranges, amt::kC16Ranges, bb, owner_mask, cbit, overlap, segments, 1,
+      amt::kTile, (int32_t*)out, (int32_t*)nullptr, root_cb);
 }

@@ -106,19 +106,25 @@ def _bind(lib: ctypes.CDLL) -> None:
         i, i, i,  # packing, state_bits, absorb
         i, i, p, p,  # s0, s1, out, stream
     ]
-    for name in ("amt_bitap_contains", "amt_bitap_presence"):
-        fn = getattr(lib, name)
-        fn.restype = i
-        fn.argtypes = [
-            p, i, i,  # streams, T, S
-            p, p, p, i,  # btab, seed, endmask, n_words
-            p, p,  # out, stream
-        ]
+    lib.amt_bitap_contains.restype = i
+    lib.amt_bitap_contains.argtypes = [
+        p, i, i,  # streams, T, S
+        p, p, p, i,  # btab, seed, endmask, n_words
+        i, i,  # overlap, segments
+        p, p,  # out, stream
+    ]
     lib.amt_bitap_contains_trap.restype = i
     lib.amt_bitap_contains_trap.argtypes = [
         p, i, i,  # streams, T, S
         p, p, p, p, i,  # btab, seed, endmask, trapmask, n_words
+        i, i,  # overlap, segments
         p, p, p,  # out, trap_out, stream
+    ]
+    lib.amt_bitap_presence.restype = i
+    lib.amt_bitap_presence.argtypes = [
+        p, i, i,  # streams, T, S
+        p, p, p, i,  # btab, seed, endmask, n_words
+        p, p,  # out, stream
     ]
     lib.amt_bitap_presence_trap.restype = i
     lib.amt_bitap_presence_trap.argtypes = [
@@ -149,6 +155,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, i, i, p, p,  # streams, T, S, warm, vend
         *comb16, p,  # ..., ranges
         i, i, i, i,  # BB, owner_mask, CB, root_cb
+        i, i,  # overlap, segments
         p, p,  # out, stream
     ]
     lib.amt_comb16_contains.restype = i

@@ -1,11 +1,14 @@
 """B8 ``comb16_count``, B10 ``comb16_contains`` and B12 ``comb16_states``: the
 three-tier 16-bit comb DFA scans.
 
-Wrappers of ``csrc/comb16_scan.cu``, which replaces the Pallas kernels
-``alfred_margaret_tpu/ops/comb16_scan.py:_make_c16_count_kernel`` (B8),
-``_make_c16_contains_kernel`` (B10) and ``_make_c16_states_kernel`` (B12).  A CUDA tensor launches the kernel; a CPU
+Wrappers of the kernels that replace the Pallas kernels
+``alfred_margaret_tpu/ops/comb16_scan.py:_make_c16_count_kernel`` (B8, a
+one-group mode of ``csrc/comb16_grouped.cu``'s segmented scan),
+``_make_c16_contains_kernel`` (B10) and ``_make_c16_states_kernel`` (B12,
+both ``csrc/comb16_scan.cu``).  A CUDA tensor launches the kernel; a CPU
 tensor runs the plain torch version.  Nothing falls back from one to the
-other.
+other.  With the stream plan's ``overlap`` B8 cuts each stream into
+segments, as B9 does (``kernels/segments.py:run_segments``).
 
 The tables are ``Comb16Tables.args()``: ``classmap`` [256], ``comb``
 [rows_c * 128] and ``aux`` [rows_a * 128] (pairs of 16-bit entries, low half
@@ -27,7 +30,8 @@ from __future__ import annotations
 
 import torch
 
-from .common import check_streams, check_tables, launch, on_cpu
+from .common import check_overlap, check_streams, check_tables, launch, on_cpu
+from .segments import Design, grouped_design, sm_count
 
 #: Count ranges the kernels read (MAX_COUNT16 - 1; kC16Ranges in
 #: csrc/comb16.cuh).
@@ -104,9 +108,10 @@ class Plain16:
 
 
 def comb16_count_plain(streams, warm, vend, classmap, comb, aux, root_row, segtable, ranges,
-                       BB, owner_mask, CB, root_cb):
+                       BB, owner_mask, CB, root_cb, overlap=None):
     """Plain torch version of B8: one lookup per time step, counts added
-    where ``warm <= t < vend``."""
+    where ``warm <= t < vend``.  (``overlap`` only lets the kernel cut the
+    streams into segments.)"""
     T, S = streams.shape
     p = Plain16(classmap, comb, aux, root_row, segtable, ranges, BB, owner_mask, CB)
     warm, vend = warm.long(), vend.long()
@@ -118,23 +123,34 @@ def comb16_count_plain(streams, warm, vend, classmap, comb, aux, root_row, segta
     return counts.to(torch.int32)
 
 
+def comb16_count_design(streams, comb, aux, overlap=None) -> Design:
+    """The segments ``comb16_count`` cuts these CUDA streams into for tables
+    of ``comb`` and ``aux`` words (B9's rule for one group)."""
+    T, S = streams.shape
+    return grouped_design(S, T, overlap, 1, comb.numel(), aux.numel(), sm_count(streams.device))
+
+
 def comb16_count(streams, warm, vend, classmap, comb, aux, root_row, segtable, ranges,
-                 BB, owner_mask, CB, root_cb):
+                 BB, owner_mask, CB, root_cb, overlap=None):
     """int32 [S] counts of the matches ending at t in [warm[s], vend[s]) of
-    each stream of ``streams`` ([T, S] uint8), scanned from ``root_cb``."""
+    each stream of ``streams`` ([T, S] uint8), scanned from ``root_cb``.
+    With the stream plan's ``overlap`` the kernel may cut each stream into
+    segments; without, it scans each whole."""
     check_comb16(streams, classmap, comb, aux, root_row, segtable, ranges, BB, owner_mask, CB,
                  root_cb, warm=warm, vend=vend)
+    check_overlap(overlap)
     if on_cpu(streams):
         return comb16_count_plain(streams, warm, vend, classmap, comb, aux, root_row, segtable,
                                   ranges, BB, owner_mask, CB, root_cb)
     T, S = streams.shape
-    out = torch.empty(S, dtype=torch.int32, device=streams.device)
+    d = comb16_count_design(streams, comb, aux, overlap)
+    out = torch.zeros(S, dtype=torch.int32, device=streams.device)
     launch(
         "amt_comb16_count", streams.device,
         streams.data_ptr(), T, S, warm.data_ptr(), vend.data_ptr(),
         classmap.data_ptr(), comb.data_ptr(), comb.numel(), aux.data_ptr(), aux.numel(),
         root_row.data_ptr(), segtable.data_ptr(), ranges.data_ptr(),
-        BB, owner_mask, CB, root_cb, out.data_ptr(),
+        BB, owner_mask, CB, root_cb, overlap or 0, d.segments, out.data_ptr(),
     )
     comb16_count.launches += 1
     return out
@@ -225,6 +241,7 @@ __all__ = [
     "comb16_contains",
     "comb16_contains_plain",
     "comb16_count",
+    "comb16_count_design",
     "comb16_count_plain",
     "comb16_states",
     "comb16_states_plain",

@@ -1,7 +1,7 @@
-"""The schedule of the segmented scans B1, B2, B9, B11, B15, B17 and the
-bitmap scans B6 and B13: how each stream is cut into segments and how the
-groups of B9 and B11 are cut into chunks, the two numbers each launch takes
-from its shapes.
+"""The schedule of the segmented scans B1, B2, B4, B8, B9, B11, B15, B17 and
+the bitmap scans B6 and B13: how each stream is cut into segments and how
+the groups of B9 and B11 are cut into chunks, the two numbers each launch
+takes from its shapes.
 
 ``csrc/stage.cuh`` runs the same split on the card.  Segment i of ``k``
 covers the steps ``[p_i, p_{i+1})``, ``p_i = i * T // k``; it scans from the
@@ -11,11 +11,15 @@ root starting ``overlap`` bytes early, at ``max(0, p_i - overlap)``.
 ``overlap + 1`` bytes is in the state of the scan from the stream's start, as
 between the streams of the plan.  So, per stream:
 
-* a count (B1, B9, B15) adds the steps t with ``max(p_i, warm[s]) <= t <
+* a count (B1, B8, B9, B15) adds the steps t with ``max(p_i, warm[s]) <= t <
   min(p_{i+1}, vend[s])`` of every segment (:func:`run_segments`);
 * B2, which has no ``vend``, adds the steps ``max(p_i, warm[s]) <= t <
   p_{i+1}`` and ORs its trap plane over every step each segment scans
   (:func:`bitap_over_segments`);
+* B4, B2's sticky mode, ORs its hits and its trap plane over every step
+  each segment scans (:func:`or_over_segments`): a restarted register holds
+  a subset of the true bits, so every bit it sets is real, and it is in
+  step over its own range;
 * a sticky-any scan (B11) is the OR over segments of the scan of
   ``[max(0, p_i - overlap), min(p_{i+1}, vend[s]))`` (:func:`any_over_segments`):
   an absorb there is a real match in ``[0, vend)``, and every real match ends
@@ -61,8 +65,8 @@ MAX_BLOCKS_PER_SM = 16  # 2048 threads / 128
 
 @dataclass(frozen=True)
 class Design:
-    """What a launch of B1, B2, B6, B9, B11, B13, B15 or B17 takes from its
-    shapes: ``segments`` pieces per stream and ``chunk`` groups per block
+    """What a launch of B1, B2, B4, B6, B8, B9, B11, B13, B15 or B17 takes
+    from its shapes: ``segments`` pieces per stream and ``chunk`` groups per block
     (B9, B11)."""
 
     segments: int
@@ -128,6 +132,22 @@ def bitap_over_segments(plain: Callable, streams, tables, warm, trapmask=None, *
             trap |= out[1]
     total = total.to(torch.int32)
     return total if trapmask is None else (total, trap)
+
+
+def or_over_segments(plain: Callable, streams, tables, trapmask=None, *, overlap: int,
+                     segments: int):
+    """B4's plain version ``plain(streams, *tables, trapmask)`` run over each
+    segment of :func:`segment_schedule`, from its scan start to its stop,
+    the outputs OR-ed per stream: int32 ``[S]`` hits, and with a
+    ``trapmask`` ``(hits, trap)``: what the segmented B4 computes."""
+    S = streams.shape[1]
+    outs = [torch.zeros(S, dtype=torch.int32, device=streams.device)
+            for _ in range(1 + (trapmask is not None))]
+    for start, _, hi in segment_schedule(streams.shape[0], segments, overlap):
+        got = plain(streams[start:hi].contiguous(), *tables, trapmask)
+        for acc, x in zip(outs, got if trapmask is not None else (got,)):
+            acc |= x
+    return outs[0] if trapmask is None else tuple(outs)
 
 
 def _sticky_runs(plain: Callable, streams, vend, tables, overlap: int, segments: int):
@@ -263,8 +283,8 @@ def bitap_bits_smem_bytes() -> int:
 
 
 def bitap_smem_bytes(words: int, fields: int) -> int:
-    """B2 (``bitap_count.cu``): ``words`` mask tables of 256 words and the
-    count fields' end bits and weights, then two tiles."""
+    """B2 and B4 (``bitap_count.cu``): ``words`` mask tables of 256 words and
+    the count fields' end bits and weights (B4 has none), then two tiles."""
     return 4 * ((256 * words + 2 * fields + 3) & ~3) + 2 * T_TILE * BLOCK_STREAMS
 
 
@@ -320,7 +340,7 @@ def comb_design(S: int, T: int, overlap: Optional[int], comb_words: int, def_wor
 def grouped_design(S: int, T: int, overlap: Optional[int], G: int, comb_words: int,
                    aux_words: int, n_sm: int) -> Design:
     """B9's and B11's launch for ``S`` streams of ``T`` steps and ``G``
-    groups (count or sticky tables)."""
+    groups (count or sticky tables); B8's with ``G = 1``."""
     chunk = pick_chunk(G, comb_words, aux_words)
     smem = chunk_smem_bytes(chunk, comb_words, aux_words)
     return Design(pick_segments(S, T, overlap, smem, n_sm, n_chunks=-(-G // chunk)), chunk)
@@ -350,6 +370,7 @@ __all__ = [
     "dense_bits_smem_bytes",
     "group_chunks",
     "grouped_design",
+    "or_over_segments",
     "pick_chunk",
     "pick_segments",
     "run_segments",

@@ -352,8 +352,8 @@ class BitapTables:
 
     def check_overlap(self, overlap: int) -> None:
         """Raise ``ValueError`` when ``overlap``, the warm-up over which B2's
-        segments restart their registers, is shorter than the longest track
-        less one: the segments would under-count."""
+        and B4's segments restart their registers, is shorter than the
+        longest track less one: the segments would miss matches and traps."""
         if overlap < self.max_track_bytes - 1:
             raise ValueError(f"the staging's overlap {overlap} is below this layout's "
                              f"longest track less one ({self.max_track_bytes - 1})")
@@ -426,11 +426,21 @@ class BitapAcEngine(DenseAcEngine):
         return bitap_count_plain(*self._kernel_args(st))
 
     def sticky_bitap_args(self, st: StagedStreams) -> tuple:
-        """Arguments of ``bitap_contains`` and ``bitap_presence`` (or their
-        plain versions), with the trap mask for a trap layout."""
+        """Arguments of ``bitap_presence`` (or its plain version), with the
+        trap mask for a trap layout; ``bitap_contains`` takes them too, and
+        then scans each stream whole."""
         t = self.bitap_tables
         args = (st.streams, t.btab, t.seed, t.endmask)
         return args if t.trapmask is None else (*args, t.trapmask)
+
+    def contains_args(self, st: StagedStreams) -> tuple:
+        """Arguments of ``bitap_contains`` (or its plain version): the trap
+        mask (None without trap tracks), then the plan's warm-up, over which
+        the kernel's segments restart their registers
+        (``BitapTables.check_overlap`` raises when it is too short)."""
+        t = self.bitap_tables
+        t.check_overlap(st.plan.overlap)
+        return (st.streams, t.btab, t.seed, t.endmask, t.trapmask, st.plan.overlap)
 
     # -- trap recovery (JAX ``bitap_scan.py:717-782``) -------------------------
 
@@ -480,7 +490,7 @@ class BitapAcEngine(DenseAcEngine):
         A track hit is a match even under traps; without one, a trapped
         stream is decided on the host, or the dense sticky scan (B3)
         decides."""
-        out = bitap_contains(*self.sticky_bitap_args(st))
+        out = bitap_contains(*self.contains_args(st))
         if self.bitap_tables.trapmask is None:
             return bool((out.cpu().numpy()[st.live_np] != 0).any())
         hits, trap = (o.cpu().numpy() for o in out)

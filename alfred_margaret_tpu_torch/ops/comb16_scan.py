@@ -791,7 +791,10 @@ class Comb16AcEngine(DenseAcEngine):
     # -- counting: kernel B8 -------------------------------------------------
 
     def _kernel_args(self, st: StagedStreams) -> tuple:
-        return (st.streams, st.warm, st.vend, *self.tables.args())
+        """Arguments of ``comb16_count`` (or its plain version): the tables,
+        then the plan's warm-up, over which the kernel's segments restart
+        from the root."""
+        return (st.streams, st.warm, st.vend, *self.tables.args(), st.plan.overlap)
 
     def stream_counts(self, st: StagedStreams) -> torch.Tensor:
         """int32 [S] per-stream counts on the device (kernel B8)."""

@@ -464,8 +464,8 @@ class DistributedAcEngine:
         """``(kernel, args, kw)`` of one shard's launch: ``step`` is
         ``"count"``, ``"sticky"``, ``"states"`` or ``"bits"``, on stream block
         ``i``, needle group ``g``, device ``dev``; the launch is
-        ``kernel(*args, **kw)`` (``kw`` holds the ``overlap`` of B1, B2 and
-        B6; B9 and B11 take theirs in ``args``), and ``PLAIN[kernel](*args,
+        ``kernel(*args, **kw)`` (``kw`` holds the ``overlap`` of B1, B2, B4
+        and B6; B9 and B11 take theirs in ``args``), and ``PLAIN[kernel](*args,
         **kw)`` is the same function by the kernel's plain version.  The
         ``xla`` inner has no kernel: ``(None, ..., {})``."""
         blk = staged.blocks[(i, dev)]
@@ -491,8 +491,8 @@ class DistributedAcEngine:
             if route == "bitap":
                 t = self._bitap(dev)
                 t.check_overlap(staged.plan.overlap)
-                args = (blk.streams, t.btab, t.seed, t.endmask)
-                return bitap_contains, args if t.trapmask is None else (*args, t.trapmask), {}
+                args = (blk.streams, t.btab, t.seed, t.endmask, t.trapmask)
+                return bitap_contains, args, {"overlap": staged.plan.overlap}
             if route == "comb16":
                 tabs = self._cached("s16", g, dev, lambda: self._sticky16_tables().group(g, dev))
                 return comb16_contains_base, (blk.streams, blk.vend, tabs, staged.plan.overlap), {}

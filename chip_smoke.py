@@ -93,13 +93,14 @@ just after (the controls' launches are read apart), the first seven over
 
 Every answer must equal the host C++ engine's (and the control's), and every
 kernel of a path must have been launched by it.  The segmented kernels (B1,
-B2 with its trap part, B6 with its dense and bitap steps, B9, B11 in both
-modes, B13, B15 and B17) are also held against their plain versions at
-ragged edge shapes: one stream, S not a multiple of 128 or of 16, T of one
-tile or word, ragged warm-ups and vends, with the plan's overlap, with none
-and with every stream padded (B2 also on 1, 2, 3 and 8 words and its trap
-layouts, İ, Kelvin K and ẞ written across the segment cuts); the launches
-of B1, B2, S1 and S2 print their segment counts.
+B2 and B4 with their trap parts, B6 with its dense and bitap steps, B8, B9,
+B11 in both modes, B13, B15 and B17) are also held against their plain
+versions at ragged edge shapes: one stream, S not a multiple of 128 or of
+16, T of one tile or word, ragged warm-ups and vends, with the plan's
+overlap, with none and with every stream padded (B2 also on 1, 2, 3 and 8
+words and B4 on 1, 2 and 3, both on their trap layouts, İ, Kelvin K and ẞ
+written across the segment cuts; B4 and B8 also at k = 1 to 64 forced);
+the launches of B1, B2, B4, B8, S1, S2 and S3 print their segment counts.
 Last it times every kernel
 (the trap parts on the IgnoreCase bench staging, with an embedded trap and
 with a trap register) and its plain version with CUDA events, B8 against B1 on one 30-needle
@@ -258,6 +259,7 @@ def mesh_phase(h):
     from alfred_margaret_tpu_torch import CASE_SENSITIVE, Searcher
     from alfred_margaret_tpu_torch.bench.dataformat import synth_corpus
     from alfred_margaret_tpu_torch.parallel import DistributedAcEngine, init_distributed, make_mesh
+    from alfred_margaret_tpu_torch.kernels.bitap_contains import bitap_contains_design
     from alfred_margaret_tpu_torch.kernels.bitap_count import bitap_count_design
     from alfred_margaret_tpu_torch.kernels.comb16_grouped import comb16_grouped_design
     from alfred_margaret_tpu_torch.kernels.dense_count import dense_count_design
@@ -507,6 +509,8 @@ def mesh_phase(h):
             sites[name]["design"] = dense_count_design(args[0], args[2], **kw).as_dict()
         if name.startswith("bitap_count"):  # S2
             sites[name]["design"] = bitap_count_design(args[0], args[1], args[5], **kw).as_dict()
+        if name.startswith("bitap_contains"):  # S3
+            sites[name]["design"] = bitap_contains_design(args[0], args[1], **kw).as_dict()
         print(f"time mesh {site} {name:22s} {what:36s} {ms:10.4f} ms per shard launch "
               f"[T, S_local] = [{T}, {SL}], plain {plain_ms:.1f} ms, bound {bms:.4f} ms by {by} "
               f"({ms / bms:.1f}x; {sites[name].get('design', '')}; {card})", flush=True)
@@ -528,11 +532,14 @@ def main() -> int:
     from alfred_margaret_tpu_torch import kernels as K
     from alfred_margaret_tpu_torch.bench.dataformat import synth_corpus
     from alfred_margaret_tpu_torch.kernels import build
+    from alfred_margaret_tpu_torch.kernels.bitap_contains import bitap_contains_design
     from alfred_margaret_tpu_torch.kernels.bitap_count import bitap_count_design
     from alfred_margaret_tpu_torch.kernels.comb import comb_count_design
+    from alfred_margaret_tpu_torch.kernels.comb16 import comb16_count_design
     from alfred_margaret_tpu_torch.kernels.comb16_grouped import comb16_grouped_design
     from alfred_margaret_tpu_torch.kernels.dense_count import dense_count_design
     from alfred_margaret_tpu_torch.kernels.matchbits import matchbits_design
+    from alfred_margaret_tpu_torch.kernels.segments import Design
     from alfred_margaret_tpu_torch.models import ac, case_dfa
     from alfred_margaret_tpu_torch.native import build as native_build
     from alfred_margaret_tpu_torch.native.cpp_engine import CppAcEngine
@@ -595,8 +602,9 @@ def main() -> int:
             same("comb_contains", K.comb_contains(*args), K.comb_contains_plain(*args), label)
             return "comb32 states"
         if isinstance(eng, BitapAcEngine):
-            args = eng.sticky_bitap_args(st)
+            args = eng.contains_args(st)
             same("bitap_contains", K.bitap_contains(*args), K.bitap_contains_plain(*args), label)
+            args = eng.sticky_bitap_args(st)
             same("bitap_presence", K.bitap_presence(*args), K.bitap_presence_plain(*args), label)
         elif isinstance(eng, Comb16AcEngine):
             args = eng.sticky_args(st)
@@ -1600,7 +1608,7 @@ def main() -> int:
         kargs, sargs = e._kernel_args(sst), e.sticky_bitap_args(sst)
         for name, kernel, plain, args in (
                 ("bitap_count", K.bitap_count, K.bitap_count_plain, kargs),
-                ("bitap_contains", K.bitap_contains, K.bitap_contains_plain, sargs),
+                ("bitap_contains", K.bitap_contains, K.bitap_contains_plain, e.contains_args(sst)),
                 ("bitap_presence", K.bitap_presence, K.bitap_presence_plain, sargs)):
             k, p = kernel(*args), plain(*args)
             for a, b in zip(k if isinstance(k, tuple) else (k,), p if isinstance(p, tuple) else (p,)):
@@ -1659,6 +1667,27 @@ def main() -> int:
         t = word * 32 + bit
         return torch.where(nz.any(0) & (t < vend), t + 1, vend).clamp(max=sst.plan.time_len)
 
+    def saturation_steps(bits_eng, sst):
+        """int64 [S]: the steps each stream of ``sst`` must read before B4's
+        output for ``bits_eng``'s bitap layout is final: up to the step at
+        which the OR of ``D & endmask`` over words and steps holds every end
+        bit of the layout, else its ``vend``.  A plain shift-AND scan."""
+        t = bits_eng.bitap_tables
+        bt, sd = t.btab.long(), t.seed.long().unsqueeze(1)
+        em = t.endmask.long()
+        full = 0
+        for w in em.tolist():
+            full |= w
+        D = torch.zeros(bt.shape[0], sst.plan.n_streams, dtype=torch.int64, device=dev)
+        acc = torch.zeros(sst.plan.n_streams, dtype=torch.int64, device=dev)
+        steps = sst.vend.clamp(max=sst.plan.time_len).long()
+        for i in range(sst.plan.time_len):
+            D = ((D << 1) | sd) & bt[:, sst.streams[i].long()]
+            for w in range(bt.shape[0]):
+                acc |= D[w] & em[w]
+            steps = torch.where(acc == full, steps.clamp(max=i + 1), steps)
+        return steps
+
     def bound(stream_bytes, other_bytes, ops):
         """(least ms, what bounds it): each input byte read once and each
         output byte written once at the HBM rate, against ``ops`` 32-bit
@@ -1682,7 +1711,17 @@ def main() -> int:
     S = st.plan.n_streams
     T = st.plan.time_len
     need_bench = int(first_hit_steps(bitap_eng, st).sum())
-    need_ci = int(first_hit_steps(eng_ci, st_ci).sum())
+    # B4's output is final once it holds every end bit of the layout.
+    sat = saturation_steps(bitap_eng, st)
+    live = st.vend.clamp(max=st.plan.time_len).long()
+    need_b4 = int(sat.sum())
+    early = sat < live
+    n_blocks = (S + 127) // 128
+    blocks = torch.zeros(n_blocks * 128, dtype=torch.bool, device=dev)
+    blocks[:S] = early | (live == 0)
+    print(f"B4 bench needles: {int(early.sum())} of {S} streams hold every end bit before their "
+          f"vend; {int(blocks.view(n_blocks, 128).all(1).sum())} of {n_blocks} blocks of 128 all "
+          f"of them; steps needed {need_b4} of {n_live_bytes(st)} live", flush=True)
     VT_ci, VT_reg = len(lay_ci.all_words()), len(eng_reg.bitap.all_words())
     need_digits = int(first_hit_steps(eng2, st_digits).sum())
     need_c2 = int(first_hit_steps(eng2, st_c2).sum())
@@ -1716,8 +1755,8 @@ def main() -> int:
          miss_eng.sticky_args(staged_miss.device), "miss needles, full scan",
          n_live_bytes(staged_miss.device), 4 * S, n_live_bytes(staged_miss.device)),
         ("bitap_contains", K.bitap_contains, K.bitap_contains_plain,
-         bitap_eng.sticky_bitap_args(st), "bench needles", need_bench, 4 * S,
-         need_bench * bitap_eng.bitap.n_words),
+         bitap_eng.contains_args(st), "bench needles", need_b4, 4 * S,
+         need_b4 * bitap_eng.bitap.n_words),
         ("bitap_presence", K.bitap_presence, K.bitap_presence_plain,
          bitap_eng.sticky_bitap_args(st), "bench needles", n_live_bytes(st),
          4 * S * bitap_eng.bitap.n_words, n_live_bytes(st) * bitap_eng.bitap.n_words),
@@ -1770,8 +1809,8 @@ def main() -> int:
          "IgnoreCase 5 needles, trap register", n_live_bytes(st_ci), 8 * S,
          n_live_bytes(st_ci) * VT_reg),
         ("bitap_contains_trap", K.bitap_contains, K.bitap_contains_plain,
-         eng_ci.sticky_bitap_args(st_ci), "IgnoreCase bench needles, embedded trap", need_ci,
-         8 * S, need_ci * VT_ci),
+         eng_ci.contains_args(st_ci), "IgnoreCase bench needles, embedded trap",
+         n_live_bytes(st_ci), 8 * S, n_live_bytes(st_ci) * VT_ci),
         ("bitap_presence_trap", K.bitap_presence, K.bitap_presence_plain,
          eng_ci.sticky_bitap_args(st_ci), "IgnoreCase bench needles, embedded trap",
          n_live_bytes(st_ci), 4 * S * VT_ci, n_live_bytes(st_ci) * VT_ci),
@@ -1794,6 +1833,11 @@ def main() -> int:
         if name.startswith("bitap_count"):  # B2's segments with the plan's overlap
             designs[(name, what)] = bitap_count_design(args[0], args[1], args[5],
                                                        args[9]).as_dict()
+        elif name.startswith("bitap_contains"):  # B4's
+            designs[(name, what)] = bitap_contains_design(args[0], args[1], args[5]).as_dict()
+        elif name == "comb16_count":  # B8's
+            designs[(name, what)] = comb16_count_design(args[0], args[4], args[5],
+                                                        args[13]).as_dict()
         elif name == "dense_count":
             designs[(name, what)] = dense_count_design(args[0], args[2], args[7]).as_dict()
         if (name, what) in designs:
@@ -1982,6 +2026,89 @@ def main() -> int:
           f"(k in {sorted(k_seen)}), none, every stream padded; traps across the cuts)",
           flush=True)
 
+    # B4 (with its trap part) and B8 at the same edge shapes: the rule's
+    # segments with the plan's overlap, then k = 1 to 64 forced, none, and
+    # every stream padded (zero bytes for B4, vend 0 for B8); B4 on 1, 2 and
+    # 3 words and the trap layouts, with İ, Kelvin K and ẞ written across the
+    # segment cuts; B8 on config 2, four count ranges, NUL, single bytes
+    # (overlap 0) and a composed IgnoreCase machine.  The wrappers zero their
+    # outputs, so no fill before a launch reaches the kernel.
+    sticky_mod = sys.modules[K.bitap_contains.__module__]
+    comb16_mod = sys.modules[K.comb16_count.__module__]
+    ci16 = random_needles(47, 40) + ["straße", "kelvin"]
+    m_ci16 = machine_of(ci16)
+    b8_edge = [("config 2", c2, eng2)]
+    for label, needles, m in (
+            ("nested", ["a", "aa", "aaa", "aaaa", "aaaaa"] + random_needles(13, 80), None),
+            ("NUL", c2[:60] + ["a\x00b", "\x00\x00x"], None),
+            ("singles", ["a", "e", " ", "z"], None),
+            ("IgnoreCase", ci16, case_dfa.compose_build(list(zip(m_ci16.needles, m_ci16.values)),
+                                                        machine=m_ci16))):
+        b8_edge.append((label, needles, Comb16AcEngine(m or machine_of(needles), device=dev)))
+    check(b8_edge[-1][2].machine.composed_ci, "B8 edge IgnoreCase: not the composed machine")
+    for label, needles, e in b8_edge:
+        srcs["B8 " + label] = np.frombuffer(synth_corpus(
+            [x for x in needles if "\x00" not in x], 1 << 18, hit_fraction=0.05,
+            seed=len(srcs) + 60), np.uint8)
+    forced_ks = (1, 2, 3, 7, 16, 64)
+
+    def launch_at(mod, design, forced, fn):
+        """``fn()`` with ``mod``'s design rule forced to ``forced`` segments
+        (None: the rule's)."""
+        if forced is None:
+            return fn()
+        with mock.patch.object(mod, design, lambda *a, **kw: Design(forced)):
+            return fn()
+
+    n_edge = {"bitap_contains": 0, "comb16_count": 0}
+    for T_e in (20, 300, 1000):
+        for S_e in (1, 200, 1000, 1040, 4096):
+            for name, label, e, needles in count_edge:
+                if name == "dense_count" or len(e.bitap.all_words()) > sticky_mod.MAX_WORDS:
+                    continue
+                K_e, t = e.overlap, e.bitap_tables
+                s_e, _, _ = edge_streams(T_e, S_e, K_e, 13 * T_e + S_e, srcs[label])
+                if t.trapmask is not None:
+                    a_e = s_e.cpu().numpy().copy()
+                    plant_traps(a_e, bitap_contains_design(s_e, t.btab, K_e).segments, K_e)
+                    s_e = torch.from_numpy(a_e).to(dev)
+                args = (s_e, t.btab, t.seed, t.endmask, t.trapmask)
+                want = K.bitap_contains_plain(*args)
+                for over, forced in [(K_e, None), (None, None)] + [(K_e, f) for f in forced_ks]:
+                    got = launch_at(sticky_mod, "bitap_contains_design", forced,
+                                    lambda: K.bitap_contains(*args, overlap=over))
+                    for a, b in zip(got if isinstance(got, tuple) else (got,),
+                                    want if isinstance(want, tuple) else (want,)):
+                        same(name.replace("count", "contains"), a, b,
+                             f"{label}, overlap {over}, k {forced or 'by the rule'}, edge "
+                             f"shape T={T_e} S={S_e}")
+                    n_edge["bitap_contains"] += 1
+                got = K.bitap_contains(torch.zeros_like(s_e), *args[1:], overlap=K_e)
+                check(not any(x.any() for x in (got if isinstance(got, tuple) else (got,))),
+                      f"B4 {label}: zero bytes hit or trap, edge shape T={T_e} S={S_e}")
+                n_edge["bitap_contains"] += 1
+            for label, needles, e in b8_edge:
+                K_e = e.machine.max_needle_bytes - 1
+                s_e, w_e, v_e = edge_streams(T_e, S_e, K_e, 17 * T_e + S_e, srcs["B8 " + label])
+                args = (s_e, w_e, v_e, *e.tables.args())
+                want = K.comb16_count_plain(*args)
+                for over, forced in [(K_e, None), (None, None)] + [(K_e, f) for f in forced_ks]:
+                    got = launch_at(comb16_mod, "comb16_count_design", forced,
+                                    lambda: K.comb16_count(*args, overlap=over))
+                    same("comb16_count", got, want,
+                         f"{label}, overlap {over}, k {forced or 'by the rule'}, edge shape "
+                         f"T={T_e} S={S_e}")
+                    n_edge["comb16_count"] += 1
+                pad = (*args[:2], torch.zeros_like(v_e), *args[3:])
+                check(not K.comb16_count(*pad, overlap=K_e).any(),
+                      f"B8 {label}: every stream padded counts, edge shape T={T_e} S={S_e}")
+                n_edge["comb16_count"] += 1
+    print(f"edge shapes: B4 (V = 1 / 2 / 3, singles, embedded trap, trap register on 1 and 2 "
+          f"words) == plain on {n_edge['bitap_contains']} launches and B8 (config 2, nested, NUL, "
+          f"singles, IgnoreCase) on {n_edge['comb16_count']} (S 1 / 200 / 1000 / 1040 / 4096, T "
+          f"20 / 300 / 1000, the plan's overlap with the rule's k and k = {forced_ks}, none, every "
+          f"stream padded; traps across the cuts)", flush=True)
+
     # B8 against B1 on the dense path's 30 needles, which both engines hold.
     comb30 = Comb16AcEngine(m30, device=dev)
     st30 = staged30.device
@@ -2059,10 +2186,10 @@ def main() -> int:
         "bitap_count": ("bitap_count.cu", "bitap_scan.py:352", "bench needles"),
         "dense_count": ("dense_count.cu", "pallas_scan.py:281", "bench needles"),
         "dense_contains": ("dense_contains.cu", "pallas_scan.py:426", "bench needles"),
-        "bitap_contains": ("bitap_contains.cu", "bitap_scan.py:466", "bench needles"),
+        "bitap_contains": ("bitap_count.cu", "bitap_scan.py:466", "bench needles"),
         "matchbits": ("matchbits.cu", "pallas_scan.py:1174", "bench needles, bitap step"),
         "bitap_presence": ("bitap_contains.cu", "bitap_scan.py:551", "bench needles"),
-        "comb16_count": ("comb16_scan.cu", "comb16_scan.py:610", "config 2"),
+        "comb16_count": ("comb16_grouped.cu", "comb16_scan.py:610", "config 2"),
         "comb16_contains": ("comb16_scan.cu", "comb16_scan.py:860",
                             "config 2, digits corpus: full scan"),
         "matchbits_comb16": ("comb16_grouped.cu", "comb16_scan.py:1382", "config 2, comb16 step"),
@@ -2079,7 +2206,7 @@ def main() -> int:
         "comb16_states": ("comb16_scan.cu", "comb16_scan.py:917", "config 2"),
         "bitap_count_trap": ("bitap_count.cu", "bitap_scan.py:352",
                              "IgnoreCase bench needles, embedded trap"),
-        "bitap_contains_trap": ("bitap_contains.cu", "bitap_scan.py:466",
+        "bitap_contains_trap": ("bitap_count.cu", "bitap_scan.py:466",
                                 "IgnoreCase bench needles, embedded trap"),
         "bitap_presence_trap": ("bitap_contains.cu", "bitap_scan.py:551",
                                 "IgnoreCase bench needles, embedded trap"),

@@ -6,7 +6,7 @@ source tree, in turns, on one CUDA card.
 ``PARENT_DIR`` holds an earlier checkout's ``alfred_margaret_tpu_torch/csrc``
 (for example ``git archive <commit> alfred_margaret_tpu_torch/csrc | tar -x
 -C PARENT_DIR``, in a directory ``.gitignore`` lists).  Its sources are
-built with the port's ``nvcc`` flags.  B1's and B2's launchers are called
+built with the port's ``nvcc`` flags.  B4's and B8's launchers are called
 through the signatures of the tree before they took segments (bound below);
 every other kernel through this tree's wrappers, with the parent's library
 swapped in (their launchers did not change).  At the main paths' shapes (128
@@ -15,24 +15,26 @@ of (2,1,4) at 16384), each kernel runs in turns, parent, this tree, this
 tree, parent, ``--runs`` launches a timing (CUDA events), and each pair's
 outputs must be equal:
 
-* B2, the bitap count: the bench needles (one word), the IgnoreCase bench
-  needles with a trap embedded in their word, and five needles with a trap
-  register; site S2 on shard 0 of the (4,2,1) mesh, with and without its
-  trap part;
-* B1, the dense count: the bench needles' dense tables, 30 needles at
-  packing 2, and site S1 on shard 0 of the (4,2,1) mesh;
-* the kernels that must not move: B6 (bitap and dense steps), S8, B13, B11
-  (both modes, the one-group mode as site S4), B17, B9, B15, S5, and B4, B5
-  and B7, which share B1's and B2's build.
+* B4, the sticky bitap scan: the bench needles (one word, hits), the miss
+  needles (no hit: a full scan) and the IgnoreCase bench needles with a
+  trap embedded in their word; site S3 on shard 0 of the (4,2,1) mesh, the
+  miss needles, and its trap part on the IgnoreCase miss needles;
+* B8, the comb16 count: config 2's tables and 30 random needles;
+* the kernels that must not move: B1, B2 (with its trap part), B7, B9,
+  B10, B11 (both modes, the one-group mode as site S4), B12, B13 and S5,
+  which share B4's and B8's files or scans, and B5, B6 (bitap and dense
+  steps), S8, B15 and B17.
 
-``--grid`` also times this tree's B2, B1 and S2 at other segment counts than
-their rule picks.  ``--walls`` times ``count_matches`` on the bench needles
-(one device, the (4,2,1) mesh, the ``AMT_BITAP=0`` dense control) and on the
-IgnoreCase bench needles, host clock until the answer is on the host, with
-the parent's launcher swapped in for this tree's, in turns.  Prints each
-timing, the card's name and power limit, and one JSON line.  Needs one CUDA
-card and ``nvcc``; the parent's library goes to
-``alfred_margaret_tpu_torch/_build/parent``.
+Then, on this tree's library alone, B8 in turns with B9's count mode at one
+group (S5's launcher on B8's tables, the ranges compared in shared memory).
+``--grid`` also times this tree's B4, S3 and B8 at other segment counts
+than their rule picks (the launcher alone).  ``--walls`` times
+``contains_any`` on the bench needles, ``count_matches`` on config 2 and
+``contains_any`` of the miss needles on the (4,2,1) mesh, host clock until
+the answer is on the host, with the parent's launcher swapped in for this
+tree's, in turns.  Prints each timing, the card's name and power limit, and
+one JSON line.  Needs one CUDA card and ``nvcc``; the parent's library goes
+to ``alfred_margaret_tpu_torch/_build/parent``.
 """
 
 from __future__ import annotations
@@ -54,15 +56,15 @@ import chip_smoke as smoke
 
 
 def _bind_parent(lib) -> None:
-    """The launchers of the parent tree: this tree's signatures, but B1's and
-    B2's before they took ``overlap`` and ``segments``."""
+    """The launchers of the parent tree: this tree's signatures, but B4's and
+    B8's before they took ``overlap`` and ``segments``."""
     from alfred_margaret_tpu_torch.kernels import build
 
     build._bind(lib)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.amt_dense_count.argtypes = [p, i, i, p, p, i, p, p, i, i, p, p]
-    lib.amt_bitap_count.argtypes = [p, i, i, p, p, p, p, p, p, i, i, p, p, p]
-    lib.amt_bitap_count_trap.argtypes = [p, i, i, p, p, p, p, p, p, i, i, p, p, p, p, p]
+    lib.amt_bitap_contains.argtypes = [p, i, i, p, p, p, i, p, p]
+    lib.amt_bitap_contains_trap.argtypes = [p, i, i, p, p, p, p, i, p, p, p]
+    lib.amt_comb16_count.argtypes = [p, i, i, p, p, p, p, i, p, i, p, p, p, i, i, i, i, p, p]
 
 
 def build_parent(src_dir: str, out_dir: str):
@@ -94,10 +96,11 @@ def main() -> int:
     ap.add_argument("parent")
     ap.add_argument("--runs", type=int, default=30)
     ap.add_argument("--walls", action="store_true",
-                    help="also time count_matches (host clock until the answer is on the host) "
-                         "with the parent's B1 and B2 swapped in and with this tree's, in turns")
+                    help="also time contains_any and count_matches (host clock until the "
+                         "answer is on the host) with the parent's B4 and B8 swapped in and "
+                         "with this tree's, in turns")
     ap.add_argument("--grid", action="store_true",
-                    help="also time this tree's B2, B1 and S2 at other segment counts than "
+                    help="also time this tree's B4, S3 and B8 at other segment counts than "
                          "their rule picks")
     a = ap.parse_args()
 
@@ -105,16 +108,18 @@ def main() -> int:
     from alfred_margaret_tpu_torch import kernels as K
     from alfred_margaret_tpu_torch.bench.dataformat import synth_corpus
     from alfred_margaret_tpu_torch.kernels import build
+    from alfred_margaret_tpu_torch.kernels.bitap_contains import bitap_contains_design
     from alfred_margaret_tpu_torch.kernels.bitap_count import bitap_count_design
     from alfred_margaret_tpu_torch.kernels.comb import comb_count_design
+    from alfred_margaret_tpu_torch.kernels.comb16 import comb16_count_design
     from alfred_margaret_tpu_torch.kernels.comb16_grouped import comb16_grouped_design
     from alfred_margaret_tpu_torch.kernels.dense_count import dense_count_design
     from alfred_margaret_tpu_torch.kernels.matchbits import matchbits_design
-    from alfred_margaret_tpu_torch.models import ac, case_dfa
-    from alfred_margaret_tpu_torch.ops import bitap_scan, pallas_scan
-    from alfred_margaret_tpu_torch.ops.bitap_scan import BitapAcEngine, plan_bitap_ci
+    from alfred_margaret_tpu_torch.ops import bitap_scan, comb16_scan
+    from alfred_margaret_tpu_torch.ops.bitap_scan import BitapAcEngine
+    from alfred_margaret_tpu_torch.ops.comb16_scan import Comb16AcEngine, Comb16GroupTables
     from alfred_margaret_tpu_torch.ops.pallas_scan import DenseAcEngine
-    from alfred_margaret_tpu_torch.parallel import DistributedAcEngine, make_mesh
+    from alfred_margaret_tpu_torch.parallel import make_mesh
     from alfred_margaret_tpu_torch.parallel import shard
     from alfred_margaret_tpu_torch.utils.device import nvidia_smi_line
 
@@ -149,12 +154,9 @@ def main() -> int:
             torch.cuda.synchronize()
         return start.elapsed_time(stop) / a.runs
 
-    def machine_of(needles):
-        return ac.build([(n, i) for i, n in enumerate(needles)])
-
     # -- the main paths' inputs ---------------------------------------------------------
     B = smoke.CORPUS_BYTES
-    digits = (smoke.DIGITS * (B // len(smoke.DIGITS) + 1))[:B]
+    digits = np.frombuffer((smoke.DIGITS * (B // len(smoke.DIGITS) + 1))[:B], np.uint8)
     sb = Searcher.build(CASE_SENSITIVE, smoke.NEEDLES)
     bitap_eng = sb._engine.device_engine()
     with mock.patch.dict(os.environ, {"AMT_BITAP": "0"}):
@@ -164,15 +166,16 @@ def main() -> int:
     datab = np.frombuffer(synth_corpus(smoke.NEEDLES, B, hit_fraction=0.01, seed=3), np.uint8)
     stgb = sb.stage(datab)
     stb = stgb.device
+    sm = Searcher.build(CASE_SENSITIVE, smoke.MISS_NEEDLES)
+    miss_eng = sm._engine.device_engine()
+    assert isinstance(miss_eng, BitapAcEngine)
+    stm = sm.stage(datab).device
     m421 = make_mesh([dev] * 8, data=4, seq=2)
-    eb = sb.distributed(m421)
-    with mock.patch.dict(os.environ, {"AMT_BITAP": "0"}):
-        eb_dense = DistributedAcEngine(sb.automaton, m421)
-    assert (eb.count_route(), eb_dense.count_route()) == ("bitap", "dense")
-    sbm = eb.stage(datab)
+    eb, e_miss = sb.distributed(m421), sm.distributed(m421)
+    assert eb.sticky_route() == e_miss.sticky_route() == "bitap"
+    sbm, s_miss_m = eb.stage(datab), e_miss.stage(datab)
     # IgnoreCase: the case-scrambled bench corpus on the composed machine's
-    # byte-class bitap (an embedded trap), and five needles with a trap
-    # register scanning the same staging.
+    # byte-class bitap (an embedded trap), and miss needles on the mesh.
     flip = np.random.default_rng(31).integers(0, 2, size=len(datab), dtype=np.uint8) == 1
     data_ci = datab.copy()
     data_ci[flip & (data_ci >= 97) & (data_ci <= 122)] -= 32
@@ -181,23 +184,18 @@ def main() -> int:
     stg_ci = s_ci.stage(data_ci)
     st_ci = stg_ci.device
     assert stg_ci.composed and eng_ci.bitap.has_trap and eng_ci.bitap.trap is None
-    m_reg = machine_of(smoke.TRAP_REGISTER_NEEDLES)
-    cm_reg = case_dfa.compose_build(list(zip(m_reg.needles, m_reg.values)), machine=m_reg)
-    eng_reg = BitapAcEngine(cm_reg, layout=plan_bitap_ci(cm_reg, max_words=2), device=dev)
-    assert eng_reg.adopt_staged(st_ci) is st_ci and eng_reg.bitap.trap is not None
-    eci = s_ci.distributed(m421)
-    sci_m = eci.stage(data_ci)
-    assert eci._bitap_lay.has_trap
-    pk2 = smoke.PACK2_NEEDLES
-    e30 = DenseAcEngine(machine_of(pk2), device=dev)
-    assert e30.comp.packing == 2
-    st30 = e30.stage(np.frombuffer(synth_corpus(pk2, B, hit_fraction=0.01, seed=19), np.uint8))
+    e_miss_ci = Searcher.build(IGNORE_CASE, ["tshirt9", "shorts9"]).distributed(m421)
+    s_miss_ci = e_miss_ci.stage(data_ci)
+    assert e_miss_ci._bitap_lay.has_trap
+    n30 = smoke.random_needles(30, 30)
+    c30 = Comb16AcEngine(ac_build(n30), device=dev)
+    st30 = c30.stage(np.frombuffer(synth_corpus(n30, B, hit_fraction=0.01, seed=9), np.uint8))
     n1000 = smoke.config5_needles(1000)
     s1000 = Searcher.build(CASE_SENSITIVE, n1000)
     eng5 = s1000._engine.device_engine()
     data5 = np.frombuffer(synth_corpus(n1000[:500], B, hit_fraction=0.01, seed=11), np.uint8)
     st5c = s1000.stage(data5).device
-    st5d = s1000.stage(np.frombuffer(digits, np.uint8)).device
+    st5d = s1000.stage(digits).device
     n300 = smoke.config5_needles(300)
     s300 = Searcher.build(CASE_SENSITIVE, n300)
     eng3 = s300._engine.device_engine()
@@ -206,9 +204,11 @@ def main() -> int:
     c2 = smoke.config2_needles()
     s100 = Searcher.build(CASE_SENSITIVE, c2)
     eng2 = s100._engine.device_engine()
+    assert isinstance(eng2, Comb16AcEngine)
     ec2 = s100.distributed(make_mesh([dev] * 8, data=2, seq=1, needle=4))
     data2 = np.frombuffer(synth_corpus(c2, B, hit_fraction=0.01, seed=5), np.uint8)
-    st2 = s100.stage(data2).device
+    stg2 = s100.stage(data2)
+    st2, st2d = stg2.device, s100.stage(digits).device
     sc2 = ec2.stage(data2)
     sff = ec2.stage(np.frombuffer(smoke.fire_free(B, seed=1), np.uint8))
 
@@ -217,40 +217,39 @@ def main() -> int:
         _, args, skw = eng.shard_call(step, staged, i, g, d, **kw)
         return args, skw
 
-    s1_args, s1_kw = shard0(eb_dense, "count", sbm)
-    s2_args, s2_kw = shard0(eb, "count", sbm)
-    s2t_args, s2t_kw = shard0(eci, "count", sci_m)
+    s3_args, s3_kw = shard0(e_miss, "sticky", s_miss_m)
+    s3t_args, s3t_kw = shard0(e_miss_ci, "sticky", s_miss_ci)
     s4_args, _ = shard0(ec2, "sticky", sff)
     s5_args, _ = shard0(ec2, "count", sc2)
     s8_args, s8_kw = shard0(eb, "bits", sbm)
     torch.cuda.synchronize()
 
-    # -- the parent's B1 and B2 ---------------------------------------------------------
+    # -- the parent's B4 and B8 ---------------------------------------------------------
     def ptr(x):
         return x.data_ptr()
 
-    def parent_bitap(streams, btab, seed, endmask, fs, fb, fw, warm, trapmask=None,
-                     overlap=None):
-        """The parent's B2: one thread a whole stream (no overlap)."""
+    def parent_b4(streams, btab, seed, endmask, trapmask=None, overlap=None):
+        """The parent's B4: one thread a whole stream (no overlap)."""
         T, S = streams.shape
         out = torch.empty(S, dtype=torch.int32, device=dev)
-        head = (ptr(streams), T, S, ptr(btab), ptr(seed), ptr(endmask), ptr(fs), ptr(fb),
-                ptr(fw), btab.shape[0], fb.numel(), ptr(warm))
+        head = (ptr(streams), T, S, ptr(btab), ptr(seed), ptr(endmask))
         if trapmask is None:
-            build.check(plib.amt_bitap_count(*head, ptr(out), stream()))
+            build.check(plib.amt_bitap_contains(*head, btab.shape[0], ptr(out), stream()))
             return out
         trap = torch.empty(S, dtype=torch.int32, device=dev)
-        build.check(plib.amt_bitap_count_trap(*head, ptr(trapmask), ptr(out), ptr(trap),
-                                              stream()))
+        build.check(plib.amt_bitap_contains_trap(*head, ptr(trapmask), btab.shape[0], ptr(out),
+                                                 ptr(trap), stream()))
         return out, trap
 
-    def parent_dense(streams, cm, tab, warm, vend, packing, state_bits, overlap=None):
-        """The parent's B1: one thread a whole stream (no overlap)."""
+    def parent_b8(streams, warm, vend, cm, comb, aux, root_row, segtable, ranges, BB, om, CB,
+                  root_cb, overlap=None):
+        """The parent's B8: one thread a whole stream (no overlap)."""
         T, S = streams.shape
         out = torch.empty(S, dtype=torch.int32, device=dev)
-        build.check(plib.amt_dense_count(ptr(streams), T, S, ptr(cm), ptr(tab), tab.numel(),
-                                         ptr(warm), ptr(vend), packing, state_bits, ptr(out),
-                                         stream()))
+        build.check(plib.amt_comb16_count(ptr(streams), T, S, ptr(warm), ptr(vend), ptr(cm),
+                                          ptr(comb), comb.numel(), ptr(aux), aux.numel(),
+                                          ptr(root_row), ptr(segtable), ptr(ranges), BB, om, CB,
+                                          root_cb, ptr(out), stream()))
         return out
 
     def bits_kernel(overlap):
@@ -259,41 +258,51 @@ def main() -> int:
     def bits_design(args, overlap):
         return matchbits_design(args[0], *args[3:], overlap=overlap)
 
-    def b2_design(args, kw=None):
-        over = kw["overlap"] if kw else args[9]
-        return bitap_count_design(args[0], args[1], args[5], over)
+    def b4_design(args, kw=None):
+        return bitap_contains_design(args[0], args[1], kw["overlap"] if kw else args[5])
 
-    def b1_design(args, kw=None):
-        return dense_count_design(args[0], args[2], kw["overlap"] if kw else args[7])
+    def b8_design(args):
+        return comb16_count_design(args[0], args[4], args[5], args[13])
 
     y5, f5 = eng5._fused_sticky_setup().tables, eng5._fused_setup().tables
     ob, o2, o8 = stb.plan.overlap, st2.plan.overlap, s8_kw["overlap"]
     bitap_args, dense_args, c16_args = (bitap_eng.bits_args(stb), dense_eng.bits_args(stb),
                                         eng2.bits_args(st2))
+    b4_args, b4m_args = bitap_eng.contains_args(stb), miss_eng.contains_args(stm)
+    b4t_args = eng_ci.contains_args(st_ci)
+    b8_args, b8n_args = eng2._kernel_args(st2), c30._kernel_args(st30)
     b2_args, b2t_args = bitap_eng._kernel_args(stb), eng_ci._kernel_args(st_ci)
-    b2r_args = eng_reg._kernel_args(st_ci)
-    b1_args, b1p_args = dense_eng._kernel_args(stb), e30._kernel_args(st30)
+    b1_args = dense_eng._kernel_args(stb)
     # (tag, what, this tree's call, the parent's call (None: this tree's wrapper
     # on the parent's library), args, kw, this tree's design (None: one thread
     # a whole stream))
     rows = [
-        ("B2", "bench needles (V = 1)", K.bitap_count, parent_bitap, b2_args, {},
-         b2_design(b2_args)),
-        ("B2", "IgnoreCase bench needles, embedded trap", K.bitap_count, parent_bitap,
-         b2t_args, {}, b2_design(b2t_args)),
-        ("B2", "IgnoreCase 5 needles, trap register", K.bitap_count, parent_bitap, b2r_args, {},
-         b2_design(b2r_args)),
-        ("S2", "B2, bench needles, (4,2,1) shard 0", K.bitap_count, parent_bitap, s2_args,
-         s2_kw, b2_design(s2_args, s2_kw)),
-        ("S2", "B2 trap part, IgnoreCase bench, (4,2,1) shard 0", K.bitap_count, parent_bitap,
-         s2t_args, s2t_kw, b2_design(s2t_args, s2t_kw)),
-        ("B1", "bench needles' dense tables", K.dense_count, parent_dense, b1_args, {},
-         b1_design(b1_args)),
-        ("B1", "30 needles, packing 2", K.dense_count, parent_dense, b1p_args, {},
-         b1_design(b1p_args)),
-        ("S1", "B1, bench needles, (4,2,1) shard 0", K.dense_count, parent_dense, s1_args,
-         s1_kw, b1_design(s1_args, s1_kw)),
+        ("B4", "bench needles (V = 1, hits)", K.bitap_contains, parent_b4, b4_args, {},
+         b4_design(b4_args)),
+        ("B4", "miss needles (no hit: full scan)", K.bitap_contains, parent_b4, b4m_args, {},
+         b4_design(b4m_args)),
+        ("B4", "IgnoreCase bench needles, embedded trap", K.bitap_contains, parent_b4,
+         b4t_args, {}, b4_design(b4t_args)),
+        ("S3", "B4, miss needles, (4,2,1) shard 0", K.bitap_contains, parent_b4, s3_args,
+         s3_kw, b4_design(s3_args, s3_kw)),
+        ("S3", "B4 trap part, IgnoreCase miss needles, (4,2,1) shard 0", K.bitap_contains,
+         parent_b4, s3t_args, s3t_kw, b4_design(s3t_args, s3t_kw)),
+        ("B8", "config 2", K.comb16_count, parent_b8, b8_args, {}, b8_design(b8_args)),
+        ("B8", "30 needles", K.comb16_count, parent_b8, b8n_args, {}, b8_design(b8n_args)),
         # The kernels that must not move: this tree's wrappers on either library.
+        ("B2", "bench needles (V = 1)", K.bitap_count, None, b2_args, {},
+         bitap_count_design(b2_args[0], b2_args[1], b2_args[5], b2_args[9])),
+        ("B2", "IgnoreCase bench needles, embedded trap", K.bitap_count, None, b2t_args, {},
+         bitap_count_design(b2t_args[0], b2t_args[1], b2t_args[5], b2t_args[9])),
+        ("B1", "bench needles' dense tables", K.dense_count, None, b1_args, {},
+         dense_count_design(b1_args[0], b1_args[2], b1_args[7])),
+        ("B7", "bench needles", K.bitap_presence, None, bitap_eng.sticky_bitap_args(stb), {},
+         None),
+        ("B7", "IgnoreCase bench needles, embedded trap", K.bitap_presence, None,
+         eng_ci.sticky_bitap_args(st_ci), {}, None),
+        ("B10", "config 2, digits corpus: full scan", K.comb16_contains, None,
+         eng2.sticky_args(st2d), {}, None),
+        ("B12", "config 2", K.comb16_states, None, eng2.states_args(st2), {}, None),
         ("B6", "bench needles, bitap step", bits_kernel(ob), None, bitap_args, {},
          bits_design(bitap_args, ob)),
         ("B6", "bench needles, dense step", bits_kernel(ob), None, dense_args, {},
@@ -318,10 +327,6 @@ def main() -> int:
                            st3c.plan.overlap)),
         ("S5", "B9 one group, config 2 group 0, shard 0", K.comb16_count_grouped, None,
          s5_args, {}, comb16_grouped_design(s5_args[0], s5_args[3], s5_args[4])),
-        ("B4", "bench needles", K.bitap_contains, None, bitap_eng.sticky_bitap_args(stb), {},
-         None),
-        ("B7", "bench needles", K.bitap_presence, None, bitap_eng.sticky_bitap_args(stb), {},
-         None),
         ("B5", "bench needles' dense tables", K.dense_states, None, bitap_eng.states_args(stb),
          {}, None),
     ]
@@ -357,38 +362,64 @@ def main() -> int:
               f"{n_ms[0]:.4f} / {n_ms[1]:.4f} ms ({d or 'unsegmented'}; {card})", flush=True)
         out.append({"kernel": tag, "what": what, "parent_ms": p_ms, "new_ms": n_ms, "design": d})
 
+    # B8's one-group launch (ranges in registers, counts carried in the
+    # entries) against B9's count mode on the same tables at G = 1 (the
+    # ranges compared in shared memory), both on this tree's library.
+    t2 = eng2.tables
+
+    def one_group(x):
+        return x.reshape(1, -1).contiguous()
+
+    root = torch.tensor([t2.root_cb], dtype=torch.int32, device=dev)
+    g1 = Comb16GroupTables(
+        classmap=one_group(t2.classmap), comb=one_group(t2.comb), aux=one_group(t2.aux),
+        root_row=one_group(t2.root_row), segtable=one_group(t2.segtable),
+        gscal=one_group(torch.cat([root, t2.ranges])), BB=t2.BB, owner_mask=t2.owner_mask,
+        CB=t2.CB, sticky=False)
+    g1_args = (st2.streams, st2.warm, st2.vend, g1, st2.plan.overlap)
+    check_d = comb16_grouped_design(st2.streams, g1, st2.plan.overlap)
+    if check_d != b8_design(b8_args):
+        raise SystemExit(f"B9 at G = 1 takes {check_d}, B8 {b8_design(b8_args)}")
+    c_ms, n_ms = turns("B8", "config 2: B9's count mode at G = 1 vs B8",
+                       lambda *x: K.comb16_count_grouped(*g1_args),
+                       K.comb16_count, b8_args, {}, None, None)
+    print(f"lever B8   config 2: B9's count mode at G = 1 {c_ms[0]:.4f} / {c_ms[1]:.4f} ms, "
+          f"B8's one-count mode {n_ms[0]:.4f} / {n_ms[1]:.4f} ms ({check_d.as_dict()}; {card})",
+          flush=True)
+    lever = {"what": "config 2", "count_mode_g1_ms": c_ms, "one_count_ms": n_ms}
+
     grid = []
     if a.grid:
-        def b2_at(args, kw, k):
-            """This tree's B2 launcher on ``args`` at ``k`` segments."""
-            streams, btab, seed, em, fs, fb, fw, warm, trapmask = args[:9]
-            over = kw["overlap"] if kw else args[9]
+        def b4_at(args, kw, k):
+            """This tree's B4 launcher on ``args`` at ``k`` segments."""
+            streams, btab, seed, em, trapmask = args[:5]
+            over = kw["overlap"] if kw else args[5]
             T, S = streams.shape
-            counts = torch.zeros(S, dtype=torch.int32, device=dev)
-            head = (ptr(streams), T, S, ptr(btab), ptr(seed), ptr(em), ptr(fs), ptr(fb), ptr(fw),
-                    btab.shape[0], fb.numel(), ptr(warm))
+            hits = torch.zeros(S, dtype=torch.int32, device=dev)
+            head = (ptr(streams), T, S, ptr(btab), ptr(seed), ptr(em))
             if trapmask is None:
-                build.check(new.lib.amt_bitap_count(*head, over, k, ptr(counts), stream()))
-                return counts
+                build.check(new.lib.amt_bitap_contains(*head, btab.shape[0], over, k, ptr(hits),
+                                                       stream()))
+                return hits
             trap = torch.zeros(S, dtype=torch.int32, device=dev)
-            build.check(new.lib.amt_bitap_count_trap(*head, ptr(trapmask), over, k,
-                                                     ptr(counts), ptr(trap), stream()))
-            return counts, trap
+            build.check(new.lib.amt_bitap_contains_trap(*head, ptr(trapmask), btab.shape[0],
+                                                        over, k, ptr(hits), ptr(trap), stream()))
+            return hits, trap
 
-        def b1_at(args, kw, k):
-            """This tree's B1 launcher on ``args`` at ``k`` segments."""
-            streams, cm, tab, warm, vend, packing, state_bits = args[:7]
-            over = kw["overlap"] if kw else args[7]
+        def b8_at(args, kw, k):
+            """This tree's B8 launcher on ``args`` at ``k`` segments."""
+            streams, warm, vend, cm, comb, aux, rr, seg, ranges, BB, om, CB, root_cb = args[:13]
             T, S = streams.shape
             counts = torch.zeros(S, dtype=torch.int32, device=dev)
-            build.check(new.lib.amt_dense_count(ptr(streams), T, S, ptr(cm), ptr(tab),
-                                                tab.numel(), ptr(warm), ptr(vend), packing,
-                                                state_bits, over, k, ptr(counts), stream()))
+            build.check(new.lib.amt_comb16_count(
+                ptr(streams), T, S, ptr(warm), ptr(vend), ptr(cm), ptr(comb), comb.numel(),
+                ptr(aux), aux.numel(), ptr(rr), ptr(seg), ptr(ranges), BB, om, CB, root_cb,
+                args[13], k, ptr(counts), stream()))
             return counts
 
-        for tag, at, kernel, args, kw in (("B2", b2_at, K.bitap_count, b2_args, {}),
-                                          ("B1", b1_at, K.dense_count, b1_args, {}),
-                                          ("S2", b2_at, K.bitap_count, s2_args, s2_kw)):
+        for tag, at, kernel, args, kw in (("B4", b4_at, K.bitap_contains, b4_args, {}),
+                                          ("S3", b4_at, K.bitap_contains, s3_args, s3_kw),
+                                          ("B8", b8_at, K.comb16_count, b8_args, {})):
             ref = kernel(*args, **kw)
             for k in (1, 4, 8, 16, 32, 64):
                 if same(at(args, kw, k), ref):
@@ -409,24 +440,23 @@ def main() -> int:
                 times.append((time.perf_counter() - t0) * 1e3)
             return float(np.median(times))
 
-        parents = {"bitap_count": parent_bitap, "dense_count": parent_dense}
+        parents = {"bitap_contains": parent_b4, "comb16_count": parent_b8}
 
         @contextlib.contextmanager
         def parent_launchers():
-            """The engines' and the mesh's B1 and B2 swapped for the parent's."""
+            """The engines' and the mesh's B4 and B8 swapped for the parent's."""
             with contextlib.ExitStack() as stack:
-                for mod in (bitap_scan, pallas_scan, shard):
+                for mod in (bitap_scan, comb16_scan, shard):
                     for name, fn in parents.items():
                         if hasattr(mod, name):
                             stack.enter_context(mock.patch.object(mod, name, fn))
                 yield
 
         for tag, what, fn in (
-                ("B2", "bench needles count_matches", lambda: sb.count_matches(stgb)),
-                ("S2", "bench needles count_matches, (4,2,1) mesh", lambda: eb.count(sbm)),
-                ("B1", "bench needles count_matches, AMT_BITAP=0", lambda: sd.count_matches(stgb)),
-                ("B2", "IgnoreCase bench needles count_matches, embedded trap",
-                 lambda: s_ci.count_matches(stg_ci))):
+                ("B4", "bench needles contains_any", lambda: sb.contains_any(stgb)),
+                ("B8", "config 2 count_matches", lambda: s100.count_matches(stg2)),
+                ("S3", "miss needles contains_any, (4,2,1) mesh",
+                 lambda: e_miss.contains_any(s_miss_m))):
             got = fn()
             with parent_launchers():
                 ref = fn()
@@ -439,15 +469,21 @@ def main() -> int:
             p_ms = [ms for lbl, ms in ts if lbl == "parent"]
             n_ms = [ms for lbl, ms in ts if lbl == "new"]
             print(f"wall  {tag:4s} {what:60s} parent {p_ms[0]:.3f} / {p_ms[1]:.3f} ms, new "
-                  f"{n_ms[0]:.3f} / {n_ms[1]:.3f} ms (median of 9, host clock; count {got}; "
+                  f"{n_ms[0]:.3f} / {n_ms[1]:.3f} ms (median of 9, host clock; answer {got}; "
                   f"{card})", flush=True)
             walls.append({"kernel": tag, "what": what, "parent_ms": p_ms, "new_ms": n_ms,
-                          "count": got})
-    line = json.dumps({"turns": out, "grid": grid, "walls": walls,
+                          "answer": got})
+    line = json.dumps({"turns": out, "lever": lever, "grid": grid, "walls": walls,
                        "card": card, "runs": a.runs, "parent_build_s": parent_s})
     print(card)
     print(line)
     return 0
+
+
+def ac_build(needles):
+    from alfred_margaret_tpu_torch.models import ac
+
+    return ac.build([(n, i) for i, n in enumerate(needles)])
 
 
 if __name__ == "__main__":

@@ -5,7 +5,8 @@ which ``csrc/dense_count.cu`` and ``csrc/bitap_count.cu`` run on the card
 
 * The rules: one segment without an overlap, never a segment no longer than
   the overlap, and k = 16 at the main paths' shapes (128 MiB, S = 32768, and
-  a 4096-stream mesh shard), with each kernel's shared memory.
+  a 4096-stream mesh shard), with each kernel's shared memory; also for B4
+  (the sticky bitap scan) and B8 (the comb16 count at config 2's tables).
 * Exactness: the plain versions run over every segment of a schedule (B1
   through ``run_segments``, B2 through ``bitap_over_segments``: counts
   summed, trap planes OR-ed) equal the unsplit plain versions, and those
@@ -53,11 +54,13 @@ from alfred_margaret_tpu_torch.ops.bitap_scan import (
     plan_bitap,
     plan_bitap_ci,
 )
+from alfred_margaret_tpu_torch.ops.comb16_scan import Comb16AcEngine
 from alfred_margaret_tpu_torch.ops.pallas_scan import DenseAcEngine, _zero_inert
 from alfred_margaret_tpu_torch.parallel import DistributedAcEngine, make_mesh
 from alfred_margaret_tpu_torch.parallel.shard import PLAIN
 
 from test_torch_bitap_ci import _corpus
+from test_torch_comb16 import CONFIG2
 from test_torch_segments import CI, LONG_NUL, SINGLES, _layout_cases
 from _torch_count_fixtures import (
     EMBEDDED_KSS, I_DOT, KELVIN, PACK2, REGISTER, REGISTER_V3, SHARP_S, V2, V3, V8, plant_traps)
@@ -66,6 +69,8 @@ from _torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 #: The wrappers' modules (``kernels`` exports the wrappers under their names).
 bitap_mod = importlib.import_module("alfred_margaret_tpu_torch.kernels.bitap_count")
 dense_mod = importlib.import_module("alfred_margaret_tpu_torch.kernels.dense_count")
+sticky_mod = importlib.import_module("alfred_margaret_tpu_torch.kernels.bitap_contains")
+comb16_mod = importlib.import_module("alfred_margaret_tpu_torch.kernels.comb16")
 CPU = torch.device("cpu")
 #: T = 40 steps on the stagings below: not a multiple of 3, 7, 16 or 64.
 KW = dict(n_streams=128, t_tile=40)
@@ -125,6 +130,24 @@ def test_count_designs_follow_the_rule(monkeypatch):
     assert dense_mod.dense_count_design(streams, table, 6).as_dict() == {
         "k": 16, "t_tile": seg.T_TILE, "Gc": 1}
     assert dense_mod.dense_count_design(streams[:20], table, 10).segments == 1
+    # B4 (B2's sticky mode: its masks, no fields) and B8 (B9's rule for one
+    # group, at config 2's table size), at the full width and on a shard.
+    monkeypatch.setattr(sticky_mod, "sm_count", lambda _dev: 132)
+    monkeypatch.setattr(comb16_mod, "sm_count", lambda _dev: 132)
+    assert seg.bitap_smem_bytes(1, 0) == 4 * 256 + 8192
+    c2 = Comb16AcEngine(_machine(ac, CONFIG2), device=CPU, n_streams=8, t_tile=8).tables
+    cw, aw = c2.comb.numel(), c2.aux.numel()
+    for S in (32768, 4096):
+        wide = torch.zeros(4224, S, dtype=torch.uint8)
+        for V in (1, 2, 3):
+            d = sticky_mod.bitap_contains_design(wide, torch.zeros(V, 256, dtype=torch.int32), 5)
+            assert d.segments == seg.pick_segments(
+                S, 4224, 5, seg.bitap_smem_bytes(V, 0), 132) == 16
+        d = comb16_mod.comb16_count_design(wide, c2.comb, c2.aux, 7)
+        assert d.as_dict() == {"k": 16, "t_tile": seg.T_TILE, "Gc": 1}
+        assert d == seg.grouped_design(S, 4224, 7, 1, cw, aw, 132)
+    assert sticky_mod.bitap_contains_design(streams, btab).segments == 1
+    assert comb16_mod.comb16_count_design(streams, c2.comb, c2.aux).segments == 1
 
 
 # -- B1 over the schedule -----------------------------------------------------------------

@@ -21,6 +21,7 @@ count.
 """
 
 import dataclasses
+import importlib
 
 import numpy as np
 import pytest
@@ -191,10 +192,11 @@ def test_bitap_sticky_kernels_match_plain(cuda, needles, n_streams):
     data = np.frombuffer(synth_corpus(needles, 1 << 18, hit_fraction=0.001, seed=6), np.uint8)
     eng = BitapAcEngine(m, device=cuda, n_streams=n_streams)
     st = eng.stage(data)
-    args = eng.sticky_bitap_args(st)
-    hits, planes = bitap_contains(*args), bitap_presence(*args)
+    args, cargs = eng.sticky_bitap_args(st), eng.contains_args(st)
+    hits, planes = bitap_contains(*cargs), bitap_presence(*args)
     torch.cuda.synchronize()
-    assert torch.equal(hits, bitap_contains_plain(*args))
+    assert torch.equal(hits, bitap_contains_plain(*cargs))
+    assert torch.equal(bitap_contains(*args), hits)  # one segment
     assert torch.equal(planes, bitap_presence_plain(*args))
     assert planes.shape == (eng.bitap.n_words, n_streams)
     assert eng.contains_staged(st) == (ac.count_matches(m, data.tobytes()) > 0)
@@ -247,7 +249,7 @@ def test_new_wrappers_count_launches_and_raise(cuda):
     st = dense.stage(data)
     calls = [
         (dense_contains, dense_contains_plain, dense.sticky_args(st)),
-        (bitap_contains, bitap_contains_plain, bitap.sticky_bitap_args(st)),
+        (bitap_contains, bitap_contains_plain, bitap.contains_args(st)),
         (bitap_presence, bitap_presence_plain, bitap.sticky_bitap_args(st)),
         (matchbits, matchbits_plain, bitap.bits_args(st)),
         (matchbits, matchbits_plain, dense.bits_args(st)),
@@ -583,9 +585,10 @@ def test_trap_kernels_match_plain(cuda, needles, embedded, register, n_streams):
     data = _ci_corpus(needles, 8, ["KİLO", "KKILO FİX", "Å STRAẞE"])
     st = eng.stage(data)
     kargs, sargs = eng._kernel_args(st), eng.sticky_bitap_args(st)
+    cargs = eng.contains_args(st)
     before = (bitap_count.launches_trap, bitap_contains.launches_trap, bitap_presence.launches_trap)
     outs = [(bitap_count(*kargs), bitap_count_plain(*kargs)),
-            (bitap_contains(*sargs), bitap_contains_plain(*sargs)),
+            (bitap_contains(*cargs), bitap_contains_plain(*cargs)),
             (bitap_presence(*sargs), bitap_presence_plain(*sargs))]
     torch.cuda.synchronize()
     for k, p in outs:
@@ -1049,3 +1052,131 @@ def test_b1_matches_plain_at_edge_shapes(cuda, shape):
         with pytest.raises(ValueError):
             dense_count(streams.cpu(), *args[1:], overlap=K)
         assert dense_count.launches == before + 3
+
+
+# -- B4 (with its trap part, and the mesh's S3) and B8 on the segmented pipeline -------
+
+#: Segment counts the launches are forced to, beside the rule's.
+FORCED_KS = (1, 2, 3, 7, 16, 64)
+
+
+@pytest.mark.parametrize("shape", EDGE_SHAPES_ONE)
+def test_b4_matches_plain_at_edge_shapes(cuda, shape, monkeypatch):
+    """B4 as ``bitap_contains`` launches it, with the plan's overlap (the
+    rule's segments, then k = 1 to 64 forced) and without (one segment),
+    equals the plain version: hits and, on the trap layouts, the trap plane,
+    with trap encodings written across the segment cuts; zero bytes
+    (padding) hit nothing and trap nothing.  Each launch adds one to the
+    wrapper's counts."""
+    from alfred_margaret_tpu_torch.kernels.segments import Design
+
+    sticky_mod = importlib.import_module("alfred_margaret_tpu_torch.kernels.bitap_contains")
+    T, S = shape
+    rule = sticky_mod.bitap_contains_design
+    for label, needles, eng in _bitap_edge_engines(cuda):
+        t = eng.bitap_tables
+        if t.btab.shape[0] > sticky_mod.MAX_WORDS:
+            continue  # eight words: B2 only
+        K = eng.overlap
+        streams, _, _ = _edge_streams(needles, T, S, K, 5 * T + S, cuda)
+        trap = t.trapmask is not None
+        k = rule(streams, t.btab, K).segments
+        if trap:
+            a = streams.cpu().numpy().copy()
+            plant_traps(a, k, K)
+            streams = torch.from_numpy(a).to(cuda)
+        args = (streams, t.btab, t.seed, t.endmask, t.trapmask)
+        want = _outs(bitap_contains_plain(*args))
+        if trap and S > 1 and T > 20:
+            assert want[1].any(), label
+        before = (bitap_contains.launches, bitap_contains.launches_trap)
+        n = 0
+        for over, forced in [(K, None), (None, None)] + [(K, f) for f in FORCED_KS]:
+            if forced is not None:
+                monkeypatch.setattr(sticky_mod, "bitap_contains_design",
+                                    lambda *a, f=forced: Design(f))
+            got = _outs(bitap_contains(*args, overlap=over))
+            monkeypatch.setattr(sticky_mod, "bitap_contains_design", rule)
+            assert len(got) == 1 + trap and all(map(torch.equal, got, want)), (label, over, forced)
+            n += 1
+        zero = _outs(bitap_contains(torch.zeros_like(streams), *args[1:], overlap=K))
+        assert not any(x.any() for x in zero), label
+        after = (before[0] + n + 1, before[1] + (n + 1) * trap)
+        assert (bitap_contains.launches, bitap_contains.launches_trap) == after
+        with pytest.raises(ValueError):
+            bitap_contains(*args, overlap=-1)
+        with pytest.raises(ValueError):
+            bitap_contains(streams.cpu(), *args[1:], overlap=K)
+        assert (bitap_contains.launches, bitap_contains.launches_trap) == after
+
+
+@pytest.mark.parametrize("shape", EDGE_SHAPES_ONE)
+def test_b8_matches_plain_at_edge_shapes(cuda, shape, monkeypatch):
+    """B8 as ``comb16_count`` launches it, with the plan's overlap (the
+    rule's segments, then k = 1 to 64 forced) and without, equals the plain
+    version: config 2, the nested set (four count ranges), a NUL-bearing set,
+    single bytes (overlap 0) and a composed IgnoreCase machine; every stream
+    padded counts nothing."""
+    from alfred_margaret_tpu_torch.kernels.comb16 import comb16_count_plain
+    from alfred_margaret_tpu_torch.kernels.segments import Design
+    from alfred_margaret_tpu_torch.models import case_dfa
+
+    comb16_mod = importlib.import_module("alfred_margaret_tpu_torch.kernels.comb16")
+    T, S = shape
+    rule = comb16_mod.comb16_count_design
+    ci = _random_needles(47, 40) + ["straße", "kelvin"]
+    cm = _machine(ci)
+    cases = [(name, COMB16_SETS[name], _machine(COMB16_SETS[name]))
+             for name in ("config2", "nested", "nul")]
+    cases += [("singles", SINGLES, _machine(SINGLES)),
+              ("ignorecase", ci, case_dfa.compose_build(list(zip(cm.needles, cm.values)),
+                                                        machine=cm))]
+    for label, needles, m in cases:
+        eng = Comb16AcEngine(m, device=cuda, n_streams=1024)
+        K = m.max_needle_bytes - 1
+        streams, warm, vend = _edge_streams(needles, T, S, K, 9 * T + S, cuda)
+        args = (streams, warm, vend, *eng.tables.args())
+        want = comb16_count_plain(*args)
+        if S > 1 and T > 20:
+            assert int(want.sum()) > 0, label
+        before = comb16_count.launches
+        n = 0
+        for over, forced in [(K, None), (None, None)] + [(K, f) for f in FORCED_KS]:
+            if forced is not None:
+                monkeypatch.setattr(comb16_mod, "comb16_count_design",
+                                    lambda *a, f=forced: Design(f))
+            got = comb16_count(*args, overlap=over)
+            monkeypatch.setattr(comb16_mod, "comb16_count_design", rule)
+            assert torch.equal(got, want), (label, over, forced)
+            n += 1
+        padded = (*args[:2], torch.zeros_like(vend), *args[3:])
+        assert not comb16_count(*padded, overlap=K).any(), label
+        assert comb16_count.launches == before + n + 1
+        with pytest.raises(ValueError):
+            comb16_count(*args, overlap=-1)
+        with pytest.raises(ValueError):
+            comb16_count(streams.cpu(), *args[1:], overlap=K)
+        assert comb16_count.launches == before + n + 1
+
+
+def test_s3_on_one_card(cuda):
+    """The mesh's S3 on a (4,2,1) mesh of cuda:0: each shard's sticky bitap
+    launch, with the plan's overlap, equals its plain version, CaseSensitive
+    and on the composed IgnoreCase machine's trap layout; the answers equal
+    the host C++ engine's."""
+    from alfred_margaret_tpu_torch import CASE_SENSITIVE, IGNORE_CASE, Searcher
+    from alfred_margaret_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh([cuda] * 8, data=4, seq=2)
+    hit = np.frombuffer(synth_corpus(NEEDLES3, 1 << 20, hit_fraction=0.001, seed=13), np.uint8)
+    miss = np.frombuffer(b"shirt short tshir " * 60000, np.uint8)
+    ci = np.frombuffer(_ci_corpus(["kilo", "fix"], 10, ["KİLO"]), np.uint8)
+    for case, needles, datas in ((CASE_SENSITIVE, NEEDLES3, (hit, miss)),
+                                 (IGNORE_CASE, ["kilo", "fix"], (ci,))):
+        s = Searcher.build(case, needles)
+        eng = s.distributed(mesh)
+        assert eng.sticky_route() == "bitap"
+        for data in datas:
+            st = eng.stage(data)
+            assert _shard_launches_match_plain(eng, st, "sticky") == {"bitap_contains"}
+            assert eng.contains_any(st) == s.contains_any(s.stage(data))
