@@ -1,6 +1,6 @@
-// The three-tier 16-bit comb lookup, shared by B10 and B12
-// (comb16_scan.cu); its argument checks and count ranges also serve
-// comb16_grouped.cu (B8, B9, B11 and B13, which widen the entries instead).
+// The three-tier 16-bit comb lookup of B10 (comb16_scan.cu); its argument
+// checks and count ranges also serve comb16_grouped.cu (B8, B9, B11, B12 and
+// B13, which widen the entries instead).
 //
 // The tables are those of alfred_margaret_tpu/ops/comb16_scan.py:
 // Comb16Machine: a byte class map, the comb and aux tables of 16-bit entries

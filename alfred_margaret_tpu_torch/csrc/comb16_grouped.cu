@@ -1,10 +1,11 @@
 // B9 comb16_count_grouped and B11 comb16_contains_grouped: the fused
 // single-launch comb16 scans over G needle groups, for Hopper; B11's
 // one-group mode, comb16_contains_base; B13, the comb16 step of B6's hit
-// bitmap (matchbits with step "comb16"); and B8 comb16_count, the count of
-// one comb16 table set.  One scan serves all five, a compile-time mode of
-// comb16_chunk_kernel: count (B9), sticky-any (B11), sticky-base (B11's
-// one-group mode), bits (B13, one group) and one-count (B8, one group).
+// bitmap (matchbits with step "comb16"); B8 comb16_count, the count of one
+// comb16 table set; and B12 comb16_states, its entry at every step.  One
+// scan serves all six, a compile-time mode of comb16_chunk_kernel: count
+// (B9), sticky-any (B11), sticky-base (B11's one-group mode), bits (B13, one
+// group), one-count (B8, one group) and states (B12, one group).
 //
 // Replace the Pallas TPU kernels alfred_margaret_tpu/ops/comb16_scan.py:
 // _make_c16_count_kernel_dyn (B9, launched from
@@ -45,6 +46,17 @@
 // so the ranges sit in registers and each widened entry carries its step's
 // count (below) instead of the count mode's compares against the ranges in
 // shared memory.
+// B12 (states, G = 1), replacing alfred_margaret_tpu/ops/comb16_scan.py:
+// _make_c16_states_kernel (launched from Comb16PallasAcEngine._get_states_fn):
+// the lookup over the FULL machine's tables (the host maps an entry's base
+// back to a state, which the count-minimized tables cannot), from the root
+// base `root`, and every step t < T writes out[t * S + s] = e & 0xFFFF with
+// no [warm, vend) window (the host picks it).  The block's loader widens the
+// full tables as it does B8's, each entry carrying its aux centre and, in its
+// low 16 bits, the entry as the tables hold it (count bit, owner, base).
+// Each segment (segment_steps) writes every step of its own range [p_y,
+// p_{y+1}), before warm, past vend and on padding alike, with evict-first
+// stores, and nothing stops early: B17's design (comb_scan.cu) on this scan.
 //
 // The design, for Hopper.  With a block per
 // (group, 128 streams), one dependent chain per thread and the bytes read
@@ -95,7 +107,9 @@ constexpr int kRangeSlots = 8;  // a group's count ranges, padded with 2^BB
 
 // The scan's modes (a template parameter: a run-time mode flag alone slows
 // the count, PERF.md section 6).
-enum Mode : int { kCount = 0, kStickyAny = 1, kStickyBase = 2, kBits = 3, kCountOne = 4 };
+enum Mode : int {
+  kCount = 0, kStickyAny = 1, kStickyBase = 2, kBits = 3, kCountOne = 4, kStates = 5
+};
 
 // Shared-memory words of one group's tables: the comb, aux and root
 // entries widened to 32-bit words, entry | (aux centre of its base << 16).
@@ -126,7 +140,9 @@ size_t chunk_smem_bytes(int chunk, int comb_words, int aux_words) {
 // are read by the count and bits modes only; the sticky modes take gscal
 // [G, 2].  The bits and one-count modes (G = 1) take the root base in `root`
 // and its count ranges in gscal [kC16Ranges] (read into registers, not rng);
-// the bits mode writes the words of its segment's own range to `bits`.
+// the bits mode writes the words of its segment's own range to `bits`.  The
+// states mode (G = 1) takes the root base in `root`, reads neither gscal nor
+// warm nor vend, and writes the entries of its segment's own range to `out`.
 template <int kMaxGc, int kMode>
 __global__ void __launch_bounds__(kThreads) comb16_chunk_kernel(
     const uint8_t* __restrict__ streams, int T, int S, const int32_t* __restrict__ warm,
@@ -139,6 +155,7 @@ __global__ void __launch_bounds__(kThreads) comb16_chunk_kernel(
   // The one-group modes whose root base and ranges are arguments, and whose
   // widened entries carry their step's count.
   constexpr bool kOne = kMode == kBits || kMode == kCountOne;
+  constexpr bool kRootArg = kOne || kMode == kStates;  // the root base is `root`
   extern __shared__ __align__(16) uint32_t smem[];
   __shared__ int stop_slot;
   const int g0 = blockIdx.z * chunk;
@@ -211,18 +228,20 @@ __global__ void __launch_bounds__(kThreads) comb16_chunk_kernel(
   // The count counts the steps [lo, hi); a sticky scan steps [seg.start, hi)
   // and lowers hi to the step after the one where a group absorbed.
   int lo = INT_MAX, hi = 0;
-  if (kMode == kCount || kOne) {
+  if constexpr (kMode == kCount || kOne) {
     if (s < S && cbit) {
       lo = max(seg.lo, warm[s]);
       hi = min(seg.hi, min(vend[s], T));
     }
-  } else if (s < S) {
-    lo = seg.start;
-    hi = min(seg.hi, min(vend[s], T));
+  } else if constexpr (kMode != kStates) {
+    if (s < S) {
+      lo = seg.start;
+      hi = min(seg.hi, min(vend[s], T));
+    }
   }
   int stop;
-  if constexpr (kMode == kBits) {
-    stop = seg.hi;  // every word of the own range is written: no early stop
+  if constexpr (kMode == kBits || kMode == kStates) {
+    stop = seg.hi;  // every word or step of the own range is written: no early stop
     __syncthreads();  // the table loads
   } else {
     stop = amt::block_stop(&stop_slot, lo, hi);  // also orders the table loads
@@ -237,10 +256,13 @@ __global__ void __launch_bounds__(kThreads) comb16_chunk_kernel(
     cb[g] = cv[g] = 0;
     r0[g] = 1u << bb;
     if (g < gc) {
-      cb[g] = (kOne ? (uint32_t)root : (uint32_t)gscal[(size_t)(g0 + g) * gscal_width]) & bmask;
+      cb[g] = (kRootArg ? (uint32_t)root : (uint32_t)gscal[(size_t)(g0 + g) * gscal_width]) &
+              bmask;
       cv[g] = (uint32_t)segtable[(size_t)(g0 + g) * 128 + (cb[g] >> segshift)];
-      r0[g] = kMode == kCount ? rng[g * kRangeSlots]
-                              : (uint32_t)gscal[(size_t)(g0 + g) * gscal_width + 1] & bmask;
+      if constexpr (kMode == kCount)
+        r0[g] = rng[g * kRangeSlots];
+      else if constexpr (kMode != kStates)
+        r0[g] = (uint32_t)gscal[(size_t)(g0 + g) * gscal_width + 1] & bmask;
     }
   }
   if constexpr (kMode == kCount) {
@@ -322,6 +344,30 @@ __global__ void __launch_bounds__(kThreads) comb16_chunk_kernel(
     };
     amt::staged_scan(tiles, tile, streams, S, s0, seg.start, stop, nullptr, scan);
     if (count) atomicAdd(out + s, (int32_t)count);
+  } else if constexpr (kMode == kStates) {
+    // B12: the group step at every step of the segment, the entry of each
+    // step of its own range stored (evict-first: nothing reads it back here).
+    const int own = s < S ? seg.lo : INT_MAX;
+    int32_t* dst = out + s;
+    auto scan = [&](const uint8_t* tile, int t0, int rows) {
+      const uint8_t* col = tile + threadIdx.x;
+#pragma unroll 2
+      for (int j = 0; j < rows; ++j) {
+        const uint32_t cls = amt::rep_class(cls_tab, col[j * amt::kRowBytes], lane);
+        const uint32_t v1 = gt[cb[0] + cls];
+        const uint32_t v2 = gt[2 * comb_words + cv[0] + cls];
+        const uint32_t vr = gt[2 * comb_words + 2 * aux_words + cls];
+        const bool hit1 = (((v1 & 0xFFFFu) >> bb) & om) == (cb[0] & om);
+        const bool hit2 = (((v2 & 0xFFFFu) >> bb) & om) == (cv[0] & om);
+        const uint32_t v = hit1 ? v1 : (hit2 ? v2 : vr);
+        const uint32_t e = v & 0xFFFFu;
+        cv[0] = v >> 16;
+        cb[0] = e & bmask;
+        const int t = t0 + j;
+        if (t >= own) __stcs(dst + (size_t)t * S, (int32_t)e);
+      }
+    };
+    amt::staged_scan(tiles, tile, streams, S, s0, seg.start, stop, nullptr, scan);
   } else {
     // The same group step; returns whether the thread is done: its steps
     // ran out or a group absorbed.
@@ -519,6 +565,29 @@ extern "C" int amt_matchbits_comb16(const void* streams, int T, int S, const voi
       (const int32_t*)aux, aux_words, (const int32_t*)root_row, (const int32_t*)segtable,
       (const int32_t*)ranges, amt::kC16Ranges, bb, owner_mask, cbit, overlap, segments, 1,
       amt::kTile, (int32_t*)counts, (int32_t*)bits, root_cb);
+}
+
+// B12: out int32 [T, S], the 16-bit entry at every step, every one written;
+// the full tables of one comb16 machine (classmap [256], comb, aux, root_row
+// and segtable [128], the field split and the root base; `cbit` only takes
+// part in the check of the split).  Each stream is cut into `segments` pieces
+// (stage.cuh segment_steps; `overlap` is the stream plan's warm-up).  As
+// amt_comb16_count_grouped otherwise.
+extern "C" int amt_comb16_states(const void* streams, int T, int S, const void* classmap,
+                                 const void* comb, int comb_words, const void* aux,
+                                 int aux_words, const void* root_row, const void* segtable,
+                                 int bb, int owner_mask, int cbit, int root_cb, int overlap,
+                                 int segments, void* out, void* stream) {
+  if (!amt::comb16_args_ok(comb_words, aux_words, bb, owner_mask, cbit, root_cb) ||
+      !chunk_args_ok(T, S, 1, comb_words, aux_words, bb, owner_mask, cbit, overlap, segments, 1))
+    return (int)cudaErrorInvalidValue;
+  return launch_chunk<1, kStates>(
+      chunk_grid(S, 1, segments, 1), chunk_smem_bytes(1, comb_words, aux_words),
+      (cudaStream_t)stream, (const uint8_t*)streams, T, S, (const int32_t*)nullptr,
+      (const int32_t*)nullptr, 1, (const int32_t*)classmap, (const int32_t*)comb, comb_words,
+      (const int32_t*)aux, aux_words, (const int32_t*)root_row, (const int32_t*)segtable,
+      (const int32_t*)nullptr, 1, bb, owner_mask, cbit, overlap, segments, 1, amt::kTile,
+      (int32_t*)out, (int32_t*)nullptr, root_cb);
 }
 
 // B8: out int32 [S], zeroed by the caller, the counts of one comb16 table set

@@ -1,16 +1,15 @@
-// B10 comb16_contains and B12 comb16_states: the 16-bit three-tier comb DFA
-// scans for Hopper.  (B8, the comb16 count, is a one-group mode of
+// B10 comb16_contains: the 16-bit three-tier comb DFA sticky scan for Hopper.
+// (B8, the comb16 count, and B12, the comb16 states, are one-group modes of
 // comb16_grouped.cu's segmented scan.)
 //
-// Replace the Pallas TPU kernels alfred_margaret_tpu/ops/comb16_scan.py:
+// Replaces the Pallas TPU kernel alfred_margaret_tpu/ops/comb16_scan.py:
 // _make_c16_contains_kernel (launched from Comb16PallasAcEngine.
-// _get_contains_fn) and _make_c16_states_kernel (from _get_states_fn).  They
-// compute what those kernels compute, not how: the TPU versions gather
-// 128-lane table rows with select chains (or compare chains for the root row
-// and segment table, AMT_C16_CHAINS) and split boundary tiles from interior
-// ones; here every stream is one thread, the tables (at most 48 rows of 128
-// words, 26 KB with the class map) sit in shared memory, and the lookup of
-// comb16.cuh resolves one byte.
+// _get_contains_fn).  It computes what that kernel computes, not how: the TPU
+// version gathers 128-lane table rows with select chains (or compare chains
+// for the root row and segment table, AMT_C16_CHAINS) and splits boundary
+// tiles from interior ones; here every stream is one thread, the tables (at
+// most 48 rows of 128 words, 26 KB with the class map) sit in shared memory,
+// and the lookup of comb16.cuh resolves one byte.
 //
 // B10, on the sticky view's tables (CB = 0), per stream s, per step
 // t < vend[s]:
@@ -21,18 +20,10 @@
 //
 // What bounds it: per step a dependent chain of shared-memory loads (class,
 // then comb and segment table, then aux after the segment table), three to
-// four deep against B1's two, so the kernels are latency-bound like B1 and
-// not bound by device memory.  Stream bytes are loaded kChunk steps ahead
-// into registers so that the device-memory loads overlap the chain.  Left
-// for later: several streams per thread, and the compare chains of the TPU
-// kernel in place of the root and segment loads.
-//
-// B12 comb16_states: the same lookup over the FULL machine's tables (the
-// host maps an entry's base back to a state, which the count-minimized
-// tables cannot), from cb = root_cb, and every step t < T writes
-// out[t * S + s] = e & 0xFFFF (the root row's direct entries are 32-bit
-// words) with no [warm, vend) window; the host picks it.  It moves 5 bytes
-// per step against B10's one; the lookup chain is B10's.
+// four deep against B1's two, so the kernel is latency-bound like B1's first
+// port and not bound by device memory.  Stream bytes are loaded kChunk steps
+// ahead into registers so that the device-memory loads overlap the chain.
+// Left for later: the segmented, staged pipeline of comb16_grouped.cu.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -74,42 +65,6 @@ __global__ void __launch_bounds__(kThreads) comb16_contains_kernel(
   out[s] = (int32_t)cb;
 }
 
-__global__ void __launch_bounds__(kThreads) comb16_states_kernel(
-    const uint8_t* __restrict__ streams, int T, int S, const int32_t* __restrict__ classmap,
-    const int32_t* __restrict__ comb, int comb_words, const int32_t* __restrict__ aux,
-    int aux_words, const int32_t* __restrict__ root_row, const int32_t* __restrict__ segtable,
-    int bb, int owner_mask, int root_cb, int32_t* __restrict__ out) {
-  extern __shared__ uint32_t smem[];
-  const amt::Comb16 c = amt::load_comb16(smem, classmap, comb, comb_words, aux, aux_words,
-                                         root_row, segtable, bb, owner_mask);
-  __syncthreads();
-
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= S) return;
-  const uint32_t bmask = (1u << bb) - 1u;
-  const uint8_t* col = streams + s;
-  int32_t* dst = out + s;
-  uint32_t cb = (uint32_t)root_cb;
-
-  int t = 0;
-  for (; t + kChunk <= T; t += kChunk) {
-    uint8_t b[kChunk];
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) b[j] = col[(size_t)(t + j) * S];
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) {
-      const uint32_t e = c.entry(cb, b[j]) & 0xFFFFu;
-      cb = e & bmask;
-      dst[(size_t)(t + j) * S] = (int32_t)e;
-    }
-  }
-  for (; t < T; ++t) {
-    const uint32_t e = c.entry(cb, col[(size_t)t * S]) & 0xFFFFu;
-    cb = e & bmask;
-    dst[(size_t)t * S] = (int32_t)e;
-  }
-}
-
 }  // namespace
 
 // B10: out int32 [S], the final bases.  Launch on `stream` (a cudaStream_t);
@@ -129,24 +84,5 @@ extern "C" int amt_comb16_contains(const void* streams, int T, int S, const void
       (const int32_t*)comb, comb_words, (const int32_t*)aux, aux_words,
       (const int32_t*)root_row, (const int32_t*)segtable, bb, owner_mask, root_cb,
       (uint32_t)absorb, (int32_t*)out);
-  return (int)cudaGetLastError();
-}
-
-// B12: out int32 [T, S], the 16-bit entry at every step.  `cbit` only takes
-// part in the check of the field split.  As amt_comb16_contains otherwise.
-extern "C" int amt_comb16_states(const void* streams, int T, int S, const void* classmap,
-                                 const void* comb, int comb_words, const void* aux,
-                                 int aux_words, const void* root_row, const void* segtable,
-                                 int bb, int owner_mask, int cbit, int root_cb, void* out,
-                                 void* stream) {
-  if (T < 0 || S <= 0 ||
-      !amt::comb16_args_ok(comb_words, aux_words, bb, owner_mask, cbit, root_cb))
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((S + kThreads - 1) / kThreads);
-  comb16_states_kernel<<<grid, kThreads, amt::comb16_smem_bytes(comb_words, aux_words),
-                         (cudaStream_t)stream>>>(
-      (const uint8_t*)streams, T, S, (const int32_t*)classmap, (const int32_t*)comb, comb_words,
-      (const int32_t*)aux, aux_words, (const int32_t*)root_row, (const int32_t*)segtable, bb,
-      owner_mask, root_cb, (int32_t*)out);
   return (int)cudaGetLastError();
 }

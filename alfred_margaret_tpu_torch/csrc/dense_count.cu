@@ -1,6 +1,7 @@
-// B1 dense_count: the byte-class-compressed DFA count kernel for Hopper.
+// B1 dense_count: the byte-class-compressed DFA count kernel for Hopper, and
+// B3 dense_contains, its sticky mode.
 //
-// Replaces the Pallas TPU kernel alfred_margaret_tpu/ops/pallas_scan.py:
+// B1 replaces the Pallas TPU kernel alfred_margaret_tpu/ops/pallas_scan.py:
 // _make_count_kernel (launched from PallasAcEngine._get_count_fn and, per
 // shard, from the sharded engine's dense count, parallel/shard.py:325).  It
 // computes what that kernel computes, not how: the TPU version gathers
@@ -34,6 +35,41 @@
 // table load per step, the load on the state's chain) against 138 MB of
 // corpus bytes at 128 MiB.
 //
+// B3 replaces the Pallas TPU kernel pallas_scan.py:_make_contains_kernel
+// (launched from PallasAcEngine._get_contains_fn and, one stream-row segment
+// per launch, _get_contains_seg_fn; per shard from the sharded engine's dense
+// sticky step, parallel/shard.py:997).  The tables are the sticky view's
+// (_StickyView): entering any match state leads to one extra state that loops
+// to itself, and no entry carries a count.  Per stream s in [s0, s1), the
+// same step over t < vend[s], the entry held from vend[s] on, and out[s - s0]
+// = the final entry, which is `absorb` (the absorbing state times k) iff the
+// stream saw a match.  The first port ran one thread per stream over all T
+// steps, as B1's did; a warp ran until its slowest stream ended, so its stop
+// at `absorb` bought almost nothing.  Now it is B1's scan in a compile-time
+// sticky mode, over the range [s0, s1) (block x covers s0 + 128 x; the
+// staging takes streams + s0 as its base and s1 - s0 streams):
+//   * segment y scans [max(0, p_y - overlap), min(p_{y+1}, vend[s])) from
+//     the root with no warm mask: warm-up matches are real haystack bytes;
+//   * a stream that never absorbs runs the plain AC scan, so a segment whose
+//     own range holds step vend[s] - 1 ends in the stream's final entry; and
+//     an absorb is a real match in [0, vend), every one of which ends in some
+//     segment's own range, where that segment is in step.  The segments
+//     combine as B11's one-group mode does (comb16_grouped.cu): the wrapper
+//     fills out with the root entry 0, a segment that absorbed stores
+//     `absorb` with atomicExch, and the owner of step vend[s] - 1 stores its
+//     entry with atomicCAS from the root; vend[s] = 0 keeps the root;
+//   * a thread stops stepping once its entry is `absorb` or once it reads
+//     `absorb` in out[s], stored by another segment of its stream (a relaxed
+//     load a tile), and a block stops staging once every thread has stopped
+//     (staged_scan's per-tile vote).  With one segment of k = 16 a block
+//     covers about 264 steps and seldom holds a match for all 128 of its
+//     streams, so the vote alone seldom fires; with the poll, B3 took 6%
+//     less time on the bench needles and the same on a full scan (H100,
+//     PERF.md section 6).
+// What bounds B3: as B1, the shared-memory pipe, one staged class and one
+// table load a step, against the bytes up to each stream's first match
+// (its vend where it has none).
+//
 // B5 dense_states, the packed entry at every step, replaces the Pallas TPU
 // kernel pallas_scan.py:_make_states_kernel (launched from
 // PallasAcEngine._get_states_fn).  The same lookup from sbase = 0, with no
@@ -58,13 +94,21 @@ constexpr int kThreads = amt::kStageThreads;
 constexpr int kChunk = 16;
 constexpr int kMaxSegments = 64;
 
-// Block (x, y): streams [128 x, 128 x + 128), segment y.
-template <int PACKING>
+__device__ __forceinline__ int32_t ld_relaxed(const int32_t* p) {
+  int32_t v;
+  asm volatile("ld.relaxed.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+
+// Block (x, y): streams s_base + [128 x, 128 x + 128) of the n from s_base,
+// segment y.  B1 counts (STICKY false, the whole [0, S)); B3 carries the
+// sticky entry (STICKY true, below).
+template <int PACKING, bool STICKY>
 __global__ void __launch_bounds__(kThreads) dense_count_kernel(
     const uint8_t* __restrict__ streams, int T, int S, const int32_t* __restrict__ classmap,
     const int32_t* __restrict__ table, int table_words, const int32_t* __restrict__ warm,
     const int32_t* __restrict__ vend, int state_bits, int overlap, int segments, int tile,
-    int32_t* __restrict__ out) {
+    int s_base, int n, uint32_t absorb, int32_t* __restrict__ out) {
   extern __shared__ __align__(16) uint32_t smem[];
   __shared__ int stop_slot;
   uint32_t* rep = smem;
@@ -74,28 +118,60 @@ __global__ void __launch_bounds__(kThreads) dense_count_kernel(
   uint8_t* tiles = reinterpret_cast<uint8_t*>(smem + amt::dense_words(table_words));
 
   const amt::SegSteps seg = amt::segment_steps(blockIdx.y, segments, T, overlap);
-  const int s0 = blockIdx.x * kThreads;
-  const int s = s0 + threadIdx.x;
-  int lo = INT_MAX, hi = 0;  // the steps this thread counts
-  if (s < S) {
-    lo = max(seg.lo, warm[s]);
-    hi = min(seg.hi, min(vend[s], T));
+  const int i0 = blockIdx.x * kThreads;
+  const int i = i0 + threadIdx.x;  // this thread's stream: s_base + i
+  // B1 counts the steps [lo, hi); B3 scans [seg.start, hi).
+  int lo = INT_MAX, hi = 0;
+  if (i < n) {
+    lo = STICKY ? seg.start : max(seg.lo, warm[s_base + i]);
+    hi = min(seg.hi, min(vend[s_base + i], T));
   }
   const int stop = amt::block_stop(&stop_slot, lo, hi);  // also orders the table loads
 
   amt::DenseStep<PACKING> step{tab, (1u << state_bits) - 1u, state_bits, 0u};
-  uint32_t count = 0;
-  auto scan = [&](const uint8_t* cur, int t0, int rows) {
-    const uint8_t* col = cur + threadIdx.x;
+  if constexpr (!STICKY) {
+    uint32_t count = 0;
+    auto scan = [&](const uint8_t* cur, int t0, int rows) {
+      const uint8_t* col = cur + threadIdx.x;
 #pragma unroll 4
-    for (int j = 0; j < rows; ++j) {
-      const uint32_t cnt = step(col[j * amt::kRowBytes]);
-      const int t = t0 + j;
-      count += (t >= lo && t < hi) ? cnt : 0u;
+      for (int j = 0; j < rows; ++j) {
+        const uint32_t cnt = step(col[j * amt::kRowBytes]);
+        const int t = t0 + j;
+        count += (t >= lo && t < hi) ? cnt : 0u;
+      }
+    };
+    amt::staged_scan(tiles, tile, streams, S, i0, seg.start, stop, rep, scan);
+    if (count) atomicAdd(out + i, (int32_t)count);
+  } else {
+    // The entry is held from hi on.  A thread is done at hi, once its entry
+    // is `absorb` (which loops to itself), or once it reads `absorb` in
+    // out[s], which another segment stored and which is final (a stale read
+    // only delays the stop; the read is issued before the tile's steps).  A
+    // done thread stops stepping, and the block stops staging once every
+    // thread is done (the scan's vote).
+    bool done = i >= n;
+    auto scan = [&](const uint8_t* cur, int t0, int rows) -> bool {
+      if (!done) {
+        const bool stored = ld_relaxed(out + i) == (int32_t)absorb;
+        const uint8_t* col = cur + threadIdx.x;
+        const int r = min(rows, hi - t0);
+#pragma unroll 4
+        for (int j = 0; j < r; ++j) step(col[j * amt::kRowBytes]);
+        done = stored || t0 + rows >= hi || step.carry == absorb;
+      }
+      return done;
+    };
+    amt::staged_scan(tiles, tile, streams + s_base, S, n, i0, seg.start, stop, rep, scan);
+    if (i < n) {
+      if (step.carry == absorb) {
+        atomicExch(out + i, (int32_t)absorb);
+      } else {
+        const int v = min(vend[s_base + i], T);
+        if (v > seg.lo && v <= seg.hi)  // this segment's own range holds step v - 1
+          atomicCAS(out + i, 0, (int32_t)step.carry);
+      }
     }
-  };
-  amt::staged_scan(tiles, tile, streams, S, s0, seg.start, stop, rep, scan);
-  if (count) atomicAdd(out + s, (int32_t)count);
+  }
 }
 
 template <int PACKING>
@@ -140,6 +216,24 @@ bool args_ok(int T, int S, int table_words, int packing, int state_bits) {
          state_bits > 0 && state_bits < 32 && (packing == 1 || packing == 2);
 }
 
+template <int PACKING, bool STICKY>
+int launch_dense(int T, int S, int table_words, int segments, int n, cudaStream_t stream,
+                 const void* streams, const void* classmap, const void* table, const void* warm,
+                 const void* vend, int state_bits, int overlap, int s_base, uint32_t absorb,
+                 void* out) {
+  const size_t smem =
+      (size_t)amt::dense_words(table_words) * sizeof(uint32_t) + amt::kStageBytes;
+  auto kernel = dense_count_kernel<PACKING, STICKY>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3((n + kThreads - 1) / kThreads, segments), kThreads, smem, stream>>>(
+      (const uint8_t*)streams, T, S, (const int32_t*)classmap, (const int32_t*)table,
+      table_words, (const int32_t*)warm, (const int32_t*)vend, state_bits, overlap, segments,
+      amt::kTile, s_base, n, absorb, (int32_t*)out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // out int32 [S], zeroed by the caller.  Each stream is cut into `segments`
@@ -154,18 +248,24 @@ extern "C" int amt_dense_count(const void* streams, int T, int S,
   if (!args_ok(T, S, table_words, packing, state_bits) || overlap < 0 || segments < 1 ||
       segments > kMaxSegments)
     return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      (size_t)amt::dense_words(table_words) * sizeof(uint32_t) + amt::kStageBytes;
-  auto kernel = packing == 1 ? dense_count_kernel<1> : dense_count_kernel<2>;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3((S + kThreads - 1) / kThreads, segments), kThreads, smem,
-           (cudaStream_t)stream>>>((const uint8_t*)streams, T, S, (const int32_t*)classmap,
-                                   (const int32_t*)table, table_words, (const int32_t*)warm,
-                                   (const int32_t*)vend, state_bits, overlap, segments,
-                                   amt::kTile, (int32_t*)out);
-  return (int)cudaGetLastError();
+  auto launch = packing == 1 ? launch_dense<1, false> : launch_dense<2, false>;
+  return launch(T, S, table_words, segments, S, (cudaStream_t)stream, streams, classmap, table,
+                warm, vend, state_bits, overlap, 0, 0u, out);
+}
+
+// B3: out int32 [s1 - s0], filled with the root entry 0 by the caller: the
+// final sticky entry of streams [s0, s1), `absorb` iff the stream saw a match
+// in [0, vend[s]).  Each stream is cut into `segments` pieces as for B1.
+extern "C" int amt_dense_contains(const void* streams, int T, int S, const void* classmap,
+                                  const void* table, int table_words, const void* vend,
+                                  int packing, int state_bits, int absorb, int s0, int s1,
+                                  int overlap, int segments, void* out, void* stream) {
+  if (!args_ok(T, S, table_words, packing, state_bits) || s0 < 0 || s1 <= s0 || s1 > S ||
+      absorb < 0 || overlap < 0 || segments < 1 || segments > kMaxSegments)
+    return (int)cudaErrorInvalidValue;
+  auto launch = packing == 1 ? launch_dense<1, true> : launch_dense<2, true>;
+  return launch(T, S, table_words, segments, s1 - s0, (cudaStream_t)stream, streams, classmap,
+                table, nullptr, vend, state_bits, overlap, s0, (uint32_t)absorb, out);
 }
 
 // B5: out int32 [T, S], the packed entry at every step.

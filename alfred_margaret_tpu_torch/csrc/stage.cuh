@@ -1,5 +1,6 @@
-// Stream staging for the segmented scans B9, B11 and B13 (comb16_grouped.cu),
-// B15 and B17 (comb_scan.cu) and B6 (matchbits.cu): a block's tile of stream
+// Stream staging for the segmented scans B1 and B3 (dense_count.cu), B2 and
+// B4 (bitap_count.cu), B6 (matchbits.cu), B8, B9, B11, B12 and B13
+// (comb16_grouped.cu), B15 and B17 (comb_scan.cu): a block's tile of stream
 // bytes copied into shared memory ahead of the scan, and the per-segment
 // step ranges.
 //
@@ -7,10 +8,13 @@
 // contiguous 128-byte run streams[t * S + s0 ...]; a tile of kTile steps is
 // staged as kTile x 128 bytes, row-major, so thread i reads its stream's
 // byte of row j at tile[j * 128 + i] (one bank wavefront per warp).  Tile
-// i + 1 is in flight while tile i is scanned (two buffers).  With S a
-// multiple of 16 and a 16-byte aligned base the rows go as 16-byte cp.async
-// copies, otherwise byte by byte (the ragged shapes only).  Bytes of streams
-// past S are not written: their threads scan but never count or store.
+// i + 1 is in flight while tile i is scanned (two buffers).  With S and the
+// staged stream count a multiple of 16 and a 16-byte aligned base the rows
+// go as 16-byte cp.async copies, otherwise byte by byte (the ragged shapes
+// only).  Bytes of streams past the staged count are not written: their
+// threads scan but never count or store.  A scan over a range of streams
+// (B3's [s0, s1)) passes streams + s0 as the base and s1 - s0 as the count,
+// so no block stages a stream of the next range.
 //
 // Segments: stream steps [0, T) are cut into `segments` pieces at
 // p_i = i * T / segments.  Segment i scans from the root starting `overlap`
@@ -20,13 +24,13 @@
 // restarted from the root equals the state of the scan from the stream's
 // start, whatever the bytes (NUL and padding too).  So a count over the
 // steps max(p_i, warm[s]) <= t < min(p_{i+1}, vend[s]) is exact and adds
-// per stream (B9, B15); a state written for each step of the own range is
-// the stream's (B17); and a sticky scan up to min(p_{i+1}, vend[s]) absorbs
-// iff a needle ends in [0, vend) inside its scanned steps, every match
-// ending in some segment's own range (B11).  The bitmap scans (B6, B13) cut
-// at word boundaries instead (word_segment_steps): each segment writes the
-// words of its own range, every one of them, and counts as B15 does.
-// kernels/segments.py is the same split.
+// per stream (B1, B8, B9, B15); a state written for each step of the own
+// range is the stream's (B12, B17); and a sticky scan up to min(p_{i+1},
+// vend[s]) absorbs iff a needle ends in [0, vend) inside its scanned steps,
+// every match ending in some segment's own range (B3, B11).  The bitmap
+// scans (B6, B13) cut at word boundaries instead (word_segment_steps): each
+// segment writes the words of its own range, every one of them, and counts
+// as B15 does.  kernels/segments.py is the same split.
 
 #pragma once
 
@@ -61,28 +65,29 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Issue the copy of steps [t0, t1) of streams [s0, s0 + 128) into `tile` and
-// commit it as one cp.async group (every thread of the block calls this).
+// Issue the copy of steps [t0, t1) of streams [s0, min(s0 + 128, n)) into
+// `tile` (rows S bytes apart) and commit it as one cp.async group (every
+// thread of the block calls this).
 __device__ inline void stage_rows(uint8_t* tile, const uint8_t* __restrict__ streams, int S,
-                                  int s0, int t0, int t1, bool vec) {
+                                  int n, int s0, int t0, int t1, bool vec) {
   const int rows = t1 - t0;
   if (vec) {
     for (int i = threadIdx.x; i < rows * 8; i += blockDim.x) {
       const int r = i >> 3, c = (i & 7) << 4;
-      if (s0 + c < S) cp_async16(tile + r * kRowBytes + c, streams + (size_t)(t0 + r) * S + s0 + c);
+      if (s0 + c < n) cp_async16(tile + r * kRowBytes + c, streams + (size_t)(t0 + r) * S + s0 + c);
     }
   } else {
     for (int i = threadIdx.x; i < rows * kRowBytes; i += blockDim.x) {
       const int r = i >> 7, c = i & 127;
-      if (s0 + c < S) tile[i] = streams[(size_t)(t0 + r) * S + s0 + c];
+      if (s0 + c < n) tile[i] = streams[(size_t)(t0 + r) * S + s0 + c];
     }
   }
   cp_async_commit();
 }
 
-// True when rows can go as 16-byte copies.
-__device__ __forceinline__ bool stage_vec(const uint8_t* streams, int S) {
-  return (S & 15) == 0 && ((uintptr_t)streams & 15) == 0;
+// True when rows of n streams, S bytes apart, can go as 16-byte copies.
+__device__ __forceinline__ bool stage_vec(const uint8_t* streams, int S, int n) {
+  return (S & 15) == 0 && (n & 15) == 0 && ((uintptr_t)streams & 15) == 0;
 }
 
 // Fill the replicated class map from a [256] int32 class map (classes < 256).
@@ -149,23 +154,23 @@ __device__ __forceinline__ SegSteps word_segment_steps(int i, int segments, int 
 // tile's bytes are first replaced by their classes.  A scan that returns a
 // bool says whether its thread is done: the block stops once every thread
 // is (a vote per tile).  Every thread of the block calls this, with the
-// same arguments.
+// same arguments.  Streams [n, S) of the rows are not staged.
 template <class Scan>
 __device__ inline void staged_scan(uint8_t* tiles, int tile, const uint8_t* __restrict__ streams,
-                                   int S, int s0, int start, int stop, const uint32_t* xlat,
-                                   Scan&& scan) {
+                                   int S, int n, int s0, int start, int stop,
+                                   const uint32_t* xlat, Scan&& scan) {
   constexpr bool kVote = std::is_same<decltype(scan(tiles, 0, 0)), bool>::value;
   const int tile_bytes = tile * kRowBytes;
-  const bool vec = stage_vec(streams, S);
-  if (start < stop) stage_rows(tiles, streams, S, s0, start, min(start + tile, stop), vec);
+  const bool vec = stage_vec(streams, S, n);
+  if (start < stop) stage_rows(tiles, streams, S, n, s0, start, min(start + tile, stop), vec);
   int it = 0;
   for (int t0 = start; t0 < stop; t0 += tile, ++it) {
     const int rows = min(tile, stop - t0);
     uint8_t* cur = tiles + (it & 1) * tile_bytes;
     const int t1 = t0 + rows;
     if (t1 < stop) {
-      stage_rows(tiles + ((it + 1) & 1) * tile_bytes, streams, S, s0, t1, min(t1 + tile, stop),
-                 vec);
+      stage_rows(tiles + ((it + 1) & 1) * tile_bytes, streams, S, n, s0, t1,
+                 min(t1 + tile, stop), vec);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -187,6 +192,14 @@ __device__ inline void staged_scan(uint8_t* tiles, int tile, const uint8_t* __re
       __syncthreads();  // the buffer is staged into again two tiles on
     }
   }
+}
+
+// Every stream of the rows: staged_scan over streams [0, S).
+template <class Scan>
+__device__ inline void staged_scan(uint8_t* tiles, int tile, const uint8_t* __restrict__ streams,
+                                   int S, int s0, int start, int stop, const uint32_t* xlat,
+                                   Scan&& scan) {
+  staged_scan(tiles, tile, streams, S, S, s0, start, stop, xlat, static_cast<Scan&&>(scan));
 }
 
 // The last step any stream of the block counts in its segment, or 0 when

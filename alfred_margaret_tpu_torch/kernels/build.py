@@ -104,7 +104,9 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, i, i,  # streams, T, S
         p, p, i, p,  # classmap, table, table_words, vend
         i, i, i,  # packing, state_bits, absorb
-        i, i, p, p,  # s0, s1, out, stream
+        i, i,  # s0, s1
+        i, i,  # overlap, segments
+        p, p,  # out, stream
     ]
     lib.amt_bitap_contains.restype = i
     lib.amt_bitap_contains.argtypes = [
@@ -170,6 +172,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, i, i,  # streams, T, S
         *comb16,
         i, i, i, i,  # BB, owner_mask, CB, root_cb
+        i, i,  # overlap, segments
         p, p,  # out, stream
     ]
     comb = [

@@ -2,13 +2,15 @@
 three-tier 16-bit comb DFA scans.
 
 Wrappers of the kernels that replace the Pallas kernels
-``alfred_margaret_tpu/ops/comb16_scan.py:_make_c16_count_kernel`` (B8, a
-one-group mode of ``csrc/comb16_grouped.cu``'s segmented scan),
-``_make_c16_contains_kernel`` (B10) and ``_make_c16_states_kernel`` (B12,
-both ``csrc/comb16_scan.cu``).  A CUDA tensor launches the kernel; a CPU
+``alfred_margaret_tpu/ops/comb16_scan.py:_make_c16_count_kernel`` (B8) and
+``_make_c16_states_kernel`` (B12), one-group modes of
+``csrc/comb16_grouped.cu``'s segmented scan, and ``_make_c16_contains_kernel``
+(B10, ``csrc/comb16_scan.cu``).  A CUDA tensor launches the kernel; a CPU
 tensor runs the plain torch version.  Nothing falls back from one to the
 other.  With the stream plan's ``overlap`` B8 cuts each stream into
-segments, as B9 does (``kernels/segments.py:run_segments``).
+segments, as B9 does (``kernels/segments.py:run_segments``), and B12 writes
+each segment's rows of its own range, as B17 does
+(``kernels/segments.py:stitch_segments``).
 
 The tables are ``Comb16Tables.args()``: ``classmap`` [256], ``comb``
 [rows_c * 128] and ``aux`` [rows_a * 128] (pairs of 16-bit entries, low half
@@ -124,8 +126,9 @@ def comb16_count_plain(streams, warm, vend, classmap, comb, aux, root_row, segta
 
 
 def comb16_count_design(streams, comb, aux, overlap=None) -> Design:
-    """The segments ``comb16_count`` cuts these CUDA streams into for tables
-    of ``comb`` and ``aux`` words (B9's rule for one group)."""
+    """The segments ``comb16_count`` (B8) and ``comb16_states`` (B12) cut
+    these CUDA streams into for tables of ``comb`` and ``aux`` words (B9's
+    rule for one group, with the block's shared memory for those tables)."""
     T, S = streams.shape
     return grouped_design(S, T, overlap, 1, comb.numel(), aux.numel(), sm_count(streams.device))
 
@@ -195,8 +198,9 @@ def comb16_contains(streams, vend, classmap, comb, aux, root_row, segtable, BB, 
 
 
 def comb16_states_plain(streams, classmap, comb, aux, root_row, segtable, BB, owner_mask, CB,
-                        root_cb):
-    """Plain torch version of B12: the 16-bit entry of every step."""
+                        root_cb, overlap=None):
+    """Plain torch version of B12: the 16-bit entry of every step.
+    (``overlap`` only lets the kernel cut the streams into segments.)"""
     T, S = streams.shape
     p = Plain16(classmap, comb, aux, root_row, segtable, None, BB, owner_mask, CB)
     cb = torch.full((S,), root_cb, dtype=torch.int64, device=streams.device)
@@ -207,23 +211,29 @@ def comb16_states_plain(streams, classmap, comb, aux, root_row, segtable, BB, ow
     return out.to(torch.int32)
 
 
-def comb16_states(streams, classmap, comb, aux, root_row, segtable, BB, owner_mask, CB, root_cb):
+def comb16_states(streams, classmap, comb, aux, root_row, segtable, BB, owner_mask, CB, root_cb,
+                  overlap=None):
     """int32 [T, S]: the 16-bit entry (count bit at 15 when ``CB``, base in
     the low ``BB`` bits) of the state each stream of ``streams`` ([T, S]
     uint8) enters at every step t, scanned from ``root_cb`` with no emission
-    window.  ``CB`` is only checked with the field split."""
+    window.  ``CB`` is only checked with the field split.  With the stream
+    plan's ``overlap`` the kernel may cut each stream into segments; without,
+    it scans each whole."""
     check_comb16(streams, classmap, comb, aux, root_row, segtable, None, BB, owner_mask, CB,
                  root_cb)
+    check_overlap(overlap)
     if on_cpu(streams):
         return comb16_states_plain(streams, classmap, comb, aux, root_row, segtable, BB,
                                    owner_mask, CB, root_cb)
     T, S = streams.shape
+    d = comb16_count_design(streams, comb, aux, overlap)
     out = torch.empty(T, S, dtype=torch.int32, device=streams.device)
     launch(
         "amt_comb16_states", streams.device,
         streams.data_ptr(), T, S,
         classmap.data_ptr(), comb.data_ptr(), comb.numel(), aux.data_ptr(), aux.numel(),
-        root_row.data_ptr(), segtable.data_ptr(), BB, owner_mask, CB, root_cb, out.data_ptr(),
+        root_row.data_ptr(), segtable.data_ptr(), BB, owner_mask, CB, root_cb, overlap or 0,
+        d.segments, out.data_ptr(),
     )
     comb16_states.launches += 1
     return out

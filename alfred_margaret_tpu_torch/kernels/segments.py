@@ -1,7 +1,7 @@
-"""The schedule of the segmented scans B1, B2, B4, B8, B9, B11, B15, B17 and
-the bitmap scans B6 and B13: how each stream is cut into segments and how
-the groups of B9 and B11 are cut into chunks, the two numbers each launch
-takes from its shapes.
+"""The schedule of the segmented scans B1, B2, B3, B4, B8, B9, B11, B12, B15,
+B17 and the bitmap scans B6 and B13: how each stream is cut into segments
+and how the groups of B9 and B11 are cut into chunks, the two numbers each
+launch takes from its shapes.
 
 ``csrc/stage.cuh`` runs the same split on the card.  Segment i of ``k``
 covers the steps ``[p_i, p_{i+1})``, ``p_i = i * T // k``; it scans from the
@@ -24,10 +24,11 @@ between the streams of the plan.  So, per stream:
   ``[max(0, p_i - overlap), min(p_{i+1}, vend[s]))`` (:func:`any_over_segments`):
   an absorb there is a real match in ``[0, vend)``, and every real match ends
   in some segment's own range, where that segment is in step;
-* a sticky base (B11's one-group mode) is the absorbing base if some segment
-  reached it, else the base of the segment whose own range holds step
-  ``vend[s] - 1``, else (``vend`` 0) the root's (:func:`combine_bases`);
-* the states (B17) are each segment's rows of its own range
+* a sticky final entry (B3, B11's one-group mode) is the absorbing entry if
+  some segment reached it, else the entry of the segment whose own range
+  holds step ``vend[s] - 1``, else (``vend`` 0) the root's
+  (:func:`entry_over_segments`, :func:`combine_bases`);
+* the states (B12, B17) are each segment's rows of its own range
   (:func:`stitch_segments`);
 * the bitmap scans (B6, B13) cut at word boundaries instead
   (:func:`word_segment_schedule`): each segment's count is summed as B15's
@@ -65,9 +66,9 @@ MAX_BLOCKS_PER_SM = 16  # 2048 threads / 128
 
 @dataclass(frozen=True)
 class Design:
-    """What a launch of B1, B2, B4, B6, B8, B9, B11, B13, B15 or B17 takes
-    from its shapes: ``segments`` pieces per stream and ``chunk`` groups per block
-    (B9, B11)."""
+    """What a launch of B1, B2, B3, B4, B6, B8, B9, B11, B12, B13, B15 or B17
+    takes from its shapes: ``segments`` pieces per stream and ``chunk`` groups
+    per block (B9, B11)."""
 
     segments: int
     chunk: int = 1
@@ -150,24 +151,23 @@ def or_over_segments(plain: Callable, streams, tables, trapmask=None, *, overlap
     return outs[0] if trapmask is None else tuple(outs)
 
 
-def _sticky_runs(plain: Callable, streams, vend, tables, overlap: int, segments: int):
-    """A sticky kernel's plain version ``plain(streams, vend, tables)`` on
-    each segment's steps ``[max(0, p_i - overlap), min(p_{i+1}, vend))``,
-    with the schedule."""
+def _sticky_runs(run: Callable, streams, vend, overlap: int, segments: int):
+    """A sticky scan ``run(streams, vend)`` on each segment's steps
+    ``[max(0, p_i - overlap), min(p_{i+1}, vend))``, with the schedule."""
     sched = segment_schedule(streams.shape[0], segments, overlap)
     vend64 = vend.long()
     outs = []
     for start, _, hi in sched:
         v = (torch.clamp(vend64, max=hi) - start).clamp(min=0).to(torch.int32)
-        outs.append(plain(streams[start:hi].contiguous(), v, tables))
+        outs.append(run(streams[start:hi].contiguous(), v))
     return outs, sched
 
 
 def any_over_segments(plain: Callable, streams, vend, tables, *, overlap: int, segments: int):
-    """int32 [S]: a sticky-any kernel's plain version (1 where the scan hit)
-    run over each segment and OR-ed per stream: what the segmented B11
-    computes."""
-    outs, _ = _sticky_runs(plain, streams, vend, tables, overlap, segments)
+    """int32 [S]: a sticky-any kernel's plain version ``plain(streams, vend,
+    tables)`` (1 where the scan hit) run over each segment and OR-ed per
+    stream: what the segmented B11 computes."""
+    outs, _ = _sticky_runs(lambda x, v: plain(x, v, tables), streams, vend, overlap, segments)
     return (torch.stack(outs) != 0).any(0).to(torch.int32)
 
 
@@ -186,20 +186,30 @@ def combine_bases(bases, vend, schedule, root: int, absorb: int):
     return torch.where(hit, absorb, out).to(torch.int32)
 
 
+def entry_over_segments(run: Callable, streams, vend, root: int, absorb: int, *,
+                        overlap: int, segments: int):
+    """int32 [S]: a sticky scan's final entry, ``run(streams, vend)`` (a
+    plain version on one slice of steps) run over each segment, the entries
+    combined by :func:`combine_bases` from ``root`` and ``absorb``: what the
+    segmented B3 and B11's one-group mode compute."""
+    outs, sched = _sticky_runs(run, streams, vend, overlap, segments)
+    return combine_bases(outs, vend, sched, root, absorb)
+
+
 def base_over_segments(plain: Callable, streams, vend, tables, *, overlap: int, segments: int):
-    """int32 [S]: B11's one-group plain version run over each segment, the
-    bases combined by :func:`combine_bases`: what the segmented kernel
-    computes."""
-    bases, sched = _sticky_runs(plain, streams, vend, tables, overlap, segments)
+    """int32 [S]: B11's one-group plain version ``plain(streams, vend,
+    tables)`` run over each segment, the bases combined by
+    :func:`combine_bases`: what the segmented kernel computes."""
     root, absorb = (int(x) for x in tables.gscal[0, :2])
-    return combine_bases(bases, vend, sched, root, absorb)
+    return entry_over_segments(lambda x, v: plain(x, v, tables), streams, vend, root, absorb,
+                               overlap=overlap, segments=segments)
 
 
 def stitch_segments(plain: Callable, streams, *tables, overlap: int, segments: int):
     """int32 [T, S]: a states kernel's plain version ``plain(streams,
     *tables)`` run over each segment from its scan start, each keeping the
-    rows of its own range ``[p_i, p_{i+1})``: what the segmented B17
-    writes."""
+    rows of its own range ``[p_i, p_{i+1})``: what the segmented B12 and B17
+    write."""
     T, S = streams.shape
     out = torch.empty(T, S, dtype=torch.int32, device=streams.device)
     for start, lo, hi in segment_schedule(T, segments, overlap):
@@ -271,8 +281,8 @@ MAX_WORD_FIELDS = 30
 
 
 def dense_bits_smem_bytes(table_words: int) -> int:
-    """B1 (``dense_count.cu``) and B6's dense step (``matchbits.cu``): the
-    replicated class map and the packed table, then two tiles."""
+    """B1 and B3 (``dense_count.cu``) and B6's dense step (``matchbits.cu``):
+    the replicated class map and the packed table, then two tiles."""
     return 4 * ((REP_WORDS + table_words + 3) & ~3) + 2 * T_TILE * BLOCK_STREAMS
 
 
@@ -340,7 +350,7 @@ def comb_design(S: int, T: int, overlap: Optional[int], comb_words: int, def_wor
 def grouped_design(S: int, T: int, overlap: Optional[int], G: int, comb_words: int,
                    aux_words: int, n_sm: int) -> Design:
     """B9's and B11's launch for ``S`` streams of ``T`` steps and ``G``
-    groups (count or sticky tables); B8's with ``G = 1``."""
+    groups (count or sticky tables); B8's and B12's with ``G = 1``."""
     chunk = pick_chunk(G, comb_words, aux_words)
     smem = chunk_smem_bytes(chunk, comb_words, aux_words)
     return Design(pick_segments(S, T, overlap, smem, n_sm, n_chunks=-(-G // chunk)), chunk)
@@ -368,6 +378,7 @@ __all__ = [
     "comb_design",
     "comb_smem_bytes",
     "dense_bits_smem_bytes",
+    "entry_over_segments",
     "group_chunks",
     "grouped_design",
     "or_over_segments",

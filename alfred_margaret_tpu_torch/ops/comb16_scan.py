@@ -845,10 +845,12 @@ class Comb16AcEngine(DenseAcEngine):
     # -- per-position states: kernel B12 on the full machine's tables ---------
 
     def states_args(self, st: StagedStreams) -> tuple:
-        """Arguments of ``comb16_states`` (or its plain version)."""
+        """Arguments of ``comb16_states`` (or its plain version), the plan's
+        warm-up last: the kernel may cut the streams into segments that each
+        warm up over it."""
         t = self.full_tables
         return (st.streams, t.classmap, t.comb, t.aux, t.root_row, t.segtable, t.BB,
-                t.owner_mask, t.CB, t.root_cb)
+                t.owner_mask, t.CB, t.root_cb, st.plan.overlap)
 
     def packed_states(self, st: StagedStreams) -> torch.Tensor:
         """int32 [T, S] on the device: the full set's 16-bit entry of every

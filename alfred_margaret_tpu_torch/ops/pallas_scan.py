@@ -208,6 +208,19 @@ class StickyTables(DenseTables):
     the JAX engine's arrays."""
 
     absorb: int
+    #: The least warm-up over which B3's segments restart their scans: the
+    #: machine's ``max_needle_bytes - 1`` (a composed IgnoreCase machine's
+    #: ``max_needle_bytes`` is ``max_raw_match_bytes + 4``).
+    min_overlap: int = 0
+
+    def check_overlap(self, overlap: int) -> None:
+        """Raise ``ValueError`` when ``overlap``, the warm-up over which B3's
+        segments restart from the root, is below the machine's
+        ``max_needle_bytes - 1``: a segment would not be in the stream's state
+        by its own range."""
+        if overlap < self.min_overlap:
+            raise ValueError(f"the staging's overlap {overlap} is below the sticky machine's "
+                             f"max_needle_bytes - 1 ({self.min_overlap})")
 
     @staticmethod
     def from_machine(machine: AcMachine, device) -> "StickyTables":
@@ -216,7 +229,8 @@ class StickyTables(DenseTables):
         sv = _StickyView(machine)
         comp = CompressedMachine.from_machine(sv)
         t = DenseTables.from_compressed(comp, device)
-        return StickyTables(t.classmap, t.table, t.packing, t.state_bits, sv.absorb * comp.k)
+        return StickyTables(t.classmap, t.table, t.packing, t.state_bits, sv.absorb * comp.k,
+                            max(0, machine.max_needle_bytes - 1))
 
 
 @dataclass
@@ -376,10 +390,14 @@ class DenseAcEngine:
 
     def sticky_args(self, st: StagedStreams, s0: int = 0, s1: Optional[int] = None) -> tuple:
         """Arguments of ``dense_contains`` (or its plain version) for streams
-        ``[s0, s1)`` of ``st``."""
+        ``[s0, s1)`` of ``st``, the plan's warm-up last: the kernel may cut
+        the streams into segments that each warm up over it.  Raises
+        ``ValueError`` when that warm-up is too short for the machine."""
         t = self.sticky_tables()
+        t.check_overlap(st.plan.overlap)
         s1 = st.plan.n_streams if s1 is None else s1
-        return (st.streams, t.classmap, t.table, st.vend, t.packing, t.state_bits, t.absorb, s0, s1)
+        return (st.streams, t.classmap, t.table, st.vend, t.packing, t.state_bits, t.absorb, s0, s1,
+                st.plan.overlap)
 
     def _any_absorbed(self, entries: torch.Tensor, live: np.ndarray) -> bool:
         return bool((entries.cpu().numpy()[live] == self.sticky_tables().absorb).any())

@@ -403,7 +403,8 @@ class DistributedAcEngine:
 
         def make():
             t = DenseTables.from_compressed(comps[g], dev)
-            return StickyTables(t.classmap, t.table, t.packing, t.state_bits, absorbs[g])
+            return StickyTables(t.classmap, t.table, t.packing, t.state_bits, absorbs[g],
+                                max(0, self.sub_machines[g].max_needle_bytes - 1))
 
         return self._cached("sticky", g, dev, make)
 
@@ -464,8 +465,8 @@ class DistributedAcEngine:
         """``(kernel, args, kw)`` of one shard's launch: ``step`` is
         ``"count"``, ``"sticky"``, ``"states"`` or ``"bits"``, on stream block
         ``i``, needle group ``g``, device ``dev``; the launch is
-        ``kernel(*args, **kw)`` (``kw`` holds the ``overlap`` of B1, B2, B4
-        and B6; B9 and B11 take theirs in ``args``), and ``PLAIN[kernel](*args,
+        ``kernel(*args, **kw)`` (``kw`` holds the ``overlap`` of B1, B2, B3,
+        B4 and B6; B9 and B11 take theirs in ``args``), and ``PLAIN[kernel](*args,
         **kw)`` is the same function by the kernel's plain version.  The
         ``xla`` inner has no kernel: ``(None, ..., {})``."""
         blk = staged.blocks[(i, dev)]
@@ -498,8 +499,9 @@ class DistributedAcEngine:
                 return comb16_contains_base, (blk.streams, blk.vend, tabs, staged.plan.overlap), {}
             if route == "dense":
                 t = self._sticky(g, dev)
+                t.check_overlap(staged.plan.overlap)
                 return dense_contains, (blk.streams, t.classmap, t.table, blk.vend, t.packing,
-                                        t.state_bits, t.absorb), {}
+                                        t.state_bits, t.absorb), {"overlap": staged.plan.overlap}
             raise ValueError("the xla inner has no sticky step")
         if step == "states":
             if self.inner != "pallas":

@@ -93,19 +93,22 @@ just after (the controls' launches are read apart), the first seven over
 
 Every answer must equal the host C++ engine's (and the control's), and every
 kernel of a path must have been launched by it.  The segmented kernels (B1,
-B2 and B4 with their trap parts, B6 with its dense and bitap steps, B8, B9,
-B11 in both modes, B13, B15 and B17) are also held against their plain
-versions at ragged edge shapes: one stream, S not a multiple of 128 or of
-16, T of one tile or word, ragged warm-ups and vends, with the plan's
+B2 and B4 with their trap parts, B3, B6 with its dense and bitap steps, B8,
+B9, B11 in both modes, B12, B13, B15 and B17) are also held against their
+plain versions at ragged edge shapes: one stream, S not a multiple of 128 or
+of 16, T of one tile or word, ragged warm-ups and vends, with the plan's
 overlap, with none and with every stream padded (B2 also on 1, 2, 3 and 8
 words and B4 on 1, 2 and 3, both on their trap layouts, İ, Kelvin K and ẞ
-written across the segment cuts; B4 and B8 also at k = 1 to 64 forced);
-the launches of B1, B2, B4, B8, S1, S2 and S3 print their segment counts.
-Last it times every kernel
-(the trap parts on the IgnoreCase bench staging, with an embedded trap and
-with a trap register) and its plain version with CUDA events, B8 against B1 on one 30-needle
-set that both engines hold, and B9 against the per-group B15 and B8 passes
-it replaces, beside the host C++ engine's count.  Any failure raises and the exit code is
+written across the segment cuts; B3, B4, B8 and B12 also at k = 1 to 64
+forced; B3 over stream ranges whose start is not a multiple of 16 and on a
+composed IgnoreCase machine); the launches of B1-B4, B8, B12 and S1-S3 and
+S6 print their segment counts (B3, B12 and S6 with their shared memory and
+blocks per SM).  Last it times every kernel (the trap parts on the
+IgnoreCase bench staging, with an embedded trap and with a trap register; B3
+also as the dense path's four quarter launches, its Excess taken at that
+shape) and its plain version with CUDA events, B8 against B1 on one
+30-needle set that both engines hold, and B9 against the per-group B15 and
+B8 passes it replaces, beside the host C++ engine's count.  Any failure raises and the exit code is
 non-zero.  Without a CUDA device it exits non-zero before printing a result.
 
 The last three lines of standard output are the kernels' JSON summary, the
@@ -216,6 +219,16 @@ def plant_traps(a: np.ndarray, k: int, K: int) -> None:
                 a[p - 1:p - 1 + len(b), (3 * i + j) % S] = b
 
 
+def design_of(design, smem: int) -> dict:
+    """A launch's design (``kernels/segments.py:Design``) with its block's
+    dynamic shared memory and the blocks an H100 SM holds at that size."""
+    from alfred_margaret_tpu_torch.kernels.segments import (
+        MAX_BLOCKS_PER_SM, SMEM_PER_SM)
+
+    return {**design.as_dict(), "smem": smem,
+            "blocks_per_sm": max(1, min(MAX_BLOCKS_PER_SM, SMEM_PER_SM // (smem + 1024)))}
+
+
 def sticky_groups(sticky16, G: int):
     """``G`` copies of one comb16 sticky table set (``Comb16AcEngine.
     sticky_tables()``) as B11's group tables."""
@@ -262,8 +275,10 @@ def mesh_phase(h):
     from alfred_margaret_tpu_torch.kernels.bitap_contains import bitap_contains_design
     from alfred_margaret_tpu_torch.kernels.bitap_count import bitap_count_design
     from alfred_margaret_tpu_torch.kernels.comb16_grouped import comb16_grouped_design
+    from alfred_margaret_tpu_torch.kernels.dense_contains import dense_contains_design
     from alfred_margaret_tpu_torch.kernels.dense_count import dense_count_design
     from alfred_margaret_tpu_torch.kernels.matchbits import matchbits_design
+    from alfred_margaret_tpu_torch.kernels.segments import dense_bits_smem_bytes
     from alfred_margaret_tpu_torch.parallel.shard import PLAIN
 
     dev, card = h.dev, h.card
@@ -511,6 +526,9 @@ def mesh_phase(h):
             sites[name]["design"] = bitap_count_design(args[0], args[1], args[5], **kw).as_dict()
         if name.startswith("bitap_contains"):  # S3
             sites[name]["design"] = bitap_contains_design(args[0], args[1], **kw).as_dict()
+        if name == "dense_contains":  # S6: B3's segments on the shard's streams
+            sites[name]["design"] = design_of(dense_contains_design(args[0], args[2], **kw),
+                                              dense_bits_smem_bytes(args[2].numel()))
         print(f"time mesh {site} {name:22s} {what:36s} {ms:10.4f} ms per shard launch "
               f"[T, S_local] = [{T}, {SL}], plain {plain_ms:.1f} ms, bound {bms:.4f} ms by {by} "
               f"({ms / bms:.1f}x; {sites[name].get('design', '')}; {card})", flush=True)
@@ -537,9 +555,11 @@ def main() -> int:
     from alfred_margaret_tpu_torch.kernels.comb import comb_count_design
     from alfred_margaret_tpu_torch.kernels.comb16 import comb16_count_design
     from alfred_margaret_tpu_torch.kernels.comb16_grouped import comb16_grouped_design
+    from alfred_margaret_tpu_torch.kernels.dense_contains import dense_contains_design
     from alfred_margaret_tpu_torch.kernels.dense_count import dense_count_design
     from alfred_margaret_tpu_torch.kernels.matchbits import matchbits_design
-    from alfred_margaret_tpu_torch.kernels.segments import Design
+    from alfred_margaret_tpu_torch.kernels.segments import (
+        Design, chunk_smem_bytes, dense_bits_smem_bytes)
     from alfred_margaret_tpu_torch.models import ac, case_dfa
     from alfred_margaret_tpu_torch.native import build as native_build
     from alfred_margaret_tpu_torch.native.cpp_engine import CppAcEngine
@@ -1740,6 +1760,15 @@ def main() -> int:
         overlap."""
         return lambda *a: K.matchbits(*a, overlap=sst.plan.overlap)
 
+    # B3 as the dense path's contains_any launches it: four quarter ranges of
+    # the 30 needles' streams, in corpus order (contains_staged_early's K = 4).
+    st30q = staged30.device
+    need30 = int(first_hit_steps(dense30, st30q).sum())
+
+    def quarters(*args):
+        return torch.cat([K.dense_contains(*dense30.sticky_args(st30q, q * S // 4, (q + 1) * S // 4))
+                          for q in range(4)])
+
     # (name, kernel, plain, args, what, stream bytes the function needs,
     #  output bytes, operations: one 32-bit state update per byte and word)
     timings, designs = {}, {}
@@ -1754,6 +1783,8 @@ def main() -> int:
         ("dense_contains", K.dense_contains, K.dense_contains_plain,
          miss_eng.sticky_args(staged_miss.device), "miss needles, full scan",
          n_live_bytes(staged_miss.device), 4 * S, n_live_bytes(staged_miss.device)),
+        ("dense_contains", quarters, K.dense_contains_plain, dense30.sticky_args(st30q),
+         "30 needles, four quarter launches", need30, 4 * S, need30),
         ("bitap_contains", K.bitap_contains, K.bitap_contains_plain,
          bitap_eng.contains_args(st), "bench needles", need_b4, 4 * S,
          need_b4 * bitap_eng.bitap.n_words),
@@ -1840,6 +1871,15 @@ def main() -> int:
                                                         args[13]).as_dict()
         elif name == "dense_count":
             designs[(name, what)] = dense_count_design(args[0], args[2], args[7]).as_dict()
+        elif name == "dense_contains":  # B3's, on its range (a quarter's for the quarters)
+            s1 = args[8] // 4 if what.endswith("quarter launches") else args[8]
+            designs[(name, what)] = design_of(
+                dense_contains_design(args[0], args[2], args[9], args[7], s1),
+                dense_bits_smem_bytes(args[2].numel()))
+        elif name == "comb16_states":  # B12's, with the full tables' shared memory
+            designs[(name, what)] = design_of(
+                comb16_count_design(args[0], args[2], args[3], args[10]),
+                chunk_smem_bytes(1, args[2].numel(), args[3].numel()))
         if (name, what) in designs:
             print(f"design {name:16s} {what:44s} {designs[(name, what)]}")
 
@@ -2109,6 +2149,76 @@ def main() -> int:
           f"20 / 300 / 1000, the plan's overlap with the rule's k and k = {forced_ks}, none, every "
           f"stream padded; traps across the cuts)", flush=True)
 
+    # B3 and B12 at the same edge shapes: the rule's segments with the plan's
+    # overlap, then k = 1 to 64 forced, and none; B3 also over stream ranges
+    # [s0, s1) whose s0 is not a multiple of 16 or whose s1 ends inside a
+    # block, with every stream padded (vend 0 keeps the root entry), on
+    # packing 1 and 2, NUL tables, single bytes and a composed IgnoreCase
+    # machine (İ, Kelvin K and ẞ written across the segment cuts); B12 on the
+    # full tables of B8's edge machines.  The wrappers fill B3's output with
+    # the root entry, and B12 writes every entry.
+    dense_mod = sys.modules[K.dense_contains.__module__]
+    b3_edge = [(label, e, srcs[label]) for name, label, e, _ in count_edge
+               if name == "dense_count"]
+    ci3 = NEEDLES + ["kelvin", "straße"]
+    m_ci3 = machine_of(ci3)
+    e_ci3 = DenseAcEngine(case_dfa.compose_build(list(zip(m_ci3.needles, m_ci3.values)),
+                                                 machine=m_ci3), device=dev)
+    check(e_ci3.machine.composed_ci, "B3 edge IgnoreCase: not the composed machine")
+    b3_edge.append(("IgnoreCase", e_ci3, scramble(synth_corpus(
+        ci3, 1 << 18, hit_fraction=0.05, seed=71), 7)))
+    n_edge = {"dense_contains": 0, "comb16_states": 0}
+    b3_absorbed = 0
+    for T_e in (20, 300, 1000):
+        for S_e in (1, 200, 1000, 1040, 4096):
+            for label, e, src in b3_edge:
+                t = e.sticky_tables()
+                K_e = t.min_overlap
+                s_e, _, v_e = edge_streams(T_e, S_e, K_e, 19 * T_e + S_e, src)
+                if label == "IgnoreCase":
+                    a_e = s_e.cpu().numpy().copy()
+                    plant_traps(a_e, dense_contains_design(s_e, t.table, K_e).segments, K_e)
+                    s_e = torch.from_numpy(a_e).to(dev)
+                for s0, s1 in sorted({(0, S_e), (min(3, S_e - 1), S_e), (0, max(1, S_e - 5)),
+                                      (S_e // 3, min(S_e, S_e // 3 + 130))}):
+                    args = (s_e, t.classmap, t.table, v_e, t.packing, t.state_bits, t.absorb, s0,
+                            s1)
+                    want = K.dense_contains_plain(*args)
+                    b3_absorbed += int((want == t.absorb).sum())
+                    for over, forced in [(K_e, None), (None, None)] + [(K_e, f) for f in forced_ks]:
+                        got = launch_at(dense_mod, "dense_contains_design", forced,
+                                        lambda: K.dense_contains(*args, overlap=over))
+                        same("dense_contains", got, want,
+                             f"{label}, [{s0}, {s1}), overlap {over}, k {forced or 'by the rule'}"
+                             f", edge shape T={T_e} S={S_e}")
+                        n_edge["dense_contains"] += 1
+                    pad = (*args[:3], torch.zeros_like(v_e), *args[4:])
+                    check(not K.dense_contains(*pad, overlap=K_e).any(),
+                          f"B3 {label}: every stream padded left the root, edge shape T={T_e} "
+                          f"S={S_e}")
+                    n_edge["dense_contains"] += 1
+            for label, needles, e in b8_edge:
+                ft = e.full_tables
+                K_e = e.machine.max_needle_bytes - 1
+                s_e, _, _ = edge_streams(T_e, S_e, K_e, 23 * T_e + S_e, srcs["B8 " + label])
+                args = (s_e, ft.classmap, ft.comb, ft.aux, ft.root_row, ft.segtable, ft.BB,
+                        ft.owner_mask, ft.CB, ft.root_cb)
+                want = K.comb16_states_plain(*args)
+                for over, forced in [(K_e, None), (None, None)] + [(K_e, f) for f in forced_ks]:
+                    got = launch_at(comb16_mod, "comb16_count_design", forced,
+                                    lambda: K.comb16_states(*args, overlap=over))
+                    same("comb16_states", got, want,
+                         f"{label}, overlap {over}, k {forced or 'by the rule'}, edge shape "
+                         f"T={T_e} S={S_e}")
+                    n_edge["comb16_states"] += 1
+    check(b3_absorbed > 0, "B3 edge shapes: no stream absorbed")
+    print(f"edge shapes: B3 (packing 1 / 2, NUL, singles, IgnoreCase; ranges with s0 = 3 and "
+          f"s1 inside a block; {b3_absorbed} absorbed entries) == plain on "
+          f"{n_edge['dense_contains']} launches and B12 (config 2, nested, NUL, singles, "
+          f"IgnoreCase full tables) on {n_edge['comb16_states']} (S 1 / 200 / 1000 / 1040 / "
+          f"4096, T 20 / 300 / 1000, the plan's overlap with the rule's k and k = {forced_ks}, "
+          f"none, every stream padded)", flush=True)
+
     # B8 against B1 on the dense path's 30 needles, which both engines hold.
     comb30 = Comb16AcEngine(m30, device=dev)
     st30 = staged30.device
@@ -2185,7 +2295,7 @@ def main() -> int:
     table = {
         "bitap_count": ("bitap_count.cu", "bitap_scan.py:352", "bench needles"),
         "dense_count": ("dense_count.cu", "pallas_scan.py:281", "bench needles"),
-        "dense_contains": ("dense_contains.cu", "pallas_scan.py:426", "bench needles"),
+        "dense_contains": ("dense_count.cu", "pallas_scan.py:426", "bench needles"),
         "bitap_contains": ("bitap_count.cu", "bitap_scan.py:466", "bench needles"),
         "matchbits": ("matchbits.cu", "pallas_scan.py:1174", "bench needles, bitap step"),
         "bitap_presence": ("bitap_contains.cu", "bitap_scan.py:551", "bench needles"),
@@ -2203,7 +2313,7 @@ def main() -> int:
                           "300 needles, digits corpus: full scan"),
         "comb_states": ("comb_scan.cu", "comb_scan.py:529", "config 5, 300 needles"),
         "dense_states": ("dense_count.cu", "pallas_scan.py:496", "bench needles"),
-        "comb16_states": ("comb16_scan.cu", "comb16_scan.py:917", "config 2"),
+        "comb16_states": ("comb16_grouped.cu", "comb16_scan.py:917", "config 2"),
         "bitap_count_trap": ("bitap_count.cu", "bitap_scan.py:352",
                              "IgnoreCase bench needles, embedded trap"),
         "bitap_contains_trap": ("bitap_count.cu", "bitap_scan.py:466",
@@ -2234,6 +2344,17 @@ def main() -> int:
         if name == "dense_contains":
             entry["ms_full_scan"], entry["plain_ms_full_scan"], entry["bound_ms_full_scan"], _ = (
                 timings[(name, "miss needles, full scan")])
+            entry["design_full_scan"] = designs[(name, "miss needles, full scan")]
+            # The single-device main path's launches are contains_staged_early's
+            # quarter ranges: its Excess at that shape, and the mesh's S6 at its
+            # own (launches counts both).
+            q_ms, q_plain, q_bound, _ = timings[(name, "30 needles, four quarter launches")]
+            entry["ms_quarter"], entry["plain_ms_quarter"], entry["bound_ms_quarter"] = (
+                q_ms / 4, q_plain / 4, q_bound / 4)
+            entry["design_quarter"] = designs[(name, "30 needles, four quarter launches")]
+            s6, n6 = mesh_sites[name], mesh_main.get(name, 0)
+            entry["excess_ms"] = ((launches.get(name, 0) - n6) * (q_ms - q_bound) / 4
+                                  + n6 * (s6["ms"] - s6["bound_ms"]))
         if name == "matchbits":
             entry["ms_dense_step"], entry["plain_ms_dense_step"], _, _ = timings[
                 (name, "bench needles, dense step")]

@@ -262,6 +262,10 @@ def test_new_wrappers_count_launches_and_raise(cuda):
         bad_args = (st.streams.cpu(),) + tuple(args[1:])
         with pytest.raises(ValueError):
             fn(*bad_args)
+        if fn is dense_contains:  # B3 takes the plan's overlap last
+            assert args[-1] == st.plan.overlap
+            with pytest.raises(ValueError):
+                fn(*args[:-1], -1)
         assert fn.launches == before + 1
 
 
@@ -525,6 +529,9 @@ def test_states_wrappers_count_launches_and_raise(cuda):
         assert fn.launches == before + 1
         with pytest.raises(ValueError):
             fn(args[0].cpu(), *args[1:])
+        if fn is comb16_states:  # B12 takes the plan's overlap last
+            with pytest.raises(ValueError):
+                fn(*args[:-1], -1)
         assert fn.launches == before + 1
 
 
@@ -1180,3 +1187,141 @@ def test_s3_on_one_card(cuda):
             st = eng.stage(data)
             assert _shard_launches_match_plain(eng, st, "sticky") == {"bitap_contains"}
             assert eng.contains_any(st) == s.contains_any(s.stage(data))
+
+
+# -- B3 (with the mesh's S6) and B12 on the segmented pipeline -------------------------
+
+#: B3's and B12's shapes: the edge shapes, and S below a block and not a
+#: multiple of 16 with T not a multiple of most k.
+EDGE_SHAPES_B3 = EDGE_SHAPES_ONE + [(37, 100)]
+#: Whole-code-point needles whose composed IgnoreCase machine fits the dense
+#: table.
+CI_DENSE = ["straße", "ǆx", "kelvin", "tshirt", "ab"]
+
+
+@pytest.mark.parametrize("shape", EDGE_SHAPES_B3)
+def test_b3_matches_plain_at_edge_shapes(cuda, shape, monkeypatch):
+    """B3 as ``dense_contains`` launches it, with the plan's overlap (the
+    rule's segments, then k = 1 to 64 forced) and without (one segment),
+    equals the plain version entry for entry, over the whole stream range
+    and ranges whose start is not a multiple of 16 or whose end falls inside
+    a block: packing 1 and 2, a NUL-bearing machine, single bytes (overlap
+    0) and a composed IgnoreCase machine with İ, Kelvin K and ẞ written
+    across the cuts; every stream padded keeps the root entry.  Each launch
+    adds one to the wrapper's count."""
+    from alfred_margaret_tpu_torch.kernels.segments import Design
+    from alfred_margaret_tpu_torch.models import case_dfa
+
+    dense_mod = importlib.import_module("alfred_margaret_tpu_torch.kernels.dense_contains")
+    T, S = shape
+    rule = dense_mod.dense_contains_design
+    cm = _machine(CI_DENSE)
+    cases = [(label, needles, _machine(needles)) for label, needles in (
+        ("packing 1", NEEDLES3), ("packing 2", PACK30), ("NUL", NUL), ("singles", SINGLES))]
+    cases.append(("ignorecase", CI_DENSE,
+                  case_dfa.compose_build(list(zip(cm.needles, cm.values)), machine=cm)))
+    for label, needles, m in cases:
+        t = DenseAcEngine(m, device=cuda, n_streams=1024).sticky_tables()
+        assert t.packing == 2 or label != "packing 2"
+        K = t.min_overlap
+        streams, _, vend = _edge_streams(needles, T, S, K, 7 * T + S, cuda)
+        if label == "ignorecase":
+            a = streams.cpu().numpy().copy()
+            plant_traps(a, rule(streams, t.table, K).segments, K)
+            streams = torch.from_numpy(a).to(cuda)
+        head = (streams, t.classmap, t.table, vend, t.packing, t.state_bits, t.absorb)
+        whole = dense_contains_plain(*head)
+        if S > 1 and T > 20:  # single bytes match in every live stream
+            assert (whole == t.absorb).any(), label
+            assert label == "singles" or ((whole != t.absorb) & (vend > 0)).any(), label
+        before = dense_contains.launches
+        n = 0
+        for s0, s1 in sorted({(0, S), (min(3, S - 1), S), (0, max(1, S - 5)),
+                              (S // 3, min(S, S // 3 + 130))}):
+            want = whole[s0:s1]
+            for over, forced in [(K, None), (None, None)] + [(K, f) for f in FORCED_KS]:
+                if forced is not None:
+                    monkeypatch.setattr(dense_mod, "dense_contains_design",
+                                        lambda *a, f=forced: Design(f))
+                got = dense_contains(*head, s0, s1, overlap=over)
+                monkeypatch.setattr(dense_mod, "dense_contains_design", rule)
+                assert torch.equal(got, want), (label, s0, s1, over, forced)
+                n += 1
+        padded = (*head[:3], torch.zeros_like(vend), *head[4:])
+        assert not dense_contains(*padded, overlap=K).any(), label
+        assert dense_contains.launches == before + n + 1
+        with pytest.raises(ValueError):
+            dense_contains(*head, overlap=-1)
+        with pytest.raises(ValueError):
+            dense_contains(streams.cpu(), *head[1:], overlap=K)
+        assert dense_contains.launches == before + n + 1
+
+
+@pytest.mark.parametrize("shape", EDGE_SHAPES_B3)
+def test_b12_matches_plain_at_edge_shapes(cuda, shape, monkeypatch):
+    """B12 as ``comb16_states`` launches it, with the plan's overlap (the
+    rule's segments, then k = 1 to 64 forced) and without, equals the plain
+    version in every ``[T, S]`` entry: the full tables of config 2, the
+    nested set (four count ranges), a NUL-bearing set, single bytes (overlap
+    0) and a composed IgnoreCase machine."""
+    from alfred_margaret_tpu_torch.kernels.segments import Design
+    from alfred_margaret_tpu_torch.models import case_dfa
+
+    comb16_mod = importlib.import_module("alfred_margaret_tpu_torch.kernels.comb16")
+    T, S = shape
+    rule = comb16_mod.comb16_count_design
+    ci = _random_needles(47, 40) + ["straße", "kelvin"]
+    cm = _machine(ci)
+    cases = [(name, COMB16_SETS[name], _machine(COMB16_SETS[name]))
+             for name in ("config2", "nested", "nul")]
+    cases += [("singles", SINGLES, _machine(SINGLES)),
+              ("ignorecase", ci, case_dfa.compose_build(list(zip(cm.needles, cm.values)),
+                                                        machine=cm))]
+    for label, needles, m in cases:
+        ft = Comb16AcEngine(m, device=cuda, n_streams=1024).full_tables
+        K = m.max_needle_bytes - 1
+        streams, _, _ = _edge_streams(needles, T, S, K, 11 * T + S, cuda)
+        args = (streams, ft.classmap, ft.comb, ft.aux, ft.root_row, ft.segtable, ft.BB,
+                ft.owner_mask, ft.CB, ft.root_cb)
+        want = comb16_states_plain(*args)
+        before = comb16_states.launches
+        n = 0
+        for over, forced in [(K, None), (None, None)] + [(K, f) for f in FORCED_KS]:
+            if forced is not None:
+                monkeypatch.setattr(comb16_mod, "comb16_count_design",
+                                    lambda *a, f=forced: Design(f))
+            got = comb16_states(*args, overlap=over)
+            monkeypatch.setattr(comb16_mod, "comb16_count_design", rule)
+            assert torch.equal(got, want), (label, over, forced)
+            n += 1
+        assert comb16_states.launches == before + n
+        with pytest.raises(ValueError):
+            comb16_states(*args, overlap=-1)
+        with pytest.raises(ValueError):
+            comb16_states(streams.cpu(), *args[1:], overlap=K)
+        assert comb16_states.launches == before + n
+
+
+def test_s6_on_one_card(cuda):
+    """The mesh's S6 on a (4,2,1) mesh of cuda:0: each shard's dense sticky
+    launch, with the plan's overlap, equals its plain version on a hit and a
+    miss corpus; the answers equal the single-device ``Searcher``'s."""
+    import os
+    from unittest import mock
+
+    from alfred_margaret_tpu_torch import CASE_SENSITIVE, Searcher
+    from alfred_margaret_tpu_torch.parallel import DistributedAcEngine, make_mesh
+
+    mesh = make_mesh([cuda] * 8, data=4, seq=2)
+    hit = np.frombuffer(synth_corpus(NEEDLES3, 1 << 20, hit_fraction=0.001, seed=13), np.uint8)
+    miss = np.frombuffer(b"shirt short tshir " * 60000, np.uint8)
+    s = Searcher.build(CASE_SENSITIVE, NEEDLES3)
+    with mock.patch.dict(os.environ, {"AMT_BITAP": "0"}):
+        eng = DistributedAcEngine(s.automaton, mesh)
+    assert eng.sticky_route() == "dense"
+    for data in (hit, miss):
+        st = eng.stage(data)
+        assert _shard_launches_match_plain(eng, st, "sticky") == {"dense_contains"}
+        i, g, dev = eng.shards()[0]
+        assert eng.shard_call("sticky", st, i, g, dev)[2] == {"overlap": st.plan.overlap}
+        assert eng.contains_any(st) == s.contains_any(s.stage(data))
