@@ -1,11 +1,12 @@
 // B9 comb16_count_grouped and B11 comb16_contains_grouped: the fused
 // single-launch comb16 scans over G needle groups, for Hopper; B11's
-// one-group mode, comb16_contains_base; B13, the comb16 step of B6's hit
-// bitmap (matchbits with step "comb16"); B8 comb16_count, the count of one
-// comb16 table set; and B12 comb16_states, its entry at every step.  One
-// scan serves all six, a compile-time mode of comb16_chunk_kernel: count
-// (B9), sticky-any (B11), sticky-base (B11's one-group mode), bits (B13, one
-// group), one-count (B8, one group) and states (B12, one group).
+// one-group mode, comb16_contains_base; B10 comb16_contains, the sticky scan
+// of one comb16 table set; B13, the comb16 step of B6's hit bitmap
+// (matchbits with step "comb16"); B8 comb16_count, the count of one comb16
+// table set; and B12 comb16_states, its entry at every step.  One scan
+// serves all seven, a compile-time mode of comb16_chunk_kernel: count (B9),
+// sticky-any (B11), sticky-base (B11's one-group mode and B10), bits (B13,
+// one group), one-count (B8, one group) and states (B12, one group).
 //
 // Replace the Pallas TPU kernels alfred_margaret_tpu/ops/comb16_scan.py:
 // _make_c16_count_kernel_dyn (B9, launched from
@@ -29,8 +30,13 @@
 // from gscal[g][0] over t < vend[s]; out[s] = 1 (zeroed by the wrapper) if
 // some group reached its absorbing base gscal[g][1], which loops to itself.
 // Every writer stores 1, so the races are benign.
-// B11's one-group mode (sticky-base, G = 1): the same scan, out[s] = the
-// final base.  A stream with vend[s] = 0 keeps the root base.
+// B11's one-group mode (sticky-base, G = 1): the same scan from the root
+// base `root`, out[s] = the final base, `absorb` the absorbing base (both
+// arguments).  A stream with vend[s] = 0 keeps the root base.
+// B10 (sticky-base, G = 1), replacing alfred_margaret_tpu/ops/comb16_scan.py:
+// _make_c16_contains_kernel (launched from Comb16PallasAcEngine.
+// _get_contains_fn): the same launch on the sticky view's tables of one
+// comb16 machine (B11's one-group mode launches it on a shard's group).
 // B13 (bits, G = 1), replacing the comb16 step of the Pallas TPU kernel
 // alfred_margaret_tpu/ops/pallas_scan.py:make_matchbits_kernel
 // (comb16_scan.py:_c16_bits_tables): B9's count of one group from the root
@@ -87,7 +93,15 @@
 // any order of the blocks: the launcher fills out with the root base, an
 // absorbing segment stores the absorbing base with atomicExch, and the
 // segment whose own range holds step vend[s] - 1 (it has read at least
-// overlap + 1 bytes there) stores its base with atomicCAS from the root.
+// overlap + 1 bytes there) stores its base with atomicCAS from the root.  A
+// sticky-base segment stores the absorbing base at the end of the tile in
+// which it absorbed, and a thread stops once a relaxed load of out[s], made
+// at the end of the tile before, reads the absorbing base that another
+// segment of its stream stored (final; a stale read only delays the stop,
+// and the stopped segment's CAS then fails), as B3 does (dense_count.cu); a
+// block whose streams all read it before it starts leaves at once.  So where streams
+// match early, the later segments' blocks cost a load and a barrier (config
+// 2's corpus: PERF.md section 6).
 // What remains is the SM's shared-memory pipe: about three wavefronts for
 // each of the comb and aux probes of every group step.
 
@@ -137,12 +151,14 @@ size_t chunk_smem_bytes(int chunk, int comb_words, int aux_words) {
 // Block (x, y, z) scans streams [128 x, 128 x + 128), segment y, with
 // groups [z * chunk, z * chunk + chunk) (kMaxGc >= chunk), one thread per
 // stream stepping every group of the chunk on each byte.  `warm` and `cbit`
-// are read by the count and bits modes only; the sticky modes take gscal
+// are read by the count and bits modes only; the sticky-any mode takes gscal
 // [G, 2].  The bits and one-count modes (G = 1) take the root base in `root`
 // and its count ranges in gscal [kC16Ranges] (read into registers, not rng);
 // the bits mode writes the words of its segment's own range to `bits`.  The
 // states mode (G = 1) takes the root base in `root`, reads neither gscal nor
 // warm nor vend, and writes the entries of its segment's own range to `out`.
+// The sticky-base mode (G = 1) takes its root and absorbing bases in `root`
+// and `absorb`, and reads no gscal.
 template <int kMaxGc, int kMode>
 __global__ void __launch_bounds__(kThreads) comb16_chunk_kernel(
     const uint8_t* __restrict__ streams, int T, int S, const int32_t* __restrict__ warm,
@@ -151,11 +167,22 @@ __global__ void __launch_bounds__(kThreads) comb16_chunk_kernel(
     int aux_words, const int32_t* __restrict__ root_row, const int32_t* __restrict__ segtable,
     const int32_t* __restrict__ gscal, int gscal_width, int bb, int owner_mask, int cbit,
     int overlap, int segments, int chunk, int tile, int32_t* __restrict__ out,
-    int32_t* __restrict__ bits, int root) {
+    int32_t* __restrict__ bits, int root, int absorb) {
   // The one-group modes whose root base and ranges are arguments, and whose
   // widened entries carry their step's count.
   constexpr bool kOne = kMode == kBits || kMode == kCountOne;
-  constexpr bool kRootArg = kOne || kMode == kStates;  // the root base is `root`
+  constexpr bool kRootArg = kOne || kMode == kStates || kMode == kStickyBase;  // base `root`
+  // Sticky-base: out[s] as the thread last read it, before a tile (-1: none).
+  int32_t polled = -1;
+  if constexpr (kMode == kStickyBase) {
+    // A block whose streams all hold the absorbing base already, stored by
+    // other segments' blocks, has nothing left to decide: it leaves before
+    // it loads a table.
+    const int sb = blockIdx.x * kThreads + threadIdx.x;
+    const uint32_t ab = (uint32_t)absorb & ((1u << bb) - 1u);
+    if (sb < S) polled = amt::ld_relaxed(out + sb);
+    if (__syncthreads_and(sb >= S || polled == (int32_t)ab)) return;
+  }
   extern __shared__ __align__(16) uint32_t smem[];
   __shared__ int stop_slot;
   const int g0 = blockIdx.z * chunk;
@@ -182,10 +209,12 @@ __global__ void __launch_bounds__(kThreads) comb16_chunk_kernel(
       cls_tab[i] = w;
     }
   }
-  for (int i = threadIdx.x; i < gc * kRangeSlots; i += blockDim.x) {
-    const int g = i / kRangeSlots, r = i % kRangeSlots;
-    rng[i] = r + 1 < gscal_width ? (uint32_t)gscal[(size_t)(g0 + g) * gscal_width + r + 1]
-                                 : (1u << bb);
+  if constexpr (kMode == kCount) {
+    for (int i = threadIdx.x; i < gc * kRangeSlots; i += blockDim.x) {
+      const int g = i / kRangeSlots, r = i % kRangeSlots;
+      rng[i] = r + 1 < gscal_width ? (uint32_t)gscal[(size_t)(g0 + g) * gscal_width + r + 1]
+                                   : (1u << bb);
+    }
   }
   // The one-group modes' count ranges (gscal holds them), and the count of a
   // step that took entry e.
@@ -261,7 +290,9 @@ __global__ void __launch_bounds__(kThreads) comb16_chunk_kernel(
       cv[g] = (uint32_t)segtable[(size_t)(g0 + g) * 128 + (cb[g] >> segshift)];
       if constexpr (kMode == kCount)
         r0[g] = rng[g * kRangeSlots];
-      else if constexpr (kMode != kStates)
+      else if constexpr (kMode == kStickyBase)
+        r0[g] = (uint32_t)absorb & bmask;
+      else if constexpr (kMode == kStickyAny)
         r0[g] = (uint32_t)gscal[(size_t)(g0 + g) * gscal_width + 1] & bmask;
     }
   }
@@ -370,8 +401,17 @@ __global__ void __launch_bounds__(kThreads) comb16_chunk_kernel(
     amt::staged_scan(tiles, tile, streams, S, s0, seg.start, stop, nullptr, scan);
   } else {
     // The same group step; returns whether the thread is done: its steps
-    // ran out or a group absorbed.
+    // ran out, a group absorbed or (sticky-base) out[s] holds the absorbing
+    // base already.  A sticky-base thread that absorbed stores the absorbing
+    // base at the end of that tile (the only one it steps in and absorbs),
+    // so that the other segments of its stream see it as early as they can.
+    // Otherwise it loads out[s] at the end of a tile and compares it at the
+    // start of the next (before the first: the block's start check), so that
+    // the load's latency hides behind the block's barriers between tiles
+    // instead of stalling the first step.
     auto scan = [&](const uint8_t* tile, int t0, int rows) -> bool {
+      const bool live = t0 < hi;
+      if (kMode == kStickyBase && live && polled == (int32_t)r0[0]) hi = t0;
       const uint8_t* col = tile + threadIdx.x;
 #pragma unroll 2
       for (int j = 0; j < rows; ++j) {
@@ -403,6 +443,10 @@ __global__ void __launch_bounds__(kThreads) comb16_chunk_kernel(
         }
         if (absorbed) hi = t + 1;
       }
+      if (kMode == kStickyBase && live) {
+        if (cb[0] == r0[0]) atomicExch(out + s, (int32_t)r0[0]);
+        else if (t0 + rows < hi) polled = amt::ld_relaxed(out + s);
+      }
       return t0 + rows >= hi;
     };
     amt::staged_scan(tiles, tile, streams, S, s0, seg.start, stop, nullptr, scan);
@@ -412,12 +456,10 @@ __global__ void __launch_bounds__(kThreads) comb16_chunk_kernel(
       for (int g = 0; g < kMaxGc; ++g) absorbed |= g < gc && cb[g] == r0[g];
       if (kMode == kStickyAny) {
         if (absorbed) out[s] = 1;
-      } else if (absorbed) {
-        atomicExch(out + s, (int32_t)r0[0]);
-      } else {
+      } else if (!absorbed) {  // an absorbing thread stored at the end of its tile
         const int v = min(vend[s], T);
         if (v > seg.lo && v <= seg.hi)  // this segment's own range holds step v - 1
-          atomicCAS(out + s, (int32_t)((uint32_t)gscal[0] & bmask), (int32_t)cb[0]);
+          atomicCAS(out + s, (int32_t)((uint32_t)root & bmask), (int32_t)cb[0]);
       }
     }
   }
@@ -444,11 +486,10 @@ int launch_chunk_for(int chunk, dim3 grid, size_t smem, cudaStream_t stream, Arg
   return launch_chunk<16, kMode>(grid, smem, stream, args...);
 }
 
-// out[s] = the root base gscal[0] (B11's one-group mode, before its scan).
-__global__ void fill_root_kernel(int S, const int32_t* __restrict__ gscal, int bb,
-                                 int32_t* __restrict__ out) {
+// out[s] = the root base (the sticky-base mode, before its scan).
+__global__ void fill_root_kernel(int S, int root, int bb, int32_t* __restrict__ out) {
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s < S) out[s] = (int32_t)((uint32_t)gscal[0] & ((1u << bb) - 1u));
+  if (s < S) out[s] = (int32_t)((uint32_t)root & ((1u << bb) - 1u));
 }
 
 // The launchers' shared checks: shapes, the field split, segments and chunk.
@@ -492,7 +533,7 @@ extern "C" int amt_comb16_count_grouped(const void* streams, int T, int S, const
       (const int32_t*)vend, G, (const int32_t*)classmap, (const int32_t*)comb, comb_words,
       (const int32_t*)aux, aux_words, (const int32_t*)root_row, (const int32_t*)segtable,
       (const int32_t*)gscal, gscal_width, bb, owner_mask, cbit, overlap, segments, chunk,
-      amt::kTile, (int32_t*)out, (int32_t*)nullptr, 0);
+      amt::kTile, (int32_t*)out, (int32_t*)nullptr, 0, 0);
 }
 
 // B11: out int32 [S], zeroed by the caller: 1 where some group's sticky scan
@@ -513,24 +554,26 @@ extern "C" int amt_comb16_contains_grouped(const void* streams, int T, int S, co
       (const int32_t*)vend, G, (const int32_t*)classmap, (const int32_t*)comb, comb_words,
       (const int32_t*)aux, aux_words, (const int32_t*)root_row, (const int32_t*)segtable,
       (const int32_t*)gscal, 2, bb, owner_mask, 0, overlap, segments, chunk, amt::kTile,
-      (int32_t*)out, (int32_t*)nullptr, 0);
+      (int32_t*)out, (int32_t*)nullptr, 0, 0);
 }
 
-// B11's one-group mode: out int32 [S], each stream's final base (filled with
-// the root base here, then combined over the segments); the tables of one
-// group (classmap [256], comb [comb_words], aux [aux_words], root_row and
-// segtable [128], gscal [2] = root base, absorbing base).  As
-// amt_comb16_count_grouped otherwise.
-extern "C" int amt_comb16_contains_base(const void* streams, int T, int S, const void* vend,
-                                        const void* classmap, const void* comb, int comb_words,
-                                        const void* aux, int aux_words, const void* root_row,
-                                        const void* segtable, const void* gscal, int bb,
-                                        int owner_mask, int overlap, int segments, void* out,
-                                        void* stream) {
-  if (!chunk_args_ok(T, S, 1, comb_words, aux_words, bb, owner_mask, 0, overlap, segments, 1))
+// B10 and B11's one-group mode: out int32 [S], each stream's final base
+// (filled with root_cb here, then combined over the segments), `absorb` iff
+// the stream saw a match in [0, vend[s]); the sticky tables of one comb16
+// machine or group (classmap [256], comb [comb_words], aux [aux_words],
+// root_row and segtable [128]).  As amt_comb16_count_grouped otherwise.
+extern "C" int amt_comb16_contains(const void* streams, int T, int S, const void* vend,
+                                   const void* classmap, const void* comb, int comb_words,
+                                   const void* aux, int aux_words, const void* root_row,
+                                   const void* segtable, int bb, int owner_mask, int root_cb,
+                                   int absorb, int overlap, int segments, void* out,
+                                   void* stream) {
+  if (!amt::comb16_args_ok(comb_words, aux_words, bb, owner_mask, 0, root_cb) || absorb < 0 ||
+      absorb >= (1 << bb) ||
+      !chunk_args_ok(T, S, 1, comb_words, aux_words, bb, owner_mask, 0, overlap, segments, 1))
     return (int)cudaErrorInvalidValue;
   fill_root_kernel<<<(S + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
-      S, (const int32_t*)gscal, bb, (int32_t*)out);
+      S, root_cb, bb, (int32_t*)out);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return launch_chunk<1, kStickyBase>(
@@ -538,8 +581,8 @@ extern "C" int amt_comb16_contains_base(const void* streams, int T, int S, const
       (cudaStream_t)stream, (const uint8_t*)streams, T, S, (const int32_t*)nullptr,
       (const int32_t*)vend, 1, (const int32_t*)classmap, (const int32_t*)comb, comb_words,
       (const int32_t*)aux, aux_words, (const int32_t*)root_row, (const int32_t*)segtable,
-      (const int32_t*)gscal, 2, bb, owner_mask, 0, overlap, segments, 1, amt::kTile,
-      (int32_t*)out, (int32_t*)nullptr, 0);
+      (const int32_t*)nullptr, 0, bb, owner_mask, 0, overlap, segments, 1, amt::kTile,
+      (int32_t*)out, (int32_t*)nullptr, root_cb, absorb);
 }
 
 // B13, B6's comb16 step: counts int32 [S], zeroed by the caller; bits int32
@@ -564,7 +607,7 @@ extern "C" int amt_matchbits_comb16(const void* streams, int T, int S, const voi
       (const int32_t*)vend, 1, (const int32_t*)classmap, (const int32_t*)comb, comb_words,
       (const int32_t*)aux, aux_words, (const int32_t*)root_row, (const int32_t*)segtable,
       (const int32_t*)ranges, amt::kC16Ranges, bb, owner_mask, cbit, overlap, segments, 1,
-      amt::kTile, (int32_t*)counts, (int32_t*)bits, root_cb);
+      amt::kTile, (int32_t*)counts, (int32_t*)bits, root_cb, 0);
 }
 
 // B12: out int32 [T, S], the 16-bit entry at every step, every one written;
@@ -587,7 +630,7 @@ extern "C" int amt_comb16_states(const void* streams, int T, int S, const void* 
       (const int32_t*)nullptr, 1, (const int32_t*)classmap, (const int32_t*)comb, comb_words,
       (const int32_t*)aux, aux_words, (const int32_t*)root_row, (const int32_t*)segtable,
       (const int32_t*)nullptr, 1, bb, owner_mask, cbit, overlap, segments, 1, amt::kTile,
-      (int32_t*)out, (int32_t*)nullptr, root_cb);
+      (int32_t*)out, (int32_t*)nullptr, root_cb, 0);
 }
 
 // B8: out int32 [S], zeroed by the caller, the counts of one comb16 table set
@@ -609,5 +652,5 @@ extern "C" int amt_comb16_count(const void* streams, int T, int S, const void* w
       (const int32_t*)vend, 1, (const int32_t*)classmap, (const int32_t*)comb, comb_words,
       (const int32_t*)aux, aux_words, (const int32_t*)root_row, (const int32_t*)segtable,
       (const int32_t*)ranges, amt::kC16Ranges, bb, owner_mask, cbit, overlap, segments, 1,
-      amt::kTile, (int32_t*)out, (int32_t*)nullptr, root_cb);
+      amt::kTile, (int32_t*)out, (int32_t*)nullptr, root_cb, 0);
 }

@@ -94,12 +94,6 @@ constexpr int kThreads = amt::kStageThreads;
 constexpr int kChunk = 16;
 constexpr int kMaxSegments = 64;
 
-__device__ __forceinline__ int32_t ld_relaxed(const int32_t* p) {
-  int32_t v;
-  asm volatile("ld.relaxed.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p));
-  return v;
-}
-
 // Block (x, y): streams s_base + [128 x, 128 x + 128) of the n from s_base,
 // segment y.  B1 counts (STICKY false, the whole [0, S)); B3 carries the
 // sticky entry (STICKY true, below).
@@ -152,7 +146,7 @@ __global__ void __launch_bounds__(kThreads) dense_count_kernel(
     bool done = i >= n;
     auto scan = [&](const uint8_t* cur, int t0, int rows) -> bool {
       if (!done) {
-        const bool stored = ld_relaxed(out + i) == (int32_t)absorb;
+        const bool stored = amt::ld_relaxed(out + i) == (int32_t)absorb;
         const uint8_t* col = cur + threadIdx.x;
         const int r = min(rows, hi - t0);
 #pragma unroll 4

@@ -1,8 +1,8 @@
 // Stream staging for the segmented scans B1 and B3 (dense_count.cu), B2 and
-// B4 (bitap_count.cu), B6 (matchbits.cu), B8, B9, B11, B12 and B13
-// (comb16_grouped.cu), B15 and B17 (comb_scan.cu): a block's tile of stream
-// bytes copied into shared memory ahead of the scan, and the per-segment
-// step ranges.
+// B4 (bitap_count.cu), B6 (matchbits.cu), B8, B9, B10, B11, B12 and B13
+// (comb16_grouped.cu), B14 (filter_contains.cu), B15 and B17 (comb_scan.cu):
+// a block's tile of stream bytes copied into shared memory ahead of the
+// scan, and the per-segment step ranges.
 //
 // A block owns 128 streams [s0, s0 + 128).  Step t of those streams is the
 // contiguous 128-byte run streams[t * S + s0 ...]; a tile of kTile steps is
@@ -27,10 +27,12 @@
 // per stream (B1, B8, B9, B15); a state written for each step of the own
 // range is the stream's (B12, B17); and a sticky scan up to min(p_{i+1},
 // vend[s]) absorbs iff a needle ends in [0, vend) inside its scanned steps,
-// every match ending in some segment's own range (B3, B11).  The bitmap
-// scans (B6, B13) cut at word boundaries instead (word_segment_steps): each
-// segment writes the words of its own range, every one of them, and counts
-// as B15 does.  kernels/segments.py is the same split.
+// every match ending in some segment's own range (B3, B10, B11).  The
+// bitmap scans (B6, B13) cut at word boundaries instead (word_segment_steps):
+// each segment writes the words of its own range, every one of them, and
+// counts as B15 does.  The stride-2 screen (B14) steps over byte pairs and
+// cuts at even steps (pair_segment_steps), restarting a layout-derived even
+// number of bytes early.  kernels/segments.py is the same split.
 
 #pragma once
 
@@ -145,6 +147,25 @@ __device__ __forceinline__ SegSteps word_segment_steps(int i, int segments, int 
   const int lo = (int)((long long)i * W / segments) << 5;
   const int hi = (int)((long long)(i + 1) * W / segments) << 5;
   return SegSteps{lo < hi ? max(0, (lo - overlap) & ~31) : lo, lo, hi};
+}
+
+// Segment i of the stride-2 screen (T even): cut at even steps, p_i = 2 *
+// floor(i * (T / 2) / segments), and scanned from max(0, p_i - restart)
+// (restart even), so every step the scan takes is a whole byte pair.  An
+// empty own range scans nothing.
+__device__ __forceinline__ SegSteps pair_segment_steps(int i, int segments, int T, int restart) {
+  const int P = T >> 1;
+  const int lo = (int)((long long)i * P / segments) << 1;
+  const int hi = (int)((long long)(i + 1) * P / segments) << 1;
+  return SegSteps{lo < hi ? max(0, lo - restart) : lo, lo, hi};
+}
+
+// A relaxed load of a word that other blocks store to (the sticky scans'
+// poll of a stream's output, B3 and B10).
+__device__ __forceinline__ int32_t ld_relaxed(const int32_t* p) {
+  int32_t v;
+  asm volatile("ld.relaxed.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
 }
 
 // Scan steps [start, stop) of the block's streams tile by tile: each tile of

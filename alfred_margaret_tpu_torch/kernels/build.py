@@ -165,6 +165,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, i, i, p,  # streams, T, S, vend
         *comb16,
         i, i, i, i,  # BB, owner_mask, root_cb, absorb
+        i, i,  # overlap, segments
         p, p,  # out, stream
     ]
     lib.amt_comb16_states.restype = i
@@ -213,14 +214,6 @@ def _bind(lib: ctypes.CDLL) -> None:
         i, i, i,  # overlap, segments, chunk
         p, p,  # out, stream
     ]
-    lib.amt_comb16_contains_base.restype = i
-    lib.amt_comb16_contains_base.argtypes = [
-        p, i, i, p,  # streams, T, S, vend
-        *grouped[1:],  # one group's tables
-        i, i,  # BB, owner_mask
-        i, i,  # overlap, segments
-        p, p,  # out, stream
-    ]
     lib.amt_matchbits_comb16.restype = i
     lib.amt_matchbits_comb16.argtypes = [
         p, i, i, p, p,  # streams, T, S, warm, vend
@@ -234,6 +227,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, i, i, p,  # streams, T, S, vend
         p, p, p, i,  # btab, seed, endmask, n_words
         p, p, i,  # short_mask, short_const, n_shorts
+        i, i,  # restart, segments
         p, p,  # out, stream
     ]
     lib.amt_error_string.restype = ctypes.c_char_p

@@ -2,15 +2,16 @@
 three-tier 16-bit comb DFA scans.
 
 Wrappers of the kernels that replace the Pallas kernels
-``alfred_margaret_tpu/ops/comb16_scan.py:_make_c16_count_kernel`` (B8) and
-``_make_c16_states_kernel`` (B12), one-group modes of
-``csrc/comb16_grouped.cu``'s segmented scan, and ``_make_c16_contains_kernel``
-(B10, ``csrc/comb16_scan.cu``).  A CUDA tensor launches the kernel; a CPU
-tensor runs the plain torch version.  Nothing falls back from one to the
-other.  With the stream plan's ``overlap`` B8 cuts each stream into
-segments, as B9 does (``kernels/segments.py:run_segments``), and B12 writes
-each segment's rows of its own range, as B17 does
-(``kernels/segments.py:stitch_segments``).
+``alfred_margaret_tpu/ops/comb16_scan.py:_make_c16_count_kernel`` (B8),
+``_make_c16_contains_kernel`` (B10) and ``_make_c16_states_kernel`` (B12),
+one-group modes of ``csrc/comb16_grouped.cu``'s segmented scan.  A CUDA
+tensor launches the kernel; a CPU tensor runs the plain torch version.
+Nothing falls back from one to the other.  With the stream plan's
+``overlap`` B8 cuts each stream into segments, as B9 does
+(``kernels/segments.py:run_segments``), B10 combines its segments' final
+bases as B11's one-group mode does (``kernels/segments.py:
+entry_over_segments``), and B12 writes each segment's rows of its own range,
+as B17 does (``kernels/segments.py:stitch_segments``).
 
 The tables are ``Comb16Tables.args()``: ``classmap`` [256], ``comb``
 [rows_c * 128] and ``aux`` [rows_a * 128] (pairs of 16-bit entries, low half
@@ -126,9 +127,10 @@ def comb16_count_plain(streams, warm, vend, classmap, comb, aux, root_row, segta
 
 
 def comb16_count_design(streams, comb, aux, overlap=None) -> Design:
-    """The segments ``comb16_count`` (B8) and ``comb16_states`` (B12) cut
-    these CUDA streams into for tables of ``comb`` and ``aux`` words (B9's
-    rule for one group, with the block's shared memory for those tables)."""
+    """The segments ``comb16_count`` (B8), ``comb16_contains`` (B10) and
+    ``comb16_states`` (B12) cut these CUDA streams into for tables of
+    ``comb`` and ``aux`` words (B9's rule for one group, with the block's
+    shared memory for those tables)."""
     T, S = streams.shape
     return grouped_design(S, T, overlap, 1, comb.numel(), aux.numel(), sm_count(streams.device))
 
@@ -160,9 +162,10 @@ def comb16_count(streams, warm, vend, classmap, comb, aux, root_row, segtable, r
 
 
 def comb16_contains_plain(streams, vend, classmap, comb, aux, root_row, segtable, BB,
-                          owner_mask, root_cb, absorb):
+                          owner_mask, root_cb, absorb, overlap=None):
     """Plain torch version of B10: one lookup per time step, the base held
-    where ``t >= vend``.  (``absorb`` only lets the kernel stop early.)"""
+    where ``t >= vend``.  (``absorb`` only lets the kernel stop early, and
+    ``overlap`` cut the streams into segments.)"""
     T, S = streams.shape
     p = Plain16(classmap, comb, aux, root_row, segtable, None, BB, owner_mask, 0)
     vend = vend.long()
@@ -174,24 +177,29 @@ def comb16_contains_plain(streams, vend, classmap, comb, aux, root_row, segtable
 
 
 def comb16_contains(streams, vend, classmap, comb, aux, root_row, segtable, BB, owner_mask,
-                    root_cb, absorb):
+                    root_cb, absorb, overlap=None):
     """int32 [S]: the final base of each stream of ``streams`` ([T, S]
     uint8) on the sticky view's tables, scanned from ``root_cb`` over
-    ``t < vend[s]``.  A stream saw a match iff its base is ``absorb``."""
+    ``t < vend[s]``.  A stream saw a match iff its base is ``absorb``.  With
+    the stream plan's ``overlap`` the kernel may cut each stream into
+    segments; without, it scans each whole."""
     check_comb16(streams, classmap, comb, aux, root_row, segtable, None, BB, owner_mask, 0,
                  root_cb, vend=vend)
     if not 0 <= absorb < (1 << BB):
         raise ValueError(f"absorbing base {absorb} outside the {BB}-bit base space")
+    check_overlap(overlap)
     if on_cpu(streams):
         return comb16_contains_plain(streams, vend, classmap, comb, aux, root_row, segtable, BB,
                                      owner_mask, root_cb, absorb)
     T, S = streams.shape
-    out = torch.empty(S, dtype=torch.int32, device=streams.device)
+    d = comb16_count_design(streams, comb, aux, overlap)
+    out = torch.empty(S, dtype=torch.int32, device=streams.device)  # the root base, in the launch
     launch(
         "amt_comb16_contains", streams.device,
         streams.data_ptr(), T, S, vend.data_ptr(),
         classmap.data_ptr(), comb.data_ptr(), comb.numel(), aux.data_ptr(), aux.numel(),
-        root_row.data_ptr(), segtable.data_ptr(), BB, owner_mask, root_cb, absorb, out.data_ptr(),
+        root_row.data_ptr(), segtable.data_ptr(), BB, owner_mask, root_cb, absorb, overlap or 0,
+        d.segments, out.data_ptr(),
     )
     comb16_contains.launches += 1
     return out

@@ -56,6 +56,8 @@ def _check(streams, tables, sticky: bool, **vectors) -> None:
     width = tables.gscal.shape[1] if tables.gscal.dim() == 2 else 0
     if not (width == 2 if sticky else 1 <= width <= 1 + N_RANGES):
         raise ValueError(f"gscal of width {width} for {'B11' if sticky else 'B9'}")
+    if len(tables.gscal_host) != G or any(len(row) != width for row in tables.gscal_host):
+        raise ValueError(f"gscal_host must hold gscal's {G} rows of {width}")
     check_tables(streams.device, {
         "classmap": (tables.classmap, (G, 256)), "comb": (tables.comb, (G, cw)),
         "aux": (tables.aux, (G, aw)), "root_row": (tables.root_row, (G, 128)),
@@ -213,7 +215,8 @@ def comb16_contains_base(streams, vend, tables, overlap=None):
     ``ops.comb16_scan.Comb16GroupTables``.  A stream saw a match iff its base
     is the absorbing base ``gscal[0, 1]``; a stream with ``vend`` 0 keeps the
     root base.  With the stream plan's ``overlap`` the kernel may cut each
-    stream into segments (``kernels/segments.py:base_over_segments``)."""
+    stream into segments (``kernels/segments.py:base_over_segments``).  It
+    launches B10's kernel, the two bases (``gscal_host``) as arguments."""
     _check(streams, tables, True, vend=vend)
     if tables.n_groups != 1:
         raise ValueError(f"B11's one-group mode takes one group, got {tables.n_groups}")
@@ -222,14 +225,15 @@ def comb16_contains_base(streams, vend, tables, overlap=None):
         return comb16_contains_base_plain(streams, vend, tables)
     T, S = streams.shape
     d = comb16_grouped_design(streams, tables, overlap)
+    root, absorb = tables.gscal_host[0]
     out = torch.empty(S, dtype=torch.int32, device=streams.device)  # the root base, in the launch
     launch(
-        "amt_comb16_contains_base", streams.device,
+        "amt_comb16_contains", streams.device,
         streams.data_ptr(), T, S, vend.data_ptr(),
         tables.classmap.data_ptr(), tables.comb.data_ptr(), tables.comb.shape[1],
         tables.aux.data_ptr(), tables.aux.shape[1], tables.root_row.data_ptr(),
-        tables.segtable.data_ptr(), tables.gscal.data_ptr(), tables.BB, tables.owner_mask,
-        overlap or 0, d.segments, out.data_ptr(),
+        tables.segtable.data_ptr(), tables.BB, tables.owner_mask, root, absorb, overlap or 0,
+        d.segments, out.data_ptr(),
     )
     comb16_contains_base.launches += 1
     return out

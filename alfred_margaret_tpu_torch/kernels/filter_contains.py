@@ -16,13 +16,21 @@ One step per byte pair ``(b1, b2) = (streams[2u], streams[2u + 1])`` while
 From ``2u >= vend`` on the registers and ``roll`` are frozen, so the planes no
 longer change and the scan stops.  Output ``[2, S]``: ``exact`` (0 or 1) and
 ``cand`` (the OR of every word's end bits).
+
+With the layout's ``restart`` (``FilterTables.restart``: the bytes a scan
+restarted from the root needs before it is in step) and the stream plan's
+``overlap``, the kernel cuts each stream into segments at even steps
+(``kernels/segments.py:planes_over_segments``): a block scans 128 streams of
+one segment from ``restart`` bytes before its own range, bytes staged a tile
+of 32 steps ahead, and ORs its planes into the output.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .common import check_streams, check_tables, launch, on_cpu
+from .common import check_overlap, check_streams, check_tables, launch, on_cpu
+from .segments import Design, filter_smem_bytes, pick_segments, sm_count
 
 #: Candidate words and short needles the kernel holds (kMaxWords and
 #: kMaxShorts in the .cu): the grouped engine plans up to 12 words, the
@@ -45,9 +53,26 @@ def _check(streams, vend, btab, seed, endmask, short_mask, short_const):
     })
 
 
-def filter_contains_plain(streams, vend, btab, seed, endmask, short_mask, short_const):
+def check_restart(restart, overlap) -> None:
+    """Raise ``ValueError`` unless ``restart`` (None, or an even number of
+    bytes >= 2) is at most the stream plan's ``overlap + 1`` rounded up to
+    even: a plan that warms each stream over fewer bytes than the layout
+    needs was made for other needles."""
+    check_overlap(overlap)
+    if restart is None:
+        return
+    if restart < 2 or restart % 2:
+        raise ValueError(f"restart must be an even number of bytes >= 2, got {restart}")
+    if overlap is not None and restart > (overlap + 2) // 2 * 2:
+        raise ValueError(f"the layout needs a restart of {restart} bytes; the plan's overlap "
+                         f"{overlap} warms each stream over only {overlap + 1}")
+
+
+def filter_contains_plain(streams, vend, btab, seed, endmask, short_mask, short_const,
+                          restart=None, overlap=None):
     """Plain torch version of the kernel: one pair step per two time steps,
-    the registers frozen where ``2u >= vend``."""
+    the registers frozen where ``2u >= vend``.  (``restart`` and ``overlap``
+    only let the kernel cut the streams into segments.)"""
     T, S = streams.shape
     dev = streams.device
     bt = btab.long() & 0xFFFFFFFF
@@ -84,22 +109,41 @@ def _or0(x):
     return out
 
 
-def filter_contains(streams, vend, btab, seed, endmask, short_mask, short_const):
+def filter_contains_design(streams, btab, restart=None, overlap=None) -> Design:
+    """The segments ``filter_contains`` cuts these CUDA streams into for
+    ``btab``'s words: ``pick_segments`` with the kernel's shared memory, one
+    segment without a restart or an overlap, never a segment no longer than
+    the restart."""
+    T, S = streams.shape
+    if restart is None or overlap is None:
+        return Design(1)
+    smem = filter_smem_bytes(btab.shape[0])
+    return Design(pick_segments(S, T, restart, smem, sm_count(streams.device)))
+
+
+def filter_contains(streams, vend, btab, seed, endmask, short_mask, short_const, restart=None,
+                    overlap=None):
     """int32 ``[2, S]``: per stream of ``streams`` ([T, S] uint8, T even),
     whether a short needle ended in ``[0, vend]`` (plane 0, 0 or 1) and the
     OR of the candidate end bits (plane 1).  ``btab`` [V, 128], ``seed`` and
     ``endmask`` [V] are the candidate words, ``short_mask`` and
-    ``short_const`` [K] the short needles (V <= 12, K <= 8)."""
+    ``short_const`` [K] the short needles (V <= 12, K <= 8).  With the
+    layout's ``restart`` and the stream plan's ``overlap`` the kernel may cut
+    each stream into segments (``check_restart`` holds the two together);
+    without either, it scans each whole."""
     _check(streams, vend, btab, seed, endmask, short_mask, short_const)
+    check_restart(restart, overlap)
     if on_cpu(streams):
         return filter_contains_plain(streams, vend, btab, seed, endmask, short_mask, short_const)
     T, S = streams.shape
-    out = torch.empty(2, S, dtype=torch.int32, device=streams.device)
+    d = filter_contains_design(streams, btab, restart, overlap)
+    out = torch.zeros(2, S, dtype=torch.int32, device=streams.device)
     launch(
         "amt_filter_contains", streams.device,
         streams.data_ptr(), T, S, vend.data_ptr(),
         btab.data_ptr(), seed.data_ptr(), endmask.data_ptr(), seed.numel(),
-        short_mask.data_ptr(), short_const.data_ptr(), short_mask.numel(), out.data_ptr(),
+        short_mask.data_ptr(), short_const.data_ptr(), short_mask.numel(), restart or 2,
+        d.segments, out.data_ptr(),
     )
     filter_contains.launches += 1
     return out
@@ -108,4 +152,9 @@ def filter_contains(streams, vend, btab, seed, endmask, short_mask, short_const)
 #: Kernel launches since the last reset (CPU calls do not count).
 filter_contains.launches = 0
 
-__all__ = ["filter_contains", "filter_contains_plain"]
+__all__ = [
+    "check_restart",
+    "filter_contains",
+    "filter_contains_design",
+    "filter_contains_plain",
+]

@@ -1,7 +1,7 @@
-"""The schedule of the segmented scans B1, B2, B3, B4, B8, B9, B11, B12, B15,
-B17 and the bitmap scans B6 and B13: how each stream is cut into segments
-and how the groups of B9 and B11 are cut into chunks, the two numbers each
-launch takes from its shapes.
+"""The schedule of the segmented scans B1, B2, B3, B4, B8, B9, B10, B11, B12,
+B15, B17, the bitmap scans B6 and B13 and the stride-2 screen B14: how each
+stream is cut into segments and how the groups of B9 and B11 are cut into
+chunks, the two numbers each launch takes from its shapes.
 
 ``csrc/stage.cuh`` runs the same split on the card.  Segment i of ``k``
 covers the steps ``[p_i, p_{i+1})``, ``p_i = i * T // k``; it scans from the
@@ -24,16 +24,20 @@ between the streams of the plan.  So, per stream:
   ``[max(0, p_i - overlap), min(p_{i+1}, vend[s]))`` (:func:`any_over_segments`):
   an absorb there is a real match in ``[0, vend)``, and every real match ends
   in some segment's own range, where that segment is in step;
-* a sticky final entry (B3, B11's one-group mode) is the absorbing entry if
-  some segment reached it, else the entry of the segment whose own range
-  holds step ``vend[s] - 1``, else (``vend`` 0) the root's
+* a sticky final entry (B3, B10, B11's one-group mode) is the absorbing
+  entry if some segment reached it, else the entry of the segment whose own
+  range holds step ``vend[s] - 1``, else (``vend`` 0) the root's
   (:func:`entry_over_segments`, :func:`combine_bases`);
 * the states (B12, B17) are each segment's rows of its own range
   (:func:`stitch_segments`);
 * the bitmap scans (B6, B13) cut at word boundaries instead
   (:func:`word_segment_schedule`): each segment's count is summed as B15's
   and the bitmap is each segment's words of its own range
-  (:func:`bits_over_segments`).
+  (:func:`bits_over_segments`);
+* the screen (B14) steps over byte pairs, so it cuts at even steps
+  (:func:`pair_segment_schedule`) and restarts a layout-derived even
+  ``restart`` bytes early instead of ``overlap``: its two planes are the OR
+  over segments (:func:`planes_over_segments`).
 
 Without an overlap (``None``) a stream is one segment.  Nothing here needs a
 card: the CPU tests run the plain versions over these schedules, and the
@@ -66,9 +70,9 @@ MAX_BLOCKS_PER_SM = 16  # 2048 threads / 128
 
 @dataclass(frozen=True)
 class Design:
-    """What a launch of B1, B2, B3, B4, B6, B8, B9, B11, B12, B13, B15 or B17
-    takes from its shapes: ``segments`` pieces per stream and ``chunk`` groups
-    per block (B9, B11)."""
+    """What a launch of B1-B4, B6, B8-B15 or B17 takes from its shapes:
+    ``segments`` pieces per stream and ``chunk`` groups per block (B9,
+    B11)."""
 
     segments: int
     chunk: int = 1
@@ -200,7 +204,7 @@ def base_over_segments(plain: Callable, streams, vend, tables, *, overlap: int, 
     """int32 [S]: B11's one-group plain version ``plain(streams, vend,
     tables)`` run over each segment, the bases combined by
     :func:`combine_bases`: what the segmented kernel computes."""
-    root, absorb = (int(x) for x in tables.gscal[0, :2])
+    root, absorb = tables.gscal_host[0]
     return entry_over_segments(lambda x, v: plain(x, v, tables), streams, vend, root, absorb,
                                overlap=overlap, segments=segments)
 
@@ -215,6 +219,36 @@ def stitch_segments(plain: Callable, streams, *tables, overlap: int, segments: i
     for start, lo, hi in segment_schedule(T, segments, overlap):
         if hi > lo:
             out[lo:hi] = plain(streams[start:hi].contiguous(), *tables)[lo - start:]
+    return out
+
+
+def pair_segment_schedule(T: int, segments: int, restart: int) -> List[Tuple[int, int, int]]:
+    """``(scan start, first step of its own range, stop)`` of each segment
+    of the screen over ``T`` steps (T even): cut at the even steps ``p_i = 2
+    * (i * (T // 2) // segments)``, scanned from ``max(0, p_i - restart)``
+    (``restart`` even) so that no byte pair straddles a cut (an empty own
+    range scans nothing); ``stage.cuh``'s ``pair_segment_steps``."""
+    P = T // 2
+    out = []
+    for i in range(segments):
+        lo, hi = 2 * (i * P // segments), 2 * ((i + 1) * P // segments)
+        out.append((max(0, lo - restart) if lo < hi else lo, lo, hi))
+    return out
+
+
+def planes_over_segments(plain: Callable, streams, vend, tables, *, restart: int,
+                         segments: int):
+    """int32 ``[2, S]``: the screen's plain version ``plain(streams, vend,
+    *tables)`` run over each segment of :func:`pair_segment_schedule` from
+    its scan start to its stop (its vend moved into the slice), the two
+    planes OR-ed per stream: what the segmented B14 computes."""
+    S = streams.shape[1]
+    out = torch.zeros(2, S, dtype=torch.int32, device=streams.device)
+    vend = vend.long()
+    for start, lo, hi in pair_segment_schedule(streams.shape[0], segments, restart):
+        if hi > lo:
+            v = (torch.clamp(vend, max=hi) - start).clamp(min=0).to(torch.int32)
+            out |= plain(streams[start:hi].contiguous(), v, *tables)
     return out
 
 
@@ -290,6 +324,11 @@ def bitap_bits_smem_bytes() -> int:
     """B6's bitap step: the 256-word mask table and the count fields, then
     two tiles."""
     return 4 * ((256 + 2 * MAX_WORD_FIELDS + 3) & ~3) + 2 * T_TILE * BLOCK_STREAMS
+
+
+def filter_smem_bytes(words: int) -> int:
+    """B14: ``words`` tables of 128 entries, then two tiles."""
+    return 4 * 128 * words + 2 * T_TILE * BLOCK_STREAMS
 
 
 def bitap_smem_bytes(words: int, fields: int) -> int:
@@ -379,11 +418,14 @@ __all__ = [
     "comb_smem_bytes",
     "dense_bits_smem_bytes",
     "entry_over_segments",
+    "filter_smem_bytes",
     "group_chunks",
     "grouped_design",
     "or_over_segments",
+    "pair_segment_schedule",
     "pick_chunk",
     "pick_segments",
+    "planes_over_segments",
     "run_segments",
     "segment_schedule",
     "sm_count",

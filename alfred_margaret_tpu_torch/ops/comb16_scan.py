@@ -574,7 +574,8 @@ class Comb16Tables:
 class Comb16StickyTables(Comb16Tables):
     """The B10 kernel's tables: the comb16 build of the minimized sticky
     view, and ``absorb``, the absorbing state's base (the final base of a
-    stream that saw a match).  ``convert.comb16_tables_from_jax`` builds the
+    stream that saw a match).  B10 takes the root and absorbing bases as
+    arguments, so no device scalar rides with the tables.  ``convert.comb16_tables_from_jax`` builds the
     same from the JAX engine's arrays."""
 
     absorb: int = 0
@@ -681,8 +682,10 @@ class Comb16GroupTables:
     ``gscal`` holds each group's scalars: for counting ``[G, 1 + n_ranges]``
     (its root base, then its count ranges padded with ``2**BB``), for the
     sticky scan (``sticky``) ``[G, 2]`` (its root base and its absorbing
-    base).  ``convert.comb16_group_tables_from_jax`` builds the same from the
-    JAX engine's stacked arrays."""
+    base); ``gscal_host`` holds the same rows as host ints, whence B11's
+    one-group mode takes its bases as launch arguments.
+    ``convert.comb16_group_tables_from_jax`` builds the same from the JAX
+    engine's stacked arrays."""
 
     classmap: torch.Tensor  # int32 [G, 256] byte -> class
     comb: torch.Tensor  # int32 [G, rows_c * 128] 16-bit entry pairs, low half first
@@ -690,6 +693,7 @@ class Comb16GroupTables:
     root_row: torch.Tensor  # int32 [G, 128] direct entries
     segtable: torch.Tensor  # int32 [G, 128] segment -> aux base of its center
     gscal: torch.Tensor  # int32 [G, 1 + n_ranges] (count) or [G, 2] (sticky)
+    gscal_host: tuple  # gscal's rows, tuples of ints
     BB: int
     owner_mask: int
     CB: int
@@ -709,7 +713,8 @@ class Comb16GroupTables:
 
         return dataclasses.replace(
             self, classmap=one(self.classmap), comb=one(self.comb), aux=one(self.aux),
-            root_row=one(self.root_row), segtable=one(self.segtable), gscal=one(self.gscal))
+            root_row=one(self.root_row), segtable=one(self.segtable), gscal=one(self.gscal),
+            gscal_host=self.gscal_host[g : g + 1])
 
     @staticmethod
     def from_stacked(stacked: dict, device, *, sticky: bool = False,
@@ -750,7 +755,8 @@ class Comb16GroupTables:
         return Comb16GroupTables(
             classmap=dev(classmap.reshape(G, 256)), comb=dev(comb.reshape(G, -1)),
             aux=dev(aux.reshape(G, -1)), root_row=dev(rootseg[:, 0]), segtable=dev(rootseg[:, 1]),
-            gscal=dev(gscal), BB=BB, owner_mask=int(cst["owner_mask"]), CB=int(cst["CB"]),
+            gscal=dev(gscal), gscal_host=tuple(tuple(int(x) for x in row) for row in gscal),
+            BB=BB, owner_mask=int(cst["owner_mask"]), CB=int(cst["CB"]),
             sticky=sticky,
         )
 
@@ -819,8 +825,10 @@ class Comb16AcEngine(DenseAcEngine):
         return self._sticky
 
     def sticky_args(self, st: StagedStreams) -> tuple:
-        """Arguments of ``comb16_contains`` (or its plain version)."""
-        return (st.streams, st.vend, *self.sticky_tables().sticky_args())
+        """Arguments of ``comb16_contains`` (or its plain version), the plan's
+        warm-up last: the kernel may cut the streams into segments that each
+        warm up over it."""
+        return (st.streams, st.vend, *self.sticky_tables().sticky_args(), st.plan.overlap)
 
     def contains_staged(self, st: StagedStreams) -> bool:
         """The screen's answer where it has one (an exact short-needle hit,

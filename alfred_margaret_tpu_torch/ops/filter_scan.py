@@ -179,19 +179,41 @@ def _pack(longs, shorts, bucket_k: int, max_words: int) -> Optional[FilterLayout
     return FilterLayout(words=tuple(words), shorts=tuple(shorts))
 
 
+def restart_bytes(lay: FilterLayout) -> int:
+    """The bytes a screen restarted from the root (zero registers and
+    rolling window) must read before its planes are the stream's: a bucket
+    of chains occupies bits ``[off, end]`` of its word with a seed at
+    ``off``, so its end bit depends on the last ``end - off + 1`` pairs (the
+    bucket's longest chain, at most ``floor(L / 2) + 1`` pairs for a needle
+    of ``L`` bytes, :func:`_chains`), and the short compares on the last two
+    pairs: ``max(2 * (longest chain - 1), 2)``, even."""
+    longest = 1
+    for w in lay.words:
+        off = 0
+        for bit in range(WORD_BITS):
+            if (w.endmask >> bit) & 1:
+                longest = max(longest, bit - off + 1)
+                off = bit + 1
+    return max(2 * (longest - 1), 2)
+
+
 @dataclass
 class FilterTables:
     """The B14 kernel's tables on one device (``convert.filter_tables_from_jax``
-    builds the same from the JAX engine's arrays)."""
+    builds the same from the JAX engine's arrays), and ``restart``, the
+    layout's :func:`restart_bytes`, which lets the kernel cut streams into
+    segments."""
 
     btab: torch.Tensor  # int32 [V, 128] pair hash -> track mask per word
     seed: torch.Tensor  # int32 [V]
     endmask: torch.Tensor  # int32 [V]
     short_mask: torch.Tensor  # int32 [K] byte mask of each short needle's window
     short_const: torch.Tensor  # int32 [K] the needle's bytes, big-endian
+    restart: int  # restart_bytes of the layout these tables hold
 
     def args(self) -> tuple:
-        return (self.btab, self.seed, self.endmask, self.short_mask, self.short_const)
+        return (self.btab, self.seed, self.endmask, self.short_mask, self.short_const,
+                self.restart)
 
     @staticmethod
     def from_layout(lay: FilterLayout, device, btab: Optional[np.ndarray] = None) -> "FilterTables":
@@ -213,6 +235,7 @@ class FilterTables:
             endmask=i32([w.endmask for w in lay.words]),
             short_mask=i32([m for m, _ in lay.shorts]),
             short_const=i32([c for _, c in lay.shorts]),
+            restart=restart_bytes(lay),
         )
 
 
@@ -254,7 +277,8 @@ def filter_contains(engine, st) -> Optional[bool]:
         return None
     if os.environ.get("AMT_FILTER") == "0":
         return None
-    planes = filter_kernel(st.streams, st.vend, *tabs.args()).cpu().numpy()[:, st.live_np]
+    planes = filter_kernel(st.streams, st.vend, *tabs.args(), st.plan.overlap)
+    planes = planes.cpu().numpy()[:, st.live_np]
     if (planes[0] != 0).any():
         engine._filter_strikes = 0
         return True
@@ -273,4 +297,5 @@ __all__ = [
     "attach_filter",
     "filter_contains",
     "plan_filter",
+    "restart_bytes",
 ]

@@ -94,22 +94,23 @@ just after (the controls' launches are read apart), the first seven over
 Every answer must equal the host C++ engine's (and the control's), and every
 kernel of a path must have been launched by it.  The segmented kernels (B1,
 B2 and B4 with their trap parts, B3, B6 with its dense and bitap steps, B8,
-B9, B11 in both modes, B12, B13, B15 and B17) are also held against their
-plain versions at ragged edge shapes: one stream, S not a multiple of 128 or
-of 16, T of one tile or word, ragged warm-ups and vends, with the plan's
-overlap, with none and with every stream padded (B2 also on 1, 2, 3 and 8
-words and B4 on 1, 2 and 3, both on their trap layouts, İ, Kelvin K and ẞ
-written across the segment cuts; B3, B4, B8 and B12 also at k = 1 to 64
-forced; B3 over stream ranges whose start is not a multiple of 16 and on a
-composed IgnoreCase machine); the launches of B1-B4, B8, B12 and S1-S3 and
-S6 print their segment counts (B3, B12 and S6 with their shared memory and
-blocks per SM).  Last it times every kernel (the trap parts on the
-IgnoreCase bench staging, with an embedded trap and with a trap register; B3
-also as the dense path's four quarter launches, its Excess taken at that
-shape) and its plain version with CUDA events, B8 against B1 on one
-30-needle set that both engines hold, and B9 against the per-group B15 and
-B8 passes it replaces, beside the host C++ engine's count.  Any failure raises and the exit code is
-non-zero.  Without a CUDA device it exits non-zero before printing a result.
+B9, B10, B11 in both modes, B12, B13, B14, B15 and B17) are also held against
+their plain versions at ragged edge shapes: one stream, S not a multiple of
+128 or of 16, T of one tile or word, ragged warm-ups and vends, with the
+plan's overlap, with none and with every stream padded (B2 also on 1, 2, 3
+and 8 words and B4 on 1, 2 and 3, both on their trap layouts, İ, Kelvin K
+and ẞ written across the segment cuts; B3, B4, B8, B10, B12 and B14 also at
+k = 1 to 64 forced, B14 on 0, 1, 3 and 12 words and odd vends; B3 over stream ranges whose start is not a multiple of 16 and on
+a composed IgnoreCase machine); the launches of B1-B4, B8, B10, B12, B14 and
+S1-S3 and S6 print their segment counts (B3, B10, B12, B14 and S6 with their
+shared memory and blocks per SM, B14 with its table layout).  Last it times
+every kernel (the trap parts on the IgnoreCase bench staging, with an
+embedded trap and with a trap register; B3 also as the dense path's four
+quarter launches, its Excess taken at that shape, and B10 and B14 with
+theirs at their main paths' shapes) and its plain version with CUDA events,
+B8 against B1 on one 30-needle set that both engines hold, and B9 against
+the per-group B15 and B8 passes it replaces, beside the host C++ engine's
+count.  Any failure raises and the exit code is non-zero.  Without a CUDA device it exits non-zero before printing a result.
 
 The last three lines of standard output are the kernels' JSON summary, the
 card's ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
@@ -244,7 +245,8 @@ def sticky_groups(sticky16, G: int):
     return Comb16GroupTables(
         classmap=stack(sticky16.classmap), comb=stack(sticky16.comb), aux=stack(sticky16.aux),
         root_row=stack(sticky16.root_row), segtable=stack(sticky16.segtable), gscal=gscal,
-        BB=sticky16.BB, owner_mask=sticky16.owner_mask, CB=sticky16.CB, sticky=True)
+        gscal_host=((sticky16.root_cb, sticky16.absorb),) * G, BB=sticky16.BB,
+        owner_mask=sticky16.owner_mask, CB=sticky16.CB, sticky=True)
 
 
 #: The sharded engine's launch sites: wrapper (trap parts apart) -> (site,
@@ -557,15 +559,17 @@ def main() -> int:
     from alfred_margaret_tpu_torch.kernels.comb16_grouped import comb16_grouped_design
     from alfred_margaret_tpu_torch.kernels.dense_contains import dense_contains_design
     from alfred_margaret_tpu_torch.kernels.dense_count import dense_count_design
+    from alfred_margaret_tpu_torch.kernels.filter_contains import filter_contains_design
     from alfred_margaret_tpu_torch.kernels.matchbits import matchbits_design
     from alfred_margaret_tpu_torch.kernels.segments import (
-        Design, chunk_smem_bytes, dense_bits_smem_bytes)
+        Design, chunk_smem_bytes, dense_bits_smem_bytes, filter_smem_bytes)
     from alfred_margaret_tpu_torch.models import ac, case_dfa
     from alfred_margaret_tpu_torch.native import build as native_build
     from alfred_margaret_tpu_torch.native.cpp_engine import CppAcEngine
     from alfred_margaret_tpu_torch.ops.bitap_scan import BitapAcEngine, plan_bitap, plan_bitap_ci
     from alfred_margaret_tpu_torch.ops.comb16_scan import Comb16AcEngine
     from alfred_margaret_tpu_torch.ops.comb_scan import CombAcEngine
+    from alfred_margaret_tpu_torch.ops.filter_scan import FilterTables, plan_filter
     from alfred_margaret_tpu_torch.ops.grouped import GroupedAcEngine
     from alfred_margaret_tpu_torch.ops.pallas_scan import DenseAcEngine, _zero_inert
     from alfred_margaret_tpu_torch.ops.xla_scan import XlaAcEngine
@@ -630,7 +634,7 @@ def main() -> int:
             args = eng.sticky_args(st)
             same("comb16_contains", K.comb16_contains(*args), K.comb16_contains_plain(*args), label)
             if eng._filter_tables is not None:
-                args = (st.streams, st.vend, *eng._filter_tables.args())
+                args = (st.streams, st.vend, *eng._filter_tables.args(), st.plan.overlap)
                 same("filter_contains", K.filter_contains(*args), K.filter_contains_plain(*args),
                      label)
         else:
@@ -774,7 +778,7 @@ def main() -> int:
         same("comb16_contains_grouped", K.comb16_contains_grouped(*args),
              K.comb16_contains_grouped_plain(*args), label)
         if eng._filter_tables is not None:
-            args = (st.streams, st.vend, *eng._filter_tables.args())
+            args = (st.streams, st.vend, *eng._filter_tables.args(), st.plan.overlap)
             same("filter_contains", K.filter_contains(*args), K.filter_contains_plain(*args),
                  label)
         host = CppAcEngine(m)
@@ -1760,6 +1764,45 @@ def main() -> int:
         overlap."""
         return lambda *a: K.matchbits(*a, overlap=sst.plan.overlap)
 
+    # B14 as the screen launches it (the layout's restart, the plan's
+    # overlap), and the bytes it needs: each stream until its planes are
+    # final (an exact hit, or no short needle, and every end bit in cand),
+    # else to its vend rounded up to a whole pair.
+    def screen_steps(sst, tabs):
+        T_s = sst.plan.time_len
+        bt = tabs.btab.long() & 0xFFFFFFFF
+        sd = (tabs.seed.long() & 0xFFFFFFFF).unsqueeze(1)
+        em = (tabs.endmask.long() & 0xFFFFFFFF).unsqueeze(1)
+        sm = (tabs.short_mask.long() & 0xFFFFFFFF).unsqueeze(1)
+        sc = (tabs.short_const.long() & 0xFFFFFFFF).unsqueeze(1)
+        full = 0
+        for w in tabs.endmask.tolist():
+            full |= w & 0xFFFFFFFF
+        n = sst.plan.n_streams
+        D = torch.zeros(bt.shape[0], n, dtype=torch.int64, device=dev)
+        roll = torch.zeros(n, dtype=torch.int64, device=dev)
+        exact = torch.full((n,), int(sm.numel() == 0), dtype=torch.int64, device=dev)
+        cand = torch.zeros(n, dtype=torch.int64, device=dev)
+        steps = ((sst.vend.clamp(max=T_s).long() + 1) // 2) * 2
+        rows_v = torch.arange(bt.shape[0], device=dev).unsqueeze(1)
+        for u in range(T_s // 2):
+            b1, b2 = sst.streams[2 * u].long(), sst.streams[2 * u + 1].long()
+            h = ((b1 & 15) << 3) | (b2 & 7)
+            D = (((D << 1) | sd) & bt[rows_v, h.unsqueeze(0)]) & 0xFFFFFFFF
+            for w in range(bt.shape[0]):
+                cand |= D[w] & em[w]
+            roll = ((roll << 16) | (b1 << 8) | b2) & 0xFFFFFFFF
+            if sm.numel():
+                exact |= (((roll & sm) == sc) | (((roll >> 8) & sm) == sc)).any(0).long()
+            steps = torch.where((exact > 0) & (cand == full), steps.clamp(max=2 * u + 2), steps)
+        return int(steps.sum())
+
+    b14_args = (st_c2.streams, st_c2.vend, *eng2._filter_tables.args(), st_c2.plan.overlap)
+    b14_args5 = (st5c.streams, st5c.vend, *eng5._filter_tables.args(), st5c.plan.overlap)
+    need14, need14_5 = screen_steps(st_c2, eng2._filter_tables), screen_steps(st5c, eng5._filter_tables)
+    print(f"B14 bytes needed: config 2 {need14} of {n_live_bytes(st_c2)} live, config 5 "
+          f"{need14_5} of {n_live_bytes(st5c)}", flush=True)
+
     # B3 as the dense path's contains_any launches it: four quarter ranges of
     # the 30 needles' streams, in corpus order (contains_staged_early's K = 4).
     st30q = staged30.device
@@ -1805,12 +1848,11 @@ def main() -> int:
          need_c2),
         ("matchbits_comb16", bits_kernel(st_c2), K.matchbits_plain, eng2.bits_args(st_c2),
          "config 2, comb16 step", T2 * S, 4 * S + T2 // 32 * S * 4, T2 * S),
-        ("filter_contains", K.filter_contains, K.filter_contains_plain,
-         (st_c2.streams, st_c2.vend, *eng2._filter_tables.args()), "config 2",
-         n_live_bytes(st_c2), 8 * S, n_live_bytes(st_c2) // 2 * (lay.n_words + 2 * len(lay.shorts))),
-        ("filter_contains", K.filter_contains, K.filter_contains_plain,
-         (st5c.streams, st5c.vend, *eng5._filter_tables.args()), "config 5, 12 words",
-         n_live_bytes(st5c), 8 * S, n_live_bytes(st5c) // 2 * (lay5.n_words + 2 * len(lay5.shorts))),
+        ("filter_contains", K.filter_contains, K.filter_contains_plain, b14_args, "config 2",
+         need14, 8 * S, need14 // 2 * (lay.n_words + 2 * len(lay.shorts))),
+        ("filter_contains", K.filter_contains, K.filter_contains_plain, b14_args5,
+         "config 5, 12 words", need14_5, 8 * S,
+         need14_5 // 2 * (lay5.n_words + 2 * len(lay5.shorts))),
         ("comb16_count_grouped", K.comb16_count_grouped, K.comb16_count_grouped_plain,
          (st5c.streams, st5c.warm, st5c.vend, f5, st5c.plan.overlap), "config 5",
          n_live_bytes(st5c), 4 * S,
@@ -1880,6 +1922,15 @@ def main() -> int:
             designs[(name, what)] = design_of(
                 comb16_count_design(args[0], args[2], args[3], args[10]),
                 chunk_smem_bytes(1, args[2].numel(), args[3].numel()))
+        elif name == "comb16_contains":  # B10's, on the sticky tables
+            designs[(name, what)] = design_of(
+                comb16_count_design(args[0], args[3], args[4], args[11]),
+                chunk_smem_bytes(1, args[3].numel(), args[4].numel()))
+        elif name == "filter_contains":  # B14's segments, restart and table layout
+            designs[(name, what)] = {
+                **design_of(filter_contains_design(args[0], args[2], args[7], args[8]),
+                            filter_smem_bytes(args[2].shape[0])),
+                "restart": args[7], "layout": "[V][128]"}
         if (name, what) in designs:
             print(f"design {name:16s} {what:44s} {designs[(name, what)]}")
 
@@ -2219,6 +2270,70 @@ def main() -> int:
           f"4096, T 20 / 300 / 1000, the plan's overlap with the rule's k and k = {forced_ks}, "
           f"none, every stream padded)", flush=True)
 
+    # B14 and B10 at the same edge shapes: the rule's segments with the
+    # layout's restart (B14) or the plan's overlap (B10), then k = 1 to 64
+    # forced, and none; odd vends (B14's last
+    # pair reads a byte past vend), vend 0 and every stream padded.  B14 on
+    # 0, 1, 3 and 12 words; B10 on B8's edge machines (config 2, nested, NUL,
+    # singles, IgnoreCase).  The wrappers zero B14's output and fill B10's
+    # with the root base.
+    filter_mod = sys.modules[K.filter_contains.__module__]
+    b14_edge = []
+    for label, needles, words in (("V = 0", ["ab", "c", "xyz", "qq"], 3),
+                                  ("V = 1", ["ab", "xyz", "qrstuvw"], 3),
+                                  ("V = 3", c2, 3), ("V = 12", config5_needles(1000), 12)):
+        m = machine_of(needles)
+        fl = plan_filter(m, max_words=words)
+        check(fl is not None and fl.n_words == int(label[4:]), f"B14 edge {label}: layout")
+        b14_edge.append((label, needles, m, FilterTables.from_layout(fl, dev)))
+        srcs["B14 " + label] = np.frombuffer(synth_corpus(needles, 1 << 18, hit_fraction=0.05,
+                                                          seed=len(srcs) + 60), np.uint8)
+    n_edge = {"filter_contains": 0, "comb16_contains": 0}
+    odd_seen = 0
+    for T_e in (20, 300, 1000):
+        for S_e in (1, 200, 1000, 1040, 4096):
+            for label, needles, m, tabs in b14_edge:
+                K_e = m.max_needle_bytes - 1
+                s_e, _, v_e = edge_streams(T_e, S_e, K_e, 29 * T_e + S_e, srcs["B14 " + label])
+                odd_seen += int((v_e % 2 == 1).sum())
+                args = (s_e, v_e, *tabs.args())
+                want = K.filter_contains_plain(*args)
+                for over, forced in [(K_e, None), (None, None)] + [(K_e, f) for f in forced_ks]:
+                    got = launch_at(filter_mod, "filter_contains_design", forced,
+                                    lambda: K.filter_contains(*args, over))
+                    same("filter_contains", got, want,
+                         f"{label}, overlap {over}, k {forced or 'by the rule'}, edge shape "
+                         f"T={T_e} S={S_e}")
+                    n_edge["filter_contains"] += 1
+                pad = (s_e, torch.zeros_like(v_e), *tabs.args())
+                check(not K.filter_contains(*pad, K_e).any(),
+                      f"B14 {label}: every stream padded fired, edge shape T={T_e} S={S_e}")
+                n_edge["filter_contains"] += 1
+            for label, needles, e in b8_edge:
+                t = e.sticky_tables()
+                K_e = e.machine.max_needle_bytes - 1
+                s_e, _, v_e = edge_streams(T_e, S_e, K_e, 31 * T_e + S_e, srcs["B8 " + label])
+                args = (s_e, v_e, *t.sticky_args())
+                want = K.comb16_contains_plain(*args)
+                for over, forced in [(K_e, None), (None, None)] + [(K_e, f) for f in forced_ks]:
+                    got = launch_at(comb16_mod, "comb16_count_design", forced,
+                                    lambda: K.comb16_contains(*args, over))
+                    same("comb16_contains", got, want,
+                         f"{label}, overlap {over}, k {forced or 'by the rule'}, edge shape "
+                         f"T={T_e} S={S_e}")
+                    n_edge["comb16_contains"] += 1
+                pad = (s_e, torch.zeros_like(v_e), *t.sticky_args())
+                check(bool((K.comb16_contains(*pad, K_e) == t.root_cb).all()),
+                      f"B10 {label}: every stream padded left the root, edge shape T={T_e} "
+                      f"S={S_e}")
+                n_edge["comb16_contains"] += 1
+    check(odd_seen > 0, "B14 edge shapes: no odd vend")
+    print(f"edge shapes: B14 (V = 0 / 1 / 3 / 12) == plain on "
+          f"{n_edge['filter_contains']} launches and B10 (config 2, nested, NUL, singles, "
+          f"IgnoreCase sticky tables) on {n_edge['comb16_contains']} (S 1 / 200 / 1000 / 1040 / "
+          f"4096, T 20 / 300 / 1000, {odd_seen} odd vends, the rule's k and k = {forced_ks}, "
+          f"none, every stream padded)", flush=True)
+
     # B8 against B1 on the dense path's 30 needles, which both engines hold.
     comb30 = Comb16AcEngine(m30, device=dev)
     st30 = staged30.device
@@ -2300,7 +2415,7 @@ def main() -> int:
         "matchbits": ("matchbits.cu", "pallas_scan.py:1174", "bench needles, bitap step"),
         "bitap_presence": ("bitap_contains.cu", "bitap_scan.py:551", "bench needles"),
         "comb16_count": ("comb16_grouped.cu", "comb16_scan.py:610", "config 2"),
-        "comb16_contains": ("comb16_scan.cu", "comb16_scan.py:860",
+        "comb16_contains": ("comb16_grouped.cu", "comb16_scan.py:860",
                             "config 2, digits corpus: full scan"),
         "matchbits_comb16": ("comb16_grouped.cu", "comb16_scan.py:1382", "config 2, comb16 step"),
         "filter_contains": ("filter_contains.cu", "filter_scan.py:191", "config 2"),
@@ -2369,11 +2484,23 @@ def main() -> int:
         if name == "comb16_contains":
             entry["ms_first_match"], entry["plain_ms_first_match"], entry[
                 "bound_ms_first_match"], _ = timings[(name, "config 2 corpus: stops at the first match")]
+            entry["design_first_match"] = designs[(name, "config 2 corpus: stops at the first match")]
+            # Every main-path launch decides a corpus on which no short needle
+            # answers (the digits corpora, the composed machine): at the full
+            # scan's shape.
+            entry["excess_ms"] = launches.get(name, 0) * (ms - bms)
         if name == "comb16_count":
             entry["ms_30_needles"], entry["ms_30_needles_b1"] = b8, b1
         if name == "filter_contains":
-            entry["ms_12_words"], entry["plain_ms_12_words"], entry["bound_ms_12_words"], _ = (
-                timings[(name, "config 5, 12 words")])
+            ms12, plain12, bound12, _ = timings[(name, "config 5, 12 words")]
+            entry["ms_12_words"], entry["plain_ms_12_words"], entry["bound_ms_12_words"] = (
+                ms12, plain12, bound12)
+            entry["design_12_words"] = designs[(name, "config 5, 12 words")]
+            # The comb16 path's launches at config 2's shape, the grouped
+            # path's at config 5's.
+            n12 = g_main.get(name, 0)
+            entry["excess_ms"] = ((launches.get(name, 0) - n12) * (ms - bms)
+                                  + n12 * (ms12 - bound12))
         if name == "comb16_count_grouped":
             entry.update(groups=G5, ms_turns=b9, ms_per_group_control=b8s,
                          per_group_passes=eng5.n_groups, host_cpp_count_ms=host_count_ms,

@@ -6,38 +6,42 @@ source tree, in turns, on one CUDA card.
 ``PARENT_DIR`` holds an earlier checkout's ``alfred_margaret_tpu_torch/csrc``
 (for example ``git archive <commit> alfred_margaret_tpu_torch/csrc | tar -x
 -C PARENT_DIR``, in a directory ``.gitignore`` lists).  Its sources are
-built with the port's ``nvcc`` flags.  B3's and B12's launchers are called
-through the signatures of the tree before they took segments (bound below);
-every other kernel through this tree's wrappers, with the parent's library
-swapped in (their launchers did not change).  At the main paths' shapes (128
+built with the port's ``nvcc`` flags.  B14's and B10's launchers are called
+alone, the parent's through the signatures of the tree before they took
+segments (bound below); every other kernel through this tree's wrappers,
+with the parent's library swapped in (``parent_launch``: B14's and B10's
+launches without the arguments they took since, S4's through the parent's
+one-group launcher and a ``[2]`` tensor of its bases).  At the main paths' shapes (128
 MiB, S = 32768, T = 4224; the mesh's shards of (4,2,1) at 4096 streams and
 of (2,1,4) at 16384), each kernel runs in turns, parent, this tree, this
 tree, parent, ``--runs`` launches a timing (CUDA events), and each pair's
 outputs must be equal:
 
-* B3, the dense sticky scan (``AMT_BITAP=0``'s and the dense engine's
-  ``contains_any``): the bench needles (nearly every stream absorbs) and the
-  miss needles (none does: a full scan) over the whole corpus, and the first
-  and last quarter ranges of streams, as ``contains_staged_early`` launches
-  them; site S6 on shard 0 of the (4,2,1) mesh, the miss needles;
-* B12, the comb16 states: config 2's full tables;
-* the kernels that must not move: B1 and B5 (B3's file), B8, B9, B11 (both
-  modes, the one-group mode as site S4), B13 and S5 (B12's scan), B10 (B12's
-  former file), and B2, B4 (with S3), B6 (bitap and dense steps), B7, S8,
-  B15 and B17.
+* B14, the stride-2 screen: config 2's 3 words (the comb16 engine's screen)
+  and config 5's 12 words (the grouped engine's), on their corpora;
+* B10, the comb16 sticky scan: config 2's sticky tables on the digits corpus
+  (no match: a full scan) and on config 2's corpus (stops at the first
+  match);
+* (both launchers called alone, this tree's at the segments its rule picks,
+  so that a launch of a few dozen microseconds is not timed with the
+  wrapper's host work);
+* the kernels that must not move: B8, B9, B11 (both modes, the one-group
+  mode as site S4), B12, B13 and S5 (B10's scan), B1, B3 (with S6) and B5,
+  B2, B4 (with S3), B6 (bitap and dense steps), B7, S8, B15 and B17.
 
-``--grid`` also times this tree's B3 (bench and miss needles), S6 and B12 at
-other segment counts than their rule picks (the launcher alone), and B3's
-lever: this tree's sources with B3's poll of ``out[s]`` taken out (the
-block's vote alone, built into ``_build/vote``) against the vote and the
-poll, in turns.  ``--walls`` times ``contains_any`` of 30 dense needles (the
-four quarter launches), the bench needles' ``contains_any`` under
-``AMT_BITAP=0``, the miss needles' ``contains_any`` on the (4,2,1) mesh's
-dense route (8 x S6) and config 2's ``final_states_staged``, host clock until
-the answer is on the host, with the parent's B3 and B12 swapped in for this
-tree's, in turns.  Prints each timing, the card's name and power limit, and
-one JSON line.  Needs one CUDA card and ``nvcc``; the parent's library goes
-to ``alfred_margaret_tpu_torch/_build/parent``.
+``--grid`` also times this tree's B14 and B10 at other segment counts than
+their rule picks (the launcher alone), and the levers, this tree's sources
+with one design choice undone (``LEVERS``, built into ``_build/levers``),
+each in turns with this tree's (B10's also on S4's shard).  ``--walls``
+times config 2's ``contains_any`` on its corpus (B14 answers), on the digits
+corpus (B14, then B10) and under ``AMT_FILTER=0`` (B10 alone), and config
+5's ``contains_any`` on its corpus (B14 at 12 words, then B11), host clock
+until the answer is on the host (the screen's strike count reset before
+each call), this tree's engines and wrappers on the parent's library and on
+this tree's, in turns, three times.
+Prints each timing, the card's name and power limit, and one JSON line.
+Needs one CUDA card and ``nvcc``; the parent's library goes to
+``alfred_margaret_tpu_torch/_build/parent``.
 """
 
 from __future__ import annotations
@@ -45,7 +49,9 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import functools
 import glob
+import importlib
 import json
 import os
 import sys
@@ -59,43 +65,127 @@ import chip_smoke as smoke
 
 
 def _bind_parent(lib) -> None:
-    """The launchers of the parent tree: this tree's signatures, but B3's and
-    B12's before they took ``overlap`` and ``segments``."""
+    """The launchers of the parent tree: this tree's signatures, but B14's
+    and B10's before they took ``restart``, ``overlap`` and ``segments``, and
+    B11's one-group launcher, which read its bases from a device tensor."""
     from alfred_margaret_tpu_torch.kernels import build
 
     build._bind(lib)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.amt_dense_contains.argtypes = [p, i, i, p, p, i, p, i, i, i, i, i, p, p]
-    lib.amt_comb16_states.argtypes = [p, i, i, p, p, i, p, i, p, p, i, i, i, i, p, p]
+    lib.amt_filter_contains.argtypes = [p, i, i, p, p, p, p, i, p, p, i, p, p]
+    lib.amt_comb16_contains.argtypes = [p, i, i, p, p, p, i, p, i, p, p, i, i, i, i, p, p]
+    lib.amt_comb16_contains_base.restype = i
+    lib.amt_comb16_contains_base.argtypes = [p, i, i, p, p, p, i, p, i, p, p, p, i, i, i, i, p,
+                                             p]
 
 
-#: B3's poll of out[s] in ``csrc/dense_count.cu``, and the same line without
-#: it: the lever ``--grid`` times (the block's vote alone).
-POLL_LINE = "const bool stored = ld_relaxed(out + i) == (int32_t)absorb;"
-VOTE_ALONE_LINE = "const bool stored = false;"
+_POLL_CHECK = "      if (kMode == kStickyBase && live && polled == (int32_t)r0[0]) hi = t0;\n"
+_POLL_LOAD = "        else if (t0 + rows < hi) polled = amt::ld_relaxed(out + s);\n"
+_NO_POLL = [(_POLL_CHECK, ""), (_POLL_LOAD, "")]
+_NO_EXIT = ("    if (__syncthreads_and(sb >= S || polled == (int32_t)ab)) return;",
+            "    (void)ab;")
+
+#: The design choices ``--grid`` undoes one at a time: name -> (source, text
+#: substitutions on this tree's source, each made wherever its text stands).
+#: B14's table replicated per bank (32
+#: copies up to 3 words, 16 up to 6, 8 up to 12; lane l reads copy l % c);
+#: B14's short compares over all eight slots behind a run-time guard each;
+#: B14's short compares kept after a stream's exact plane is set (by the
+#: segment or, stored, by another); B14
+#: without the poll of the planes other segments stored (and no block
+#: leaving before its table loads); B10 storing the absorbing base only at
+#: the end of its segment, with no block leaving before its table loads; B10
+#: taking its poll of out[s] in the tile it polls for (its first step waits
+#: on the load) instead of a tile later; B10 without that poll; B10 without
+#: that poll and without the block-start exit.
+LEVERS = {
+    "B14 table replicated per bank": ("filter_contains.cu", [
+        ("constexpr int kMaxSegments = 64;\n",
+         "constexpr int kMaxSegments = 64;\n"
+         "template <int V> constexpr int kCopies = V <= 3 ? 32 : V <= 6 ? 16 : 8;\n"
+         "template <int V> constexpr int kLogCopies = V <= 3 ? 5 : V <= 6 ? 4 : 3;\n"),
+        ("for (int i = threadIdx.x; i < V * 128; i += blockDim.x) bt[i] = (uint32_t)btab[i];",
+         "for (int i = threadIdx.x; i < V * 128 * kCopies<V>; i += blockDim.x) "
+         "bt[i] = (uint32_t)btab[i >> kLogCopies<V>];"),
+        ("reinterpret_cast<uint8_t*>(smem + V * 128);",
+         "reinterpret_cast<uint8_t*>(smem + V * 128 * kCopies<V>);"),
+        ("const uint32_t* row = bt + (((b1 & 15u) << 3) | (b2 & 7u));",
+         "const uint32_t* row = bt + (((((b1 & 15u) << 3) | (b2 & 7u)) << kLogCopies<V>) | "
+         "(threadIdx.x & (kCopies<V> - 1u)));"),
+        ("row[v * 128]", "row[v * 128 * kCopies<V>]"),
+        ("const size_t smem = (size_t)V * 128 * sizeof(uint32_t)",
+         "const size_t smem = (size_t)V * 128 * kCopies<V> * sizeof(uint32_t)"),
+    ]),
+    "B14 eight guarded short slots": ("filter_contains.cu", [
+        ("              hit |= ((roll & sm[k]) == sc[k]) | ((r8 & sm[k]) == sc[k]);",
+         "              if (k < n_shorts) hit |= ((roll & sm[k]) == sc[k]) | ((r8 & sm[k]) == sc[k]);"),
+        ("uint32_t roll = 0, exact = KS > 0 ? 0u : 1u, cand = 0;",
+         "uint32_t roll = 0, exact = n_shorts > 0 ? 0u : 1u, cand = 0;"),
+        ("  auto go = n_shorts == 0 ? launch<Vmin, 0> : n_shorts <= 4 ? launch<Vmin, 4> : "
+         "launch<Vmin, 8>;", "  auto go = launch<Vmin, 8>;"),
+        ("exact_stored = KS == 0;", "exact_stored = n_shorts == 0;"),
+        ("      if (KS > 0 && !exact)", "      if (n_shorts > 0 && !exact)"),
+    ]),
+    "B14 short compares after exact is set": ("filter_contains.cu", [
+        ("      if (KS > 0 && !exact)", "      if (KS > 0)"),
+    ]),
+    "B14 without the stored planes' poll": ("filter_contains.cu", [
+        ("const uint32_t pe = (uint32_t)amt::ld_relaxed(out + s);", "const uint32_t pe = 0;"),
+        ("const uint32_t pc = (uint32_t)amt::ld_relaxed(out + (size_t)S + s);",
+         "const uint32_t pc = 0;"),
+        ("    if (__syncthreads_and(sb >= S || final_planes((uint32_t)amt::ld_relaxed(out + sb),",
+         "    if (__syncthreads_and(sb >= S && final_planes((uint32_t)amt::ld_relaxed(out + sb),"),
+    ]),
+    "B10 stores only at its segment's end": ("comb16_grouped.cu", [
+        _NO_EXIT,
+        ("        if (cb[0] == r0[0]) atomicExch(out + s, (int32_t)r0[0]);\n        else if",
+         "        if"),
+        ("      } else if (!absorbed) {  // an absorbing thread stored at the end of its tile\n",
+         "      } else if (absorbed) {\n        atomicExch(out + s, (int32_t)r0[0]);\n"
+         "      } else {\n"),
+    ]),
+    "B10 polling out[s] for the tile it starts": ("comb16_grouped.cu", [
+        (_POLL_CHECK, "      if (kMode == kStickyBase && live && amt::ld_relaxed(out + s) == "
+                      "(int32_t)r0[0]) hi = t0;\n"), (_POLL_LOAD, "")]),
+    "B10 polling out[s] at a tile's start for the next": ("comb16_grouped.cu", [
+        (_POLL_CHECK, "      if (kMode == kStickyBase && live) {\n"
+                      "        if (polled == (int32_t)r0[0]) hi = t0;\n"
+                      "        else polled = amt::ld_relaxed(out + s);\n"
+                      "      }\n"), (_POLL_LOAD, "")]),
+    "B10 without the poll": ("comb16_grouped.cu", _NO_POLL),
+    "B10 without the poll and the block-start exit": ("comb16_grouped.cu", [*_NO_POLL, _NO_EXIT]),
+}
 
 
-def build_vote_alone(out_dir: str):
-    """This tree's ``csrc`` with B3's poll taken out (``POLL_LINE``), built
-    with the port's flags into ``out_dir``; returns the bound library."""
+def build_lever(name: str, out_dir: str):
+    """This tree's source of the lever ``name`` with its substitutions, built
+    with the port's flags into ``out_dir`` beside ``errors.cu``; returns the
+    library, its launchers bound as this tree's."""
     from alfred_margaret_tpu_torch.kernels import build
     from alfred_margaret_tpu_torch.utils.device import nvcc_path
 
-    src = os.path.join(out_dir, "csrc")
-    os.makedirs(src, exist_ok=True)
-    for path in glob.glob(os.path.join(build._CSRC, "*.cu*")):
-        with open(path) as f:
-            text = f.read()
-        if os.path.basename(path) == "dense_count.cu":
-            if text.count(POLL_LINE) != 1:
-                raise SystemExit("dense_count.cu: B3's poll line not found once")
-            text = text.replace(POLL_LINE, VOTE_ALONE_LINE)
-        with open(os.path.join(src, os.path.basename(path)), "w") as f:
-            f.write(text)
-    so = os.path.join(out_dir, "libvote.so")
-    build._compile(nvcc_path(), sorted(glob.glob(os.path.join(src, "*.cu"))), so)
+    src_name, subs = LEVERS[name]
+    d = os.path.join(out_dir, "".join(c if c.isalnum() else "_" for c in name))
+    os.makedirs(d, exist_ok=True)
+    for path in glob.glob(os.path.join(build._CSRC, "*.cuh")):
+        with open(path) as f, open(os.path.join(d, os.path.basename(path)), "w") as g:
+            g.write(f.read())
+    with open(os.path.join(build._CSRC, src_name)) as f:
+        text = f.read()
+    for old, new in subs:
+        if not text.count(old):
+            raise SystemExit(f"{name}: {old!r} not found in {src_name}")
+        text = text.replace(old, new)
+    with open(os.path.join(d, src_name), "w") as f:
+        f.write(text)
+    so = os.path.join(d, "liblever.so")
+    build._compile(nvcc_path(), [os.path.join(d, src_name),
+                                 os.path.join(build._CSRC, "errors.cu")], so)
     lib = ctypes.CDLL(so)
-    build._bind(lib)
+    for fn in ("amt_filter_contains", "amt_comb16_contains"):
+        if hasattr(lib, fn):
+            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).argtypes = getattr(build.load().lib, fn).argtypes
     return lib
 
 
@@ -129,11 +219,10 @@ def main() -> int:
     ap.add_argument("--runs", type=int, default=30)
     ap.add_argument("--walls", action="store_true",
                     help="also time four operations (host clock until the answer is on the "
-                         "host) with the parent's B3 and B12 swapped in and with this tree's, "
-                         "in turns")
+                         "host) on the parent's library and on this tree's, in turns")
     ap.add_argument("--grid", action="store_true",
-                    help="also time this tree's B3, S6 and B12 at other segment counts than "
-                         "their rule picks, and B3 without its poll of out[s]")
+                    help="also time this tree's B14 and B10 at other segment counts than "
+                         "their rule picks, and the levers (LEVERS)")
     a = ap.parse_args()
 
     from alfred_margaret_tpu_torch import CASE_SENSITIVE, IGNORE_CASE, Searcher
@@ -147,13 +236,12 @@ def main() -> int:
     from alfred_margaret_tpu_torch.kernels.comb16_grouped import comb16_grouped_design
     from alfred_margaret_tpu_torch.kernels.dense_contains import dense_contains_design
     from alfred_margaret_tpu_torch.kernels.dense_count import dense_count_design
+    from alfred_margaret_tpu_torch.kernels.filter_contains import filter_contains_design
     from alfred_margaret_tpu_torch.kernels.matchbits import matchbits_design
-    from alfred_margaret_tpu_torch.ops import bitap_scan, comb16_scan, pallas_scan
     from alfred_margaret_tpu_torch.ops.bitap_scan import BitapAcEngine
     from alfred_margaret_tpu_torch.ops.comb16_scan import Comb16AcEngine
     from alfred_margaret_tpu_torch.ops.pallas_scan import DenseAcEngine
     from alfred_margaret_tpu_torch.parallel import DistributedAcEngine, make_mesh
-    from alfred_margaret_tpu_torch.parallel import shard
     from alfred_margaret_tpu_torch.utils.device import nvidia_smi_line
 
     dev = torch.device("cuda", 0)
@@ -162,17 +250,46 @@ def main() -> int:
     new = build.load()
     out_dir = os.path.dirname(new.path)
     plib, parent_s = build_parent(a.parent, os.path.join(out_dir, "parent"))
-    vlib = build_vote_alone(os.path.join(out_dir, "vote")) if a.grid else None
     print(f"built this tree and the parent in {time.perf_counter() - t0:.1f} s", flush=True)
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    parent_gscal = {}
+
+    def parent_launch(entry, device, *args, site=None):
+        """This tree's launch of ``entry`` on the parent's library: B14's and
+        B10's without the arguments they took since (``restart`` or
+        ``overlap``, and ``segments``); S4's (``site``) through the parent's
+        one-group launcher, its bases in a ``[2]`` device tensor made once."""
+        if entry == "amt_comb16_contains" and site == "S4":
+            *tabs, BB, om, root, absorb, over, k, out = args
+            if (root, absorb) not in parent_gscal:
+                parent_gscal[root, absorb] = torch.tensor([root, absorb], dtype=torch.int32,
+                                                          device=device)
+            entry = "amt_comb16_contains_base"
+            args = (*tabs, parent_gscal[root, absorb].data_ptr(), BB, om, over, k, out)
+        elif entry in ("amt_filter_contains", "amt_comb16_contains"):
+            args = args[:-3] + args[-1:]
+        with torch.cuda.device(device):
+            err = getattr(plib, entry)(*args, torch.cuda.current_stream().cuda_stream)
+        build.check(err)
+
+    wrapper_modules = [(importlib.import_module(f"alfred_margaret_tpu_torch.kernels.{m}"), site)
+                       for m, site in (("filter_contains", None), ("comb16", None),
+                                       ("comb16_grouped", "S4"))]
 
     @contextlib.contextmanager
     def in_lib(lib):
-        """This tree's wrappers launch from ``lib`` (None: this tree's)."""
+        """This tree's wrappers launch from ``lib`` (None: this tree's; the
+        parent's through ``parent_launch``)."""
         if lib is None:
             yield
             return
-        with mock.patch.object(build, "load", lambda: SimpleNamespace(lib=lib)):
+        with contextlib.ExitStack() as patches:
+            patches.enter_context(mock.patch.object(build, "load",
+                                                    lambda: SimpleNamespace(lib=lib)))
+            if lib is plib:
+                for mod, site in wrapper_modules:
+                    patches.enter_context(mock.patch.object(
+                        mod, "launch", functools.partial(parent_launch, site=site)))
             yield
 
     def timed(fn, lib=None):
@@ -245,7 +362,8 @@ def main() -> int:
     s1000 = Searcher.build(CASE_SENSITIVE, n1000)
     eng5 = s1000._engine.device_engine()
     data5 = np.frombuffer(synth_corpus(n1000[:500], B, hit_fraction=0.01, seed=11), np.uint8)
-    st5c = s1000.stage(data5).device
+    stg5 = s1000.stage(data5)
+    st5c = stg5.device
     st5d = s1000.stage(digits).device
     n300 = smoke.config5_needles(300)
     s300 = Searcher.build(CASE_SENSITIVE, n300)
@@ -259,7 +377,8 @@ def main() -> int:
     ec2 = s100.distributed(make_mesh([dev] * 8, data=2, seq=1, needle=4))
     data2 = np.frombuffer(synth_corpus(c2, B, hit_fraction=0.01, seed=5), np.uint8)
     stg2 = s100.stage(data2)
-    st2, st2d = stg2.device, s100.stage(digits).device
+    stg2d = s100.stage(digits)
+    st2, st2d = stg2.device, stg2d.device
     sc2 = ec2.stage(data2)
     sff = ec2.stage(np.frombuffer(smoke.fire_free(B, seed=1), np.uint8))
 
@@ -271,34 +390,38 @@ def main() -> int:
     s3_args, s3_kw = shard0(e_miss, "sticky", s_miss_m)
     s3t_args, s3t_kw = shard0(e_miss_ci, "sticky", s_miss_ci)
     s4_args, _ = shard0(ec2, "sticky", sff)
+    t4 = s4_args[2]  # S4's group: B10's launcher on its tables and bases
+    s4_b10_args = (s4_args[0], s4_args[1], t4.classmap, t4.comb, t4.aux, t4.root_row,
+                   t4.segtable, t4.BB, t4.owner_mask, *t4.gscal_host[0], s4_args[3])
     s5_args, _ = shard0(ec2, "count", sc2)
     s6_args, s6_kw = shard0(e_miss_dense, "sticky", s_miss_m)
     s8_args, s8_kw = shard0(eb, "bits", sbm)
     torch.cuda.synchronize()
 
-    # -- the parent's B3 and B12 --------------------------------------------------------
+    # -- the parent's B14 and B10 -------------------------------------------------------
     def ptr(x):
         return x.data_ptr()
 
-    def parent_b3(streams, cm, tab, vend, packing, state_bits, absorb, s0=0, s1=None,
-                  overlap=None):
-        """The parent's B3: one thread a whole stream (no overlap)."""
+    def parent_b14(streams, vend, btab, seed, endmask, short_mask, short_const, restart=None,
+                   overlap=None):
+        """The parent's B14: one thread a whole stream (no segments)."""
         T, S = streams.shape
-        s1 = S if s1 is None else s1
-        out = torch.empty(s1 - s0, dtype=torch.int32, device=dev)
-        build.check(plib.amt_dense_contains(ptr(streams), T, S, ptr(cm), ptr(tab), tab.numel(),
-                                            ptr(vend), packing, state_bits, absorb, s0, s1,
-                                            ptr(out), stream()))
+        out = torch.empty(2, S, dtype=torch.int32, device=dev)
+        build.check(plib.amt_filter_contains(ptr(streams), T, S, ptr(vend), ptr(btab), ptr(seed),
+                                             ptr(endmask), seed.numel(), ptr(short_mask),
+                                             ptr(short_const), short_mask.numel(), ptr(out),
+                                             stream()))
         return out
 
-    def parent_b12(streams, cm, comb, aux, root_row, segtable, BB, om, CB, root_cb,
+    def parent_b10(streams, vend, cm, comb, aux, root_row, segtable, BB, om, root_cb, absorb,
                    overlap=None):
-        """The parent's B12: one thread a whole stream (no overlap)."""
+        """The parent's B10: one thread a whole stream (no segments)."""
         T, S = streams.shape
-        out = torch.empty(T, S, dtype=torch.int32, device=dev)
-        build.check(plib.amt_comb16_states(ptr(streams), T, S, ptr(cm), ptr(comb), comb.numel(),
-                                           ptr(aux), aux.numel(), ptr(root_row), ptr(segtable),
-                                           BB, om, CB, root_cb, ptr(out), stream()))
+        out = torch.empty(S, dtype=torch.int32, device=dev)
+        build.check(plib.amt_comb16_contains(ptr(streams), T, S, ptr(vend), ptr(cm), ptr(comb),
+                                             comb.numel(), ptr(aux), aux.numel(), ptr(root_row),
+                                             ptr(segtable), BB, om, root_cb, absorb, ptr(out),
+                                             stream()))
         return out
 
     def bits_kernel(overlap):
@@ -317,8 +440,41 @@ def main() -> int:
     def b8_design(args):
         return comb16_count_design(args[0], args[4], args[5], args[13])
 
+    def b10_design(args):
+        return comb16_count_design(args[0], args[3], args[4], args[11])
+
     def b12_design(args):
         return comb16_count_design(args[0], args[2], args[3], args[10])
+
+    def b14_design(args):
+        return filter_contains_design(args[0], args[2], args[7], args[8])
+
+    def b14_at(lib, args, k):
+        """B14's launcher of ``lib`` on ``args`` at ``k`` segments."""
+        streams, vend, btab, seed, endmask, sm, sc, restart = args[:8]
+        T, S_ = streams.shape
+        res = torch.zeros(2, S_, dtype=torch.int32, device=dev)
+        build.check(lib.amt_filter_contains(
+            ptr(streams), T, S_, ptr(vend), ptr(btab), ptr(seed), ptr(endmask), seed.numel(),
+            ptr(sm), ptr(sc), sm.numel(), restart, k, ptr(res), stream()))
+        return res
+
+    def b10_at(lib, args, k):
+        """B10's launcher of ``lib`` on ``args`` at ``k`` segments."""
+        streams, vend, cm, comb, aux, rr, seg, BB, om, root_cb, absorb, over = args
+        T, S_ = streams.shape
+        res = torch.empty(S_, dtype=torch.int32, device=dev)
+        build.check(lib.amt_comb16_contains(
+            ptr(streams), T, S_, ptr(vend), ptr(cm), ptr(comb), comb.numel(), ptr(aux),
+            aux.numel(), ptr(rr), ptr(seg), BB, om, root_cb, absorb, over, k, ptr(res),
+            stream()))
+        return res
+
+    def rule_launch(at, design):
+        """This tree's launcher ``at`` alone at the segments its rule picks:
+        the kernel without the wrapper's host work, as the parent's is
+        called."""
+        return lambda *x: at(new.lib, x, design(x).segments)
 
     y5, f5 = eng5._fused_sticky_setup().tables, eng5._fused_setup().tables
     ob, o2, o8 = stb.plan.overlap, st2.plan.overlap, s8_kw["overlap"]
@@ -328,7 +484,11 @@ def main() -> int:
     b3_args, b3m_args = dense_eng.sticky_args(stb), miss_dense.sticky_args(stmd)
     b3q0_args = dense_eng.sticky_args(stb, 0, S // 4)
     b3q3_args = dense_eng.sticky_args(stb, 3 * S // 4, S)
+    b10d_args, b10c_args = eng2.sticky_args(st2d), eng2.sticky_args(st2)
+    b14_args = (st2.streams, st2.vend, *eng2._filter_tables.args(), st2.plan.overlap)
+    b14_args5 = (st5c.streams, st5c.vend, *eng5._filter_tables.args(), st5c.plan.overlap)
     b12_args = eng2.states_args(st2)
+    b14_rule, b10_rule = rule_launch(b14_at, b14_design), rule_launch(b10_at, b10_design)
     b4_args, b4m_args = bitap_eng.contains_args(stb), miss_eng.contains_args(stm)
     b4t_args = eng_ci.contains_args(st_ci)
     b8_args, b8n_args = eng2._kernel_args(st2), c30._kernel_args(st30)
@@ -338,23 +498,14 @@ def main() -> int:
     # on the parent's library), args, kw, this tree's design (None: one thread
     # a whole stream))
     rows = [
-        ("B3", "bench needles, whole corpus (stops at absorb)", K.dense_contains, parent_b3,
-         b3_args, {}, b3_design(b3_args)),
-        ("B3", "miss needles, whole corpus (full scan)", K.dense_contains, parent_b3, b3m_args,
-         {}, b3_design(b3m_args)),
-        ("B3", "bench needles, first quarter [0, S/4)", K.dense_contains, parent_b3, b3q0_args,
-         {}, b3_design(b3q0_args)),
-        ("B3", "bench needles, last quarter [3S/4, S)", K.dense_contains, parent_b3, b3q3_args,
-         {}, b3_design(b3q3_args)),
-        ("S6", "B3, miss needles, (4,2,1) shard 0", K.dense_contains, parent_b3, s6_args, s6_kw,
-         b3_design(s6_args, s6_kw)),
-        ("B12", "config 2's full tables", K.comb16_states, parent_b12, b12_args, {},
-         b12_design(b12_args)),
+        ("B14", "config 2, 3 words", b14_rule, parent_b14, b14_args, {}, b14_design(b14_args)),
+        ("B14", "config 5, 12 words", b14_rule, parent_b14, b14_args5, {},
+         b14_design(b14_args5)),
+        ("B10", "config 2, digits corpus: full scan", b10_rule, parent_b10, b10d_args, {},
+         b10_design(b10d_args)),
+        ("B10", "config 2 corpus: stops at the first match", b10_rule, parent_b10, b10c_args,
+         {}, b10_design(b10c_args)),
         # The kernels that must not move: this tree's wrappers on either library.
-        ("B1", "bench needles' dense tables", K.dense_count, None, b1_args, {},
-         dense_count_design(b1_args[0], b1_args[2], b1_args[7])),
-        ("B5", "bench needles' dense tables", K.dense_states, None, bitap_eng.states_args(stb),
-         {}, None),
         ("B8", "config 2", K.comb16_count, None, b8_args, {}, b8_design(b8_args)),
         ("B8", "30 needles", K.comb16_count, None, b8n_args, {}, b8_design(b8n_args)),
         ("B9", "config 5", K.comb16_count_grouped, None, eng5._count_args(st5c), {},
@@ -367,10 +518,22 @@ def main() -> int:
          None, s4_args, {}, comb16_grouped_design(s4_args[0], s4_args[2], s4_args[3])),
         ("S5", "B9 one group, config 2 group 0, shard 0", K.comb16_count_grouped, None,
          s5_args, {}, comb16_grouped_design(s5_args[0], s5_args[3], s5_args[4])),
+        ("B12", "config 2's full tables", K.comb16_states, None, b12_args, {},
+         b12_design(b12_args)),
         ("B13", "config 2, comb16 step", bits_kernel(o2), None, c16_args, {},
          bits_design(c16_args, o2)),
-        ("B10", "config 2, digits corpus: full scan", K.comb16_contains, None,
-         eng2.sticky_args(st2d), {}, None),
+        ("B1", "bench needles' dense tables", K.dense_count, None, b1_args, {},
+         dense_count_design(b1_args[0], b1_args[2], b1_args[7])),
+        ("B3", "bench needles, whole corpus (stops at absorb)", K.dense_contains, None,
+         b3_args, {}, b3_design(b3_args)),
+        ("B3", "miss needles, whole corpus (full scan)", K.dense_contains, None, b3m_args,
+         {}, b3_design(b3m_args)),
+        ("B3", "bench needles, first quarter [0, S/4)", K.dense_contains, None, b3q0_args,
+         {}, b3_design(b3q0_args)),
+        ("S6", "B3, miss needles, (4,2,1) shard 0", K.dense_contains, None, s6_args, s6_kw,
+         b3_design(s6_args, s6_kw)),
+        ("B5", "bench needles' dense tables", K.dense_states, None, bitap_eng.states_args(stb),
+         {}, None),
         ("B4", "bench needles (V = 1, hits)", K.bitap_contains, None, b4_args, {},
          b4_design(b4_args)),
         ("B4", "miss needles (no hit: full scan)", K.bitap_contains, None, b4m_args, {},
@@ -434,52 +597,34 @@ def main() -> int:
 
     grid, lever = [], []
     if a.grid:
-        def b3_at(args, kw, k):
-            """This tree's B3 launcher on ``args`` at ``k`` segments."""
-            streams, cm, tab, vend, packing, state_bits, absorb = args[:7]
-            s0, s1 = args[7:9] or (0, None)
-            over = kw["overlap"] if kw else args[9]
-            T, S_ = streams.shape
-            s1 = S_ if s1 is None else s1
-            res = torch.zeros(s1 - s0, dtype=torch.int32, device=dev)
-            build.check(new.lib.amt_dense_contains(
-                ptr(streams), T, S_, ptr(cm), ptr(tab), tab.numel(), ptr(vend), packing,
-                state_bits, absorb, s0, s1, over, k, ptr(res), stream()))
-            return res
-
-        def b12_at(args, kw, k):
-            """This tree's B12 launcher on ``args`` at ``k`` segments."""
-            streams, cm, comb, aux, rr, seg, BB, om, CB, root_cb, over = args
-            T, S_ = streams.shape
-            res = torch.empty(T, S_, dtype=torch.int32, device=dev)
-            build.check(new.lib.amt_comb16_states(
-                ptr(streams), T, S_, ptr(cm), ptr(comb), comb.numel(), ptr(aux), aux.numel(),
-                ptr(rr), ptr(seg), BB, om, CB, root_cb, over, k, ptr(res), stream()))
-            return res
-
-        for tag, at, kernel, args, kw in (("B3", b3_at, K.dense_contains, b3_args, {}),
-                                          ("B3 miss", b3_at, K.dense_contains, b3m_args, {}),
-                                          ("S6", b3_at, K.dense_contains, s6_args, s6_kw),
-                                          ("B12", b12_at, K.comb16_states, b12_args, {})):
-            ref = kernel(*args, **kw)
+        for tag, at, args, ref in (
+                ("B14 3w", b14_at, b14_args, K.filter_contains(*b14_args)),
+                ("B14 12w", b14_at, b14_args5, K.filter_contains(*b14_args5)),
+                ("B10 full", b10_at, b10d_args, K.comb16_contains(*b10d_args)),
+                ("B10 first", b10_at, b10c_args, K.comb16_contains(*b10c_args))):
             for k in (1, 4, 8, 16, 32, 64):
-                if same(at(args, kw, k), ref):
+                if same(at(new.lib, args, k), ref):
                     raise SystemExit(f"{tag} k={k}: != the rule's launch")
-                ms = timed(lambda: at(args, kw, k))
+                ms = timed(lambda: at(new.lib, args, k))
                 grid.append({"kernel": tag, "k": k, "ms": ms})
-                print(f"grid {tag:7s} k={k:2d} {ms:.4f} ms ({card})", flush=True)
+                print(f"grid {tag:9s} k={k:2d} {ms:.4f} ms ({card})", flush=True)
 
-        # B3's lever: the block's vote alone (the poll of out[s] taken out)
-        # against the vote and the poll, this tree's wrapper on both.
-        for what, args, kw in (("bench needles, whole corpus", b3_args, {}),
-                               ("miss needles, whole corpus", b3m_args, {}),
-                               ("bench needles, first quarter", b3q0_args, {}),
-                               ("S6, miss needles, (4,2,1) shard 0", s6_args, s6_kw)):
-            v_ms, n_ms = turns("B3", what, K.dense_contains, K.dense_contains, args, kw, vlib,
-                               None)
-            print(f"lever B3   {what:40s} vote alone {v_ms[0]:.4f} / {v_ms[1]:.4f} ms, vote and "
-                  f"poll {n_ms[0]:.4f} / {n_ms[1]:.4f} ms ({card})", flush=True)
-            lever.append({"what": what, "vote_alone_ms": v_ms, "vote_and_poll_ms": n_ms})
+        # The levers: this tree's sources with one design choice undone
+        # (LEVERS), each launch against this tree's at the rule's k, in turns.
+        for name, (src, _) in LEVERS.items():
+            vlib = build_lever(name, os.path.join(out_dir, "levers"))
+            at = b14_at if src == "filter_contains.cu" else b10_at
+            cases = ((("3 words", b14_args), ("12 words", b14_args5)) if at is b14_at else
+                     (("digits corpus: full scan", b10d_args),
+                      ("config 2 corpus: first match", b10c_args),
+                      ("S4, fire-free shard 0", s4_b10_args)))
+            for what, args in cases:
+                k = (b14_design(args) if at is b14_at else b10_design(args)).segments
+                l_ms, n_ms = turns(name, what, lambda *x, lib=vlib, k=k: at(lib, x, k),
+                                   lambda *x, k=k: at(new.lib, x, k), args, {}, None, None)
+                print(f"lever {name:34s} {what:30s} lever {l_ms[0]:.4f} / {l_ms[1]:.4f} ms, "
+                      f"this tree {n_ms[0]:.4f} / {n_ms[1]:.4f} ms (k={k}; {card})", flush=True)
+                lever.append({"lever": name, "what": what, "lever_ms": l_ms, "new_ms": n_ms})
 
     walls = []
     if a.walls:
@@ -493,45 +638,42 @@ def main() -> int:
                 times.append((time.perf_counter() - t0) * 1e3)
             return float(np.median(times))
 
-        parents = {"dense_contains": parent_b3, "comb16_states": parent_b12}
+        def screened(s, stg, eng):
+            """``contains_any`` with the screen's strike count reset first, so
+            that every call asks the screen."""
+            def run():
+                eng._filter_strikes = 0
+                return s.contains_any(stg)
+            return run
 
-        @contextlib.contextmanager
-        def parent_launchers():
-            """The engines' and the mesh's B3 and B12 swapped for the parent's."""
-            with contextlib.ExitStack() as stack:
-                for mod in (pallas_scan, bitap_scan, comb16_scan, shard):
-                    for name, fn in parents.items():
-                        if hasattr(mod, name):
-                            stack.enter_context(mock.patch.object(mod, name, fn))
-                yield
-
-        def answer(x):
-            return x if not isinstance(x, np.ndarray) else int(x.astype(np.int64).sum())
+        def control():
+            with mock.patch.dict(os.environ, {"AMT_FILTER": "0"}):
+                return s100.contains_any(stg2)
 
         for tag, what, fn in (
-                ("B3", "30 needles contains_any (K = 4 quarter launches)",
-                 lambda: s30.contains_any(stg30)),
-                ("B3", "bench needles contains_any, AMT_BITAP=0 control",
-                 lambda: sd.contains_any(stgd)),
-                ("S6", "miss needles contains_any, (4,2,1) mesh, dense route",
-                 lambda: e_miss_dense.contains_any(s_miss_m)),
-                ("B12", "config 2 final_states_staged", lambda: eng2.final_states_staged(st2))):
+                ("B14", "config 2 contains_any, config 2 corpus (the screen answers)",
+                 screened(s100, stg2, eng2)),
+                ("B14+B10", "config 2 contains_any, digits corpus (screen, then B10)",
+                 screened(s100, stg2d, eng2)),
+                ("B10", "config 2 contains_any, AMT_FILTER=0 (B10 alone)", control),
+                ("B14+B11", "config 5 contains_any, config 5 corpus (12 words, then B11)",
+                 screened(s1000, stg5, eng5))):
             got = fn()
-            with parent_launchers():
+            with in_lib(plib):
                 ref = fn()
-            if not np.array_equal(got, ref):
+            if got != ref:
                 raise SystemExit(f"{tag} {what}: this tree's answer != the parent's")
             ts = []
-            for lbl in ("parent", "new", "new", "parent"):
-                with parent_launchers() if lbl == "parent" else contextlib.nullcontext():
+            for lbl in ("parent", "new", "new", "parent") * 3:
+                with in_lib(plib if lbl == "parent" else None):
                     ts.append((lbl, wall_ms(fn)))
             p_ms = [ms for lbl, ms in ts if lbl == "parent"]
             n_ms = [ms for lbl, ms in ts if lbl == "new"]
-            print(f"wall  {tag:4s} {what:60s} parent {p_ms[0]:.3f} / {p_ms[1]:.3f} ms, new "
-                  f"{n_ms[0]:.3f} / {n_ms[1]:.3f} ms (median of 9, host clock; answer "
-                  f"{answer(got)}; {card})", flush=True)
+            print(f"wall  {tag:7s} {what:60s} parent {' / '.join(f'{m:.3f}' for m in p_ms)} ms, "
+                  f"new {' / '.join(f'{m:.3f}' for m in n_ms)} ms (median of 9 each, host "
+                  f"clock; answer {got}; {card})", flush=True)
             walls.append({"kernel": tag, "what": what, "parent_ms": p_ms, "new_ms": n_ms,
-                          "answer": answer(got)})
+                          "answer": got})
     line = json.dumps({"turns": out, "lever": lever, "grid": grid, "walls": walls,
                        "card": card, "runs": a.runs, "parent_build_s": parent_s})
     print(card)

@@ -424,7 +424,7 @@ def test_comb16_wrappers_check_inputs():
             comb16_count(*a)
     sargs = list(eng.sticky_args(st))
     assert torch.equal(comb16_contains(*sargs), comb16_contains_plain(*sargs))
-    for i, v in ((1, st.vend[:3]), (len(sargs) - 1, -1)):
+    for i, v in ((1, st.vend[:3]), (len(sargs) - 2, -1), (len(sargs) - 1, -1)):
         a = list(sargs)
         a[i] = v
         with pytest.raises(ValueError):

@@ -306,11 +306,12 @@ def test_comb16_kernels_match_plain(cuda, name, n_streams):
     torch.cuda.synchronize()
     pc, pb = matchbits_plain(*args)
     assert torch.equal(counts[live], pc[live]) and torch.equal(bits, pb)
-    if eng._filter_tables is not None:  # B14
+    if eng._filter_tables is not None:  # B14, whole and in the rule's segments
         args = (st.streams, st.vend, *eng._filter_tables.args())
-        planes = filter_contains(*args)
-        torch.cuda.synchronize()
-        assert torch.equal(planes, filter_contains_plain(*args))
+        for over in (None, st.plan.overlap):
+            planes = filter_contains(*args, over)
+            torch.cuda.synchronize()
+            assert torch.equal(planes, filter_contains_plain(*args))
     else:
         assert name == "nul"
     host = CppAcEngine(m)
@@ -327,7 +328,7 @@ def test_comb16_wrappers_count_launches_and_raise(cuda):
         (comb16_count, eng._kernel_args(st)),
         (comb16_contains, eng.sticky_args(st)),
         (matchbits, eng.bits_args(st)),
-        (filter_contains, (st.streams, st.vend, *eng._filter_tables.args())),
+        (filter_contains, (st.streams, st.vend, *eng._filter_tables.args(), st.plan.overlap)),
     ]
     for fn, args in calls:
         before = fn.launches
@@ -336,6 +337,17 @@ def test_comb16_wrappers_count_launches_and_raise(cuda):
         with pytest.raises(ValueError):
             fn(st.streams.cpu(), *args[1:])
         assert fn.launches == before + 1
+    # B10's and B14's overlap, and B14's restart: bad values raise without a
+    # launch.
+    sargs, fargs = calls[1][1], calls[3][1]
+    assert sargs[-1] == fargs[-1] == st.plan.overlap
+    for fn, args in ((comb16_contains, (*sargs[:-1], -1)), (filter_contains, (*fargs[:-1], -1)),
+                     (filter_contains, (*fargs[:-2], 3, st.plan.overlap)),
+                     (filter_contains, (*fargs[:-2], st.plan.overlap + 3, st.plan.overlap))):
+        before = fn.launches
+        with pytest.raises(ValueError):
+            fn(*args)
+        assert fn.launches == before
 
 
 def _config5(n):
@@ -776,8 +788,9 @@ def _as_groups(t16, G, rows=None):
     return Comb16GroupTables(
         classmap=stack(t16.classmap), comb=stack(comb), aux=stack(t16.aux),
         root_row=stack(t16.root_row), segtable=stack(t16.segtable),
-        gscal=stack(torch.cat([root, t16.ranges])), BB=t16.BB, owner_mask=t16.owner_mask,
-        CB=t16.CB, sticky=False)
+        gscal=stack(torch.cat([root, t16.ranges])),
+        gscal_host=((t16.root_cb, *t16.ranges.tolist()),) * G, BB=t16.BB,
+        owner_mask=t16.owner_mask, CB=t16.CB, sticky=False)
 
 
 @pytest.mark.parametrize("shape", EDGE_SHAPES)
@@ -853,7 +866,8 @@ def _sticky_groups(sticky16, G):
     return Comb16GroupTables(
         classmap=stack(sticky16.classmap), comb=stack(sticky16.comb), aux=stack(sticky16.aux),
         root_row=stack(sticky16.root_row), segtable=stack(sticky16.segtable), gscal=gscal,
-        BB=sticky16.BB, owner_mask=sticky16.owner_mask, CB=sticky16.CB, sticky=True)
+        gscal_host=((sticky16.root_cb, sticky16.absorb),) * G, BB=sticky16.BB,
+        owner_mask=sticky16.owner_mask, CB=sticky16.CB, sticky=True)
 
 
 def _config5_engine(cuda):
@@ -1325,3 +1339,127 @@ def test_s6_on_one_card(cuda):
         i, g, dev = eng.shards()[0]
         assert eng.shard_call("sticky", st, i, g, dev)[2] == {"overlap": st.plan.overlap}
         assert eng.contains_any(st) == s.contains_any(s.stage(data))
+
+
+# -- B14 and B10 on the segmented pipeline ------------------------------------------------
+
+
+def _filter_cases(device):
+    """(label, needles, machine, B14 tables) on 0, 1, 3 and 12 candidate
+    words: short needles only, one word beside two shorts, config 2's
+    screen and config 5's 1,000 needles in twelve words."""
+    from alfred_margaret_tpu_torch.ops.filter_scan import FilterTables, plan_filter
+
+    out = []
+    for label, needles, words in (("V = 0", ["ab", "c", "xyz", "qq"], 3),
+                                  ("V = 1", ["ab", "xyz", "qrstuvw"], 3),
+                                  ("V = 3", CONFIG2, 3), ("V = 12", _config5(1000), 12)):
+        m = _machine(needles)
+        lay = plan_filter(m, max_words=words)
+        assert lay.n_words == int(label[4:]), label
+        out.append((label, needles, m, FilterTables.from_layout(lay, device)))
+    return out
+
+
+@pytest.mark.parametrize("shape", EDGE_SHAPES_ONE)
+def test_b14_matches_plain_at_edge_shapes(cuda, shape, monkeypatch):
+    """B14 as ``filter_contains`` launches it, with the layout's restart and
+    the plan's overlap (the rule's segments, then k = 1 to 64 forced) and
+    without (one segment), equals the
+    plain version plane for plane: 0, 1, 3 and 12 words, ragged S, odd vends
+    (the last pair reads a byte past vend), vend 0, every stream padded.
+    Each launch adds one to the wrapper's count; a restart the plan's
+    overlap cannot hold and a negative overlap raise without a launch."""
+    from alfred_margaret_tpu_torch.kernels.segments import Design
+
+    fmod = importlib.import_module("alfred_margaret_tpu_torch.kernels.filter_contains")
+    T, S = shape
+    rule = fmod.filter_contains_design
+    for label, needles, m, tabs in _filter_cases(cuda):
+        K = m.max_needle_bytes - 1
+        streams, _, vend = _edge_streams(needles, T, S, K, 7 * T + S, cuda)
+        if S > 2:
+            vend[:2] = torch.tensor([1, 0], dtype=torch.int32)  # an odd vend and 0
+        args = (streams, vend, *tabs.args())
+        want = filter_contains_plain(*args)
+        if S > 1 and T > 20 and label != "V = 0":
+            assert want.any(), label
+        before = filter_contains.launches
+        n = 0
+        for over, forced in [(K, None), (None, None)] + [(K, f) for f in FORCED_KS]:
+            if forced is not None:
+                monkeypatch.setattr(fmod, "filter_contains_design",
+                                    lambda *a, f=forced: Design(f))
+            got = filter_contains(*args, over)
+            monkeypatch.setattr(fmod, "filter_contains_design", rule)
+            assert torch.equal(got, want), (label, over, forced)
+            n += 1
+        padded = (streams, torch.zeros_like(vend), *tabs.args())
+        assert not filter_contains(*padded, K).any(), label
+        assert filter_contains.launches == before + n + 1
+        for bad in ((*args[:-1], tabs.restart + 1, K),  # odd
+                    (*args[:-1], 0, K),
+                    (*args[:-1], (K + 2) // 2 * 2 + 2, K),  # more than the plan warms
+                    (*args, -1)):
+            with pytest.raises(ValueError):
+                filter_contains(*bad)
+        with pytest.raises(ValueError):
+            filter_contains(streams.cpu(), *args[1:], K)
+        assert filter_contains.launches == before + n + 1
+
+
+@pytest.mark.parametrize("shape", EDGE_SHAPES_ONE)
+def test_b10_matches_plain_at_edge_shapes(cuda, shape, monkeypatch):
+    """B10 as ``comb16_contains`` launches it, with the plan's overlap (the
+    rule's segments, then k = 1 to 64 forced) and without (one segment),
+    equals the plain version base for base: config 2, the nested set, a
+    NUL-bearing set, single bytes (overlap 0) and a composed IgnoreCase
+    machine; ragged S, odd vends, vend 0, every stream padded (the root
+    base).  Each launch adds one to the wrapper's count; a negative overlap
+    and a bad absorbing base raise without a launch."""
+    from alfred_margaret_tpu_torch.kernels.segments import Design
+    from alfred_margaret_tpu_torch.models import case_dfa
+
+    comb16_mod = importlib.import_module("alfred_margaret_tpu_torch.kernels.comb16")
+    T, S = shape
+    rule = comb16_mod.comb16_count_design
+    ci = _random_needles(47, 40) + ["straße", "kelvin"]
+    cm = _machine(ci)
+    cases = [(name, COMB16_SETS[name], _machine(COMB16_SETS[name]))
+             for name in ("config2", "nested", "nul")]
+    cases += [("singles", SINGLES, _machine(SINGLES)),
+              ("ignorecase", ci, case_dfa.compose_build(list(zip(cm.needles, cm.values)),
+                                                        machine=cm))]
+    absorbed = 0
+    for label, needles, m in cases:
+        eng = Comb16AcEngine(m, device=cuda, n_streams=1024)
+        t = eng.sticky_tables()
+        K = m.max_needle_bytes - 1
+        streams, _, vend = _edge_streams(needles, T, S, K, 11 * T + S, cuda)
+        if S > 2:
+            vend[:2] = torch.tensor([1, 0], dtype=torch.int32)
+        args = (streams, vend, *t.sticky_args())
+        want = comb16_contains_plain(*args)
+        absorbed += int((want == t.absorb).sum())
+        before = comb16_contains.launches
+        n = 0
+        for over, forced in [(K, None), (None, None)] + [(K, f) for f in FORCED_KS]:
+            if forced is not None:
+                monkeypatch.setattr(comb16_mod, "comb16_count_design",
+                                    lambda *a, f=forced: Design(f))
+            got = comb16_contains(*args, over)
+            monkeypatch.setattr(comb16_mod, "comb16_count_design", rule)
+            assert torch.equal(got, want), (label, over, forced)
+            n += 1
+        padded = (streams, torch.zeros_like(vend), *t.sticky_args())
+        assert bool((comb16_contains(*padded, K) == t.root_cb).all()), label
+        assert comb16_contains.launches == before + n + 1
+        with pytest.raises(ValueError):
+            comb16_contains(*args, -1)
+        with pytest.raises(ValueError):
+            comb16_contains(*args[:-1], 1 << t.BB, K)
+        with pytest.raises(ValueError):
+            comb16_contains(streams.cpu(), *args[1:], K)
+        assert comb16_contains.launches == before + n + 1
+    if S > 1 and T > 20:
+        assert absorbed > 0

@@ -250,6 +250,8 @@ def test_group_tables_check_their_inputs():
     (_, _), (c16s, stacked) = _uniform_builds(MID, 5, False)
     tabs = t16.Comb16GroupTables.from_stacked(stacked, CPU, c16s=c16s)
     assert tabs.n_groups == len(c16s) and not tabs.sticky
+    assert tabs.gscal_host == tuple(map(tuple, tabs.gscal.tolist()))
+    assert tabs.group(1).gscal_host == tabs.gscal_host[1:2]
     assert tuple(tabs.comb.shape) == (len(c16s), stacked["consts"]["rows_c"] * 128)
     # A group's probe window past its padded table.
     cut = dict(stacked, comb=stacked["comb"][:, :1])
@@ -270,6 +272,11 @@ def test_group_tables_check_their_inputs():
     half = t16.Comb16GroupTables(**{**tabs.__dict__, "gscal": tabs.gscal[:1].contiguous()})
     with pytest.raises(ValueError):
         comb16_count_grouped(st.streams, st.warm, st.vend, half)
+    # The host copy of gscal must hold its rows (B11's one-group launch reads
+    # its bases there).
+    short = t16.Comb16GroupTables(**{**tabs.__dict__, "gscal_host": tabs.gscal_host[:1]})
+    with pytest.raises(ValueError, match="gscal_host"):
+        comb16_count_grouped(st.streams, st.warm, st.vend, short)
     with pytest.raises(ValueError):
         comb16_count_grouped(st.streams, st.warm[:3], st.vend, tabs)
 
@@ -349,10 +356,12 @@ def test_b11_matches_jax_fused_contains(fused, corpus):
     if corpus == "last":  # the hit lies in the last group only
         one = t16.Comb16GroupTables(**{**tabs.__dict__, **{
             k: getattr(tabs, k)[-1:].contiguous()
-            for k in ("classmap", "comb", "aux", "root_row", "segtable", "gscal")}})
+            for k in ("classmap", "comb", "aux", "root_row", "segtable", "gscal")},
+            "gscal_host": tabs.gscal_host[-1:]})
         rest = t16.Comb16GroupTables(**{**tabs.__dict__, **{
             k: getattr(tabs, k)[:-1].contiguous()
-            for k in ("classmap", "comb", "aux", "root_row", "segtable", "gscal")}})
+            for k in ("classmap", "comb", "aux", "root_row", "segtable", "gscal")},
+            "gscal_host": tabs.gscal_host[:-1]})
         assert torch.equal(comb16_contains_grouped(pst.streams, pst.vend, one), got)
         assert not comb16_contains_grouped(pst.streams, pst.vend, rest).any()
 

@@ -240,7 +240,7 @@ def eleven():
 
 
 def _groups(tables, g0, g1):
-    return dataclasses.replace(tables, **{
+    return dataclasses.replace(tables, gscal_host=tables.gscal_host[g0:g1], **{
         f: getattr(tables, f)[g0:g1].contiguous()
         for f in ("classmap", "comb", "aux", "root_row", "segtable", "gscal")})
 
