@@ -56,7 +56,7 @@ def sticky_tables_from_jax(cm, tab, n_states: int, k: int, packing: int, absorb:
     t = dense_tables_from_jax(cm, tab, n_states, k, packing, device)
     if not 0 <= absorb < n_states * k:
         raise ValueError(f"absorb entry {absorb} outside the {n_states}*{k} table")
-    return StickyTables(t.classmap, t.table, t.packing, t.state_bits, int(absorb))
+    return StickyTables(**t.__dict__, absorb=int(absorb))
 
 
 def bitap_tables_from_jax(btab, layout: BitapLayout, device) -> BitapTables:
@@ -115,12 +115,14 @@ def comb_tables_from_jax(engine, device):
     """``(count tables, sticky tables, full tables)`` of a
     ``CombPallasAcEngine``: its ``_classmap_dev``, ``_comb_dev`` and
     ``_def_dev`` with its ``comb`` as B15 tables, its ``_sticky_setup()`` as
-    B16 tables, and its ``_full_set()`` as B17 tables."""
+    B16 tables (with its machine's warm-up need), and its ``_full_set()``
+    as B17 tables."""
     count = _comb_tables(engine._classmap_dev, engine._comb_dev, engine._def_dev, engine.comb,
                          device)
     c = engine._sticky_setup()
     t = _comb_tables(c["cm"], c["comb_dev"], c["def_dev"], c["comb"], device)
-    sticky = CombStickyTables(**t.__dict__, absorb=int(c["absorb_base"]))
+    sticky = CombStickyTables(**t.__dict__, absorb=int(c["absorb_base"]),
+                              min_overlap=max(0, engine.machine.max_needle_bytes - 1))
     combf, (_, _, cm, comb, deft) = engine._full_set()
     return count, sticky, _comb_tables(cm, comb, deft, combf, device)
 

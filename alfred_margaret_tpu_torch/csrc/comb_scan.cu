@@ -6,8 +6,8 @@
 // _make_comb_contains_kernel (B16, from _get_contains_fn) and
 // _make_comb_states_kernel (B17, from _get_states_fn).  They compute what those
 // kernels compute, not how: the TPU versions gather 128-lane table rows with
-// select chains and split boundary tiles from interior ones; here every stream
-// (or every segment of it) is one thread and the tables (the class map, the
+// select chains and split boundary tiles from interior ones; here every
+// segment of a stream is one thread and the tables (the class map, the
 // comb array and the default rows, at most 48 rows of 128 words together,
 // 25 KB) sit in shared memory.
 //
@@ -28,21 +28,18 @@
 // vend.
 // B16, on the sticky view's tables: the same steps over t < vend[s]; out[s] =
 // the final base, which is `absorb` iff the stream saw a match.  The absorbing
-// state loops to itself, so a thread stops reading once it is there.
+// state loops to itself, so a scan may stop once it is there.
 // B17: every step t < T of every stream; out[t * S + s] = e, the packed entry
 // of the state entered at t (its count in bits 30..27, its state through the
 // host's inverse base table), also before warm, past vend and on padding.
 //
-// What bounds B16: a dependent chain of shared-memory loads per step (class,
-// then comb and default row), like B8: it is latency-bound, not bound by
-// device memory.  Stream bytes are loaded kChunk steps ahead into registers.
-// Left for later: the segmented design below.
-//
-// B15 and B17, redesigned for Hopper: with one thread per
-// stream, 32768 streams give about 8 warps per SM, and each thread waited on
-// device memory once per 16-byte chunk, in series with the chunk's steps:
-// the kernels were bound by latency with too few chains.  comb_seg_kernel,
-// one scan with a compile-time mode (count or states),
+// The design, for Hopper.  The first ports ran one thread per stream, bytes
+// loaded from device memory 16 steps ahead into registers, a class-map load
+// and the comb and default-row probes a step: 32768 streams gave each SM
+// about 8 warps, and each thread waited on device memory once per chunk, in
+// series with the chunk's steps, so the kernels were bound by latency with
+// too few chains.  comb_seg_kernel, one scan with a compile-time mode (count,
+// states or sticky),
 //   * splits each stream into `segments` pieces in the kernel (stage.cuh:
 //     each scans from the root `overlap` bytes early; B15 counts its own
 //     steps and the per-stream sums add with one atomicAdd, B17 writes the
@@ -63,6 +60,29 @@
 // Staging a tile's entries in shared memory and writing each row as 16-byte
 // stores was slower (0.372 against 0.290 ms, PERF.md section 6): it adds a
 // shared-memory store and load per entry to the pipe that bounds the chain.
+//
+// B16, the sticky mode, combines its segments as B3 (dense_count.cu) and B10
+// (comb16_grouped.cu) do.  Segment y scans [max(0, p_y - overlap),
+// min(p_{y+1}, vend[s])) from the root with no warm mask: an absorb there is
+// a real match in [0, vend), every real match ends in some segment's own
+// range, where that segment is in step, and a segment that never absorbs
+// runs the plain AC scan, so the owner of step vend[s] - 1 ends in the
+// stream's final base.  The wrapper fills out with root_base; a segment that
+// reaches `absorb` stores it with atomicExch at the end of that tile, and
+// the owner of step vend[s] - 1 stores its base with atomicCAS from
+// root_base; vend[s] = 0 keeps root_base.  A thread stops at its stop, once
+// its base is `absorb`, or once it reads `absorb` in out[s]: a relaxed load
+// issued at a tile's end and compared at the next tile's start (before the
+// first: the block's start check, which lets a block whose streams all hold
+// `absorb` leave before it loads a table), so that its latency hides behind
+// the barriers between tiles (B10's placement, PERF.md section 6).  A block
+// stops staging once every thread has stopped (staged_scan's vote).  The
+// wrapper refuses root_base = `absorb`: a sticky view's root never absorbs
+// (an empty needle matches nothing alone).  What bounds B16: as B15, the
+// comb and default-row probes a step, against the bytes up to each stream's
+// first match (its vend where it has none); but a warp steps until its last
+// stream stops, which on config 5's corpus is most of the steps (PERF.md
+// section 6).
 
 #include <cstddef>
 #include <cstdint>
@@ -74,7 +94,6 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kChunk = 16;
 // MAX_ROWS (48) rows of 128 int32 words for the comb array and the default
 // rows together.
 constexpr int kMaxTableWords = 48 * 128;
@@ -83,47 +102,16 @@ constexpr uint32_t kBaseMask = (1u << kBaseBits) - 1u;
 constexpr int kCountShift = 27;
 
 struct Comb {
-  const uint32_t* cm;    // [256] byte -> class
   const uint32_t* comb;  // [m_pad] displaced exception entries
   const uint32_t* def;   // [def_words] default rows, D * k entries used
   uint32_t m_pad, def_last, k, owner_shift, owner_mask, def_mask;
 
-  __device__ __forceinline__ uint32_t entry(uint32_t cb, uint32_t df, uint32_t b) const {
-    const uint32_t cls = cm[b];
-    const uint32_t w = cb + cls;
-    const uint32_t v = comb[min(w, m_pad - 1u)];
-    const uint32_t r = def[min(df * k + cls, def_last)];
-    const bool hit = w < m_pad && ((v >> owner_shift) & owner_mask) == (cb & owner_mask);
-    return hit ? v : r;
-  }
   __device__ __forceinline__ uint32_t def_of(uint32_t e) const {
     return (e >> kBaseBits) & def_mask;
   }
 };
 
-// Copy the tables into shared memory (every thread of the block takes part;
-// the caller synchronises before the first lookup).
-__device__ inline Comb load_comb(uint32_t* smem, const int32_t* __restrict__ classmap,
-                                 const int32_t* __restrict__ comb, int comb_words,
-                                 const int32_t* __restrict__ deft, int def_words, int k,
-                                 int owner_bits) {
-  uint32_t* cm = smem;
-  uint32_t* cw = cm + 256;
-  uint32_t* dw = cw + comb_words;
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) cm[i] = (uint32_t)classmap[i];
-  for (int i = threadIdx.x; i < comb_words; i += blockDim.x) cw[i] = (uint32_t)comb[i];
-  for (int i = threadIdx.x; i < def_words; i += blockDim.x) dw[i] = (uint32_t)deft[i];
-  const int def_bits = 14 - owner_bits;
-  return Comb{cm, cw, dw, (uint32_t)comb_words, (uint32_t)(def_words - 1), (uint32_t)k,
-              (uint32_t)(kBaseBits + def_bits), (1u << owner_bits) - 1u, (1u << def_bits) - 1u};
-}
-
-size_t smem_bytes(int comb_words, int def_words) {
-  return (size_t)(256 + comb_words + def_words) * sizeof(uint32_t);
-}
-
-// B15's step from (cb, df) on a byte class already looked up: Comb::entry
-// without its class-map read.
+// The step from (cb, df) on a byte class already looked up.
 __device__ __forceinline__ uint32_t comb_entry_cls(const Comb& c, uint32_t cb, uint32_t df,
                                                    uint32_t cls) {
   const uint32_t w = cb + cls;
@@ -133,7 +121,7 @@ __device__ __forceinline__ uint32_t comb_entry_cls(const Comb& c, uint32_t cb, u
   return hit ? v : r;
 }
 
-// B15's shared memory: the replicated class map, the comb array and the
+// The scan's shared memory: the replicated class map, the comb array and the
 // default rows (in 32-bit words, rounded up to 16 bytes), then two tiles.
 constexpr int kMaxSegments = 64;
 
@@ -155,19 +143,31 @@ bool args_ok(int T, int S, int comb_words, int def_words, int k, int owner_bits,
 }
 
 // The segmented scan's modes (a template parameter).
-enum SegMode : int { kSegCount = 0, kSegStates = 1 };
+enum SegMode : int { kSegCount = 0, kSegStates = 1, kSegSticky = 2 };
 
 // Block (x, y) scans streams [128 x, 128 x + 128), segment y.  The count
 // (B15) adds the steps [max(p_y, warm[s]), min(p_{y+1}, vend[s])); the
 // states (B17) write every row of the segment's own range [p_y, p_{y+1})
-// (warm and vend are not read).
+// (warm and vend are not read); the sticky scan (B16) steps [max(0, p_y -
+// overlap), min(p_{y+1}, vend[s])) and stores its final base (above; warm is
+// not read).
 template <int kMode>
 __global__ void __launch_bounds__(kThreads) comb_seg_kernel(
     const uint8_t* __restrict__ streams, int T, int S, const int32_t* __restrict__ warm,
     const int32_t* __restrict__ vend, const int32_t* __restrict__ classmap,
     const int32_t* __restrict__ comb, int comb_words, const int32_t* __restrict__ deft,
     int def_words, int k, int owner_bits, int overlap, int segments, int tile, uint32_t root_base,
-    uint32_t root_def, int32_t* __restrict__ out) {
+    uint32_t root_def, uint32_t absorb, int32_t* __restrict__ out) {
+  // Sticky: out[s] as the thread last read it, before a tile (-1: none).
+  int32_t polled = -1;
+  if constexpr (kMode == kSegSticky) {
+    // A block whose streams all hold the absorbing base already, stored by
+    // other segments' blocks, has nothing left to decide: it leaves before
+    // it loads a table.
+    const int sb = blockIdx.x * kThreads + threadIdx.x;
+    if (sb < S) polled = amt::ld_relaxed(out + sb);
+    if (__syncthreads_and(sb >= S || polled == (int32_t)absorb)) return;
+  }
   extern __shared__ __align__(16) uint32_t smem[];
   __shared__ int stop_slot;
   uint32_t* rep = smem;
@@ -177,7 +177,7 @@ __global__ void __launch_bounds__(kThreads) comb_seg_kernel(
   for (int i = threadIdx.x; i < comb_words; i += blockDim.x) cw[i] = (uint32_t)comb[i];
   for (int i = threadIdx.x; i < def_words; i += blockDim.x) dw[i] = (uint32_t)deft[i];
   const int def_bits = 14 - owner_bits;
-  const Comb c{nullptr, cw, dw, (uint32_t)comb_words, (uint32_t)(def_words - 1), (uint32_t)k,
+  const Comb c{cw, dw, (uint32_t)comb_words, (uint32_t)(def_words - 1), (uint32_t)k,
                (uint32_t)(kBaseBits + def_bits), (1u << owner_bits) - 1u, (1u << def_bits) - 1u};
   uint8_t* tiles = reinterpret_cast<uint8_t*>(smem + seg_table_words(comb_words, def_words));
 
@@ -207,6 +207,39 @@ __global__ void __launch_bounds__(kThreads) comb_seg_kernel(
     };
     amt::staged_scan(tiles, tile, streams, S, s0, seg.start, stop, rep, scan);
     if (count) atomicAdd(out + s, (int32_t)count);
+  } else if constexpr (kMode == kSegSticky) {
+    const int hi = s < S ? min(seg.hi, min(vend[s], T)) : 0;  // the steps [seg.start, hi)
+    const int stop = amt::block_stop(&stop_slot, seg.start, hi);  // also orders the table loads
+    // A thread is done at hi, once its base is `absorb` (which loops to
+    // itself: it stores it at the end of that tile), or once the poll read
+    // `absorb`, which another segment stored and which is final (a stale
+    // read only delays the stop, and the stopped segment's CAS then fails).
+    bool done = s >= S;
+    auto scan = [&](const uint8_t* tile, int t0, int rows) -> bool {
+      if (!done) {
+        done = polled == (int32_t)absorb;
+        if (!done) {
+          const uint8_t* col = tile + threadIdx.x;
+          const int r = min(rows, hi - t0);
+#pragma unroll 4
+          for (int j = 0; j < r; ++j) {
+            const uint32_t e = comb_entry_cls(c, cb, df, col[j * amt::kRowBytes]);
+            cb = e & kBaseMask;
+            df = c.def_of(e);
+          }
+          done = t0 + rows >= hi || cb == absorb;
+          if (cb == absorb) atomicExch(out + s, (int32_t)absorb);
+          else if (!done) polled = amt::ld_relaxed(out + s);
+        }
+      }
+      return done;
+    };
+    amt::staged_scan(tiles, tile, streams, S, s0, seg.start, stop, rep, scan);
+    if (s < S && cb != absorb) {
+      const int v = min(vend[s], T);
+      if (v > seg.lo && v <= seg.hi)  // this segment's own range holds step v - 1
+        atomicCAS(out + s, (int32_t)root_base, (int32_t)cb);
+    }
   } else {
     __syncthreads();  // the table loads
     // Entries are read once more (compact_packed) after the whole array
@@ -228,46 +261,11 @@ __global__ void __launch_bounds__(kThreads) comb_seg_kernel(
   }
 }
 
-__global__ void __launch_bounds__(kThreads) comb_contains_kernel(
-    const uint8_t* __restrict__ streams, int T, int S, const int32_t* __restrict__ vend,
-    const int32_t* __restrict__ classmap, const int32_t* __restrict__ comb, int comb_words,
-    const int32_t* __restrict__ deft, int def_words, int k, int owner_bits, int root_base,
-    int root_def, uint32_t absorb, int32_t* __restrict__ out) {
-  extern __shared__ uint32_t smem[];
-  const Comb c = load_comb(smem, classmap, comb, comb_words, deft, def_words, k, owner_bits);
-  __syncthreads();
-
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= S) return;
-  const int v0 = min(vend[s], T);
-  const uint8_t* col = streams + s;
-  uint32_t cb = (uint32_t)root_base, df = (uint32_t)root_def;
-
-  int t = 0;
-  for (; t + kChunk <= v0 && cb != absorb; t += kChunk) {
-    uint8_t b[kChunk];
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) b[j] = col[(size_t)(t + j) * S];
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) {
-      const uint32_t e = c.entry(cb, df, b[j]);
-      cb = e & kBaseMask;
-      df = c.def_of(e);
-    }
-  }
-  for (; t < v0 && cb != absorb; ++t) {
-    const uint32_t e = c.entry(cb, df, col[(size_t)t * S]);
-    cb = e & kBaseMask;
-    df = c.def_of(e);
-  }
-  out[s] = (int32_t)cb;
-}
-
 template <int kMode>
 int launch_seg(size_t smem, int S, int segments, cudaStream_t stream, const void* streams, int T,
                const void* warm, const void* vend, const void* classmap, const void* comb,
                int comb_words, const void* deft, int def_words, int k, int owner_bits,
-               int root_base, int root_def, int overlap, void* out) {
+               int root_base, int root_def, int absorb, int overlap, void* out) {
   auto kernel = comb_seg_kernel<kMode>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -277,7 +275,7 @@ int launch_seg(size_t smem, int S, int segments, cudaStream_t stream, const void
       (const uint8_t*)streams, T, S, (const int32_t*)warm, (const int32_t*)vend,
       (const int32_t*)classmap, (const int32_t*)comb, comb_words, (const int32_t*)deft,
       def_words, k, owner_bits, overlap, segments, amt::kTile, (uint32_t)root_base,
-      (uint32_t)root_def, (int32_t*)out);
+      (uint32_t)root_def, (uint32_t)absorb, (int32_t*)out);
   return (int)cudaGetLastError();
 }
 
@@ -299,25 +297,26 @@ extern "C" int amt_comb_count(const void* streams, int T, int S, const void* war
   return launch_seg<kSegCount>(seg_smem_bytes(comb_words, def_words), S, segments,
                                (cudaStream_t)stream, streams, T, warm, vend, classmap, comb,
                                comb_words, deft, def_words, k, owner_bits, root_base, root_def,
-                               overlap, out);
+                               0, overlap, out);
 }
 
-// B16: out int32 [S], the final bases.  As amt_comb_count otherwise.
+// B16: out int32 [S], filled with root_base by the caller: the final base of
+// each stream on the sticky view's tables, `absorb` iff the stream saw a
+// match in [0, vend[s]); each of the `segments` pieces of every stream
+// stores by the protocol above.  As amt_comb_count otherwise.
 extern "C" int amt_comb_contains(const void* streams, int T, int S, const void* vend,
                                  const void* classmap, const void* comb, int comb_words,
                                  const void* deft, int def_words, int k, int owner_bits,
-                                 int root_base, int root_def, int absorb, void* out,
-                                 void* stream) {
+                                 int root_base, int root_def, int absorb, int overlap,
+                                 int segments, void* out, void* stream) {
   if (!args_ok(T, S, comb_words, def_words, k, owner_bits, root_base, root_def) || absorb < 0 ||
-      absorb > (int)kBaseMask)
+      absorb > (int)kBaseMask || absorb == root_base || overlap < 0 || segments < 1 ||
+      segments > kMaxSegments)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((S + kThreads - 1) / kThreads);
-  comb_contains_kernel<<<grid, kThreads, smem_bytes(comb_words, def_words),
-                         (cudaStream_t)stream>>>(
-      (const uint8_t*)streams, T, S, (const int32_t*)vend, (const int32_t*)classmap,
-      (const int32_t*)comb, comb_words, (const int32_t*)deft, def_words, k, owner_bits,
-      root_base, root_def, (uint32_t)absorb, (int32_t*)out);
-  return (int)cudaGetLastError();
+  return launch_seg<kSegSticky>(seg_smem_bytes(comb_words, def_words), S, segments,
+                                (cudaStream_t)stream, streams, T, nullptr, vend, classmap, comb,
+                                comb_words, deft, def_words, k, owner_bits, root_base, root_def,
+                                absorb, overlap, out);
 }
 
 // B17: out int32 [T, S], the packed entry at every step; each of the
@@ -334,5 +333,5 @@ extern "C" int amt_comb_states(const void* streams, int T, int S, const void* cl
   return launch_seg<kSegStates>(seg_smem_bytes(comb_words, def_words), S, segments,
                                 (cudaStream_t)stream, streams, T, nullptr, nullptr, classmap,
                                 comb, comb_words, deft, def_words, k, owner_bits, root_base,
-                                root_def, overlap, out);
+                                root_def, 0, overlap, out);
 }

@@ -26,7 +26,9 @@ __device__ __forceinline__ uint32_t dense_lookup(const uint32_t* tab, uint32_t i
 }
 
 // One step of a stream on a byte class already looked up (the segmented
-// scans translate their staged tiles to classes in place).
+// scans translate their staged tiles to classes in place): the call returns
+// the step's count (B1, B3, B6), entry() the whole packed entry (B5,
+// zero-extended from 16 bits at packing 2).  Both carry the same state.
 template <int PACKING>
 struct DenseStep {
   const uint32_t* tab;
@@ -37,6 +39,11 @@ struct DenseStep {
     const uint32_t v = dense_lookup<PACKING>(tab, carry + cls);
     carry = v & mask;
     return v >> state_bits;
+  }
+  __device__ __forceinline__ uint32_t entry(uint32_t cls) {
+    const uint32_t v = dense_lookup<PACKING>(tab, carry + cls);
+    carry = v & mask;
+    return v;
   }
 };
 

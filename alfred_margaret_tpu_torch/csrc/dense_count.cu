@@ -1,5 +1,5 @@
-// B1 dense_count: the byte-class-compressed DFA count kernel for Hopper, and
-// B3 dense_contains, its sticky mode.
+// B1 dense_count: the byte-class-compressed DFA count kernel for Hopper, B3
+// dense_contains, its sticky mode, and B5 dense_states, its states mode.
 //
 // B1 replaces the Pallas TPU kernel alfred_margaret_tpu/ops/pallas_scan.py:
 // _make_count_kernel (launched from PallasAcEngine._get_count_fn and, per
@@ -72,14 +72,27 @@
 //
 // B5 dense_states, the packed entry at every step, replaces the Pallas TPU
 // kernel pallas_scan.py:_make_states_kernel (launched from
-// PallasAcEngine._get_states_fn).  The same lookup from sbase = 0, with no
-// [warm, vend) window: every step t < T writes
+// PallasAcEngine._get_states_fn and, per shard, from the sharded engine's
+// states step, parallel/shard.py:1134).  The same lookup from the root, with
+// no [warm, vend) window: every step t < T of every stream writes
 //   out[t * S + s] = v
-// (a warp's threads hold neighbouring streams, so its stores are coalesced),
-// and the host picks the window (match extraction, the final_states stitch).
-// It moves 5 bytes per step (one read, one 4-byte write), 692 MB at 128 MiB,
-// against B1's one.  It still runs one thread per stream, bytes loaded
-// kChunk steps ahead into registers, with two shared-memory loads a step.
+// (the whole entry, zero-extended from 16 bits at packing 2), before warm,
+// past vend and on padding too, and the host picks the window (match
+// extraction, the final_states stitch).  The first port ran one thread per
+// stream over all T steps, bytes loaded 16 steps ahead into registers, two
+// shared-memory loads a step.  Now it is B1's scan in a compile-time states
+// mode, as B17 is B15's (comb_scan.cu):
+//   * block (x, y) scans its 128 streams from the root at max(0, p_y -
+//     overlap) and writes every row of its own range [p_y, p_{y+1}), each
+//     row once: the plan's overlap brings a restarted scan into the stream's
+//     state by p_y (stage.cuh), so the rows are the unsplit scan's;
+//   * the bytes are staged a tile ahead and translated to classes in place,
+//     so the chain is one packed-table load a step;
+//   * the stores are evict-first (__stcs): the entries are read once more,
+//     by compact_packed or the final_states gather, after the whole array
+//     passed through L2.
+// What bounds B5: the 4-byte write a step, 553.6 MB at 128 MiB (0.165 ms of
+// the 0.207 ms bound at 3.35 TB/s), each warp 128 contiguous bytes a step.
 
 #include <climits>
 #include <cstdint>
@@ -91,13 +104,16 @@
 namespace {
 
 constexpr int kThreads = amt::kStageThreads;
-constexpr int kChunk = 16;
 constexpr int kMaxSegments = 64;
 
+// The scan's modes (a template parameter).
+enum Mode : int { kCount = 0, kSticky = 1, kStates = 2 };
+
 // Block (x, y): streams s_base + [128 x, 128 x + 128) of the n from s_base,
-// segment y.  B1 counts (STICKY false, the whole [0, S)); B3 carries the
-// sticky entry (STICKY true, below).
-template <int PACKING, bool STICKY>
+// segment y.  B1 counts (kCount, the whole [0, S)); B3 carries the sticky
+// entry (kSticky, below); B5 writes the entries of the segment's own range
+// to out [T, S] (kStates, the whole [0, S); warm and vend are not read).
+template <int PACKING, int MODE>
 __global__ void __launch_bounds__(kThreads) dense_count_kernel(
     const uint8_t* __restrict__ streams, int T, int S, const int32_t* __restrict__ classmap,
     const int32_t* __restrict__ table, int table_words, const int32_t* __restrict__ warm,
@@ -114,6 +130,24 @@ __global__ void __launch_bounds__(kThreads) dense_count_kernel(
   const amt::SegSteps seg = amt::segment_steps(blockIdx.y, segments, T, overlap);
   const int i0 = blockIdx.x * kThreads;
   const int i = i0 + threadIdx.x;  // this thread's stream: s_base + i
+  amt::DenseStep<PACKING> step{tab, (1u << state_bits) - 1u, state_bits, 0u};
+  if constexpr (MODE == kStates) {
+    // staged_scan's first barrier orders the table loads.
+    const int lo = i < n ? seg.lo : INT_MAX;  // the rows this thread writes from
+    int32_t* dst = out + i;
+    auto scan = [&](const uint8_t* cur, int t0, int rows) {
+      const uint8_t* col = cur + threadIdx.x;
+#pragma unroll 4
+      for (int j = 0; j < rows; ++j) {
+        const uint32_t e = step.entry(col[j * amt::kRowBytes]);
+        const int t = t0 + j;
+        if (t >= lo) __stcs(dst + (size_t)t * S, (int32_t)e);
+      }
+    };
+    amt::staged_scan(tiles, tile, streams, S, i0, seg.start, seg.hi, rep, scan);
+    return;
+  }
+  constexpr bool STICKY = MODE == kSticky;
   // B1 counts the steps [lo, hi); B3 scans [seg.start, hi).
   int lo = INT_MAX, hi = 0;
   if (i < n) {
@@ -122,7 +156,6 @@ __global__ void __launch_bounds__(kThreads) dense_count_kernel(
   }
   const int stop = amt::block_stop(&stop_slot, lo, hi);  // also orders the table loads
 
-  amt::DenseStep<PACKING> step{tab, (1u << state_bits) - 1u, state_bits, 0u};
   if constexpr (!STICKY) {
     uint32_t count = 0;
     auto scan = [&](const uint8_t* cur, int t0, int rows) {
@@ -168,56 +201,19 @@ __global__ void __launch_bounds__(kThreads) dense_count_kernel(
   }
 }
 
-template <int PACKING>
-__global__ void __launch_bounds__(kThreads) dense_states_kernel(
-    const uint8_t* __restrict__ streams, int T, int S,
-    const int32_t* __restrict__ classmap, const int32_t* __restrict__ table,
-    int table_words, int state_bits, int32_t* __restrict__ out) {
-  __shared__ uint32_t cm[256];
-  extern __shared__ uint32_t tab[];
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) cm[i] = (uint32_t)classmap[i];
-  for (int i = threadIdx.x; i < table_words; i += blockDim.x) tab[i] = (uint32_t)table[i];
-  __syncthreads();
-
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= S) return;
-  const uint32_t mask = (1u << state_bits) - 1u;
-  const uint8_t* col = streams + s;
-  int32_t* dst = out + s;
-  uint32_t sbase = 0;
-
-  int t = 0;
-  for (; t + kChunk <= T; t += kChunk) {
-    uint8_t b[kChunk];
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) b[j] = col[(size_t)(t + j) * S];
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) {
-      const uint32_t v = amt::dense_lookup<PACKING>(tab, sbase + cm[b[j]]);
-      sbase = v & mask;
-      dst[(size_t)(t + j) * S] = (int32_t)v;
-    }
-  }
-  for (; t < T; ++t) {
-    const uint32_t v = amt::dense_lookup<PACKING>(tab, sbase + cm[col[(size_t)t * S]]);
-    sbase = v & mask;
-    dst[(size_t)t * S] = (int32_t)v;
-  }
-}
-
 bool args_ok(int T, int S, int table_words, int packing, int state_bits) {
   return T >= 0 && S > 0 && table_words > 0 && table_words <= amt::kMaxDenseTableWords &&
          state_bits > 0 && state_bits < 32 && (packing == 1 || packing == 2);
 }
 
-template <int PACKING, bool STICKY>
+template <int PACKING, int MODE>
 int launch_dense(int T, int S, int table_words, int segments, int n, cudaStream_t stream,
                  const void* streams, const void* classmap, const void* table, const void* warm,
                  const void* vend, int state_bits, int overlap, int s_base, uint32_t absorb,
                  void* out) {
   const size_t smem =
       (size_t)amt::dense_words(table_words) * sizeof(uint32_t) + amt::kStageBytes;
-  auto kernel = dense_count_kernel<PACKING, STICKY>;
+  auto kernel = dense_count_kernel<PACKING, MODE>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -242,7 +238,7 @@ extern "C" int amt_dense_count(const void* streams, int T, int S,
   if (!args_ok(T, S, table_words, packing, state_bits) || overlap < 0 || segments < 1 ||
       segments > kMaxSegments)
     return (int)cudaErrorInvalidValue;
-  auto launch = packing == 1 ? launch_dense<1, false> : launch_dense<2, false>;
+  auto launch = packing == 1 ? launch_dense<1, kCount> : launch_dense<2, kCount>;
   return launch(T, S, table_words, segments, S, (cudaStream_t)stream, streams, classmap, table,
                 warm, vend, state_bits, overlap, 0, 0u, out);
 }
@@ -257,27 +253,21 @@ extern "C" int amt_dense_contains(const void* streams, int T, int S, const void*
   if (!args_ok(T, S, table_words, packing, state_bits) || s0 < 0 || s1 <= s0 || s1 > S ||
       absorb < 0 || overlap < 0 || segments < 1 || segments > kMaxSegments)
     return (int)cudaErrorInvalidValue;
-  auto launch = packing == 1 ? launch_dense<1, true> : launch_dense<2, true>;
+  auto launch = packing == 1 ? launch_dense<1, kSticky> : launch_dense<2, kSticky>;
   return launch(T, S, table_words, segments, s1 - s0, (cudaStream_t)stream, streams, classmap,
                 table, nullptr, vend, state_bits, overlap, s0, (uint32_t)absorb, out);
 }
 
-// B5: out int32 [T, S], the packed entry at every step.
-extern "C" int amt_dense_states(const void* streams, int T, int S,
-                                const void* classmap, const void* table,
-                                int table_words, int packing, int state_bits,
-                                void* out, void* stream) {
-  if (!args_ok(T, S, table_words, packing, state_bits)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((S + kThreads - 1) / kThreads);
-  const size_t smem = (size_t)table_words * sizeof(uint32_t);
-  cudaStream_t st = (cudaStream_t)stream;
-  const uint8_t* sp = (const uint8_t*)streams;
-  const int32_t* cp = (const int32_t*)classmap;
-  const int32_t* tp = (const int32_t*)table;
-  int32_t* op = (int32_t*)out;
-  if (packing == 1)
-    dense_states_kernel<1><<<grid, kThreads, smem, st>>>(sp, T, S, cp, tp, table_words, state_bits, op);
-  else
-    dense_states_kernel<2><<<grid, kThreads, smem, st>>>(sp, T, S, cp, tp, table_words, state_bits, op);
-  return (int)cudaGetLastError();
+// B5: out int32 [T, S], the packed entry at every step; each of the
+// `segments` pieces of every stream writes the rows of its own range.  As
+// amt_dense_count otherwise.
+extern "C" int amt_dense_states(const void* streams, int T, int S, const void* classmap,
+                                const void* table, int table_words, int packing, int state_bits,
+                                int overlap, int segments, void* out, void* stream) {
+  if (!args_ok(T, S, table_words, packing, state_bits) || overlap < 0 || segments < 1 ||
+      segments > kMaxSegments)
+    return (int)cudaErrorInvalidValue;
+  auto launch = packing == 1 ? launch_dense<1, kStates> : launch_dense<2, kStates>;
+  return launch(T, S, table_words, segments, S, (cudaStream_t)stream, streams, classmap, table,
+                nullptr, nullptr, state_bits, overlap, 0, 0u, out);
 }

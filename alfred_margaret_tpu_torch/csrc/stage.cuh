@@ -1,8 +1,8 @@
-// Stream staging for the segmented scans B1 and B3 (dense_count.cu), B2 and
-// B4 (bitap_count.cu), B6 (matchbits.cu), B8, B9, B10, B11, B12 and B13
-// (comb16_grouped.cu), B14 (filter_contains.cu), B15 and B17 (comb_scan.cu):
-// a block's tile of stream bytes copied into shared memory ahead of the
-// scan, and the per-segment step ranges.
+// Stream staging for the segmented scans B1, B3 and B5 (dense_count.cu), B2
+// and B4 (bitap_count.cu), B6 (matchbits.cu), B8, B9, B10, B11, B12 and B13
+// (comb16_grouped.cu), B14 (filter_contains.cu), B15, B16 and B17
+// (comb_scan.cu): a block's tile of stream bytes copied into shared memory
+// ahead of the scan, and the per-segment step ranges.
 //
 // A block owns 128 streams [s0, s0 + 128).  Step t of those streams is the
 // contiguous 128-byte run streams[t * S + s0 ...]; a tile of kTile steps is
@@ -25,14 +25,14 @@
 // start, whatever the bytes (NUL and padding too).  So a count over the
 // steps max(p_i, warm[s]) <= t < min(p_{i+1}, vend[s]) is exact and adds
 // per stream (B1, B8, B9, B15); a state written for each step of the own
-// range is the stream's (B12, B17); and a sticky scan up to min(p_{i+1},
-// vend[s]) absorbs iff a needle ends in [0, vend) inside its scanned steps,
-// every match ending in some segment's own range (B3, B10, B11).  The
-// bitmap scans (B6, B13) cut at word boundaries instead (word_segment_steps):
-// each segment writes the words of its own range, every one of them, and
-// counts as B15 does.  The stride-2 screen (B14) steps over byte pairs and
-// cuts at even steps (pair_segment_steps), restarting a layout-derived even
-// number of bytes early.  kernels/segments.py is the same split.
+// range is the stream's (B5, B12, B17); and a sticky scan up to
+// min(p_{i+1}, vend[s]) absorbs iff a needle ends in [0, vend) inside its
+// scanned steps, every match ending in some segment's own range (B3, B10,
+// B11, B16).  The bitmap scans (B6, B13) cut at word boundaries instead
+// (word_segment_steps): each segment writes the words of its own range,
+// every one of them, and counts as B15 does.  The stride-2 screen (B14)
+// steps over byte pairs and cuts at even steps (pair_segment_steps),
+// restarting a layout-derived even number of bytes early.  kernels/segments.py is the same split.
 
 #pragma once
 
@@ -161,7 +161,7 @@ __device__ __forceinline__ SegSteps pair_segment_steps(int i, int segments, int 
 }
 
 // A relaxed load of a word that other blocks store to (the sticky scans'
-// poll of a stream's output, B3 and B10).
+// poll of a stream's output, B3, B10 and B16).
 __device__ __forceinline__ int32_t ld_relaxed(const int32_t* p) {
   int32_t v;
   asm volatile("ld.relaxed.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p));

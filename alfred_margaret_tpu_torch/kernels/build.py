@@ -79,6 +79,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, i, i,  # streams, T, S
         p, p, i,  # classmap, table, table_words
         i, i,  # packing, state_bits
+        i, i,  # overlap, segments
         p, p,  # out, stream
     ]
     lib.amt_bitap_count.restype = i
@@ -187,7 +188,11 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, p,  # out, stream
     ]
     lib.amt_comb_contains.restype = i
-    lib.amt_comb_contains.argtypes = [p, i, i, p, *comb, i, p, p]  # ..., vend, ..., absorb
+    lib.amt_comb_contains.argtypes = [
+        p, i, i, p, *comb,  # streams, T, S, vend, ...
+        i, i, i,  # absorb, overlap, segments
+        p, p,  # out, stream
+    ]
     lib.amt_comb_states.restype = i
     lib.amt_comb_states.argtypes = [
         p, i, i, *comb,  # streams, T, S, ...

@@ -3,9 +3,10 @@
 
 Wrappers of ``csrc/comb_scan.cu``, which replaces the Pallas kernels
 ``alfred_margaret_tpu/ops/comb_scan.py:_make_comb_count_kernel`` (B15),
-``_make_comb_contains_kernel`` (B16) and ``_make_comb_states_kernel`` (B17).
-A CUDA tensor launches the kernel; a CPU tensor runs the plain torch version.
-Nothing falls back from one to the other.
+``_make_comb_contains_kernel`` (B16) and ``_make_comb_states_kernel`` (B17)
+by the count, sticky and states modes of one segmented scan.  A CUDA tensor
+launches the kernel; a CPU tensor runs the plain torch version.  Nothing
+falls back from one to the other.
 
 The tables are ``CombTables.args()``: ``classmap`` [256], ``comb``
 [rows_c * 128] (the displaced exception entries), ``def_table`` [rows_d *
@@ -134,16 +135,17 @@ def comb_count(streams, warm, vend, classmap, comb, def_table, k, owner_bits, ro
 
 
 def comb_count_design(streams, comb, def_table, overlap=None) -> Design:
-    """The segments ``comb_count`` and ``comb_states`` cut these CUDA
-    streams into (the same shared memory, so the same rule)."""
+    """The segments ``comb_count``, ``comb_contains`` and ``comb_states`` cut
+    these CUDA streams into (the same shared memory, so the same rule)."""
     T, S = streams.shape
     return comb_design(S, T, overlap, comb.numel(), def_table.numel(), sm_count(streams.device))
 
 
 def comb_contains_plain(streams, vend, classmap, comb, def_table, k, owner_bits, root_base,
-                        root_def, absorb):
+                        root_def, absorb, overlap=None):
     """Plain torch version of B16: one lookup per time step, the state held
-    where ``t >= vend``.  (``absorb`` only lets the kernel stop early.)"""
+    where ``t >= vend``.  (``absorb`` only lets the kernel stop early, and
+    ``overlap`` cut the streams into segments.)"""
     T, S = streams.shape
     p = PlainComb(classmap, comb, def_table, k, owner_bits, root_base, root_def)
     vend = vend.long()
@@ -156,23 +158,35 @@ def comb_contains_plain(streams, vend, classmap, comb, def_table, k, owner_bits,
 
 
 def comb_contains(streams, vend, classmap, comb, def_table, k, owner_bits, root_base, root_def,
-                  absorb):
+                  absorb, overlap=None):
     """int32 [S]: the final base of each stream of ``streams`` ([T, S]
     uint8) on the sticky view's tables, scanned from the root over ``t <
-    vend[s]``.  A stream saw a match iff its base is ``absorb``."""
+    vend[s]``.  A stream saw a match iff its base is ``absorb``.  With the
+    stream plan's ``overlap`` the kernel may cut each stream into segments
+    (B15's rule), whose final bases combine exactly
+    (``kernels/segments.py:entry_over_segments``) while the overlap brings a
+    restarted scan into the stream's state, which
+    ``CombStickyTables.check_overlap`` checks for the callers; without, it
+    scans each whole."""
     check_comb(streams, classmap, comb, def_table, k, owner_bits, root_base, root_def, vend=vend)
     if not 0 <= absorb <= BASE_MASK:
         raise ValueError(f"absorbing base {absorb} outside the {BASE_BITS}-bit base field")
+    if absorb == root_base:  # no sticky view's root absorbs: the tables are not one
+        raise ValueError(f"absorbing base {absorb} is the root's")
+    check_overlap(overlap)
     if on_cpu(streams):
         return comb_contains_plain(streams, vend, classmap, comb, def_table, k, owner_bits,
                                    root_base, root_def, absorb)
     T, S = streams.shape
-    out = torch.empty(S, dtype=torch.int32, device=streams.device)
+    d = comb_count_design(streams, comb, def_table, overlap)
+    # The root base, which the owner of each stream's last step replaces.
+    out = torch.full((S,), root_base, dtype=torch.int32, device=streams.device)
     launch(
         "amt_comb_contains", streams.device,
         streams.data_ptr(), T, S, vend.data_ptr(),
         classmap.data_ptr(), comb.data_ptr(), comb.numel(), def_table.data_ptr(),
-        def_table.numel(), k, owner_bits, root_base, root_def, absorb, out.data_ptr(),
+        def_table.numel(), k, owner_bits, root_base, root_def, absorb, overlap or 0, d.segments,
+        out.data_ptr(),
     )
     comb_contains.launches += 1
     return out
@@ -215,7 +229,6 @@ def comb_states(streams, classmap, comb, def_table, k, owner_bits, root_base, ro
     )
     comb_states.launches += 1
     return out
-
 
 
 #: Kernel launches since the last reset (CPU calls do not count).

@@ -7,10 +7,13 @@ Wrappers of ``csrc/dense_count.cu``, which replaces the Pallas kernels
 runs the plain version, the same function as a torch loop over time.  Nothing
 falls back from one to the other.
 
-With the stream plan's ``overlap`` B1 cuts each stream into segments
-(``kernels/segments.py:run_segments``): a block scans 128 streams of one
-segment from the root ``overlap`` bytes early, bytes staged a tile of 32
-steps ahead and translated to classes in place.
+With the stream plan's ``overlap`` both cut each stream into segments: a
+block scans 128 streams of one segment from the root ``overlap`` bytes early,
+bytes staged a tile of 32 steps ahead and translated to classes in place.
+B1's segments add their counts (``kernels/segments.py:run_segments``), B5's
+each write the rows of their own range (``kernels/segments.py:
+stitch_segments``), exact while the overlap brings a restarted scan into the
+stream's state, which ``DenseTables.check_overlap`` checks for the callers.
 """
 
 from __future__ import annotations
@@ -102,8 +105,9 @@ def dense_count(streams, classmap, table, warm, vend, packing: int, state_bits: 
     return out
 
 
-def dense_states_plain(streams, classmap, table, packing: int, state_bits: int):
-    """Plain torch version of B5: the entry of every step."""
+def dense_states_plain(streams, classmap, table, packing: int, state_bits: int, overlap=None):
+    """Plain torch version of B5: the entry of every step.  (``overlap``
+    only lets the kernel cut the streams into segments.)"""
     T, S = streams.shape
     cm = classmap.long()
     tab = table.long() & 0xFFFFFFFF
@@ -116,20 +120,40 @@ def dense_states_plain(streams, classmap, table, packing: int, state_bits: int):
     return out.to(torch.int32)
 
 
-def dense_states(streams, classmap, table, packing: int, state_bits: int):
+#: Steps of B5's shortest segment (four tiles).  A shorter one spends more on
+#: its restart and its block's table load than the extra blocks gain: on a
+#: mesh shard of 640 steps (S7), k = 4 took 0.031 ms and B1's k = 16 0.042
+#: (``PERF.md`` section 6).
+MIN_STATES_SEGMENT_STEPS = 128
+
+
+def dense_states_design(streams, table, overlap=None) -> Design:
+    """The segments ``dense_states`` cuts these CUDA streams into for
+    ``table``: B1's rule, with the same shared memory, but no segment shorter
+    than ``MIN_STATES_SEGMENT_STEPS``."""
+    k = dense_count_design(streams, table, overlap).segments
+    return Design(max(1, min(k, streams.shape[0] // MIN_STATES_SEGMENT_STEPS)))
+
+
+def dense_states(streams, classmap, table, packing: int, state_bits: int, overlap=None):
     """int32 [T, S]: the packed entry ``count << state_bits | next_state * k``
     of the state each stream of ``streams`` ([T, S] uint8) enters at every
     step t, scanned from the root with no emission window (packing 2: the
-    16-bit entry, zero-extended)."""
+    16-bit entry, zero-extended).  With the stream plan's ``overlap`` the
+    kernel may cut each stream into segments, each writing the rows of its
+    own range; without, it scans each whole."""
     check_dense(streams, classmap, table, packing, state_bits)
+    check_overlap(overlap)
     if on_cpu(streams):
         return dense_states_plain(streams, classmap, table, packing, state_bits)
     T, S = streams.shape
+    d = dense_states_design(streams, table, overlap)
     out = torch.empty(T, S, dtype=torch.int32, device=streams.device)
     launch(
         "amt_dense_states", streams.device,
         streams.data_ptr(), T, S,
-        classmap.data_ptr(), table.data_ptr(), table.numel(), packing, state_bits, out.data_ptr(),
+        classmap.data_ptr(), table.data_ptr(), table.numel(), packing, state_bits, overlap or 0,
+        d.segments, out.data_ptr(),
     )
     dense_states.launches += 1
     return out
@@ -140,4 +164,4 @@ dense_count.launches = 0
 dense_states.launches = 0
 
 __all__ = ["dense_count", "dense_count_design", "dense_count_plain", "dense_states",
-           "dense_states_plain", "lookup_plain"]
+           "dense_states_design", "dense_states_plain", "lookup_plain"]

@@ -398,6 +398,20 @@ class CombStickyTables(CombTables):
     that saw a match)."""
 
     absorb: int = 0
+    #: The least warm-up over which B16's segments restart their scans: the
+    #: machine's ``max_needle_bytes - 1`` (a composed IgnoreCase machine's
+    #: ``max_needle_bytes`` is ``max_raw_match_bytes + 4``); the sticky view
+    #: and its quotient read no further back than the machine.
+    min_overlap: int = 0
+
+    def check_overlap(self, overlap: int) -> None:
+        """Raise ``ValueError`` when ``overlap``, the warm-up over which B16's
+        segments restart from the root, is below the machine's
+        ``max_needle_bytes - 1``: a segment would not be in the stream's state
+        by its own range."""
+        if overlap < self.min_overlap:
+            raise ValueError(f"the staging's overlap {overlap} is below the sticky machine's "
+                             f"max_needle_bytes - 1 ({self.min_overlap})")
 
     def sticky_args(self) -> tuple:
         """The tables as ``comb_contains`` takes them."""
@@ -460,12 +474,18 @@ class CombAcEngine(DenseAcEngine):
             sv = minimize_sticky(_StickyView(count_minimized(self.machine)))
             cm = build_comb(sv, MAX_ROWS)
             t = CombTables.from_machine(cm, self.device)
-            self._sticky = CombStickyTables(**t.__dict__, absorb=int(cm.base[sv.absorb]))
+            self._sticky = CombStickyTables(**t.__dict__, absorb=int(cm.base[sv.absorb]),
+                                            min_overlap=max(0, self.machine.max_needle_bytes - 1))
         return self._sticky
 
     def sticky_args(self, st: StagedStreams) -> tuple:
-        """Arguments of ``comb_contains`` (or its plain version)."""
-        return (st.streams, st.vend, *self.sticky_tables().sticky_args())
+        """Arguments of ``comb_contains`` (or its plain version), the plan's
+        warm-up last: the kernel may cut the streams into segments that each
+        warm up over it.  Raises ``ValueError`` when that warm-up is too
+        short for the machine."""
+        t = self.sticky_tables()
+        t.check_overlap(st.plan.overlap)
+        return (st.streams, st.vend, *t.sticky_args(), st.plan.overlap)
 
     def contains_staged(self, st: StagedStreams) -> bool:
         """Whether some live stream ended on the absorbing base of one sticky

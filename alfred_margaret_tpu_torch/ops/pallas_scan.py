@@ -162,9 +162,23 @@ class DenseTables:
     table: torch.Tensor  # int32 [rows * 128]
     packing: int
     state_bits: int
+    #: The least warm-up over which the segmented scans restart from the
+    #: root (B5 and B3 check it): the machine's ``max_needle_bytes - 1`` (a
+    #: composed IgnoreCase machine's ``max_needle_bytes`` is
+    #: ``max_raw_match_bytes + 4``).
+    min_overlap: int = 0
+
+    def check_overlap(self, overlap: int) -> None:
+        """Raise ``ValueError`` when ``overlap``, the warm-up over which the
+        kernel's segments restart from the root, is below the machine's
+        ``max_needle_bytes - 1``: a segment would not be in the stream's state
+        by its own range."""
+        if overlap < self.min_overlap:
+            raise ValueError(f"the staging's overlap {overlap} is below the machine's "
+                             f"max_needle_bytes - 1 ({self.min_overlap})")
 
     @staticmethod
-    def from_compressed(comp: CompressedMachine, device) -> "DenseTables":
+    def from_compressed(comp: CompressedMachine, device, min_overlap: int = 0) -> "DenseTables":
         cm = np.zeros(256, dtype=np.int32)
         cm[: len(comp.classmap)] = comp.classmap
         return DenseTables(
@@ -172,6 +186,7 @@ class DenseTables:
             table=torch.from_numpy(np.ascontiguousarray(comp.packed, dtype=np.int32)).to(device),
             packing=comp.packing,
             state_bits=comp.state_bits,
+            min_overlap=min_overlap,
         )
 
 
@@ -204,23 +219,11 @@ class _StickyView:
 class StickyTables(DenseTables):
     """The B3 kernel's tables: the sticky view's packed tables and
     ``absorb``, the final entry of a stream that saw a match (the absorbing
-    state times k).  ``convert.sticky_tables_from_jax`` builds the same from
-    the JAX engine's arrays."""
+    state times k); ``min_overlap`` is the machine's, as for B1's tables.
+    ``convert.sticky_tables_from_jax`` builds the same from the JAX engine's
+    arrays."""
 
-    absorb: int
-    #: The least warm-up over which B3's segments restart their scans: the
-    #: machine's ``max_needle_bytes - 1`` (a composed IgnoreCase machine's
-    #: ``max_needle_bytes`` is ``max_raw_match_bytes + 4``).
-    min_overlap: int = 0
-
-    def check_overlap(self, overlap: int) -> None:
-        """Raise ``ValueError`` when ``overlap``, the warm-up over which B3's
-        segments restart from the root, is below the machine's
-        ``max_needle_bytes - 1``: a segment would not be in the stream's state
-        by its own range."""
-        if overlap < self.min_overlap:
-            raise ValueError(f"the staging's overlap {overlap} is below the sticky machine's "
-                             f"max_needle_bytes - 1 ({self.min_overlap})")
+    absorb: int = 0
 
     @staticmethod
     def from_machine(machine: AcMachine, device) -> "StickyTables":
@@ -228,9 +231,8 @@ class StickyTables(DenseTables):
         than the machine, exceeds ``MAX_ROWS``."""
         sv = _StickyView(machine)
         comp = CompressedMachine.from_machine(sv)
-        t = DenseTables.from_compressed(comp, device)
-        return StickyTables(t.classmap, t.table, t.packing, t.state_bits, sv.absorb * comp.k,
-                            max(0, machine.max_needle_bytes - 1))
+        t = DenseTables.from_compressed(comp, device, max(0, machine.max_needle_bytes - 1))
+        return StickyTables(**t.__dict__, absorb=sv.absorb * comp.k)
 
 
 @dataclass
@@ -288,7 +290,8 @@ class DenseAcEngine:
                  t_tile: int = 128, max_rows: int = MAX_ROWS, overlap: Optional[int] = None):
         self._init_streams(machine, device, n_streams, t_tile, max_rows, overlap)
         self.comp = CompressedMachine.from_machine(machine, max_rows)
-        self.tables = DenseTables.from_compressed(self.comp, self.device)
+        self.tables = DenseTables.from_compressed(self.comp, self.device,
+                                                  max(0, machine.max_needle_bytes - 1))
         self._sticky: Optional[StickyTables] = None
 
     def _init_streams(self, machine: AcMachine, device, n_streams: int, t_tile: int,
@@ -434,9 +437,13 @@ class DenseAcEngine:
     # -- per-position states: the packed entries (kernel B5) -----------------
 
     def states_args(self, st: StagedStreams) -> tuple:
-        """Arguments of ``dense_states`` (or its plain version)."""
+        """Arguments of ``dense_states`` (or its plain version), the plan's
+        warm-up last: the kernel may cut the streams into segments that each
+        warm up over it.  Raises ``ValueError`` when that warm-up is too
+        short for the machine."""
         t = self.tables
-        return (st.streams, t.classmap, t.table, t.packing, t.state_bits)
+        t.check_overlap(st.plan.overlap)
+        return (st.streams, t.classmap, t.table, t.packing, t.state_bits, st.plan.overlap)
 
     def packed_states(self, st: StagedStreams) -> torch.Tensor:
         """int32 [T, S] on the device: the packed entry of every step (B5)."""

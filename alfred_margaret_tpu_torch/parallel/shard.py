@@ -385,8 +385,8 @@ class DistributedAcEngine:
         return self._tables[key]
 
     def _dense(self, g: int, dev) -> DenseTables:
-        return self._cached("dense", g, dev,
-                            lambda: DenseTables.from_compressed(self._comps[g], dev))
+        return self._cached("dense", g, dev, lambda: DenseTables.from_compressed(
+            self._comps[g], dev, max(0, self.sub_machines[g].max_needle_bytes - 1)))
 
     def _dense_sticky_rows(self) -> int:
         """Rows of the widest group's sticky view (raises ``CapacityError``
@@ -402,9 +402,9 @@ class DistributedAcEngine:
         comps, absorbs = self._dense_sticky
 
         def make():
-            t = DenseTables.from_compressed(comps[g], dev)
-            return StickyTables(t.classmap, t.table, t.packing, t.state_bits, absorbs[g],
-                                max(0, self.sub_machines[g].max_needle_bytes - 1))
+            t = DenseTables.from_compressed(comps[g], dev,
+                                            max(0, self.sub_machines[g].max_needle_bytes - 1))
+            return StickyTables(**t.__dict__, absorb=absorbs[g])
 
         return self._cached("sticky", g, dev, make)
 
@@ -466,9 +466,11 @@ class DistributedAcEngine:
         ``"count"``, ``"sticky"``, ``"states"`` or ``"bits"``, on stream block
         ``i``, needle group ``g``, device ``dev``; the launch is
         ``kernel(*args, **kw)`` (``kw`` holds the ``overlap`` of B1, B2, B3,
-        B4 and B6; B9 and B11 take theirs in ``args``), and ``PLAIN[kernel](*args,
-        **kw)`` is the same function by the kernel's plain version.  The
-        ``xla`` inner has no kernel: ``(None, ..., {})``."""
+        B4, B5 and B6; B9 and B11 take theirs in ``args``), and
+        ``PLAIN[kernel](*args, **kw)`` is the same function by the kernel's
+        plain version.  The ``xla`` inner has no kernel: ``(None, ..., {})``.
+        Raises ``ValueError`` where the staging's overlap is too short for a
+        segmented step's tables (S2, S3, S6, S7)."""
         blk = staged.blocks[(i, dev)]
         if step == "count":
             route = self.count_route(use_bitap)
@@ -507,7 +509,9 @@ class DistributedAcEngine:
             if self.inner != "pallas":
                 return None, (self._xla_tables(g, dev)[0], blk.streams), {}
             t = self._dense(g, dev)
-            return dense_states, (blk.streams, t.classmap, t.table, t.packing, t.state_bits), {}
+            t.check_overlap(staged.plan.overlap)
+            return dense_states, (blk.streams, t.classmap, t.table, t.packing, t.state_bits), {
+                "overlap": staged.plan.overlap}
         if step == "bits":
             t = self._dense(g, dev)
             return matchbits, (blk.streams, blk.warm, blk.vend, "dense", t.classmap, t.table,

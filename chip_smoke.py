@@ -93,21 +93,24 @@ just after (the controls' launches are read apart), the first seven over
 
 Every answer must equal the host C++ engine's (and the control's), and every
 kernel of a path must have been launched by it.  The segmented kernels (B1,
-B2 and B4 with their trap parts, B3, B6 with its dense and bitap steps, B8,
-B9, B10, B11 in both modes, B12, B13, B14, B15 and B17) are also held against
-their plain versions at ragged edge shapes: one stream, S not a multiple of
-128 or of 16, T of one tile or word, ragged warm-ups and vends, with the
-plan's overlap, with none and with every stream padded (B2 also on 1, 2, 3
-and 8 words and B4 on 1, 2 and 3, both on their trap layouts, İ, Kelvin K
-and ẞ written across the segment cuts; B3, B4, B8, B10, B12 and B14 also at
-k = 1 to 64 forced, B14 on 0, 1, 3 and 12 words and odd vends; B3 over stream ranges whose start is not a multiple of 16 and on
-a composed IgnoreCase machine); the launches of B1-B4, B8, B10, B12, B14 and
-S1-S3 and S6 print their segment counts (B3, B10, B12, B14 and S6 with their
-shared memory and blocks per SM, B14 with its table layout).  Last it times
-every kernel (the trap parts on the IgnoreCase bench staging, with an
-embedded trap and with a trap register; B3 also as the dense path's four
-quarter launches, its Excess taken at that shape, and B10 and B14 with
-theirs at their main paths' shapes) and its plain version with CUDA events,
+B2 and B4 with their trap parts, B3, B5, B6 with its dense and bitap steps,
+B8, B9, B10, B11 in both modes, B12, B13, B14, B15, B16 and B17) are also
+held against their plain versions at ragged edge shapes: one stream, S not
+a multiple of 128 or of 16, T of one tile or word, ragged warm-ups and
+vends, with the plan's overlap, with none and with every stream padded (B2
+also on 1, 2, 3 and 8 words and B4 on 1, 2 and 3, both on their trap
+layouts, İ, Kelvin K and ẞ written across the segment cuts; B3, B4, B5, B8,
+B10, B12, B14 and B16 also at k = 1 to 64 forced, B14 on 0, 1, 3 and 12
+words and odd vends; B3 over stream ranges whose start is not a multiple of
+16; B3, B5 and B16 on a composed IgnoreCase machine); the launches of
+B1-B5, B8, B10, B12, B14, B16, S1-S3, S6 and S7 print their segment counts
+(B3, B5, B10, B12, B14, B16, S6 and S7 with their shared memory and blocks
+per SM, B14 with its table layout).  Last it times every kernel (the trap
+parts on the IgnoreCase bench staging, with an embedded trap and with a
+trap register; B3 also as the dense path's four quarter launches, its
+Excess taken at that shape; B5 also on the 30 dense needles' packing-2
+tables, its Excess with S7's; B10, B14 and B16 with theirs at their main
+paths' shapes) and its plain version with CUDA events,
 B8 against B1 on one 30-needle set that both engines hold, and B9 against
 the per-group B15 and B8 passes it replaces, beside the host C++ engine's
 count.  Any failure raises and the exit code is non-zero.  Without a CUDA device it exits non-zero before printing a result.
@@ -278,7 +281,7 @@ def mesh_phase(h):
     from alfred_margaret_tpu_torch.kernels.bitap_count import bitap_count_design
     from alfred_margaret_tpu_torch.kernels.comb16_grouped import comb16_grouped_design
     from alfred_margaret_tpu_torch.kernels.dense_contains import dense_contains_design
-    from alfred_margaret_tpu_torch.kernels.dense_count import dense_count_design
+    from alfred_margaret_tpu_torch.kernels.dense_count import dense_count_design, dense_states_design
     from alfred_margaret_tpu_torch.kernels.matchbits import matchbits_design
     from alfred_margaret_tpu_torch.kernels.segments import dense_bits_smem_bytes
     from alfred_margaret_tpu_torch.parallel.shard import PLAIN
@@ -531,6 +534,9 @@ def mesh_phase(h):
         if name == "dense_contains":  # S6: B3's segments on the shard's streams
             sites[name]["design"] = design_of(dense_contains_design(args[0], args[2], **kw),
                                               dense_bits_smem_bytes(args[2].numel()))
+        if name == "dense_states":  # S7: B5's segments on the shard's streams
+            sites[name]["design"] = design_of(dense_states_design(args[0], args[2], **kw),
+                                              dense_bits_smem_bytes(args[2].numel()))
         print(f"time mesh {site} {name:22s} {what:36s} {ms:10.4f} ms per shard launch "
               f"[T, S_local] = [{T}, {SL}], plain {plain_ms:.1f} ms, bound {bms:.4f} ms by {by} "
               f"({ms / bms:.1f}x; {sites[name].get('design', '')}; {card})", flush=True)
@@ -558,17 +564,17 @@ def main() -> int:
     from alfred_margaret_tpu_torch.kernels.comb16 import comb16_count_design
     from alfred_margaret_tpu_torch.kernels.comb16_grouped import comb16_grouped_design
     from alfred_margaret_tpu_torch.kernels.dense_contains import dense_contains_design
-    from alfred_margaret_tpu_torch.kernels.dense_count import dense_count_design
+    from alfred_margaret_tpu_torch.kernels.dense_count import dense_count_design, dense_states_design
     from alfred_margaret_tpu_torch.kernels.filter_contains import filter_contains_design
     from alfred_margaret_tpu_torch.kernels.matchbits import matchbits_design
     from alfred_margaret_tpu_torch.kernels.segments import (
-        Design, chunk_smem_bytes, dense_bits_smem_bytes, filter_smem_bytes)
+        Design, chunk_smem_bytes, comb_smem_bytes, dense_bits_smem_bytes, filter_smem_bytes)
     from alfred_margaret_tpu_torch.models import ac, case_dfa
     from alfred_margaret_tpu_torch.native import build as native_build
     from alfred_margaret_tpu_torch.native.cpp_engine import CppAcEngine
     from alfred_margaret_tpu_torch.ops.bitap_scan import BitapAcEngine, plan_bitap, plan_bitap_ci
     from alfred_margaret_tpu_torch.ops.comb16_scan import Comb16AcEngine
-    from alfred_margaret_tpu_torch.ops.comb_scan import CombAcEngine
+    from alfred_margaret_tpu_torch.ops.comb_scan import CombAcEngine, make_engine
     from alfred_margaret_tpu_torch.ops.filter_scan import FilterTables, plan_filter
     from alfred_margaret_tpu_torch.ops.grouped import GroupedAcEngine
     from alfred_margaret_tpu_torch.ops.pallas_scan import DenseAcEngine, _zero_inert
@@ -1756,8 +1762,18 @@ def main() -> int:
     need5 = int(torch.stack([first_hit_steps(e, st5c) for e in eng5.engines]).min(0).values.sum())
     need5d = n_live_bytes(st5d)
     st3c, st3d = st3["config 5, 300"].device, st3["digits (2b)"].device
-    need3 = int(first_hit_steps(eng3, st3c).sum())
+    first3 = first_hit_steps(eng3, st3c)
+    need3 = int(first3.sum())
     need3d = int(first_hit_steps(eng3, st3d).sum())
+    # B16's threads step in warps of 32 streams: a warp runs until its last
+    # stream's first match, so on config 5's corpus it must take far more
+    # steps than its streams need alone.
+    warp3 = torch.nn.functional.pad(first3, (0, (-first3.numel()) % 32)).view(-1, 32).max(1).values
+    live3 = n_live_bytes(st3c)
+    warp_share3 = 32 * int(warp3.sum()) / live3
+    print(f"B16 config 5 corpus: a stream's first match at a median of "
+          f"{int(first3.median())} steps ({need3 / live3:.3f} of the live bytes), a warp's last at "
+          f"a median of {int(warp3.median())} ({warp_share3:.3f} of the live bytes)", flush=True)
     T3 = st3c.plan.time_len
     def bits_kernel(sst):
         """B6 (B13) as the extraction launches it on ``sst``: with its plan's
@@ -1807,6 +1823,9 @@ def main() -> int:
     # the 30 needles' streams, in corpus order (contains_staged_early's K = 4).
     st30q = staged30.device
     need30 = int(first_hit_steps(dense30, st30q).sum())
+
+    T30 = st30q.plan.time_len
+    what30 = f"30 needles, packing {dense30.comp.packing}"
 
     def quarters(*args):
         return torch.cat([K.dense_contains(*dense30.sticky_args(st30q, q * S // 4, (q + 1) * S // 4))
@@ -1873,6 +1892,8 @@ def main() -> int:
          "config 5, 300 needles", T3 * S, 4 * T3 * S, T3 * S),
         ("dense_states", K.dense_states, K.dense_states_plain, bitap_eng.states_args(st),
          "bench needles", T * S, 4 * T * S, T * S),
+        ("dense_states", K.dense_states, K.dense_states_plain, dense30.states_args(st30q),
+         what30, T30 * S, 4 * T30 * S, T30 * S),
         ("comb16_states", K.comb16_states, K.comb16_states_plain, eng2.states_args(st_c2),
          "config 2", T2 * S, 4 * T2 * S, T2 * S),
         ("bitap_count_trap", K.bitap_count, K.bitap_count_plain, eng_ci._kernel_args(st_ci),
@@ -1926,6 +1947,12 @@ def main() -> int:
             designs[(name, what)] = design_of(
                 comb16_count_design(args[0], args[3], args[4], args[11]),
                 chunk_smem_bytes(1, args[3].numel(), args[4].numel()))
+        elif name == "dense_states":  # B5's, with B1's shared memory
+            designs[(name, what)] = design_of(dense_states_design(args[0], args[2], args[5]),
+                                              dense_bits_smem_bytes(args[2].numel()))
+        elif name == "comb_contains":  # B16's, with B15's shared memory
+            designs[(name, what)] = design_of(comb_count_design(args[0], args[3], args[4], args[10]),
+                                              comb_smem_bytes(args[3].numel(), args[4].numel()))
         elif name == "filter_contains":  # B14's segments, restart and table layout
             designs[(name, what)] = {
                 **design_of(filter_contains_design(args[0], args[2], args[7], args[8]),
@@ -2334,6 +2361,93 @@ def main() -> int:
           f"4096, T 20 / 300 / 1000, {odd_seen} odd vends, the rule's k and k = {forced_ks}, "
           f"none, every stream padded)", flush=True)
 
+    # B5 and B16 at the same edge shapes: the rule's segments with the plan's
+    # overlap, then k = 1 to 64 forced, and none.  B5 on B3's edge machines'
+    # full tables (packing 1 and 2, NUL, single bytes and the composed
+    # IgnoreCase machine, İ, Kelvin K and ẞ written across the cuts) and on
+    # zero bytes; B16 on config 5's 300, nested and NUL sets, single bytes
+    # (overlap 0) and a composed IgnoreCase machine that the dispatcher sends
+    # to comb32 (İ, Kelvin K and ẞ across the cuts), vend T and 0, every
+    # stream padded (the root base).  B5 writes every entry of its output;
+    # the wrapper fills B16's with the root base.
+    states_mod = sys.modules[K.dense_states.__module__]
+    comb_mod = sys.modules[K.comb_contains.__module__]
+    ci32 = random_needles(47, 120) + ["straße", "kelvin"]
+    m_ci32 = machine_of(ci32)
+    cm_ci32 = case_dfa.compose_build(list(zip(m_ci32.needles, m_ci32.values)), machine=m_ci32)
+    check(type(make_engine(cm_ci32, dev)) is CombAcEngine, "B16 edge IgnoreCase: not comb32")
+    b16_edge = [("config 5's 300", n300, eng3)]
+    for label, needles, m in (
+            ("nested", ["a", "aa", "aaa", "aaaa", "aaaaa"] + random_needles(31, 120), None),
+            ("NUL", random_needles(22, 200)[:150] + ["a\x00b", "\x00\x00x"], None),
+            ("singles", ["a", "e", " ", "z"], singles),
+            ("IgnoreCase", ci32, cm_ci32)):
+        b16_edge.append((label, needles, CombAcEngine(m or machine_of(needles), device=dev)))
+    for label, needles, _ in b16_edge:
+        raw = synth_corpus([x for x in needles if "\x00" not in x], 1 << 18, hit_fraction=0.05,
+                           seed=len(srcs) + 60)
+        srcs["B16 " + label] = scramble(raw, 7) if label == "IgnoreCase" else (
+            np.frombuffer(raw, np.uint8))
+    n_edge = {"dense_states": 0, "comb_contains": 0}
+    b16_absorbed = 0
+    for T_e in (20, 300, 1000):
+        for S_e in (1, 200, 1000, 1040, 4096):
+            for label, e, src in b3_edge:
+                t = e.tables
+                K_e = t.min_overlap
+                s_e, _, _ = edge_streams(T_e, S_e, K_e, 37 * T_e + S_e, src)
+                if label == "IgnoreCase":
+                    a_e = s_e.cpu().numpy().copy()
+                    plant_traps(a_e, dense_states_design(s_e, t.table, K_e).segments, K_e)
+                    s_e = torch.from_numpy(a_e).to(dev)
+                args = (s_e, t.classmap, t.table, t.packing, t.state_bits)
+                want = K.dense_states_plain(*args)
+                for over, forced in [(K_e, None), (None, None)] + [(K_e, f) for f in forced_ks]:
+                    got = launch_at(states_mod, "dense_states_design", forced,
+                                    lambda: K.dense_states(*args, overlap=over))
+                    same("dense_states", got, want,
+                         f"{label}, overlap {over}, k {forced or 'by the rule'}, edge shape "
+                         f"T={T_e} S={S_e}")
+                    n_edge["dense_states"] += 1
+                zero = torch.zeros_like(s_e)
+                same("dense_states", K.dense_states(zero, *args[1:], overlap=K_e),
+                     K.dense_states_plain(zero, *args[1:]),
+                     f"{label}, zero bytes, edge shape T={T_e} S={S_e}")
+                n_edge["dense_states"] += 1
+            for label, needles, e in b16_edge:
+                t = e.sticky_tables()
+                K_e = t.min_overlap
+                s_e, _, v_e = edge_streams(T_e, S_e, K_e, 41 * T_e + S_e, srcs["B16 " + label])
+                if S_e > 2:
+                    v_e[:2] = torch.tensor([T_e, 0], dtype=torch.int32, device=dev)
+                if label == "IgnoreCase":
+                    a_e = s_e.cpu().numpy().copy()
+                    plant_traps(a_e, comb_count_design(s_e, t.comb, t.def_table, K_e).segments,
+                                K_e)
+                    s_e = torch.from_numpy(a_e).to(dev)
+                args = (s_e, v_e, *t.sticky_args())
+                want = K.comb_contains_plain(*args)
+                b16_absorbed += int((want == t.absorb).sum())
+                for over, forced in [(K_e, None), (None, None)] + [(K_e, f) for f in forced_ks]:
+                    got = launch_at(comb_mod, "comb_count_design", forced,
+                                    lambda: K.comb_contains(*args, over))
+                    same("comb_contains", got, want,
+                         f"{label}, overlap {over}, k {forced or 'by the rule'}, edge shape "
+                         f"T={T_e} S={S_e}")
+                    n_edge["comb_contains"] += 1
+                pad = (s_e, torch.zeros_like(v_e), *t.sticky_args())
+                check(bool((K.comb_contains(*pad, K_e) == t.root_base).all()),
+                      f"B16 {label}: every stream padded left the root, edge shape T={T_e} "
+                      f"S={S_e}")
+                n_edge["comb_contains"] += 1
+    check(b16_absorbed > 0, "B16 edge shapes: no stream absorbed")
+    print(f"edge shapes: B5 (packing 1 / 2, NUL, singles, IgnoreCase full tables) == plain on "
+          f"{n_edge['dense_states']} launches and B16 (config 5's 300, nested, NUL, singles, "
+          f"IgnoreCase sticky tables; {b16_absorbed} absorbed bases) on "
+          f"{n_edge['comb_contains']} (S 1 / 200 / 1000 / 1040 / 4096, T 20 / 300 / 1000, the "
+          f"plan's overlap with the rule's k and k = {forced_ks}, none, zero bytes, vend T and 0, "
+          f"every stream padded)", flush=True)
+
     # B8 against B1 on the dense path's 30 needles, which both engines hold.
     comb30 = Comb16AcEngine(m30, device=dev)
     st30 = staged30.device
@@ -2517,6 +2631,19 @@ def main() -> int:
         if name == "comb_contains":
             entry["ms_first_match"], entry["plain_ms_first_match"], entry[
                 "bound_ms_first_match"], _ = timings[(name, "300 needles, config 5 corpus: first match")]
+            entry["design_first_match"] = designs[(name, "300 needles, config 5 corpus: first match")]
+            entry["warp_share_first_match"] = warp_share3
+            # At the full scan's shape, as the rows of the earlier slices.
+            entry["excess_ms"] = launches.get(name, 0) * (ms - bms)
+        if name == "dense_states":
+            entry["ms_packing2"], entry["plain_ms_packing2"], entry["bound_ms_packing2"], _ = (
+                timings[(name, what30)])
+            entry["packing2_what"] = what30
+            entry["design_packing2"] = designs[(name, what30)]
+            # The full launches at the bench needles' shape, S7's at its own.
+            s7, n7 = mesh_sites[name], mesh_main.get(name, 0)
+            entry["excess_ms"] = ((launches.get(name, 0) - n7) * (ms - bms)
+                                  + n7 * (s7["ms"] - s7["bound_ms"]))
         if name in ("bitap_count_trap", "bitap_presence_trap"):
             entry["ms_trap_register"], entry["plain_ms_trap_register"], entry[
                 "bound_ms_trap_register"], _ = timings[(name, "IgnoreCase 5 needles, trap register")]

@@ -6,39 +6,40 @@ source tree, in turns, on one CUDA card.
 ``PARENT_DIR`` holds an earlier checkout's ``alfred_margaret_tpu_torch/csrc``
 (for example ``git archive <commit> alfred_margaret_tpu_torch/csrc | tar -x
 -C PARENT_DIR``, in a directory ``.gitignore`` lists).  Its sources are
-built with the port's ``nvcc`` flags.  B14's and B10's launchers are called
+built with the port's ``nvcc`` flags.  B5's and B16's launchers are called
 alone, the parent's through the signatures of the tree before they took
-segments (bound below); every other kernel through this tree's wrappers,
-with the parent's library swapped in (``parent_launch``: B14's and B10's
-launches without the arguments they took since, S4's through the parent's
-one-group launcher and a ``[2]`` tensor of its bases).  At the main paths' shapes (128
-MiB, S = 32768, T = 4224; the mesh's shards of (4,2,1) at 4096 streams and
-of (2,1,4) at 16384), each kernel runs in turns, parent, this tree, this
-tree, parent, ``--runs`` launches a timing (CUDA events), and each pair's
-outputs must be equal:
+``overlap`` and ``segments`` (bound below); every other kernel through this
+tree's wrappers, with the parent's library swapped in (``parent_launch``:
+B5's and B16's launches without the two arguments they took since).  At the
+main paths' shapes (128 MiB, S = 32768, T = 4224; the mesh's shards of
+(4,2,1) at 4096 streams and of (2,1,4) at 16384, S7's at 16 MiB), each
+kernel runs in turns, parent, this tree, this tree, parent, ``--runs``
+launches a timing (CUDA events), and each pair's outputs must be equal:
 
-* B14, the stride-2 screen: config 2's 3 words (the comb16 engine's screen)
-  and config 5's 12 words (the grouped engine's), on their corpora;
-* B10, the comb16 sticky scan: config 2's sticky tables on the digits corpus
-  (no match: a full scan) and on config 2's corpus (stops at the first
-  match);
+* B5, the dense states scan: the bench needles' dense tables (the bitap
+  engine's, packing 1) and the 30 dense needles' (packing 2);
+* B16, the comb32 sticky scan: config 5's first 300 needles on the digits
+  corpus (no match: a full scan) and on config 5's corpus (stops at the
+  first match);
 * (both launchers called alone, this tree's at the segments its rule picks,
   so that a launch of a few dozen microseconds is not timed with the
   wrapper's host work);
-* the kernels that must not move: B8, B9, B11 (both modes, the one-group
-  mode as site S4), B12, B13 and S5 (B10's scan), B1, B3 (with S6) and B5,
-  B2, B4 (with S3), B6 (bitap and dense steps), B7, S8, B15 and B17.
+* S7, B5 on a (2,1,4) shard, through its wrapper on either library;
+* the kernels that must not move: B1, B2, B3 (with S6), B4 (with S3), B6
+  (bitap and dense steps), B7, B8, B9, B10, B11 (both modes, the one-group
+  mode as site S4), B12, B13, B14, B15, B17, S5 and S8.
 
-``--grid`` also times this tree's B14 and B10 at other segment counts than
-their rule picks (the launcher alone), and the levers, this tree's sources
-with one design choice undone (``LEVERS``, built into ``_build/levers``),
-each in turns with this tree's (B10's also on S4's shard).  ``--walls``
-times config 2's ``contains_any`` on its corpus (B14 answers), on the digits
-corpus (B14, then B10) and under ``AMT_FILTER=0`` (B10 alone), and config
-5's ``contains_any`` on its corpus (B14 at 12 words, then B11), host clock
-until the answer is on the host (the screen's strike count reset before
-each call), this tree's engines and wrappers on the parent's library and on
-this tree's, in turns, three times.
+``--grid`` also times this tree's B5 (both packings and S7's shard) and B16
+(both corpora) at other segment counts than their rule picks (the launcher
+alone), and the levers, this tree's sources with one design choice undone
+(``LEVERS``, built into ``_build/levers``), each in turns with this tree's.
+``--walls`` times ``final_states_staged`` on the bench needles (B5; mostly
+the copy of the states to the host), the 30 dense needles'
+``all_matches_arrays`` on a staging without its host corpus (B1, then B5)
+and config 5's 300 needles' ``contains_any`` on the digits corpus and on
+config 5's corpus (B16), host clock until the answer is on the host, this
+tree's engines and wrappers on the parent's library and on this tree's, in
+turns, three times.
 Prints each timing, the card's name and power limit, and one JSON line.
 Needs one CUDA card and ``nvcc``; the parent's library goes to
 ``alfred_margaret_tpu_torch/_build/parent``.
@@ -49,7 +50,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
-import functools
+import dataclasses
 import glob
 import importlib
 import json
@@ -65,95 +66,37 @@ import chip_smoke as smoke
 
 
 def _bind_parent(lib) -> None:
-    """The launchers of the parent tree: this tree's signatures, but B14's
-    and B10's before they took ``restart``, ``overlap`` and ``segments``, and
-    B11's one-group launcher, which read its bases from a device tensor."""
+    """The launchers of the parent tree: this tree's signatures, but B5's and
+    B16's before they took ``overlap`` and ``segments``."""
     from alfred_margaret_tpu_torch.kernels import build
 
     build._bind(lib)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.amt_filter_contains.argtypes = [p, i, i, p, p, p, p, i, p, p, i, p, p]
-    lib.amt_comb16_contains.argtypes = [p, i, i, p, p, p, i, p, i, p, p, i, i, i, i, p, p]
-    lib.amt_comb16_contains_base.restype = i
-    lib.amt_comb16_contains_base.argtypes = [p, i, i, p, p, p, i, p, i, p, p, p, i, i, i, i, p,
-                                             p]
+    lib.amt_dense_states.argtypes = [p, i, i, p, p, i, i, i, p, p]
+    lib.amt_comb_contains.argtypes = [p, i, i, p, p, p, i, p, i, i, i, i, i, i, p, p]
 
 
-_POLL_CHECK = "      if (kMode == kStickyBase && live && polled == (int32_t)r0[0]) hi = t0;\n"
-_POLL_LOAD = "        else if (t0 + rows < hi) polled = amt::ld_relaxed(out + s);\n"
+_POLL_CHECK = "        done = polled == (int32_t)absorb;\n"
+_POLL_LOAD = "          else if (!done) polled = amt::ld_relaxed(out + s);\n"
 _NO_POLL = [(_POLL_CHECK, ""), (_POLL_LOAD, "")]
-_NO_EXIT = ("    if (__syncthreads_and(sb >= S || polled == (int32_t)ab)) return;",
-            "    (void)ab;")
+_NO_EXIT = ("    if (__syncthreads_and(sb >= S || polled == (int32_t)absorb)) return;",
+            "    polled = -1;")
 
 #: The design choices ``--grid`` undoes one at a time: name -> (source, text
 #: substitutions on this tree's source, each made wherever its text stands).
-#: B14's table replicated per bank (32
-#: copies up to 3 words, 16 up to 6, 8 up to 12; lane l reads copy l % c);
-#: B14's short compares over all eight slots behind a run-time guard each;
-#: B14's short compares kept after a stream's exact plane is set (by the
-#: segment or, stored, by another); B14
-#: without the poll of the planes other segments stored (and no block
-#: leaving before its table loads); B10 storing the absorbing base only at
-#: the end of its segment, with no block leaving before its table loads; B10
+#: B5 with default (write-back) stores instead of evict-first ones; B16
 #: taking its poll of out[s] in the tile it polls for (its first step waits
-#: on the load) instead of a tile later; B10 without that poll; B10 without
+#: on the load) instead of a tile later; B16 without that poll; B16 without
 #: that poll and without the block-start exit.
 LEVERS = {
-    "B14 table replicated per bank": ("filter_contains.cu", [
-        ("constexpr int kMaxSegments = 64;\n",
-         "constexpr int kMaxSegments = 64;\n"
-         "template <int V> constexpr int kCopies = V <= 3 ? 32 : V <= 6 ? 16 : 8;\n"
-         "template <int V> constexpr int kLogCopies = V <= 3 ? 5 : V <= 6 ? 4 : 3;\n"),
-        ("for (int i = threadIdx.x; i < V * 128; i += blockDim.x) bt[i] = (uint32_t)btab[i];",
-         "for (int i = threadIdx.x; i < V * 128 * kCopies<V>; i += blockDim.x) "
-         "bt[i] = (uint32_t)btab[i >> kLogCopies<V>];"),
-        ("reinterpret_cast<uint8_t*>(smem + V * 128);",
-         "reinterpret_cast<uint8_t*>(smem + V * 128 * kCopies<V>);"),
-        ("const uint32_t* row = bt + (((b1 & 15u) << 3) | (b2 & 7u));",
-         "const uint32_t* row = bt + (((((b1 & 15u) << 3) | (b2 & 7u)) << kLogCopies<V>) | "
-         "(threadIdx.x & (kCopies<V> - 1u)));"),
-        ("row[v * 128]", "row[v * 128 * kCopies<V>]"),
-        ("const size_t smem = (size_t)V * 128 * sizeof(uint32_t)",
-         "const size_t smem = (size_t)V * 128 * kCopies<V> * sizeof(uint32_t)"),
-    ]),
-    "B14 eight guarded short slots": ("filter_contains.cu", [
-        ("              hit |= ((roll & sm[k]) == sc[k]) | ((r8 & sm[k]) == sc[k]);",
-         "              if (k < n_shorts) hit |= ((roll & sm[k]) == sc[k]) | ((r8 & sm[k]) == sc[k]);"),
-        ("uint32_t roll = 0, exact = KS > 0 ? 0u : 1u, cand = 0;",
-         "uint32_t roll = 0, exact = n_shorts > 0 ? 0u : 1u, cand = 0;"),
-        ("  auto go = n_shorts == 0 ? launch<Vmin, 0> : n_shorts <= 4 ? launch<Vmin, 4> : "
-         "launch<Vmin, 8>;", "  auto go = launch<Vmin, 8>;"),
-        ("exact_stored = KS == 0;", "exact_stored = n_shorts == 0;"),
-        ("      if (KS > 0 && !exact)", "      if (n_shorts > 0 && !exact)"),
-    ]),
-    "B14 short compares after exact is set": ("filter_contains.cu", [
-        ("      if (KS > 0 && !exact)", "      if (KS > 0)"),
-    ]),
-    "B14 without the stored planes' poll": ("filter_contains.cu", [
-        ("const uint32_t pe = (uint32_t)amt::ld_relaxed(out + s);", "const uint32_t pe = 0;"),
-        ("const uint32_t pc = (uint32_t)amt::ld_relaxed(out + (size_t)S + s);",
-         "const uint32_t pc = 0;"),
-        ("    if (__syncthreads_and(sb >= S || final_planes((uint32_t)amt::ld_relaxed(out + sb),",
-         "    if (__syncthreads_and(sb >= S && final_planes((uint32_t)amt::ld_relaxed(out + sb),"),
-    ]),
-    "B10 stores only at its segment's end": ("comb16_grouped.cu", [
-        _NO_EXIT,
-        ("        if (cb[0] == r0[0]) atomicExch(out + s, (int32_t)r0[0]);\n        else if",
-         "        if"),
-        ("      } else if (!absorbed) {  // an absorbing thread stored at the end of its tile\n",
-         "      } else if (absorbed) {\n        atomicExch(out + s, (int32_t)r0[0]);\n"
-         "      } else {\n"),
-    ]),
-    "B10 polling out[s] for the tile it starts": ("comb16_grouped.cu", [
-        (_POLL_CHECK, "      if (kMode == kStickyBase && live && amt::ld_relaxed(out + s) == "
-                      "(int32_t)r0[0]) hi = t0;\n"), (_POLL_LOAD, "")]),
-    "B10 polling out[s] at a tile's start for the next": ("comb16_grouped.cu", [
-        (_POLL_CHECK, "      if (kMode == kStickyBase && live) {\n"
-                      "        if (polled == (int32_t)r0[0]) hi = t0;\n"
-                      "        else polled = amt::ld_relaxed(out + s);\n"
-                      "      }\n"), (_POLL_LOAD, "")]),
-    "B10 without the poll": ("comb16_grouped.cu", _NO_POLL),
-    "B10 without the poll and the block-start exit": ("comb16_grouped.cu", [*_NO_POLL, _NO_EXIT]),
+    "B5 write-back stores": ("dense_count.cu", [
+        ("if (t >= lo) __stcs(dst + (size_t)t * S, (int32_t)e);",
+         "if (t >= lo) dst[(size_t)t * S] = (int32_t)e;")]),
+    "B16 polling out[s] for the tile it starts": ("comb_scan.cu", [
+        (_POLL_CHECK, "        done = amt::ld_relaxed(out + s) == (int32_t)absorb;\n"),
+        (_POLL_LOAD, "")]),
+    "B16 without the poll": ("comb_scan.cu", _NO_POLL),
+    "B16 without the poll and the block-start exit": ("comb_scan.cu", [*_NO_POLL, _NO_EXIT]),
 }
 
 
@@ -182,7 +125,7 @@ def build_lever(name: str, out_dir: str):
     build._compile(nvcc_path(), [os.path.join(d, src_name),
                                  os.path.join(build._CSRC, "errors.cu")], so)
     lib = ctypes.CDLL(so)
-    for fn in ("amt_filter_contains", "amt_comb16_contains"):
+    for fn in ("amt_dense_states", "amt_comb_contains"):
         if hasattr(lib, fn):
             getattr(lib, fn).restype = ctypes.c_int
             getattr(lib, fn).argtypes = getattr(build.load().lib, fn).argtypes
@@ -221,8 +164,8 @@ def main() -> int:
                     help="also time four operations (host clock until the answer is on the "
                          "host) on the parent's library and on this tree's, in turns")
     ap.add_argument("--grid", action="store_true",
-                    help="also time this tree's B14 and B10 at other segment counts than "
-                         "their rule picks, and the levers (LEVERS)")
+                    help="also time this tree's B5 (with S7's shard) and B16 at other segment "
+                         "counts than their rule picks, and the levers (LEVERS)")
     a = ap.parse_args()
 
     from alfred_margaret_tpu_torch import CASE_SENSITIVE, IGNORE_CASE, Searcher
@@ -235,11 +178,13 @@ def main() -> int:
     from alfred_margaret_tpu_torch.kernels.comb16 import comb16_count_design
     from alfred_margaret_tpu_torch.kernels.comb16_grouped import comb16_grouped_design
     from alfred_margaret_tpu_torch.kernels.dense_contains import dense_contains_design
-    from alfred_margaret_tpu_torch.kernels.dense_count import dense_count_design
+    from alfred_margaret_tpu_torch.kernels.dense_count import (dense_count_design,
+                                                               dense_states_design)
     from alfred_margaret_tpu_torch.kernels.filter_contains import filter_contains_design
     from alfred_margaret_tpu_torch.kernels.matchbits import matchbits_design
     from alfred_margaret_tpu_torch.ops.bitap_scan import BitapAcEngine
     from alfred_margaret_tpu_torch.ops.comb16_scan import Comb16AcEngine
+    from alfred_margaret_tpu_torch.ops.comb_scan import CombAcEngine
     from alfred_margaret_tpu_torch.ops.pallas_scan import DenseAcEngine
     from alfred_margaret_tpu_torch.parallel import DistributedAcEngine, make_mesh
     from alfred_margaret_tpu_torch.utils.device import nvidia_smi_line
@@ -252,29 +197,19 @@ def main() -> int:
     plib, parent_s = build_parent(a.parent, os.path.join(out_dir, "parent"))
     print(f"built this tree and the parent in {time.perf_counter() - t0:.1f} s", flush=True)
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
-    parent_gscal = {}
 
-    def parent_launch(entry, device, *args, site=None):
-        """This tree's launch of ``entry`` on the parent's library: B14's and
-        B10's without the arguments they took since (``restart`` or
-        ``overlap``, and ``segments``); S4's (``site``) through the parent's
-        one-group launcher, its bases in a ``[2]`` device tensor made once."""
-        if entry == "amt_comb16_contains" and site == "S4":
-            *tabs, BB, om, root, absorb, over, k, out = args
-            if (root, absorb) not in parent_gscal:
-                parent_gscal[root, absorb] = torch.tensor([root, absorb], dtype=torch.int32,
-                                                          device=device)
-            entry = "amt_comb16_contains_base"
-            args = (*tabs, parent_gscal[root, absorb].data_ptr(), BB, om, over, k, out)
-        elif entry in ("amt_filter_contains", "amt_comb16_contains"):
+    def parent_launch(entry, device, *args):
+        """This tree's launch of ``entry`` on the parent's library: B5's and
+        B16's without the arguments they took since (``overlap`` and
+        ``segments``)."""
+        if entry in ("amt_dense_states", "amt_comb_contains"):
             args = args[:-3] + args[-1:]
         with torch.cuda.device(device):
             err = getattr(plib, entry)(*args, torch.cuda.current_stream().cuda_stream)
         build.check(err)
 
-    wrapper_modules = [(importlib.import_module(f"alfred_margaret_tpu_torch.kernels.{m}"), site)
-                       for m, site in (("filter_contains", None), ("comb16", None),
-                                       ("comb16_grouped", "S4"))]
+    wrapper_modules = [importlib.import_module(f"alfred_margaret_tpu_torch.kernels.{m}")
+                       for m in ("dense_count", "comb")]
 
     @contextlib.contextmanager
     def in_lib(lib):
@@ -287,9 +222,8 @@ def main() -> int:
             patches.enter_context(mock.patch.object(build, "load",
                                                     lambda: SimpleNamespace(lib=lib)))
             if lib is plib:
-                for mod, site in wrapper_modules:
-                    patches.enter_context(mock.patch.object(
-                        mod, "launch", functools.partial(parent_launch, site=site)))
+                for mod in wrapper_modules:
+                    patches.enter_context(mock.patch.object(mod, "launch", parent_launch))
             yield
 
     def timed(fn, lib=None):
@@ -390,38 +324,41 @@ def main() -> int:
     s3_args, s3_kw = shard0(e_miss, "sticky", s_miss_m)
     s3t_args, s3t_kw = shard0(e_miss_ci, "sticky", s_miss_ci)
     s4_args, _ = shard0(ec2, "sticky", sff)
-    t4 = s4_args[2]  # S4's group: B10's launcher on its tables and bases
-    s4_b10_args = (s4_args[0], s4_args[1], t4.classmap, t4.comb, t4.aux, t4.root_row,
-                   t4.segtable, t4.BB, t4.owner_mask, *t4.gscal_host[0], s4_args[3])
     s5_args, _ = shard0(ec2, "count", sc2)
     s6_args, s6_kw = shard0(e_miss_dense, "sticky", s_miss_m)
     s8_args, s8_kw = shard0(eb, "bits", sbm)
+    # S7: the states route of config 2 on (2,1,4) at 16 MiB (its plan's T = 640).
+    s16 = ec2.stage(data2[:smoke.MESH_STATES_BYTES])
+    s7_args, s7_kw = shard0(ec2, "states", s16)
+    # B5 on the 30 dense needles' tables (packing 2) and B16 on config 5's
+    # 300 needles, on the digits corpus (a full scan) and its own corpus.
+    dense30 = s30._engine.device_engine()
+    assert dense30.comp.packing == 2, dense30.comp.packing
+    st30d = stg30.device
+    assert isinstance(eng3, CombAcEngine)
+    st3d = s300.stage(digits).device
     torch.cuda.synchronize()
 
-    # -- the parent's B14 and B10 -------------------------------------------------------
+    # -- the parent's B5 and B16 ------------------------------------------------------
     def ptr(x):
         return x.data_ptr()
 
-    def parent_b14(streams, vend, btab, seed, endmask, short_mask, short_const, restart=None,
-                   overlap=None):
-        """The parent's B14: one thread a whole stream (no segments)."""
+    def parent_b5(streams, classmap, table, packing, state_bits, overlap=None):
+        """The parent's B5: one thread a whole stream (no segments)."""
         T, S = streams.shape
-        out = torch.empty(2, S, dtype=torch.int32, device=dev)
-        build.check(plib.amt_filter_contains(ptr(streams), T, S, ptr(vend), ptr(btab), ptr(seed),
-                                             ptr(endmask), seed.numel(), ptr(short_mask),
-                                             ptr(short_const), short_mask.numel(), ptr(out),
-                                             stream()))
+        out = torch.empty(T, S, dtype=torch.int32, device=dev)
+        build.check(plib.amt_dense_states(ptr(streams), T, S, ptr(classmap), ptr(table),
+                                          table.numel(), packing, state_bits, ptr(out), stream()))
         return out
 
-    def parent_b10(streams, vend, cm, comb, aux, root_row, segtable, BB, om, root_cb, absorb,
+    def parent_b16(streams, vend, cm, comb, deft, k, owner_bits, root_base, root_def, absorb,
                    overlap=None):
-        """The parent's B10: one thread a whole stream (no segments)."""
+        """The parent's B16: one thread a whole stream (no segments)."""
         T, S = streams.shape
         out = torch.empty(S, dtype=torch.int32, device=dev)
-        build.check(plib.amt_comb16_contains(ptr(streams), T, S, ptr(vend), ptr(cm), ptr(comb),
-                                             comb.numel(), ptr(aux), aux.numel(), ptr(root_row),
-                                             ptr(segtable), BB, om, root_cb, absorb, ptr(out),
-                                             stream()))
+        build.check(plib.amt_comb_contains(ptr(streams), T, S, ptr(vend), ptr(cm), ptr(comb),
+                                           comb.numel(), ptr(deft), deft.numel(), k, owner_bits,
+                                           root_base, root_def, absorb, ptr(out), stream()))
         return out
 
     def bits_kernel(overlap):
@@ -437,6 +374,9 @@ def main() -> int:
     def b4_design(args, kw=None):
         return bitap_contains_design(args[0], args[1], kw["overlap"] if kw else args[5])
 
+    def b5_design(args, kw=None):
+        return dense_states_design(args[0], args[2], kw["overlap"] if kw else args[5])
+
     def b8_design(args):
         return comb16_count_design(args[0], args[4], args[5], args[13])
 
@@ -449,25 +389,27 @@ def main() -> int:
     def b14_design(args):
         return filter_contains_design(args[0], args[2], args[7], args[8])
 
-    def b14_at(lib, args, k):
-        """B14's launcher of ``lib`` on ``args`` at ``k`` segments."""
-        streams, vend, btab, seed, endmask, sm, sc, restart = args[:8]
+    def b16_design(args):
+        return comb_count_design(args[0], args[3], args[4], args[10])
+
+    def b5_at(lib, args, k):
+        """B5's launcher of ``lib`` on ``args`` at ``k`` segments."""
+        streams, cm, tab, packing, state_bits, over = args
         T, S_ = streams.shape
-        res = torch.zeros(2, S_, dtype=torch.int32, device=dev)
-        build.check(lib.amt_filter_contains(
-            ptr(streams), T, S_, ptr(vend), ptr(btab), ptr(seed), ptr(endmask), seed.numel(),
-            ptr(sm), ptr(sc), sm.numel(), restart, k, ptr(res), stream()))
+        res = torch.empty(T, S_, dtype=torch.int32, device=dev)
+        build.check(lib.amt_dense_states(ptr(streams), T, S_, ptr(cm), ptr(tab), tab.numel(),
+                                         packing, state_bits, over, k, ptr(res), stream()))
         return res
 
-    def b10_at(lib, args, k):
-        """B10's launcher of ``lib`` on ``args`` at ``k`` segments."""
-        streams, vend, cm, comb, aux, rr, seg, BB, om, root_cb, absorb, over = args
+    def b16_at(lib, args, k):
+        """B16's launcher of ``lib`` on ``args`` at ``k`` segments, its output
+        filled with the root base as the wrapper fills it."""
+        streams, vend, cm, comb, deft, kk, ob, root_base, root_def, absorb, over = args
         T, S_ = streams.shape
-        res = torch.empty(S_, dtype=torch.int32, device=dev)
-        build.check(lib.amt_comb16_contains(
-            ptr(streams), T, S_, ptr(vend), ptr(cm), ptr(comb), comb.numel(), ptr(aux),
-            aux.numel(), ptr(rr), ptr(seg), BB, om, root_cb, absorb, over, k, ptr(res),
-            stream()))
+        res = torch.full((S_,), root_base, dtype=torch.int32, device=dev)
+        build.check(lib.amt_comb_contains(
+            ptr(streams), T, S_, ptr(vend), ptr(cm), ptr(comb), comb.numel(), ptr(deft),
+            deft.numel(), kk, ob, root_base, root_def, absorb, over, k, ptr(res), stream()))
         return res
 
     def rule_launch(at, design):
@@ -483,12 +425,14 @@ def main() -> int:
     S = stb.plan.n_streams
     b3_args, b3m_args = dense_eng.sticky_args(stb), miss_dense.sticky_args(stmd)
     b3q0_args = dense_eng.sticky_args(stb, 0, S // 4)
-    b3q3_args = dense_eng.sticky_args(stb, 3 * S // 4, S)
+    b5_args, b5p_args = bitap_eng.states_args(stb), dense30.states_args(st30d)
+    s7_b5_args = (*s7_args, s7_kw["overlap"])  # S7's shard as B5's launcher takes it
+    b16d_args, b16c_args = eng3.sticky_args(st3d), eng3.sticky_args(st3c)
     b10d_args, b10c_args = eng2.sticky_args(st2d), eng2.sticky_args(st2)
     b14_args = (st2.streams, st2.vend, *eng2._filter_tables.args(), st2.plan.overlap)
     b14_args5 = (st5c.streams, st5c.vend, *eng5._filter_tables.args(), st5c.plan.overlap)
     b12_args = eng2.states_args(st2)
-    b14_rule, b10_rule = rule_launch(b14_at, b14_design), rule_launch(b10_at, b10_design)
+    b5_rule, b16_rule = rule_launch(b5_at, b5_design), rule_launch(b16_at, b16_design)
     b4_args, b4m_args = bitap_eng.contains_args(stb), miss_eng.contains_args(stm)
     b4t_args = eng_ci.contains_args(st_ci)
     b8_args, b8n_args = eng2._kernel_args(st2), c30._kernel_args(st30)
@@ -498,14 +442,25 @@ def main() -> int:
     # on the parent's library), args, kw, this tree's design (None: one thread
     # a whole stream))
     rows = [
-        ("B14", "config 2, 3 words", b14_rule, parent_b14, b14_args, {}, b14_design(b14_args)),
-        ("B14", "config 5, 12 words", b14_rule, parent_b14, b14_args5, {},
-         b14_design(b14_args5)),
-        ("B10", "config 2, digits corpus: full scan", b10_rule, parent_b10, b10d_args, {},
-         b10_design(b10d_args)),
-        ("B10", "config 2 corpus: stops at the first match", b10_rule, parent_b10, b10c_args,
-         {}, b10_design(b10c_args)),
+        ("B5", "bench needles' dense tables (packing 1)", b5_rule, parent_b5, b5_args, {},
+         b5_design(b5_args)),
+        ("B5", "30 needles' dense tables (packing 2)", b5_rule, parent_b5, b5p_args, {},
+         b5_design(b5p_args)),
+        ("B16", "config 5's 300, digits corpus: full scan", b16_rule, parent_b16, b16d_args, {},
+         b16_design(b16d_args)),
+        ("B16", "config 5's 300, config 5 corpus: first match", b16_rule, parent_b16,
+         b16c_args, {}, b16_design(b16c_args)),
+        ("S7", "B5, config 2 group 0, 16 MiB, (2,1,4) shard 0, wrapper", K.dense_states, None,
+         s7_args, s7_kw, b5_design(s7_args, s7_kw)),
         # The kernels that must not move: this tree's wrappers on either library.
+        ("B14", "config 2, 3 words", K.filter_contains, None, b14_args, {},
+         b14_design(b14_args)),
+        ("B14", "config 5, 12 words", K.filter_contains, None, b14_args5, {},
+         b14_design(b14_args5)),
+        ("B10", "config 2, digits corpus: full scan", K.comb16_contains, None, b10d_args, {},
+         b10_design(b10d_args)),
+        ("B10", "config 2 corpus: stops at the first match", K.comb16_contains, None,
+         b10c_args, {}, b10_design(b10c_args)),
         ("B8", "config 2", K.comb16_count, None, b8_args, {}, b8_design(b8_args)),
         ("B8", "30 needles", K.comb16_count, None, b8n_args, {}, b8_design(b8n_args)),
         ("B9", "config 5", K.comb16_count_grouped, None, eng5._count_args(st5c), {},
@@ -532,8 +487,6 @@ def main() -> int:
          {}, b3_design(b3q0_args)),
         ("S6", "B3, miss needles, (4,2,1) shard 0", K.dense_contains, None, s6_args, s6_kw,
          b3_design(s6_args, s6_kw)),
-        ("B5", "bench needles' dense tables", K.dense_states, None, bitap_eng.states_args(stb),
-         {}, None),
         ("B4", "bench needles (V = 1, hits)", K.bitap_contains, None, b4_args, {},
          b4_design(b4_args)),
         ("B4", "miss needles (no hit: full scan)", K.bitap_contains, None, b4m_args, {},
@@ -595,36 +548,38 @@ def main() -> int:
               f"{n_ms[0]:.4f} / {n_ms[1]:.4f} ms ({d or 'unsegmented'}; {card})", flush=True)
         out.append({"kernel": tag, "what": what, "parent_ms": p_ms, "new_ms": n_ms, "design": d})
 
+    # B5 and B16 alone, as the grid and the levers launch them: the cases, with
+    # their launcher, rule and reference output.
+    cases = {
+        "B5 packing 1": (b5_at, b5_design, b5_args, K.dense_states(*b5_args)),
+        "B5 packing 2": (b5_at, b5_design, b5p_args, K.dense_states(*b5p_args)),
+        "S7 shard 0": (b5_at, b5_design, s7_b5_args, K.dense_states(*s7_args, **s7_kw)),
+        "B16 full": (b16_at, b16_design, b16d_args, K.comb_contains(*b16d_args)),
+        "B16 first": (b16_at, b16_design, b16c_args, K.comb_contains(*b16c_args)),
+    }
     grid, lever = [], []
     if a.grid:
-        for tag, at, args, ref in (
-                ("B14 3w", b14_at, b14_args, K.filter_contains(*b14_args)),
-                ("B14 12w", b14_at, b14_args5, K.filter_contains(*b14_args5)),
-                ("B10 full", b10_at, b10d_args, K.comb16_contains(*b10d_args)),
-                ("B10 first", b10_at, b10c_args, K.comb16_contains(*b10c_args))):
+        for tag, (at, _, args, ref) in cases.items():
             for k in (1, 4, 8, 16, 32, 64):
                 if same(at(new.lib, args, k), ref):
                     raise SystemExit(f"{tag} k={k}: != the rule's launch")
                 ms = timed(lambda: at(new.lib, args, k))
                 grid.append({"kernel": tag, "k": k, "ms": ms})
-                print(f"grid {tag:9s} k={k:2d} {ms:.4f} ms ({card})", flush=True)
+                print(f"grid {tag:12s} k={k:2d} {ms:.4f} ms ({card})", flush=True)
 
         # The levers: this tree's sources with one design choice undone
         # (LEVERS), each launch against this tree's at the rule's k, in turns.
         for name, (src, _) in LEVERS.items():
             vlib = build_lever(name, os.path.join(out_dir, "levers"))
-            at = b14_at if src == "filter_contains.cu" else b10_at
-            cases = ((("3 words", b14_args), ("12 words", b14_args5)) if at is b14_at else
-                     (("digits corpus: full scan", b10d_args),
-                      ("config 2 corpus: first match", b10c_args),
-                      ("S4, fire-free shard 0", s4_b10_args)))
-            for what, args in cases:
-                k = (b14_design(args) if at is b14_at else b10_design(args)).segments
-                l_ms, n_ms = turns(name, what, lambda *x, lib=vlib, k=k: at(lib, x, k),
-                                   lambda *x, k=k: at(new.lib, x, k), args, {}, None, None)
-                print(f"lever {name:34s} {what:30s} lever {l_ms[0]:.4f} / {l_ms[1]:.4f} ms, "
+            for tag, (at, design, args, _) in cases.items():
+                if (at is b5_at) != (src == "dense_count.cu"):
+                    continue
+                k = design(args).segments
+                l_ms, n_ms = turns(name, tag, lambda *x, lib=vlib, k=k, at=at: at(lib, x, k),
+                                   lambda *x, k=k, at=at: at(new.lib, x, k), args, {}, None, None)
+                print(f"lever {name:46s} {tag:12s} lever {l_ms[0]:.4f} / {l_ms[1]:.4f} ms, "
                       f"this tree {n_ms[0]:.4f} / {n_ms[1]:.4f} ms (k={k}; {card})", flush=True)
-                lever.append({"lever": name, "what": what, "lever_ms": l_ms, "new_ms": n_ms})
+                lever.append({"lever": name, "what": tag, "lever_ms": l_ms, "new_ms": n_ms})
 
     walls = []
     if a.walls:
@@ -638,30 +593,29 @@ def main() -> int:
                 times.append((time.perf_counter() - t0) * 1e3)
             return float(np.median(times))
 
-        def screened(s, stg, eng):
-            """``contains_any`` with the screen's strike count reset first, so
-            that every call asks the screen."""
-            def run():
-                eng._filter_strikes = 0
-                return s.contains_any(stg)
-            return run
+        bare30 = dataclasses.replace(st30d, data_np=None)  # the packed states' route
 
-        def control():
-            with mock.patch.dict(os.environ, {"AMT_FILTER": "0"}):
-                return s100.contains_any(stg2)
+        def answer(x):
+            """A comparable answer: arrays as bytes and shapes."""
+            if isinstance(x, tuple):
+                return tuple(answer(y) for y in x)
+            if isinstance(x, np.ndarray):
+                return (x.shape, x.tobytes())
+            return x
 
         for tag, what, fn in (
-                ("B14", "config 2 contains_any, config 2 corpus (the screen answers)",
-                 screened(s100, stg2, eng2)),
-                ("B14+B10", "config 2 contains_any, digits corpus (screen, then B10)",
-                 screened(s100, stg2d, eng2)),
-                ("B10", "config 2 contains_any, AMT_FILTER=0 (B10 alone)", control),
-                ("B14+B11", "config 5 contains_any, config 5 corpus (12 words, then B11)",
-                 screened(s1000, stg5, eng5))):
+                ("B5", "final_states_staged, bench needles (bitap engine's dense tables)",
+                 lambda: bitap_eng.final_states_staged(stb)),
+                ("B1+B5", "30 needles all_matches_arrays, no host corpus (B1, then B5)",
+                 lambda: dense30.matches_arrays_staged(bare30)),
+                ("B16", "config 5's 300 contains_any, digits corpus (a full scan)",
+                 lambda: eng3.contains_staged(st3d)),
+                ("B16", "config 5's 300 contains_any, config 5 corpus (first match)",
+                 lambda: eng3.contains_staged(st3c))):
             got = fn()
             with in_lib(plib):
                 ref = fn()
-            if got != ref:
+            if answer(got) != answer(ref):
                 raise SystemExit(f"{tag} {what}: this tree's answer != the parent's")
             ts = []
             for lbl in ("parent", "new", "new", "parent") * 3:
@@ -669,11 +623,13 @@ def main() -> int:
                     ts.append((lbl, wall_ms(fn)))
             p_ms = [ms for lbl, ms in ts if lbl == "parent"]
             n_ms = [ms for lbl, ms in ts if lbl == "new"]
-            print(f"wall  {tag:7s} {what:60s} parent {' / '.join(f'{m:.3f}' for m in p_ms)} ms, "
+            shown = got if isinstance(got, bool) else (
+                f"{len(got[0])} matches" if isinstance(got, tuple) else f"{len(got)} states")
+            print(f"wall  {tag:7s} {what:64s} parent {' / '.join(f'{m:.3f}' for m in p_ms)} ms, "
                   f"new {' / '.join(f'{m:.3f}' for m in n_ms)} ms (median of 9 each, host "
-                  f"clock; answer {got}; {card})", flush=True)
+                  f"clock; answer {shown}; {card})", flush=True)
             walls.append({"kernel": tag, "what": what, "parent_ms": p_ms, "new_ms": n_ms,
-                          "answer": got})
+                          "answer": shown})
     line = json.dumps({"turns": out, "lever": lever, "grid": grid, "walls": walls,
                        "card": card, "runs": a.runs, "parent_build_s": parent_s})
     print(card)

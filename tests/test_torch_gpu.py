@@ -480,6 +480,10 @@ def test_comb32_wrappers_count_launches_and_raise(cuda):
         assert fn.launches == before + 1
         with pytest.raises(ValueError):
             fn(st.streams.cpu(), *args[1:])
+        # Each takes the plan's overlap last: a negative one raises.
+        assert args[-1] == st.plan.overlap
+        with pytest.raises(ValueError):
+            fn(*args[:-1], -1)
         assert fn.launches == before + 1
     by_step = dict(matchbits.launches_by_step)
     c16 = Comb16AcEngine(_machine(CONFIG2), device=cuda, n_streams=256)
@@ -534,16 +538,18 @@ def test_states_wrappers_count_launches_and_raise(cuda):
     d = DenseAcEngine(_machine(PACK30), device=cuda, n_streams=256)
     c = Comb16AcEngine(_machine(CONFIG2), device=cuda, n_streams=256)
     hay = np.frombuffer(b"abcd and bcd " * 100, np.uint8)
-    for fn, args in ((dense_states, d.states_args(d.stage(hay))),
-                     (comb16_states, c.states_args(c.stage(hay)))):
+    for fn, eng in ((dense_states, d), (comb16_states, c)):
+        st = eng.stage(hay)
+        args = eng.states_args(st)
         before = fn.launches
         fn(*args)
         assert fn.launches == before + 1
         with pytest.raises(ValueError):
             fn(args[0].cpu(), *args[1:])
-        if fn is comb16_states:  # B12 takes the plan's overlap last
-            with pytest.raises(ValueError):
-                fn(*args[:-1], -1)
+        # B5 and B12 take the plan's overlap last.
+        assert args[-1] == st.plan.overlap
+        with pytest.raises(ValueError):
+            fn(*args[:-1], -1)
         assert fn.launches == before + 1
 
 
@@ -1461,5 +1467,149 @@ def test_b10_matches_plain_at_edge_shapes(cuda, shape, monkeypatch):
         with pytest.raises(ValueError):
             comb16_contains(streams.cpu(), *args[1:], K)
         assert comb16_contains.launches == before + n + 1
+    if S > 1 and T > 20:
+        assert absorbed > 0
+
+
+# -- B5 (with the mesh's S7) and B16 on the segmented pipeline ----------------------------
+
+
+@pytest.mark.parametrize("shape", EDGE_SHAPES_B3)
+def test_b5_matches_plain_at_edge_shapes(cuda, shape, monkeypatch):
+    """B5 as ``dense_states`` launches it, with the plan's overlap (the
+    rule's segments, then k = 1 to 64 forced) and without (one segment),
+    equals the plain version in every ``[T, S]`` entry: packing 1 and 2, a
+    NUL-bearing machine that is not zero-inert, single bytes (overlap 0) and
+    a composed IgnoreCase machine with İ, Kelvin K and ẞ written across the
+    cuts; ragged S, T not a multiple of the tile, every stream padded (zero
+    bytes).  Each launch adds one to the wrapper's count; a negative overlap
+    raises without a launch."""
+    from alfred_margaret_tpu_torch.kernels.segments import Design
+    from alfred_margaret_tpu_torch.models import case_dfa
+    from alfred_margaret_tpu_torch.ops.pallas_scan import _zero_inert
+
+    dense_mod = importlib.import_module("alfred_margaret_tpu_torch.kernels.dense_count")
+    T, S = shape
+    rule = dense_mod.dense_states_design
+    cm = _machine(CI_DENSE)
+    cases = [(label, needles, _machine(needles)) for label, needles in (
+        ("packing 1", NEEDLES3), ("packing 2", PACK30), ("NUL", NUL), ("singles", SINGLES))]
+    cases.append(("ignorecase", CI_DENSE,
+                  case_dfa.compose_build(list(zip(cm.needles, cm.values)), machine=cm)))
+    for label, needles, m in cases:
+        t = DenseAcEngine(m, device=cuda, n_streams=1024).tables
+        if label != "ignorecase":
+            assert (t.packing == 2) == (label == "packing 2")
+            assert _zero_inert(m) == (label != "NUL")
+        K = t.min_overlap
+        assert K == m.max_needle_bytes - 1
+        streams, _, _ = _edge_streams(needles, T, S, K, 13 * T + S, cuda)
+        if label == "ignorecase":
+            a = streams.cpu().numpy().copy()
+            plant_traps(a, rule(streams, t.table, K).segments, K)
+            streams = torch.from_numpy(a).to(cuda)
+        args = (streams, t.classmap, t.table, t.packing, t.state_bits)
+        want = dense_states_plain(*args)
+        before = dense_states.launches
+        n = 0
+        for over, forced in [(K, None), (None, None)] + [(K, f) for f in FORCED_KS]:
+            if forced is not None:
+                monkeypatch.setattr(dense_mod, "dense_states_design",
+                                    lambda *a, f=forced: Design(f))
+            got = dense_states(*args, overlap=over)
+            monkeypatch.setattr(dense_mod, "dense_states_design", rule)
+            assert torch.equal(got, want), (label, over, forced)
+            n += 1
+        zero = torch.zeros_like(streams)
+        assert torch.equal(dense_states(zero, *args[1:], overlap=K),
+                           dense_states_plain(zero, *args[1:])), label
+        assert dense_states.launches == before + n + 1
+        with pytest.raises(ValueError):
+            dense_states(*args, overlap=-1)
+        with pytest.raises(ValueError):
+            dense_states(streams.cpu(), *args[1:], overlap=K)
+        assert dense_states.launches == before + n + 1
+
+
+def test_s7_on_one_card(cuda):
+    """The mesh's S7 on a (2,1,4) mesh of cuda:0: each shard's dense states
+    launch, with the plan's overlap, equals its plain version; the
+    extraction without the host corpus (the states route) equals the
+    single-device ``Searcher``'s."""
+    import dataclasses
+
+    from alfred_margaret_tpu_torch import CASE_SENSITIVE, Searcher
+    from alfred_margaret_tpu_torch.parallel import make_mesh
+
+    s = Searcher.build(CASE_SENSITIVE, CONFIG2)
+    eng = s.distributed(make_mesh([cuda] * 8, data=2, seq=1, needle=4))
+    data = np.frombuffer(synth_corpus(CONFIG2, 1 << 20, hit_fraction=0.01, seed=17), np.uint8)
+    st = eng.stage(data)
+    assert _shard_launches_match_plain(eng, st, "states") == {"dense_states"}
+    i, g, dev = eng.shards()[0]
+    assert eng.shard_call("states", st, i, g, dev)[2] == {"overlap": st.plan.overlap}
+    ends, vids = eng.matches_arrays(dataclasses.replace(st, data_np=None))
+    want_ends, want_vids = s.all_matches_arrays(s.stage(data))
+    assert len(ends) > 0 and np.array_equal(ends, want_ends) and np.array_equal(vids, want_vids)
+
+
+@pytest.mark.parametrize("shape", EDGE_SHAPES_B3)
+def test_b16_matches_plain_at_edge_shapes(cuda, shape, monkeypatch):
+    """B16 as ``comb_contains`` launches it, with the plan's overlap (the
+    rule's segments, then k = 1 to 64 forced) and without (one segment),
+    equals the plain version base for base: config 5's 300 needles, the
+    nested set, a NUL-bearing set, single bytes (overlap 0) and a composed
+    IgnoreCase machine the dispatcher sends to comb32, with İ, Kelvin K and
+    ẞ written across the cuts; ragged S, T not a multiple of the tile, vend
+    T and 0, every stream padded (the root base).  Each launch adds one to
+    the wrapper's count; a negative overlap and a root base equal to the
+    absorbing one raise without a launch."""
+    from alfred_margaret_tpu_torch.kernels.segments import Design
+    from alfred_margaret_tpu_torch.models import case_dfa
+
+    comb_mod = importlib.import_module("alfred_margaret_tpu_torch.kernels.comb")
+    T, S = shape
+    rule = comb_mod.comb_count_design
+    ci = _random_needles(47, 120) + ["straße", "kelvin"]
+    cm = _machine(ci)
+    cases = [(name, COMB32_SETS[name], _machine(COMB32_SETS[name]))
+             for name in ("config5_300", "nested", "nul")]
+    cases += [("singles", SINGLES, _machine(SINGLES)),
+              ("ignorecase", ci, case_dfa.compose_build(list(zip(cm.needles, cm.values)),
+                                                        machine=cm))]
+    absorbed = 0
+    for label, needles, m in cases:
+        t = CombAcEngine(m, device=cuda, n_streams=1024).sticky_tables()
+        K = t.min_overlap
+        assert K == m.max_needle_bytes - 1
+        streams, _, vend = _edge_streams(needles, T, S, K, 17 * T + S, cuda)
+        if S > 2:
+            vend[:2] = torch.tensor([T, 0], dtype=torch.int32)
+        if label == "ignorecase":
+            a = streams.cpu().numpy().copy()
+            plant_traps(a, rule(streams, t.comb, t.def_table, K).segments, K)
+            streams = torch.from_numpy(a).to(cuda)
+        args = (streams, vend, *t.sticky_args())
+        want = comb_contains_plain(*args)
+        absorbed += int((want == t.absorb).sum())
+        before = comb_contains.launches
+        n = 0
+        for over, forced in [(K, None), (None, None)] + [(K, f) for f in FORCED_KS]:
+            if forced is not None:
+                monkeypatch.setattr(comb_mod, "comb_count_design", lambda *a, f=forced: Design(f))
+            got = comb_contains(*args, over)
+            monkeypatch.setattr(comb_mod, "comb_count_design", rule)
+            assert torch.equal(got, want), (label, over, forced)
+            n += 1
+        padded = (streams, torch.zeros_like(vend), *t.sticky_args())
+        assert bool((comb_contains(*padded, K) == t.root_base).all()), label
+        assert comb_contains.launches == before + n + 1
+        with pytest.raises(ValueError):
+            comb_contains(*args, -1)
+        with pytest.raises(ValueError):
+            comb_contains(*args[:-1], t.root_base, K)
+        with pytest.raises(ValueError):
+            comb_contains(streams.cpu(), *args[1:], K)
+        assert comb_contains.launches == before + n + 1
     if S > 1 and T > 20:
         assert absorbed > 0

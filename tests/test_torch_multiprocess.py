@@ -50,6 +50,9 @@ for inner in ("pallas", "xla"):
     except NotImplementedError:
         pass
 print(f"rank {rank}: global count {got} ok", flush=True)
+# Leave the group before the interpreter exits: gloo's threads, torn down at
+# exit instead, can abort the process (SIGABRT) after the checks passed.
+torch.distributed.destroy_process_group()
 """
 
 
