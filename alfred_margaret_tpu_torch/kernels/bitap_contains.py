@@ -3,20 +3,22 @@ shift-AND registers per stream.
 
 Wrappers of the kernels that replace the Pallas kernels
 ``alfred_margaret_tpu/ops/bitap_scan.py:_make_bitap_contains_kernel`` (B4:
-one hit register per stream; the sticky mode of B2's segmented scan,
-``csrc/bitap_count.cu``) and ``_make_bitap_presence_kernel`` (B7: one
-sticky plane per word, ``csrc/bitap_contains.cu``), with their trap parts:
-given a ``trapmask`` (IgnoreCase byte-class layouts), B4 also returns a
-sticky trap flag per stream and B7 ORs the trap bits into each word's
-plane.  A CUDA tensor launches the kernel; a CPU tensor runs the plain
-torch version.  Nothing falls back from one to the other.
+one hit register per stream) and ``_make_bitap_presence_kernel`` (B7: one
+sticky plane per word), with their trap parts: given a ``trapmask``
+(IgnoreCase byte-class layouts), B4 also returns a sticky trap flag per
+stream and B7 ORs the trap bits into each word's plane.  Both are modes of
+B2's segmented scan, ``csrc/bitap_count.cu`` (B4 the sticky mode, B7 the
+presence mode).  A CUDA tensor launches the kernel; a CPU tensor runs the
+plain torch version.  Nothing falls back from one to the other.
 
-With the stream plan's ``overlap`` B4 cuts each stream into segments, as
+With the stream plan's ``overlap`` both cut each stream into segments, as
 B2 does (``kernels/segments.py:or_over_segments``): a block scans 128
 streams of one segment, its registers restarted ``overlap`` bytes early,
-bytes staged a tile of 32 steps ahead, and ORs every step it scans.  That
-is exact while every track, match or trap, is at most ``overlap + 1`` bytes
-long, which ``BitapTables.check_overlap`` checks for the callers.
+bytes staged a tile of 32 steps ahead, and ORs every step it scans into
+its hit (B4) or each word's plane (B7).  That is exact while every track,
+match or trap, is at most ``overlap + 1`` bytes long, which
+``BitapTables.check_overlap`` checks for the callers.  Without an overlap
+a stream is one segment.
 """
 
 from __future__ import annotations
@@ -26,10 +28,9 @@ import torch
 from .common import check_overlap, check_streams, check_tables, launch, on_cpu
 from .segments import Design, bitap_smem_bytes, pick_segments, sm_count
 
-#: Registers per stream the kernels support (B4: kMaxTrapWords in
-#: ``bitap_count.cu``; B7: kMaxWords in ``bitap_contains.cu``): the
-#: ``max_words`` default of ``plan_bitap``, and the 2-word budget plus a
-#: standalone trap register.
+#: Registers per stream the kernels support (kMaxTrapWords in
+#: ``bitap_count.cu``): the ``max_words`` default of ``plan_bitap``, and the
+#: 2-word budget plus a standalone trap register.
 MAX_WORDS = 3
 
 
@@ -86,8 +87,9 @@ def bitap_contains_plain(streams, btab, seed, endmask, trapmask=None, overlap=No
     return _or_words(H), _or_words(tr)
 
 
-def bitap_presence_plain(streams, btab, seed, endmask, trapmask=None):
-    """Plain torch version of :func:`bitap_presence`."""
+def bitap_presence_plain(streams, btab, seed, endmask, trapmask=None, overlap=None):
+    """Plain torch version of :func:`bitap_presence`.  (``overlap`` only lets
+    the kernel cut the streams into segments.)"""
     if trapmask is None:
         return sticky_planes_plain(streams, btab, seed, endmask).to(torch.int32)
     H, tr = sticky_planes_plain(streams, btab, seed, endmask, trapmask)
@@ -95,12 +97,16 @@ def bitap_presence_plain(streams, btab, seed, endmask, trapmask=None):
 
 
 def bitap_contains_design(streams, btab, overlap=None) -> Design:
-    """The segments ``bitap_contains`` cuts these CUDA streams into for
-    ``btab``'s words (``kernels/segments.py:pick_segments`` with B2's shared
-    memory and no count fields)."""
+    """The segments ``bitap_contains`` and ``bitap_presence`` cut these CUDA
+    streams into for ``btab``'s words (``kernels/segments.py:pick_segments``
+    with B2's shared memory and no count fields)."""
     T, S = streams.shape
     smem = bitap_smem_bytes(btab.shape[0], 0)
     return Design(pick_segments(S, T, overlap, smem, sm_count(streams.device)))
+
+
+#: B7 shares B4's shared memory and so its rule.
+bitap_presence_design = bitap_contains_design
 
 
 def bitap_contains(streams, btab, seed, endmask, trapmask=None, overlap=None):
@@ -133,22 +139,29 @@ def bitap_contains(streams, btab, seed, endmask, trapmask=None, overlap=None):
     return out, trap
 
 
-def bitap_presence(streams, btab, seed, endmask, trapmask=None):
+def bitap_presence(streams, btab, seed, endmask, trapmask=None, overlap=None):
     """int32 ``[V, S]``: per word and stream, the OR over all steps of
     ``D[w] & endmask[w]`` (``D[w] & (endmask[w] | trapmask[w])`` with a
     ``trapmask``).  Each set end bit flags its track's needle; the words
-    stay apart because they share bit positions."""
+    stay apart because they share bit positions.
+
+    With the stream plan's ``overlap`` (at least the longest track less one)
+    the kernel may cut each stream into segments; without, it scans each
+    whole."""
     V = _check(streams, btab, seed, endmask, trapmask)
+    check_overlap(overlap)
     if on_cpu(streams):
         return bitap_presence_plain(streams, btab, seed, endmask, trapmask)
     T, S = streams.shape
-    out = torch.empty(V, S, dtype=torch.int32, device=streams.device)
+    d = bitap_presence_design(streams, btab, overlap)
+    out = torch.zeros(V, S, dtype=torch.int32, device=streams.device)
     args = (streams.data_ptr(), T, S, btab.data_ptr(), seed.data_ptr(), endmask.data_ptr())
     if trapmask is None:
-        launch("amt_bitap_presence", streams.device, *args, V, out.data_ptr())
+        launch("amt_bitap_presence", streams.device, *args, V, overlap or 0, d.segments,
+               out.data_ptr())
     else:
         launch("amt_bitap_presence_trap", streams.device, *args, trapmask.data_ptr(), V,
-               out.data_ptr())
+               overlap or 0, d.segments, out.data_ptr())
         bitap_presence.launches_trap += 1
     bitap_presence.launches += 1
     return out
@@ -166,5 +179,6 @@ __all__ = [
     "bitap_contains_design",
     "bitap_contains_plain",
     "bitap_presence",
+    "bitap_presence_design",
     "bitap_presence_plain",
 ]

@@ -127,12 +127,14 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.amt_bitap_presence.argtypes = [
         p, i, i,  # streams, T, S
         p, p, p, i,  # btab, seed, endmask, n_words
+        i, i,  # overlap, segments
         p, p,  # out, stream
     ]
     lib.amt_bitap_presence_trap.restype = i
     lib.amt_bitap_presence_trap.argtypes = [
         p, i, i,  # streams, T, S
         p, p, p, p, i,  # btab, seed, endmask, trapmask, n_words
+        i, i,  # overlap, segments
         p, p,  # out, stream
     ]
     lib.amt_matchbits_dense.restype = i

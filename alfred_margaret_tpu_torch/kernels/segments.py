@@ -1,7 +1,8 @@
-"""The schedule of the segmented scans B1, B2, B3, B4, B8, B9, B10, B11, B12,
-B15, B17, the bitmap scans B6 and B13 and the stride-2 screen B14: how each
-stream is cut into segments and how the groups of B9 and B11 are cut into
-chunks, the two numbers each launch takes from its shapes.
+"""The schedule of the segmented scans B1, B2, B3, B4, B5, B7, B8, B9, B10,
+B11, B12, B15, B16, B17, the bitmap scans B6 and B13 and the stride-2 screen
+B14 (every kernel of the port): how each stream is cut into segments and how
+the groups of B9 and B11 are cut into chunks, the two numbers each launch
+takes from its shapes.
 
 ``csrc/stage.cuh`` runs the same split on the card.  Segment i of ``k``
 covers the steps ``[p_i, p_{i+1})``, ``p_i = i * T // k``; it scans from the
@@ -17,18 +18,19 @@ between the streams of the plan.  So, per stream:
   p_{i+1}`` and ORs its trap plane over every step each segment scans
   (:func:`bitap_over_segments`);
 * B4, B2's sticky mode, ORs its hits and its trap plane over every step
-  each segment scans (:func:`or_over_segments`): a restarted register holds
-  a subset of the true bits, so every bit it sets is real, and it is in
-  step over its own range;
+  each segment scans, and B7, its presence mode, each word's plane
+  (:func:`or_over_segments`): a restarted register holds a subset of the
+  true bits, so every bit it sets is real, and it is in step over its own
+  range;
 * a sticky-any scan (B11) is the OR over segments of the scan of
   ``[max(0, p_i - overlap), min(p_{i+1}, vend[s]))`` (:func:`any_over_segments`):
   an absorb there is a real match in ``[0, vend)``, and every real match ends
   in some segment's own range, where that segment is in step;
-* a sticky final entry (B3, B10, B11's one-group mode) is the absorbing
+* a sticky final entry (B3, B10, B11's one-group mode, B16) is the absorbing
   entry if some segment reached it, else the entry of the segment whose own
   range holds step ``vend[s] - 1``, else (``vend`` 0) the root's
   (:func:`entry_over_segments`, :func:`combine_bases`);
-* the states (B12, B17) are each segment's rows of its own range
+* the states (B5, B12, B17) are each segment's rows of its own range
   (:func:`stitch_segments`);
 * the bitmap scans (B6, B13) cut at word boundaries instead
   (:func:`word_segment_schedule`): each segment's count is summed as B15's
@@ -70,7 +72,7 @@ MAX_BLOCKS_PER_SM = 16  # 2048 threads / 128
 
 @dataclass(frozen=True)
 class Design:
-    """What a launch of B1-B4, B6, B8-B15 or B17 takes from its shapes:
+    """What a launch of B1-B17 takes from its shapes:
     ``segments`` pieces per stream and ``chunk`` groups per block (B9,
     B11)."""
 
@@ -141,18 +143,18 @@ def bitap_over_segments(plain: Callable, streams, tables, warm, trapmask=None, *
 
 def or_over_segments(plain: Callable, streams, tables, trapmask=None, *, overlap: int,
                      segments: int):
-    """B4's plain version ``plain(streams, *tables, trapmask)`` run over each
-    segment of :func:`segment_schedule`, from its scan start to its stop,
-    the outputs OR-ed per stream: int32 ``[S]`` hits, and with a
-    ``trapmask`` ``(hits, trap)``: what the segmented B4 computes."""
-    S = streams.shape[1]
-    outs = [torch.zeros(S, dtype=torch.int32, device=streams.device)
-            for _ in range(1 + (trapmask is not None))]
+    """A sticky plain version ``plain(streams, *tables, trapmask)`` run over
+    each segment of :func:`segment_schedule`, from its scan start to its
+    stop, its outputs OR-ed element by element, whatever their shape: B4's
+    int32 ``[S]`` hits, and with a ``trapmask`` ``(hits, trap)``; B7's int32
+    ``[V, S]`` planes, trap bits included.  What the segmented B4 and B7
+    compute."""
+    outs = None
     for start, _, hi in segment_schedule(streams.shape[0], segments, overlap):
         got = plain(streams[start:hi].contiguous(), *tables, trapmask)
-        for acc, x in zip(outs, got if trapmask is not None else (got,)):
-            acc |= x
-    return outs[0] if trapmask is None else tuple(outs)
+        got = got if isinstance(got, tuple) else (got,)
+        outs = got if outs is None else tuple(acc | x for acc, x in zip(outs, got))
+    return outs if len(outs) > 1 else outs[0]
 
 
 def _sticky_runs(run: Callable, streams, vend, overlap: int, segments: int):
@@ -332,8 +334,9 @@ def filter_smem_bytes(words: int) -> int:
 
 
 def bitap_smem_bytes(words: int, fields: int) -> int:
-    """B2 and B4 (``bitap_count.cu``): ``words`` mask tables of 256 words and
-    the count fields' end bits and weights (B4 has none), then two tiles."""
+    """B2, B4 and B7 (``bitap_count.cu``): ``words`` mask tables of 256 words
+    and the count fields' end bits and weights (B4 and B7 have none), then
+    two tiles."""
     return 4 * ((256 * words + 2 * fields + 3) & ~3) + 2 * T_TILE * BLOCK_STREAMS
 
 

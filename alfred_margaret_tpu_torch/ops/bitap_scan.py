@@ -426,9 +426,11 @@ class BitapAcEngine(DenseAcEngine):
         return bitap_count_plain(*self._kernel_args(st))
 
     def sticky_bitap_args(self, st: StagedStreams) -> tuple:
-        """Arguments of ``bitap_presence`` (or its plain version), with the
-        trap mask for a trap layout; ``bitap_contains`` takes them too, and
-        then scans each stream whole."""
+        """The streams and tables of ``bitap_contains`` and ``bitap_presence``
+        (or their plain versions), with the trap mask for a trap layout, and
+        no overlap: either kernel then scans each stream whole, as one
+        segment.  The engine's own calls take :meth:`contains_args` and
+        :meth:`presence_args`."""
         t = self.bitap_tables
         args = (st.streams, t.btab, t.seed, t.endmask)
         return args if t.trapmask is None else (*args, t.trapmask)
@@ -441,6 +443,12 @@ class BitapAcEngine(DenseAcEngine):
         t = self.bitap_tables
         t.check_overlap(st.plan.overlap)
         return (st.streams, t.btab, t.seed, t.endmask, t.trapmask, st.plan.overlap)
+
+    def presence_args(self, st: StagedStreams) -> tuple:
+        """Arguments of ``bitap_presence`` (or its plain version), as
+        :meth:`contains_args`: the trap mask (None without trap tracks), then
+        the plan's warm-up, checked before any launch."""
+        return self.contains_args(st)
 
     # -- trap recovery (JAX ``bitap_scan.py:717-782``) -------------------------
 
@@ -517,7 +525,7 @@ class BitapAcEngine(DenseAcEngine):
         end bit as its needle's flag.  None when a trap fired: the flags could
         under-report, and the caller takes the extraction route."""
         lay = self.bitap
-        planes = bitap_presence(*self.sticky_bitap_args(st)).cpu().numpy()
+        planes = bitap_presence(*self.presence_args(st)).cpu().numpy()
         aggs = [
             int(np.bitwise_or.reduce(p[st.live_np].astype(np.int64), initial=0)) for p in planes
         ]

@@ -93,17 +93,18 @@ just after (the controls' launches are read apart), the first seven over
 
 Every answer must equal the host C++ engine's (and the control's), and every
 kernel of a path must have been launched by it.  The segmented kernels (B1,
-B2 and B4 with their trap parts, B3, B5, B6 with its dense and bitap steps,
-B8, B9, B10, B11 in both modes, B12, B13, B14, B15, B16 and B17) are also
+B2, B4 and B7 with their trap parts, B3, B5, B6 with its dense and bitap
+steps, B8, B9, B10, B11 in both modes, B12, B13, B14, B15, B16 and B17:
+every kernel) are also
 held against their plain versions at ragged edge shapes: one stream, S not
 a multiple of 128 or of 16, T of one tile or word, ragged warm-ups and
 vends, with the plan's overlap, with none and with every stream padded (B2
-also on 1, 2, 3 and 8 words and B4 on 1, 2 and 3, both on their trap
-layouts, İ, Kelvin K and ẞ written across the segment cuts; B3, B4, B5, B8,
-B10, B12, B14 and B16 also at k = 1 to 64 forced, B14 on 0, 1, 3 and 12
+also on 1, 2, 3 and 8 words and B4 and B7 on 1, 2 and 3, all on their trap
+layouts, İ, Kelvin K and ẞ written across the segment cuts; B3, B4, B5, B7,
+B8, B10, B12, B14 and B16 also at k = 1 to 64 forced, B14 on 0, 1, 3 and 12
 words and odd vends; B3 over stream ranges whose start is not a multiple of
 16; B3, B5 and B16 on a composed IgnoreCase machine); the launches of
-B1-B5, B8, B10, B12, B14, B16, S1-S3, S6 and S7 print their segment counts
+B1-B5, B7, B8, B10, B12, B14, B16, S1-S3, S6 and S7 print their segment counts
 (B3, B5, B10, B12, B14, B16, S6 and S7 with their shared memory and blocks
 per SM, B14 with its table layout).  Last it times every kernel (the trap
 parts on the IgnoreCase bench staging, with an embedded trap and with a
@@ -558,7 +559,8 @@ def main() -> int:
     from alfred_margaret_tpu_torch import kernels as K
     from alfred_margaret_tpu_torch.bench.dataformat import synth_corpus
     from alfred_margaret_tpu_torch.kernels import build
-    from alfred_margaret_tpu_torch.kernels.bitap_contains import bitap_contains_design
+    from alfred_margaret_tpu_torch.kernels.bitap_contains import (bitap_contains_design,
+                                                                  bitap_presence_design)
     from alfred_margaret_tpu_torch.kernels.bitap_count import bitap_count_design
     from alfred_margaret_tpu_torch.kernels.comb import comb_count_design
     from alfred_margaret_tpu_torch.kernels.comb16 import comb16_count_design
@@ -634,7 +636,7 @@ def main() -> int:
         if isinstance(eng, BitapAcEngine):
             args = eng.contains_args(st)
             same("bitap_contains", K.bitap_contains(*args), K.bitap_contains_plain(*args), label)
-            args = eng.sticky_bitap_args(st)
+            args = eng.presence_args(st)
             same("bitap_presence", K.bitap_presence(*args), K.bitap_presence_plain(*args), label)
         elif isinstance(eng, Comb16AcEngine):
             args = eng.sticky_args(st)
@@ -1635,7 +1637,7 @@ def main() -> int:
         hay = np.concatenate([hay, np.frombuffer(PROBES * 3, np.uint8)])
         sst = e.stage(hay)
         suffix = "_trap" if lay_k.has_trap else ""
-        kargs, sargs = e._kernel_args(sst), e.sticky_bitap_args(sst)
+        kargs, sargs = e._kernel_args(sst), e.presence_args(sst)
         for name, kernel, plain, args in (
                 ("bitap_count", K.bitap_count, K.bitap_count_plain, kargs),
                 ("bitap_contains", K.bitap_contains, K.bitap_contains_plain, e.contains_args(sst)),
@@ -1851,7 +1853,7 @@ def main() -> int:
          bitap_eng.contains_args(st), "bench needles", need_b4, 4 * S,
          need_b4 * bitap_eng.bitap.n_words),
         ("bitap_presence", K.bitap_presence, K.bitap_presence_plain,
-         bitap_eng.sticky_bitap_args(st), "bench needles", n_live_bytes(st),
+         bitap_eng.presence_args(st), "bench needles", n_live_bytes(st),
          4 * S * bitap_eng.bitap.n_words, n_live_bytes(st) * bitap_eng.bitap.n_words),
         ("matchbits", bits_kernel(st), K.matchbits_plain, bitap_eng.bits_args(st),
          "bench needles, bitap step", T * S, 4 * S + T // 32 * S * 4, T * S),
@@ -1906,10 +1908,10 @@ def main() -> int:
          eng_ci.contains_args(st_ci), "IgnoreCase bench needles, embedded trap",
          n_live_bytes(st_ci), 8 * S, n_live_bytes(st_ci) * VT_ci),
         ("bitap_presence_trap", K.bitap_presence, K.bitap_presence_plain,
-         eng_ci.sticky_bitap_args(st_ci), "IgnoreCase bench needles, embedded trap",
+         eng_ci.presence_args(st_ci), "IgnoreCase bench needles, embedded trap",
          n_live_bytes(st_ci), 4 * S * VT_ci, n_live_bytes(st_ci) * VT_ci),
         ("bitap_presence_trap", K.bitap_presence, K.bitap_presence_plain,
-         eng_reg.sticky_bitap_args(st_ci), "IgnoreCase 5 needles, trap register",
+         eng_reg.presence_args(st_ci), "IgnoreCase 5 needles, trap register",
          n_live_bytes(st_ci), 4 * S * VT_reg, n_live_bytes(st_ci) * VT_reg),
     )
     for name, kernel, plain, args, what, sbytes, obytes, ops in rows:
@@ -1929,6 +1931,8 @@ def main() -> int:
                                                        args[9]).as_dict()
         elif name.startswith("bitap_contains"):  # B4's
             designs[(name, what)] = bitap_contains_design(args[0], args[1], args[5]).as_dict()
+        elif name.startswith("bitap_presence"):  # B7's
+            designs[(name, what)] = bitap_presence_design(args[0], args[1], args[5]).as_dict()
         elif name == "comb16_count":  # B8's
             designs[(name, what)] = comb16_count_design(args[0], args[4], args[5],
                                                         args[13]).as_dict()
@@ -2144,11 +2148,11 @@ def main() -> int:
           f"(k in {sorted(k_seen)}), none, every stream padded; traps across the cuts)",
           flush=True)
 
-    # B4 (with its trap part) and B8 at the same edge shapes: the rule's
-    # segments with the plan's overlap, then k = 1 to 64 forced, none, and
-    # every stream padded (zero bytes for B4, vend 0 for B8); B4 on 1, 2 and
-    # 3 words and the trap layouts, with İ, Kelvin K and ẞ written across the
-    # segment cuts; B8 on config 2, four count ranges, NUL, single bytes
+    # B4 and B7 (with their trap parts) and B8 at the same edge shapes: the
+    # rule's segments with the plan's overlap, then k = 1 to 64 forced, none,
+    # and every stream padded (zero bytes for B4 and B7, vend 0 for B8); B4
+    # and B7 on 1, 2 and 3 words and the trap layouts, with İ, Kelvin K and ẞ
+    # written across the segment cuts; B8 on config 2, four count ranges, NUL, single bytes
     # (overlap 0) and a composed IgnoreCase machine.  The wrappers zero their
     # outputs, so no fill before a launch reaches the kernel.
     sticky_mod = sys.modules[K.bitap_contains.__module__]
@@ -2178,7 +2182,7 @@ def main() -> int:
         with mock.patch.object(mod, design, lambda *a, **kw: Design(forced)):
             return fn()
 
-    n_edge = {"bitap_contains": 0, "comb16_count": 0}
+    n_edge = {"bitap_contains": 0, "bitap_presence": 0, "comb16_count": 0}
     for T_e in (20, 300, 1000):
         for S_e in (1, 200, 1000, 1040, 4096):
             for name, label, e, needles in count_edge:
@@ -2191,20 +2195,28 @@ def main() -> int:
                     plant_traps(a_e, bitap_contains_design(s_e, t.btab, K_e).segments, K_e)
                     s_e = torch.from_numpy(a_e).to(dev)
                 args = (s_e, t.btab, t.seed, t.endmask, t.trapmask)
-                want = K.bitap_contains_plain(*args)
-                for over, forced in [(K_e, None), (None, None)] + [(K_e, f) for f in forced_ks]:
-                    got = launch_at(sticky_mod, "bitap_contains_design", forced,
-                                    lambda: K.bitap_contains(*args, overlap=over))
-                    for a, b in zip(got if isinstance(got, tuple) else (got,),
-                                    want if isinstance(want, tuple) else (want,)):
-                        same(name.replace("count", "contains"), a, b,
-                             f"{label}, overlap {over}, k {forced or 'by the rule'}, edge "
-                             f"shape T={T_e} S={S_e}")
-                    n_edge["bitap_contains"] += 1
-                got = K.bitap_contains(torch.zeros_like(s_e), *args[1:], overlap=K_e)
-                check(not any(x.any() for x in (got if isinstance(got, tuple) else (got,))),
-                      f"B4 {label}: zero bytes hit or trap, edge shape T={T_e} S={S_e}")
-                n_edge["bitap_contains"] += 1
+                # B4, then B7 (the same rule) on the same streams.
+                for wrapper, design, plain, tag in (
+                        (K.bitap_contains, "bitap_contains_design", K.bitap_contains_plain, "B4"),
+                        (K.bitap_presence, "bitap_presence_design", K.bitap_presence_plain,
+                         "B7")):
+                    kname = wrapper.__name__
+                    want = plain(*args)
+                    for over, forced in ([(K_e, None), (None, None)]
+                                         + [(K_e, f) for f in forced_ks]):
+                        got = launch_at(sticky_mod, design, forced,
+                                        lambda: wrapper(*args, overlap=over))
+                        for a, b in zip(got if isinstance(got, tuple) else (got,),
+                                        want if isinstance(want, tuple) else (want,)):
+                            same(name.replace("bitap_count", kname), a, b,
+                                 f"{label}, overlap {over}, k {forced or 'by the rule'}, edge "
+                                 f"shape T={T_e} S={S_e}")
+                        n_edge[kname] += 1
+                    got = wrapper(torch.zeros_like(s_e), *args[1:], overlap=K_e)
+                    check(not any(x.any() for x in (got if isinstance(got, tuple) else (got,))),
+                          f"{tag} {label}: zero bytes flag a needle or a trap, edge shape "
+                          f"T={T_e} S={S_e}")
+                    n_edge[kname] += 1
             for label, needles, e in b8_edge:
                 K_e = e.machine.max_needle_bytes - 1
                 s_e, w_e, v_e = edge_streams(T_e, S_e, K_e, 17 * T_e + S_e, srcs["B8 " + label])
@@ -2221,8 +2233,9 @@ def main() -> int:
                 check(not K.comb16_count(*pad, overlap=K_e).any(),
                       f"B8 {label}: every stream padded counts, edge shape T={T_e} S={S_e}")
                 n_edge["comb16_count"] += 1
-    print(f"edge shapes: B4 (V = 1 / 2 / 3, singles, embedded trap, trap register on 1 and 2 "
-          f"words) == plain on {n_edge['bitap_contains']} launches and B8 (config 2, nested, NUL, "
+    print(f"edge shapes: B4 and B7 (V = 1 / 2 / 3, singles, embedded trap, trap register on 1 "
+          f"and 2 words) == plain on {n_edge['bitap_contains']} and {n_edge['bitap_presence']} "
+          f"launches and B8 (config 2, nested, NUL, "
           f"singles, IgnoreCase) on {n_edge['comb16_count']} (S 1 / 200 / 1000 / 1040 / 4096, T "
           f"20 / 300 / 1000, the plan's overlap with the rule's k and k = {forced_ks}, none, every "
           f"stream padded; traps across the cuts)", flush=True)
@@ -2527,7 +2540,7 @@ def main() -> int:
         "dense_contains": ("dense_count.cu", "pallas_scan.py:426", "bench needles"),
         "bitap_contains": ("bitap_count.cu", "bitap_scan.py:466", "bench needles"),
         "matchbits": ("matchbits.cu", "pallas_scan.py:1174", "bench needles, bitap step"),
-        "bitap_presence": ("bitap_contains.cu", "bitap_scan.py:551", "bench needles"),
+        "bitap_presence": ("bitap_count.cu", "bitap_scan.py:551", "bench needles"),
         "comb16_count": ("comb16_grouped.cu", "comb16_scan.py:610", "config 2"),
         "comb16_contains": ("comb16_grouped.cu", "comb16_scan.py:860",
                             "config 2, digits corpus: full scan"),
@@ -2547,7 +2560,7 @@ def main() -> int:
                              "IgnoreCase bench needles, embedded trap"),
         "bitap_contains_trap": ("bitap_count.cu", "bitap_scan.py:466",
                                 "IgnoreCase bench needles, embedded trap"),
-        "bitap_presence_trap": ("bitap_contains.cu", "bitap_scan.py:551",
+        "bitap_presence_trap": ("bitap_count.cu", "bitap_scan.py:551",
                                 "IgnoreCase bench needles, embedded trap"),
     }
     # Launches counted by the wrappers during the main paths, and apart from
@@ -2647,7 +2660,7 @@ def main() -> int:
         if name in ("bitap_count_trap", "bitap_presence_trap"):
             entry["ms_trap_register"], entry["plain_ms_trap_register"], entry[
                 "bound_ms_trap_register"], _ = timings[(name, "IgnoreCase 5 needles, trap register")]
-        if name == "bitap_count_trap":
+        if name in ("bitap_count_trap", "bitap_presence_trap"):
             entry["design_trap_register"] = designs[(name, "IgnoreCase 5 needles, trap register")]
         if name == "comb16_contains_grouped":
             entry["groups"] = Y5

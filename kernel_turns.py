@@ -6,40 +6,39 @@ source tree, in turns, on one CUDA card.
 ``PARENT_DIR`` holds an earlier checkout's ``alfred_margaret_tpu_torch/csrc``
 (for example ``git archive <commit> alfred_margaret_tpu_torch/csrc | tar -x
 -C PARENT_DIR``, in a directory ``.gitignore`` lists).  Its sources are
-built with the port's ``nvcc`` flags.  B5's and B16's launchers are called
-alone, the parent's through the signatures of the tree before they took
-``overlap`` and ``segments`` (bound below); every other kernel through this
-tree's wrappers, with the parent's library swapped in (``parent_launch``:
-B5's and B16's launches without the two arguments they took since).  At the
-main paths' shapes (128 MiB, S = 32768, T = 4224; the mesh's shards of
-(4,2,1) at 4096 streams and of (2,1,4) at 16384, S7's at 16 MiB), each
-kernel runs in turns, parent, this tree, this tree, parent, ``--runs``
-launches a timing (CUDA events), and each pair's outputs must be equal:
+built with the port's ``nvcc`` flags.  B7's launchers are called alone, the
+parent's through the signatures of the tree before they took ``overlap``
+and ``segments`` (bound below) into a ``torch.empty`` output, this tree's
+at the segments its rule picks into a zeroed one, so that a launch of a
+few dozen microseconds is not timed with the wrapper's host work; every
+other kernel through this tree's wrappers, with the parent's library
+swapped in (``parent_launch``: B7's launches without the two arguments they
+took since).  At the main paths' shapes (128 MiB, S = 32768, T = 4224; the
+mesh's shards of (4,2,1) at 4096 streams and of (2,1,4) at 16384, S7's at
+16 MiB), each kernel runs in turns, parent, this tree, this tree, parent,
+``--runs`` launches a timing (CUDA events), and each pair's outputs must be
+equal:
 
-* B5, the dense states scan: the bench needles' dense tables (the bitap
-  engine's, packing 1) and the 30 dense needles' (packing 2);
-* B16, the comb32 sticky scan: config 5's first 300 needles on the digits
-  corpus (no match: a full scan) and on config 5's corpus (stops at the
-  first match);
-* (both launchers called alone, this tree's at the segments its rule picks,
-  so that a launch of a few dozen microseconds is not timed with the
-  wrapper's host work);
-* S7, B5 on a (2,1,4) shard, through its wrapper on either library;
-* the kernels that must not move: B1, B2, B3 (with S6), B4 (with S3), B6
-  (bitap and dense steps), B7, B8, B9, B10, B11 (both modes, the one-group
-  mode as site S4), B12, B13, B14, B15, B17, S5 and S8.
+* B7, the bitap presence scan: the bench needles (one word), and its trap
+  part on the case-scrambled bench corpus with the IgnoreCase bench
+  needles (a trap embedded in the word) and with ``chip_smoke.py``'s
+  trap-register needles (two words: one and the register);
+* the kernels that must not move: B1, B2 and B4 (each with its trap part;
+  B4 with S3), B3 (with S6), B5 (with S7), B6 (bitap and dense steps), B8,
+  B9, B10, B11 (both modes, the one-group mode as site S4), B12, B13, B14,
+  B15, B16, B17, S5 and S8.
 
-``--grid`` also times this tree's B5 (both packings and S7's shard) and B16
-(both corpora) at other segment counts than their rule picks (the launcher
-alone), and the levers, this tree's sources with one design choice undone
-(``LEVERS``, built into ``_build/levers``), each in turns with this tree's.
-``--walls`` times ``final_states_staged`` on the bench needles (B5; mostly
-the copy of the states to the host), the 30 dense needles'
-``all_matches_arrays`` on a staging without its host corpus (B1, then B5)
-and config 5's 300 needles' ``contains_any`` on the digits corpus and on
-config 5's corpus (B16), host clock until the answer is on the host, this
-tree's engines and wrappers on the parent's library and on this tree's, in
-turns, three times.
+Before the turns it compares the machine code (``cuobjdump -sass``) of the
+B2 and B4 instances of ``bitap_count_kernel`` in both libraries.
+``--grid`` also times this tree's B7 launchers alone on the three inputs at
+k = 1, 4, 8, 16, 32 and 64 segments.  ``--walls`` times ``contains_all``
+through the ``Searcher`` on a staged haystack: on the bench needles and on
+the IgnoreCase bench needles with their embedded trap (B7, then the host
+reads the planes), and on that corpus with ``TSHİRT`` written into 100
+streams (B7's trap fires, then the extraction route); host clock until the
+answer is on the host, on the parent's library and on this tree's, in
+turns, three times (the parent's B7 then writes into this tree's zeroed
+output).
 Prints each timing, the card's name and power limit, and one JSON line.
 Needs one CUDA card and ``nvcc``; the parent's library goes to
 ``alfred_margaret_tpu_torch/_build/parent``.
@@ -50,11 +49,12 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
-import dataclasses
 import glob
 import importlib
 import json
 import os
+import re
+import subprocess
 import sys
 import time
 from types import SimpleNamespace
@@ -66,70 +66,46 @@ import chip_smoke as smoke
 
 
 def _bind_parent(lib) -> None:
-    """The launchers of the parent tree: this tree's signatures, but B5's and
-    B16's before they took ``overlap`` and ``segments``."""
+    """The launchers of the parent tree: this tree's signatures, but B7's
+    before they took ``overlap`` and ``segments``."""
     from alfred_margaret_tpu_torch.kernels import build
 
     build._bind(lib)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.amt_dense_states.argtypes = [p, i, i, p, p, i, i, i, p, p]
-    lib.amt_comb_contains.argtypes = [p, i, i, p, p, p, i, p, i, i, i, i, i, i, p, p]
+    lib.amt_bitap_presence.argtypes = [p, i, i, p, p, p, i, p, p]
+    lib.amt_bitap_presence_trap.argtypes = [p, i, i, p, p, p, p, i, p, p]
 
 
-_POLL_CHECK = "        done = polled == (int32_t)absorb;\n"
-_POLL_LOAD = "          else if (!done) polled = amt::ld_relaxed(out + s);\n"
-_NO_POLL = [(_POLL_CHECK, ""), (_POLL_LOAD, "")]
-_NO_EXIT = ("    if (__syncthreads_and(sb >= S || polled == (int32_t)absorb)) return;",
-            "    polled = -1;")
-
-#: The design choices ``--grid`` undoes one at a time: name -> (source, text
-#: substitutions on this tree's source, each made wherever its text stands).
-#: B5 with default (write-back) stores instead of evict-first ones; B16
-#: taking its poll of out[s] in the tile it polls for (its first step waits
-#: on the load) instead of a tile later; B16 without that poll; B16 without
-#: that poll and without the block-start exit.
-LEVERS = {
-    "B5 write-back stores": ("dense_count.cu", [
-        ("if (t >= lo) __stcs(dst + (size_t)t * S, (int32_t)e);",
-         "if (t >= lo) dst[(size_t)t * S] = (int32_t)e;")]),
-    "B16 polling out[s] for the tile it starts": ("comb_scan.cu", [
-        (_POLL_CHECK, "        done = amt::ld_relaxed(out + s) == (int32_t)absorb;\n"),
-        (_POLL_LOAD, "")]),
-    "B16 without the poll": ("comb_scan.cu", _NO_POLL),
-    "B16 without the poll and the block-start exit": ("comb_scan.cu", [*_NO_POLL, _NO_EXIT]),
-}
+#: bitap_count_kernel<V, TRAP, STICKY or MODE>'s template arguments in its
+#: mangled name: the parent's third is a bool (STICKY: B4, else B2), this
+#: tree's an int (the mode: 0 B2, 1 B4, 2 B7).
+_BITAP_INSTANCE = re.compile(r"bitap_count_kernelILi(\d+)ELb([01])EL[bi](\d+)EE")
+_SASS_LINE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.+?)\s*;")
 
 
-def build_lever(name: str, out_dir: str):
-    """This tree's source of the lever ``name`` with its substitutions, built
-    with the port's flags into ``out_dir`` beside ``errors.cu``; returns the
-    library, its launchers bound as this tree's."""
-    from alfred_margaret_tpu_torch.kernels import build
+def bitap_sass(so: str) -> dict:
+    """The SASS instructions (``cuobjdump -sass``, addresses and encodings
+    dropped) of each bitap_count_kernel instance in the library ``so``, by
+    (V, TRAP, mode)."""
     from alfred_margaret_tpu_torch.utils.device import nvcc_path
 
-    src_name, subs = LEVERS[name]
-    d = os.path.join(out_dir, "".join(c if c.isalnum() else "_" for c in name))
-    os.makedirs(d, exist_ok=True)
-    for path in glob.glob(os.path.join(build._CSRC, "*.cuh")):
-        with open(path) as f, open(os.path.join(d, os.path.basename(path)), "w") as g:
-            g.write(f.read())
-    with open(os.path.join(build._CSRC, src_name)) as f:
-        text = f.read()
-    for old, new in subs:
-        if not text.count(old):
-            raise SystemExit(f"{name}: {old!r} not found in {src_name}")
-        text = text.replace(old, new)
-    with open(os.path.join(d, src_name), "w") as f:
-        f.write(text)
-    so = os.path.join(d, "liblever.so")
-    build._compile(nvcc_path(), [os.path.join(d, src_name),
-                                 os.path.join(build._CSRC, "errors.cu")], so)
-    lib = ctypes.CDLL(so)
-    for fn in ("amt_dense_states", "amt_comb_contains"):
-        if hasattr(lib, fn):
-            getattr(lib, fn).restype = ctypes.c_int
-            getattr(lib, fn).argtypes = getattr(build.load().lib, fn).argtypes
-    return lib
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    text = subprocess.run([tool, "-sass", so], capture_output=True, text=True,
+                          check=True).stdout
+    out, key = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            m = _BITAP_INSTANCE.search(line)
+            key = tuple(int(x) for x in m.groups()) if m else None
+            if key:
+                out[key] = []
+        elif key:
+            m = _SASS_LINE.search(line)
+            if m:
+                out[key].append(m.group(1))
+    return out
 
 
 def build_parent(src_dir: str, out_dir: str):
@@ -161,18 +137,18 @@ def main() -> int:
     ap.add_argument("parent")
     ap.add_argument("--runs", type=int, default=30)
     ap.add_argument("--walls", action="store_true",
-                    help="also time four operations (host clock until the answer is on the "
-                         "host) on the parent's library and on this tree's, in turns")
+                    help="also time two contains_all operations (host clock until the answer "
+                         "is on the host) on the parent's library and on this tree's, in turns")
     ap.add_argument("--grid", action="store_true",
-                    help="also time this tree's B5 (with S7's shard) and B16 at other segment "
-                         "counts than their rule picks, and the levers (LEVERS)")
+                    help="also time this tree's B7 at other segment counts than its rule picks")
     a = ap.parse_args()
 
     from alfred_margaret_tpu_torch import CASE_SENSITIVE, IGNORE_CASE, Searcher
     from alfred_margaret_tpu_torch import kernels as K
     from alfred_margaret_tpu_torch.bench.dataformat import synth_corpus
     from alfred_margaret_tpu_torch.kernels import build
-    from alfred_margaret_tpu_torch.kernels.bitap_contains import bitap_contains_design
+    from alfred_margaret_tpu_torch.kernels.bitap_contains import (bitap_contains_design,
+                                                                  bitap_presence_design)
     from alfred_margaret_tpu_torch.kernels.bitap_count import bitap_count_design
     from alfred_margaret_tpu_torch.kernels.comb import comb_count_design
     from alfred_margaret_tpu_torch.kernels.comb16 import comb16_count_design
@@ -182,7 +158,8 @@ def main() -> int:
                                                                dense_states_design)
     from alfred_margaret_tpu_torch.kernels.filter_contains import filter_contains_design
     from alfred_margaret_tpu_torch.kernels.matchbits import matchbits_design
-    from alfred_margaret_tpu_torch.ops.bitap_scan import BitapAcEngine
+    from alfred_margaret_tpu_torch.models import case_dfa
+    from alfred_margaret_tpu_torch.ops.bitap_scan import BitapAcEngine, plan_bitap_ci
     from alfred_margaret_tpu_torch.ops.comb16_scan import Comb16AcEngine
     from alfred_margaret_tpu_torch.ops.comb_scan import CombAcEngine
     from alfred_margaret_tpu_torch.ops.pallas_scan import DenseAcEngine
@@ -196,20 +173,28 @@ def main() -> int:
     out_dir = os.path.dirname(new.path)
     plib, parent_s = build_parent(a.parent, os.path.join(out_dir, "parent"))
     print(f"built this tree and the parent in {time.perf_counter() - t0:.1f} s", flush=True)
+    # B2's and B4's instances (modes 0 and 1) in both libraries: the same
+    # machine code, or not.
+    p_sass, n_sass = bitap_sass(os.path.join(out_dir, "parent", "libtree.so")), bitap_sass(new.path)
+    shared = sorted(set(p_sass) & set(n_sass))
+    same_sass = [k for k in shared if p_sass[k] == n_sass[k]]
+    print(f"sass bitap_count_kernel<V, TRAP, mode> instances of both libraries: "
+          f"{len(same_sass)} of {len(shared)} identical, differing "
+          f"{sorted(set(shared) - set(same_sass))}; this tree's own: "
+          f"{sorted(set(n_sass) - set(p_sass))}", flush=True)
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
 
     def parent_launch(entry, device, *args):
-        """This tree's launch of ``entry`` on the parent's library: B5's and
-        B16's without the arguments they took since (``overlap`` and
-        ``segments``)."""
-        if entry in ("amt_dense_states", "amt_comb_contains"):
+        """This tree's launch of ``entry`` on the parent's library: B7's
+        without the arguments it took since (``overlap`` and ``segments``)."""
+        if entry in ("amt_bitap_presence", "amt_bitap_presence_trap"):
             args = args[:-3] + args[-1:]
         with torch.cuda.device(device):
             err = getattr(plib, entry)(*args, torch.cuda.current_stream().cuda_stream)
         build.check(err)
 
     wrapper_modules = [importlib.import_module(f"alfred_margaret_tpu_torch.kernels.{m}")
-                       for m in ("dense_count", "comb")]
+                       for m in ("bitap_contains",)]
 
     @contextlib.contextmanager
     def in_lib(lib):
@@ -253,12 +238,11 @@ def main() -> int:
     digits = np.frombuffer((smoke.DIGITS * (B // len(smoke.DIGITS) + 1))[:B], np.uint8)
     sb = Searcher.build(CASE_SENSITIVE, smoke.NEEDLES)
     bitap_eng = sb._engine.device_engine()
-    sd, dense_eng = dense_under_control(smoke.NEEDLES)
+    _, dense_eng = dense_under_control(smoke.NEEDLES)
     assert isinstance(bitap_eng, BitapAcEngine)
     datab = np.frombuffer(synth_corpus(smoke.NEEDLES, B, hit_fraction=0.01, seed=3), np.uint8)
     stgb = sb.stage(datab)
     stb = stgb.device
-    stgd = sd.stage(datab)
     sm = Searcher.build(CASE_SENSITIVE, smoke.MISS_NEEDLES)
     miss_eng = sm._engine.device_engine()
     assert isinstance(miss_eng, BitapAcEngine)
@@ -282,6 +266,20 @@ def main() -> int:
     stg_ci = s_ci.stage(data_ci)
     st_ci = stg_ci.device
     assert stg_ci.composed and eng_ci.bitap.has_trap and eng_ci.bitap.trap is None
+    # The trap-register layout of chip_smoke.py's timings (one word and the
+    # register) on the same staging.
+    m_reg = ac_build(smoke.TRAP_REGISTER_NEEDLES)
+    cm_reg = case_dfa.compose_build(list(zip(m_reg.needles, m_reg.values)), machine=m_reg)
+    eng_reg = BitapAcEngine(cm_reg, layout=plan_bitap_ci(cm_reg, max_words=2), device=dev)
+    assert eng_reg.adopt_staged(st_ci) is st_ci and eng_reg.bitap.trap is not None
+    # TSHİRT written into 100 streams, as in chip_smoke.py's trap phase: B7's
+    # trap fires, and contains_all takes the extraction route.
+    L_ci, tword = st_ci.plan.emit_len, np.frombuffer("TSHİRT".encode(), np.uint8)
+    data_trap = data_ci.copy()
+    for sid in np.random.default_rng(140).choice(st_ci.plan.n_streams, 100, replace=False):
+        data_trap[sid * L_ci + 100: sid * L_ci + 100 + len(tword)] = tword
+    stg_trap = s_ci.stage(data_trap)
+    assert eng_ci.needle_presence_staged(stg_trap.device) is None
     e_miss_ci = Searcher.build(IGNORE_CASE, ["tshirt9", "shorts9"]).distributed(m421)
     s_miss_ci = e_miss_ci.stage(data_ci)
     assert e_miss_ci._bitap_lay.has_trap
@@ -339,27 +337,41 @@ def main() -> int:
     st3d = s300.stage(digits).device
     torch.cuda.synchronize()
 
-    # -- the parent's B5 and B16 ------------------------------------------------------
+    # -- the parent's B7 and this tree's, the launchers alone ---------------------------
     def ptr(x):
         return x.data_ptr()
 
-    def parent_b5(streams, classmap, table, packing, state_bits, overlap=None):
-        """The parent's B5: one thread a whole stream (no segments)."""
-        T, S = streams.shape
-        out = torch.empty(T, S, dtype=torch.int32, device=dev)
-        build.check(plib.amt_dense_states(ptr(streams), T, S, ptr(classmap), ptr(table),
-                                          table.numel(), packing, state_bits, ptr(out), stream()))
+    def b7_call(lib, args, k, out):
+        """B7's launcher of ``lib`` on ``args`` (``presence_args``) into
+        ``out``: ``k`` segments, or the parent's signature for None."""
+        streams, btab, seed, endmask, trapmask, over = args
+        T, S_ = streams.shape
+        head = (ptr(streams), T, S_, ptr(btab), ptr(seed), ptr(endmask))
+        if trapmask is not None:
+            head += (ptr(trapmask),)
+        tail = (btab.shape[0],) + (() if k is None else (over, k)) + (ptr(out), stream())
+        fn = lib.amt_bitap_presence if trapmask is None else lib.amt_bitap_presence_trap
+        build.check(fn(*head, *tail))
         return out
 
-    def parent_b16(streams, vend, cm, comb, deft, k, owner_bits, root_base, root_def, absorb,
-                   overlap=None):
-        """The parent's B16: one thread a whole stream (no segments)."""
-        T, S = streams.shape
-        out = torch.empty(S, dtype=torch.int32, device=dev)
-        build.check(plib.amt_comb_contains(ptr(streams), T, S, ptr(vend), ptr(cm), ptr(comb),
-                                           comb.numel(), ptr(deft), deft.numel(), k, owner_bits,
-                                           root_base, root_def, absorb, ptr(out), stream()))
-        return out
+    def parent_b7(*args):
+        """The parent's B7: one thread a whole stream (no segments), every
+        plane word written."""
+        V, S_ = args[1].shape[0], args[0].shape[1]
+        return b7_call(plib, args, None, torch.empty(V, S_, dtype=torch.int32, device=dev))
+
+    def b7_at(lib, args, k):
+        """B7's launcher of ``lib`` at ``k`` segments, into a zeroed output
+        as the wrapper's."""
+        V, S_ = args[1].shape[0], args[0].shape[1]
+        return b7_call(lib, args, k, torch.zeros(V, S_, dtype=torch.int32, device=dev))
+
+    def b7_design(args):
+        return bitap_presence_design(args[0], args[1], args[5])
+
+    def b7_rule(*args):
+        """This tree's B7 launcher alone at the segments its rule picks."""
+        return b7_at(new.lib, args, b7_design(args).segments)
 
     def bits_kernel(overlap):
         return lambda *args, **kw: K.matchbits(*args, overlap=overlap)
@@ -392,32 +404,6 @@ def main() -> int:
     def b16_design(args):
         return comb_count_design(args[0], args[3], args[4], args[10])
 
-    def b5_at(lib, args, k):
-        """B5's launcher of ``lib`` on ``args`` at ``k`` segments."""
-        streams, cm, tab, packing, state_bits, over = args
-        T, S_ = streams.shape
-        res = torch.empty(T, S_, dtype=torch.int32, device=dev)
-        build.check(lib.amt_dense_states(ptr(streams), T, S_, ptr(cm), ptr(tab), tab.numel(),
-                                         packing, state_bits, over, k, ptr(res), stream()))
-        return res
-
-    def b16_at(lib, args, k):
-        """B16's launcher of ``lib`` on ``args`` at ``k`` segments, its output
-        filled with the root base as the wrapper fills it."""
-        streams, vend, cm, comb, deft, kk, ob, root_base, root_def, absorb, over = args
-        T, S_ = streams.shape
-        res = torch.full((S_,), root_base, dtype=torch.int32, device=dev)
-        build.check(lib.amt_comb_contains(
-            ptr(streams), T, S_, ptr(vend), ptr(cm), ptr(comb), comb.numel(), ptr(deft),
-            deft.numel(), kk, ob, root_base, root_def, absorb, over, k, ptr(res), stream()))
-        return res
-
-    def rule_launch(at, design):
-        """This tree's launcher ``at`` alone at the segments its rule picks:
-        the kernel without the wrapper's host work, as the parent's is
-        called."""
-        return lambda *x: at(new.lib, x, design(x).segments)
-
     y5, f5 = eng5._fused_sticky_setup().tables, eng5._fused_setup().tables
     ob, o2, o8 = stb.plan.overlap, st2.plan.overlap, s8_kw["overlap"]
     bitap_args, dense_args, c16_args = (bitap_eng.bits_args(stb), dense_eng.bits_args(stb),
@@ -426,33 +412,37 @@ def main() -> int:
     b3_args, b3m_args = dense_eng.sticky_args(stb), miss_dense.sticky_args(stmd)
     b3q0_args = dense_eng.sticky_args(stb, 0, S // 4)
     b5_args, b5p_args = bitap_eng.states_args(stb), dense30.states_args(st30d)
-    s7_b5_args = (*s7_args, s7_kw["overlap"])  # S7's shard as B5's launcher takes it
     b16d_args, b16c_args = eng3.sticky_args(st3d), eng3.sticky_args(st3c)
     b10d_args, b10c_args = eng2.sticky_args(st2d), eng2.sticky_args(st2)
     b14_args = (st2.streams, st2.vend, *eng2._filter_tables.args(), st2.plan.overlap)
     b14_args5 = (st5c.streams, st5c.vend, *eng5._filter_tables.args(), st5c.plan.overlap)
     b12_args = eng2.states_args(st2)
-    b5_rule, b16_rule = rule_launch(b5_at, b5_design), rule_launch(b16_at, b16_design)
+    b7_args = {"bench needles": bitap_eng.presence_args(stb),
+               "IgnoreCase bench needles, embedded trap": eng_ci.presence_args(st_ci),
+               "IgnoreCase 5 needles, trap register": eng_reg.presence_args(st_ci)}
     b4_args, b4m_args = bitap_eng.contains_args(stb), miss_eng.contains_args(stm)
     b4t_args = eng_ci.contains_args(st_ci)
     b8_args, b8n_args = eng2._kernel_args(st2), c30._kernel_args(st30)
     b2_args, b2t_args = bitap_eng._kernel_args(stb), eng_ci._kernel_args(st_ci)
+    b2r_args = eng_reg._kernel_args(st_ci)
     b1_args = dense_eng._kernel_args(stb)
     # (tag, what, this tree's call, the parent's call (None: this tree's wrapper
     # on the parent's library), args, kw, this tree's design (None: one thread
     # a whole stream))
     rows = [
-        ("B5", "bench needles' dense tables (packing 1)", b5_rule, parent_b5, b5_args, {},
-         b5_design(b5_args)),
-        ("B5", "30 needles' dense tables (packing 2)", b5_rule, parent_b5, b5p_args, {},
-         b5_design(b5p_args)),
-        ("B16", "config 5's 300, digits corpus: full scan", b16_rule, parent_b16, b16d_args, {},
-         b16_design(b16d_args)),
-        ("B16", "config 5's 300, config 5 corpus: first match", b16_rule, parent_b16,
-         b16c_args, {}, b16_design(b16c_args)),
-        ("S7", "B5, config 2 group 0, 16 MiB, (2,1,4) shard 0, wrapper", K.dense_states, None,
-         s7_args, s7_kw, b5_design(s7_args, s7_kw)),
+        *(("B7", what, b7_rule, parent_b7, args, {}, b7_design(args))
+          for what, args in b7_args.items()),
         # The kernels that must not move: this tree's wrappers on either library.
+        ("B5", "bench needles' dense tables (packing 1)", K.dense_states, None, b5_args, {},
+         b5_design(b5_args)),
+        ("B5", "30 needles' dense tables (packing 2)", K.dense_states, None, b5p_args, {},
+         b5_design(b5p_args)),
+        ("S7", "B5, config 2 group 0, 16 MiB, (2,1,4) shard 0", K.dense_states, None,
+         s7_args, s7_kw, b5_design(s7_args, s7_kw)),
+        ("B16", "config 5's 300, digits corpus: full scan", K.comb_contains, None, b16d_args,
+         {}, b16_design(b16d_args)),
+        ("B16", "config 5's 300, config 5 corpus: first match", K.comb_contains, None,
+         b16c_args, {}, b16_design(b16c_args)),
         ("B14", "config 2, 3 words", K.filter_contains, None, b14_args, {},
          b14_design(b14_args)),
         ("B14", "config 5, 12 words", K.filter_contains, None, b14_args5, {},
@@ -501,8 +491,8 @@ def main() -> int:
          bitap_count_design(b2_args[0], b2_args[1], b2_args[5], b2_args[9])),
         ("B2", "IgnoreCase bench needles, embedded trap", K.bitap_count, None, b2t_args, {},
          bitap_count_design(b2t_args[0], b2t_args[1], b2t_args[5], b2t_args[9])),
-        ("B7", "bench needles", K.bitap_presence, None, bitap_eng.sticky_bitap_args(stb), {},
-         None),
+        ("B2", "IgnoreCase 5 needles, trap register", K.bitap_count, None, b2r_args, {},
+         bitap_count_design(b2r_args[0], b2r_args[1], b2r_args[5], b2r_args[9])),
         ("B6", "bench needles, bitap step", bits_kernel(ob), None, bitap_args, {},
          bits_design(bitap_args, ob)),
         ("B6", "bench needles, dense step", bits_kernel(ob), None, dense_args, {},
@@ -548,38 +538,18 @@ def main() -> int:
               f"{n_ms[0]:.4f} / {n_ms[1]:.4f} ms ({d or 'unsegmented'}; {card})", flush=True)
         out.append({"kernel": tag, "what": what, "parent_ms": p_ms, "new_ms": n_ms, "design": d})
 
-    # B5 and B16 alone, as the grid and the levers launch them: the cases, with
-    # their launcher, rule and reference output.
-    cases = {
-        "B5 packing 1": (b5_at, b5_design, b5_args, K.dense_states(*b5_args)),
-        "B5 packing 2": (b5_at, b5_design, b5p_args, K.dense_states(*b5p_args)),
-        "S7 shard 0": (b5_at, b5_design, s7_b5_args, K.dense_states(*s7_args, **s7_kw)),
-        "B16 full": (b16_at, b16_design, b16d_args, K.comb_contains(*b16d_args)),
-        "B16 first": (b16_at, b16_design, b16c_args, K.comb_contains(*b16c_args)),
-    }
-    grid, lever = [], []
+    grid = []
     if a.grid:
-        for tag, (at, _, args, ref) in cases.items():
+        # This tree's B7 launchers alone at other segment counts, each output
+        # held against the wrapper's at the rule's.
+        for what, args in b7_args.items():
+            ref = K.bitap_presence(*args)
             for k in (1, 4, 8, 16, 32, 64):
-                if same(at(new.lib, args, k), ref):
-                    raise SystemExit(f"{tag} k={k}: != the rule's launch")
-                ms = timed(lambda: at(new.lib, args, k))
-                grid.append({"kernel": tag, "k": k, "ms": ms})
-                print(f"grid {tag:12s} k={k:2d} {ms:.4f} ms ({card})", flush=True)
-
-        # The levers: this tree's sources with one design choice undone
-        # (LEVERS), each launch against this tree's at the rule's k, in turns.
-        for name, (src, _) in LEVERS.items():
-            vlib = build_lever(name, os.path.join(out_dir, "levers"))
-            for tag, (at, design, args, _) in cases.items():
-                if (at is b5_at) != (src == "dense_count.cu"):
-                    continue
-                k = design(args).segments
-                l_ms, n_ms = turns(name, tag, lambda *x, lib=vlib, k=k, at=at: at(lib, x, k),
-                                   lambda *x, k=k, at=at: at(new.lib, x, k), args, {}, None, None)
-                print(f"lever {name:46s} {tag:12s} lever {l_ms[0]:.4f} / {l_ms[1]:.4f} ms, "
-                      f"this tree {n_ms[0]:.4f} / {n_ms[1]:.4f} ms (k={k}; {card})", flush=True)
-                lever.append({"lever": name, "what": tag, "lever_ms": l_ms, "new_ms": n_ms})
+                if same(b7_at(new.lib, args, k), ref):
+                    raise SystemExit(f"B7 {what} k={k}: != the rule's launch")
+                ms = timed(lambda: b7_at(new.lib, args, k))
+                grid.append({"kernel": "B7", "what": what, "k": k, "ms": ms})
+                print(f"grid B7 {what:40s} k={k:2d} {ms:.4f} ms ({card})", flush=True)
 
     walls = []
     if a.walls:
@@ -593,29 +563,17 @@ def main() -> int:
                 times.append((time.perf_counter() - t0) * 1e3)
             return float(np.median(times))
 
-        bare30 = dataclasses.replace(st30d, data_np=None)  # the packed states' route
-
-        def answer(x):
-            """A comparable answer: arrays as bytes and shapes."""
-            if isinstance(x, tuple):
-                return tuple(answer(y) for y in x)
-            if isinstance(x, np.ndarray):
-                return (x.shape, x.tobytes())
-            return x
-
         for tag, what, fn in (
-                ("B5", "final_states_staged, bench needles (bitap engine's dense tables)",
-                 lambda: bitap_eng.final_states_staged(stb)),
-                ("B1+B5", "30 needles all_matches_arrays, no host corpus (B1, then B5)",
-                 lambda: dense30.matches_arrays_staged(bare30)),
-                ("B16", "config 5's 300 contains_any, digits corpus (a full scan)",
-                 lambda: eng3.contains_staged(st3d)),
-                ("B16", "config 5's 300 contains_any, config 5 corpus (first match)",
-                 lambda: eng3.contains_staged(st3c))):
+                ("B7", "contains_all, bench needles (B7, planes read on the host)",
+                 lambda: sb.contains_all(stgb)),
+                ("B7", "contains_all, IgnoreCase bench needles, embedded trap (B7)",
+                 lambda: s_ci.contains_all(stg_ci)),
+                ("B7+B6", "contains_all, IgnoreCase, TSHİRT in 100 streams (B7, then extraction)",
+                 lambda: s_ci.contains_all(stg_trap))):
             got = fn()
             with in_lib(plib):
                 ref = fn()
-            if answer(got) != answer(ref):
+            if got != ref:
                 raise SystemExit(f"{tag} {what}: this tree's answer != the parent's")
             ts = []
             for lbl in ("parent", "new", "new", "parent") * 3:
@@ -623,14 +581,13 @@ def main() -> int:
                     ts.append((lbl, wall_ms(fn)))
             p_ms = [ms for lbl, ms in ts if lbl == "parent"]
             n_ms = [ms for lbl, ms in ts if lbl == "new"]
-            shown = got if isinstance(got, bool) else (
-                f"{len(got[0])} matches" if isinstance(got, tuple) else f"{len(got)} states")
             print(f"wall  {tag:7s} {what:64s} parent {' / '.join(f'{m:.3f}' for m in p_ms)} ms, "
                   f"new {' / '.join(f'{m:.3f}' for m in n_ms)} ms (median of 9 each, host "
-                  f"clock; answer {shown}; {card})", flush=True)
+                  f"clock; answer {got}; {card})", flush=True)
             walls.append({"kernel": tag, "what": what, "parent_ms": p_ms, "new_ms": n_ms,
-                          "answer": shown})
-    line = json.dumps({"turns": out, "lever": lever, "grid": grid, "walls": walls,
+                          "answer": got})
+    line = json.dumps({"turns": out, "grid": grid, "walls": walls,
+                       "sass_identical": [list(k) for k in same_sass],
                        "card": card, "runs": a.runs, "parent_build_s": parent_s})
     print(card)
     print(line)

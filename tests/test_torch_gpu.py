@@ -192,12 +192,13 @@ def test_bitap_sticky_kernels_match_plain(cuda, needles, n_streams):
     data = np.frombuffer(synth_corpus(needles, 1 << 18, hit_fraction=0.001, seed=6), np.uint8)
     eng = BitapAcEngine(m, device=cuda, n_streams=n_streams)
     st = eng.stage(data)
-    args, cargs = eng.sticky_bitap_args(st), eng.contains_args(st)
-    hits, planes = bitap_contains(*cargs), bitap_presence(*args)
+    args, cargs, pargs = eng.sticky_bitap_args(st), eng.contains_args(st), eng.presence_args(st)
+    hits, planes = bitap_contains(*cargs), bitap_presence(*pargs)
     torch.cuda.synchronize()
     assert torch.equal(hits, bitap_contains_plain(*cargs))
     assert torch.equal(bitap_contains(*args), hits)  # one segment
-    assert torch.equal(planes, bitap_presence_plain(*args))
+    assert torch.equal(planes, bitap_presence_plain(*pargs))
+    assert torch.equal(bitap_presence(*args), planes)  # one segment
     assert planes.shape == (eng.bitap.n_words, n_streams)
     assert eng.contains_staged(st) == (ac.count_matches(m, data.tobytes()) > 0)
     seen = {x.value for x in ac.all_matches(m, data.tobytes())}
@@ -609,7 +610,7 @@ def test_trap_kernels_match_plain(cuda, needles, embedded, register, n_streams):
     assert (any(w.trap_endmask for w in lay.words), lay.trap is not None) == (embedded, register)
     data = _ci_corpus(needles, 8, ["KİLO", "KKILO FİX", "Å STRAẞE"])
     st = eng.stage(data)
-    kargs, sargs = eng._kernel_args(st), eng.sticky_bitap_args(st)
+    kargs, sargs = eng._kernel_args(st), eng.presence_args(st)
     cargs = eng.contains_args(st)
     before = (bitap_count.launches_trap, bitap_contains.launches_trap, bitap_presence.launches_trap)
     outs = [(bitap_count(*kargs), bitap_count_plain(*kargs)),
@@ -1135,6 +1136,55 @@ def test_b4_matches_plain_at_edge_shapes(cuda, shape, monkeypatch):
         with pytest.raises(ValueError):
             bitap_contains(streams.cpu(), *args[1:], overlap=K)
         assert (bitap_contains.launches, bitap_contains.launches_trap) == after
+
+
+@pytest.mark.parametrize("shape", EDGE_SHAPES_ONE)
+def test_b7_matches_plain_at_edge_shapes(cuda, shape, monkeypatch):
+    """B7 as ``bitap_presence`` launches it, with the plan's overlap (the
+    rule's segments, then k = 1 to 64 forced) and without (one segment),
+    equals the plain version plane for plane, trap bits included, with trap
+    encodings written across the segment cuts; zero bytes (padding) flag
+    nothing.  Each launch adds one to the wrapper's counts."""
+    from alfred_margaret_tpu_torch.kernels.segments import Design
+
+    sticky_mod = importlib.import_module("alfred_margaret_tpu_torch.kernels.bitap_contains")
+    T, S = shape
+    rule = sticky_mod.bitap_presence_design
+    for label, needles, eng in _bitap_edge_engines(cuda):
+        t = eng.bitap_tables
+        if t.btab.shape[0] > sticky_mod.MAX_WORDS:
+            continue  # eight words: B2 only
+        K = eng.overlap
+        streams, _, _ = _edge_streams(needles, T, S, K, 7 * T + S, cuda)
+        trap = t.trapmask is not None
+        k = rule(streams, t.btab, K).segments
+        if trap:
+            a = streams.cpu().numpy().copy()
+            plant_traps(a, k, K)
+            streams = torch.from_numpy(a).to(cuda)
+        args = (streams, t.btab, t.seed, t.endmask, t.trapmask)
+        want = bitap_presence_plain(*args)
+        assert want.shape == (t.btab.shape[0], S), label
+        if S > 1 and T > 20:
+            assert want.any(), label
+        before = (bitap_presence.launches, bitap_presence.launches_trap)
+        n = 0
+        for over, forced in [(K, None), (None, None)] + [(K, f) for f in FORCED_KS]:
+            if forced is not None:
+                monkeypatch.setattr(sticky_mod, "bitap_presence_design",
+                                    lambda *a, f=forced: Design(f))
+            got = bitap_presence(*args, overlap=over)
+            monkeypatch.setattr(sticky_mod, "bitap_presence_design", rule)
+            assert torch.equal(got, want), (label, over, forced)
+            n += 1
+        assert not bitap_presence(torch.zeros_like(streams), *args[1:], overlap=K).any(), label
+        after = (before[0] + n + 1, before[1] + (n + 1) * trap)
+        assert (bitap_presence.launches, bitap_presence.launches_trap) == after
+        with pytest.raises(ValueError):
+            bitap_presence(*args, overlap=-1)
+        with pytest.raises(ValueError):
+            bitap_presence(streams.cpu(), *args[1:], overlap=K)
+        assert (bitap_presence.launches, bitap_presence.launches_trap) == after
 
 
 @pytest.mark.parametrize("shape", EDGE_SHAPES_ONE)
