@@ -9,7 +9,14 @@ about 30 to 150 needles that overflow the dense table, and the
 needle-grouped engine for larger sets (a thousand needles and more), which
 counts and answers containsAny over all its groups in one fused launch
 each; ``parallel`` shards the scan over a mesh of devices (which may
-repeat: eight shards on one card).  Module names mirror
+repeat: eight shards on one card).  On top of the scans sit the
+reference's operations: ``Searcher`` (with ``adopt_staged``, the needle-set
+swap over a staged corpus), ``Replacer`` (priority-ordered sequential
+replacement, each pass one extraction on the card and the splices on the
+host) and ``Splitter``; ``boyer_moore`` and ``boyer_moore_ci`` are the
+single-needle Boyer-Moore families, whose scans run on the host and whose
+existence queries over large haystacks take ``Searcher`` on the device.
+Module names mirror
 the JAX package's, which stays the reference the port is tested against.
 This package imports ``torch`` and nothing of ``jax`` or of the JAX package:
 the host layers it needs (automaton builder, host C++ engine, case and UTF-8
@@ -26,6 +33,8 @@ from .engine import MatchEngine
 from .ops.comb_scan import make_engine
 from .ops.grouped import GroupedAcEngine
 from .searcher import Searcher
+from .replacer import Payload, Replacer
+from .splitter import Splitter
 from .utils.case import CASE_SENSITIVE, IGNORE_CASE, CaseSensitivity
 from .utils.device import toolchain_report
 
@@ -35,7 +44,10 @@ __all__ = [
     "CaseSensitivity",
     "GroupedAcEngine",
     "MatchEngine",
+    "Payload",
+    "Replacer",
     "Searcher",
+    "Splitter",
     "make_engine",
     "parallel",
     "toolchain_report",

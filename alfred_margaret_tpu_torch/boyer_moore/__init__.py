@@ -1,0 +1,13 @@
+from .automaton import Automaton, build_automaton, pattern_length, pattern_text, run_text
+from .searcher import Searcher
+from .replacer import replace_single_limited
+
+__all__ = [
+    "Automaton",
+    "build_automaton",
+    "pattern_length",
+    "pattern_text",
+    "run_text",
+    "Searcher",
+    "replace_single_limited",
+]

@@ -2,7 +2,9 @@
 a device, in both case modes.
 
 Counterpart of ``alfred_margaret_tpu/engine.py:MatchEngine`` (``count``,
-``contains_any``, ``value_presence``, ``matches``, ``stage``).  Backends:
+``contains_any``, ``value_presence``, ``matches``, ``stage``,
+``adopt_staged``; the JAX package's streaming of haystacks over its device
+budget is not ported, ROADMAP Queue A item 15).  Backends:
 
 * ``python`` - the scalar oracle of ``models.ac`` (its fold, or a scalar
   state pass);
@@ -266,6 +268,43 @@ class MatchEngine:
         if backend == "device":
             staged.device = self.device_engine().stage(data)
         return staged
+
+    def adopt_staged(self, st: StagedHaystack, case: CaseSensitivity) -> StagedHaystack:
+        """Rebind another searcher's staged haystack to this engine: the
+        corpus's device streams (their layout does not depend on the machine)
+        and, for IgnoreCase, its host lowering are reused instead of staged
+        again.  The device engine's ``adopt_staged`` checks the layout and
+        the warm-up overlap against this machine; where they do not fit, the
+        streams are restaged from the staged bytes (the lowering is still
+        reused).  A raw staging fed to a lowering engine is lowered here.
+        Raises ``ValueError`` for a lowered staging fed to an engine that
+        scans raw bytes: the raw bytes are gone."""
+        ci = self._composed(case)
+        if ci is not None:
+            # The composed machine scans raw bytes: CaseSensitive and
+            # composed stagings both hold them.
+            if st.case is CASE_SENSITIVE or st.composed:
+                new = ci.adopt_staged(st, CASE_SENSITIVE)
+                new.case = case
+                new.composed = True
+                return new
+            raise ValueError("cannot adopt a lowered IgnoreCase staging into a composed "
+                             "IgnoreCase searcher: the raw bytes are not retained")
+        need_lowered = case is IGNORE_CASE
+        have_lowered = st.case is IGNORE_CASE and not st.composed
+        if need_lowered and not have_lowered:
+            return self.stage(st.data, case)
+        if have_lowered and not need_lowered:
+            raise ValueError("cannot adopt a lowered staging into a CaseSensitive searcher: "
+                             "the raw bytes are not retained")
+        new = StagedHaystack(case=case, data=st.data, lowered=st.lowered, owner=self.machine)
+        if self._pick(len(st.data)) == "device":
+            eng = self.device_engine()
+            if not isinstance(eng, XlaAcEngine):  # the reference engine keeps the bytes only
+                adopted = (eng.adopt_staged(st.device)
+                           if isinstance(st.device, StagedStreams) else None)
+                new.device = adopted if adopted is not None else eng.stage(st.data)
+        return new
 
     def count(self, text: utf8.TextLike, case: CaseSensitivity) -> int:
         ci = self._composed(case, text)

@@ -1,9 +1,9 @@
 """Aho-Corasick automaton: offline construction of a dense byte-level DFA.
 
 The port's copy of the parts of ``alfred_margaret_tpu/models/ac.py`` it uses:
-``AcMachine``, ``Match``, ``Step``, ``Done``, ``build``,
-``validate_machine``, ``save_npz`` / ``load_npz`` (without the Replacer's
-payloads), the scalar fold in both case modes (``run_with_case``,
+``AcMachine`` (with ``map_values``), ``Match``, ``Step``, ``Done``,
+``build``, ``validate_machine``, ``save_npz`` / ``load_npz`` (values
+include the Replacer's ``Payload``), the scalar fold in both case modes (``run_with_case``,
 ``run_text``, ``run_lower``, ``all_matches``, ``count_matches``),
 ``needle_casings`` and ``presence_of_states``.
 ``tests/test_torch_host.py`` pins each to its original on seeded needle sets.
@@ -91,6 +91,25 @@ class AcMachine:
         """Value ids emitted at ``state``."""
         return self.out_values[self.out_offset[state] : self.out_offset[state + 1]]
 
+    def map_values(self, f: Callable[[Any], Any]) -> "AcMachine":
+        """The same machine with ``f`` applied to every value (the
+        reference's ``deriving Functor`` on ``AcMachine``)."""
+        return AcMachine(
+            delta=self.delta,
+            out_offset=self.out_offset,
+            out_values=self.out_values,
+            match_count=self.match_count,
+            values=[f(v) for v in self.values],
+            needles=self.needles,
+            max_needle_bytes=self.max_needle_bytes,
+            edge_src=self.edge_src,
+            edge_byte=self.edge_byte,
+            edge_dst=self.edge_dst,
+            fail=self.fail,
+            cp_complete=self.cp_complete,
+            composed_ci=self.composed_ci,
+        )
+
 
 #: Artifact format version (bump on any incompatible field change).
 _NPZ_VERSION = 2
@@ -98,8 +117,8 @@ _NPZ_VERSION = 2
 
 def _value_to_json(v):
     """Typed JSON encoding of payload values: JSON scalars and containers,
-    bytes and tuples.  The Replacer's ``Payload`` comes with the Replacer
-    (ROADMAP Queue A item 8)."""
+    bytes, tuples and the Replacer's ``Payload`` (tagged ``__payload__``,
+    as the JAX package writes it, so artifacts cross between the packages)."""
     if v is None or isinstance(v, (bool, int, float, str)):
         return v
     if isinstance(v, bytes):
@@ -110,6 +129,17 @@ def _value_to_json(v):
         return [_value_to_json(x) for x in v]
     if isinstance(v, dict):
         return {"__d__": [[_value_to_json(k), _value_to_json(x)] for k, x in v.items()]}
+    from ..replacer import Payload
+
+    if isinstance(v, Payload):
+        return {
+            "__payload__": [
+                v.needle_priority,
+                v.needle_length_bytes,
+                v.needle_length_code_points,
+                v.needle_replacement.decode("latin-1"),
+            ]
+        }
     raise TypeError(f"cannot persist value of type {type(v).__name__}")
 
 
@@ -121,6 +151,11 @@ def _value_from_json(v):
             return tuple(_value_from_json(x) for x in v["__t__"])
         if "__d__" in v:
             return {_value_from_json(k): _value_from_json(x) for k, x in v["__d__"]}
+        if "__payload__" in v:
+            from ..replacer import Payload
+
+            p, lb, lc, rep = v["__payload__"]
+            return Payload(p, lb, lc, rep.encode("latin-1"))
         raise ValueError(f"unknown tagged value {sorted(v)}")
     if isinstance(v, list):
         return [_value_from_json(x) for x in v]

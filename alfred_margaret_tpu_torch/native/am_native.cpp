@@ -5,10 +5,13 @@
 // device answer against it, and it expands hit bitmaps and replays hit states
 // for match extraction.
 //
-// A copy of the scan, extraction and lowering parts of alfred_margaret_tpu/
-// native/am_native.cpp (splicing and the prefilter stay there): the
+// A copy of the scan, extraction, lowering and splicing parts of
+// alfred_margaret_tpu/native/am_native.cpp (the prefilter stays there): the
 // IgnoreCase lowering transducer (am_lower_transform, am_lower_bytes,
-// am_lower_ascii, am_is_ascii) lowers haystacks for the lowering path.
+// am_lower_ascii, am_is_ascii) lowers haystacks for the lowering path, and
+// the Replacer's passes rescan windows (am_scan_segments_hits), splice
+// (am_splice, am_splice_mt, am_splice_multi) and drop overlaps
+// (am_remove_overlap) here.
 // tests/test_torch_host.py and tests/test_torch_case.py hold each entry point
 // against the original's.
 //
@@ -866,6 +869,162 @@ int32_t am_is_ascii(const uint8_t* data, int64_t n) {
   for (i = words * 8; i < n; i++)
     if (data[i] & 0x80) return 0;
   return 1;
+}
+
+// ---------------------------------------------------------------------------
+// The Replacer's host passes: window rescans, splices and overlap removal.
+// ---------------------------------------------------------------------------
+
+// Segmented hit scan: run the DFA over many independent [begin, end) byte
+// segments of one buffer, resetting to the root state at each segment
+// start, appending (position one past match end, state) per hit.  One call
+// replaces thousands of tiny per-window scans in the incremental Replacer
+// (windows around splice sites).  Returns the total hit count; writes
+// min(total, cap) entries.
+int64_t am_scan_segments_hits(const int32_t* delta, const int32_t* match_count,
+                              const uint8_t* data, const int64_t* seg_begin,
+                              const int64_t* seg_end, int64_t n_segs,
+                              int64_t* out_pos, int32_t* out_state,
+                              int64_t cap) {
+  int64_t o = 0, total = 0;
+  for (int64_t s = 0; s < n_segs; s++) {
+    int32_t state = 0;
+    for (int64_t i = seg_begin[s]; i < seg_end[s]; i++) {
+      state = delta[(int64_t)state * 256 + data[i]];
+      if (match_count[state] > 0) {
+        total++;
+        if (o < cap) {
+          out_pos[o] = i + 1;
+          out_state[o] = state;
+          o++;
+        }
+      }
+    }
+  }
+  return total;
+}
+
+// Splice: copy data with each sorted non-overlapping [starts_i, ends_i)
+// range replaced by repl (one replacement string per call — a Replacer
+// pass replaces a single needle).  out must have capacity
+// n + n_sites*repl_len.  Returns bytes written.
+int64_t am_splice(const uint8_t* data, int64_t n, const int64_t* starts,
+                  const int64_t* ends, int64_t n_sites, const uint8_t* repl,
+                  int64_t repl_len, uint8_t* out) {
+  int64_t o = 0, prev = 0;
+  for (int64_t i = 0; i < n_sites; i++) {
+    int64_t s = starts[i];
+    memcpy(out + o, data + prev, (size_t)(s - prev));
+    o += s - prev;
+    memcpy(out + o, repl, (size_t)repl_len);
+    o += repl_len;
+    prev = ends[i];
+  }
+  memcpy(out + o, data + prev, (size_t)(n - prev));
+  return o + (n - prev);
+}
+
+// Threaded splice: same contract as am_splice.  Per-site output offsets
+// follow from one serial prefix pass over the (constant-delta) sites, after
+// which every inter-site segment copies independently — the splice is then
+// memory-bandwidth-bound instead of single-core memcpy-bound (it dominates
+// Replacer.run wall time at config-4 densities).
+int64_t am_splice_mt(const uint8_t* data, int64_t n, const int64_t* starts,
+                     const int64_t* ends, int64_t n_sites, const uint8_t* repl,
+                     int64_t repl_len, uint8_t* out, int32_t n_threads) {
+  if (n_threads <= 1 || n_sites == 0 || n < (int64_t)n_threads * (1 << 20))
+    return am_splice(data, n, starts, ends, n_sites, repl, repl_len, out);
+  std::vector<int64_t> off(n_sites + 1);
+  int64_t shift = 0;
+  for (int64_t i = 0; i < n_sites; i++) {
+    off[i] = shift;
+    shift += repl_len - (ends[i] - starts[i]);
+  }
+  off[n_sites] = shift;
+  int64_t chunk = (n_sites + n_threads - 1) / n_threads;
+  std::vector<std::thread> threads;
+  for (int t = 0; t < n_threads; t++) {
+    threads.emplace_back([&, t]() {
+      int64_t i0 = (int64_t)t * chunk, i1 = std::min(n_sites, i0 + chunk);
+      for (int64_t i = i0; i < i1; i++) {
+        int64_t prev = i ? ends[i - 1] : 0;
+        int64_t o = prev + off[i];
+        memcpy(out + o, data + prev, (size_t)(starts[i] - prev));
+        memcpy(out + o + (starts[i] - prev), repl, (size_t)repl_len);
+      }
+      if (t == n_threads - 1) {  // tail after the last site
+        int64_t prev = ends[n_sites - 1];
+        memcpy(out + prev + off[n_sites], data + prev, (size_t)(n - prev));
+      }
+    });
+  }
+  for (auto& th : threads) th.join();
+  return n + shift;
+}
+
+// Multi-replacement splice: like am_splice_mt but each site i carries its
+// own replacement string repl_blob[repl_off[rid[i]] .. repl_off[rid[i]+1])
+// (the Replacer's batched no-interaction fast path replaces ALL priorities
+// in one pass).  Sites sorted by start, non-overlapping.  Returns bytes
+// written.
+int64_t am_splice_multi(const uint8_t* data, int64_t n, const int64_t* starts,
+                        const int64_t* ends, int64_t n_sites,
+                        const uint8_t* repl_blob, const int64_t* repl_off,
+                        const int32_t* rid, uint8_t* out, int32_t n_threads) {
+  std::vector<int64_t> off(n_sites + 1);
+  int64_t shift = 0;
+  for (int64_t i = 0; i < n_sites; i++) {
+    off[i] = shift;
+    int64_t rl = repl_off[rid[i] + 1] - repl_off[rid[i]];
+    shift += rl - (ends[i] - starts[i]);
+  }
+  off[n_sites] = shift;
+  if (n_threads < 1) n_threads = 1;
+  if (n_sites == 0 || n < (int64_t)n_threads * (1 << 20)) n_threads = 1;
+  int64_t chunk = (n_sites + n_threads - 1) / n_threads;
+  std::vector<std::thread> threads;
+  auto work = [&](int t) {
+    int64_t i0 = (int64_t)t * chunk, i1 = std::min(n_sites, i0 + chunk);
+    for (int64_t i = i0; i < i1; i++) {
+      int64_t prev = i ? ends[i - 1] : 0;
+      int64_t o = prev + off[i];
+      memcpy(out + o, data + prev, (size_t)(starts[i] - prev));
+      o += starts[i] - prev;
+      int64_t rb = repl_off[rid[i]];
+      int64_t rl = repl_off[rid[i] + 1] - rb;
+      memcpy(out + o, repl_blob + rb, (size_t)rl);
+    }
+    if (t == n_threads - 1) {
+      int64_t prev = n_sites ? ends[n_sites - 1] : 0;
+      memcpy(out + prev + off[n_sites], data + prev, (size_t)(n - prev));
+    }
+  };
+  if (n_threads == 1) {
+    work(0);
+  } else {
+    for (int t = 0; t < n_threads; t++) threads.emplace_back(work, t);
+    for (auto& th : threads) th.join();
+  }
+  return n + shift;
+}
+
+// Greedy leftmost-wins overlap removal over (start, end) pairs already
+// sorted ascending (removeOverlap, Replacer.hs:191-198): keep a match iff
+// its start is at/after the previous kept end.  Returns the kept count.
+int64_t am_remove_overlap(const int64_t* starts, const int64_t* ends,
+                          int64_t n, int64_t* kept_starts,
+                          int64_t* kept_ends) {
+  int64_t k = 0;
+  int64_t prev_end = -1;
+  for (int64_t i = 0; i < n; i++) {
+    if (starts[i] >= prev_end) {
+      kept_starts[k] = starts[i];
+      kept_ends[k] = ends[i];
+      prev_end = ends[i];
+      k++;
+    }
+  }
+  return k;
 }
 
 }  // extern "C"

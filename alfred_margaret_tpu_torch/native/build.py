@@ -104,6 +104,33 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, i64, i64, i32,  # data, n, overlap, n_threads
         p,  # out_seen
     ]
+    lib.am_scan_segments_hits.restype = i64
+    lib.am_scan_segments_hits.argtypes = [
+        p, p, p,  # delta, match_count, data
+        p, p, i64,  # seg_begin, seg_end (int64), n_segs
+        p, p, i64,  # out_pos, out_state, cap
+    ]
+    lib.am_splice.restype = i64
+    lib.am_splice.argtypes = [
+        p, i64,  # data, n
+        p, p, i64,  # starts, ends (int64), n_sites
+        p, i64,  # repl, repl_len
+        p,  # out
+    ]
+    lib.am_splice_mt.restype = i64
+    lib.am_splice_mt.argtypes = lib.am_splice.argtypes + [i32]  # ..., n_threads
+    lib.am_splice_multi.restype = i64
+    lib.am_splice_multi.argtypes = [
+        p, i64,  # data, n
+        p, p, i64,  # starts, ends (int64), n_sites
+        p, p, p,  # repl_blob, repl_off (int64), rid (int32 per site)
+        p, i32,  # out, n_threads
+    ]
+    lib.am_remove_overlap.restype = i64
+    lib.am_remove_overlap.argtypes = [
+        p, p, i64,  # starts, ends (int64), n
+        p, p,  # kept_starts, kept_ends
+    ]
 
 
 def load() -> ctypes.CDLL:

@@ -2,8 +2,8 @@
 
 The port's copy of the parts of ``alfred_margaret_tpu/native/cpp_engine.py``
 it calls: ``CppAcEngine`` (count, per-position states, first hit, value
-presence and match arrays, with the lazily built byte-class tables) and
-``_default_threads``.
+presence, match arrays and the Replacer's segmented window rescan, with the
+lazily built byte-class tables) and ``_default_threads``.
 The same table layout and emission semantics as the device kernels (match
 counts per post-byte state), so results are bit-identical: the port's
 ``cpp`` backend, and the reference every device answer is held against.
@@ -204,6 +204,30 @@ class CppAcEngine:
             data.ctypes.data, len(data), self.overlap, nt, seen.ctypes.data,
         )
         return seen.astype(bool)
+
+    def segments_matches_arrays(self, data: np.ndarray, seg_begin: np.ndarray, seg_end: np.ndarray):
+        """(ends, value_ids) of scanning each ``[begin, end)`` segment of
+        ``data`` from the root state, emission order within each segment,
+        segments in input order: the incremental Replacer's window rescan,
+        in one native call."""
+        data = np.ascontiguousarray(data)
+        seg_begin = np.ascontiguousarray(seg_begin, dtype=np.int64)
+        seg_end = np.ascontiguousarray(seg_end, dtype=np.int64)
+        if len(seg_begin) == 0:
+            return np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.int32)
+        cap = 4096
+        while True:
+            pos = np.empty(cap, dtype=np.int64)
+            st = np.empty(cap, dtype=np.int32)
+            total = int(self.lib.am_scan_segments_hits(
+                self.delta.ctypes.data, self.match_count.ctypes.data, data.ctypes.data,
+                seg_begin.ctypes.data, seg_end.ctypes.data, len(seg_begin),
+                pos.ctypes.data, st.ctypes.data, cap,
+            ))
+            if total <= cap:
+                break
+            cap = total + 16
+        return expand_hits(self.machine, pos[:total], st[:total])
 
 
 __all__ = ["CppAcEngine"]

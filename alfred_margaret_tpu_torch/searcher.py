@@ -4,14 +4,16 @@ Counterpart of ``alfred_margaret_tpu/searcher.py:Searcher``: a needle list
 with values, the automaton built from it and the port's ``MatchEngine`` on a
 device (``"cuda"`` unless the caller asks for ``"cpu"``).  Equality, hashing
 and ``to_json`` are defined by the needle list only, as in the JAX package.
-``build``, ``build_with_values``, ``save_npz``, ``load_npz``,
-``set_case_sensitivity``, ``stage``, ``count_matches``, ``contains_any``,
-``contains_all``, ``all_matches`` and ``all_matches_arrays`` work, in both
-case modes, on whichever engine ``MatchEngine`` picks for the needle set
-(the needle-grouped one for sets that no single-pass engine holds; for
-IgnoreCase the composed case DFA or the lowering path); ``distributed``
-gives the sharded engine of ``parallel``.  Every other operation raises
-``NotImplementedError`` naming the ROADMAP item that brings it.
+Every operation of the JAX ``Searcher`` works (``build``,
+``build_with_values``, ``build_needle_id_searcher``, ``map_searcher``,
+``+``, ``set_case_sensitivity``, ``to_json`` / ``from_json``, ``save_npz`` /
+``load_npz``, ``stage``, ``adopt_staged``, ``count_matches``,
+``contains_any``, ``contains_all``, ``all_matches``,
+``all_matches_arrays``), in both case modes, on whichever engine
+``MatchEngine`` picks for the needle set (the needle-grouped one for sets
+that no single-pass engine holds; for IgnoreCase the composed case DFA or
+the lowering path); ``distributed`` gives the sharded engine of
+``parallel``.
 
 As in the reference, an ``IGNORE_CASE`` searcher expects lowercase needles:
 uppercase needles never match (``Searcher.hs:108-118``).
@@ -20,7 +22,7 @@ uppercase needles never match (``Searcher.hs:108-118``).
 from __future__ import annotations
 
 import json
-from typing import Any, Iterable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -28,14 +30,6 @@ from .engine import COMPOSED_CI_MAX_STATES, MatchEngine
 from .models import ac, case_dfa
 from .utils import utf8
 from .utils.case import IGNORE_CASE, CaseSensitivity
-
-
-def _todo(what: str, item: str):
-    def method(self, *args, **kwargs):
-        raise NotImplementedError(f"{what} is not ported yet: ROADMAP Queue A item {item}")
-
-    method.__name__ = what
-    return method
 
 
 def _hashable(v: Any):
@@ -87,6 +81,15 @@ class Searcher:
             engine=engine, device=device,
         )
 
+    @classmethod
+    def build_needle_id_searcher(
+        cls, case: CaseSensitivity, needles: Iterable[utf8.TextLike], engine: str = "auto", *,
+        device="cuda",
+    ) -> "Searcher":
+        """Values are needle indices (for ``contains_all``, ``Searcher.hs:167-169``)."""
+        return cls(case, [(utf8.to_bytes(n), i) for i, n in enumerate(needles)],
+                   engine=engine, device=device)
+
     # -- accessors -----------------------------------------------------------
 
     @property
@@ -116,6 +119,21 @@ class Searcher:
         return Searcher(case, self._needles, machine=self._machine, engine=self._engine_name,
                         device=self.device)
 
+    def map_searcher(self, f: Callable[[Any], Any]) -> "Searcher":
+        """Map over the values (``mapSearcher``, ``Searcher.hs:121-125``); the
+        automaton's tables are shared."""
+        return Searcher(self._case, [(n, f(v)) for n, v in self._needles],
+                        machine=self._machine.map_values(f), engine=self._engine_name,
+                        device=self.device)
+
+    def __add__(self, other: "Searcher") -> "Searcher":
+        """The needles of both, this searcher's first (``Searcher.hs:100-105``);
+        ``ValueError`` when the case modes differ."""
+        if self._case != other._case:
+            raise ValueError("Combining searchers of different case sensitivity")
+        return Searcher(self._case, self._needles + other._needles, engine=self._engine_name,
+                        device=self.device)
+
     # -- equality, hashing and serialization by needles ------------------------
 
     def _key(self):
@@ -138,6 +156,14 @@ class Searcher:
             }
         )
 
+    @classmethod
+    def from_json(cls, blob: str, engine: str = "auto", *, device="cuda") -> "Searcher":
+        """The searcher of ``to_json``'s needle list; the automaton is rebuilt."""
+        obj = json.loads(blob)
+        case = CaseSensitivity.from_json(obj["caseSensitivity"])
+        pairs = [(n.encode("utf-8"), v) for n, v in obj["needles"]]
+        return cls(case, pairs, engine=engine, device=device)
+
     # -- packed-table cold-start artifact -------------------------------------
 
     def save_npz(self, path: str) -> None:
@@ -159,6 +185,15 @@ class Searcher:
         """Prepare a haystack for repeated scans (device staging done once);
         pass the result to any matching operation."""
         return self._engine.stage(haystack, self._case)
+
+    def adopt_staged(self, staged):
+        """Rebind ANOTHER searcher's staged haystack to this searcher, the
+        needle-set swap of a server: the corpus's device streams and host
+        lowering are reused where this searcher's warm-up overlap allows,
+        and restaged from the staged bytes where it does not.  Raises
+        ``ValueError`` when the staging kept only lowered bytes and this
+        searcher needs raw ones (stage the raw text instead)."""
+        return self._engine.adopt_staged(staged, self._case)
 
     def contains_any(self, haystack: utf8.TextLike) -> bool:
         """True iff any needle occurs."""
@@ -218,12 +253,6 @@ class Searcher:
                 ) from e
             sub_build = case_dfa.compose_build  # needle groups stay composed
         return DistributedAcEngine(machine, mesh, inner=inner, sub_build=sub_build, **kw)
-
-    build_needle_id_searcher = classmethod(_todo("build_needle_id_searcher", "8"))
-    from_json = classmethod(_todo("from_json", "8"))
-    map_searcher = _todo("map_searcher", "8")
-    __add__ = _todo("__add__", "8")
-    adopt_staged = _todo("adopt_staged", "8")
 
 
 __all__ = ["Searcher"]

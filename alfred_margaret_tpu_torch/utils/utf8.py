@@ -4,11 +4,15 @@ frozen table, and the IgnoreCase lowering transducer with its raw-byte
 coordinate maps.
 
 The port's copy of the parts of ``alfred_margaret_tpu/utils/utf8.py`` it
-uses: ``TextLike``, ``to_bytes``, ``to_u8``, ``_LEAD_LEN``; the case tables
-(``MAX_CP``, ``LOWER_TABLE``, ``ASCII_LOWER_BYTES``, the unlowering map and
-its scalar helpers, ``unicode2utf8``, ``num_code_units``); the strict
-streaming decoder (``decode_strict``) and its scalar lowerer;
-``skip_code_points_backwards`` and ``raw_match_starts``; the vectorized
+uses: ``TextLike``, ``to_bytes``, ``to_u8``, ``length_utf8``,
+``_LEAD_LEN``; the case tables (``MAX_CP``, ``LOWER_TABLE``,
+``ASCII_LOWER_BYTES``, the unlowering map and its scalar helpers,
+``to_lower_ascii``, ``print_unlowerings``, ``is_case_invariant``,
+``unicode2utf8``, ``num_code_units``); the scalar decoders
+(``decode_code_point``, ``unsafe_index_code_point``, ``decode_utf8``), the
+strict streaming decoder (``decode_strict``) and its scalar lowerer;
+``skip_code_points_backwards``, ``raw_match_starts``, ``unsafe_slice_utf8``
+and ``unsafe_cut_utf8``; the vectorized
 codecs (``decode_utf8_np``, ``encode_utf8_np``, ``strict_units_np``,
 ``lower_units_np``); ``LoweredText``; and ``lower_transform`` with the
 native glue (``_native_lib``, ``_lower_encode_map``).  The frozen table
@@ -75,6 +79,11 @@ def _unlower_map() -> dict:
 # ---------------------------------------------------------------------------
 
 
+def to_lower_ascii(c: str) -> str:
+    """Lowercase A-Z only, identity elsewhere (``Utf8.hs:131-135``)."""
+    return chr(ord(c) + 0x20) if "A" <= c <= "Z" else c
+
+
 def lower_code_point(c: str) -> str:
     """Simple Unicode lowercase of one code point (``Utf8.hs:145-151``)."""
     return chr(int(LOWER_TABLE[ord(c)]))
@@ -98,6 +107,28 @@ def unlower_code_point(c: str) -> str:
         # {c} if c is its own lowercase, else empty.
         return c if LOWER_TABLE[cp] == cp else ""
     return "".join(map(chr, ups))
+
+
+def print_unlowerings(out=None) -> None:
+    """Debug dump of all non-trivial unlowerings (``Unlower.hs:61-87``):
+    every lowercase code point mapped to by more than one code point, or by
+    one that is not itself.  The reference's printer surfaced the specials
+    (i -> I/İ, k -> K/K Kelvin, ß -> ẞ, å -> Å/Å angstrom, ǆǉǌǳ digraphs,
+    θ/ω variants); ours lists the same table."""
+    import sys
+
+    out = out or sys.stdout
+    m = _unlower_map()
+    for low in sorted(m):
+        ups = m[low]
+        if ups != [low]:
+            chars = " ".join(f"U+{cp:04X} {chr(cp)}" for cp in ups)
+            out.write(f"U+{low:04X} {chr(low)} <- {chars}\n")
+
+
+def is_case_invariant(text: str) -> bool:
+    """True iff every cp satisfies unlower(lower(c)) == [c] (``Utf8.hs:169-171``)."""
+    return all(unlower_code_point(lower_code_point(c)) == c for c in text)
 
 
 # ---------------------------------------------------------------------------
@@ -137,6 +168,11 @@ def to_u8(text: TextLike) -> np.ndarray:
     return np.frombuffer(to_bytes(text), dtype=np.uint8)
 
 
+def length_utf8(text: TextLike) -> int:
+    """Length in code units (bytes) (``Utf8.hs:127-128``)."""
+    return len(to_bytes(text))
+
+
 def num_code_units(cp: int) -> int:
     """UTF-8 encoded byte length of a code point."""
     if cp < 0x80:
@@ -146,6 +182,61 @@ def num_code_units(cp: int) -> int:
     if cp < 0x10000:
         return 3
     return 4
+
+
+def decode_code_point(data: bytes, idx: int) -> Tuple[int, int]:
+    """Decode the code point starting at byte ``idx``.
+
+    Returns (number of code units consumed, code point) like
+    ``unsafeIndexCodePoint'`` / ``decodeN`` (``Utf8.hs:337-350``). The
+    reference assumes valid UTF-8 (guaranteed by Haskell's ``Text``); since
+    our surface accepts raw ``bytes``, malformed sequences (stray trail
+    bytes, truncated sequences, invalid leads) are consumed as single-byte
+    pseudo code points instead of raising.
+    """
+    b0 = data[idx]
+    if b0 < 0x80:
+        return 1, b0
+    n = len(data)
+    if 0xC0 <= b0 < 0xE0 and idx + 1 < n:
+        return 2, ((b0 & 0x1F) << 6) | (data[idx + 1] & 0x3F)
+    if 0xE0 <= b0 < 0xF0 and idx + 2 < n:
+        return (
+            3,
+            ((b0 & 0x0F) << 12) | ((data[idx + 1] & 0x3F) << 6) | (data[idx + 2] & 0x3F),
+        )
+    if 0xF0 <= b0 < 0xF9 and idx + 3 < n:
+        return (
+            4,
+            ((b0 & 0x07) << 18)
+            | ((data[idx + 1] & 0x3F) << 12)
+            | ((data[idx + 2] & 0x3F) << 6)
+            | (data[idx + 3] & 0x3F),
+        )
+    # Malformed: treat as an isolated single-byte unit.
+    return 1, b0
+
+
+def unsafe_index_code_point(data: bytes, idx: int) -> Tuple[int, int]:
+    """Reference-surface alias for :func:`decode_code_point`
+    (``unsafeIndexCodePoint`` / ``unsafeIndexCodePoint'``, ``Utf8.hs:337-342``)."""
+    return decode_code_point(data, idx)
+
+
+def decode_utf8(data: bytes) -> str:
+    """Decode a whole UTF-8 byte sequence to a string (``decodeUtf8``,
+    ``Utf8.hs:221-227``).  Malformed sequences follow
+    :func:`decode_code_point`'s single-byte pseudo-code-point rule instead
+    of erroring (the reference only ever sees valid ``Text``)."""
+    out = []
+    idx, n = 0, len(data)
+    while idx < n:
+        consumed, cp = decode_code_point(data, idx)
+        if cp > 0x10FFFF:  # 0xF5-0xF8 leads can decode past the scalar range
+            consumed, cp = 1, data[idx]
+        out.append(chr(cp))
+        idx += consumed
+    return "".join(out)
 
 
 def is_trail_byte(b: int) -> bool:
@@ -267,6 +358,17 @@ def raw_match_starts(text: TextLike, ends: np.ndarray, lenc) -> np.ndarray:
     starts = pos[ordinal[ends - 1] - np.maximum(lenc, 1)]
     # Zero-length matches (empty needle) start at their own end.
     return np.where(lenc == 0, ends, starts)
+
+
+def unsafe_slice_utf8(begin: int, length: int, text: TextLike) -> bytes:
+    """Byte slice [begin, begin+length) (``Utf8.hs:317-319``)."""
+    return to_bytes(text)[begin : begin + length]
+
+
+def unsafe_cut_utf8(begin: int, length: int, text: TextLike) -> Tuple[bytes, bytes]:
+    """(prefix before begin, suffix after begin+length) (``Utf8.hs:308-315``)."""
+    data = to_bytes(text)
+    return data[:begin], data[begin + length :]
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,7 @@ kernels (and B11's one-group mode, on the mesh phase's tables) against its
 plain torch version on the card on nineteen machines, and
 the trap parts of B2, B4 and B7 on three IgnoreCase layouts, and the
 engines' answers (``final_states`` and the extraction without the host
-corpus too) against the port's host C++ engine.  Then it drives ten main
+corpus too) against the port's host C++ engine.  Then it drives eleven main
 paths, each with the kernels' launch counts set to 0 just before it and read
 just after (the controls' launches are read apart), the first seven over
 128 MiB corpora:
@@ -74,6 +74,27 @@ just after (the controls' launches are read apart), the first seven over
   on the lowering path, on the lowered bytes with the ends mapped back), and
   the python IgnoreCase oracle on 64 KiB with the case probes (İ, Ⱥ, Kelvin
   K, Å, ẞ);
+* the reference's other operations (``api_phase``, at 128 MiB), after the
+  host C++ library is checked for the Replacer's five entry points:
+  ``Replacer.run`` on config 4's pairs (the batched splice; one-shot and on
+  a staged handle; B6's bitap step), on a cascading set (the incremental
+  loop's window rescans), on config 2's 100 needles upper-cased (B13) and
+  under IgnoreCase (composed, on a staging of the scrambled bench corpus;
+  the lowering fallback on 1 MiB one-shot, against the python Replacer; and
+  config 4's and the cascading pairs composed on a staging of that 1 MiB,
+  against the python Replacer's lowering path), each output equal to a
+  sequential ``bytes.replace`` and the host C++ Replacer's, a lowered
+  staging refused; ``Splitter.split`` and ``split_ignore_case`` on
+  ``shorts`` (``bytes.split``, the host C++ Splitter);
+  ``Searcher.adopt_staged`` of the bench staging into the bitap searcher
+  (the streams reused) and the composed IgnoreCase one (restaged), and of a
+  staging of a corpus holding every tier's needles, at the widest overlap
+  they need, into the dense, comb16, comb32, grouped and composed
+  IgnoreCase searchers (the streams reused), each count (above 0) and
+  ``contains_any`` equal to the host C++ engine's; and ``boyer_moore`` /
+  ``boyer_moore_ci`` ``contains_any`` and ``contains_all`` (true and false)
+  over 128 MiB, through the AC route on the card, against the host C++
+  engine;
 * the sharded engine (``parallel.DistributedAcEngine`` through
   ``Searcher.distributed``) on meshes of eight shards of the one card
   (``make_mesh(["cuda:0"] * 8, ...)``), each operation launching its step
@@ -262,6 +283,15 @@ MESH_SITES = {
     "dense_contains": ("S6", 997), "dense_states": ("S7", 1134), "matchbits": ("S8", 1219),
 }
 MESH_STATES_BYTES = 16 << 20  # corpus of the states route: [G, T, S] int32 on the host
+
+#: The Replacer's pairs of ``BASELINE.json`` config 4 (the JAX package's
+#: ``bench/configs.py``), and a set whose replacements create matches of
+#: lower priorities (the incremental pass loop).
+CONFIG4_PAIRS = [("tshirt", "TEE"), ("shirts", "SHIRT"), ("shorts", "S"), ("ee", "f")]
+CASCADE_PAIRS = [("tshirt", "shirts"), ("shirts", "shorts"), ("shorts", "x")]
+#: The Replacer's entry points in the host C++ library.
+REPLACER_SYMBOLS = ("am_scan_segments_hits", "am_splice", "am_splice_mt", "am_splice_multi",
+                    "am_remove_overlap")
 
 
 def mesh_phase(h):
@@ -544,6 +574,308 @@ def mesh_phase(h):
     print(f"mesh: every answer == the single-device Searcher; launches {main}, "
           f"control {control}", flush=True)
     return main, control, sites
+
+
+def api_phase(h):
+    """The reference's other operations on the card at ``CORPUS_BYTES``:
+    ``Replacer.run`` on config 4's pairs (the batched splice), on a cascading
+    set (the incremental loop), on config 2's needles (comb16) and under
+    IgnoreCase (composed on a staging, the lowering fallback one-shot, and
+    both on one 1 MiB slice against the python Replacer's lowering path);
+    ``Splitter`` case-sensitively and under IgnoreCase;
+    ``Searcher.adopt_staged`` of the bench staging (reused by the bitap set,
+    restaged by the composed IgnoreCase machine) and of a staging of a corpus
+    that holds every tier's needles into every tier; and the Boyer-Moore
+    searchers' existence queries, which take the AC route on the card.  Every
+    output is held against the reference's semantics (a sequential
+    ``bytes.replace``, ``bytes.split``) and the port's host C++ engine, and
+    every adopted corpus holds matches.
+    ``h`` carries ``main``'s helpers, searchers and corpora.  Returns the
+    main-path launches."""
+    import torch
+
+    from alfred_margaret_tpu_torch import (
+        CASE_SENSITIVE, IGNORE_CASE, Replacer, Searcher, Splitter)
+    from alfred_margaret_tpu_torch import boyer_moore as bm
+    from alfred_margaret_tpu_torch import boyer_moore_ci as bmci
+    from alfred_margaret_tpu_torch import replacer as trep
+    from alfred_margaret_tpu_torch.bench.dataformat import synth_corpus
+    from alfred_margaret_tpu_torch.engine import MatchEngine
+    from alfred_margaret_tpu_torch.native.cpp_engine import CppAcEngine
+    from alfred_margaret_tpu_torch.utils import utf8
+
+    card, main = h.card, {}
+
+    # -- the host library: without it the splices fall back to Python loops --
+    lib = utf8._native_lib()
+    check(lib is not None, "the host C++ library did not load: the Replacer would run its "
+          "Python fallbacks")
+    missing = [s for s in REPLACER_SYMBOLS if not hasattr(lib, s)]
+    check(not missing, f"the host C++ library lacks {missing}")
+    print(f"api: host C++ library {lib._name} exports {', '.join(REPLACER_SYMBOLS)}", flush=True)
+
+    def launched(label, fn, expect=None):
+        """``fn()`` with the launches it made and its wall; the launches
+        join the main path's and must include ``expect``."""
+        h.zero_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        used = {k: v for k, v in h.read_counts().items() if v}
+        h.tally(main, used)
+        check(expect is None or used.get(expect, 0) > 0,
+              f"{label}: {expect} was not launched ({used})")
+        return out, wall, used
+
+    class Passes:
+        """Counts of the Replacer's pass paths during one run: the batched
+        splice, the passes that spliced, the window rescans and the scans of
+        ``engine`` (the first, and full rescans after it)."""
+
+        def __init__(self, engine):
+            self.engine, self.n = engine, dict(batched=0, passes=0, windows=0, scans=0)
+
+        def __enter__(self):
+            n, eng = self.n, self.engine
+            batched, windows = trep.Replacer._run_batched, trep.Replacer._scan_windows
+            splice, splice_full, matches = trep._splice_owned, trep._splice, MatchEngine.matches
+
+            def count(key, fn):
+                def wrapped(*a, **k):
+                    n[key] += 1
+                    return fn(*a, **k)
+                return wrapped
+
+            def scans(me, text, case):
+                n["scans"] += me is eng
+                return matches(me, text, case)
+
+            self.patches = [mock.patch.object(trep.Replacer, "_run_batched",
+                                              count("batched", batched)),
+                            mock.patch.object(trep.Replacer, "_scan_windows",
+                                              count("windows", windows)),
+                            mock.patch.object(trep, "_splice_owned", count("passes", splice)),
+                            mock.patch.object(trep, "_splice", count("passes", splice_full)),
+                            mock.patch.object(MatchEngine, "matches", scans)]
+            for p in self.patches:
+                p.start()
+            return self.n
+
+        def __exit__(self, *exc):
+            for p in self.patches:
+                p.stop()
+
+    def sequential(pairs, data: bytes) -> bytes:
+        """The reference's semantics: ``replace`` per needle in build order."""
+        for n, r in pairs:
+            data = data.replace(n.encode(), r.encode())
+        return data
+
+    def replacer_check(label, case, pairs, corpus, staged_too=True, one_shot=True, gates=()):
+        """Run ``Replacer.build(case, pairs)`` on the card, one-shot and on a
+        staged handle, against the host C++ Replacer and ``gates``
+        (``(name, expected bytes)``); returns the pass counts of the last run."""
+        r = Replacer.build(case, pairs)
+        check(r.searcher.device == h.dev, f"{label}: Replacer defaulted to {r.searcher.device}")
+        t0 = time.perf_counter()
+        want = Replacer.build(case, pairs, engine="cpp").run(corpus)
+        cpp_s = time.perf_counter() - t0
+        walls, outs = [], []
+        if one_shot:
+            with Passes(r.searcher._engine) as n:
+                out, wall, used = launched(label, lambda: r.run(corpus))
+            outs.append(("one-shot", out, wall, used, dict(n)))
+        if staged_too:
+            t0 = time.perf_counter()
+            st = r.searcher.stage(corpus)
+            torch.cuda.synchronize()
+            stage_s = time.perf_counter() - t0
+            with Passes(r.searcher._engine) as n:
+                out, wall, used = launched(label, lambda: r.run(st))
+            outs.append((f"staged (stage {stage_s:.3f} s)", out, wall, used, dict(n)))
+        for how, out, wall, used, n in outs:
+            check(out == want, f"{label} {how}: output != the host C++ Replacer's")
+            for name, g in gates:
+                check(out == g, f"{label} {how}: output != {name}")
+            print(f"api replacer {label} {how}: {len(corpus)} -> {len(out)} bytes in "
+                  f"{wall:.3f} s wall (host C++ Replacer {cpp_s:.3f} s); passes {n['passes']}, "
+                  f"batched {n['batched']}, window rescans {n['windows']}, device scans "
+                  f"{n['scans']} (full rescans {max(0, n['scans'] - 1)}); launches {used} "
+                  f"({card})", flush=True)
+            walls.append(n)
+        check(want != corpus, f"{label}: nothing was replaced")
+        return walls[-1]
+
+    # -- Replacer, config 4: the batched splice ---------------------------------
+    corpus4 = synth_corpus(["tshirt", "shirts", "shorts"], h.corpus_bytes, hit_fraction=0.01,
+                           seed=9)
+    t0 = time.perf_counter()
+    seq4 = sequential(CONFIG4_PAIRS, corpus4)
+    print(f"api replacer config 4: sequential bytes.replace {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    n = replacer_check("config 4", CASE_SENSITIVE, CONFIG4_PAIRS, corpus4,
+                       gates=[("sequential bytes.replace", seq4)])
+    check(n["batched"] == 1 and n["windows"] == 0, f"config 4 did not take the batched path: {n}")
+    check(main.get("matchbits", 0) > 0, "config 4: B6 was not launched")
+
+    # -- Replacer, a cascading set: the incremental loop ------------------------
+    n = replacer_check("cascade", CASE_SENSITIVE, CASCADE_PAIRS, corpus4,
+                       gates=[("sequential bytes.replace", sequential(CASCADE_PAIRS, corpus4))])
+    check(n["batched"] == 0 and n["passes"] == 3 and n["windows"] + n["scans"] > 1,
+          f"the cascading set did not take the incremental path: {n}")
+    print(f"api replacer cascade: full device rescan {'taken' if n['scans'] > 1 else 'not taken'}"
+          f" (windows over half the text)", flush=True)
+
+    # -- Replacer, config 2: comb16 (B13) ---------------------------------------
+    pairs2 = [(x, x.upper()) for x in h.c2]
+    corpus2 = h.data2.tobytes()
+    t0 = time.perf_counter()
+    seq2 = sequential(pairs2, corpus2)
+    print(f"api replacer config 2: sequential bytes.replace {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    before = main.get("matchbits_comb16", 0)
+    replacer_check("config 2", CASE_SENSITIVE, pairs2, corpus2, one_shot=False,
+                   gates=[("sequential bytes.replace", seq2)])
+    check(main.get("matchbits_comb16", 0) > before, "config 2: B13 was not launched")
+
+    # -- Replacer, IgnoreCase ----------------------------------------------------
+    data_ci = h.data_ci.tobytes()
+    n = replacer_check("IgnoreCase config 4", IGNORE_CASE, CONFIG4_PAIRS, data_ci,
+                       one_shot=False)
+    check(n["batched"] + n["windows"] > 0 or n["passes"] > 0, "IgnoreCase: no pass ran")
+    hay = data_ci[: 1 << 20]
+    r_low = Replacer.build(IGNORE_CASE, CONFIG4_PAIRS)  # never staged: no composed engine
+    with Passes(r_low.searcher._engine) as n:
+        out, wall, used = launched("IgnoreCase lowering", lambda: r_low.run(hay), "matchbits")
+    check(r_low.searcher._engine._ci is False, "a 1 MiB one-shot IgnoreCase run composed")
+    t0 = time.perf_counter()
+    want_py = Replacer.build(IGNORE_CASE, CONFIG4_PAIRS, engine="python").run(hay)
+    py_s = time.perf_counter() - t0
+    check(out == want_py == Replacer.build(IGNORE_CASE, CONFIG4_PAIRS, engine="cpp").run(hay),
+          "IgnoreCase lowering: output != the python and host C++ Replacers'")
+    check(n["scans"] == n["passes"] + 1 or n["scans"] == n["passes"],
+          f"IgnoreCase lowering: not the full-rescan loop: {n}")
+    print(f"api replacer IgnoreCase lowering fallback: {len(hay)} bytes in {wall:.3f} s wall "
+          f"(python Replacer {py_s:.3f} s); passes {n['passes']}, device scans {n['scans']}; "
+          f"launches {used} ({card})", flush=True)
+    # The composed path on the same 1 MiB, staged, against the python
+    # Replacer's lowering path: it shares no composed DFA, start recovery or
+    # window rescan with the composed run.
+    for label, pairs in (("config 4", CONFIG4_PAIRS), ("cascade", CASCADE_PAIRS)):
+        r_comp = Replacer.build(IGNORE_CASE, pairs)
+        st = r_comp.searcher.stage(hay)
+        check(st.composed and st.device is not None, f"IgnoreCase {label}: 1 MiB not composed")
+        with Passes(r_comp.searcher._engine) as n:
+            out, wall, used = launched(f"IgnoreCase composed {label}", lambda: r_comp.run(st),
+                                       "matchbits")
+        want = (want_py if pairs is CONFIG4_PAIRS
+                else Replacer.build(IGNORE_CASE, pairs, engine="python").run(hay))
+        check(out == want, f"IgnoreCase composed {label}: output != the python Replacer's "
+              f"lowering path")
+        check(want != hay, f"IgnoreCase composed {label}: nothing was replaced")
+        print(f"api replacer IgnoreCase composed {label}: {len(hay)} bytes staged in {wall:.3f} s "
+              f"wall == python Replacer (lowering); passes {n['passes']}, batched "
+              f"{n['batched']}, window rescans {n['windows']}, device scans {n['scans']}; "
+              f"launches {used} ({card})", flush=True)
+    r600 = Replacer.build(IGNORE_CASE, [(x, x.upper()) for x in h.n600])
+    lowered = r600.searcher.stage(b"KILO " * 200)
+    check(lowered.lowered is not None and not lowered.composed,
+          "config 5's 600 needles: the staging is not lowered")
+    try:
+        r600.run(lowered)
+        check(False, "a lowered staging did not raise in Replacer.run")
+    except ValueError as e:
+        print(f"api replacer: a lowered staging raises ValueError ({e})", flush=True)
+
+    # -- Splitter ------------------------------------------------------------------
+    sp = Splitter.build(b"shorts")
+    parts, wall, used = launched("split", lambda: sp.split(corpus4), "matchbits")
+    t0 = time.perf_counter()
+    want = corpus4.split(b"shorts")
+    py_s = time.perf_counter() - t0
+    check(parts == want, "split != bytes.split")
+    print(f"api splitter split: {len(parts)} fragments in {wall:.3f} s wall (bytes.split "
+          f"{py_s:.3f} s); launches {used} ({card})", flush=True)
+    parts, wall, used = launched("split_ignore_case", lambda: sp.split_ignore_case(data_ci),
+                                 "matchbits")
+    t0 = time.perf_counter()
+    want = Splitter.build(b"shorts", engine="cpp").split_ignore_case(data_ci)
+    cpp_s = time.perf_counter() - t0
+    check(parts == want, "split_ignore_case != the host C++ Splitter's")
+    check(len(parts) == len(h.data.tobytes().split(b"shorts")),
+          "split_ignore_case: fragments != those of the unscrambled corpus")
+    print(f"api splitter split_ignore_case: {len(parts)} fragments in {wall:.3f} s wall (host "
+          f"C++ Splitter {cpp_s:.3f} s); launches {used} ({card})", flush=True)
+
+    # -- adopt_staged: a needle-set swap over one staging -------------------------
+    def adopt_check(label, s, st0, data, expect_reuse):
+        """Adopt ``st0`` into ``s``; its count and ``contains_any`` against
+        the host C++ engine, with at least one match."""
+        t0 = time.perf_counter()
+        st = s.adopt_staged(st0)
+        torch.cuda.synchronize()
+        adopt_s = time.perf_counter() - t0
+        m = s._engine._ci.machine if st.composed else s.automaton
+        need = max(0, m.max_needle_bytes - 1)
+        reused = st.device is st0.device
+        check(reused == (need <= st0.device.plan.overlap) == expect_reuse,
+              f"adopt {label}: reused {reused} with overlap {st0.device.plan.overlap}, need {need}")
+        if reused:
+            check(st.device.streams is st0.device.streams, f"adopt {label}: new streams")
+        hc = CppAcEngine(m)
+        got, wall, used = launched(f"adopt {label}",
+                                   lambda: (s.count_matches(st), s.contains_any(st)))
+        want = (hc.count(data), hc.first_hit(data) >= 0)
+        check(got == want, f"adopt {label}: {got} != host C++ {want}")
+        check(got[0] > 0 and got[1], f"adopt {label}: no match in the adopted corpus")
+        print(f"api adopt_staged {label}: {'reused the streams' if reused else 'restaged'} "
+              f"(overlap {st0.device.plan.overlap} vs {need}) in {adopt_s:.3f} s; count "
+              f"{got[0]}, contains_any {got[1]} == host C++ in {wall:.3f} s; launches {used} "
+              f"({card})", flush=True)
+
+    # The bench staging (overlap 5): the bitap set reuses it, the composed
+    # IgnoreCase machine needs a longer warm-up and restages.
+    print(f"api adopt_staged bench staging: {h.stage_s:.3f} s ({card})", flush=True)
+    adopt_check("bitap, bench needles + SHORTS", h.absent, h.staged, h.data, True)
+    adopt_check("IgnoreCase, composed", h.s_ci, h.staged, h.data, False)
+    # A corpus that holds every tier's needles, staged once with the widest
+    # warm-up any of them needs, then swapped into each tier.
+    targets = [("dense, 30 needles", h.s30), ("comb16, config 2", h.s100),
+               ("comb32, config 5's 300", h.s300), ("grouped, config 5's 1,000", h.s1000),
+               ("IgnoreCase, composed", h.s_ci)]
+    h.s_ci._engine._composed(IGNORE_CASE)
+    widest = max(max(0, (s._engine._ci.machine if s._engine._ci else s.automaton)
+                     .max_needle_bytes - 1) for _, s in targets)
+    union = NEEDLES + h.n30 + h.c2 + h.n1000
+    data_u = np.frombuffer(synth_corpus(union, h.corpus_bytes, hit_fraction=0.01, seed=23),
+                           np.uint8)
+    wide = Searcher.build(CASE_SENSITIVE, NEEDLES + ["q" * (widest + 1)])
+    t0 = time.perf_counter()
+    st_u = wide.stage(data_u)
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+    check(st_u.device.plan.overlap == widest, f"union staging overlap {st_u.device.plan.overlap}")
+    print(f"api adopt_staged union staging: {len(union)} needles' corpus, overlap {widest}, "
+          f"{stage_s:.3f} s ({card})", flush=True)
+    for label, s in targets:
+        adopt_check(label + ", union corpus", s, st_u, data_u, True)
+
+    # -- Boyer-Moore: existence over a large haystack takes the AC route -------------
+    for label, mod, absent_needle, hay in (("boyer_moore", bm, "SHORTS", h.data.tobytes()),
+                                           ("boyer_moore_ci", bmci, "tshirt9", data_ci)):
+        for needles, op, expect in ((NEEDLES + [absent_needle], "contains_any", True),
+                                    (NEEDLES, "contains_all", True),
+                                    (NEEDLES + [absent_needle], "contains_all", False)):
+            srch = mod.Searcher.build(needles)
+            got, wall, used = launched(f"{label} {op}", lambda: getattr(srch, op)(hay))
+            check(bool(used), f"{label} {op}: the AC route launched no kernel")
+            check(srch._ac_searcher().device == h.dev, f"{label}: the AC route left the card")
+            want = getattr(mod.Searcher.build(needles, engine="cpp", device="cpu"), op)(hay)
+            check(got is want is expect, f"{label} {op}: {got}, host C++ {want}, want {expect}")
+            print(f"api {label} {op} over {len(needles)} needles: {got} == host C++ over "
+                  f"{len(hay)} bytes in {wall:.3f} s wall; launches {used} ({card})", flush=True)
+    return main
 
 
 def main() -> int:
@@ -1661,6 +1993,13 @@ def main() -> int:
     for name in ("bitap_count_trap", "bitap_contains_trap", "bitap_presence_trap"):
         check(ci_main.get(name, 0) > 0, f"{name} was not launched by the IgnoreCase path")
 
+    # -- the Replacer, the Splitter and adopt_staged at 128 MiB ------------------
+    api_main = api_phase(SimpleNamespace(
+        dev=dev, card=card, zero_counts=zero_counts, read_counts=read_counts, tally=tally,
+        corpus_bytes=CORPUS_BYTES, data=data, staged=staged, stage_s=stage_s, absent=absent,
+        s30=s30, s100=s100, s300=s300, s1000=s1000, s_ci=s_ci, data_ci=data_ci, c2=c2,
+        data2=data2, n600=n600, n30=n30, n1000=n1000))
+
     # -- timing at the main paths' shapes --------------------------------------
     def timed(fn, runs):
         fn()  # warm-up
@@ -2567,7 +2906,7 @@ def main() -> int:
     # them the controls'.
     launches, control = {}, {}
     for path in (bench_main, dense_main, c16_main, c32_main, g_main, states_main, extract_main,
-                 ref_main, ci_main, mesh_main):
+                 ref_main, ci_main, mesh_main, api_main):
         tally(launches, path)
     for path in (bench_control, c16_control, g_control, ci_control, mesh_control):
         tally(control, path)
@@ -2578,6 +2917,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": f"alfred_margaret_tpu_torch/csrc/{src}",
             "replaces": f"alfred_margaret_tpu/ops/{where}", "launches": launches.get(name, 0),
             "control_launches": control.get(name, 0),
+            "api_launches": api_main.get(name, 0),  # Replacer, Splitter, adopt_staged
             "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
             "bound_by": by, "library_ms": None,  # no PyTorch call runs an automaton
         }

@@ -1663,3 +1663,83 @@ def test_b16_matches_plain_at_edge_shapes(cuda, shape, monkeypatch):
         assert comb_contains.launches == before + n + 1
     if S > 1 and T > 20:
         assert absorbed > 0
+
+
+# -- the Replacer, the Splitter and adopt_staged on the card --------------------------
+
+REPLACER_PATHS = {
+    # config 4's pairs: no replacement can create a match, the batched splice
+    "batched": [("tshirt", "TEE"), ("shirts", "SHIRT"), ("shorts", "S"), ("ee", "f")],
+    # replacements that create lower-priority matches: the incremental loop
+    "incremental": [("tshirt", "shirts"), ("shirts", "shorts"), ("shorts", "x")],
+}
+
+
+@pytest.mark.parametrize("path", ["batched", "incremental", "full_rescan"])
+def test_replacer_paths_on_a_staged_handle(cuda, path, monkeypatch):
+    from alfred_margaret_tpu_torch import CASE_SENSITIVE, Replacer
+    from alfred_margaret_tpu_torch import replacer as trep
+
+    if path == "full_rescan":
+        monkeypatch.setattr(trep, "INCREMENTAL", False)
+    pairs = REPLACER_PATHS["batched" if path == "batched" else "incremental"]
+    hay = synth_corpus(NEEDLES3, 1 << 20, hit_fraction=0.01, seed=9)
+    r = Replacer.build(CASE_SENSITIVE, pairs, device=cuda)
+    st = r.searcher.stage(hay)
+    assert st.device.streams.device.type == "cuda"
+    matchbits.launches = 0
+    got = r.run(st)
+    assert matchbits.launches >= 1  # the first pass's extraction on the card
+    want = hay
+    for n, s in pairs:
+        want = want.replace(n.encode(), s.encode())
+    assert got == want == Replacer.build(CASE_SENSITIVE, pairs, engine="cpp", device=cuda).run(hay)
+    assert r.run(hay) == want
+
+
+def test_splitter_on_the_card(cuda):
+    from alfred_margaret_tpu_torch import Splitter
+
+    hay = synth_corpus(NEEDLES3, 1 << 20, hit_fraction=0.01, seed=3)
+    sp = Splitter.build(b"shorts", device=cuda)
+    parts = sp.split(hay)
+    assert parts == hay.split(b"shorts") and len(parts) > 100
+    upper = hay.upper()
+    got = sp.split_ignore_case(upper)
+    assert got == Splitter.build(b"shorts", engine="cpp", device=cuda).split_ignore_case(upper)
+    assert len(got) == len(parts)
+
+
+def test_adopt_staged_reuses_and_restages_on_the_card(cuda):
+    from alfred_margaret_tpu_torch import CASE_SENSITIVE, IGNORE_CASE, Searcher
+
+    hay = synth_corpus(NEEDLES3 + ["dress", "kilo"], 1 << 20, hit_fraction=0.02, seed=4)
+    st0 = Searcher.build(CASE_SENSITIVE, NEEDLES3, device=cuda).stage(hay)
+    short = Searcher.build_needle_id_searcher(CASE_SENSITIVE, ["dress", "kilo", "shirt"],
+                                              device=cuda)
+    st1 = short.adopt_staged(st0)
+    assert st1.device is st0.device  # overlap 5 covers needles of up to 6 bytes
+    longer = Searcher.build_needle_id_searcher(IGNORE_CASE, NEEDLES3, device=cuda)
+    st2 = longer.adopt_staged(st0)
+    assert st2.composed and st2.device is not st0.device  # the composed machine needs 10
+    for s, st in ((short, st1), (longer, st2)):
+        cpp = Searcher.build_needle_id_searcher(s.case_sensitivity, [n for n, _ in s.needles],
+                                                engine="cpp", device=cuda)
+        assert s.count_matches(st) == cpp.count_matches(hay) > 0
+        assert s.contains_any(st) and s.contains_all(st) == cpp.contains_all(hay)
+
+
+def test_boyer_moore_ac_route_on_the_card(cuda):
+    """Existence over a haystack above ``AC_ROUTE_THRESHOLD`` takes the AC
+    route on the searcher's device, and answers as the host C++ engine."""
+    from alfred_margaret_tpu_torch import boyer_moore as bm
+    from alfred_margaret_tpu_torch import boyer_moore_ci as bmci
+
+    hay = synth_corpus(NEEDLES3, 1 << 20, hit_fraction=0.02, seed=6)
+    for mod, text, absent in ((bm, hay, "SHORTS"), (bmci, hay.upper(), "tshirt9")):
+        for needles in (NEEDLES3, NEEDLES3 + [absent]):
+            s = mod.Searcher.build(needles, device=cuda)
+            cpp = mod.Searcher.build(needles, engine="cpp", device="cpu")
+            assert s.contains_any(text) is cpp.contains_any(text) is True
+            assert s.contains_all(text) is cpp.contains_all(text) is (needles == NEEDLES3)
+            assert s._ac_searcher().device.type == "cuda"

@@ -4,7 +4,9 @@ independence of that package.
 The port imports nothing of ``alfred_margaret_tpu``, not even its modules
 that do not import ``jax``: it keeps copies of ``utils/case.py``, the parts
 of ``utils/utf8.py``, ``models/ac.py``, ``native/`` and
-``bench/dataformat.py`` that it uses, and defines ``MatchSet``,
+``bench/dataformat.py`` that it uses, of ``replacer.py``, ``splitter.py``,
+``boyer_moore/`` and ``boyer_moore_ci/`` (pinned function by function,
+but for the functions that differ on purpose), and defines ``MatchSet``,
 ``StagedHaystack`` and ``AUTO_PYTHON_THRESHOLD`` itself.  Each copy must give
 the original's output on seeded inputs (tolerance: exact equality).  A fresh
 interpreter that imports every module of the port must hold no ``jax`` and
@@ -32,6 +34,8 @@ from alfred_margaret_tpu.utils import case as jcase
 from alfred_margaret_tpu.utils import utf8 as jutf8
 
 import alfred_margaret_tpu_torch as port
+from alfred_margaret_tpu_torch import boyer_moore as bm
+from alfred_margaret_tpu_torch import boyer_moore_ci as bmci
 from alfred_margaret_tpu_torch import engine as tengine
 from alfred_margaret_tpu_torch.bench import dataformat as tdata
 from alfred_margaret_tpu_torch.models import ac
@@ -84,6 +88,40 @@ def test_utf8_helpers_match_jax(text):
     assert got.dtype == want.dtype == np.uint8
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(tutf8._LEAD_LEN, jutf8._LEAD_LEN)
+
+
+#: Texts for the scalar UTF-8 helpers: every width, case specials, and
+#: malformed sequences (stray trail bytes, truncations, 0xF5-0xF8 leads).
+UTF8_TEXTS = ["", "tshirt", "café 日本 \U0001f574", "KİLO Ⱥⱥ Ångström ẞß ǅ", "a\x00b"]
+UTF8_BYTES = [t.encode() for t in UTF8_TEXTS] + [
+    b"\xff\xfe invalid \x80 utf-8 caf\xc3\xa9 \xc3", b"\xe6\x97", b"\xf7\xbf\xbf\xbfx\xf8\x80",
+    bytes(np.random.default_rng(8).integers(0, 256, size=300).astype(np.uint8)),
+]
+
+
+def test_utf8_reference_surface_matches_jax():
+    """The nine helpers of the reference's UTF-8 surface that the port copied
+    for the Replacer, Splitter and Boyer-Moore layers."""
+    import io
+
+    for text in UTF8_TEXTS + ["\U000437b8", "\u2c65\u023a"]:
+        assert tutf8.length_utf8(text) == jutf8.length_utf8(text)
+        assert tutf8.is_case_invariant(text) == jutf8.is_case_invariant(text)
+        for c in text:
+            assert tutf8.to_lower_ascii(c) == jutf8.to_lower_ascii(c)
+    for data in UTF8_BYTES:
+        assert tutf8.decode_utf8(data) == jutf8.decode_utf8(data)
+        assert tutf8.length_utf8(data) == jutf8.length_utf8(data)
+        for i in range(len(data)):
+            assert tutf8.decode_code_point(data, i) == jutf8.decode_code_point(data, i)
+            assert tutf8.unsafe_index_code_point(data, i) == jutf8.unsafe_index_code_point(data, i)
+        for b, n in ((0, 3), (2, 100), (len(data), 1), (1, 0)):
+            assert tutf8.unsafe_slice_utf8(b, n, data) == jutf8.unsafe_slice_utf8(b, n, data)
+            assert tutf8.unsafe_cut_utf8(b, n, data) == jutf8.unsafe_cut_utf8(b, n, data)
+    got, want = io.StringIO(), io.StringIO()
+    tutf8.print_unlowerings(got)
+    jutf8.print_unlowerings(want)
+    assert got.getvalue() == want.getvalue() and "U+006B k <- " in got.getvalue()
 
 
 MACHINE_FIELDS = ("delta", "out_offset", "out_values", "match_count", "values", "needles",
@@ -149,9 +187,176 @@ def test_cpp_engine_matches_original(name, needles):
                 assert got.dtype == want.dtype == np.int32
                 np.testing.assert_array_equal(got, want)
         assert got_eng._class_state == want_eng._class_state
+    # The Replacer's window rescan: seeded, merged, possibly empty windows.
+    rng = np.random.default_rng(len(needles))
+    for n_win in (0, 1, 40):
+        b = np.sort(rng.integers(0, len(hay), size=n_win))
+        e = np.minimum(b + rng.integers(0, 64, size=n_win), len(hay))
+        u8 = np.frombuffer(hay, np.uint8)
+        for w, g in zip(want_eng.segments_matches_arrays(u8, b, e),
+                        got_eng.segments_matches_arrays(u8, b, e)):
+            assert g.dtype == w.dtype
+            np.testing.assert_array_equal(g, w)
     assert tnative.load() is tnative.load()
     assert os.path.dirname(tnative._so_path()).endswith(os.path.join("alfred_margaret_tpu_torch",
                                                                       "_build"))
+
+
+def _sites(rng, n, k):
+    """``k`` sorted, disjoint ``[start, end)`` sites in ``[0, n)``, some empty."""
+    cuts = np.sort(rng.choice(n + 1, size=2 * k, replace=False))
+    s, e = cuts[0::2].astype(np.int64), cuts[1::2].astype(np.int64)
+    e[::3] = s[::3]
+    return s, e
+
+
+@pytest.mark.parametrize("n,k,threads", [(0, 0, 4), (50, 5, 1), (1 << 13, 300, 4),
+                                         ((1 << 21) + 7, 2000, 2)])
+def test_native_replacer_entry_points_match_jax(n, k, threads):
+    """``am_splice``, ``am_splice_mt``, ``am_splice_multi`` and
+    ``am_remove_overlap`` of the port's library against the JAX package's on
+    seeded sites (2 MiB with two threads takes the threaded splices)."""
+    from alfred_margaret_tpu.native import build as jbuild
+
+    try:
+        jlib = jbuild.load()
+    except NativeUnavailable:
+        pytest.skip("the JAX package's native library does not build here")
+    lib = tnative.load()
+    rng = np.random.default_rng(n + k)
+    data = rng.integers(0, 256, size=max(n, 1)).astype(np.uint8)[:n]
+    s, e = _sites(rng, n, k) if k else (np.zeros(0, np.int64), np.zeros(0, np.int64))
+    repl = np.frombuffer(b"<replacement>", np.uint8)
+    cap = n + k * len(repl) + 1
+
+    def run(name, lib_, *args):
+        out = np.zeros(cap, np.uint8)
+        wrote = getattr(lib_, name)(data.ctypes.data, n, s.ctypes.data, e.ctypes.data, k,
+                                    *args, out.ctypes.data, *([threads] if name != "am_splice"
+                                                              else []))
+        return wrote, out
+
+    for name in ("am_splice", "am_splice_mt"):
+        args = (repl.ctypes.data, len(repl))
+        (wg, og), (ww, ow) = run(name, lib, *args), run(name, jlib, *args)
+        assert wg == ww == n + k * len(repl) - int(np.sum(e - s))
+        np.testing.assert_array_equal(og, ow)
+    blob = np.frombuffer(b"ABCxyz", np.uint8)
+    off = np.array([0, 0, 1, 3, 6], np.int64)  # four replacements, the first empty
+    rid = rng.integers(0, 4, size=k).astype(np.int32)
+    args = (blob.ctypes.data, off.ctypes.data, rid.ctypes.data)
+    (wg, og), (ww, ow) = (run("am_splice_multi", lib, *args), run("am_splice_multi", jlib, *args))
+    assert wg == ww
+    np.testing.assert_array_equal(og, ow)
+    # Overlapping, end-sorted matches for the overlap removal.
+    ends = np.sort(rng.integers(1, max(n, 2), size=k)).astype(np.int64)
+    starts = np.maximum(ends - rng.integers(0, 9, size=k), 0).astype(np.int64)
+    kept = []
+    for lib_ in (lib, jlib):
+        ks, ke = np.zeros(k, np.int64), np.zeros(k, np.int64)
+        m = lib_.am_remove_overlap(starts.ctypes.data, ends.ctypes.data, k, ks.ctypes.data,
+                                   ke.ctypes.data)
+        kept.append((m, ks[:m].tolist(), ke[:m].tolist()))
+    assert kept[0] == kept[1]
+
+
+@pytest.mark.parametrize("native", [True, False])
+def test_replacer_host_helpers_match_jax(monkeypatch, native):
+    """The Replacer's splices, overlap removal, window merge and Python window
+    scan against the JAX package's, with the host C++ helpers and without
+    them (both packages read their own ``utf8._native_lib``)."""
+    from alfred_margaret_tpu import replacer as jrep
+
+    from alfred_margaret_tpu_torch import replacer as trep
+
+    if not native:
+        for mod in (tutf8, jutf8):
+            monkeypatch.setattr(mod, "_NATIVE_LIB", None)
+            monkeypatch.setattr(mod, "_NATIVE_TRIED", True)
+    rng = np.random.default_rng(21)
+    n = 5000
+    data = rng.integers(97, 100, size=n).astype(np.uint8)
+    s, e = _sites(rng, n, 200)
+    for f in ("_splice_np", "_splice"):
+        got = getattr(trep, f)(data, s, e, b"XY")
+        want = getattr(jrep, f)(data, s, e, b"XY")
+        assert bytes(got) == bytes(want)
+    g_view, g_obj = trep._splice_owned(data, s, e, b"Q")
+    w_view, w_obj = jrep._splice_owned(data, s, e, b"Q")
+    assert g_obj == w_obj and bytes(g_view) == bytes(w_view)
+    ends = np.sort(rng.integers(1, n, size=300)).astype(np.int64)
+    starts = np.maximum(ends - rng.integers(0, 9, size=300), 0)
+    for g, w in zip(trep._remove_overlap(starts, ends), jrep._remove_overlap(starts, ends)):
+        np.testing.assert_array_equal(g, w)
+    rids = rng.integers(0, 3, size=len(s)).astype(np.int32)
+    tvals = [trep.Payload(0, 1, 1, r) for r in (b"", b"ab", b"long")]
+    jvals = [jrep.Payload(0, 1, 1, r) for r in (b"", b"ab", b"long")]
+    assert (trep._splice_multi_bytes(data, s, e, rids, tvals)
+            == jrep._splice_multi_bytes(data, s, e, rids, jvals))
+    wb = np.sort(rng.integers(0, n, size=50))
+    we = np.minimum(wb + rng.integers(1, 200, size=50), n)
+    for g, w in zip(trep._merge_windows(wb, we), jrep._merge_windows(wb, we)):
+        np.testing.assert_array_equal(g, w)
+    mb, me = trep._merge_windows(wb, we)
+    pairs = [("ab", 0), ("bca", 1), ("c", 2)]
+    for g, w in zip(trep._scan_segments_py(ac.build(pairs), bytes(data), mb, me),
+                    jrep._scan_segments_py(jac.build(pairs), bytes(data), mb, me)):
+        np.testing.assert_array_equal(g, w)
+
+
+def _function_dumps(path, skip=()):
+    """``ast.dump`` of every function and method of a module, by qualified
+    name, docstrings dropped."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    out = {}
+
+    def walk(node, prefix):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.ClassDef)):
+                name = prefix + child.name
+                if isinstance(child, ast.FunctionDef) and name not in skip:
+                    body = child.body
+                    if body and isinstance(body[0], ast.Expr) and isinstance(
+                            getattr(body[0], "value", None), ast.Constant):
+                        body = body[1:]
+                    out[name] = ast.dump(ast.Module(body=body, type_ignores=[]))
+                walk(child, name + ".")
+
+    walk(tree, "")
+    return out
+
+
+#: Copied modules and the functions whose port differs on purpose: the
+#: ``device`` keyword, the dropped relay branch and the composed engine read
+#: through ``_composed``'s result (replacer), the ``device`` keyword
+#: (splitter and the Boyer-Moore searchers, which hand it to their AC route).
+BM_SEARCHER_DIFFER = {"Searcher.__init__", "Searcher.build", "Searcher.build_with_values",
+                      "Searcher.build_needle_id_searcher", "Searcher._ac_searcher"}
+COPIES = [
+    ("replacer.py", {"Replacer.build", "Replacer.load_npz", "Replacer.compose",
+                     "Replacer.from_json", "Replacer.run_with_limit", "Replacer._run_incremental"}),
+    ("splitter.py", {"Splitter.__init__", "Splitter.build", "Splitter.from_json"}),
+    ("boyer_moore/__init__.py", set()), ("boyer_moore/automaton.py", set()),
+    ("boyer_moore/replacer.py", set()),
+    ("boyer_moore/searcher.py", BM_SEARCHER_DIFFER),
+    ("boyer_moore_ci/__init__.py", set()), ("boyer_moore_ci/automaton.py", set()),
+    ("boyer_moore_ci/replacer.py", set()),
+    ("boyer_moore_ci/searcher.py", BM_SEARCHER_DIFFER),
+]
+
+
+@pytest.mark.parametrize("rel,differ", COPIES, ids=[c[0] for c in COPIES])
+def test_copied_modules_match_jax(rel, differ):
+    """Every function of a copied module is the original's, statement for
+    statement, but for the ones listed, whose behaviour the port's own tests
+    hold against the original (``test_torch_replacer.py``,
+    ``test_torch_splitter.py``, ``test_torch_boyer_moore.py``)."""
+    got = _function_dumps(os.path.join(REPO, "alfred_margaret_tpu_torch", rel), differ)
+    want = _function_dumps(os.path.join(REPO, "alfred_margaret_tpu", rel), differ)
+    assert set(got) == set(want)
+    for name in want:
+        assert got[name] == want[name], name
 
 
 @pytest.mark.parametrize("args", [
@@ -253,7 +458,7 @@ def test_port_imports_nothing_of_the_jax_package():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
     n, bad = proc.stdout.strip().split(" ", 1)
-    assert int(n) >= 25 and bad == "[]", proc.stdout
+    assert int(n) >= 51 and bad == "[]", proc.stdout
 
 
 def test_chip_smoke_names_no_jax_module():
@@ -278,7 +483,13 @@ def test_entry_points_default_to_cuda():
     for fn in (port.Searcher.__init__, port.Searcher.build, port.Searcher.build_with_values,
                port.Searcher.load_npz, port.MatchEngine.__init__, port.make_engine, comb_scan.make_engine,
                pallas_scan.DenseAcEngine.__init__, comb16_scan.Comb16AcEngine.__init__,
-               xla_scan.XlaAcEngine.__init__):
+               xla_scan.XlaAcEngine.__init__, port.Searcher.build_needle_id_searcher,
+               port.Searcher.from_json, port.Replacer.build, port.Replacer.from_json,
+               port.Replacer.load_npz, port.Splitter.__init__, port.Splitter.build,
+               port.Splitter.from_json, bm.Searcher.__init__, bm.Searcher.build,
+               bm.Searcher.build_with_values, bm.Searcher.build_needle_id_searcher,
+               bmci.Searcher.__init__, bmci.Searcher.build, bmci.Searcher.build_with_values,
+               bmci.Searcher.build_needle_id_searcher):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
     if torch.cuda.is_available():
         return
@@ -290,6 +501,14 @@ def test_entry_points_default_to_cuda():
                  lambda: port.make_engine(m),
                  lambda: bitap_scan.BitapAcEngine(m),
                  lambda: xla_scan.XlaAcEngine(m),
-                 lambda: comb16_scan.Comb16AcEngine(ac.build([(n, 0) for n in CONFIG2]))):
+                 lambda: comb16_scan.Comb16AcEngine(ac.build([(n, 0) for n in CONFIG2])),
+                 lambda: port.Replacer.build(port.CASE_SENSITIVE, [("a", "b")]),
+                 lambda: port.Replacer.from_json(
+                     port.Replacer.build(port.IGNORE_CASE, [("a", "b")], device="cpu").to_json()),
+                 lambda: port.Splitter.build(","),
+                 lambda: port.Splitter(b"\xff"),
+                 lambda: port.Searcher.build_needle_id_searcher(port.CASE_SENSITIVE, ["a"]),
+                 lambda: bm.Searcher.build(["a", "b"]),
+                 lambda: bmci.Searcher.build_needle_id_searcher(["k"])):
         with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
             call()
