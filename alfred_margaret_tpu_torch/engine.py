@@ -3,12 +3,15 @@ a device, in both case modes.
 
 Counterpart of ``alfred_margaret_tpu/engine.py:MatchEngine`` (``count``,
 ``contains_any``, ``value_presence``, ``matches``, ``stage``,
-``adopt_staged``; the JAX package's streaming of haystacks over its device
-budget is not ported, ROADMAP Queue A item 15).  Backends:
+``adopt_staged``).  Backends:
 
 * ``python`` - the scalar oracle of ``models.ac`` (its fold, or a scalar
   state pass);
-* ``cpp``    - the host engine ``native.cpp_engine.CppAcEngine``;
+* ``cpp``    - the host engine ``native.cpp_engine.CppAcEngine``; for sets
+  of 2,000 needles or more on hosts of 8 cores or more (or under
+  ``AMT_PREFILTER=1``) count and containsAny go through the 5-byte
+  prefilter ``native.prefilter.PrefilterEngine`` when every needle has 5
+  bytes or more;
 * ``xla``    - the reference scan engine ``ops.xla_scan.XlaAcEngine`` on
   ``device`` (torch gathers, one time step at a time; no kernel);
 * ``device`` - the port's kernels on ``device``: the single-pass engine of
@@ -16,7 +19,18 @@ budget is not ported, ROADMAP Queue A item 15).  Backends:
   ``ops.grouped.GroupedAcEngine``, else, for a set that no grouping holds
   (a large set with an empty needle), ``XlaAcEngine``, as the JAX package
   falls back to its XLA engine;
-* ``auto``   - ``python`` below ``AUTO_PYTHON_THRESHOLD`` bytes, else ``device``.
+* ``auto``   - ``python`` below ``AUTO_PYTHON_THRESHOLD`` bytes, else
+  ``device``; ``AMT_ENGINE`` (``utils.config``) names another backend for
+  ``"auto"``.
+
+Streaming, as in the JAX package: on the ``device`` backend a haystack of
+more than ``2 * AMT_STREAM_CHUNK_MB`` (128 MiB by default) is scanned in
+chunks of ``AMT_STREAM_CHUNK_MB`` by ``ops.streaming.StreamingScanner``
+(``count``, ``contains_any`` and ``matches``), each chunk staged on the
+device in turn; ``stage`` and ``adopt_staged`` keep such a haystack on the
+host (``StagedHaystack.device`` is None) and its scans stream.
+``value_presence`` stages the haystack whole, as the JAX package's does.
+``AMT_VALIDATE=1`` holds every count against the host C++ engine.
 
 IgnoreCase takes one of two routes, as in the JAX package.  The composed
 case DFA (``models.case_dfa``) folds case inside an ordinary byte DFA over
@@ -37,19 +51,23 @@ package's.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 
 from .models import ac, case_dfa
+from .native import prefilter
+from .native.build import NativeUnavailable
 from .native.cpp_engine import CppAcEngine
 from .ops.bitap_scan import BitapAcEngine
 from .ops.comb_scan import make_engine
 from .ops.grouped import GroupedAcEngine
 from .ops.pallas_scan import CapacityError, StagedStreams
+from .ops.streaming import StreamingScanner
 from .ops.xla_scan import XlaAcEngine, extract_matches
-from .utils import utf8
+from .utils import config, utf8
 from .utils.case import CASE_SENSITIVE, IGNORE_CASE, CaseSensitivity
 from .utils.device import resolve_device
 
@@ -58,10 +76,9 @@ from .utils.device import resolve_device
 AUTO_PYTHON_THRESHOLD = 4096
 
 #: Automata above this many CaseSensitive states take the IgnoreCase lowering
-#: path, not the composed case DFA (the JAX package's default of
-#: ``composed_ci_max_states``; its ``AMT_COMPOSED_CI`` override is not
-#: ported yet, ROADMAP Queue A item 19).
-COMPOSED_CI_MAX_STATES = 4096
+#: path, not the composed case DFA (``AMT_COMPOSED_CI``, 4,096 by default).
+#: ``_composed`` reads this name when it decides.
+COMPOSED_CI_MAX_STATES = config.DEFAULT.composed_ci_max_states
 
 _VALID_ENGINES = ("auto", "python", "cpp", "xla", "device")
 
@@ -123,11 +140,14 @@ class MatchEngine:
     AUTO_COMPOSE_BYTES = 4 << 20
 
     def __init__(self, machine: ac.AcMachine, engine: str = "auto", *, device="cuda"):
+        if engine == "auto":
+            engine = config.DEFAULT.engine  # AMT_ENGINE; "auto" by default
         if engine not in _VALID_ENGINES:
             raise ValueError(f"unknown engine {engine!r}; expected one of {_VALID_ENGINES}")
         self.machine = machine
         self.engine = engine
         self.device = resolve_device(device)
+        self._validate = config.DEFAULT.validate
         self._device_eng = None
         self._cpp = None
         self._xla = None
@@ -163,6 +183,51 @@ class MatchEngine:
         if self.engine != "auto":
             return self.engine
         return "python" if n_bytes < AUTO_PYTHON_THRESHOLD else "device"
+
+    def _prefilter(self):
+        """The host 5-byte-window prefilter engine of the ``cpp`` backend's
+        count and containsAny when it beats the DFA scan: large needle sets
+        (the DFA tables blow the caches) on hosts with enough cores to feed
+        the filter, all needles >= 5 bytes.  ``AMT_PREFILTER=1`` forces it
+        on, ``=0`` off (JAX ``engine.py:286-313``)."""
+        # NEVER on a composed case-folding machine: its .needles are the
+        # original-case needles while the delta does the folding, so
+        # byte-exact prefiltering would turn IGNORE_CASE into CaseSensitive
+        # results.
+        if getattr(self.machine, "composed_ci", False):
+            return None
+        if not hasattr(self, "_pf"):
+            self._pf = None
+            force = os.environ.get("AMT_PREFILTER")
+            auto = (
+                force is None
+                and len(self.machine.needles) >= 2000
+                and (os.cpu_count() or 1) >= 8
+            )
+            if (force == "1" or auto) and prefilter.eligible(self.machine.needles):
+                try:
+                    self._pf = prefilter.PrefilterEngine(self.machine.needles)
+                except NativeUnavailable:
+                    pass  # no host toolchain: the DFA scan serves
+        return self._pf
+
+    @staticmethod
+    def _over_budget(n_bytes: int) -> bool:
+        """A haystack past ``2 * AMT_STREAM_CHUNK_MB`` is never staged whole:
+        the device backend streams it in chunks."""
+        return n_bytes > 2 * config.DEFAULT.stream_chunk_mb << 20
+
+    def _stream_scanner(self, n_bytes: int) -> Optional[StreamingScanner]:
+        """The chunked scanner of the device engine for a haystack over the
+        budget, else None (JAX ``engine.py:315-330``): each chunk of
+        ``AMT_STREAM_CHUNK_MB`` is staged on the device in turn, so device
+        memory stays constant whatever the corpus size.  (The reference
+        scan engine, which keeps no staged streams, is the ``xla`` backend
+        and never streams.)"""
+        if not self._over_budget(n_bytes):
+            return None
+        return StreamingScanner(self.device_engine(), self.machine,
+                                chunk_bytes=config.DEFAULT.stream_chunk_mb << 20)
 
     # -- the composed IgnoreCase engine (JAX ``engine.py:136-184``) --------------
 
@@ -265,7 +330,10 @@ class MatchEngine:
             return staged
         data, lt, backend = self._prep(text, case)
         staged = StagedHaystack(case=case, data=data, lowered=lt, owner=self.machine)
-        if backend == "device":
+        # Over the streaming budget the haystack stays on the host: its scans
+        # go through the chunked StreamingScanner (the lowering above is
+        # still reused by every scan).
+        if backend == "device" and not self._over_budget(len(data)):
             staged.device = self.device_engine().stage(data)
         return staged
 
@@ -298,7 +366,7 @@ class MatchEngine:
             raise ValueError("cannot adopt a lowered staging into a CaseSensitive searcher: "
                              "the raw bytes are not retained")
         new = StagedHaystack(case=case, data=st.data, lowered=st.lowered, owner=self.machine)
-        if self._pick(len(st.data)) == "device":
+        if self._pick(len(st.data)) == "device" and not self._over_budget(len(st.data)):
             eng = self.device_engine()
             if not isinstance(eng, XlaAcEngine):  # the reference engine keeps the bytes only
                 adopted = (eng.adopt_staged(st.device)
@@ -315,12 +383,25 @@ class MatchEngine:
             # Lowered bytes scan case-sensitively: the same answer.
             return ac.count_matches(self.machine, data, CASE_SENSITIVE)
         if backend == "cpp":
-            return self._cpp_engine().count(data)
-        if backend == "xla":
-            return self._xla_engine().count(data)
-        eng = self.device_engine()
-        st = self._staged(eng, text)
-        return eng.count_staged(st) if st is not None else eng.count(data)
+            pf = self._prefilter()
+            got = pf.count(data) if pf is not None else self._cpp_engine().count(data)
+        elif backend == "xla":
+            got = self._xla_engine().count(data)
+        else:
+            eng = self.device_engine()
+            st = self._staged(eng, text)
+            if st is not None:
+                got = eng.count_staged(st)
+            else:
+                sc = self._stream_scanner(len(data))
+                got = sc.count(data) if sc is not None else eng.count(data)
+        if self._validate:
+            # AMT_VALIDATE: every count against the host C++ engine
+            # (alfred_margaret_tpu/engine.py:519-524), raising on a mismatch.
+            ref = self._cpp_engine().count(data)
+            if got != ref:
+                raise AssertionError(f"{backend} count {got} != host C++ engine {ref}")
+        return got
 
     def contains_any(self, text: utf8.TextLike, case: CaseSensitivity) -> bool:
         ci = self._composed(case, text)
@@ -330,18 +411,28 @@ class MatchEngine:
         if backend == "python":
             return bool(ac.run_text(False, lambda _acc, _m: ac.Done(True), self.machine, data))
         if backend == "cpp":
+            # Host early exit: stop at the first hit.
+            pf = self._prefilter()
+            if pf is not None:
+                return pf.first_hit(data) >= 0
             return self._cpp_engine().first_hit(data) >= 0
         if backend == "xla":
             return self._xla_engine().count(data) > 0
         eng = self.device_engine()
         st = self._staged(eng, text)
+        sc = None if st is not None else self._stream_scanner(len(data))
         try:
-            return eng.contains_staged_early(st) if st is not None else eng.contains(data)
+            if st is not None:
+                return eng.contains_staged_early(st)
+            return sc.contains(data) if sc is not None else eng.contains(data)
         except CapacityError:
             # The sticky view has one state more than the machine and can
             # overflow the table where the count fits; the reference then
-            # answers count > 0 (alfred_margaret_tpu/engine.py:565-572).
-            return (eng.count_staged(st) if st is not None else eng.count(data)) > 0
+            # answers count > 0, streamed over the budget
+            # (alfred_margaret_tpu/engine.py:565-572).
+            if st is not None:
+                return eng.count_staged(st) > 0
+            return (sc.count(data) if sc is not None else eng.count(data)) > 0
 
     def matches(self, text: utf8.TextLike, case: CaseSensitivity) -> MatchSet:
         """All matches (ends one past each match in raw coordinates, value
@@ -360,8 +451,11 @@ class MatchEngine:
         else:
             eng = self.device_engine()
             st = self._staged(eng, text)
+            sc = None if st is not None else self._stream_scanner(len(data))
             if st is not None:
                 ends, value_ids = eng.matches_arrays_staged(st)
+            elif sc is not None:
+                ends, value_ids = sc.matches_arrays(data)
             else:
                 ends, value_ids = eng.matches_arrays(data)
         if lt is not None and len(ends):
@@ -369,7 +463,9 @@ class MatchEngine:
         return MatchSet(ends=ends, value_ids=value_ids, lowered=lt)
 
     def value_presence(self, text: utf8.TextLike, case: CaseSensitivity) -> np.ndarray:
-        """bool [n_values]: which values have at least one match."""
+        """bool [n_values]: which values have at least one match.  The device
+        backend stages the haystack whole, over the streaming budget too, as
+        the JAX package's does."""
         ci = self._composed(case, text)
         if ci is not None:
             return ci.value_presence(text, CASE_SENSITIVE)

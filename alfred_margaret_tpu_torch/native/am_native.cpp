@@ -5,13 +5,15 @@
 // device answer against it, and it expands hit bitmaps and replays hit states
 // for match extraction.
 //
-// A copy of the scan, extraction, lowering and splicing parts of
-// alfred_margaret_tpu/native/am_native.cpp (the prefilter stays there): the
+// A copy of the scan, extraction, lowering, splicing, prefilter and host
+// bitap parts of alfred_margaret_tpu/native/am_native.cpp: the
 // IgnoreCase lowering transducer (am_lower_transform, am_lower_bytes,
 // am_lower_ascii, am_is_ascii) lowers haystacks for the lowering path, and
 // the Replacer's passes rescan windows (am_scan_segments_hits), splice
 // (am_splice, am_splice_mt, am_splice_multi) and drop overlaps
-// (am_remove_overlap) here.
+// (am_remove_overlap) here; the cpp backend's prefilter for large needle
+// sets (am_prefilter_count, am_prefilter_first) and the host bitap oracle
+// (am_bitap_count_mt, am_bitap_first) close the file.
 // tests/test_torch_host.py and tests/test_torch_case.py hold each entry point
 // against the original's.
 //
@@ -1025,6 +1027,231 @@ int64_t am_remove_overlap(const int64_t* starts, const int64_t* ends,
     }
   }
   return k;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// Prefilter-verify engine for large needle sets (all needles >= 5 bytes).
+//
+// The dense-DFA scan is latency-bound on its per-byte table load; for 10k+
+// needle sets the table blows the caches and throughput collapses (~0.3-1
+// GB/s).  But with min needle length >= 5 every match START must begin with
+// some needle's 5-byte prefix, and on realistic byte distributions that is
+// a rare event — so a rolling 5-byte window probed against an L1-resident
+// blocked Bloom filter skips ~99% of positions, and only candidates touch
+// the exact prefix map + tail memcmp.  Counts are (start, needle)
+// occurrences == the AC engines' (end, needle) totals, duplicates and
+// overlaps included.  (Role analogue: the reference counts all matches via
+// its AC fold, benchmark/haskell/app/Main.hs:67-76; this is the
+// cache-conscious host path for very large needle sets.)
+// ---------------------------------------------------------------------------
+
+namespace prefilter {
+
+static inline uint64_t mix5(uint64_t w) {
+  // 5 significant bytes, one 64-bit multiply: the HIGH bits of w * odd
+  // constant are well mixed (Knuth multiplicative hashing) — the filter
+  // loop is latency-sensitive, so only bits >= 24 may be used downstream.
+  return w * 0x9E3779B97F4A7C15ull;
+}
+
+struct Tables {
+  const uint32_t* bloom;   // [bloom_words], power of two
+  uint32_t bloom_mask;     // bloom_words - 1
+  const uint64_t* keys;    // [slots] 5-byte prefix keys (~0 = empty)
+  const int32_t* grp_off;  // [slots + 1] CSR into grp_needles
+  const int32_t* grp_needles;  // needle ids, duplicates listed
+  uint32_t slot_mask;      // slots - 1
+  const int32_t* nb_off;   // [n_needles + 1] CSR into nb_bytes
+  const uint8_t* nb_bytes; // needle bytes, concatenated
+};
+
+static const uint64_t KEY_EMPTY = ~0ull;
+
+// Scan starts in [a, b): count (or find first) verified matches.
+// stop_at_first: return the first match start (>= 0) or -1; else the count.
+static int64_t scan_range(const Tables& t, const uint8_t* data, int64_t n,
+                          int64_t a, int64_t b, bool stop_at_first) {
+  if (b > n - 4) b = n - 4 < a ? a : n - 4;  // a start needs 5 bytes
+  int64_t total = 0;
+  uint64_t w = 0;
+  // Preload the first 4 window bytes so the loop body is uniform.
+  for (int64_t i = a; i < a + 4 && i < n; i++) w = (w >> 8) | ((uint64_t)data[i] << 32);
+  for (int64_t p = a; p < b; p++) {
+    w = (w >> 8) | ((uint64_t)data[p + 4] << 32);
+    uint64_t h = mix5(w);
+    uint32_t word = t.bloom[(uint32_t)(h >> 24) & t.bloom_mask];
+    uint32_t bit1 = (uint32_t)(h >> 54) & 31, bit2 = (uint32_t)(h >> 59) & 31;
+    if ((word & (1u << bit1)) && (word & (1u << bit2))) {
+      // Candidate: exact prefix map (open addressing, linear probe).
+      uint32_t slot = (uint32_t)(h >> 40) & t.slot_mask;
+      while (true) {
+        uint64_t k = t.keys[slot];
+        if (k == KEY_EMPTY) break;
+        if (k == w) {
+          for (int32_t gi = t.grp_off[slot]; gi < t.grp_off[slot + 1]; gi++) {
+            int32_t nid = t.grp_needles[gi];
+            int64_t len = t.nb_off[nid + 1] - t.nb_off[nid];
+            if (p + len <= n &&
+                (len <= 5 ||
+                 memcmp(data + p + 5, t.nb_bytes + t.nb_off[nid] + 5,
+                        (size_t)(len - 5)) == 0)) {
+              if (stop_at_first) return p;
+              total++;
+            }
+          }
+          break;
+        }
+        slot = (slot + 1) & t.slot_mask;
+      }
+    }
+  }
+  return stop_at_first ? -1 : total;
+}
+
+}  // namespace prefilter
+
+extern "C" {
+
+// Multithreaded prefilter count over all match starts.
+int64_t am_prefilter_count(const uint32_t* bloom, int64_t bloom_words,
+                           const uint64_t* keys, const int32_t* grp_off,
+                           const int32_t* grp_needles, int64_t slots,
+                           const int32_t* nb_off, const uint8_t* nb_bytes,
+                           const uint8_t* data, int64_t n, int32_t n_threads) {
+  prefilter::Tables t{bloom, (uint32_t)(bloom_words - 1), keys, grp_off,
+                      grp_needles, (uint32_t)(slots - 1), nb_off, nb_bytes};
+  if (n < 5) return 0;
+  if (n_threads <= 1 || n < (int64_t)n_threads * 65536) {
+    return prefilter::scan_range(t, data, n, 0, n - 4, false);
+  }
+  std::vector<std::thread> threads;
+  std::vector<int64_t> totals((size_t)n_threads, 0);
+  int64_t chunk = (n + n_threads - 1) / n_threads;
+  for (int32_t ti = 0; ti < n_threads; ti++) {
+    int64_t a = (int64_t)ti * chunk;
+    int64_t b = a + chunk < n - 4 ? a + chunk : n - 4;
+    if (a >= b) continue;
+    threads.emplace_back([&, ti, a, b] {
+      totals[(size_t)ti] = prefilter::scan_range(t, data, n, a, b, false);
+    });
+  }
+  for (auto& th : threads) th.join();
+  int64_t total = 0;
+  for (int64_t v : totals) total += v;
+  return total;
+}
+
+// First verified match start in [0, n), or -1 (containsAny early exit).
+int64_t am_prefilter_first(const uint32_t* bloom, int64_t bloom_words,
+                           const uint64_t* keys, const int32_t* grp_off,
+                           const int32_t* grp_needles, int64_t slots,
+                           const int32_t* nb_off, const uint8_t* nb_bytes,
+                           const uint8_t* data, int64_t n) {
+  prefilter::Tables t{bloom, (uint32_t)(bloom_words - 1), keys, grp_off,
+                      grp_needles, (uint32_t)(slots - 1), nb_off, nb_bytes};
+  if (n < 5) return -1;
+  return prefilter::scan_range(t, data, n, 0, n - 4, true);
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// Bitap (shift-AND) host scan: one bit track per needle ENTRY in a uint64
+// register (sum of needle byte lengths <= 64; duplicates get their own
+// track, so per-byte counting is a plain popcount of the end bits — no
+// multiplicity weights).  Same overlap decomposition as the DFA scans: a
+// track is at most max_needle_bytes long, so the register synchronizes
+// after overlap = max_needle_bytes - 1 replayed bytes.  Host counterpart
+// of ops/bitap_scan.py (the register-automaton kernels B2/B4).
+
+static inline int64_t bitap_interleaved(const uint64_t* btab, uint64_t seed,
+                                        uint64_t endmask, const uint8_t* data,
+                                        int64_t emit_begin, int64_t emit_end,
+                                        int64_t overlap) {
+  constexpr int K = kInterleave;
+  int64_t n = emit_end - emit_begin;
+  if (n <= 0) return 0;
+  int64_t total = 0;
+  if (n < K * std::max<int64_t>(1024, 4 * overlap)) {
+    int64_t w = emit_begin - overlap;
+    if (w < 0) w = 0;
+    uint64_t d = 0;
+    for (int64_t i = w; i < emit_end; i++) {
+      d = ((d << 1) | seed) & btab[data[i]];
+      if (i >= emit_begin) total += __builtin_popcountll(d & endmask);
+    }
+    return total;
+  }
+  int64_t chunk = (n + K - 1) / K;
+  int64_t begin[K], end[K];
+  uint64_t D[K];
+  for (int k = 0; k < K; k++) {
+    begin[k] = emit_begin + (int64_t)k * chunk;
+    end[k] = begin[k] + chunk;
+    if (end[k] > emit_end) end[k] = emit_end;
+    if (begin[k] > emit_end) begin[k] = emit_end;
+    int64_t w = begin[k] - overlap;
+    if (w < 0) w = 0;
+    uint64_t d = 0;
+    for (int64_t i = w; i < begin[k]; i++) d = ((d << 1) | seed) & btab[data[i]];
+    D[k] = d;
+  }
+  int64_t minlen = end[K - 1] - begin[K - 1];
+  for (int64_t t = 0; t < minlen; t++) {
+    for (int k = 0; k < K; k++) {
+      int64_t i = begin[k] + t;
+      D[k] = ((D[k] << 1) | seed) & btab[data[i]];
+      total += __builtin_popcountll(D[k] & endmask);
+    }
+  }
+  for (int k = 0; k < K; k++) {
+    uint64_t d = D[k];
+    for (int64_t i = begin[k] + minlen; i < end[k]; i++) {
+      d = ((d << 1) | seed) & btab[data[i]];
+      total += __builtin_popcountll(d & endmask);
+    }
+  }
+  return total;
+}
+
+extern "C" {
+
+int64_t am_bitap_count_mt(const uint64_t* btab, uint64_t seed,
+                          uint64_t endmask, const uint8_t* data, int64_t n,
+                          int64_t overlap, int32_t n_threads) {
+  if (n_threads <= 1 || n < (int64_t)n_threads * 4096) {
+    return bitap_interleaved(btab, seed, endmask, data, 0, n, overlap);
+  }
+  int64_t chunk = (n + n_threads - 1) / n_threads;
+  std::vector<int64_t> partial(n_threads, 0);
+  std::vector<std::thread> threads;
+  for (int t = 0; t < n_threads; t++) {
+    threads.emplace_back([&, t]() {
+      int64_t emit_begin = (int64_t)t * chunk;
+      int64_t emit_end = emit_begin + chunk;
+      if (emit_end > n) emit_end = n;
+      if (emit_begin >= n) return;
+      partial[t] =
+          bitap_interleaved(btab, seed, endmask, data, emit_begin, emit_end, overlap);
+    });
+  }
+  for (auto& th : threads) th.join();
+  int64_t total = 0;
+  for (auto p : partial) total += p;
+  return total;
+}
+
+// First match END (one past the last byte) or -1 (containsAny early exit).
+int64_t am_bitap_first(const uint64_t* btab, uint64_t seed, uint64_t endmask,
+                       const uint8_t* data, int64_t n) {
+  uint64_t d = 0;
+  for (int64_t i = 0; i < n; i++) {
+    d = ((d << 1) | seed) & btab[data[i]];
+    if (d & endmask) return i + 1;
+  }
+  return -1;
 }
 
 }  // extern "C"

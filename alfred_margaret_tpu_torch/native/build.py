@@ -131,6 +131,24 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, p, i64,  # starts, ends (int64), n
         p, p,  # kept_starts, kept_ends
     ]
+    u64 = ctypes.c_uint64
+    lib.am_bitap_count_mt.restype = i64
+    lib.am_bitap_count_mt.argtypes = [
+        p, u64, u64,  # btab (uint64 [256]), seed, endmask
+        p, i64, i64, i32,  # data, n, overlap, n_threads
+    ]
+    lib.am_bitap_first.restype = i64
+    lib.am_bitap_first.argtypes = [p, u64, u64, p, i64]  # btab, seed, endmask, data, n
+    pf = [
+        p, i64,  # bloom, bloom_words
+        p, p, p, i64,  # keys, grp_off, grp_needles, slots
+        p, p,  # nb_off, nb_bytes
+        p, i64,  # data, n
+    ]
+    lib.am_prefilter_count.restype = i64
+    lib.am_prefilter_count.argtypes = pf + [i32]  # ..., n_threads
+    lib.am_prefilter_first.restype = i64
+    lib.am_prefilter_first.argtypes = list(pf)
 
 
 def load() -> ctypes.CDLL:
@@ -156,4 +174,8 @@ def load() -> ctypes.CDLL:
         return lib
 
 
-__all__ = ["NativeUnavailable", "load"]
+def default_threads() -> int:
+    return min(16, os.cpu_count() or 1)
+
+
+__all__ = ["NativeUnavailable", "default_threads", "load"]

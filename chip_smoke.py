@@ -10,7 +10,7 @@ kernels (and B11's one-group mode, on the mesh phase's tables) against its
 plain torch version on the card on nineteen machines, and
 the trap parts of B2, B4 and B7 on three IgnoreCase layouts, and the
 engines' answers (``final_states`` and the extraction without the host
-corpus too) against the port's host C++ engine.  Then it drives eleven main
+corpus too) against the port's host C++ engine.  Then it drives twelve main
 paths, each with the kernels' launch counts set to 0 just before it and read
 just after (the controls' launches are read apart), the first seven over
 128 MiB corpora:
@@ -110,7 +110,27 @@ just after (the controls' launches are read apart), the first seven over
   count inside a one-rank NCCL group, its reduction an ``all_reduce`` of a
   CUDA tensor.  Every mesh answer must equal the single-device
   ``Searcher``'s; each launch site's kernel is held against its plain version
-  on one shard and timed there.
+  on one shard and timed there;
+* streaming past the device budget (``stream_phase``, ``ops/streaming.py``
+  through ``MatchEngine``): the bench needles over a memmap of 2 GiB +
+  12,345 bytes, 16 chunks of 128 MiB and a ragged one, each staged on the
+  card in turn: ``count_matches`` (B2; B1 as the ``AMT_BITAP=0`` control),
+  ``contains_any`` of a hit and of the miss needles (B4; B3 as the control)
+  and
+  ``all_matches_arrays`` (B6), equal to the host C++ engine over the file and
+  to the corpus staged whole on the card, and again at chunks of 64 and 96
+  MiB; config 2 (B8, B14, B10, B13), config 5's first 300 (B15, B16, B17)
+  and first 1,000 (B9, B14, B11, extraction), composed IgnoreCase with
+  ``TSHİRT`` across the cuts (the trap parts of B2 and B4, B6) and the
+  lowering path on config 5's first 600 (count and ``contains_any``), each
+  over 512 MiB; ``Searcher.stage`` past the budget (no device staging, its
+  scans stream); a count under ``AMT_VALIDATE=1``; the mesh (4,2,1)
+  streaming 3 chunks (S2, S3, S8) against the single-device ``Searcher``;
+  the host C++ library's prefilter (``cpp`` backend, config 5's first 2,000
+  needles, ``AMT_PREFILTER=1``, ``=0`` and the automatic rule) and host
+  bitap oracle; and the walls: the streamed count per GiB, the whole-corpus
+  staging and count, a grid of chunk sizes (32 to 512 MiB) and one chunk's
+  staging against its kernel.
 
 Every answer must equal the host C++ engine's (and the control's), and every
 kernel of a path must have been launched by it.  The segmented kernels (B1,
@@ -876,6 +896,416 @@ def api_phase(h):
             print(f"api {label} {op} over {len(needles)} needles: {got} == host C++ over "
                   f"{len(hay)} bytes in {wall:.3f} s wall; launches {used} ({card})", flush=True)
     return main
+
+
+#: The streamed corpus: 16 chunks of the default 128 MiB and a ragged one.
+STREAM_BYTES = (2 << 30) + 12345
+#: The other tiers' streamed corpora: 4 chunks.
+STREAM_TIER_BYTES = 512 << 20
+#: The chunk sizes timed for the streamed count, MiB; the first is the
+#: default (``AMT_STREAM_CHUNK_MB``), the other streamed answers' chunk.
+STREAM_GRID_MB = (128, 32, 64, 256, 512)
+#: The chunk sizes the bench needles' answers are checked at again, MiB (96
+#: does not divide the corpus).
+STREAM_CHECK_MB = (64, 96)
+#: ``TSHİRT``: a needle whose İ fires the composed machine's trap track.
+TRAP_WORD = "TSHİRT".encode()
+
+
+def stream_phase(h):
+    """Streaming past the device budget (``2 * AMT_STREAM_CHUNK_MB``) on the
+    card: ``MatchEngine`` scans a haystack over the budget chunk by chunk
+    (``ops/streaming.py``), each chunk staged on the card in turn.
+
+    The bench needles over a memmap of ``STREAM_BYTES`` (each 128 MiB of
+    ``synth_corpus`` its own seed): ``count_matches`` (B2; ``AMT_BITAP=0``,
+    B1, as the control), ``contains_any`` of a hit and of the miss needles
+    (B4, the miss a full scan; B3 the control's) and ``all_matches_arrays``
+    (B6), each equal to
+    the host C++ engine over the whole file, count and matches to the corpus
+    staged whole on the card, and all again at chunks of 64 and 96 MiB; the
+    other tiers over ``STREAM_TIER_BYTES`` (config 2, config 5's first 300
+    and first 1,000, composed IgnoreCase with ``TSHİRT`` across the cuts,
+    the lowering path on config 5's first 600); ``Searcher.stage`` over the
+    budget (no device staging; its scans stream); one count under
+    ``AMT_VALIDATE=1``; the mesh (4,2,1) streaming 3 chunks; and on the
+    card's host the prefilter of the ``cpp`` backend (config 5's first
+    2,000 needles) and the host bitap oracle.  Every chunk of every streamed
+    scan must be staged on the card, and every operation must launch its
+    kernels.  Prints the walls beside the card (streamed count per GiB, the
+    whole-corpus staging and count, the chunk-size grid, per-chunk staging
+    against the kernel).  ``h`` carries ``main``'s helpers and searchers.
+    Returns (main-path launches, control launches)."""
+    import tempfile
+
+    import torch
+
+    from alfred_margaret_tpu_torch import CASE_SENSITIVE, IGNORE_CASE, Searcher
+    from alfred_margaret_tpu_torch.bench.dataformat import synth_corpus
+    from alfred_margaret_tpu_torch.native import build as native_build
+    from alfred_margaret_tpu_torch.native.cpp_engine import CppAcEngine, CppBitapEngine
+    from alfred_margaret_tpu_torch.native.prefilter import PrefilterEngine
+    from alfred_margaret_tpu_torch.ops.streaming import StreamingScanner
+    from alfred_margaret_tpu_torch.parallel import make_mesh
+    from alfred_margaret_tpu_torch.utils import config, utf8
+
+    card, dev, main, control = h.card, h.dev, {}, {}
+    t_phase = time.perf_counter()
+    check(config.DEFAULT.stream_chunk_mb == STREAM_GRID_MB[0], "AMT_STREAM_CHUNK_MB is set: "
+          "the phase measures the default chunk")
+    CHUNK = config.DEFAULT.stream_chunk_mb << 20
+    lib = native_build.load()
+    for sym in ("am_prefilter_count", "am_prefilter_first", "am_bitap_count_mt",
+                "am_bitap_first"):
+        check(hasattr(lib, sym), f"the host C++ library lacks {sym}")
+
+    def chunk_mb(mb, **kw):
+        """``config.DEFAULT`` with chunks of ``mb`` MiB (and ``kw``)."""
+        return mock.patch.object(config, "DEFAULT", dataclasses.replace(
+            config.DEFAULT, stream_chunk_mb=mb, **kw))
+
+    class Chunks:
+        """Spies on ``eng.stage`` while open: each staged chunk's length and
+        device, and the staging's wall (synchronised)."""
+
+        def __init__(self, eng):
+            self.eng, self.seen = eng, []
+
+        def __enter__(self):
+            stage = self.eng.stage
+
+            def spy(x):
+                t0 = time.perf_counter()
+                st = stage(x)
+                torch.cuda.synchronize()
+                blocks = getattr(st, "blocks", None)
+                devs = ({d.type for _, d in blocks} if blocks is not None
+                        else {st.streams.device.type})
+                self.seen.append((len(x), devs, time.perf_counter() - t0))
+                return st
+
+            self.patch = mock.patch.object(self.eng, "stage", spy)
+            self.patch.start()
+            return self
+
+        def __exit__(self, *exc):
+            self.patch.stop()
+
+        def check(self, label, n, chunk, expect=None):
+            lens = [x for x, _, _ in self.seen]
+            n_chunks = -(-n // chunk)
+            check(all(d == {dev.type} for _, d, _ in self.seen),
+                  f"{label}: a chunk was staged off the card")
+            check(lens and max(lens) <= chunk + 64,
+                  f"{label}: staged {max(lens or [0])} bytes at once (chunk {chunk})")
+            check(expect is None or len(lens) == expect * n_chunks,
+                  f"{label}: {len(lens)} chunks staged, expected {expect} x {n_chunks}")
+            self.seen.clear()
+            return len(lens)
+
+    def run(label, eng, fn, want, expect, into=main, n=None, chunk=CHUNK, passes=None):
+        """``fn()`` with the kernel launch counts set to 0 just before and read
+        just after, every chunk watched: its answer must equal ``want``, and
+        it must launch every kernel of ``expect``."""
+        with Chunks(eng) as spy:
+            h.zero_counts()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            used = {k: v for k, v in h.read_counts().items() if v}
+        h.tally(into, used)
+        if isinstance(want, tuple):
+            ok = np.array_equal(out[0], want[0]) and np.array_equal(out[1], want[1])
+            shown = f"{len(out[0])} matches"
+        else:
+            ok, shown = out == want, str(out)
+        check(ok, f"stream {label}: {shown} != {want if not isinstance(want, tuple) else len(want[0])}")
+        missing = [k for k in expect if not used.get(k)]
+        check(used and not missing, f"stream {label}: {missing} not launched ({used})")
+        k = spy.check(label, n, chunk, passes)
+        print(f"stream {label:44s} {wall * 1e3:10.1f} ms wall, {k} chunks -> {shown} "
+              f"launches {used} ({card})", flush=True)
+        return wall
+
+    # -- the bench needles over 2 GiB + 12,345 bytes, from a memmap -------------
+    tmp = tempfile.TemporaryDirectory(prefix="amt_stream_")
+    try:
+        t0 = time.perf_counter()
+        path = os.path.join(tmp.name, "corpus.bin")
+        with open(path, "wb") as f:
+            for k in range(-(-STREAM_BYTES // CHUNK)):
+                f.write(synth_corpus(NEEDLES, min(CHUNK, STREAM_BYTES - k * CHUNK),
+                                     hit_fraction=0.01, seed=100 + k))
+        mm = np.memmap(path, dtype=np.uint8, mode="r")
+        check(len(mm) == STREAM_BYTES, "the streamed corpus's length")
+        write_s = time.perf_counter() - t0
+        s, eng = h.searcher, h.searcher._engine.device_engine()
+        dense = h.dense_searcher
+        host = CppAcEngine(s.automaton)
+        t0 = time.perf_counter()
+        want = {"count": host.count(mm), "hit": host.first_hit(mm) >= 0,
+                "miss": CppAcEngine(h.miss.automaton).first_hit(mm) >= 0,
+                "matches": host.matches_arrays(mm)}
+        host_s = time.perf_counter() - t0
+        check(want["count"] > 0 and want["hit"] and not want["miss"]
+              and len(want["matches"][0]) == want["count"], f"host C++ answers: {want['count']}")
+        print(f"stream corpus: {STREAM_BYTES} bytes ({-(-STREAM_BYTES // CHUNK)} chunks of "
+              f"{CHUNK}) written in {write_s:.1f} s, memmapped; host C++ count, first hits and "
+              f"matches over the file {host_s:.1f} s -> {want['count']} matches", flush=True)
+        miss_eng = h.miss._engine.device_engine()
+        dense_eng = dense._engine.device_engine()
+        miss_dense_eng = h.miss_dense._engine.device_engine()
+        walls = {}
+        for mb in (STREAM_GRID_MB[0],) + STREAM_CHECK_MB:
+            chunk = mb << 20
+            with chunk_mb(mb):
+                n = STREAM_BYTES
+                tag = f"{mb} MiB chunks"
+                walls[("count", mb)] = run(f"count_matches, {tag}", eng,
+                                           lambda: s.count_matches(mm), want["count"],
+                                           ["bitap_count"], n=n, chunk=chunk, passes=1)
+                run(f"count_matches AMT_BITAP=0, {tag}", dense_eng,
+                    lambda: dense.count_matches(mm), want["count"], ["dense_count"],
+                    into=control, n=n, chunk=chunk, passes=1)
+                run(f"contains_any hit, {tag}", eng, lambda: s.contains_any(mm), True,
+                    ["bitap_contains"], n=chunk, chunk=chunk, passes=1)
+                walls[("miss", mb)] = run(f"contains_any miss, {tag}", miss_eng,
+                                          lambda: h.miss.contains_any(mm), False,
+                                          ["bitap_contains"], n=n, chunk=chunk, passes=1)
+                run(f"contains_any miss AMT_BITAP=0, {tag}", miss_dense_eng,
+                    lambda: h.miss_dense.contains_any(mm), False, ["dense_contains"],
+                    into=control, n=n, chunk=chunk, passes=1)
+                walls[("matches", mb)] = run(f"all_matches_arrays, {tag}", eng,
+                                             lambda: s.all_matches_arrays(mm), want["matches"],
+                                             ["matchbits"], n=n, chunk=chunk, passes=1)
+
+        # The same corpus staged whole on the card (80 GB hold it), one shot.
+        t0 = time.perf_counter()
+        st_whole = eng.stage(mm)
+        torch.cuda.synchronize()
+        whole_stage_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        whole_count = eng.count_staged(st_whole)
+        whole_count_ms = (time.perf_counter() - t0) * 1e3
+        check(whole_count == want["count"], f"whole staging count {whole_count}")
+        whole_matches = eng.matches_arrays_staged(st_whole)
+        check(all(np.array_equal(a, b) for a, b in zip(whole_matches, want["matches"])),
+              "whole staging matches != host C++")
+        del st_whole, whole_matches
+        torch.cuda.empty_cache()
+        print(f"stream whole-corpus staging of {STREAM_BYTES} bytes {whole_stage_s:.3f} s, "
+              f"count_staged {whole_count_ms:.3f} ms -> {whole_count} == streamed == host C++; "
+              f"matches equal ({card})", flush=True)
+
+        # The chunk-size grid, and one streamed count's chunks: staging against
+        # the kernel.
+        grid = {}
+        for mb in STREAM_GRID_MB:
+            with chunk_mb(mb):
+                t0 = time.perf_counter()
+                got = s.count_matches(mm)
+                grid[mb] = time.perf_counter() - t0
+            check(got == want["count"], f"count at {mb} MiB chunks: {got}")
+        with Chunks(eng) as spy:
+            count_staged = type(eng).count_staged
+            count_s = []
+
+            def timed_count(st):
+                t0 = time.perf_counter()
+                out = count_staged(eng, st)
+                count_s.append(time.perf_counter() - t0)
+                return out
+
+            with mock.patch.object(eng, "count_staged", timed_count):
+                check(s.count_matches(mm) == want["count"], "the timed streamed count")
+            stage_ms = sorted(t * 1e3 for _, _, t in spy.seen[:-1])  # full chunks
+        st1 = eng.stage(mm[:CHUNK])
+        kernel_ms = h.timed(lambda: eng.stream_counts(st1), 20)
+        del st1
+        gib, mb0 = STREAM_BYTES / (1 << 30), STREAM_GRID_MB[0]
+        timings = {
+            "card": card, "corpus_bytes": STREAM_BYTES, "chunk_bytes": CHUNK,
+            "count_s": walls[("count", mb0)], "count_s_per_gib": walls[("count", mb0)] / gib,
+            "count_gb_per_s": STREAM_BYTES / walls[("count", mb0)] / 1e9,
+            "contains_miss_s": walls[("miss", mb0)],
+            "all_matches_arrays_s": walls[("matches", mb0)],
+            "whole_stage_s": whole_stage_s, "whole_count_ms": whole_count_ms,
+            "whole_stage_and_count_s": whole_stage_s + whole_count_ms / 1e3,
+            "grid_count_s": {str(mb): grid[mb] for mb in STREAM_GRID_MB},
+            "grid_gb_per_s": {str(mb): STREAM_BYTES / grid[mb] / 1e9 for mb in STREAM_GRID_MB},
+            "chunk_stage_ms": {"min": stage_ms[0], "median": stage_ms[len(stage_ms) // 2],
+                               "max": stage_ms[-1]},
+            "chunk_count_staged_ms_median": sorted(count_s)[len(count_s) // 2] * 1e3,
+            "chunk_kernel_ms": kernel_ms,
+        }
+        print("stream timings " + json.dumps(timings), flush=True)
+
+        # Searcher.stage over the budget: no device staging; its scans stream.
+        staged = s.stage(mm)
+        check(staged.device is None and len(staged) == STREAM_BYTES,
+              "Searcher.stage over the budget staged the corpus on the card")
+        run("staged handle count_matches", eng, lambda: s.count_matches(staged), want["count"],
+            ["bitap_count"], n=STREAM_BYTES, passes=1)
+        run("staged handle contains_any", eng, lambda: s.contains_any(staged), True,
+            ["bitap_contains"], n=CHUNK, passes=1)
+        with chunk_mb(STREAM_GRID_MB[0], validate=True):
+            checked = Searcher(CASE_SENSITIVE, s.needles, machine=s.automaton, device=dev)
+            check(checked._engine._validate, "AMT_VALIDATE did not reach the engine")
+            checked._engine._device_eng = eng
+            run("count_matches AMT_VALIDATE=1", eng, lambda: checked.count_matches(mm),
+                want["count"], ["bitap_count"], n=STREAM_BYTES, passes=1)
+
+        # The mesh: eight shards of the card on (4,2,1), 3 chunks.
+        mm3 = mm[: 3 * CHUNK]
+        dist = s.distributed(make_mesh([dev] * 8, data=4, seq=2))
+        dist_miss = h.miss.distributed(make_mesh([dev] * 8, data=4, seq=2))
+        sc, sc_miss = (StreamingScanner(d, d.machine, chunk_bytes=CHUNK)
+                       for d in (dist, dist_miss))
+        want3 = {"count": s.count_matches(mm3), "hit": s.contains_any(mm3),
+                 "miss": h.miss.contains_any(mm3), "matches": s.all_matches_arrays(mm3)}
+        check(want3["count"] == host.count(mm3), "single-device streamed count of 3 chunks")
+        run("mesh (4,2,1) count_matches", dist, lambda: sc.count(mm3), want3["count"],
+            ["bitap_count"], n=len(mm3), passes=1)
+        run("mesh (4,2,1) contains_any hit", dist, lambda: sc.contains(mm3), want3["hit"],
+            ["bitap_contains"], n=CHUNK, passes=1)
+        run("mesh (4,2,1) contains_any miss", dist_miss, lambda: sc_miss.contains(mm3),
+            want3["miss"], ["bitap_contains"], n=len(mm3), passes=1)
+        run("mesh (4,2,1) all_matches_arrays", dist, lambda: sc.matches_arrays(mm3),
+            want3["matches"], ["matchbits"], n=len(mm3), passes=1)
+
+        # The host bitap oracle on the bench needles, over the file.
+        t0 = time.perf_counter()
+        hb = CppBitapEngine(s.automaton)
+        hb_count, hb_hit = hb.count(mm), hb.contains(mm)
+        check(hb_count == want["count"] and hb_hit is True
+              and hb.contains(mm[: 1 << 20]) == (host.first_hit(mm[: 1 << 20]) >= 0),
+              f"host bitap oracle {hb_count} != host C++ {want['count']}")
+        print(f"stream host bitap oracle: count {hb_count} == host C++ over {STREAM_BYTES} "
+              f"bytes in {time.perf_counter() - t0:.3f} s host clock", flush=True)
+        del mm, mm3, staged
+    finally:
+        tmp.cleanup()
+
+    # -- the other tiers over 512 MiB: 4 chunks -----------------------------------
+    n = STREAM_TIER_BYTES
+    cuts = [k * CHUNK for k in range(1, n // CHUNK)]
+    digits = np.frombuffer((DIGITS * (n // len(DIGITS) + 1))[:n], np.uint8)
+
+    def near_end(base, needle):
+        """``base`` with ``needle`` written into its last chunk."""
+        a = base.copy()
+        at = n - CHUNK // 2
+        a[at : at + len(needle)] = np.frombuffer(needle, np.uint8)
+        return a
+
+    def tier(label, srch, corpus, hit_hay, expect, host_eng=None, lowering=False):
+        """count, contains_any on ``corpus`` and on ``hit_hay`` (a needle in the
+        last chunk) and all_matches_arrays, streamed, against the host C++
+        engine.  On the lowering path the host C++ engine scans the lowered
+        bytes, and extraction is left out: lowering 512 MiB with its raw
+        coordinates is host work of seconds."""
+        e = srch._engine.device_engine() if host_eng is None else host_eng[0]
+        hc = CppAcEngine(srch.automaton) if host_eng is None else host_eng[1]
+
+        def scanned(x):
+            return utf8.lower_transform(x, need_coords=False).lowered if lowering else x
+
+        w = {"count": hc.count(scanned(corpus)), "any": hc.first_hit(scanned(corpus)) >= 0,
+             "hit": hc.first_hit(scanned(hit_hay)) >= 0}
+        check(w["count"] > 0 and w["hit"], f"{label}: no match in the tier's corpora")
+        ops = [("count_matches", lambda: srch.count_matches(corpus), w["count"]),
+               ("contains_any", lambda: srch.contains_any(corpus), w["any"]),
+               ("contains_any, a needle in the last chunk", lambda: srch.contains_any(hit_hay),
+                w["hit"])]
+        if not lowering:
+            ops.append(("all_matches_arrays", lambda: srch.all_matches_arrays(corpus),
+                        hc.matches_arrays(corpus)))
+        for op, fn, ans in ops:
+            run(f"{label} {op}", e, fn, ans, expect.get(op, ()), n=n)
+
+    t0 = time.perf_counter()
+    c2 = config2_needles()
+    data2 = np.frombuffer(synth_corpus(c2, n, hit_fraction=0.01, seed=41), np.uint8)
+    tier("config 2", h.s100, data2, near_end(digits, c2[7].encode()), {
+        "count_matches": ["comb16_count"], "contains_any": ["filter_contains"],
+        "contains_any, a needle in the last chunk": ["filter_contains", "comb16_contains"],
+        "all_matches_arrays": ["matchbits_comb16"]})
+    del data2
+    n300 = config5_needles(300)
+    data3 = np.frombuffer(synth_corpus(n300, n, hit_fraction=0.01, seed=43), np.uint8)
+    tier("config 5, 300", h.s300, data3, near_end(digits, n300[-1].encode()), {
+        "count_matches": ["comb_count"], "contains_any": ["comb_contains"],
+        "contains_any, a needle in the last chunk": ["comb_contains"],
+        "all_matches_arrays": ["comb_count", "comb_states"]})
+    del data3
+    data5 = np.frombuffer(synth_corpus(h.n1000[:500], n, hit_fraction=0.01, seed=45), np.uint8)
+    # (The 12-word screen may have retired by its strike rule in the
+    # grouped path: B11 decides then.)
+    tier("config 5, 1,000 grouped", h.s1000, data5, near_end(digits, h.last5), {
+        "count_matches": ["comb16_count_grouped"], "contains_any": ["comb16_contains_grouped"],
+        "contains_any, a needle in the last chunk": ["comb16_contains_grouped"],
+        "all_matches_arrays": ["comb_states"]})
+    del data5
+    # Composed IgnoreCase: the scrambled bench corpus, TSHİRT across every cut.
+    data_ci = h.scramble(synth_corpus(NEEDLES, n, hit_fraction=0.01, seed=47), 49)
+    for c in cuts:
+        data_ci[c - 3 : c - 3 + len(TRAP_WORD)] = np.frombuffer(TRAP_WORD, np.uint8)
+    ci = h.s_ci._engine._composed(IGNORE_CASE)
+    check(ci.device_engine().bitap_tables.trapmask is not None, "IgnoreCase: no trap track")
+    miss_ci = h.miss_ci._engine._composed(IGNORE_CASE)
+    tier("IgnoreCase composed", h.s_ci, data_ci, near_end(digits, TRAP_WORD), {
+        "count_matches": ["bitap_count_trap"], "contains_any": ["bitap_contains_trap"],
+        "contains_any, a needle in the last chunk": ["bitap_contains_trap"],
+        "all_matches_arrays": ["matchbits"]},
+        host_eng=(ci.device_engine(), CppAcEngine(ci.machine)))
+    w_miss = CppAcEngine(miss_ci.machine).first_hit(data_ci) >= 0
+    run("IgnoreCase composed contains_any miss", miss_ci.device_engine(),
+        lambda: h.miss_ci.contains_any(data_ci), w_miss, ["bitap_contains_trap"], n=n, passes=1)
+    # The lowering path: config 5's first 600, lowered whole, then streamed.
+    data600 = h.scramble(synth_corpus(h.n600, n, hit_fraction=0.01, seed=51), 53)
+    for c in cuts:
+        data600[c - 5 : c - 5 + len(TRAP_WORD)] = np.frombuffer(TRAP_WORD, np.uint8)
+    tier("IgnoreCase lowering, config 5's 600", h.s600, data600,
+         near_end(digits, h.n600[-1].upper().encode()),
+         {"count_matches": ["comb16_count_grouped"],
+          "contains_any, a needle in the last chunk": ["comb16_contains_grouped"]},
+         host_eng=(h.s600._engine.device_engine(), CppAcEngine(h.s600.automaton)),
+         lowering=True)
+    check(h.s600._engine._ci is None, "config 5's 600 needles composed")
+    del data_ci, data600
+    print(f"stream tiers over {n} bytes each in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- the prefilter of the cpp backend, on the card's host ----------------------
+    t0 = time.perf_counter()
+    n2000 = config5_needles(2000)
+    m2000 = Searcher.build(CASE_SENSITIVE, n2000, engine="cpp", device=dev).automaton
+    pf_walls, answers = {}, {}
+    auto = (os.cpu_count() or 1) >= 8  # the automatic rule, with 2,000 needles
+    for env in ("1", "0", None):
+        with mock.patch.dict(os.environ):
+            os.environ.pop("AMT_PREFILTER", None)
+            if env is not None:
+                os.environ["AMT_PREFILTER"] = env
+            sp = Searcher(CASE_SENSITIVE, [(x.encode(), ()) for x in n2000], machine=m2000,
+                          engine="cpp", device=dev)
+            pf = sp._engine._prefilter()
+            t1 = time.perf_counter()
+            answers[env] = (sp.count_matches(h.data5), sp.contains_any(h.data5))
+            pf_walls[env] = time.perf_counter() - t1
+        engaged = env == "1" or (env is None and auto)
+        check(isinstance(pf, PrefilterEngine) if engaged else pf is None,
+              f"AMT_PREFILTER={env}: prefilter {'on' if pf else 'off'}")
+    want_c = CppAcEngine(m2000).count(h.data5)
+    check(answers["1"] == answers["0"] == answers[None] == (want_c, True),
+          f"prefilter answers {answers}, host C++ {want_c}")
+    print(f"stream prefilter: config 5's 2,000 needles over {len(h.data5)} bytes, cpp backend: "
+          f"count {want_c}, contains_any True under AMT_PREFILTER=1 ({pf_walls['1']:.3f} s), "
+          f"=0 ({pf_walls['0']:.3f} s) and unset ({pf_walls[None]:.3f} s, automatic rule "
+          f"engaged: {auto}, {os.cpu_count()} cores); "
+          f"{time.perf_counter() - t0:.1f} s host clock", flush=True)
+    print(f"stream phase: {time.perf_counter() - t_phase:.1f} s wall ({card})", flush=True)
+    return main, control
 
 
 def main() -> int:
@@ -2872,6 +3302,13 @@ def main() -> int:
     timings[("comb16_contains_base", b11["what"])] = (
         b11["ms"], b11["plain_ms"], b11["bound_ms"], b11["bound_by"])
 
+    # -- streaming past the device budget ---------------------------------------
+    stream_main, stream_control = stream_phase(SimpleNamespace(
+        dev=dev, card=card, zero_counts=zero_counts, read_counts=read_counts, tally=tally,
+        timed=timed, scramble=scramble, searcher=searcher, dense_searcher=dense_searcher,
+        miss=miss, miss_dense=miss_dense, miss_ci=miss_ci, s_ci=s_ci, s100=s100, s300=s300, s1000=s1000, s600=s600,
+        n600=n600, n1000=n1000, last5=last5, data5=data5))
+
     # name: (source, TPU kernel it replaces, wrapper, the timing of its main path)
     table = {
         "bitap_count": ("bitap_count.cu", "bitap_scan.py:352", "bench needles"),
@@ -2906,9 +3343,10 @@ def main() -> int:
     # them the controls'.
     launches, control = {}, {}
     for path in (bench_main, dense_main, c16_main, c32_main, g_main, states_main, extract_main,
-                 ref_main, ci_main, mesh_main, api_main):
+                 ref_main, ci_main, mesh_main, api_main, stream_main):
         tally(launches, path)
-    for path in (bench_control, c16_control, g_control, ci_control, mesh_control):
+    for path in (bench_control, c16_control, g_control, ci_control, mesh_control,
+                 stream_control):
         tally(control, path)
     kernels = []
     for name, (src, where, what) in table.items():
@@ -2918,6 +3356,7 @@ def main() -> int:
             "replaces": f"alfred_margaret_tpu/ops/{where}", "launches": launches.get(name, 0),
             "control_launches": control.get(name, 0),
             "api_launches": api_main.get(name, 0),  # Replacer, Splitter, adopt_staged
+            "stream_launches": stream_main.get(name, 0),  # streamed past the budget
             "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
             "bound_by": by, "library_ms": None,  # no PyTorch call runs an automaton
         }

@@ -1743,3 +1743,70 @@ def test_boyer_moore_ac_route_on_the_card(cuda):
             assert s.contains_any(text) is cpp.contains_any(text) is True
             assert s.contains_all(text) is cpp.contains_all(text) is (needles == NEEDLES3)
             assert s._ac_searcher().device.type == "cuda"
+
+
+# -- streaming past the budget on the card ------------------------------------------
+
+
+@pytest.fixture
+def budget_1mb(monkeypatch):
+    """Chunks of 1 MiB: haystacks past 2 MiB stream."""
+    from alfred_margaret_tpu_torch.utils import config
+
+    monkeypatch.setattr(config, "DEFAULT", dataclasses.replace(config.DEFAULT, stream_chunk_mb=1))
+
+
+def _staged_chunks(monkeypatch, eng):
+    """Record the length and device of every chunk ``eng`` stages."""
+    seen = []
+    stage = type(eng).stage
+
+    def spy(x):
+        st = stage(eng, x)
+        seen.append((len(x), st.streams.device.type))
+        return st
+
+    monkeypatch.setattr(eng, "stage", spy)
+    return seen
+
+
+@pytest.mark.parametrize("case", ["cs", "ci"])
+def test_streamed_operations_on_the_card(cuda, budget_1mb, monkeypatch, case):
+    """count, contains_any (a hit and a miss) and all_matches_arrays over a
+    haystack past the budget: every chunk is staged on the card and scanned
+    by its kernels (B2, B4, B6; the composed IgnoreCase machine's trap parts
+    with İ across the cuts), the answers equal the host C++ engine's over the
+    whole haystack, and ``stage`` keeps such a haystack on the host."""
+    from alfred_margaret_tpu_torch import CASE_SENSITIVE, IGNORE_CASE, MatchEngine, Searcher
+
+    n = (5 << 19) + 12345  # three chunks, the last ragged
+    hay = bytearray(synth_corpus(NEEDLES3, n, hit_fraction=0.01, seed=17))
+    if case == "ci":
+        monkeypatch.setattr(MatchEngine, "AUTO_COMPOSE_BYTES", 0)
+        hay = bytearray(bytes(hay).upper())
+        for cut in (1 << 20, 2 << 20):
+            w = "TSHİRT".encode()
+            hay[cut - 3 : cut - 3 + len(w)] = w
+    hay = bytes(hay)
+    mode = IGNORE_CASE if case == "ci" else CASE_SENSITIVE
+    s = Searcher.build(mode, NEEDLES3, device=cuda)
+    miss = Searcher.build(mode, ["tshirt9", "shorts9"], device=cuda)
+    eng = s._engine._composed(mode) if case == "ci" else s._engine
+    miss_eng = miss._engine._composed(mode) if case == "ci" else miss._engine
+    host = CppAcEngine(eng.machine)
+    seen = _staged_chunks(monkeypatch, eng.device_engine())
+    seen_miss = _staged_chunks(monkeypatch, miss_eng.device_engine())
+    for w in (bitap_count, bitap_contains, matchbits):
+        w.launches = 0
+    assert s.count_matches(hay) == host.count(hay) > 0
+    assert s.contains_any(hay) is True
+    assert miss.contains_any(hay) is (CppAcEngine(miss_eng.machine).first_hit(hay) >= 0) is False
+    for g, w in zip(s.all_matches_arrays(hay), host.matches_arrays(hay)):
+        np.testing.assert_array_equal(g, w)
+    assert bitap_count.launches == 3 and bitap_contains.launches == 1 + 3
+    assert matchbits.launches == 3
+    assert len(seen) == 3 + 1 + 3 and len(seen_miss) == 3
+    assert all(dev == "cuda" and k <= (1 << 20) + 16 for k, dev in seen + seen_miss)
+    staged = s.stage(hay)
+    assert staged.device is None
+    assert s.count_matches(staged) == host.count(hay)

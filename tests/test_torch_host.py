@@ -5,8 +5,10 @@ The port imports nothing of ``alfred_margaret_tpu``, not even its modules
 that do not import ``jax``: it keeps copies of ``utils/case.py``, the parts
 of ``utils/utf8.py``, ``models/ac.py``, ``native/`` and
 ``bench/dataformat.py`` that it uses, of ``replacer.py``, ``splitter.py``,
-``boyer_moore/`` and ``boyer_moore_ci/`` (pinned function by function,
-but for the functions that differ on purpose), and defines ``MatchSet``,
+``boyer_moore/``, ``boyer_moore_ci/``, ``ops/streaming.py``,
+``utils/config.py``, ``native/prefilter.py``, ``models/nfa_oracle.py`` and
+the host bitap oracle (pinned function by function, but for the functions
+that differ on purpose), and defines ``MatchSet``,
 ``StagedHaystack`` and ``AUTO_PYTHON_THRESHOLD`` itself.  Each copy must give
 the original's output on seeded inputs (tolerance: exact equality).  A fresh
 interpreter that imports every module of the port must hold no ``jax`` and
@@ -197,6 +199,32 @@ def test_cpp_engine_matches_original(name, needles):
                         got_eng.segments_matches_arrays(u8, b, e)):
             assert g.dtype == w.dtype
             np.testing.assert_array_equal(g, w)
+    # The host bitap oracle's and the prefilter's entry points, on the same
+    # tables and corpora, against the JAX package's library.
+    from alfred_margaret_tpu.native import prefilter as jprefilter
+    from alfred_margaret_tpu.native.build import load as jload
+    from alfred_margaret_tpu_torch.native import prefilter
+    from alfred_margaret_tpu_torch.native.cpp_engine import plan_host_bitap
+
+    lib, jlib = tnative.load(), jload()
+    plan = plan_host_bitap(m)
+    for h in (hay, hay[:1000], b"x"):
+        u8 = np.frombuffer(h, np.uint8)
+        if plan is not None:
+            btab, seed, endmask = plan
+            for nt in (1, 4):
+                args = (btab.ctypes.data, seed, endmask, u8.ctypes.data, len(u8), got_eng.overlap,
+                        nt)
+                assert lib.am_bitap_count_mt(*args) == jlib.am_bitap_count_mt(*args)
+            args = (btab.ctypes.data, seed, endmask, u8.ctypes.data, len(u8))
+            assert lib.am_bitap_first(*args) == jlib.am_bitap_first(*args)
+        if prefilter.eligible(m.needles):
+            pf = prefilter.PrefilterEngine(m.needles)
+            args = pf._args(u8)
+            assert lib.am_prefilter_first(*args) == jlib.am_prefilter_first(*args)
+            for nt in (1, 4):
+                assert (lib.am_prefilter_count(*args, nt) == jlib.am_prefilter_count(*args, nt)
+                        == jprefilter.PrefilterEngine(jm.needles).count(h, nt))
     assert tnative.load() is tnative.load()
     assert os.path.dirname(tnative._so_path()).endswith(os.path.join("alfred_margaret_tpu_torch",
                                                                       "_build"))
@@ -330,7 +358,8 @@ def _function_dumps(path, skip=()):
 #: Copied modules and the functions whose port differs on purpose: the
 #: ``device`` keyword, the dropped relay branch and the composed engine read
 #: through ``_composed``'s result (replacer), the ``device`` keyword
-#: (splitter and the Boyer-Moore searchers, which hand it to their AC route).
+#: (splitter and the Boyer-Moore searchers, which hand it to their AC route),
+#: the knobs the port keeps (config).
 BM_SEARCHER_DIFFER = {"Searcher.__init__", "Searcher.build", "Searcher.build_with_values",
                       "Searcher.build_needle_id_searcher", "Searcher._ac_searcher"}
 COPIES = [
@@ -343,6 +372,11 @@ COPIES = [
     ("boyer_moore_ci/__init__.py", set()), ("boyer_moore_ci/automaton.py", set()),
     ("boyer_moore_ci/replacer.py", set()),
     ("boyer_moore_ci/searcher.py", BM_SEARCHER_DIFFER),
+    ("ops/streaming.py", set()),
+    # The port keeps four knobs: no stream count, time tile or interpret mode.
+    ("utils/config.py", {"EngineConfig.from_env"}),
+    ("native/prefilter.py", set()),
+    ("models/nfa_oracle.py", set()),
 ]
 
 
@@ -351,11 +385,25 @@ def test_copied_modules_match_jax(rel, differ):
     """Every function of a copied module is the original's, statement for
     statement, but for the ones listed, whose behaviour the port's own tests
     hold against the original (``test_torch_replacer.py``,
-    ``test_torch_splitter.py``, ``test_torch_boyer_moore.py``)."""
+    ``test_torch_splitter.py``, ``test_torch_boyer_moore.py``,
+    ``test_torch_config.py``)."""
     got = _function_dumps(os.path.join(REPO, "alfred_margaret_tpu_torch", rel), differ)
     want = _function_dumps(os.path.join(REPO, "alfred_margaret_tpu", rel), differ)
     assert set(got) == set(want)
     for name in want:
+        assert got[name] == want[name], name
+
+
+def test_host_bitap_oracle_copy_matches_jax():
+    """``plan_host_bitap``, ``plan_host_bitap_ci`` and ``CppBitapEngine`` of
+    the port's ``native/cpp_engine.py`` are the original's, statement for
+    statement (``test_torch_config.py`` holds their answers)."""
+    got = _function_dumps(os.path.join(REPO, "alfred_margaret_tpu_torch", "native",
+                                       "cpp_engine.py"))
+    want = _function_dumps(os.path.join(REPO, "alfred_margaret_tpu", "native", "cpp_engine.py"))
+    names = [n for n in want if n.startswith(("plan_host_bitap", "CppBitapEngine."))]
+    assert len(names) == 9  # with plan_host_bitap_ci's inner pack
+    for name in names:
         assert got[name] == want[name], name
 
 
@@ -458,7 +506,7 @@ def test_port_imports_nothing_of_the_jax_package():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
     n, bad = proc.stdout.strip().split(" ", 1)
-    assert int(n) >= 51 and bad == "[]", proc.stdout
+    assert int(n) >= 55 and bad == "[]", proc.stdout
 
 
 def test_chip_smoke_names_no_jax_module():
