@@ -1,15 +1,46 @@
-"""Synthetic benchmark corpora.
+"""Benchmark data files (reference-compatible) and synthetic corpora.
 
-The port's copy of ``synth_corpus`` from
+The reference's files are "needles, one per line; blank line; haystack",
+encoded UTF-16LE without BOM (``benchmark/README.md:20-33``); the reader
+takes that encoding and a UTF-8 variant.  The port's copy of
 ``alfred_margaret_tpu/bench/dataformat.py`` (``tests/test_torch_host.py``
-pins it to the original), for ``chip_smoke.py`` and the tests.
+pins every function to the original).
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Tuple
 
 import numpy as np
+
+
+def parse_bench_file(path: str) -> Tuple[List[str], str]:
+    """Returns (needles, haystack)."""
+    with open(path, "rb") as f:
+        raw = f.read()
+    text = None
+    for enc in ("utf-16-le", "utf-8"):
+        try:
+            text = raw.decode(enc)
+            # UTF-16LE decode of UTF-8 data "succeeds" with garbage; sanity
+            # check that newlines survived.
+            if "\n" in text:
+                break
+            text = None
+        except UnicodeDecodeError:
+            continue
+    if text is None:
+        raise ValueError(f"cannot decode {path} as UTF-16LE or UTF-8")
+    text = text.replace("\r\n", "\n")
+    needle_part, _, haystack = text.partition("\n\n")
+    needles = [n for n in needle_part.split("\n") if n]
+    return needles, haystack
+
+
+def write_bench_file(path: str, needles: List[str], haystack: str, encoding: str = "utf-8") -> None:
+    text = "\n".join(needles) + "\n\n" + haystack
+    with open(path, "wb") as f:
+        f.write(text.encode(encoding))
 
 
 def synth_corpus(
@@ -37,4 +68,4 @@ def synth_corpus(
     return (block * reps)[:size_bytes]
 
 
-__all__ = ["synth_corpus"]
+__all__ = ["parse_bench_file", "synth_corpus", "write_bench_file"]

@@ -5,7 +5,8 @@ The port's copy of the parts of ``alfred_margaret_tpu/models/ac.py`` it uses:
 ``build``, ``validate_machine``, ``save_npz`` / ``load_npz`` (values
 include the Replacer's ``Payload``), the scalar fold in both case modes (``run_with_case``,
 ``run_text``, ``run_lower``, ``all_matches``, ``count_matches``),
-``needle_casings`` and ``presence_of_states``.
+``needle_casings``, ``presence_of_states`` and the Graphviz dump
+``debug_build_dot`` (the CLI's ``dump-automaton``).
 ``tests/test_torch_host.py`` pins each to its original on seeded needle sets.
 
 Every (state, byte) pair is resolved through the failure chains at build time
@@ -87,9 +88,16 @@ class AcMachine:
     def n_states(self) -> int:
         return self.delta.shape[0]
 
+    @property
+    def state_dtype(self) -> np.dtype:
+        return self.delta.dtype
+
     def outputs(self, state: int) -> Sequence[int]:
         """Value ids emitted at ``state``."""
         return self.out_values[self.out_offset[state] : self.out_offset[state + 1]]
+
+    def nbytes(self) -> int:
+        return self.delta.nbytes + self.out_offset.nbytes + self.out_values.nbytes
 
     def map_values(self, f: Callable[[Any], Any]) -> "AcMachine":
         """The same machine with ``f`` applied to every value (the
@@ -477,6 +485,27 @@ def count_matches(machine: AcMachine, text: utf8.TextLike, case: CaseSensitivity
     return run_with_case(case, Box(), f, machine, text).n
 
 
+def debug_build_dot(needles: Sequence[utf8.TextLike]) -> str:
+    """Format the trie + failure links as Graphviz Dot for visual debugging
+    (``debugBuildDot``, ``Automaton.hs:202-239``).
+
+    Edge labels are bytes (printable ASCII shown as characters, other bytes as
+    hex) since this build's alphabet is bytes rather than code points.
+    """
+    machine = build((n, i) for i, n in enumerate(needles))
+    lines = ["digraph {", '  rankdir = "LR";']
+    for s, b, t in zip(machine.edge_src, machine.edge_byte, machine.edge_dst):
+        label = chr(b) if 0x20 <= b < 0x7F and chr(b) != '"' else f"0x{b:02x}"
+        lines.append(f'  {s} -> {t} [label = "{label}"];')
+    for s in range(1, machine.n_states):
+        lines.append(f"  {s} -> {machine.fail[s]} [style = dashed];")
+    for s in range(machine.n_states):
+        if machine.match_count[s] > 0:
+            lines.append(f"  {s} [shape = doublecircle];")
+    lines.append("}")
+    return "\n".join(lines) + "\n"
+
+
 def needle_casings(needle: str) -> List[str]:
     """All strings that lowercase (per code point) to the given lowercase
     needle (``Automaton.hs:562-566``); empty if the needle is not lowercase.
@@ -501,6 +530,7 @@ __all__ = [
     "all_matches",
     "build",
     "count_matches",
+    "debug_build_dot",
     "load_npz",
     "needle_casings",
     "presence_of_states",

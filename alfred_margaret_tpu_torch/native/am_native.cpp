@@ -6,7 +6,9 @@
 // for match extraction.
 //
 // A copy of the scan, extraction, lowering, splicing, prefilter and host
-// bitap parts of alfred_margaret_tpu/native/am_native.cpp: the
+// bitap parts of alfred_margaret_tpu/native/am_native.cpp, with its
+// single-thread scans (am_scan_count, am_scan_states) and the host memory
+// roof (am_memscan_baseline) that the single-core baseline reads: the
 // IgnoreCase lowering transducer (am_lower_transform, am_lower_bytes,
 // am_lower_ascii, am_is_ascii) lowers haystacks for the lowering path, and
 // the Replacer's passes rescan windows (am_scan_segments_hits), splice
@@ -28,6 +30,34 @@
 #include <vector>
 
 extern "C" {
+
+// Scan `data[0..n)` with the dense DFA `delta` ([n_states][256], row-major)
+// starting from state 0; add match_count[state] after every byte.
+// Returns the total match count.  One thread: the single-core baseline.
+int64_t am_scan_count(const int32_t* delta, const int32_t* match_count,
+                      int32_t n_states, const uint8_t* data, int64_t n) {
+  (void)n_states;
+  int64_t total = 0;
+  int32_t state = 0;
+  for (int64_t i = 0; i < n; i++) {
+    state = delta[(int64_t)state * 256 + data[i]];
+    total += match_count[state];
+  }
+  return total;
+}
+
+// Same scan, but writes the post-byte state for every position into
+// out_states (int32[n]). Returns the final state.
+int32_t am_scan_states(const int32_t* delta, int32_t n_states,
+                       const uint8_t* data, int64_t n, int32_t* out_states) {
+  (void)n_states;
+  int32_t state = 0;
+  for (int64_t i = 0; i < n; i++) {
+    state = delta[(int64_t)state * 256 + data[i]];
+    out_states[i] = state;
+  }
+  return state;
+}
 
 // State at each of n_pos byte positions, re-derived by a from-root replay
 // of the preceding W bytes (the DFA synchronization property: any failure
@@ -658,6 +688,16 @@ int64_t am_expand_hit_bits(const int64_t* t_words, const int64_t* s_idx,
   return kept[(size_t)n_threads];
 }
 
+// XOR-reduce the input once: the host memory-bandwidth roof the
+// single-core baselines are read against.
+int64_t am_memscan_baseline(const uint8_t* data, int64_t n) {
+  uint64_t acc = 0;
+  const uint64_t* p = reinterpret_cast<const uint64_t*>(data);
+  int64_t words = n / 8;
+  for (int64_t i = 0; i < words; i++) acc ^= p[i];
+  for (int64_t i = words * 8; i < n; i++) acc ^= data[i];
+  return (int64_t)acc;
+}
 
 // Strict streaming decode at data[i]: returns the sequence length (1-4)
 // and writes the scalar value, or -1 when data[i] does not start a valid

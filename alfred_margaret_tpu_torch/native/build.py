@@ -48,6 +48,12 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, i64, i32,  # pos (int64), n_pos, w
         p, i32,  # out_states (int32), n_threads
     ]
+    lib.am_scan_count.restype = i64
+    lib.am_scan_count.argtypes = [p, p, i32, p, i64]  # delta, match_count, n_states, data, n
+    lib.am_scan_states.restype = i32
+    lib.am_scan_states.argtypes = [p, i32, p, i64, p]  # delta, n_states, data, n, out_states
+    lib.am_memscan_baseline.restype = i64
+    lib.am_memscan_baseline.argtypes = [p, i64]  # data, n
     lib.am_scan_count_mt.restype = i64
     lib.am_scan_count_mt.argtypes = [p, p, i32, p, i64, i64, i32]
     lib.am_scan_states_mt.restype = None

@@ -3,7 +3,8 @@
 The port's copy of the parts of ``alfred_margaret_tpu/native/cpp_engine.py``
 it calls: ``CppAcEngine`` (count, per-position states, first hit, value
 presence, match arrays and the Replacer's segmented window rescan, with the
-lazily built byte-class tables), ``_default_threads``, and the 64-bit host
+lazily built byte-class tables, and ``memscan_baseline``, the host memory
+roof), ``_default_threads``, and the 64-bit host
 bitap oracle ``CppBitapEngine`` with its planners ``plan_host_bitap`` and
 ``plan_host_bitap_ci``.
 The same table layout and emission semantics as the device kernels (match
@@ -230,6 +231,11 @@ class CppAcEngine:
                 break
             cap = total + 16
         return expand_hits(self.machine, pos[:total], st[:total])
+
+    def memscan_baseline(self, text: utf8.TextLike) -> int:
+        """XOR-reduce the input once: the host memory-bandwidth roof."""
+        data = np.ascontiguousarray(utf8.to_u8(text))
+        return int(self.lib.am_memscan_baseline(data.ctypes.data, len(data)))
 
 
 def plan_host_bitap(machine: AcMachine):

@@ -1,9 +1,10 @@
 """Needle-grouped engine for needle sets that no single-pass engine holds,
 over the fused CUDA kernels B9 (count) and B11 (containsAny).
 
-Counterpart of ``alfred_margaret_tpu/ops/grouped.py``: ``partition_adaptive``
-and ``partition_uniform16`` are copied as numpy (that module imports ``jax``;
-``tests/test_torch_grouped.py`` pins the copies), and ``GroupedAcEngine``
+Counterpart of ``alfred_margaret_tpu/ops/grouped.py``: ``partition_adaptive``,
+``partition_uniform16`` and the trie-estimate ``partition_needles`` are copied
+as numpy (that module imports ``jax``; ``tests/test_torch_grouped.py`` and
+``tests/test_torch_host.py`` pin the copies), and ``GroupedAcEngine``
 takes the place of ``GroupedPallasAcEngine`` with the adaptive partition
 (the JAX engine's default; its ``"entry"`` alternative is not ported).
 
@@ -64,6 +65,72 @@ from .comb_scan import make_engine, plan_pallas
 from .filter_scan import attach_filter, filter_contains
 from .pallas_scan import MAX_ROWS, CapacityError, StagedStreams, _StickyView
 from .xla_scan import expand_hits
+
+
+def partition_needles(machine: ac.AcMachine, max_rows: int = MAX_ROWS) -> List[List[int]]:
+    """Partition value ids (pair indices) into groups whose sub-automata fit
+    ``max_rows * 128`` packed entries. Duplicate needles share a group."""
+    budget = max_rows * 128
+    groups: List[List[int]] = []
+    needle_group: dict = {}
+
+    cur: List[int] = []
+    cur_trie: dict = {}
+    cur_nodes = 1  # root
+    cur_bytes: set = set()
+
+    def close():
+        nonlocal cur, cur_trie, cur_nodes, cur_bytes
+        if cur:
+            groups.append(cur)
+        cur, cur_trie, cur_nodes, cur_bytes = [], {}, 1, set()
+
+    def try_add(needle: bytes) -> bool:
+        """Insert into the running trie estimate; True if still in budget."""
+        nonlocal cur_nodes
+        new_nodes = 0
+        node = cur_trie
+        for b in needle:
+            nxt = node.get(b)
+            if nxt is None:
+                nxt = {}
+                node[b] = nxt
+                new_nodes += 1
+            node = nxt
+        cur_nodes += new_nodes
+        cur_bytes.update(needle)
+        return cur_nodes * (len(cur_bytes) + 1) <= budget
+
+    for vid, needle in enumerate(machine.needles):
+        prev = needle_group.get(needle)
+        if prev is not None:
+            # Duplicate: must join the first occurrence's group (may make
+            # that group's estimate stale, but duplicates add no trie nodes
+            # or bytes, so the bound is unaffected).
+            if prev == -1:
+                cur.append(vid)
+            else:
+                groups[prev].append(vid)
+            continue
+        single_entries = (len(needle) + 1) * (len(set(needle)) + 1)
+        if single_entries > budget:
+            raise CapacityError(
+                f"needle of {len(needle)} bytes cannot fit a {budget}-entry group"
+            )
+        if not try_add(needle):
+            close()
+            # Re-fix group indices for needles closed into the last group.
+            for n, g in needle_group.items():
+                if g == -1:
+                    needle_group[n] = len(groups) - 1
+            try_add(needle)
+        cur.append(vid)
+        needle_group[needle] = -1  # -1 == current open group
+    close()
+    for n, g in needle_group.items():
+        if g == -1:
+            needle_group[n] = len(groups) - 1
+    return groups
 
 
 def partition_adaptive(machine: ac.AcMachine, max_rows: int = MAX_ROWS, with_rows: bool = False):
@@ -535,5 +602,6 @@ __all__ = [
     "FusedGroups",
     "GroupedAcEngine",
     "partition_adaptive",
+    "partition_needles",
     "partition_uniform16",
 ]

@@ -3,9 +3,10 @@
 A copy of ``alfred_margaret_tpu/utils/config.py`` with the knobs the port's
 engine reads, overridable from the environment (prefix ``AMT_``):
 
-  AMT_ENGINE       auto | python | cpp | xla | device (the JAX package's
-                   ``pallas`` is the port's ``device``); ``MatchEngine``
-                   resolves ``engine="auto"`` through it
+  AMT_ENGINE       auto | python | cpp | xla | device, or the JAX
+                   package's ``pallas``, read as ``device`` (``ALIASES``);
+                   ``MatchEngine`` resolves ``engine="auto"`` through it,
+                   and ``bench.countmatches`` picks its engine by it
   AMT_VALIDATE     1 -> cross-check every device count against the host C++
                    engine and raise on a mismatch
   AMT_COMPOSED_CI  max automaton states for which IgnoreCase scans build
@@ -47,6 +48,17 @@ def _env_int(name: str, default: Optional[int]) -> Optional[int]:
     return int(v) if v else default
 
 
+#: The JAX package's names of the port's engines, as ``AMT_ENGINE`` may
+#: give them.
+ALIASES = {"pallas": "device"}
+
+
+def engine_name(name: str) -> str:
+    """``name`` in the port's vocabulary: an alias of ``ALIASES`` mapped,
+    any other name as it is."""
+    return ALIASES.get(name, name)
+
+
 @dataclass(frozen=True)
 class EngineConfig:
     engine: str = "auto"
@@ -57,7 +69,7 @@ class EngineConfig:
     @staticmethod
     def from_env() -> "EngineConfig":
         return EngineConfig(
-            engine=os.environ.get("AMT_ENGINE", "auto"),
+            engine=engine_name(os.environ.get("AMT_ENGINE", "auto")),
             validate=bool(os.environ.get("AMT_VALIDATE")),
             composed_ci_max_states=_env_int("AMT_COMPOSED_CI", 4096),
             stream_chunk_mb=_env_int("AMT_STREAM_CHUNK_MB", 128),
@@ -66,4 +78,4 @@ class EngineConfig:
 
 DEFAULT = EngineConfig.from_env()
 
-__all__ = ["EngineConfig", "DEFAULT"]
+__all__ = ["EngineConfig", "DEFAULT", "ALIASES", "engine_name"]

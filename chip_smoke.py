@@ -10,7 +10,7 @@ kernels (and B11's one-group mode, on the mesh phase's tables) against its
 plain torch version on the card on nineteen machines, and
 the trap parts of B2, B4 and B7 on three IgnoreCase layouts, and the
 engines' answers (``final_states`` and the extraction without the host
-corpus too) against the port's host C++ engine.  Then it drives twelve main
+corpus too) against the port's host C++ engine.  Then it drives thirteen main
 paths, each with the kernels' launch counts set to 0 just before it and read
 just after (the controls' launches are read apart), the first seven over
 128 MiB corpora:
@@ -78,7 +78,8 @@ just after (the controls' launches are read apart), the first seven over
   host C++ library is checked for the Replacer's five entry points:
   ``Replacer.run`` on config 4's pairs (the batched splice; one-shot and on
   a staged handle; B6's bitap step), on a cascading set (the incremental
-  loop's window rescans), on config 2's 100 needles upper-cased (B13) and
+  loop's window rescans), on config 2's 100 needles upper-cased (B13, over
+  32 MiB) and
   under IgnoreCase (composed, on a staging of the scrambled bench corpus;
   the lowering fallback on 1 MiB one-shot, against the python Replacer; and
   config 4's and the cascading pairs composed on a staging of that 1 MiB,
@@ -132,6 +133,19 @@ just after (the controls' launches are read apart), the first seven over
   staging and count, a grid of chunk sizes (32 to 512 MiB) and one chunk's
   staging against its kernel.
 
+* the tools (``tools_phase``): ``dump-automaton`` against
+  ``debug_build_dot``; ``count-matches`` through ``cli`` in a fresh
+  interpreter on two bench files, with ``AMT_ENGINE`` ``auto`` (B2),
+  ``pallas`` (B1) and ``cpp``, their counts equal and the host C++
+  engine's; ``driver.run_benchmark`` of it, 2 runs, and ``report``;
+  ``configs.main(["--mb", "32"])`` (each config's gates, and at least one
+  launch each; config 5's 10,000 needles build the grouped engine once);
+  ``micro``; ``scaling`` on 1, 2, 4 and 8 shards of the card (S2); the
+  serving demo; and the device's idle share read from ``torch.profiler``
+  traces (``utils/trace.py``) of a staged count, ``contains_any`` and
+  ``all_matches_arrays`` of the bench needles at 128 MiB and a count
+  streamed over 4 chunks.
+
 Every answer must equal the host C++ engine's (and the control's), and every
 kernel of a path must have been launched by it.  The segmented kernels (B1,
 B2, B4 and B7 with their trap parts, B3, B5, B6 with its dense and bitap
@@ -142,7 +156,7 @@ a multiple of 128 or of 16, T of one tile or word, ragged warm-ups and
 vends, with the plan's overlap, with none and with every stream padded (B2
 also on 1, 2, 3 and 8 words and B4 and B7 on 1, 2 and 3, all on their trap
 layouts, İ, Kelvin K and ẞ written across the segment cuts; B3, B4, B5, B7,
-B8, B10, B12, B14 and B16 also at k = 1 to 64 forced, B14 on 0, 1, 3 and 12
+B8, B10, B12, B14 and B16 also at k = 1, 2, 3, 7, 16 and 64 forced, B14 on 0, 1, 3 and 12
 words and odd vends; B3 over stream ranges whose start is not a multiple of
 16; B3, B5 and B16 on a composed IgnoreCase machine); the launches of
 B1-B5, B7, B8, B10, B12, B14, B16, S1-S3, S6 and S7 print their segment counts
@@ -182,7 +196,12 @@ REFERENCE_BYTES = 4 << 20  # corpus of the reference scan engine
 LOWERING_BYTES = 32 << 20  # corpus of the IgnoreCase lowering path
 ORACLE_BYTES = 64 << 10  # the part of it the python oracle scans
 KERNEL_RUNS = 20
-PLAIN_RUNS = 2
+#: Stream lengths of the edge-shape checks: one tile, several, and many
+#: tiles and segments, the longest ragged (not a whole 32-step tile); B6 and
+#: B13 at whole 32-step words.
+EDGE_TS = (20, 300, 1000)
+EDGE_TS_WORDS = (32, 320, 1024)
+PLAIN_RUNS = 1  # after a warm-up: the plain versions take 0.03-2.4 s a call
 #: The corpus of ``alfred_margaret_tpu/bench/configs.py`` config 2b.
 DIGITS = b"0123456789 ,;:!"
 #: H100 SXM data sheet: HBM3 bandwidth, and the float32 rate outside the
@@ -215,32 +234,13 @@ def check(ok: bool, msg: str) -> None:
 
 def random_needles(seed: int, n: int):
     """``n`` distinct random lower-case needles of 4 to 8 letters, drawn as
-    ``alfred_margaret_tpu/bench/configs.py`` draws config 2's."""
+    ``alfred_margaret_tpu_torch/bench/configs.py`` draws config 2's (the
+    configs' own draws are ``config2_needles`` and ``config5_needles``
+    there)."""
     rng = np.random.default_rng(seed)
     return list(dict.fromkeys(
         "".join(chr(97 + c) for c in rng.integers(0, 26, size=rng.integers(4, 9)))
         for _ in range(int(n * 1.1))
-    ))[:n]
-
-
-def config2_needles():
-    """``BASELINE.json`` config 2: 100 needles, four of them nested."""
-    needles = random_needles(7, 100)
-    needles[:4] = ["abc", "abcd", "bcd", "c"]
-    return needles
-
-
-def config5_needles(n: int):
-    """The first ``n`` needles of ``BASELINE.json`` config 5, drawn as
-    ``alfred_margaret_tpu/bench/configs.py`` draws them: config 2's 110
-    draws from ``default_rng(7)``, then 11,000 needles of 5 to 11 letters,
-    the first 10,000 distinct ones kept."""
-    rng = np.random.default_rng(7)
-    list("".join(chr(97 + c) for c in rng.integers(0, 26, size=rng.integers(4, 9)))
-         for _ in range(110))
-    return list(dict.fromkeys(
-        "".join(chr(97 + c) for c in rng.integers(0, 26, size=rng.integers(5, 12)))
-        for _ in range(11000)
     ))[:n]
 
 
@@ -309,6 +309,10 @@ MESH_STATES_BYTES = 16 << 20  # corpus of the states route: [G, T, S] int32 on t
 #: lower priorities (the incremental pass loop).
 CONFIG4_PAIRS = [("tshirt", "TEE"), ("shirts", "SHIRT"), ("shorts", "S"), ("ee", "f")]
 CASCADE_PAIRS = [("tshirt", "shirts"), ("shirts", "shorts"), ("shorts", "x")]
+#: The part of config 2's corpus that its Replacer runs over: 100 host passes
+#: (each splicing, then a sequential ``bytes.replace`` per needle as the gate)
+#: at 128 MiB took 33 s of the run.
+API_CONFIG2_BYTES = 32 << 20
 #: The Replacer's entry points in the host C++ library.
 REPLACER_SYMBOLS = ("am_scan_segments_hits", "am_splice", "am_splice_mt", "am_splice_multi",
                     "am_remove_overlap")
@@ -749,7 +753,7 @@ def api_phase(h):
 
     # -- Replacer, config 2: comb16 (B13) ---------------------------------------
     pairs2 = [(x, x.upper()) for x in h.c2]
-    corpus2 = h.data2.tobytes()
+    corpus2 = h.data2[:API_CONFIG2_BYTES].tobytes()
     t0 = time.perf_counter()
     seq2 = sequential(pairs2, corpus2)
     print(f"api replacer config 2: sequential bytes.replace {time.perf_counter() - t0:.3f} s",
@@ -941,6 +945,7 @@ def stream_phase(h):
     import torch
 
     from alfred_margaret_tpu_torch import CASE_SENSITIVE, IGNORE_CASE, Searcher
+    from alfred_margaret_tpu_torch.bench.configs import config2_needles, config5_needles
     from alfred_margaret_tpu_torch.bench.dataformat import synth_corpus
     from alfred_margaret_tpu_torch.native import build as native_build
     from alfred_margaret_tpu_torch.native.cpp_engine import CppAcEngine, CppBitapEngine
@@ -1308,6 +1313,272 @@ def stream_phase(h):
     return main, control
 
 
+#: The tools phase: the ``count-matches`` files (bytes, seed), the configs'
+#: corpus MiB (``--mb``), the scaling run's MiB per shard, and the chunks of
+#: the streamed count whose idle share is read.
+TOOLS_FILES = ((32 << 20, 3), ((4 << 20) + 12345, 4))
+TOOLS_CONFIGS_MB = 32
+TOOLS_SCALING_MB = 8
+IDLE_STREAM_CHUNKS = 4
+#: Runs ``cli.main`` on its arguments after the first in a fresh
+#: interpreter, then writes the kernels' launch counts to the file named by
+#: the first.
+CLI_WRAP = """
+import json, sys
+from alfred_margaret_tpu_torch import cli, kernels as K
+rc = cli.main(sys.argv[2:])
+with open(sys.argv[1], "w") as f:
+    json.dump({w.__name__: w.launches for w in K.WRAPPERS}, f)
+raise SystemExit(rc)
+"""
+
+
+def tools_phase(h):
+    """The port's tools on the card, each answer held against the host C++
+    engine (or ``count_naive``, as the JAX modules hold theirs):
+    ``dump-automaton`` on the bench needles against ``debug_build_dot``;
+    ``count-matches`` through ``cli`` in a fresh interpreter on two bench
+    files written by ``write_bench_file``, with ``AMT_ENGINE`` ``auto`` (B2),
+    ``pallas`` (B1) and ``cpp`` (no kernel), its protocol and its launches
+    read; ``driver.run_benchmark`` of ``python -m
+    alfred_margaret_tpu_torch.cli count-matches`` over those files, 2 runs,
+    and ``report.summarize`` of its ``.stats``; ``configs.main(["--mb",
+    "32"])`` with each config's launches read at its JSON line (every config
+    must launch a kernel; config 5 builds its 10,000 needles once);
+    ``micro.main()``; ``scaling.main(["8"])`` on shards of the card (S2);
+    the serving demo; and ``trace.profile`` with a trace dir around a staged
+    ``count_matches``, ``contains_any`` and ``all_matches_arrays`` of the
+    bench needles at ``CORPUS_BYTES`` and a count streamed in
+    ``IDLE_STREAM_CHUNKS`` chunks, each trace read for the device's idle
+    share: 1 - (union of kernel, copy and memset intervals) / the span.
+    ``h`` carries ``main``'s helpers.  Returns the main-path launches."""
+    import contextlib
+    import glob
+    import io
+    import subprocess
+    import tempfile
+
+    import torch
+
+    from alfred_margaret_tpu_torch import CASE_SENSITIVE, Searcher, cli
+    from alfred_margaret_tpu_torch.bench import configs, driver, micro, report, scaling
+    from alfred_margaret_tpu_torch.bench.dataformat import synth_corpus, write_bench_file
+    from alfred_margaret_tpu_torch.bench.naive import count_naive
+    from alfred_margaret_tpu_torch.examples import serving_demo
+    from alfred_margaret_tpu_torch.models import ac
+    from alfred_margaret_tpu_torch.native.cpp_engine import CppAcEngine
+    from alfred_margaret_tpu_torch.utils import config, trace
+
+    card, main, walls = h.card, {}, {}
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    host = CppAcEngine(ac.build([(n, ()) for n in NEEDLES]))
+
+    def run(label, fn, expect=()):
+        """``fn()`` with the launch counts set to 0 just before and read just
+        after; they join the phase's, and each of ``expect`` must be in
+        them."""
+        h.zero_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t0
+        used = {k: v for k, v in h.read_counts().items() if v}
+        h.tally(main, used)
+        for name in expect:
+            check(used.get(name, 0) > 0, f"tools {label}: {name} was not launched ({used})")
+        print(f"tools {label}: {walls[label]:.2f} s wall; launches {used} ({card})", flush=True)
+        return out
+
+    def captured(fn):
+        """``fn()``'s return and its standard output, echoed."""
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = fn()
+        print(buf.getvalue(), end="", flush=True)
+        return rc, buf.getvalue()
+
+    rc, dot = run("dump-automaton", lambda: captured(
+        lambda: cli.main(["dump-automaton", *NEEDLES])))
+    check(rc == 0 and dot == ac.debug_build_dot(NEEDLES), "dump-automaton != debug_build_dot")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir = os.path.join(tmp, "data")
+        os.makedirs(data_dir)
+        files, want = [], 0
+        for i, (size, seed) in enumerate(TOOLS_FILES):
+            hay = synth_corpus(NEEDLES, size, hit_fraction=0.01, seed=seed)
+            files.append(os.path.join(data_dir, f"bench{i}.txt"))
+            write_bench_file(files[-1], NEEDLES, hay.decode())
+            n = host.count(hay)
+            check(n == count_naive([x.encode() for x in NEEDLES], hay), f"{files[-1]}: naive")
+            want += n
+        rounds = int(os.environ.get("AMT_ROUNDS", "5"))
+        for engine, kernel in (("auto", "bitap_count"), ("pallas", "dense_count"), ("cpp", None)):
+            counts_path = os.path.join(tmp, f"launches_{engine}.json")
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-c", CLI_WRAP, counts_path, "count-matches", *files],
+                cwd=root, env={**os.environ, "AMT_ENGINE": engine}, capture_output=True,
+                text=True, timeout=600)
+            wall = time.perf_counter() - t0
+            check(proc.returncode == 0,
+                  f"count-matches {engine}: exit {proc.returncode}: {proc.stderr[-3000:]}")
+            lines = proc.stdout.split("\n")
+            check(lines[-1] == "" and len(lines) == len(files) + 1
+                  and all(x.endswith("\t") and len(x.split("\t")) == rounds + 1
+                          for x in lines[:-1]), f"count-matches {engine}: stdout {proc.stdout!r}")
+            got = int(proc.stderr.strip().splitlines()[-1])
+            check(got == want, f"count-matches {engine}: {got} != host C++ {want}")
+            with open(counts_path) as f:
+                used = {k: v for k, v in json.load(f).items() if v}
+            check(used.get(kernel, 0) > 0 if kernel else not used,
+                  f"count-matches {engine}: launches {used}")
+            h.tally(main, used)
+            ms = [[int(t) / 1e6 for t in x.split("\t")[:-1]] for x in lines[:-1]]
+            print(f"tools count-matches AMT_ENGINE={engine}: count {got} == host C++; rounds ms "
+                  + "; ".join(f"file {i} ({os.path.getsize(p)} bytes) first {r[0]:.3f}, then "
+                              f"{min(r[1:]):.3f}-{max(r[1:]):.3f}"
+                              for i, (p, r) in enumerate(zip(files, ms)))
+                  + f"; process wall {wall:.2f} s; launches {used} ({card})", flush=True)
+            walls[f"count-matches {engine}"] = wall
+
+        prefix = os.path.join(tmp, "port")
+        t0 = time.perf_counter()
+        with contextlib.chdir(root), mock.patch.dict(os.environ, {"AMT_ENGINE": "auto"}):
+            driver.run_benchmark(f"{sys.executable} -m alfred_margaret_tpu_torch.cli "
+                                 "count-matches", prefix, data_dir, runs=2)
+        walls["driver"] = time.perf_counter() - t0
+        with open(prefix + ".results") as f:
+            results = f.read()
+        check(results == f"{want}\n", f"driver: .results {results!r} != {want}")
+        print(f"tools driver: 2 runs, {walls['driver']:.2f} s wall; "
+              f"{report.summarize(prefix + '.stats')} ({card})", flush=True)
+
+        # -- the BASELINE.json configs: each one's launches read at its line -----
+        rows, per_config, emit = [], {}, configs._emit
+        t_cfg = [time.perf_counter()]
+
+        def spy(**kw):
+            torch.cuda.synchronize()
+            used = {k: v for k, v in h.read_counts().items() if v}
+            h.zero_counts()
+            h.tally(main, used)
+            per_config[str(kw["config"])] = (used, time.perf_counter() - t_cfg[0])
+            t_cfg[0] = time.perf_counter()
+            rows.append(kw)
+            return emit(**kw)
+
+        h.zero_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(configs, "_emit", spy):
+            check(configs.main(["--mb", str(TOOLS_CONFIGS_MB)]) == 0, "configs.main")
+        walls["configs"] = time.perf_counter() - t0
+        check([str(r["config"]) for r in rows] == ["1", "2", "2b", "3", "4", "5"],
+              f"configs emitted {[r['config'] for r in rows]}")
+        for name, (used, wall) in per_config.items():
+            check(sum(used.values()) > 0, f"config {name} launched no kernel")
+            print(f"tools config {name}: {wall:.2f} s wall; launches {used} ({card})", flush=True)
+        c5 = rows[-1]
+        print(f"tools config 5: {c5['needles']} needles, Searcher build {c5['build_seconds']} s, "
+              f"first count (the device engine's build) {c5['first_count_seconds']} s, count "
+              f"{c5['seconds']} s over {c5['bytes']} bytes ({card})", flush=True)
+
+        # -- micro, scaling, the serving demo -------------------------------------
+        rc, out = run("micro", lambda: captured(lambda: micro.main([])), ("bitap_count",))
+        by = {(r["scenario"], r["impl"]): r["result"] for r in map(json.loads, out.splitlines())}
+        check(rc == 0 and len(by) == 44, f"micro: {len(by)} rows")
+        for name, needle, hay in micro.scenarios():
+            n = CppAcEngine(ac.build([(needle, ())])).count(hay.encode())
+            check(by[(name, "ac")] == n == by[(name, "nfa")] == by[(name, "bm")],
+                  f"micro {name}: ac {by[(name, 'ac')]} != host C++ {n}")
+            check(by[(name, "ac-ci")] == by[(name, "bm-ci")] == by[(name, "bm-ci-classic")],
+                  f"micro {name}: ac-ci != bm-ci")
+        rc, out = run("scaling", lambda: captured(
+            lambda: scaling.main([str(TOOLS_SCALING_MB)])), ("bitap_count",))
+        srows = [json.loads(x) for x in out.splitlines()]
+        inv = host.count(synth_corpus(NEEDLES, 4 << 20, hit_fraction=0.01, seed=7))
+        check(rc == 0 and srows[0] == {"invariance": "ok", "shapes": 10, "count": inv},
+              f"scaling invariance {srows[0]} (host C++ {inv})")
+        for row in srows[1:]:
+            n = row["devices"]
+            want_n = host.count(synth_corpus(NEEDLES, TOOLS_SCALING_MB * n << 20,
+                                             hit_fraction=0.01, seed=3))
+            check(row["count"] == want_n and row.get("virtual_mesh", False) == (n > 1),
+                  f"scaling row {row}: host C++ {want_n}")
+        rc, out = run("serving demo", lambda: captured(lambda: serving_demo.main("cuda")),
+                      ("bitap_count",))
+        check(out.rstrip().endswith("ALL STEPS EXACT"), "serving demo")
+
+        # -- the device's idle share, from torch.profiler traces -------------------
+        check(config.DEFAULT.stream_chunk_mb << 20 == CORPUS_BYTES,
+              "AMT_STREAM_CHUNK_MB is set: the streamed case measures the default chunk")
+        s = Searcher.build(CASE_SENSITIVE, NEEDLES)
+        data = np.frombuffer(synth_corpus(NEEDLES, CORPUS_BYTES, hit_fraction=0.01, seed=3),
+                             np.uint8)
+        staged = s.stage(data)
+        big = np.tile(data, IDLE_STREAM_CHUNKS)
+        hm = host.matches_arrays(data)
+        idle = {}
+        with trace.profile(0, label="warm", trace_dir=os.path.join(tmp, "warm")):
+            torch.ones(1, device=h.dev).sum()  # CUPTI's set-up stays out of the cases
+        for label, fn, want_v, n_bytes in (
+                ("count_matches", lambda: s.count_matches(staged), host.count(data), len(data)),
+                ("contains_any", lambda: s.contains_any(staged), host.first_hit(data) >= 0,
+                 len(data)),
+                ("all_matches_arrays", lambda: s.all_matches_arrays(staged), hm, len(data)),
+                ("streamed_count_matches", lambda: s.count_matches(big), host.count(big),
+                 len(big))):
+            fn()  # warm: lazy tables, the first scan's set-up
+            plain = []  # the host-clock wall without the profiler
+            for _ in range(5):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                plain.append(time.perf_counter() - t0)
+            plain_ms = sorted(plain)[2] * 1e3
+            tdir = os.path.join(tmp, "trace_" + label)
+
+            def traced():
+                with trace.profile(n_bytes, label=label, trace_dir=tdir) as st:
+                    out = fn()
+                return out, st
+
+            out, st = run(f"idle {label}", traced)
+            ok = (all(np.array_equal(a, b) for a, b in zip(out, want_v))
+                  if isinstance(out, tuple) else out == want_v)
+            check(ok, f"idle {label}: answer != host C++")
+            (path,) = glob.glob(os.path.join(tdir, "*.json"))
+            share = trace.device_idle_share(path, label)
+            check(share["kernel"] > 0, f"the trace of {label} recorded no kernel: {share}")
+            # ``idle_share`` takes the busy time and the wall from the same
+            # (profiled) run.  The profiler lengthens the host's side of the
+            # wall, so the busy time over the median wall of the unprofiled
+            # runs is printed beside it, unclipped: these are other runs, and
+            # where the busy time exceeds their wall (a negative share) the
+            # two disagree, which the line says.
+            share["plain_wall_ms"] = plain_ms
+            share["idle_share_of_plain_wall"] = 1 - share["busy_us"] / 1e3 / plain_ms
+            share["busy_exceeds_plain_wall"] = share["idle_share_of_plain_wall"] < 0
+            idle[label] = share
+            print(f"tools idle {label}: {n_bytes} bytes, wall {st.seconds * 1e3:.3f} ms "
+                  f"(trace span {share['wall_us'] / 1e3:.3f} ms), device busy "
+                  f"{share['busy_us'] / 1e3:.3f} ms, idle share {share['idle_share']:.4f}; "
+                  f"without the profiler (other runs): median wall {plain_ms:.3f} ms, idle share "
+                  f"against it {share['idle_share_of_plain_wall']:.4f}"
+                  + (" (the busy time of the profiled run exceeds this wall: the runs "
+                     "disagree)" if share["busy_exceeds_plain_wall"] else "")
+                  + f"; {share['kernel']} kernels, "
+                  f"{share['gpu_memcpy']} copies, {share['gpu_memset']} memsets in the trace; "
+                  "most device time: " + "; ".join(f"{name[:60]} {us / 1e3:.3f} ms"
+                                                    for name, us in share["top"])
+                  + f" ({card})", flush=True)
+    print("tools idle shares " + json.dumps({"card": card, **idle}), flush=True)
+    print(f"tools phase: {time.perf_counter() - t_phase:.1f} s wall ({card}); "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()), flush=True)
+    return main
+
+
 def main() -> int:
     import torch
 
@@ -1319,6 +1590,7 @@ def main() -> int:
     from alfred_margaret_tpu_torch import (
         CASE_SENSITIVE, IGNORE_CASE, MatchEngine, Searcher, toolchain_report)
     from alfred_margaret_tpu_torch import kernels as K
+    from alfred_margaret_tpu_torch.bench.configs import config2_needles, config5_needles
     from alfred_margaret_tpu_torch.bench.dataformat import synth_corpus
     from alfred_margaret_tpu_torch.kernels import build
     from alfred_margaret_tpu_torch.kernels.bitap_contains import (bitap_contains_design,
@@ -2817,7 +3089,7 @@ def main() -> int:
             torch.full(shape, -1, dtype=torch.int32, device=dev)
 
     n_edge = 0
-    for T_e in (32, 320, 1024):
+    for T_e in EDGE_TS_WORDS:
         for S_e in (1, 200, 1000, 1040, 4096):
             for label, eng_b, st_b, src in (("bench needles, dense step", dense_eng, st, data),
                                             ("bench needles, bitap step", bitap_eng, st, data),
@@ -2838,7 +3110,8 @@ def main() -> int:
                         same(name, a, b, f"{label}, {how}, edge shape T={T_e} S={S_e} {part}")
                     n_edge += 1
     print(f"edge shapes: B6 (dense, bitap steps) and B13 == plain on {n_edge} launches "
-          "(S 1 / 200 / 1000 / 1040 / 4096, T 32 / 320 / 1024, ragged warm and vend, the "
+          f"(S 1 / 200 / 1000 / 1040 / 4096, T {' / '.join(map(str, EDGE_TS_WORDS))}, ragged "
+          "warm and vend, the "
           "plan's overlap, none, every stream padded)", flush=True)
 
     # B1 and B2 at the edge shapes of their redesign: one stream, S not a
@@ -2875,7 +3148,7 @@ def main() -> int:
 
     srcs = {}
     n_edge, k_seen = 0, set()
-    for T_e in (20, 300, 1000):
+    for T_e in EDGE_TS:
         for S_e in (1, 200, 1000, 1040, 4096):
             for name, label, e, needles in count_edge:
                 if label not in srcs:
@@ -2913,12 +3186,12 @@ def main() -> int:
                     n_edge += 1
     print(f"edge shapes: B1 (packing 1 / 2, NUL, singles) and B2 (V = 1 / 2 / 3 / 8, singles, "
           f"embedded trap, trap register on 1 and 2 words) == plain on {n_edge} launches (S 1 / "
-          f"200 / 1000 / 1040 / 4096, T 20 / 300 / 1000, ragged warm and vend, the plan's overlap "
+          f"200 / 1000 / 1040 / 4096, T {' / '.join(map(str, EDGE_TS))}, ragged warm and vend, the plan's overlap "
           f"(k in {sorted(k_seen)}), none, every stream padded; traps across the cuts)",
           flush=True)
 
     # B4 and B7 (with their trap parts) and B8 at the same edge shapes: the
-    # rule's segments with the plan's overlap, then k = 1 to 64 forced, none,
+    # rule's segments with the plan's overlap, then k = 1, 2, 3, 7, 16 and 64 forced, none,
     # and every stream padded (zero bytes for B4 and B7, vend 0 for B8); B4
     # and B7 on 1, 2 and 3 words and the trap layouts, with İ, Kelvin K and ẞ
     # written across the segment cuts; B8 on config 2, four count ranges, NUL, single bytes
@@ -2941,6 +3214,8 @@ def main() -> int:
         srcs["B8 " + label] = np.frombuffer(synth_corpus(
             [x for x in needles if "\x00" not in x], 1 << 18, hit_fraction=0.05,
             seed=len(srcs) + 60), np.uint8)
+    # Forced segment counts: the ones that ``tests/test_torch_gpu.py``'s
+    # ``FORCED_KS`` forces too, from one to the cap.
     forced_ks = (1, 2, 3, 7, 16, 64)
 
     def launch_at(mod, design, forced, fn):
@@ -2952,7 +3227,7 @@ def main() -> int:
             return fn()
 
     n_edge = {"bitap_contains": 0, "bitap_presence": 0, "comb16_count": 0}
-    for T_e in (20, 300, 1000):
+    for T_e in EDGE_TS:
         for S_e in (1, 200, 1000, 1040, 4096):
             for name, label, e, needles in count_edge:
                 if name == "dense_count" or len(e.bitap.all_words()) > sticky_mod.MAX_WORDS:
@@ -3010,7 +3285,7 @@ def main() -> int:
           f"stream padded; traps across the cuts)", flush=True)
 
     # B3 and B12 at the same edge shapes: the rule's segments with the plan's
-    # overlap, then k = 1 to 64 forced, and none; B3 also over stream ranges
+    # overlap, then k = 1, 2, 3, 7, 16 and 64 forced, and none; B3 also over stream ranges
     # [s0, s1) whose s0 is not a multiple of 16 or whose s1 ends inside a
     # block, with every stream padded (vend 0 keeps the root entry), on
     # packing 1 and 2, NUL tables, single bytes and a composed IgnoreCase
@@ -3029,7 +3304,7 @@ def main() -> int:
         ci3, 1 << 18, hit_fraction=0.05, seed=71), 7)))
     n_edge = {"dense_contains": 0, "comb16_states": 0}
     b3_absorbed = 0
-    for T_e in (20, 300, 1000):
+    for T_e in EDGE_TS:
         for S_e in (1, 200, 1000, 1040, 4096):
             for label, e, src in b3_edge:
                 t = e.sticky_tables()
@@ -3076,11 +3351,11 @@ def main() -> int:
           f"s1 inside a block; {b3_absorbed} absorbed entries) == plain on "
           f"{n_edge['dense_contains']} launches and B12 (config 2, nested, NUL, singles, "
           f"IgnoreCase full tables) on {n_edge['comb16_states']} (S 1 / 200 / 1000 / 1040 / "
-          f"4096, T 20 / 300 / 1000, the plan's overlap with the rule's k and k = {forced_ks}, "
+          f"4096, T {' / '.join(map(str, EDGE_TS))}, the plan's overlap with the rule's k and k = {forced_ks}, "
           f"none, every stream padded)", flush=True)
 
     # B14 and B10 at the same edge shapes: the rule's segments with the
-    # layout's restart (B14) or the plan's overlap (B10), then k = 1 to 64
+    # layout's restart (B14) or the plan's overlap (B10), then k = 1, 2, 3, 7, 16 and 64
     # forced, and none; odd vends (B14's last
     # pair reads a byte past vend), vend 0 and every stream padded.  B14 on
     # 0, 1, 3 and 12 words; B10 on B8's edge machines (config 2, nested, NUL,
@@ -3099,7 +3374,7 @@ def main() -> int:
                                                           seed=len(srcs) + 60), np.uint8)
     n_edge = {"filter_contains": 0, "comb16_contains": 0}
     odd_seen = 0
-    for T_e in (20, 300, 1000):
+    for T_e in EDGE_TS:
         for S_e in (1, 200, 1000, 1040, 4096):
             for label, needles, m, tabs in b14_edge:
                 K_e = m.max_needle_bytes - 1
@@ -3140,11 +3415,11 @@ def main() -> int:
     print(f"edge shapes: B14 (V = 0 / 1 / 3 / 12) == plain on "
           f"{n_edge['filter_contains']} launches and B10 (config 2, nested, NUL, singles, "
           f"IgnoreCase sticky tables) on {n_edge['comb16_contains']} (S 1 / 200 / 1000 / 1040 / "
-          f"4096, T 20 / 300 / 1000, {odd_seen} odd vends, the rule's k and k = {forced_ks}, "
+          f"4096, T {' / '.join(map(str, EDGE_TS))}, {odd_seen} odd vends, the rule's k and k = {forced_ks}, "
           f"none, every stream padded)", flush=True)
 
     # B5 and B16 at the same edge shapes: the rule's segments with the plan's
-    # overlap, then k = 1 to 64 forced, and none.  B5 on B3's edge machines'
+    # overlap, then k = 1, 2, 3, 7, 16 and 64 forced, and none.  B5 on B3's edge machines'
     # full tables (packing 1 and 2, NUL, single bytes and the composed
     # IgnoreCase machine, İ, Kelvin K and ẞ written across the cuts) and on
     # zero bytes; B16 on config 5's 300, nested and NUL sets, single bytes
@@ -3172,7 +3447,7 @@ def main() -> int:
             np.frombuffer(raw, np.uint8))
     n_edge = {"dense_states": 0, "comb_contains": 0}
     b16_absorbed = 0
-    for T_e in (20, 300, 1000):
+    for T_e in EDGE_TS:
         for S_e in (1, 200, 1000, 1040, 4096):
             for label, e, src in b3_edge:
                 t = e.tables
@@ -3226,7 +3501,7 @@ def main() -> int:
     print(f"edge shapes: B5 (packing 1 / 2, NUL, singles, IgnoreCase full tables) == plain on "
           f"{n_edge['dense_states']} launches and B16 (config 5's 300, nested, NUL, singles, "
           f"IgnoreCase sticky tables; {b16_absorbed} absorbed bases) on "
-          f"{n_edge['comb_contains']} (S 1 / 200 / 1000 / 1040 / 4096, T 20 / 300 / 1000, the "
+          f"{n_edge['comb_contains']} (S 1 / 200 / 1000 / 1040 / 4096, T {' / '.join(map(str, EDGE_TS))}, the "
           f"plan's overlap with the rule's k and k = {forced_ks}, none, zero bytes, vend T and 0, "
           f"every stream padded)", flush=True)
 
@@ -3309,6 +3584,10 @@ def main() -> int:
         miss=miss, miss_dense=miss_dense, miss_ci=miss_ci, s_ci=s_ci, s100=s100, s300=s300, s1000=s1000, s600=s600,
         n600=n600, n1000=n1000, last5=last5, data5=data5))
 
+    # -- the tools: the CLI, the bench modules, the demo, the trace --------------
+    tools_main = tools_phase(SimpleNamespace(
+        dev=dev, card=card, zero_counts=zero_counts, read_counts=read_counts, tally=tally))
+
     # name: (source, TPU kernel it replaces, wrapper, the timing of its main path)
     table = {
         "bitap_count": ("bitap_count.cu", "bitap_scan.py:352", "bench needles"),
@@ -3343,7 +3622,7 @@ def main() -> int:
     # them the controls'.
     launches, control = {}, {}
     for path in (bench_main, dense_main, c16_main, c32_main, g_main, states_main, extract_main,
-                 ref_main, ci_main, mesh_main, api_main, stream_main):
+                 ref_main, ci_main, mesh_main, api_main, stream_main, tools_main):
         tally(launches, path)
     for path in (bench_control, c16_control, g_control, ci_control, mesh_control,
                  stream_control):
@@ -3357,6 +3636,7 @@ def main() -> int:
             "control_launches": control.get(name, 0),
             "api_launches": api_main.get(name, 0),  # Replacer, Splitter, adopt_staged
             "stream_launches": stream_main.get(name, 0),  # streamed past the budget
+            "tools_launches": tools_main.get(name, 0),  # CLI, bench modules, demo, trace
             "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
             "bound_by": by, "library_ms": None,  # no PyTorch call runs an automaton
         }

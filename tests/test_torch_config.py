@@ -94,6 +94,23 @@ def test_amt_engine_overrides_auto(monkeypatch):
         MatchEngine(m, device="cpu")
 
 
+@pytest.mark.parametrize("name", ["device", "pallas"])
+def test_amt_engine_takes_the_jax_name(monkeypatch, name):
+    """``AMT_ENGINE`` names the device backend by the port's name or by the
+    JAX package's: ``from_env`` reads both as ``device``, the name the JAX
+    package's ``from_env`` reads as its Pallas backend, and ``MatchEngine``
+    resolves ``"auto"`` to it."""
+    monkeypatch.setenv("AMT_ENGINE", name)
+    got = config.EngineConfig.from_env()
+    assert got.engine == "device" and jconfig.EngineConfig.from_env().engine == name
+    monkeypatch.setattr(config, "DEFAULT", got)
+    m = ac.build([("tshirt", 0), ("shirts", 1)])
+    me = MatchEngine(m, device="cpu")
+    hay = b"tshirts " * 2000
+    assert me.engine == "device" and me.count(hay, CASE_SENSITIVE) == 4000
+    assert me._device_eng is not None and me._cpp is None
+
+
 def test_amt_validate_catches_a_mismatch(monkeypatch):
     needles = ["tshirt", "shirts", "shorts"]
     pairs = [(n, i) for i, n in enumerate(needles)]

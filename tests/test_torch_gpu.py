@@ -1810,3 +1810,30 @@ def test_streamed_operations_on_the_card(cuda, budget_1mb, monkeypatch, case):
     staged = s.stage(hay)
     assert staged.device is None
     assert s.count_matches(staged) == host.count(hay)
+
+
+@pytest.mark.parametrize("engine,kernel", [("auto", bitap_count), ("pallas", dense_count)])
+def test_count_matches_protocol_on_the_card(cuda, tmp_path, monkeypatch, capsys, engine, kernel):
+    """``count-matches`` on the card over two bench-format files: ``auto``
+    takes the bitap engine (B2), ``pallas`` the dense engine (B1); every
+    round's count equals the host C++ engine's, and the stderr total is
+    their sum."""
+    from alfred_margaret_tpu_torch import cli
+    from alfred_margaret_tpu_torch.bench.dataformat import write_bench_file
+
+    files, want = [], 0
+    for i, size in enumerate((1 << 20, (1 << 18) + 7)):
+        hay = synth_corpus(NEEDLES3, size, hit_fraction=0.01, seed=40 + i).decode()
+        files.append(str(tmp_path / f"{i}.txt"))
+        write_bench_file(files[-1], NEEDLES3, hay)
+        want += CppAcEngine(_machine(NEEDLES3)).count(hay.encode())
+    monkeypatch.setenv("AMT_ENGINE", engine)
+    monkeypatch.setenv("AMT_ROUNDS", "2")
+    kernel.launches = 0
+    assert cli.main(["count-matches", *files]) == 0
+    out, err = capsys.readouterr()
+    lines = out.splitlines()
+    assert len(lines) == 2 and all(len(line.split("\t")) == 3 and line.endswith("\t")
+                                   for line in lines)
+    assert int(err.strip().splitlines()[-1]) == want > 0
+    assert kernel.launches >= 4  # two rounds over two files

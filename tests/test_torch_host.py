@@ -6,9 +6,13 @@ that do not import ``jax``: it keeps copies of ``utils/case.py``, the parts
 of ``utils/utf8.py``, ``models/ac.py``, ``native/`` and
 ``bench/dataformat.py`` that it uses, of ``replacer.py``, ``splitter.py``,
 ``boyer_moore/``, ``boyer_moore_ci/``, ``ops/streaming.py``,
-``utils/config.py``, ``native/prefilter.py``, ``models/nfa_oracle.py`` and
-the host bitap oracle (pinned function by function, but for the functions
-that differ on purpose), and defines ``MatchSet``,
+``utils/config.py``, ``native/prefilter.py``, ``models/nfa_oracle.py``,
+the host bitap oracle, and the tools' modules (``cli.py``, ``bench/``'s
+``dataformat``, ``timing``, ``naive``, ``report``, ``driver``,
+``countmatches`` and ``micro``, ``utils/_gen_unicode_tables.py``) and
+functions (``debug_build_dot``, ``AcMachine.nbytes`` / ``state_dtype``,
+``memscan_baseline``, ``partition_needles``, ``ScanStats``), pinned function
+by function, but for the functions that differ on purpose, and defines ``MatchSet``,
 ``StagedHaystack`` and ``AUTO_PYTHON_THRESHOLD`` itself.  Each copy must give
 the original's output on seeded inputs (tolerance: exact equality).  A fresh
 interpreter that imports every module of the port must hold no ``jax`` and
@@ -373,10 +377,19 @@ COPIES = [
     ("boyer_moore_ci/replacer.py", set()),
     ("boyer_moore_ci/searcher.py", BM_SEARCHER_DIFFER),
     ("ops/streaming.py", set()),
-    # The port keeps four knobs: no stream count, time tile or interpret mode.
-    ("utils/config.py", {"EngineConfig.from_env"}),
+    # The port keeps four knobs: no stream count, time tile or interpret mode;
+    # ``AMT_ENGINE`` takes the JAX name ``pallas`` through ``engine_name``.
+    ("utils/config.py", {"EngineConfig.from_env", "engine_name"}),
     ("native/prefilter.py", set()),
     ("models/nfa_oracle.py", set()),
+    # The tools: the reference protocol's modules and the table generator,
+    # which writes beside its own module (the port's ``utils/_data``).
+    ("bench/dataformat.py", set()), ("bench/timing.py", set()), ("bench/naive.py", set()),
+    ("bench/report.py", set()), ("bench/driver.py", set()),
+    ("utils/_gen_unicode_tables.py", set()), ("cli.py", set()),
+    # ``--device`` and the port's engines (``test_torch_cli.py`` and
+    # ``test_torch_bench.py`` hold their behaviour against the originals).
+    ("bench/countmatches.py", {"count_with_engine", "main"}), ("bench/micro.py", {"main"}),
 ]
 
 
@@ -392,6 +405,73 @@ def test_copied_modules_match_jax(rel, differ):
     assert set(got) == set(want)
     for name in want:
         assert got[name] == want[name], name
+
+
+#: Functions copied into modules that are not copies as a whole.
+FUNCTION_COPIES = [
+    ("models/ac.py", ("debug_build_dot", "AcMachine.nbytes", "AcMachine.state_dtype")),
+    ("native/cpp_engine.py", ("CppAcEngine.memscan_baseline",)),
+    ("ops/grouped.py", ("partition_needles",)),
+    ("utils/trace.py", ("ScanStats.bytes_per_second", "ScanStats.record", "ScanStats.as_dict")),
+]
+
+
+@pytest.mark.parametrize("rel,names", FUNCTION_COPIES, ids=[c[0] for c in FUNCTION_COPIES])
+def test_copied_functions_match_jax(rel, names):
+    """Each function is the original's, statement for statement."""
+    got = _function_dumps(os.path.join(REPO, "alfred_margaret_tpu_torch", rel))
+    want = _function_dumps(os.path.join(REPO, "alfred_margaret_tpu", rel))
+    for name in names:
+        assert name in want and got.get(name) == want[name], name
+
+
+def test_partition_needles_matches_jax():
+    from alfred_margaret_tpu.ops.grouped import partition_needles as jpartition
+
+    from alfred_margaret_tpu_torch.ops.grouped import partition_needles
+
+    for needles, rows in ((CONFIG2, 2), (CONFIG2 + CONFIG2[:7], 1), (["ab", "ab", "b"], 48)):
+        want = jpartition(jac.build([(n, i) for i, n in enumerate(needles)]), max_rows=rows)
+        got = partition_needles(ac.build([(n, i) for i, n in enumerate(needles)]), max_rows=rows)
+        assert got == want and sum(map(len, got)) == len(needles)
+    m = ac.build([("abcdefghijklmnopqrstuvwxyz" * 8, 0)])
+    with pytest.raises(pallas_scan.CapacityError):
+        partition_needles(m, max_rows=1)
+
+
+@pytest.mark.parametrize("name,needles", NEEDLE_SETS[:4], ids=[c[0] for c in NEEDLE_SETS[:4]])
+def test_native_single_core_entry_points_match_jax(name, needles):
+    """``am_scan_count``, ``am_scan_states`` and ``am_memscan_baseline`` (the
+    single-core baseline's) of the port's library against the JAX
+    package's, on seeded corpora of every length mod 8."""
+    from alfred_margaret_tpu.native import build as jbuild
+    from alfred_margaret_tpu.native.cpp_engine import CppAcEngine as Original
+
+    try:
+        jlib = jbuild.load()
+    except NativeUnavailable:
+        pytest.skip("the JAX package's native library does not build here")
+    lib = tnative.load()
+    m = ac.build([(n, i) for i, n in enumerate(needles)])
+    delta = np.ascontiguousarray(m.delta, np.int32)
+    mc = np.ascontiguousarray(m.match_count, np.int32)
+    hay = _hay(needles, seed=4)
+    for n in (0, 1, 7, 8, 1000, len(hay)):
+        u8 = np.frombuffer(hay[:n], np.uint8)
+        want_count = jlib.am_scan_count(delta.ctypes.data, mc.ctypes.data, m.n_states,
+                                        u8.ctypes.data, n)
+        assert lib.am_scan_count(delta.ctypes.data, mc.ctypes.data, m.n_states, u8.ctypes.data,
+                                 n) == want_count == ac.count_matches(m, hay[:n])
+        got, want = np.zeros(n, np.int32), np.zeros(n, np.int32)
+        fg = lib.am_scan_states(delta.ctypes.data, m.n_states, u8.ctypes.data, n, got.ctypes.data)
+        fw = jlib.am_scan_states(delta.ctypes.data, m.n_states, u8.ctypes.data, n,
+                                 want.ctypes.data)
+        assert fg == fw
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, CppAcEngine(m).final_states(hay[:n]))
+        assert (CppAcEngine(m).memscan_baseline(hay[:n])
+                == Original(jac.build([(x, i) for i, x in enumerate(needles)])).memscan_baseline(
+                    hay[:n]) == lib.am_memscan_baseline(u8.ctypes.data, n))
 
 
 def test_host_bitap_oracle_copy_matches_jax():
