@@ -67,7 +67,7 @@ from .ops.grouped import GroupedAcEngine
 from .ops.pallas_scan import CapacityError, StagedStreams
 from .ops.streaming import StreamingScanner
 from .ops.xla_scan import XlaAcEngine, extract_matches
-from .utils import config, utf8
+from .utils import config, trace, utf8
 from .utils.case import CASE_SENSITIVE, IGNORE_CASE, CaseSensitivity
 from .utils.device import resolve_device
 
@@ -272,30 +272,31 @@ class MatchEngine:
         whose engine is the reference scan engine is the ``xla`` backend.
         IgnoreCase haystacks are lowered here (``need_coords=False``, for
         counting and existence, skips the raw-coordinate maps)."""
-        if isinstance(text, StagedHaystack):
-            if text.composed:
-                # Raw bytes staged for a composed engine: valid only inside
-                # it, where they are scanned case-sensitively.
-                if case is not CASE_SENSITIVE or text.owner is not self.machine:
+        with trace.span("amt.prep"):
+            if isinstance(text, StagedHaystack):
+                if text.composed:
+                    # Raw bytes staged for a composed engine: valid only inside
+                    # it, where they are scanned case-sensitively.
+                    if case is not CASE_SENSITIVE or text.owner is not self.machine:
+                        raise ValueError("staged haystack belongs to a different searcher")
+                elif text.owner is not None and text.owner is not self.machine:
+                    # Staged streams carry THIS machine's overlap; another
+                    # searcher's would miss matches across stream boundaries.
                     raise ValueError("staged haystack belongs to a different searcher")
-            elif text.owner is not None and text.owner is not self.machine:
-                # Staged streams carry THIS machine's overlap; another
-                # searcher's would miss matches across stream boundaries.
-                raise ValueError("staged haystack belongs to a different searcher")
-            elif text.case is not case:
-                raise ValueError("staged haystack was prepared for a different case mode")
-            data, lt = text.data, text.lowered
-        elif case is IGNORE_CASE:
-            lt = utf8.lower_transform(text, need_coords=need_coords)
-            data = lt.lowered
-        else:
-            data, lt = utf8.to_u8(text), None
-        if _has_device(text):
-            return data, lt, "device"
-        backend = self._pick(len(data))
-        if backend == "device" and isinstance(self.device_engine(), XlaAcEngine):
-            return data, lt, "xla"
-        return data, lt, backend
+                elif text.case is not case:
+                    raise ValueError("staged haystack was prepared for a different case mode")
+                data, lt = text.data, text.lowered
+            elif case is IGNORE_CASE:
+                lt = utf8.lower_transform(text, need_coords=need_coords)
+                data = lt.lowered
+            else:
+                data, lt = utf8.to_u8(text), None
+            if _has_device(text):
+                return data, lt, "device"
+            backend = self._pick(len(data))
+            if backend == "device" and isinstance(self.device_engine(), XlaAcEngine):
+                return data, lt, "xla"
+            return data, lt, backend
 
     def _staged(self, eng, text) -> Optional[StagedStreams]:
         """The device streams of a staged haystack, adopted by ``eng``; None

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import trace
 from . import build
 
 
@@ -64,9 +65,10 @@ def on_cpu(streams) -> bool:
 def launch(entry: str, device, *args) -> None:
     """Call the C entry point ``entry`` of the kernels' library with ``args``
     and the current CUDA stream of ``device``; raise if the launch failed."""
-    lib = build.load().lib
-    with torch.cuda.device(device):
-        err = getattr(lib, entry)(*args, torch.cuda.current_stream().cuda_stream)
+    with trace.span("amt.launch"):
+        lib = build.load().lib
+        with torch.cuda.device(device):
+            err = getattr(lib, entry)(*args, torch.cuda.current_stream().cuda_stream)
     build.check(err)
 
 

@@ -45,7 +45,8 @@ from ..models.ac import AcMachine
 from ..models.byteclass import ci_track_key, ci_tracks
 from ..native.build import NativeUnavailable
 from ..native.cpp_engine import CppAcEngine
-from .pallas_scan import DenseAcEngine, StagedStreams
+from ..utils import trace
+from .pallas_scan import DenseAcEngine, StagedStreams, sum_live
 
 #: Track budget: bit 31 stays clear (the int32 sign), and the last count
 #: field needs headroom toward bit 30.
@@ -466,17 +467,18 @@ class BitapAcEngine(DenseAcEngine):
         return idx
 
     def _host_count_stream(self, st: StagedStreams, s: int) -> int:
-        if self._host_exact_eng is None:
-            self._host_exact_eng = make_host_exact(self.machine)
-        return host_stream_count(
-            self.machine, self._host_exact_eng, st.data_np, st.plan.emit_len, st.plan.n,
-            st.warm_np[s], s,
-        )
+        with trace.span("amt.host_recount"):
+            if self._host_exact_eng is None:
+                self._host_exact_eng = make_host_exact(self.machine)
+            return host_stream_count(
+                self.machine, self._host_exact_eng, st.data_np, st.plan.emit_len, st.plan.n,
+                st.warm_np[s], s,
+            )
 
     def _dense_count_staged(self, st: StagedStreams) -> int:
         """The count by the dense kernel B1 on the (composed) machine."""
-        counts = dense_count(*DenseAcEngine._kernel_args(self, st)).cpu().numpy()
-        return int(counts.astype(np.int64)[st.live_np].sum())
+        with trace.span("amt.host_recount"):
+            return sum_live(dense_count(*DenseAcEngine._kernel_args(self, st)), st.live_np)
 
     def count_staged(self, st: StagedStreams) -> int:
         """Total count over live streams (B2).  Where a trap fired, the
@@ -484,14 +486,17 @@ class BitapAcEngine(DenseAcEngine):
         re-counted by B1."""
         if self.bitap_tables.trapmask is None:
             return super().count_staged(st)
-        counts, trap = (o.cpu().numpy() for o in self.stream_counts(st))
+        out = self.stream_counts(st)
+        with trace.span("amt.readback"):
+            counts, trap = (o.cpu().numpy() for o in out)
         trapped = self._trapped_streams(trap, st)
         if trapped is None:
             return self._dense_count_staged(st)
         counts = counts.astype(np.int64)
         for s in trapped:
             counts[s] = self._host_count_stream(st, int(s))
-        return int(counts[st.live_np].sum())
+        with trace.span("amt.reduce"):
+            return int(counts[st.live_np].sum())
 
     def contains_staged(self, st: StagedStreams) -> bool:
         """True iff a needle ends in some live stream: one sticky scan (B4).

@@ -63,7 +63,7 @@ from .comb16_scan import (
 )
 from .comb_scan import make_engine, plan_pallas
 from .filter_scan import attach_filter, filter_contains
-from .pallas_scan import MAX_ROWS, CapacityError, StagedStreams, _StickyView
+from .pallas_scan import MAX_ROWS, CapacityError, StagedStreams, _StickyView, sum_live
 from .xla_scan import expand_hits
 
 
@@ -523,8 +523,7 @@ class GroupedAcEngine:
         sum of the groups' own counts."""
         if self._fused_setup() is None:
             return sum(e.count_staged(st) for e in self.engines)
-        counts = self.stream_counts(st).cpu().numpy().astype(np.int64)
-        return int(counts[st.live_np].sum())
+        return sum_live(self.stream_counts(st), st.live_np)
 
     def count(self, text: utf8.TextLike) -> int:
         st = self._stage(text)

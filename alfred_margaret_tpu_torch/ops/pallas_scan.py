@@ -33,7 +33,7 @@ from ..kernels.dense_count import dense_count, dense_count_plain, dense_states
 from ..kernels.matchbits import matchbits
 from ..models.ac import AcMachine
 from ..native.cpp_engine import _default_threads
-from ..utils import utf8
+from ..utils import trace, utf8
 from ..utils.device import resolve_device
 from .xla_scan import StreamPlan, emission_index, expand_hits, stage_streams_device
 
@@ -273,6 +273,15 @@ def compact_packed(pk: torch.Tensor, st: StagedStreams, count_shift: int, decode
     return pos[order], states[order]
 
 
+def sum_live(counts: torch.Tensor, live: np.ndarray) -> int:
+    """Per-stream int32 ``counts`` copied to the host and summed in int64
+    over the ``live`` streams."""
+    with trace.span("amt.readback"):
+        counts = counts.cpu().numpy()
+    with trace.span("amt.reduce"):
+        return int(counts.astype(np.int64)[live].sum())
+
+
 class DenseAcEngine:
     """Counts all matches of ``machine`` with the dense DFA kernel on ``device``.
 
@@ -370,8 +379,7 @@ class DenseAcEngine:
     def count_staged(self, st: StagedStreams) -> int:
         """Total count: per-stream int32 counts summed in int64 over live
         streams on the host."""
-        counts = self.stream_counts(st).cpu().numpy().astype(np.int64)
-        return int(counts[st.live_np].sum())
+        return sum_live(self.stream_counts(st), st.live_np)
 
     def count(self, text: utf8.TextLike) -> int:
         data = utf8.to_u8(text)

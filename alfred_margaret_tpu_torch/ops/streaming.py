@@ -2,7 +2,9 @@
 larger than a safe one-shot transfer) in fixed-size chunks with exact
 results.
 
-A copy of ``alfred_margaret_tpu/ops/streaming.py``.  The device engines
+A copy of ``alfred_margaret_tpu/ops/streaming.py``, with the port's spans
+(``utils.trace.span``) around each chunk, its host slice and its cold-prefix
+replay.  The device engines
 stage whole corpora on the card; past ``2 * AMT_STREAM_CHUNK_MB``
 (``MatchEngine._stream_scanner``) each chunk is staged and scanned
 independently instead (constant device memory), and exactness comes from
@@ -36,7 +38,7 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 
 from ..models.ac import AcMachine
-from ..utils import utf8
+from ..utils import trace, utf8
 
 
 def _slice_u8(source, a: int, b: int) -> np.ndarray:
@@ -51,14 +53,15 @@ def _cold_prefix_count(machine: AcMachine, window: np.ndarray) -> int:
     chunk's own cold start bit-for-bit (matches straddling into the prefix
     from before it are invisible to both — the previous chunk counted
     them), so subtracting it removes precisely the double-counted ends."""
-    delta = machine.delta
-    mc = machine.match_count
-    state = 0
-    total = 0
-    for b in memoryview(utf8.to_bytes(window)):
-        state = delta[state, b]
-        total += int(mc[state])
-    return total
+    with trace.span("amt.stream.cold_prefix"):
+        delta = machine.delta
+        mc = machine.match_count
+        state = 0
+        total = 0
+        for b in memoryview(utf8.to_bytes(window)):
+            state = delta[state, b]
+            total += int(mc[state])
+        return total
 
 
 class StreamingScanner:
@@ -81,7 +84,8 @@ class StreamingScanner:
 
     def _stage_chunk(self, source, a: int, b: int):
         pre = max(0, a - self.W)
-        data = _slice_u8(source, pre, b)
+        with trace.span("amt.stage.host"):
+            data = _slice_u8(source, pre, b)
         eng = self.engine
         st = eng.stage(data) if hasattr(eng, "stage") else eng._stage(data)
         return st, pre
@@ -90,20 +94,22 @@ class StreamingScanner:
         n = len(source)
         total = 0
         for a, b in self._chunks(n):
-            st, pre = self._stage_chunk(source, a, b)
-            total += self.engine.count_staged(st)
-            if pre < a:
-                # Subtract what this chunk's cold start emitted over the
-                # W-byte prefix (already counted by the previous chunk).
-                total -= _cold_prefix_count(self.machine, _slice_u8(source, pre, a))
+            with trace.span("amt.stream.chunk"):
+                st, pre = self._stage_chunk(source, a, b)
+                total += self.engine.count_staged(st)
+                if pre < a:
+                    # Subtract what this chunk's cold start emitted over the
+                    # W-byte prefix (already counted by the previous chunk).
+                    total -= _cold_prefix_count(self.machine, _slice_u8(source, pre, a))
         return total
 
     def contains(self, source) -> bool:
         n = len(source)
         for a, b in self._chunks(n):
-            st, _ = self._stage_chunk(source, a, b)
-            if self.engine.contains_staged(st):
-                return True  # chunk-granular early exit
+            with trace.span("amt.stream.chunk"):
+                st, _ = self._stage_chunk(source, a, b)
+                if self.engine.contains_staged(st):
+                    return True  # chunk-granular early exit
         return False
 
     def matches_arrays(self, source) -> Tuple[np.ndarray, np.ndarray]:
@@ -112,15 +118,16 @@ class StreamingScanner:
         all_vids = []
         eng = self.engine
         for a, b in self._chunks(n):
-            st, pre = self._stage_chunk(source, a, b)
-            # Every staged-capable engine (dense/comb/comb16/grouped/mesh)
-            # exposes matches_arrays_staged; extraction reuses the chunk
-            # upload from _stage_chunk rather than re-staging.
-            ends, vids = eng.matches_arrays_staged(st)
-            ends = ends + pre
-            keep = ends > a  # drop prefix-region duplicates (ends <= a)
-            all_ends.append(ends[keep])
-            all_vids.append(vids[keep])
+            with trace.span("amt.stream.chunk"):
+                st, pre = self._stage_chunk(source, a, b)
+                # Every staged-capable engine (dense/comb/comb16/grouped/mesh)
+                # exposes matches_arrays_staged; extraction reuses the chunk
+                # upload from _stage_chunk rather than re-staging.
+                ends, vids = eng.matches_arrays_staged(st)
+                ends = ends + pre
+                keep = ends > a  # drop prefix-region duplicates (ends <= a)
+                all_ends.append(ends[keep])
+                all_vids.append(vids[keep])
         if not all_ends:
             return np.zeros(0, np.int64), np.zeros(0, np.int32)
         return (

@@ -25,7 +25,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..utils import utf8
+from ..utils import trace, utf8
 from ..utils.device import resolve_device
 
 
@@ -133,22 +133,28 @@ def stage_streams_device(data: np.ndarray, plan: StreamPlan, device: torch.devic
     strided view and one transpose copy.
     """
     n, S, L, K, T = plan.n, plan.n_streams, plan.emit_len, plan.overlap, plan.time_len
-    data = np.ascontiguousarray(data, dtype=np.uint8)
-    if not data.flags.writeable:
-        data = data.copy()  # torch.from_numpy needs a writable buffer
-    rows = max(S + _ceil_div(T, L), _ceil_div(K + n, L)) + 1
-    pad = torch.zeros(rows * L, dtype=torch.uint8, device=device)
-    pad[K : K + n] = torch.from_numpy(data).to(device)
-    # Window s is pad[s*L : s*L + T]; rows * L >= (S - 1) * L + T.
-    # clone, not contiguous(): with S = 1 the transpose is already contiguous
-    # and contiguous() would return a view of pad.
-    streams = pad.unfold(0, T, L)[:S].T.clone(memory_format=torch.contiguous_format)
-    n_fix = _n_fix(S, L, K)
-    streams[:, :n_fix] = pad[K : K + T].unsqueeze(1)
-    warm_start, valid_end = _stream_validity(n, S, L, K)
-    vend = torch.from_numpy(valid_end).to(device)
-    t_idx = torch.arange(T, dtype=torch.int32, device=device).unsqueeze(1)
-    streams.masked_fill_(t_idx >= vend.unsqueeze(0), 0)
+    with trace.span("amt.stage"):
+        with trace.span("amt.stage.host"):
+            data = np.ascontiguousarray(data, dtype=np.uint8)
+            if not data.flags.writeable:
+                data = data.copy()  # torch.from_numpy needs a writable buffer
+        with trace.span("amt.stage.htod"):
+            text = torch.from_numpy(data).to(device)
+        with trace.span("amt.stage.layout"):
+            rows = max(S + _ceil_div(T, L), _ceil_div(K + n, L)) + 1
+            pad = torch.zeros(rows * L, dtype=torch.uint8, device=device)
+            pad[K : K + n] = text
+            del text
+            # Window s is pad[s*L : s*L + T]; rows * L >= (S - 1) * L + T.
+            # clone, not contiguous(): with S = 1 the transpose is already
+            # contiguous and contiguous() would return a view of pad.
+            streams = pad.unfold(0, T, L)[:S].T.clone(memory_format=torch.contiguous_format)
+            n_fix = _n_fix(S, L, K)
+            streams[:, :n_fix] = pad[K : K + T].unsqueeze(1)
+            warm_start, valid_end = _stream_validity(n, S, L, K)
+            vend = torch.from_numpy(valid_end).to(device)
+            t_idx = torch.arange(T, dtype=torch.int32, device=device).unsqueeze(1)
+            streams.masked_fill_(t_idx >= vend.unsqueeze(0), 0)
     return streams, warm_start, valid_end
 
 

@@ -28,7 +28,7 @@ import numpy as np
 
 from .engine import COMPOSED_CI_MAX_STATES, MatchEngine
 from .models import ac, case_dfa
-from .utils import utf8
+from .utils import trace, utf8
 from .utils.case import IGNORE_CASE, CaseSensitivity
 
 
@@ -184,7 +184,8 @@ class Searcher:
     def stage(self, haystack: utf8.TextLike):
         """Prepare a haystack for repeated scans (device staging done once);
         pass the result to any matching operation."""
-        return self._engine.stage(haystack, self._case)
+        with trace.span("amt.api.stage"):
+            return self._engine.stage(haystack, self._case)
 
     def adopt_staged(self, staged):
         """Rebind ANOTHER searcher's staged haystack to this searcher, the
@@ -193,36 +194,42 @@ class Searcher:
         and restaged from the staged bytes where it does not.  Raises
         ``ValueError`` when the staging kept only lowered bytes and this
         searcher needs raw ones (stage the raw text instead)."""
-        return self._engine.adopt_staged(staged, self._case)
+        with trace.span("amt.api.adopt_staged"):
+            return self._engine.adopt_staged(staged, self._case)
 
     def contains_any(self, haystack: utf8.TextLike) -> bool:
         """True iff any needle occurs."""
-        return self._engine.contains_any(haystack, self._case)
+        with trace.span("amt.api.contains_any"):
+            return self._engine.contains_any(haystack, self._case)
 
     def contains_all(self, haystack: utf8.TextLike) -> bool:
         """True iff every value has a match (every needle occurs, for
         needle-id values)."""
-        if self.num_needles == 0:
-            return True
-        return bool(self._engine.value_presence(haystack, self._case).all())
+        with trace.span("amt.api.contains_all"):
+            if self.num_needles == 0:
+                return True
+            return bool(self._engine.value_presence(haystack, self._case).all())
 
     def count_matches(self, haystack: utf8.TextLike) -> int:
-        return self._engine.count(haystack, self._case)
+        with trace.span("amt.api.count_matches"):
+            return self._engine.count(haystack, self._case)
 
     def all_matches(self, haystack: utf8.TextLike) -> List[ac.Match]:
         """A list of ``Match(pos, value)``; bulk consumers prefer
         :meth:`all_matches_arrays`."""
-        ms = self._engine.matches(haystack, self._case)
-        values = self._machine.values
-        return list(
-            map(ac.Match, ms.ends.tolist(), map(values.__getitem__, ms.value_ids.tolist()))
-        )
+        with trace.span("amt.api.all_matches"):
+            ms = self._engine.matches(haystack, self._case)
+            values = self._machine.values
+            return list(
+                map(ac.Match, ms.ends.tolist(), map(values.__getitem__, ms.value_ids.tolist()))
+            )
 
     def all_matches_arrays(self, haystack: utf8.TextLike):
         """(ends, value_ids) numpy arrays in emission order (``ends`` are
         byte positions one past each match; ``value_ids`` index
         :attr:`automaton` ``.values``)."""
-        ms = self._engine.matches(haystack, self._case)
+        with trace.span("amt.api.all_matches_arrays"):
+            ms = self._engine.matches(haystack, self._case)
         return ms.ends, ms.value_ids
 
     def distributed(self, mesh, inner: str = "auto", **kw):

@@ -17,6 +17,10 @@ The counterpart of ``alfred_margaret_tpu/utils/trace.py``, on
 * :func:`device_idle_share` — read a trace written by :func:`profile`: the
   device's busy time (the union of kernel, copy and memset intervals) over
   the ``label`` span, and its idle share.
+* :func:`span` — the port's own spans at its layer boundaries (names in
+  :data:`SPANS`), recorded only while a torch profiler runs: a
+  ``record_function`` then, and a shared no-op context otherwise, so that
+  an unprofiled call pays one flag check a span.
 """
 
 from __future__ import annotations
@@ -57,6 +61,45 @@ class ScanStats:
 
 #: Module-level aggregate, recorded by engines when tracing is enabled.
 GLOBAL_STATS = ScanStats()
+
+#: Every span the port opens, from the API down to the kernel launch.  The
+#: names never nest inside themselves: a trace reader takes the innermost
+#: open span by name.
+SPANS = (
+    # API and dispatch: one span a public call of ``Searcher``.
+    "amt.api.stage",
+    "amt.api.adopt_staged",
+    "amt.api.count_matches",
+    "amt.api.contains_any",
+    "amt.api.contains_all",
+    "amt.api.all_matches",
+    "amt.api.all_matches_arrays",
+    "amt.prep",  # ``MatchEngine._prep``
+    "amt.readback",  # the per-stream counts copied to the host
+    "amt.reduce",  # their int64 sum over live streams
+    "amt.host_recount",  # a trapped stream recounted, or B1's fallback rescan
+    # Staging and streaming.
+    "amt.stream.chunk",  # one chunk of ``StreamingScanner``
+    "amt.stream.cold_prefix",  # the host replay of a chunk's W-byte prefix
+    "amt.stage",  # ``stage_streams_device``
+    "amt.stage.host",  # a host copy or conversion of the text
+    "amt.stage.htod",  # the text's host-to-device copy
+    "amt.stage.layout",  # the ``[T, S]`` layout built on the device
+    # Kernels.
+    "amt.launch",  # ``kernels.common.launch``: one CUDA kernel launch
+)
+
+_NO_SPAN = contextlib.nullcontext()
+_autograd_profiler = torch.autograd.profiler
+
+
+def span(name: str):
+    """A span named ``name`` (one of :data:`SPANS`): ``record_function``
+    while a torch profiler runs, else a shared no-op context."""
+    if getattr(_autograd_profiler, "_is_profiler_enabled", False):
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
 
 #: Chrome-trace categories of device work: kernels, copies and memsets.
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -136,4 +179,4 @@ def device_idle_share(path: str, label: str = "scan") -> dict:
             "top": [[name, us] for name, us in top]}
 
 
-__all__ = ["profile", "ScanStats", "GLOBAL_STATS", "device_idle_share"]
+__all__ = ["profile", "ScanStats", "GLOBAL_STATS", "SPANS", "device_idle_share", "span"]

@@ -1837,3 +1837,47 @@ def test_count_matches_protocol_on_the_card(cuda, tmp_path, monkeypatch, capsys,
                                    for line in lines)
     assert int(err.strip().splitlines()[-1]) == want > 0
     assert kernel.launches >= 4  # two rounds over two files
+
+
+def _launch_counters():
+    """Every kernel wrapper that counts its launches, once each (the
+    modules by name: the package exports wrappers under some modules'
+    names)."""
+    mods = [importlib.import_module(f"alfred_margaret_tpu_torch.kernels.{name}")
+            for name in ("bitap_contains", "bitap_count", "comb", "comb16", "comb16_grouped",
+                         "dense_contains", "dense_count", "filter_contains", "matchbits")]
+    return [f for m in mods for f in vars(m).values()
+            if callable(f) and getattr(f, "__module__", None) == m.__name__
+            and hasattr(f, "launches")]
+
+
+@pytest.mark.parametrize("needles", [NEEDLES3, PACK30, CONFIG2], ids=["bitap", "dense", "comb16"])
+def test_one_launch_span_a_kernel_launch(cuda, tmp_path, needles):
+    """Under the profiler every kernel launch opens one ``amt.launch`` span
+    (``kernels/common.py:launch``): a staged count, ``contains_any``,
+    ``contains_all`` and ``all_matches_arrays`` on the card."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from alfred_margaret_tpu_torch import CASE_SENSITIVE, Searcher
+
+    s = Searcher.build(CASE_SENSITIVE, needles, device=cuda)
+    st = s.stage(synth_corpus(needles, 1 << 22, hit_fraction=0.01, seed=23))
+    counters = _launch_counters()
+    before = sum(f.launches for f in counters)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        s.count_matches(st)
+        s.contains_any(st)
+        s.contains_all(st)
+        s.all_matches_arrays(st)
+        torch.cuda.synchronize()
+    launched = sum(f.launches for f in counters) - before
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [e for e in events if e.get("cat") == "user_annotation" and e["name"] == "amt.launch"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    assert len(spans) == launched >= 4
+    assert len(kernels) >= launched

@@ -336,11 +336,24 @@ def test_replacer_host_helpers_match_jax(monkeypatch, native):
         np.testing.assert_array_equal(g, w)
 
 
+class _Unspan(ast.NodeTransformer):
+    """Replaces each ``with trace.span(...):`` block by its body: the port's
+    spans (``utils/trace.py``) record where the time goes and change no
+    statement of a copy."""
+
+    def visit_With(self, node):
+        self.generic_visit(node)
+        if all(isinstance(i.context_expr, ast.Call) and ast.unparse(i.context_expr.func)
+               == "trace.span" and i.optional_vars is None for i in node.items):
+            return node.body
+        return node
+
+
 def _function_dumps(path, skip=()):
     """``ast.dump`` of every function and method of a module, by qualified
-    name, docstrings dropped."""
+    name, docstrings and the port's span blocks dropped."""
     with open(path) as f:
-        tree = ast.parse(f.read())
+        tree = _Unspan().visit(ast.parse(f.read()))
     out = {}
 
     def walk(node, prefix):
