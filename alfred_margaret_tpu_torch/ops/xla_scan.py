@@ -19,8 +19,9 @@ only.
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -123,28 +124,94 @@ def build_streams(data: np.ndarray, plan: StreamPlan) -> Tuple[np.ndarray, np.nd
     return streams, warm_start, valid_end
 
 
-def stage_streams_device(data: np.ndarray, plan: StreamPlan, device: torch.device):
+#: Bytes of one half of a device's staging ring: the text crosses to the
+#: device in slices of this size, through 2 x 16 MiB of host memory a device.
+RING_SLICE_BYTES = 16 << 20
+
+
+class _StagingRing:
+    """A device's host staging buffer: two halves of ``slice_bytes``, pinned
+    for a CUDA device, allocated at the device's first staging and kept for
+    the life of the process.
+
+    ``send`` walks a host array in slices: each is copied into a free half,
+    and that half's copy to the device is enqueued without waiting, so the
+    host's copy of slice i + 1 runs while slice i crosses to the device.
+    Before a half is written again the host waits on the event recorded
+    after its last copy, so a copy in flight is never overwritten.  The lock
+    keeps two engines on one device off each other's halves."""
+
+    def __init__(self, device: torch.device, slice_bytes: int):
+        self.cuda = device.type == "cuda"
+        self.slice_bytes = slice_bytes
+        self.buf = torch.empty(2 * slice_bytes, dtype=torch.uint8, pin_memory=self.cuda)
+        self.host = self.buf.numpy()
+        self.sent: list = [None, None]  # per half: the event after its last copy
+        self.half = 0
+        self.lock = threading.Lock()
+
+    def send(self, src: np.ndarray, dst: torch.Tensor) -> None:
+        """Copy the 1-D uint8 host array ``src`` into the uint8 tensor
+        ``dst`` of the same length.  ``src`` is only read, and may be
+        strided.  Spans: ``amt.stage.host`` around each slice's host copy,
+        ``amt.stage.htod`` around each enqueue and each wait."""
+        step = self.slice_bytes
+        with self.lock:
+            for off in range(0, len(src), step):
+                m = min(step, len(src) - off)
+                h, self.half = self.half, 1 - self.half
+                lo = h * step
+                if self.sent[h] is not None:
+                    with trace.span("amt.stage.htod"):
+                        self.sent[h].synchronize()
+                    self.sent[h] = None
+                with trace.span("amt.stage.host"):
+                    np.copyto(self.host[lo : lo + m], src[off : off + m])
+                with trace.span("amt.stage.htod"):
+                    dst[off : off + m].copy_(self.buf[lo : lo + m], non_blocking=self.cuda)
+                    if self.cuda:
+                        self.sent[h] = torch.cuda.Event()
+                        self.sent[h].record(torch.cuda.current_stream(dst.device))
+
+
+_RINGS: Dict[torch.device, _StagingRing] = {}
+_RINGS_LOCK = threading.Lock()
+
+
+def _ring(device: torch.device) -> _StagingRing:
+    """The staging ring of ``device``, made at its first staging."""
+    with _RINGS_LOCK:
+        ring = _RINGS.get(device)
+        if ring is None:
+            ring = _RINGS[device] = _StagingRing(device, RING_SLICE_BYTES)
+        return ring
+
+
+def stage_streams_device(data, plan: StreamPlan, device: torch.device):
     """Upload the corpus once and window it on ``device``.
 
     Returns ``(streams [T, S] uint8 tensor on device, warm_start, valid_end)``
     with the host int32 arrays of ``_stream_validity``; byte for byte the
-    same streams as ``build_streams``.  The host does no windowing: it sends
-    the n corpus bytes, and the device builds the [T, S] layout with one
-    strided view and one transpose copy.
+    same streams as ``build_streams``.  The host does no windowing: the n
+    corpus bytes go through the device's staging ring (``_StagingRing``:
+    a fixed 2 x ``RING_SLICE_BYTES`` of host memory, pinned on CUDA) straight
+    into the padded buffer on the device, which builds the [T, S] layout with
+    one strided view and one transpose copy.  ``data`` (an ndarray, a memmap,
+    ``bytes`` or a memoryview) is only read.
     """
     n, S, L, K, T = plan.n, plan.n_streams, plan.emit_len, plan.overlap, plan.time_len
     with trace.span("amt.stage"):
-        with trace.span("amt.stage.host"):
-            data = np.ascontiguousarray(data, dtype=np.uint8)
-            if not data.flags.writeable:
-                data = data.copy()  # torch.from_numpy needs a writable buffer
-        with trace.span("amt.stage.htod"):
-            text = torch.from_numpy(data).to(device)
+        if not isinstance(data, np.ndarray):
+            data = np.frombuffer(data, dtype=np.uint8)
+        if data.dtype != np.uint8 or data.ndim != 1:
+            with trace.span("amt.stage.host"):
+                data = np.ascontiguousarray(data, dtype=np.uint8).reshape(-1)
+        # The head streams read pad[K : K + T]: rows * L >= K + T, also for
+        # a corpus shorter than the overlap.
+        rows = max(S + _ceil_div(T, L), _ceil_div(K + max(n, T), L)) + 1
+        pad = torch.zeros(rows * L, dtype=torch.uint8, device=device)
+        _ring(pad.device).send(data, pad[K : K + n])
         with trace.span("amt.stage.layout"):
-            rows = max(S + _ceil_div(T, L), _ceil_div(K + n, L)) + 1
-            pad = torch.zeros(rows * L, dtype=torch.uint8, device=device)
-            pad[K : K + n] = text
-            del text
             # Window s is pad[s*L : s*L + T]; rows * L >= (S - 1) * L + T.
             # clone, not contiguous(): with S = 1 the transpose is already
             # contiguous and contiguous() would return a view of pad.

@@ -83,7 +83,7 @@ SPANS = (
     "amt.stream.cold_prefix",  # the host replay of a chunk's W-byte prefix
     "amt.stage",  # ``stage_streams_device``
     "amt.stage.host",  # a host copy or conversion of the text
-    "amt.stage.htod",  # the text's host-to-device copy
+    "amt.stage.htod",  # a slice's host-to-device copy enqueued, or a wait on one
     "amt.stage.layout",  # the ``[T, S]`` layout built on the device
     # Kernels.
     "amt.launch",  # ``kernels.common.launch``: one CUDA kernel launch
