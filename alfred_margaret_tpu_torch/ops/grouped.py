@@ -36,6 +36,9 @@ them on the H100 is ROADMAP Queue A item 7), the count and containsAny run
 per group (B15, B16, B8, B10, B1-B4).  ``AMT_FUSED_GROUPS=0``
 turns the fused kernels off; it is read at every call, so one engine serves
 as its own control.  A fused launch that fails raises: nothing falls back.
+The build, each fused table set and each count pass open the spans
+``amt.group.build``, ``amt.group.fuse`` and ``amt.group.pass``
+(``utils/trace.py``), recorded only under a running profiler.
 """
 
 from __future__ import annotations
@@ -53,7 +56,7 @@ from ..kernels.comb16_grouped import (
 )
 from ..models import ac
 from ..models.minimize import count_minimized, minimize_sticky
-from ..utils import utf8
+from ..utils import trace, utf8
 from ..utils.device import resolve_device
 from .comb16_scan import (
     Comb16GroupTables,
@@ -358,61 +361,62 @@ class GroupedAcEngine:
         self.machine = machine
         self.device = resolve_device(device)
         self.max_rows = max_rows
-        groups = partition_adaptive(machine, max_rows)
-        if not groups:
-            raise CapacityError("no needles to group")
-        self.groups: List[List[int]] = []
-        self.engines: list = []
-        self.vid_maps: List[np.ndarray] = []
-        # Every group engine takes the FULL machine's overlap, so one staged
-        # stream layout serves every group pass.
-        self.overlap = max(0, machine.max_needle_bytes - 1)
-        kw = dict(max_rows=max_rows, overlap=self.overlap, n_streams=n_streams, t_tile=t_tile)
+        with trace.span("amt.group.build"):
+            groups = partition_adaptive(machine, max_rows)
+            if not groups:
+                raise CapacityError("no needles to group")
+            self.groups: List[List[int]] = []
+            self.engines: list = []
+            self.vid_maps: List[np.ndarray] = []
+            # Every group engine takes the FULL machine's overlap, so one staged
+            # stream layout serves every group pass.
+            self.overlap = max(0, machine.max_needle_bytes - 1)
+            kw = dict(max_rows=max_rows, overlap=self.overlap, n_streams=n_streams, t_tile=t_tile)
 
-        def add_group(vids: List[int]):
-            # The adaptive partitioner scores unique value-less needles; the
-            # real group (payload merge, placement) can still overflow in rare
-            # corners: split and retry.
-            pairs = [(machine.needles[v], machine.values[v]) for v in vids]
-            try:
-                eng = make_engine(ac.build(pairs), self.device, **kw)
-            except CapacityError:
-                # Split on first-occurrence boundaries so duplicates stay
-                # together.
-                seen: dict = {}
-                per_needle: List[List[int]] = []
-                for v in vids:
-                    n = machine.needles[v]
-                    if n in seen:
-                        per_needle[seen[n]].append(v)
-                    else:
-                        seen[n] = len(per_needle)
-                        per_needle.append([v])
-                if len(per_needle) == 1:
-                    raise  # one unique needle: it cannot split further
-                mid = max(1, len(per_needle) // 2)
-                add_group([v for g in per_needle[:mid] for v in g])
-                add_group([v for g in per_needle[mid:] for v in g])
-                return
-            self.groups.append(vids)
-            self.engines.append(eng)
-            self.vid_maps.append(np.asarray(vids, dtype=np.int64))
+            def add_group(vids: List[int]):
+                # The adaptive partitioner scores unique value-less needles; the
+                # real group (payload merge, placement) can still overflow in rare
+                # corners: split and retry.
+                pairs = [(machine.needles[v], machine.values[v]) for v in vids]
+                try:
+                    eng = make_engine(ac.build(pairs), self.device, **kw)
+                except CapacityError:
+                    # Split on first-occurrence boundaries so duplicates stay
+                    # together.
+                    seen: dict = {}
+                    per_needle: List[List[int]] = []
+                    for v in vids:
+                        n = machine.needles[v]
+                        if n in seen:
+                            per_needle[seen[n]].append(v)
+                        else:
+                            seen[n] = len(per_needle)
+                            per_needle.append([v])
+                    if len(per_needle) == 1:
+                        raise  # one unique needle: it cannot split further
+                    mid = max(1, len(per_needle) // 2)
+                    add_group([v for g in per_needle[:mid] for v in g])
+                    add_group([v for g in per_needle[mid:] for v in g])
+                    return
+                self.groups.append(vids)
+                self.engines.append(eng)
+                self.vid_maps.append(np.asarray(vids, dtype=np.int64))
 
-        for vids in groups:
-            add_group(vids)
-        self.S, self.t_tile = self.engines[0].S, self.engines[0].t_tile
-        self._needle_len = np.fromiter((len(n) for n in machine.needles), np.int64,
-                                       len(machine.needles))
-        self._fused: Optional[FusedGroups] = None
-        self._fused_sticky: Optional[FusedGroups] = None
-        self._fused_tried = self._fused_sticky_tried = False
-        # One screen of up to 12 words in front of every group: it covers every
-        # needle, so the groups' own screens would only fire again on the same
-        # corpus.  Where it does not plan (very large sets), they keep theirs.
-        if attach_filter(self, machine, max_words=12):
-            for e in self.engines:
-                if hasattr(e, "_filter_tables"):
-                    e._filter_lay = e._filter_tables = None
+            for vids in groups:
+                add_group(vids)
+            self.S, self.t_tile = self.engines[0].S, self.engines[0].t_tile
+            self._needle_len = np.fromiter((len(n) for n in machine.needles), np.int64,
+                                           len(machine.needles))
+            self._fused: Optional[FusedGroups] = None
+            self._fused_sticky: Optional[FusedGroups] = None
+            self._fused_tried = self._fused_sticky_tried = False
+            # One screen of up to 12 words in front of every group: it covers every
+            # needle, so the groups' own screens would only fire again on the same
+            # corpus.  Where it does not plan (very large sets), they keep theirs.
+            if attach_filter(self, machine, max_words=12):
+                for e in self.engines:
+                    if hasattr(e, "_filter_tables"):
+                        e._filter_lay = e._filter_tables = None
 
     # -- staging --------------------------------------------------------------
 
@@ -460,20 +464,22 @@ class GroupedAcEngine:
         if not self._fused_tried:
             self._fused_tried = True
             if len(self.engines) >= 2:
-                try:
-                    groups, _, subs, split = partition_uniform16(self.machine, self.max_rows)
-                    if len(subs) < 2:
-                        raise CapacityError("single uniform group")
-                    c16s, stacked = build_comb16_uniform(subs, self.max_rows, split=split)
-                    cst = stacked["consts"]
-                    rows = len(subs) * (cst["rows_c"] + cst["rows_a"] + 2)
-                    # The JAX package's economics guard (TPU launch cost
-                    # against row inflation), kept as it is.
-                    if rows <= max(1.3 * self.total_rows, self.total_rows + 2 * len(self.engines)):
-                        self._fused = FusedGroups(
-                            groups, Comb16GroupTables.from_stacked(stacked, self.device, c16s=c16s))
-                except CapacityError:
-                    self._fused = None
+                with trace.span("amt.group.fuse"):
+                    try:
+                        groups, _, subs, split = partition_uniform16(self.machine, self.max_rows)
+                        if len(subs) < 2:
+                            raise CapacityError("single uniform group")
+                        c16s, stacked = build_comb16_uniform(subs, self.max_rows, split=split)
+                        cst = stacked["consts"]
+                        rows = len(subs) * (cst["rows_c"] + cst["rows_a"] + 2)
+                        # The JAX package's economics guard (TPU launch cost
+                        # against row inflation), kept as it is.
+                        if rows <= max(1.3 * self.total_rows,
+                                       self.total_rows + 2 * len(self.engines)):
+                            self._fused = FusedGroups(groups, Comb16GroupTables.from_stacked(
+                                stacked, self.device, c16s=c16s))
+                    except CapacityError:
+                        self._fused = None
         return self._fused
 
     def _fused_sticky_setup(self) -> Optional[FusedGroups]:
@@ -483,23 +489,25 @@ class GroupedAcEngine:
             return None
         if not self._fused_sticky_tried:
             self._fused_sticky_tried = True
-            try:
-                groups, _, svs, split = partition_uniform16(self.machine, self.max_rows,
-                                                            view="sticky")
-                if len(svs) < 2:
-                    raise CapacityError("single uniform sticky group")
-                c16s, stacked = build_sticky16_uniform([], self.max_rows, split=split, views=svs)
-                cst = stacked["consts"]
-                rows = len(c16s) * (cst["rows_c"] + cst["rows_a"] + 2)
-                # The JAX package's guard: uniform rows against per-group
-                # sticky passes.
-                if rows <= 1.3 * sum(c.rows_c + c.rows_a + 2 for c in c16s):
-                    self._fused_sticky = FusedGroups(
-                        groups,
-                        Comb16GroupTables.from_stacked(stacked, self.device, sticky=True,
-                                                       c16s=c16s))
-            except CapacityError:
-                self._fused_sticky = None
+            with trace.span("amt.group.fuse"):
+                try:
+                    groups, _, svs, split = partition_uniform16(self.machine, self.max_rows,
+                                                                view="sticky")
+                    if len(svs) < 2:
+                        raise CapacityError("single uniform sticky group")
+                    c16s, stacked = build_sticky16_uniform([], self.max_rows, split=split,
+                                                           views=svs)
+                    cst = stacked["consts"]
+                    rows = len(c16s) * (cst["rows_c"] + cst["rows_a"] + 2)
+                    # The JAX package's guard: uniform rows against per-group
+                    # sticky passes.
+                    if rows <= 1.3 * sum(c.rows_c + c.rows_a + 2 for c in c16s):
+                        self._fused_sticky = FusedGroups(
+                            groups,
+                            Comb16GroupTables.from_stacked(stacked, self.device, sticky=True,
+                                                           c16s=c16s))
+                except CapacityError:
+                    self._fused_sticky = None
         return self._fused_sticky
 
     # -- counting: B9, or the groups' own kernels ------------------------------
@@ -520,10 +528,16 @@ class GroupedAcEngine:
 
     def count_staged(self, st: StagedStreams) -> int:
         """Total count: one B9 launch where the fused count engaged, else the
-        sum of the groups' own counts."""
+        sum of the groups' own counts; each pass, to its number, in an
+        ``amt.group.pass`` span."""
         if self._fused_setup() is None:
-            return sum(e.count_staged(st) for e in self.engines)
-        return sum_live(self.stream_counts(st), st.live_np)
+            total = 0
+            for e in self.engines:
+                with trace.span("amt.group.pass"):
+                    total += e.count_staged(st)
+            return total
+        with trace.span("amt.group.pass"):
+            return sum_live(self.stream_counts(st), st.live_np)
 
     def count(self, text: utf8.TextLike) -> int:
         st = self._stage(text)

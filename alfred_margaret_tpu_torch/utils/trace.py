@@ -78,6 +78,10 @@ SPANS = (
     "amt.readback",  # the per-stream counts copied to the host
     "amt.reduce",  # their int64 sum over live streams
     "amt.host_recount",  # a trapped stream recounted, or B1's fallback rescan
+    # The needle-grouped engine (``ops/grouped.py``).
+    "amt.group.build",  # the partition, the per-group engines and the screen
+    "amt.group.fuse",  # a uniform table set for B9 or B11
+    "amt.group.pass",  # one count pass over a staging: B9, or one group's own
     # Staging and streaming.
     "amt.stream.chunk",  # one chunk of ``StreamingScanner``
     "amt.stream.cold_prefix",  # the host replay of a chunk's W-byte prefix

@@ -8,7 +8,9 @@ exact count per operation: one ``amt.api.*`` a public call, one
 ``amt.readback`` and one ``amt.reduce`` a staging counted, two
 ``amt.stage.host`` a streamed chunk (its slice and the writable copy), one
 ``amt.stream.cold_prefix`` a chunk after the first, one
-``amt.host_recount`` a trapped stream.  Every name the port emits is in
+``amt.host_recount`` a trapped stream, one ``amt.group.build`` a grouped
+engine, one ``amt.group.fuse`` a fused table set built, one
+``amt.group.pass`` a fused count and one a group's own count.  Every name the port emits is in
 ``trace.SPANS``, and every name of ``trace.SPANS`` is in ``PERF.md``.  The
 kernels' plain versions run here, so ``amt.launch`` is checked on the card
 (``tests/test_torch_gpu.py``).
@@ -53,9 +55,20 @@ PARENTS = {
     "amt.stage.host": {"amt.stage", "amt.stream.chunk"},
     "amt.stage.htod": {"amt.stage"},
     "amt.stage.layout": {"amt.stage"},
-    "amt.readback": {"amt.api.count_matches", "amt.stream.chunk", "amt.host_recount", None},
-    "amt.reduce": {"amt.api.count_matches", "amt.stream.chunk", "amt.host_recount", None},
+    "amt.readback": {"amt.api.count_matches", "amt.stream.chunk", "amt.host_recount",
+                     "amt.group.pass", None},
+    "amt.reduce": {"amt.api.count_matches", "amt.stream.chunk", "amt.host_recount",
+                   "amt.group.pass", None},
     "amt.host_recount": {"amt.api.count_matches", "amt.stream.chunk", None},
+    # The grouped engine: built where the device engine is first asked for,
+    # its fused tables and passes inside the call that first needs them.
+    "amt.group.build": {"amt.prep", "amt.api.adopt_staged", "amt.api.count_matches",
+                        "amt.api.contains_any", "amt.api.contains_all",
+                        "amt.api.all_matches", "amt.api.all_matches_arrays", None},
+    "amt.group.fuse": {"amt.api.count_matches", "amt.api.contains_any", "amt.stream.chunk",
+                       None},
+    "amt.group.pass": {"amt.api.count_matches", "amt.api.contains_any", "amt.stream.chunk",
+                       None},
 }
 
 
@@ -246,6 +259,66 @@ def test_host_recount_spans_count_trapped_streams(tmp_path):
     assert _check_nesting(spans) == {"amt.readback": 2, "amt.host_recount": 1, "amt.reduce": 1}
     inner = [i for i, (n, _, _) in enumerate(spans) if n == "amt.reduce"]
     assert [_parent(spans, i) for i in inner] == ["amt.host_recount"]
+
+
+# -- the grouped engine ---------------------------------------------------------------
+
+
+def _grouped(n_needles=80):
+    """A grouped engine of three groups whose count and containsAny fuse,
+    built in a second; the screen is taken off so that containsAny reaches
+    the fused scan."""
+    from alfred_margaret_tpu_torch.bench.configs import config5_needles
+    from alfred_margaret_tpu_torch.ops.grouped import GroupedAcEngine
+
+    needles = config5_needles(n_needles)
+    m = ac.build([(n.encode(), i) for i, n in enumerate(needles)])
+    eng = GroupedAcEngine(m, device=CPU, max_rows=5, n_streams=256, t_tile=64)
+    eng._filter_tables = None
+    return m, eng, (" ".join(needles) + " zz ").encode() * 4
+
+
+def test_grouped_no_profiler_no_record_function(no_record_function, monkeypatch):
+    m, eng, hay = _grouped()
+    st = eng._stage(hay)
+    want = ac.count_matches(m, hay)
+    assert eng.count_staged(st) == eng.count_staged(st) == want
+    assert eng.contains_staged(st) is True
+    assert eng._fused is not None and eng._fused_sticky is not None
+    monkeypatch.setenv("AMT_FUSED_GROUPS", "0")
+    assert eng.count_staged(st) == want
+
+
+def test_grouped_spans(tmp_path, monkeypatch):
+    """One build, one fused table set for the count and one for
+    containsAny, each built once; one pass a fused count, holding its
+    readback; ``AMT_FUSED_GROUPS=0``: one pass a group, each holding the
+    group's own readback."""
+    (m, eng, hay), spans = _spans(tmp_path, _grouped)
+    assert _check_nesting(spans) == {"amt.group.build": 1}
+    assert eng.n_groups == 3
+    st = eng._stage(hay)
+    want = ac.count_matches(m, hay)
+    got, spans = _spans(tmp_path, lambda: eng.count_staged(st))
+    assert got == want
+    assert _check_nesting(spans) == {"amt.group.fuse": 1, "amt.group.pass": 1,
+                                     "amt.readback": 1, "amt.reduce": 1}
+    got, spans = _spans(tmp_path, lambda: eng.count_staged(st))
+    assert got == want
+    assert _check_nesting(spans) == {"amt.group.pass": 1, "amt.readback": 1, "amt.reduce": 1}
+    assert [_parent(spans, i) for i, (n, _, _) in enumerate(spans)
+            if n == "amt.readback"] == ["amt.group.pass"]
+    got, spans = _spans(tmp_path, lambda: eng.contains_staged(st))
+    assert got is True
+    assert _check_nesting(spans) == {"amt.group.fuse": 1}
+    monkeypatch.setenv("AMT_FUSED_GROUPS", "0")
+    got, spans = _spans(tmp_path, lambda: eng.count_staged(st))
+    assert got == want
+    counts = _check_nesting(spans)
+    assert counts["amt.group.pass"] == eng.n_groups
+    assert "amt.group.fuse" not in counts
+    assert [_parent(spans, i) for i, (n, _, _) in enumerate(spans)
+            if n == "amt.readback"] == ["amt.group.pass"] * eng.n_groups
 
 
 # -- the names -----------------------------------------------------------------------
