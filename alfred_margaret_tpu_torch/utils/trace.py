@@ -87,6 +87,7 @@ SPANS = (
     "amt.stream.cold_prefix",  # the host replay of a chunk's W-byte prefix
     "amt.stage",  # ``stage_streams_device``
     "amt.stage.host",  # a host copy or conversion of the text
+    "amt.stage.host.split",  # a ring slice's copy on the intra-op threads
     "amt.stage.htod",  # a slice's host-to-device copy enqueued, or a wait on one
     "amt.stage.layout",  # the ``[T, S]`` layout built on the device
     # Kernels.

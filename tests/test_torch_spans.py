@@ -7,7 +7,9 @@ exact count per operation: one ``amt.api.*`` a public call, one
 ``amt.prep`` a dispatch, one ``amt.stream.chunk`` a chunk, one
 ``amt.readback`` and one ``amt.reduce`` a staging counted, two
 ``amt.stage.host`` a streamed chunk (its slice and the writable copy), one
-``amt.stream.cold_prefix`` a chunk after the first, one
+``amt.stage.host.split`` inside a ring slice's ``amt.stage.host`` where the
+slice is copied on the intra-op threads and none where it is shorter than
+``PARALLEL_COPY_BYTES``, one ``amt.stream.cold_prefix`` a chunk after the first, one
 ``amt.host_recount`` a trapped stream, one ``amt.group.build`` a grouped
 engine, one ``amt.group.fuse`` a fused table set built, one
 ``amt.group.pass`` a fused count and one a group's own count.  Every name the port emits is in
@@ -30,6 +32,7 @@ from torch.profiler import ProfilerActivity, profile
 from alfred_margaret_tpu_torch import CASE_SENSITIVE, IGNORE_CASE, Searcher
 from alfred_margaret_tpu_torch.bench.dataformat import synth_corpus
 from alfred_margaret_tpu_torch.models import ac, case_dfa
+from alfred_margaret_tpu_torch.ops import xla_scan
 from alfred_margaret_tpu_torch.ops.bitap_scan import BitapAcEngine, plan_bitap_ci
 from alfred_margaret_tpu_torch.utils import config, trace
 from _torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
@@ -53,6 +56,7 @@ PARENTS = {
                   "amt.api.contains_any", "amt.api.contains_all", "amt.api.all_matches",
                   "amt.api.all_matches_arrays", "amt.stream.chunk"},
     "amt.stage.host": {"amt.stage", "amt.stream.chunk"},
+    "amt.stage.host.split": {"amt.stage.host"},
     "amt.stage.htod": {"amt.stage"},
     "amt.stage.layout": {"amt.stage"},
     "amt.readback": {"amt.api.count_matches", "amt.stream.chunk", "amt.host_recount",
@@ -164,10 +168,11 @@ def test_staged_count_spans(tmp_path):
 
     got, spans = _spans(tmp_path, run)
     assert got == ac.count_matches(s.automaton, hay)
+    assert len(hay) >= xla_scan.PARALLEL_COPY_BYTES  # one slice, copied on the threads
     assert _check_nesting(spans) == {
         "amt.api.stage": 1, "amt.api.count_matches": 1, "amt.prep": 2, "amt.stage": 1,
-        "amt.stage.host": 1, "amt.stage.htod": 1, "amt.stage.layout": 1,
-        "amt.readback": 1, "amt.reduce": 1}
+        "amt.stage.host": 1, "amt.stage.host.split": 1, "amt.stage.htod": 1,
+        "amt.stage.layout": 1, "amt.readback": 1, "amt.reduce": 1}
     order = [name for name, _, _ in spans]
     assert order.index("amt.stage.host") < order.index("amt.stage.htod") < order.index(
         "amt.stage.layout")
@@ -177,23 +182,57 @@ def test_staged_count_spans(tmp_path):
 def test_streamed_count_spans(tmp_path, budget_1mb, extra):
     """A one-shot count past the budget: ``ceil(n / chunk)`` chunks, each
     with its slice, staging, readback and reduce, and a cold prefix for
-    every chunk after the first."""
+    every chunk after the first; a chunk's one ring slice is copied on the
+    intra-op threads unless it is the short tail of 12,345 bytes and the
+    prefix."""
     s = Searcher.build(CASE_SENSITIVE, NEEDLES3, device=CPU)
     big = _corpus(2 * MIB + extra, seed=6)
     chunks = -(-len(big) // MIB)
+    W = max(len(n) for n in NEEDLES3) - 1
+    staged = [MIB] + [min(MIB, len(big) - c * MIB) + W for c in range(1, chunks)]
+    split = sum(m >= xla_scan.PARALLEL_COPY_BYTES for m in staged)
+    assert split == (chunks if extra == MIB else chunks - 1)
     got, spans = _spans(tmp_path, lambda: s.count_matches(big))
     assert got == s.count_matches(big) > 0
     assert _check_nesting(spans) == {
         "amt.api.count_matches": 1, "amt.prep": 1, "amt.stream.chunk": chunks,
-        "amt.stage": chunks, "amt.stage.host": 2 * chunks, "amt.stage.htod": chunks,
-        "amt.stage.layout": chunks, "amt.readback": chunks, "amt.reduce": chunks,
-        "amt.stream.cold_prefix": chunks - 1}
+        "amt.stage": chunks, "amt.stage.host": 2 * chunks, "amt.stage.host.split": split,
+        "amt.stage.htod": chunks, "amt.stage.layout": chunks, "amt.readback": chunks,
+        "amt.reduce": chunks, "amt.stream.cold_prefix": chunks - 1}
     # Each chunk holds its own slice, staging, readback and reduce.
     for name, a, b in spans:
         if name == "amt.stream.chunk":
             inside = collections.Counter(n for n, x, y in spans if a <= x and y <= b and n != name)
             assert inside["amt.stage.host"] == 2 and inside["amt.stage"] == 1
             assert inside["amt.readback"] == inside["amt.reduce"] == 1
+
+
+RING = 64 << 10
+SPLIT = 16 << 10
+
+
+@pytest.mark.parametrize("n,slices,split", [
+    (SPLIT - 1, 1, 0), (SPLIT, 1, 1), (RING, 1, 1), (3 * RING + SPLIT - 1, 4, 3),
+    (3 * RING + SPLIT, 4, 4), (2 * RING + 1, 3, 2)])
+def test_split_span_once_a_parallel_slice(tmp_path, monkeypatch, n, slices, split):
+    """Slices of 64 KiB, the parallel copy from 16 KiB: one
+    ``amt.stage.host`` a slice, and one ``amt.stage.host.split`` inside it
+    where the slice is at least the threshold, never below it."""
+    monkeypatch.setattr(xla_scan, "RING_SLICE_BYTES", RING)
+    monkeypatch.setattr(xla_scan, "PARALLEL_COPY_BYTES", SPLIT)
+    monkeypatch.setattr(xla_scan, "_RINGS", {})
+    s = Searcher.build(CASE_SENSITIVE, NEEDLES3, device=CPU)
+    hay = _corpus(n, seed=n)
+    assert len(hay) == n
+    st, spans = _spans(tmp_path, lambda: s.stage(hay))
+    assert s.count_matches(st) == ac.count_matches(s.automaton, hay)
+    counts = _check_nesting(spans)
+    assert counts["amt.stage.host"] == slices
+    assert counts["amt.stage.host.split"] == split
+    for name, a, b in spans:
+        if name == "amt.stage.host":
+            inside = [x for x, c, d in spans if x == "amt.stage.host.split" and a <= c <= d <= b]
+            assert len(inside) <= 1
 
 
 def test_one_api_span_a_public_call(tmp_path):

@@ -5,14 +5,19 @@ On the CPU (the ring unpinned) with the slice cut to a few KiB: every size
 around the slice's edges and every kind of source gives ``build_streams``'s
 streams byte for byte, the source is only read, the ring is one buffer of a
 fixed size whatever the text's, and two threads staging at once keep to
-their own bytes.  On the card (``gpu``-marked, skipped inside the fixture
-without CUDA; run with ``python -m pytest --noconftest -m gpu
-tests/test_torch_staging.py``): the ring is pinned and reused, documents
+their own bytes.  A slice copied on the intra-op threads (``Tensor.copy_``
+from ``PARALLEL_COPY_BYTES``) and one copied by ``np.copyto`` give the same
+streams, for every kind of source and a threshold cut to 1,000 bytes, and
+slices past ATen's grain split across four threads; a read-only source is
+viewed without a copy or a warning.  On the card (``gpu``-marked, skipped
+inside the fixture without CUDA; run with ``python -m pytest --noconftest
+-m gpu tests/test_torch_staging.py``): the ring is pinned and reused, documents
 staged back to back each keep their bytes, and a streamed count over many
 slices equals the host C++ engine's.  Imports nothing of JAX.
 """
 
 import threading
+import warnings
 
 import numpy as np
 import pytest
@@ -129,6 +134,94 @@ def test_strided_and_wider_sources_are_staged_as_bytes(small_ring):
     _check(want, _plan(len(want), 16, 5), CPU, wide)
     grid = want[: 2 * (len(want) // 2)].reshape(2, -1)
     _check(grid.reshape(-1), _plan(grid.size, 8, 3), CPU, grid)
+
+
+#: The parallel copy's threshold in these tests: a few slices' worth of
+#: lengths fall below it, at it and past it.
+SPLIT = 1000
+SPLIT_SIZES = [SPLIT - 1, SPLIT, SPLIT + 1, 3 * SLICE + SPLIT - 1, 2 * SLICE + SPLIT + 5,
+               5 * SLICE + 77]
+
+
+@pytest.fixture
+def four_torch_threads():
+    """Four intra-op threads, so that the parallel copy splits its slices."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(4)
+    yield
+    torch.set_num_threads(n)
+
+
+def _split_slices(fn):
+    """``fn()``'s result and its number of ``amt.stage.host.split`` spans."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        got = fn()
+    return got, sum(e.count for e in prof.key_averages() if e.key == "amt.stage.host.split")
+
+
+def _split_source(kind, data, tmp_path):
+    """``data`` as a source of ``kind``, and whether torch can view it."""
+    if kind == "strided":
+        base = np.zeros(3 * len(data), dtype=np.uint8)
+        base[::3] = data
+        return base[::3], True
+    if kind == "reversed":
+        return data[::-1].copy()[::-1], False
+    if kind == "ndarray":
+        return data.copy(), True
+    return _sources(data, tmp_path)[kind], True
+
+
+@pytest.mark.parametrize("n", SPLIT_SIZES)
+@pytest.mark.parametrize("kind", ["ndarray", "bytes", "memoryview", "strided", "reversed"])
+@pytest.mark.parametrize("path", ["parallel", "serial"])
+def test_parallel_and_serial_copies_stage_the_same_bytes(small_ring, four_torch_threads,
+                                                         monkeypatch, tmp_path, path, kind, n):
+    """Each slice of ``PARALLEL_COPY_BYTES`` or more goes through
+    ``Tensor.copy_`` on the intra-op threads, a shorter one (and every slice
+    of a negative-stride source) through ``np.copyto``; both give
+    ``build_streams``'s streams byte for byte."""
+    monkeypatch.setattr(xla_scan, "PARALLEL_COPY_BYTES", SPLIT if path == "parallel" else 1 << 62)
+    data = _data(n, seed=n + 7)
+    src, viewable = _split_source(kind, data, tmp_path)
+    _, split = _split_slices(lambda: _check(data, _plan(n, 16, 5), CPU, src))
+    slices = [min(SLICE, n - off) for off in range(0, n, SLICE)]
+    want = sum(m >= SPLIT for m in slices) if path == "parallel" and viewable else 0
+    assert split == want
+    np.testing.assert_array_equal(np.frombuffer(bytes(src), dtype=np.uint8)
+                                  if kind in ("bytes", "memoryview") else src, data)
+
+
+@pytest.mark.parametrize("kind", ["ndarray", "bytes", "strided"])
+def test_slices_past_the_grain_split_across_threads(four_torch_threads, monkeypatch, tmp_path,
+                                                    kind):
+    """Slices of 256 KiB, past ATen's grain of 32 KiB, so that ``copy_``
+    hands each to several threads; the tail of 100 KiB too."""
+    monkeypatch.setattr(xla_scan, "RING_SLICE_BYTES", 256 << 10)
+    monkeypatch.setattr(xla_scan, "PARALLEL_COPY_BYTES", 64 << 10)
+    monkeypatch.setattr(xla_scan, "_RINGS", {})
+    n = 3 * (256 << 10) + (100 << 10) + 3
+    data = _data(n, seed=13)
+    src, _ = _split_source(kind, data, tmp_path)
+    _, split = _split_slices(lambda: _check(data, _plan(n, 64, 5), CPU, src))
+    assert split == 4
+
+
+def test_read_only_source_is_viewed_without_a_copy_or_a_warning(small_ring, four_torch_threads,
+                                                                monkeypatch, tmp_path):
+    monkeypatch.setattr(xla_scan, "PARALLEL_COPY_BYTES", SPLIT)
+    data = _data(4 * SLICE + 3, seed=12)
+    srcs = _sources(data, tmp_path)
+    for kind in ("bytes", "memoryview", "memmap"):
+        ro = np.frombuffer(srcs[kind], dtype=np.uint8) if kind != "memmap" else srcs[kind]
+        assert not ro.flags.writeable
+        view = xla_scan._host_view(ro)
+        assert view.data_ptr() == ro.ctypes.data and view.numel() == len(data)
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            _, split = _split_slices(lambda: _check(data, _plan(len(data), 16, 5), CPU, ro))
+        assert split == 4
+    assert xla_scan._host_view(data[::-1]) is None
 
 
 def test_two_threads_keep_to_their_own_bytes(small_ring):
