@@ -61,7 +61,6 @@ from .models import ac, case_dfa
 from .native import prefilter
 from .native.build import NativeUnavailable
 from .native.cpp_engine import CppAcEngine
-from .ops.bitap_scan import BitapAcEngine
 from .ops.comb_scan import make_engine
 from .ops.grouped import GroupedAcEngine
 from .ops.pallas_scan import CapacityError, StagedStreams
@@ -466,7 +465,7 @@ class MatchEngine:
     def value_presence(self, text: utf8.TextLike, case: CaseSensitivity) -> np.ndarray:
         """bool [n_values]: which values have at least one match.  The device
         backend stages the haystack whole, over the streaming budget too, as
-        the JAX package's does."""
+        the JAX package's does, and its engine answers by its own route."""
         ci = self._composed(case, text)
         if ci is not None:
             return ci.value_presence(text, CASE_SENSITIVE)
@@ -484,18 +483,7 @@ class MatchEngine:
         st = self._staged(eng, text)
         if st is None:
             st = eng.stage(data)
-        if isinstance(eng, BitapAcEngine):
-            # One sticky scan: each track's end bit flags its needle, and
-            # value ids are needle entries.  None: a trap fired, and the
-            # flags could under-report; the extraction route decides.
-            pres = eng.needle_presence_staged(st)
-            if pres is not None:
-                return pres
-        if isinstance(eng, GroupedAcEngine):
-            # Group-local states: each group reads its own presence.
-            return eng.value_presence_staged(st, len(m.values))
-        _, hit = eng.match_positions_staged(st)
-        return ac.presence_of_states(m, hit, len(m.values))
+        return eng.value_presence_staged(st, len(m.values))
 
 
 __all__ = [

@@ -544,6 +544,13 @@ class BitapAcEngine(DenseAcEngine):
                 flag[key] = bool(aggs[w] & (1 << eb))
         return np.asarray([flag[self._needle_key(nd)] for nd in self.machine.needles], dtype=bool)
 
+    def value_presence_staged(self, st: StagedStreams, n_values: int) -> np.ndarray:
+        """bool [n_values]: one sticky scan (B7), whose track end bits flag
+        the needles (value ids are needle entries); where a trap fired, the
+        flags could under-report, and the extraction route decides."""
+        pres = self.needle_presence_staged(st)
+        return pres if pres is not None else super().value_presence_staged(st, n_values)
+
     def bits_args(self, st: StagedStreams) -> tuple:
         """Arguments of ``matchbits``: the bitap step for a one-word layout
         without trap tracks; else the dense step, as in the JAX package."""

@@ -42,7 +42,6 @@ groups.
 
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -587,10 +586,8 @@ def bitap_word_budget(gcost) -> int:
 def plan_bitap_auto(machine: AcMachine, max_rows: int = MAX_ROWS) -> Optional[BitapLayout]:
     """The JAX package's ``plan_bitap_auto``: a bitap layout under
     :func:`bitap_word_budget`, the byte-class one for a composed IgnoreCase
-    machine, or None (``AMT_BITAP=0``; a standalone trap register that
-    passes the budget)."""
-    if os.environ.get("AMT_BITAP") == "0":
-        return None
+    machine, or None where none fits (a standalone trap register counting
+    as one more word)."""
     try:
         _, gcost = plan_pallas(machine, max_rows)
     except CapacityError:
@@ -609,9 +606,8 @@ def make_engine(machine: AcMachine, device="cuda", *, max_rows: int = MAX_ROWS,
     """The single-pass engine for ``machine``: ``BitapAcEngine`` when
     ``plan_bitap`` fits ``BITAP_MAX_WORDS`` words, or, for a composed
     IgnoreCase machine, ``plan_bitap_ci`` does (a standalone trap register
-    counting as one more word, by the JAX rule of ``plan_bitap_auto``;
-    ``AMT_BITAP=0`` disables both), else ``DenseAcEngine`` when its table
-    fits ``max_rows`` rows, else
+    counting as one more word, by the JAX rule of ``plan_bitap_auto``),
+    else ``DenseAcEngine`` when its table fits ``max_rows`` rows, else
     ``Comb16AcEngine``, else ``CombAcEngine``.  ``max_rows``, ``overlap``
     and ``kw`` (``n_streams``, ``t_tile``) go to the engine.  Never builds
     the grouped engine (which calls this per group); raises
@@ -620,13 +616,11 @@ def make_engine(machine: AcMachine, device="cuda", *, max_rows: int = MAX_ROWS,
     from .comb16_scan import Comb16AcEngine  # comb16_scan imports this module
 
     kw = dict(kw, device=device, max_rows=max_rows, overlap=overlap)
-    lay = None
-    if os.environ.get("AMT_BITAP") != "0":
-        lay = plan_bitap(machine, max_words=BITAP_MAX_WORDS)
-        if lay is None and machine.composed_ci:
-            lay = plan_bitap_ci(machine, max_words=BITAP_MAX_WORDS)
-            if lay is not None and lay.trap is not None and lay.n_words + 1 > BITAP_MAX_WORDS:
-                lay = None  # the trap register is one word more than the budget
+    lay = plan_bitap(machine, max_words=BITAP_MAX_WORDS)
+    if lay is None and machine.composed_ci:
+        lay = plan_bitap_ci(machine, max_words=BITAP_MAX_WORDS)
+        if lay is not None and lay.trap is not None and lay.n_words + 1 > BITAP_MAX_WORDS:
+            lay = None  # the trap register is one word more than the budget
     if lay is not None:
         return BitapAcEngine(machine, layout=lay, **kw)
     try:

@@ -23,7 +23,6 @@ erase a pending fire.
 
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -242,14 +241,13 @@ class FilterTables:
 def attach_filter(engine, machine, max_words: int = 3) -> bool:
     """Plan the screen for ``machine`` in at most ``max_words`` words and
     attach it to ``engine``, whose ``contains_staged`` asks
-    :func:`filter_contains` first.  Returns True when attached.
-    ``AMT_FILTER=0`` disables it, and so does a ``t_tile`` that is not a
-    multiple of 16 (the JAX kernel's pair unroll; the port's kernel needs an
-    even stream length)."""
+    :func:`filter_contains` first.  Returns True when attached.  A
+    ``t_tile`` that is not a multiple of 16 (the JAX kernel's pair unroll;
+    the port's kernel needs an even stream length) attaches none."""
     engine._filter_lay = None
     engine._filter_tables = None
     engine._filter_strikes = 0
-    if os.environ.get("AMT_FILTER") == "0" or engine.t_tile % 16:
+    if engine.t_tile % 16:
         return False
     lay = plan_filter(machine, max_words=max_words)
     if lay is None:
@@ -269,13 +267,9 @@ FILTER_STRIKES = 3
 def filter_contains(engine, st) -> Optional[bool]:
     """Screen a staged corpus: True (an exact short-needle hit), False (no
     fire anywhere), or None (candidate fires, or the screen disabled itself:
-    the caller runs the exact sticky scan).  Reads live streams only.
-    ``AMT_FILTER=0`` at call time skips an attached screen too, and leaves
-    its strikes alone (the control of a screened engine)."""
+    the caller runs the exact sticky scan).  Reads live streams only."""
     tabs = getattr(engine, "_filter_tables", None)
     if tabs is None or engine._filter_strikes >= FILTER_STRIKES:
-        return None
-    if os.environ.get("AMT_FILTER") == "0":
         return None
     planes = filter_kernel(st.streams, st.vend, *tabs.args(), st.plan.overlap)
     planes = planes.cpu().numpy()[:, st.live_np]

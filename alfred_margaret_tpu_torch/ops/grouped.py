@@ -33,17 +33,15 @@ with the comb16 step B13) for the others.  Where no uniform partition fits,
 or the JAX package's economics guards refuse it (kept as they are, and fed
 the same groups, so both packages take the same path for a set; re-deriving
 them on the H100 is ROADMAP Queue A item 7), the count and containsAny run
-per group (B15, B16, B8, B10, B1-B4).  ``AMT_FUSED_GROUPS=0``
-turns the fused kernels off; it is read at every call, so one engine serves
-as its own control.  A fused launch that fails raises: nothing falls back.
-The build, each fused table set and each count pass open the spans
-``amt.group.build``, ``amt.group.fuse`` and ``amt.group.pass``
-(``utils/trace.py``), recorded only under a running profiler.
+per group (B15, B16, B8, B10, B1-B4).  A fused launch that fails raises:
+nothing falls back.  The build, each fused table set and each count pass
+open the spans ``amt.group.build``, ``amt.group.fuse`` and
+``amt.group.pass`` (``utils/trace.py``), recorded only under a running
+profiler.
 """
 
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -456,11 +454,9 @@ class GroupedAcEngine:
 
     def _fused_setup(self) -> Optional[FusedGroups]:
         """The count view's uniform table set for B9, built at first use, or
-        None: fusion off (``AMT_FUSED_GROUPS=0``), fewer than two groups, no
-        uniform partition of two or more groups, or more rows than the JAX
-        package's guard allows against the per-group passes."""
-        if os.environ.get("AMT_FUSED_GROUPS") == "0":
-            return None
+        None: fewer than two groups, no uniform partition of two or more
+        groups, or more rows than the JAX package's guard allows against the
+        per-group passes."""
         if not self._fused_tried:
             self._fused_tried = True
             if len(self.engines) >= 2:
@@ -596,14 +592,13 @@ class GroupedAcEngine:
 
     def value_presence_staged(self, st: Optional[StagedStreams], n_values: int) -> np.ndarray:
         """bool [n_values]: the union of the groups' value presence, each
-        read from its own states (group-local, so never against the full
-        machine)."""
+        group's engine answering over its own values (group-local, so never
+        against the full machine)."""
         present = np.zeros(n_values, dtype=bool)
         if st is None:
             return present
         for eng, vid_map in zip(self.engines, self.vid_maps):
-            _, states = eng.match_positions_staged(st)
-            sub = ac.presence_of_states(eng.machine, states, len(eng.machine.values))
+            sub = eng.value_presence_staged(st, len(eng.machine.values))
             present[vid_map[np.flatnonzero(sub)]] = True
         return present
 

@@ -31,7 +31,7 @@ import torch
 from ..kernels.dense_contains import dense_contains
 from ..kernels.dense_count import dense_count, dense_count_plain, dense_states
 from ..kernels.matchbits import matchbits
-from ..models.ac import AcMachine
+from ..models.ac import AcMachine, presence_of_states
 from ..native.cpp_engine import _default_threads
 from ..utils import trace, utf8
 from ..utils.device import resolve_device
@@ -530,6 +530,12 @@ class DenseAcEngine:
     def matches_arrays_staged(self, st: StagedStreams) -> Tuple[np.ndarray, np.ndarray]:
         """(ends one past each match, value ids) in emission order."""
         return expand_hits(self.machine, *self.match_positions_staged(st))
+
+    def value_presence_staged(self, st: StagedStreams, n_values: int) -> np.ndarray:
+        """bool [n_values]: which values have at least one match, read from
+        the states that ``match_positions_staged`` enters."""
+        _, hit = self.match_positions_staged(st)
+        return presence_of_states(self.machine, hit, n_values)
 
     def matches_arrays(self, text: utf8.TextLike) -> Tuple[np.ndarray, np.ndarray]:
         data = utf8.to_u8(text)

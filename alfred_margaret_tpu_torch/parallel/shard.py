@@ -45,7 +45,6 @@ takes the dense steps.
 
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -279,7 +278,7 @@ class DistributedAcEngine:
             self._rows = max(c.rows for c in self._comps)
             # Uniform comb16 tables for mid-tier groups, where they need fewer
             # lookups than the dense table has rows (JAX shard.py:231-253).
-            if self._rows > 8 and os.environ.get("AMT_DIST_COMB16", "1") != "0":
+            if self._rows > 8:
                 try:
                     c16s, stacked = build_comb16_uniform(
                         [count_minimized(sm) for sm in self.sub_machines])

@@ -20,17 +20,12 @@ engine reads, overridable from the environment (prefix ``AMT_``):
 The JAX package's ``AMT_N_STREAMS``, ``AMT_T_TILE`` and ``AMT_INTERPRET``
 are not read: the port's engines take their stream plan as arguments, and
 the port has no interpret mode (its kernels' plain versions run on the CPU).
+No knob picks a device kernel path: the needle set and the device choose it.
 
 Knobs read at point of use (not part of this dataclass):
 
   AMT_PREFILTER    1/0 force/disable the host 5-byte-window prefilter
                    engine (native.prefilter)
-  AMT_BITAP        0 keeps bitap-eligible sets on the dense engine
-                   (ops.comb_scan.make_engine)
-  AMT_FILTER       0 disables the stride-2 containsAny screen
-                   (ops.filter_scan)
-  AMT_FUSED_GROUPS 0 runs the grouped engine's groups one pass each
-                   (ops.grouped)
   AMT_HOST_CLASS   0 disables the host byte-class packed table
                    (native.cpp_engine; builds lazily at the cumulative-
                    bytes break-even)

@@ -27,7 +27,7 @@ just after (the controls' launches are read apart), the first seven over
   ``count_matches`` (B8), ``contains_any`` through the stride-2 screen (B14)
   on a short-needle hit, a corpus on which no chain fires, and the digits
   corpus of config 2b with and without one needle in it, where the sticky
-  scan (B10) decides; the same with ``AMT_FILTER=0`` as the control;
+  scan (B10) decides; the same with the screen detached as the control;
   ``contains_all`` true and false and ``all_matches_arrays`` (B6 with the
   comb16 step, B13);
 * ``BASELINE.json`` config 5's first 300 needles, which overflow comb16, on
@@ -42,9 +42,10 @@ just after (the controls' launches are read apart), the first seven over
   screen (B14) and then B11 on the config-5 corpus, a fire-free corpus, the
   digits corpus and the digits corpus with one needle of the last group;
   ``contains_all`` true and false and ``all_matches_arrays`` (B15 and B17 for
-  each comb32 group, B13 for the comb16 group); with ``AMT_FUSED_GROUPS=0``
-  (per-group B15, B16, B8 and B10) and ``AMT_FILTER=0`` (B11 alone) as the
-  controls;
+  each comb32 group, B13 for the comb16 group); with the groups' own passes
+  (per-group B15, B16, B8 and B10: the fused table sets left unbuilt) and the
+  screen detached (B11 alone) as the controls, each a second grouped engine
+  over the same machine;
 * per-position states: ``final_states_staged`` on the bench needles (B5 on
   the bitap engine's dense tables), the 30 dense needles (B5), config 2
   (B12) and config 5's first 300 (B17), each equal to the host C++ engine's
@@ -63,7 +64,7 @@ just after (the controls' launches are read apart), the first seven over
 * IgnoreCase: the bench needles over the bench corpus with its letters
   uppercased at random (128 MiB), on the composed case DFA's byte-class
   bitap with a trap embedded in its word (B2, B4, B7 with their trap parts;
-  B6's dense step for extraction), with ``AMT_BITAP=0`` (B1, B3 and B6 on
+  B6's dense step for extraction), with the dense engine (B1, B3 and B6 on
   the composed machine) as the control; the same corpus with ``TSHİRT``
   written into 100 streams (the trapped streams re-counted on the host) and
   into 1,000 (the dense fallback, B1); config 2's 100 needles on the
@@ -101,12 +102,13 @@ just after (the controls' launches are read apart), the first seven over
   (``make_mesh(["cuda:0"] * 8, ...)``), each operation launching its step
   once per shard: the bench needles on (4,2,1) (count S2, ``contains_any``
   on a hit and a miss S3, ``contains_all`` true and false and
-  ``all_matches_arrays`` S8; ``AMT_BITAP=0`` as the control, S1 and S6);
+  ``all_matches_arrays`` S8; the dense steps, the bitap layout taken away,
+  as the control, S1 and S6);
   the same under IgnoreCase on the composed machine (S2 and S3 with their
   trap parts; ``TSHİRT`` in 100 streams, the host recount, and in 1,000, the
   dense fallback, S1 and S6); 30 random needles on (2,2,2) (the uniform
-  comb16 count S5 and B11's one-group mode S4; ``AMT_DIST_COMB16=0`` as the
-  control); config 2 on (2,1,4) (S5, S4 on its corpus and a fire-free one,
+  comb16 count S5 and B11's one-group mode S4; the dense steps, the comb16
+  tables taken away, as the control); config 2 on (2,1,4) (S5, S4 on its corpus and a fire-free one,
   S8, and at 16 MiB without the host corpus the states route S7); and one
   count inside a one-rank NCCL group, its reduction an ``all_reduce`` of a
   CUDA tensor.  Every mesh answer must equal the single-device
@@ -115,7 +117,7 @@ just after (the controls' launches are read apart), the first seven over
 * streaming past the device budget (``stream_phase``, ``ops/streaming.py``
   through ``MatchEngine``): the bench needles over a memmap of 2 GiB +
   12,345 bytes, 16 chunks of 128 MiB and a ragged one, each staged on the
-  card in turn: ``count_matches`` (B2; B1 as the ``AMT_BITAP=0`` control),
+  card in turn: ``count_matches`` (B2; B1 on the dense engine as the control),
   ``contains_any`` of a hit and of the miss needles (B4; B3 as the control)
   and
   ``all_matches_arrays`` (B6), equal to the host C++ engine over the file and
@@ -346,9 +348,12 @@ def mesh_phase(h):
     def mesh(d, s, n):
         return make_mesh([dev] * (d * s * n), data=d, seq=s, needle=n)
 
-    def engine_under(env, machine, m):
-        with mock.patch.dict(os.environ, env):
-            return DistributedAcEngine(machine, m)
+    def dense_steps(machine, m, tables):
+        """The mesh engine of ``machine`` on ``m`` with its ``tables``
+        (``_bitap_lay`` or ``_c16g``) taken away: the mesh's dense steps."""
+        eng = DistributedAcEngine(machine, m)
+        setattr(eng, tables, None)
+        return eng
 
     def routes(eng, count, sticky, label):
         check(eng.inner == "pallas" and (eng.count_route(), eng.sticky_route()) == (count, sticky),
@@ -374,7 +379,7 @@ def mesh_phase(h):
         for op, who, used in h.run_ops([(op, who, call) for op, who, call, _ in rows], want):
             check(used == expect[(op, who)],
                   f"mesh {op} ({who}): launched {used}, expected {expect[(op, who)]}")
-            h.tally(control if "=0" in who else main, used)
+            h.tally(control if "control" in who else main, used)
 
     m421, m222, m214 = mesh(4, 2, 1), mesh(2, 2, 2), mesh(2, 1, 4)
     N = 8  # shards, one launch each per step
@@ -383,9 +388,9 @@ def mesh_phase(h):
     eb = h.searcher.distributed(m421)
     e_miss, e_absent = h.miss.distributed(m421), h.absent.distributed(m421)
     routes(eb, "bitap", "bitap", "bench needles")
-    eb_dense = engine_under({"AMT_BITAP": "0"}, h.searcher.automaton, m421)
-    e_miss_dense = engine_under({"AMT_BITAP": "0"}, h.miss.automaton, m421)
-    routes(eb_dense, "dense", "dense", "bench needles, AMT_BITAP=0")
+    eb_dense = dense_steps(h.searcher.automaton, m421, "_bitap_lay")
+    e_miss_dense = dense_steps(h.miss.automaton, m421, "_bitap_lay")
+    routes(eb_dense, "dense", "dense", "bench needles, dense control")
     h.zero_counts()
     sb, s_miss, s_absent = (staged(e, [h.data], f"bench, {lbl}")[0] for e, lbl in (
         (eb, "3 needles"), (e_miss, "miss needles"), (e_absent, "absent needle")))
@@ -399,7 +404,7 @@ def mesh_phase(h):
             "all_matches_arrays": s.all_matches_arrays(h.staged)}
     check(want["contains_any hit"] and not want["contains_any miss"] and want["contains_all true"]
           and not want["contains_all false"], f"single-device bench answers: {want}")
-    who, ctrl = "mesh (4,2,1)", "mesh AMT_BITAP=0"
+    who, ctrl = "mesh (4,2,1)", "mesh dense control"
     drive([
         ("count_matches", who, lambda: eb.count(sb), {"bitap_count": N}),
         ("count_matches", ctrl, lambda: eb_dense.count(sb), {"dense_count": N}),
@@ -456,15 +461,15 @@ def mesh_phase(h):
                            np.uint8)
     e30 = s30.distributed(m222)
     routes(e30, "comb16", "comb16", "30 needles")
-    e30_dense = engine_under({"AMT_DIST_COMB16": "0"}, s30.automaton, m222)
-    routes(e30_dense, "dense", "dense", "30 needles, AMT_DIST_COMB16=0")
+    e30_dense = dense_steps(s30.automaton, m222, "_c16g")
+    routes(e30_dense, "dense", "dense", "30 needles, dense control")
     h.zero_counts()
     s30m = staged(e30, [data30], "30 needles")[0]
     st30 = s30.stage(data30)
     want30 = {"count_matches": s30.count_matches(st30), "contains_any": s30.contains_any(st30),
               "all_matches_arrays": s30.all_matches_arrays(st30)}
     check(want30["count_matches"] > 0, "30 needles: no match")
-    who, ctrl = "mesh (2,2,2)", "mesh AMT_DIST_COMB16=0"
+    who, ctrl = "mesh (2,2,2)", "mesh dense control"
     drive([
         ("count_matches", who, lambda: e30.count(s30m), {"comb16_count_grouped": N}),
         ("count_matches", ctrl, lambda: e30_dense.count(s30m), {"dense_count": N}),
@@ -922,8 +927,8 @@ def stream_phase(h):
     (``ops/streaming.py``), each chunk staged on the card in turn.
 
     The bench needles over a memmap of ``STREAM_BYTES`` (each 128 MiB of
-    ``synth_corpus`` its own seed): ``count_matches`` (B2; ``AMT_BITAP=0``,
-    B1, as the control), ``contains_any`` of a hit and of the miss needles
+    ``synth_corpus`` its own seed): ``count_matches`` (B2; B1 on the dense
+    engine as the control), ``contains_any`` of a hit and of the miss needles
     (B4, the miss a full scan; B3 the control's) and ``all_matches_arrays``
     (B6), each equal to
     the host C++ engine over the whole file, count and matches to the corpus
@@ -1070,7 +1075,7 @@ def stream_phase(h):
                 walls[("count", mb)] = run(f"count_matches, {tag}", eng,
                                            lambda: s.count_matches(mm), want["count"],
                                            ["bitap_count"], n=n, chunk=chunk, passes=1)
-                run(f"count_matches AMT_BITAP=0, {tag}", dense_eng,
+                run(f"count_matches dense control, {tag}", dense_eng,
                     lambda: dense.count_matches(mm), want["count"], ["dense_count"],
                     into=control, n=n, chunk=chunk, passes=1)
                 run(f"contains_any hit, {tag}", eng, lambda: s.contains_any(mm), True,
@@ -1078,7 +1083,7 @@ def stream_phase(h):
                 walls[("miss", mb)] = run(f"contains_any miss, {tag}", miss_eng,
                                           lambda: h.miss.contains_any(mm), False,
                                           ["bitap_contains"], n=n, chunk=chunk, passes=1)
-                run(f"contains_any miss AMT_BITAP=0, {tag}", miss_dense_eng,
+                run(f"contains_any miss dense control, {tag}", miss_dense_eng,
                     lambda: h.miss_dense.contains_any(mm), False, ["dense_contains"],
                     into=control, n=n, chunk=chunk, passes=1)
                 walls[("matches", mb)] = run(f"all_matches_arrays, {tag}", eng,
@@ -1618,6 +1623,13 @@ def main() -> int:
     from alfred_margaret_tpu_torch.utils import utf8
     from alfred_margaret_tpu_torch.utils.device import nvidia_smi_line
 
+    def dense_control(s):
+        """A searcher over ``s``'s machine whose device engine is the dense
+        engine: the control of a bitap-eligible set."""
+        d = Searcher(CASE_SENSITIVE, s.needles, machine=s.automaton, device="cuda")
+        d._engine._device_eng = DenseAcEngine(s.automaton, device=d.device)
+        return d
+
     dev = torch.device("cuda", 0)
     gpu = torch.cuda.get_device_name(0)
     check("H100" in gpu, f"expected an H100, found {gpu!r}")
@@ -1750,7 +1762,7 @@ def main() -> int:
         ("bitap_count", "overlap and suffix needles", ["ab", "b", "abc", "zz"]),
         ("bitap_count", "duplicate needles", ["x", "x", "yy", "x"]),
         ("bitap_count", "two words (V=2)", v2),
-        ("dense_count", "bench needles, AMT_BITAP=0", NEEDLES),
+        ("dense_count", "bench needles, dense engine", NEEDLES),
         ("dense_count", "30 needles, packing 2", pk2),
         ("dense_count", "NUL needles, not zero-inert", ["a\x00b", "\x00\x00", "xyz"]),
         ("dense_count", "30 random needles", random_needles(30, 30)),
@@ -1945,11 +1957,8 @@ def main() -> int:
     host = CppAcEngine(machine_of(NEEDLES))
     searcher = Searcher.build(CASE_SENSITIVE, NEEDLES)  # the default device: the card
     check(searcher.device == dev, f"Searcher defaulted to {searcher.device}")
-    with mock.patch.dict(os.environ, {"AMT_BITAP": "0"}):  # dense controls
-        dense_searcher = Searcher(
-            CASE_SENSITIVE, searcher.needles, machine=searcher.automaton, device="cuda"
-        )
-        dense_eng = dense_searcher._engine.device_engine()
+    dense_searcher = dense_control(searcher)
+    dense_eng = dense_searcher._engine.device_engine()
     bitap_eng = searcher._engine.device_engine()
     check(isinstance(bitap_eng, BitapAcEngine), f"main path took {type(bitap_eng).__name__}")
     check(type(dense_eng) is DenseAcEngine, f"control took {type(dense_eng).__name__}")
@@ -1982,12 +1991,9 @@ def main() -> int:
     # -- containsAny, containsAll and allMatches at the benchmark's size -----
     miss = Searcher.build(CASE_SENSITIVE, MISS_NEEDLES)
     absent = Searcher.build(CASE_SENSITIVE, NEEDLES + ["SHORTS"])
-    with mock.patch.dict(os.environ, {"AMT_BITAP": "0"}):  # dense controls
-        miss_dense = Searcher(CASE_SENSITIVE, miss.needles, machine=miss.automaton, device="cuda")
-        absent_dense = Searcher(CASE_SENSITIVE, absent.needles, machine=absent.automaton,
-                                device="cuda")
-        for s in (miss_dense, absent_dense):
-            check(type(s._engine.device_engine()) is DenseAcEngine, "control is not dense")
+    miss_dense, absent_dense = dense_control(miss), dense_control(absent)
+    for s in (miss_dense, absent_dense):
+        check(type(s._engine.device_engine()) is DenseAcEngine, "control is not dense")
     staged_miss = miss.stage(data)
     staged_absent = absent.stage(data)
     torch.cuda.synchronize()
@@ -2040,9 +2046,8 @@ def main() -> int:
                "digits + 1 needle": digits_hit}
     s100 = Searcher.build(CASE_SENSITIVE, c2)
     absent100 = Searcher.build(CASE_SENSITIVE, c2 + ["SHORTS"])
-    with mock.patch.dict(os.environ, {"AMT_FILTER": "0"}):  # the control: no screen
-        nofilter = Searcher(CASE_SENSITIVE, s100.needles, machine=s100.automaton)
-        check(nofilter._engine.device_engine()._filter_tables is None, "control has a screen")
+    nofilter = Searcher(CASE_SENSITIVE, s100.needles, machine=s100.automaton)
+    nofilter._engine.device_engine()._filter_tables = None  # the control: no screen
     eng2 = s100._engine.device_engine()
     for s in (s100, absent100):
         check(type(s._engine.device_engine()) is Comb16AcEngine,
@@ -2080,7 +2085,7 @@ def main() -> int:
     staged_absent2 = absent100.stage(data2)
     ops2 = [(f"contains_any {k}", "main path", (lambda v=v: s100.contains_any(v)))
             for k, v in st2.items()]
-    ops2 += [(f"contains_any {k}", "AMT_FILTER=0", (lambda v=v: nofilter.contains_any(v)))
+    ops2 += [(f"contains_any {k}", "unscreened", (lambda v=v: nofilter.contains_any(v)))
              for k, v in st2.items()]
     ops2 += [
         ("contains_all true", "main path", lambda: s100.contains_all(st2["config 2"])),
@@ -2106,7 +2111,7 @@ def main() -> int:
             tally(c16_control, used)
     for name in ("comb16_count", "comb16_contains", "matchbits_comb16", "filter_contains"):
         check(c16_main.get(name, 0) > 0, f"{name} was not launched by the comb16 path")
-    print(f"comb16 path: every answer == host C++ == AMT_FILTER=0 control; "
+    print(f"comb16 path: every answer == host C++ == unscreened control; "
           f"launches {c16_main}, control {c16_control}")
 
     # -- the dense path: 30 needles at 128 MiB ---------------------------------
@@ -2232,13 +2237,14 @@ def main() -> int:
     torch.cuda.synchronize()
     stage5_s = time.perf_counter() - t0
 
-    def under(env, fn):
-        def call():
-            with mock.patch.dict(os.environ, env):
-                return fn()
-        return call
-
-    per_group = {"AMT_FUSED_GROUPS": "0", "AMT_FILTER": "0"}
+    # The controls: the same machine's grouped engine with no screen, and
+    # with no screen and no fused table set (the groups' own passes).
+    per_group = Searcher(CASE_SENSITIVE, s1000.needles, machine=s1000.automaton)
+    unscreened = Searcher(CASE_SENSITIVE, s1000.needles, machine=s1000.automaton)
+    for s in (per_group, unscreened):
+        s._engine.device_engine()._filter_tables = None
+    pg = per_group._engine.device_engine()
+    pg._fused_tried = pg._fused_sticky_tried = True
     ops5 = [("count_matches", "main path", lambda: s1000.count_matches(st5["config 5"]))]
     ops5 += [(f"contains_any {k}", "main path", (lambda v=v: s1000.contains_any(v)))
              for k, v in st5.items()]
@@ -2246,13 +2252,11 @@ def main() -> int:
         ("contains_all true", "main path", lambda: s1000.contains_all(staged5_all)),
         ("contains_all false", "main path", lambda: s1000.contains_all(st5["config 5"])),
         ("all_matches_arrays", "main path", lambda: s1000.all_matches_arrays(st5["config 5"])),
-        ("count_matches", "AMT_FUSED_GROUPS=0",
-         under(per_group, lambda: s1000.count_matches(st5["config 5"]))),
+        ("count_matches", "per group", lambda: per_group.count_matches(st5["config 5"])),
     ]
-    ops5 += [(f"contains_any {k}", "AMT_FUSED_GROUPS=0",
-              under(per_group, lambda v=v: s1000.contains_any(v))) for k, v in st5.items()]
-    ops5 += [(f"contains_any {k}", "AMT_FILTER=0",
-              under({"AMT_FILTER": "0"}, lambda v=v: s1000.contains_any(v)))
+    ops5 += [(f"contains_any {k}", "per group", (lambda v=v: per_group.contains_any(v)))
+             for k, v in st5.items()]
+    ops5 += [(f"contains_any {k}", "unscreened", (lambda v=v: unscreened.contains_any(v)))
              for k, v in st5.items()]
     # The kernels each main-path operation must launch, and no other: each
     # extraction runs B15 for every comb32 group, B17 for those with matches,
@@ -2273,8 +2277,8 @@ def main() -> int:
         "all_matches_arrays": extract5,
     }
     control_kernels = {
-        "AMT_FUSED_GROUPS=0": {"comb_count", "comb16_count", "comb_contains", "comb16_contains"},
-        "AMT_FILTER=0": {"comb16_contains_grouped"},
+        "per group": {"comb_count", "comb16_count", "comb_contains", "comb16_contains"},
+        "unscreened": {"comb16_contains_grouped"},
     }
     g_main, g_control = {}, {}
     for op, who, used in run_ops(ops5, want5):
@@ -2293,7 +2297,7 @@ def main() -> int:
                  "comb_count", "comb_states", "matchbits_comb16"):
         check(g_main.get(name, 0) > 0, f"{name} was not launched by the grouped path")
     print(f"grouped path: stage 5 x {CORPUS_BYTES} bytes {stage5_s:.3f} s; every answer == "
-          f"host C++ == AMT_FUSED_GROUPS=0 control == AMT_FILTER=0 control; launches "
+          f"host C++ == per-group control == unscreened control; launches "
           f"{g_main}, control {g_control}")
 
     def launched(fn):
@@ -2476,9 +2480,8 @@ def main() -> int:
     check(lay_ci is not None and lay_ci.ci and lay_ci.trap is None
           and any(w.trap_endmask for w in lay_ci.words),
           f"IgnoreCase bench: not the byte-class bitap with an embedded trap ({type(eng_ci)})")
-    with mock.patch.dict(os.environ, {"AMT_BITAP": "0"}):  # the control: B1 on composed tables
-        ci1_dense = MatchEngine(ci1.machine, device=dev)
-        check(type(ci1_dense.device_engine()) is DenseAcEngine, "IgnoreCase control is not dense")
+    ci1_dense = MatchEngine(ci1.machine, device=dev)  # the control: B1 on composed tables
+    ci1_dense._device_eng = DenseAcEngine(ci1.machine, device=dev)
     host_ci = CppAcEngine(ci1.machine)
     want_ci = host_answers(host_ci, data_ci, len(NEEDLES))
     want_ci["contains_any miss"] = CppAcEngine(miss_ci._engine._ci.machine).first_hit(data_ci) >= 0
@@ -2507,16 +2510,16 @@ def main() -> int:
     ctrl = lambda op: (lambda: getattr(ci1_dense, op)(staged_ci, CASE_SENSITIVE))  # noqa: E731
     ops_ci = [
         ("count_matches", "main path", lambda: s_ci.count_matches(staged_ci)),
-        ("count_matches", "AMT_BITAP=0", ctrl("count")),
+        ("count_matches", "dense control", ctrl("count")),
         ("contains_any", "main path", lambda: s_ci.contains_any(staged_ci)),
-        ("contains_any", "AMT_BITAP=0", ctrl("contains_any")),
+        ("contains_any", "dense control", ctrl("contains_any")),
         ("contains_any miss", "main path", lambda: miss_ci.contains_any(staged_miss_ci)),
         ("contains_all", "main path", lambda: s_ci.contains_all(staged_ci)),
-        ("contains_all", "AMT_BITAP=0", lambda: bool(ci1_dense.value_presence(
+        ("contains_all", "dense control", lambda: bool(ci1_dense.value_presence(
             staged_ci, CASE_SENSITIVE).all())),
         ("contains_all false", "main path", lambda: absent_ci.contains_all(staged_absent_ci)),
         ("all_matches_arrays", "main path", lambda: s_ci.all_matches_arrays(staged_ci)),
-        ("all_matches_arrays", "AMT_BITAP=0",
+        ("all_matches_arrays", "dense control",
          lambda: dataclasses.astuple(ci1_dense.matches(staged_ci, CASE_SENSITIVE))[:2]),
     ]
     expect_ci = {"count_matches": {"bitap_count_trap": 1},
@@ -3524,8 +3527,8 @@ def main() -> int:
           f"count {ref30}: B1 dense_count {b1[0]:.4f} / {b1[1]:.4f} ms, B8 comb16_count "
           f"{b8[0]:.4f} / {b8[1]:.4f} ms (turns B1, B8, B8, B1; {card})")
 
-    # B9 against the per-group passes it replaces (the AMT_FUSED_GROUPS=0
-    # control: one B15 or B8 launch per group), on the config-5 corpus.
+    # B9 against the per-group passes it replaces (the per-group control:
+    # one B15 or B8 launch per group), on the config-5 corpus.
     check(eng5.count_staged(st5c) == want5["count_matches"], "grouped count after timing")
     turns5 = []
     for label, fn in (("B9", lambda: eng5.stream_counts(st5c)),

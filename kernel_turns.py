@@ -225,12 +225,10 @@ def main() -> int:
         return start.elapsed_time(stop) / a.runs
 
     def dense_under_control(needles):
-        """The searcher the dispatcher builds for ``needles`` with
-        ``AMT_BITAP=0`` (the dense engine), and that engine."""
-        with mock.patch.dict(os.environ, {"AMT_BITAP": "0"}):
-            s = Searcher.build(CASE_SENSITIVE, needles)
-            eng = s._engine.device_engine()
-        assert type(eng) is DenseAcEngine, type(eng)
+        """A searcher over ``needles`` whose device engine is the dense
+        engine (the control of a bitap-eligible set), and that engine."""
+        s = Searcher.build(CASE_SENSITIVE, needles)
+        s._engine._device_eng = eng = DenseAcEngine(s.automaton, device=s.device)
         return s, eng
 
     # -- the main paths' inputs ---------------------------------------------------------
@@ -252,8 +250,8 @@ def main() -> int:
     m421 = make_mesh([dev] * 8, data=4, seq=2)
     eb, e_miss = sb.distributed(m421), sm.distributed(m421)
     assert eb.sticky_route() == e_miss.sticky_route() == "bitap"
-    with mock.patch.dict(os.environ, {"AMT_BITAP": "0"}):
-        e_miss_dense = DistributedAcEngine(sm.automaton, m421)
+    e_miss_dense = DistributedAcEngine(sm.automaton, m421)
+    e_miss_dense._bitap_lay = None  # the mesh's dense steps
     assert e_miss_dense.sticky_route() == "dense"
     sbm, s_miss_m = eb.stage(datab), e_miss.stage(datab)
     # IgnoreCase: the case-scrambled bench corpus on the composed machine's

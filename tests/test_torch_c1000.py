@@ -8,9 +8,9 @@ no single pass for the set, so ``MatchEngine`` builds ``GroupedAcEngine``,
 whose first count builds the uniform table set and runs B9 (its plain
 version here) once over every group.  The count must equal
 ``perfbench/reference_keyed.py``, ``perfbench/reference.py`` and
-``bytes.find`` (exact), and the per-group route (``AMT_FUSED_GROUPS=0``)
-the same.  The build runs once, under the profiler, so that the grouped
-engine's spans are read on the normal path too.  The keyed reference is
+``bytes.find`` (exact), and the per-group route (the groups' own counts,
+summed) the same.  The build runs once, under the profiler, so that the
+grouped engine's spans are read on the normal path too.  The keyed reference is
 held to ``bytes.find`` across block seams and its control to the count of
 independent blocks; ``configs/c1000.json`` to config 5's draw; the reader
 ``group_passes_per_query`` to synthetic traces.
@@ -85,9 +85,10 @@ def test_c1000_count_equals_every_reference(c1000, monkeypatch):
 
 def test_c1000_per_group_route_is_the_same_count(c1000, monkeypatch):
     s, st = c1000["s"], c1000["st"]
+    eng = s._engine.device_engine()
+    dst = eng.adopt_staged(st.device)
     calls = _b9_calls(monkeypatch)
-    monkeypatch.setenv("AMT_FUSED_GROUPS", "0")
-    assert s.count_matches(st) == c1000["first"]
+    assert sum(e.count_staged(dst) for e in eng.engines) == c1000["first"]
     assert calls == []
 
 

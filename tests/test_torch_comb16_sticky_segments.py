@@ -187,9 +187,11 @@ def test_b10_callers_pass_the_plans_overlap(monkeypatch):
     seen = []
     _spy(monkeypatch, t16, "comb16_contains", 11, seen)
     m = ac.build([(x, i) for i, x in enumerate(CONFIG2)])
-    for env in ("1", "0"):  # through the screen's fall-through, and without the screen
-        monkeypatch.setenv("AMT_FILTER", env)
+    for screened in (True, False):  # through the screen's fall-through, and without it
         eng = Comb16AcEngine(m, device=CPU, n_streams=16, t_tile=32)
+        assert eng._filter_tables is not None
+        if not screened:
+            eng._filter_tables = None
         hay = b"0123456789 ,;:!" * 30 + CONFIG2[40].encode()  # digits fire the chains
         st = eng.stage(hay)
         assert eng.contains_staged(st) is True

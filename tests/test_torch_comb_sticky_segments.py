@@ -28,7 +28,7 @@ scan (``csrc/stage.cuh``).
   without a launch, the wrapper a negative overlap and a root base that is
   the absorbing one; ``CombAcEngine.sticky_args`` ends with the plan's
   overlap, which ``contains_staged`` passes on, also for the grouped
-  engine's comb32 groups under ``AMT_FUSED_GROUPS=0``.
+  engine's comb32 groups where the fused scans are not built.
 
 Tolerance: exact equality of every base.
 """
@@ -282,11 +282,11 @@ def test_b16_callers_pass_the_plans_overlap(monkeypatch):
     assert eng.contains_staged(st) is True
     assert eng.contains_staged_early(st, n_segments=4) is True
     assert seen == [st.plan.overlap] * 2 == [tm.max_needle_bytes - 1] * 2
-    # The grouped engine's comb32 groups, one sticky scan each under
-    # AMT_FUSED_GROUPS=0, warm up over the full set's overlap.
+    # The grouped engine's comb32 groups, one sticky scan each where the
+    # fused scans are not built, warm up over the full set's overlap.
     seen.clear()
-    monkeypatch.setenv("AMT_FUSED_GROUPS", "0")
     g = GroupedAcEngine(_machines(MID)[1], device=CPU, max_rows=4, n_streams=256, t_tile=64)
+    g._fused_tried = True
     gst = g.stage(np.frombuffer(MID_HAY, np.uint8))
     n32 = sum(type(e) is CombAcEngine for e in g.engines)
     assert n32 > 0

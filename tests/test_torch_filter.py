@@ -202,10 +202,15 @@ def test_attach_filter_switches(monkeypatch):
     _, tm = _machines(CONFIG2)
     assert t16.Comb16AcEngine(tm, device=CPU, n_streams=8, t_tile=32)._filter_tables is not None
     assert t16.Comb16AcEngine(tm, device=CPU, n_streams=8, t_tile=40)._filter_tables is None
+    # The JAX package's AMT_FILTER=0 changes nothing here: the screen is
+    # attached and answers; detaching it is the unscreened control.
     monkeypatch.setenv("AMT_FILTER", "0")
     eng = t16.Comb16AcEngine(tm, device=CPU, n_streams=8, t_tile=32)
-    assert eng._filter_lay is None and eng._filter_tables is None
-    assert tfilter.filter_contains(eng, eng.stage(b"abc " * 40)) is None
+    assert eng._filter_lay is not None and eng._filter_tables is not None
+    st = eng.stage(np.frombuffer(fire_free(600), np.uint8))
+    assert tfilter.filter_contains(eng, st) is False
+    eng._filter_tables = None
+    assert tfilter.filter_contains(eng, st) is None
 
 
 def test_filter_strikes_and_reset(monkeypatch):

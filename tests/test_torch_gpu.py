@@ -1376,9 +1376,6 @@ def test_s6_on_one_card(cuda):
     """The mesh's S6 on a (4,2,1) mesh of cuda:0: each shard's dense sticky
     launch, with the plan's overlap, equals its plain version on a hit and a
     miss corpus; the answers equal the single-device ``Searcher``'s."""
-    import os
-    from unittest import mock
-
     from alfred_margaret_tpu_torch import CASE_SENSITIVE, Searcher
     from alfred_margaret_tpu_torch.parallel import DistributedAcEngine, make_mesh
 
@@ -1386,8 +1383,8 @@ def test_s6_on_one_card(cuda):
     hit = np.frombuffer(synth_corpus(NEEDLES3, 1 << 20, hit_fraction=0.001, seed=13), np.uint8)
     miss = np.frombuffer(b"shirt short tshir " * 60000, np.uint8)
     s = Searcher.build(CASE_SENSITIVE, NEEDLES3)
-    with mock.patch.dict(os.environ, {"AMT_BITAP": "0"}):
-        eng = DistributedAcEngine(s.automaton, mesh)
+    eng = DistributedAcEngine(s.automaton, mesh)
+    eng._bitap_lay = None  # the mesh's dense steps
     assert eng.sticky_route() == "dense"
     for data in (hit, miss):
         st = eng.stage(data)

@@ -17,8 +17,8 @@
 * ``GroupedAcEngine`` on the CPU against the JAX ``GroupedPallasAcEngine``
   (count and containsAny) and the scalar oracles (count, containsAny,
   matches and value presence), with the JAX engine's groups and its fusion
-  decisions: fused and with ``AMT_FUSED_GROUPS=0``, a NUL-needle group beside
-  zero-inert groups on one staging, the split-and-retry, the 12-word screen
+  decisions: fused and per group (the fused tables left unbuilt), a
+  NUL-needle group beside zero-inert groups on one staging, the split-and-retry, the 12-word screen
   in front of the groups, and a fused kernel that fails, which raises.
 
 Tolerance: exact equality of every group, array, count, flag and match.
@@ -458,15 +458,20 @@ def test_fused_off_is_the_control(monkeypatch):
     st = [eng._stage(h) for h in hays]
     fused = [(eng.count_staged(s), eng.contains_staged(s)) for s in st]
     assert calls == {"B9": 3, "B11": 3}
-    monkeypatch.setenv("AMT_FUSED_GROUPS", "0")
-    assert eng._fused_setup() is None and eng._fused_sticky_setup() is None
-    assert [(eng.count_staged(s), eng.contains_staged(s)) for s in st] == fused
+    # The groups' own passes, run directly: the same answers, no fused launch.
+    per_group = [(sum(e.count_staged(s) for e in eng.engines),
+                  any(e.contains_staged(s) for e in eng.engines)) for s in st]
+    assert per_group == fused
     assert calls == {"B9": 3, "B11": 3}
     assert [c for c, _ in fused] == [ac.count_matches(tm, h) for h in hays]
-    # Set before the first use, the switch keeps the fused tables unbuilt.
+    # Marked tried before its first use, an engine keeps the fused tables
+    # unbuilt and runs the groups' own passes.
     fresh = GroupedAcEngine(tm, device=CPU, max_rows=5, n_streams=256, t_tile=64)
-    assert fresh.count(MID_HAY) == fused[0][0]
-    assert fresh._fused is None and not fresh._fused_tried
+    fresh._filter_tables = None
+    fresh._fused_tried = True
+    assert [(fresh.count_staged(s), fresh.contains_staged(s)) for s in st] == fused
+    assert fresh._fused is None and fresh._fused_sticky_setup() is None
+    assert calls == {"B9": 3, "B11": 3}
 
 
 def test_fused_kernel_error_raises(monkeypatch, recwarn):
@@ -530,7 +535,7 @@ def test_split_and_retry(monkeypatch):
         (x.pos, x.value) for x in ac.all_matches(tm, hay)]
 
 
-def test_top_level_screen_replaces_the_groups(monkeypatch):
+def test_top_level_screen_replaces_the_groups():
     _, tm = _machines(MID)
     eng = GroupedAcEngine(tm, device=CPU, max_rows=5, n_streams=256, t_tile=64)
     lay = eng._filter_lay
@@ -540,11 +545,9 @@ def test_top_level_screen_replaces_the_groups(monkeypatch):
     want = jfilter.plan_filter(jac.build([(n, i) for i, n in enumerate(MID)]), max_words=12)
     assert (lay.n_words, lay.shorts) == (want.n_words, want.shorts)
     assert eng.contains(b"0 " * 2000) is False  # no chain fires: the screen says False
-    monkeypatch.setenv("AMT_FILTER", "0")
-    off = GroupedAcEngine(tm, device=CPU, max_rows=5, n_streams=256, t_tile=64)
-    assert off._filter_tables is None
-    assert any(getattr(e, "_filter_tables", None) is None for e in off.engines)
-    assert off.contains(MID_HAY) is True
+    # Detached, the screen leaves every containsAny to the groups' scans.
+    eng._filter_tables = None
+    assert eng.contains(MID_HAY) is True and eng.contains(b"0 " * 2000) is False
 
 
 def test_adopt_staged_needs_the_full_overlap():

@@ -6,18 +6,20 @@ Mirrors ``tests/test_parallel.py`` on ``["cpu"] * n`` meshes with
 versions: mesh shapes (8,1,1), (4,2,1), (2,4,1) and (1,8,1), the needle
 axis, empty and small inputs, staged reuse, containsAny and containsAll,
 ``matches_arrays`` for every mesh shape, the empty needle on a needle axis,
-the ``CapacityError`` text, the bitap kill switch, IgnoreCase with a needle
-axis, and the composed byte-class bitap without and with trap tracks and its
-recovery.  Answers are held against ``ac.count_matches`` / ``ac.all_matches``,
-the port's single-device engine and the JAX engine with ``inner="xla"``.
-Three tests hold the per-stream outputs of every step against the JAX engine
-with ``inner="pallas", interpret=True``, one per inner: bitap on (2,2,1),
-uniform comb16 on (2,1,2) (count and sticky; its states and bitmap steps in
-interpret mode take minutes, and the other two tests cover them), dense on
-(2,2,2) with ``AMT_DIST_COMB16=0``.  One more holds B11's one-group mode's
-plain version against the JAX kernel ``_make_c16_contains_kernel_dyn`` with
-``n_groups=1`` in interpret mode: padded streams, early absorption and no
-absorption.  Tolerance: exact equality (every output is an integer).
+the ``CapacityError`` text, the dense steps of a bitap set and of a comb16
+set, IgnoreCase with a needle axis, and the composed byte-class bitap
+without and with trap tracks and its recovery.  Answers are held against
+``ac.count_matches`` / ``ac.all_matches``, the port's single-device engine
+and the JAX engine with ``inner="xla"``.  Three tests hold the per-stream
+outputs of every step against the JAX engine with ``inner="pallas",
+interpret=True``, one per inner: bitap on (2,2,1), uniform comb16 on
+(2,1,2) (count and sticky; its states and bitmap steps in interpret mode
+take minutes, and the other two tests cover them), dense on (2,2,2) without
+the comb16 tables (the JAX engine under ``AMT_DIST_COMB16=0``).  One more
+holds B11's one-group mode's plain version against the JAX kernel
+``_make_c16_contains_kernel_dyn`` with ``n_groups=1`` in interpret mode:
+padded streams, early absorption and no absorption.  Tolerance: exact
+equality (every output is an integer).
 """
 
 import dataclasses
@@ -213,24 +215,27 @@ def test_capacity_error_text():
     assert eng.count_route() == "comb16" and eng.sticky_route() == "comb16"
 
 
-def test_bitap_inner_kill_switch(monkeypatch):
-    monkeypatch.setenv("AMT_BITAP", "0")
+def test_bitap_inner_dense_steps():
+    """A bitap set's dense steps, reached with ``use_bitap=False``."""
     _, m = _machines([b"abc", b"bcd", b"gg"])
     hay = b"xabcdgg" * 500
     eng = DistributedAcEngine(m, _mesh(2, 2), inner="pallas")
-    assert eng._bitap_lay is None and eng.count_route() == "dense"
-    assert eng.sticky_route() == "dense"
-    assert eng.count(hay) == ac.count_matches(m, hay)
-    assert eng.contains_any(hay) and not eng.contains_any(b"zz" * 300)
+    assert eng._bitap_lay is not None and eng.count_route() == "bitap"
+    assert eng.count_route(use_bitap=False) == eng.sticky_route(use_bitap=False) == "dense"
+    st = eng.stage(hay)
+    assert int(eng.stream_counts(st, use_bitap=False).sum()) == ac.count_matches(m, hay)
+    assert eng.sticky_hits(st, use_bitap=False) > 0
+    assert eng.sticky_hits(eng.stage(b"zz" * 300), use_bitap=False) == 0
 
 
-def test_comb16_inner_kill_switch(monkeypatch):
+def test_comb16_inner_dense_steps():
+    """A comb16 set's dense steps, reached by dropping its comb16 tables."""
     needles, hay = _comb16_set(70, 100)
     _, m = _machines(needles)
-    assert DistributedAcEngine(m, _mesh(2, 1, 2), inner="pallas").count_route() == "comb16"
-    monkeypatch.setenv("AMT_DIST_COMB16", "0")
     eng = DistributedAcEngine(m, _mesh(2, 1, 2), inner="pallas")
-    assert eng._c16g is None and eng.count_route() == "dense" and eng.sticky_route() == "dense"
+    assert eng.count_route() == "comb16"
+    eng._c16g = None
+    assert eng.count_route() == "dense" and eng.sticky_route() == "dense"
     assert eng.count(hay) == ac.count_matches(m, hay)
     assert eng.contains_any(hay) and not eng.contains_any(b"zq" * 300)
 
@@ -347,6 +352,8 @@ def _check_steps(needles, hay, shape, route, full=True):
     jm, m = _machines(needles)
     jeng = JaxEngine(jm, _jmesh(*shape), inner="pallas", interpret=True)
     eng = DistributedAcEngine(m, _mesh(*shape), inner="pallas")
+    if route == "dense":
+        eng._c16g = None  # the mesh's dense steps
     assert eng.count_route() == route and eng.sticky_route() == route
     jst, st = jeng.stage(hay), eng.stage(hay)
     assert dataclasses.astuple(jst.plan) == dataclasses.astuple(st.plan)
@@ -376,7 +383,7 @@ def test_steps_match_jax_comb16():
 
 
 def test_steps_match_jax_dense(monkeypatch):
-    monkeypatch.setenv("AMT_DIST_COMB16", "0")
+    monkeypatch.setenv("AMT_DIST_COMB16", "0")  # the JAX engine's dense steps
     needles, hay = _mkset()
     _check_steps(needles, hay[:8000], (2, 2, 2), "dense")
 
@@ -551,6 +558,7 @@ def test_plan_bitap_auto_matches_jax(monkeypatch, needles, ci):
         return [(w.seed, w.endmask, w.fields, w.trap_endmask, w.btab.tolist())
                 for w in lay.all_words()], lay.ci, lay.trap is not None
 
-    assert words(plan_bitap_auto(m)) == words(jax_plan(jm))
-    monkeypatch.setenv("AMT_BITAP", "0")
-    assert plan_bitap_auto(m) is None
+    want = words(plan_bitap_auto(m))
+    assert want == words(jax_plan(jm))
+    monkeypatch.setenv("AMT_BITAP", "0")  # the JAX package's switch changes nothing here
+    assert words(plan_bitap_auto(m)) == want

@@ -115,14 +115,16 @@ def test_searcher_operations_match_jax_searcher(name, needles, hay):
         assert not want_any and not want_all
 
 
-def test_contains_all_needs_every_needle(monkeypatch):
+def test_contains_all_needs_every_needle():
     needles = NEEDLES3 + ["SHORTS"]  # upper case: not in the lower-case corpus
     hay = synth_corpus(NEEDLES3, 1 << 14, hit_fraction=0.05, seed=8)
-    for bitap, kind in (("1", BitapAcEngine), ("0", DenseAcEngine)):
-        monkeypatch.setenv("AMT_BITAP", bitap)
+    for kind in (BitapAcEngine, DenseAcEngine):
         for backend in _BACKENDS:
             s = Searcher.build(CASE_SENSITIVE, needles, engine=backend, device="cpu")
             full = Searcher.build(CASE_SENSITIVE, NEEDLES3, engine=backend, device="cpu")
+            if kind is DenseAcEngine:  # the dense engine on bitap-eligible sets
+                for x in (s, full):
+                    x._engine._device_eng = DenseAcEngine(x.automaton, device="cpu")
             assert s.contains_all(hay) is False and s.contains_any(hay) is True
             assert full.contains_all(full.stage(hay)) is True
         assert type(full._engine.device_engine()) is kind
@@ -202,8 +204,9 @@ def test_port_bitap_choice_implies_jax_bitap(needles):
 
 
 def test_dispatcher_amt_bitap_off(monkeypatch):
+    # The JAX package's AMT_BITAP=0 changes nothing here: the set decides.
     monkeypatch.setenv("AMT_BITAP", "0")
-    assert type(make_engine(_machine(NEEDLES3), "cpu")) is DenseAcEngine
+    assert type(make_engine(_machine(NEEDLES3), "cpu")) is BitapAcEngine
 
 
 def test_dispatcher_capacity_error():
@@ -326,9 +329,9 @@ hay = b"short tshirts and shorts galore " * 300
 s = port.Searcher.build(port.CASE_SENSITIVE, needles, device="cpu")
 got = s.count_matches(s.stage(hay))
 assert got == ac.count_matches(s.automaton, hay), got
-import os
-os.environ["AMT_BITAP"] = "0"
+from alfred_margaret_tpu_torch.ops.pallas_scan import DenseAcEngine
 d = port.Searcher(port.CASE_SENSITIVE, s.needles, machine=s.automaton, device="cpu")
+d._engine._device_eng = DenseAcEngine(s.automaton, device="cpu")
 assert d.count_matches(hay) == got
 want = ac.all_matches(s.automaton, hay)
 for eng in ("device", "cpp", "python"):

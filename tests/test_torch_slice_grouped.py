@@ -13,7 +13,7 @@ extraction (B15 and B17 for a comb32 group, the hit bitmap with the comb16
 step, B13, for the other), here through the plain torch versions.  Every
 answer must equal the JAX ``Searcher`` on its ``cpp`` backend over the same
 seeded 64 KiB corpus (tolerance: exact equality), with the fused kernels on
-and with ``AMT_FUSED_GROUPS=0``.
+and with the groups' own passes (the fused table sets taken away).
 """
 
 import numpy as np
@@ -161,8 +161,12 @@ def test_config5_contains_any_through_the_screen(slice_, monkeypatch):
 def test_config5_fused_off_is_the_control(slice_, monkeypatch):
     s, ref = slice_
     calls = _kernel_calls(monkeypatch)
-    monkeypatch.setenv("AMT_FUSED_GROUPS", "0")
-    monkeypatch.setenv("AMT_FILTER", "0")
+    # The groups' own passes, unscreened: no fused table set, no screen.
+    eng = s._engine.device_engine()
+    for name in ("_fused", "_fused_sticky", "_filter_tables"):
+        monkeypatch.setattr(eng, name, None)
+    monkeypatch.setattr(eng, "_fused_tried", True)
+    monkeypatch.setattr(eng, "_fused_sticky_tried", True)
     staged = s.stage(CORPUS)
     digits = DIGITS * ((16 << 10) // len(DIGITS))
     assert s.count_matches(staged) == ref.count_matches(CORPUS)

@@ -324,15 +324,15 @@ def test_grouped_no_profiler_no_record_function(no_record_function, monkeypatch)
     assert eng.count_staged(st) == eng.count_staged(st) == want
     assert eng.contains_staged(st) is True
     assert eng._fused is not None and eng._fused_sticky is not None
-    monkeypatch.setenv("AMT_FUSED_GROUPS", "0")
+    monkeypatch.setattr(eng, "_fused", None)  # the groups' own passes
     assert eng.count_staged(st) == want
 
 
 def test_grouped_spans(tmp_path, monkeypatch):
     """One build, one fused table set for the count and one for
     containsAny, each built once; one pass a fused count, holding its
-    readback; ``AMT_FUSED_GROUPS=0``: one pass a group, each holding the
-    group's own readback."""
+    readback; with the fused table set taken away, one pass a group, each
+    holding the group's own readback."""
     (m, eng, hay), spans = _spans(tmp_path, _grouped)
     assert _check_nesting(spans) == {"amt.group.build": 1}
     assert eng.n_groups == 3
@@ -350,7 +350,7 @@ def test_grouped_spans(tmp_path, monkeypatch):
     got, spans = _spans(tmp_path, lambda: eng.contains_staged(st))
     assert got is True
     assert _check_nesting(spans) == {"amt.group.fuse": 1}
-    monkeypatch.setenv("AMT_FUSED_GROUPS", "0")
+    monkeypatch.setattr(eng, "_fused", None)
     got, spans = _spans(tmp_path, lambda: eng.count_staged(st))
     assert got == want
     counts = _check_nesting(spans)
