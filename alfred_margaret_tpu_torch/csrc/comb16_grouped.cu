@@ -71,7 +71,8 @@
 // bank wavefronts by the lanes' differing states and bytes, and each stream
 // byte was read G times.  comb16_chunk_kernel:
 //   * a block holds a chunk of `chunk` groups' tables (the wrapper sizes the
-//     chunk to a shared-memory budget; config 5's 11 groups fit one), and
+//     chunk to a shared-memory budget: config 5's 11 groups go in chunks of
+//     at most four, kernels/segments.py B9_CHUNK_BUDGET), and
 //     each thread steps its stream's chunk chains on every byte: chunk-way
 //     independent chains, each byte read once per block;
 //   * the byte's classes come from a byte-packed [ceil(chunk / 4)][256]

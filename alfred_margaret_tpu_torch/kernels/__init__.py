@@ -36,13 +36,14 @@ from .dense_contains import dense_contains, dense_contains_plain
 from .dense_count import dense_count, dense_count_plain, dense_states, dense_states_plain
 from .filter_contains import filter_contains, filter_contains_plain
 from .matchbits import matchbits, matchbits_plain
+from .screen_count import screen_count, screen_count_plain
 
 #: Every kernel wrapper; each keeps its own ``launches`` count.
 WRAPPERS = (
     dense_count, bitap_count, dense_contains, bitap_contains, matchbits, bitap_presence,
     comb16_count, comb16_contains, filter_contains, comb16_count_grouped,
     comb16_contains_grouped, comb_count, comb_contains, comb_states, dense_states, comb16_states,
-    comb16_contains_base,
+    comb16_contains_base, screen_count,
 )
 
 __all__ = [
@@ -81,4 +82,6 @@ __all__ = [
     "filter_contains_plain",
     "matchbits",
     "matchbits_plain",
+    "screen_count",
+    "screen_count_plain",
 ]

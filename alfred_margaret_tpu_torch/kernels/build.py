@@ -237,6 +237,13 @@ def _bind(lib: ctypes.CDLL) -> None:
         i, i,  # restart, segments
         p, p,  # out, stream
     ]
+    lib.amt_screen_count.restype = i
+    lib.amt_screen_count.argtypes = [
+        p, i, i, p, p,  # streams, T, S, warm, vend
+        p, i, p, i, p,  # bitmap, bits, slots, slot_bits, recs
+        i, i, i,  # key_bytes, overlap, segments
+        p, p, p,  # out, passes, stream
+    ]
     lib.amt_error_string.restype = ctypes.c_char_p
     lib.amt_error_string.argtypes = [i]
 

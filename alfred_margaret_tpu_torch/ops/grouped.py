@@ -23,11 +23,15 @@ Semantics are preserved exactly:
   (``Automaton.hs:367-380``), and same-end same-length needles are
   byte-identical, hence in the same group.
 
-``count_matches`` runs B9 once over every group of a second, uniform
-partition (``partition_uniform16``: every group builds comb16 under one field
-split, so one kernel serves them all), and ``contains_any`` the stride-2
-screen B14 with up to 12 words, then B11 once over the sticky view's uniform
-groups.  ``contains_all`` and ``all_matches`` run each group's match
+``count_matches`` runs ``screen_count`` once (``kernels/screen_count.py``:
+a suffix screen of the needles' keys and exact verification) wherever the
+needle set suits it, which ``plan_screen`` decides from the set alone at
+engine build: no needle under 4 bytes or over 16, at most 8 distinct needles
+sharing a key, raw bytes.  Otherwise it runs B9 once over every group of a
+second, uniform partition (``partition_uniform16``: every group builds comb16
+under one field split, so one kernel serves them all).  ``contains_any``
+runs the stride-2 screen B14 with up to 12 words, then B11 once over the
+sticky view's uniform groups.  ``contains_all`` and ``all_matches`` run each group's match
 extraction and merge: B15 and B17 for a comb32 group, the hit bitmap (B6,
 with the comb16 step B13) for the others.  Where no uniform partition fits,
 or the JAX package's economics guards refuse it (kept as they are, and fed
@@ -36,7 +40,8 @@ them on the H100 is ROADMAP Queue A item 7), the count and containsAny run
 per group (B15, B16, B8, B10, B1-B4).  A fused launch that fails raises:
 nothing falls back.  The build, each fused table set and each count pass
 open the spans ``amt.group.build``, ``amt.group.fuse`` and
-``amt.group.pass`` (``utils/trace.py``), recorded only under a running
+``amt.group.pass`` (``utils/trace.py``), the screen's launch
+``amt.group.screen`` inside its pass, recorded only under a running
 profiler.
 """
 
@@ -52,6 +57,7 @@ from ..kernels.comb16_grouped import (
     comb16_count_grouped,
     comb16_count_grouped_plain,
 )
+from ..kernels.screen_count import plan_screen, screen_count
 from ..models import ac
 from ..models.minimize import count_minimized, minimize_sticky
 from ..utils import trace, utf8
@@ -408,6 +414,10 @@ class GroupedAcEngine:
             self._fused: Optional[FusedGroups] = None
             self._fused_sticky: Optional[FusedGroups] = None
             self._fused_tried = self._fused_sticky_tried = False
+            # The count's suffix screen (``kernels/screen_count.py``), or None
+            # where the needle set does not suit it: then B9 or the groups'
+            # own passes count.
+            self._screen = plan_screen(machine, self.device)
             # One screen of up to 12 words in front of every group: it covers every
             # needle, so the groups' own screens would only fire again on the same
             # corpus.  Where it does not plan (very large sets), they keep theirs.
@@ -523,9 +533,16 @@ class GroupedAcEngine:
         return comb16_count_grouped_plain(*self._count_args(st))
 
     def count_staged(self, st: StagedStreams) -> int:
-        """Total count: one B9 launch where the fused count engaged, else the
-        sum of the groups' own counts; each pass, to its number, in an
-        ``amt.group.pass`` span."""
+        """Total count: one ``screen_count`` launch where the needle set
+        suits the screen (in an ``amt.group.screen`` span), else one B9
+        launch where the fused count engaged, else the sum of the groups' own
+        counts; each pass, to its number, in an ``amt.group.pass`` span."""
+        if self._screen is not None:
+            with trace.span("amt.group.pass"):
+                with trace.span("amt.group.screen"):
+                    counts = screen_count(st.streams, st.warm, st.vend, self._screen,
+                                          st.plan.overlap)
+                return sum_live(counts, st.live_np)
         if self._fused_setup() is None:
             total = 0
             for e in self.engines:

@@ -82,6 +82,7 @@ SPANS = (
     "amt.group.build",  # the partition, the per-group engines and the screen
     "amt.group.fuse",  # a uniform table set for B9 or B11
     "amt.group.pass",  # one count pass over a staging: B9, or one group's own
+    "amt.group.screen",  # the suffix screen's count launch, inside its pass
     # Staging and streaming.
     "amt.stream.chunk",  # one chunk of ``StreamingScanner``
     "amt.stream.cold_prefix",  # the host replay of a chunk's W-byte prefix

@@ -6,7 +6,8 @@ Run from the repository root on a host with one CUDA card (an H100):
 
 It builds the port's CUDA kernels from ``alfred_margaret_tpu_torch/csrc``
 (one ``nvcc`` per source, all at once) and checks each of the seventeen
-kernels (and B11's one-group mode, on the mesh phase's tables) against its
+kernels (and B11's one-group mode, on the mesh phase's tables) and the
+grouped engine's suffix-screen count ``screen_count`` against its
 plain torch version on the card on nineteen machines, and
 the trap parts of B2, B4 and B7 on three IgnoreCase layouts, and the
 engines' answers (``final_states`` and the extraction without the host
@@ -37,8 +38,9 @@ just after (the controls' launches are read apart), the first seven over
   ``all_matches_arrays`` (B15, then B17);
 * ``BASELINE.json`` config 5's first 1,000 needles, which no single-pass
   engine holds, on the needle-grouped engine (seven comb32 groups and one
-  comb16 group, as in the JAX package): ``stage`` -> ``count_matches`` (B9,
-  one launch over the uniform groups), ``contains_any`` through the 12-word
+  comb16 group, as in the JAX package): ``stage`` -> ``count_matches``
+  (``screen_count``, one launch; B9 over the uniform groups as its control),
+  ``contains_any`` through the 12-word
   screen (B14) and then B11 on the config-5 corpus, a fire-free corpus, the
   digits corpus and the digits corpus with one needle of the last group;
   ``contains_all`` true and false and ``all_matches_arrays`` (B15 and B17 for
@@ -123,7 +125,7 @@ just after (the controls' launches are read apart), the first seven over
   ``all_matches_arrays`` (B6), equal to the host C++ engine over the file and
   to the corpus staged whole on the card, and again at chunks of 64 and 96
   MiB; config 2 (B8, B14, B10, B13), config 5's first 300 (B15, B16, B17)
-  and first 1,000 (B9, B14, B11, extraction), composed IgnoreCase with
+  and first 1,000 (``screen_count``, B14, B11, extraction), composed IgnoreCase with
   ``TSHİRT`` across the cuts (the trap parts of B2 and B4, B6) and the
   lowering path on config 5's first 600 (count and ``contains_any``), each
   over 512 MiB; ``Searcher.stage`` past the budget (no device staging, its
@@ -1253,7 +1255,7 @@ def stream_phase(h):
     # (The 12-word screen may have retired by its strike rule in the
     # grouped path: B11 decides then.)
     tier("config 5, 1,000 grouped", h.s1000, data5, near_end(digits, h.last5), {
-        "count_matches": ["comb16_count_grouped"], "contains_any": ["comb16_contains_grouped"],
+        "count_matches": ["screen_count"], "contains_any": ["comb16_contains_grouped"],
         "contains_any, a needle in the last chunk": ["comb16_contains_grouped"],
         "all_matches_arrays": ["comb_states"]})
     del data5
@@ -1278,7 +1280,7 @@ def stream_phase(h):
         data600[c - 5 : c - 5 + len(TRAP_WORD)] = np.frombuffer(TRAP_WORD, np.uint8)
     tier("IgnoreCase lowering, config 5's 600", h.s600, data600,
          near_end(digits, h.n600[-1].upper().encode()),
-         {"count_matches": ["comb16_count_grouped"],
+         {"count_matches": ["screen_count"],
           "contains_any, a needle in the last chunk": ["comb16_contains_grouped"]},
          host_eng=(h.s600._engine.device_engine(), CppAcEngine(h.s600.automaton)),
          lowering=True)
@@ -1608,6 +1610,7 @@ def main() -> int:
     from alfred_margaret_tpu_torch.kernels.dense_count import dense_count_design, dense_states_design
     from alfred_margaret_tpu_torch.kernels.filter_contains import filter_contains_design
     from alfred_margaret_tpu_torch.kernels.matchbits import matchbits_design
+    from alfred_margaret_tpu_torch.kernels.screen_count import screen_count_design
     from alfred_margaret_tpu_torch.kernels.segments import (
         Design, chunk_smem_bytes, comb_smem_bytes, dense_bits_smem_bytes, filter_smem_bytes)
     from alfred_margaret_tpu_torch.models import ac, case_dfa
@@ -1828,6 +1831,17 @@ def main() -> int:
         engine's."""
         m = eng.machine
         same("comb16_count_grouped", eng.stream_counts(st), eng.stream_counts_plain(st), label)
+        if eng._screen is not None:  # the count's suffix screen, with its pass counter
+            sc = eng._screen
+            sc.passes.zero_()
+            got = K.screen_count(st.streams, st.warm, st.vend, sc, st.plan.overlap)
+            torch.cuda.synchronize()
+            k_passes = int(sc.passes)
+            sc.passes.zero_()
+            same("screen_count", got, K.screen_count_plain(st.streams, st.warm, st.vend, sc), label)
+            check(k_passes == int(sc.passes) > 0,
+                  f"{label}: screen passes {k_passes} != plain {int(sc.passes)}")
+            same("screen_count", got, eng.stream_counts(st), f"{label}, against B9")
         args = eng.sticky_args(st)
         same("comb16_contains_grouped", K.comb16_contains_grouped(*args),
              K.comb16_contains_grouped_plain(*args), label)
@@ -1872,6 +1886,7 @@ def main() -> int:
     build5_s = time.perf_counter() - t0
     check(type(eng5) is GroupedAcEngine, f"1,000 needles took {type(eng5).__name__}")
     check(fused5 is not None and sticky5 is not None, "1,000 needles: a fused setup is off")
+    check(eng5._screen is not None, "1,000 needles: no suffix screen for the count")
     lay5 = eng5._filter_lay
     check(lay5 is not None and lay5.n_words == 12, "1,000 needles: not a 12-word screen")
     kinds = {}
@@ -2237,14 +2252,17 @@ def main() -> int:
     torch.cuda.synchronize()
     stage5_s = time.perf_counter() - t0
 
-    # The controls: the same machine's grouped engine with no screen, and
-    # with no screen and no fused table set (the groups' own passes).
+    # The controls: the same machine's grouped engine with no screen, with
+    # no screen and no fused table set (the groups' own passes), and with no
+    # suffix screen for the count (B9).
     per_group = Searcher(CASE_SENSITIVE, s1000.needles, machine=s1000.automaton)
     unscreened = Searcher(CASE_SENSITIVE, s1000.needles, machine=s1000.automaton)
+    b9_control = Searcher(CASE_SENSITIVE, s1000.needles, machine=s1000.automaton)
     for s in (per_group, unscreened):
         s._engine.device_engine()._filter_tables = None
     pg = per_group._engine.device_engine()
     pg._fused_tried = pg._fused_sticky_tried = True
+    pg._screen = b9_control._engine.device_engine()._screen = None
     ops5 = [("count_matches", "main path", lambda: s1000.count_matches(st5["config 5"]))]
     ops5 += [(f"contains_any {k}", "main path", (lambda v=v: s1000.contains_any(v)))
              for k, v in st5.items()]
@@ -2253,6 +2271,7 @@ def main() -> int:
         ("contains_all false", "main path", lambda: s1000.contains_all(st5["config 5"])),
         ("all_matches_arrays", "main path", lambda: s1000.all_matches_arrays(st5["config 5"])),
         ("count_matches", "per group", lambda: per_group.count_matches(st5["config 5"])),
+        ("count_matches", "B9", lambda: b9_control.count_matches(st5["config 5"])),
     ]
     ops5 += [(f"contains_any {k}", "per group", (lambda v=v: per_group.contains_any(v)))
              for k, v in st5.items()]
@@ -2267,7 +2286,7 @@ def main() -> int:
           "(the JAX package's engine has 7 and 1)")
     extract5 = {"comb_count", "comb_states", "matchbits_comb16"}
     expect5 = {
-        "count_matches": {"comb16_count_grouped"},
+        "count_matches": {"screen_count"},
         "contains_any config 5": {"filter_contains", "comb16_contains_grouped"},  # candidates
         "contains_any fire-free": {"filter_contains"},  # no fire: the screen says False
         "contains_any digits (2b)": {"filter_contains", "comb16_contains_grouped"},
@@ -2279,13 +2298,14 @@ def main() -> int:
     control_kernels = {
         "per group": {"comb_count", "comb16_count", "comb_contains", "comb16_contains"},
         "unscreened": {"comb16_contains_grouped"},
+        "B9": {"comb16_count_grouped"},
     }
     g_main, g_control = {}, {}
     for op, who, used in run_ops(ops5, want5):
         if who == "main path":
             check(set(used) == expect5[op], f"{op}: launched {used}, expected {expect5[op]}")
             if op == "count_matches":
-                check(used == {"comb16_count_grouped": 1}, f"count launched {used}")
+                check(used == {"screen_count": 1}, f"count launched {used}")
             if set(used) == extract5:
                 check(used["comb_count"] == n_c32 and used["matchbits_comb16"] == n_c16
                       and 0 < used["comb_states"] <= n_c32, f"{op}: a group was skipped: {used}")
@@ -2293,11 +2313,12 @@ def main() -> int:
         else:
             check(used and set(used) <= control_kernels[who], f"{op} ({who}): launched {used}")
             tally(g_control, used)
-    for name in ("comb16_count_grouped", "comb16_contains_grouped", "filter_contains",
+    for name in ("screen_count", "comb16_contains_grouped", "filter_contains",
                  "comb_count", "comb_states", "matchbits_comb16"):
         check(g_main.get(name, 0) > 0, f"{name} was not launched by the grouped path")
+    check(g_control.get("comb16_count_grouped", 0) == 1, "B9's count control did not run")
     print(f"grouped path: stage 5 x {CORPUS_BYTES} bytes {stage5_s:.3f} s; every answer == "
-          f"host C++ == per-group control == unscreened control; launches "
+          f"host C++ == per-group control == unscreened control == B9 control; launches "
           f"{g_main}, control {g_control}")
 
     def launched(fn):
@@ -2652,7 +2673,7 @@ def main() -> int:
     ops600 = [(op, "main path", (lambda op=op: getattr(s600, op)(staged600)))
               for op in ("count_matches", "all_matches_arrays")]
     for op, who, used in run_ops(ops600, want600):
-        check(used and set(used) <= {"comb16_count_grouped", "comb_count", "comb_states",
+        check(used and set(used) <= {"screen_count", "comb_count", "comb_states",
                                      "matchbits_comb16", "comb16_count", "comb16_states"},
               f"lowering path {op}: launched {used}")
         tally(ci_main, used)
@@ -2777,6 +2798,8 @@ def main() -> int:
         for a in args[1:]:  # the grouped kernels' tables
             if hasattr(a, "gscal"):
                 tabs += [a.classmap, a.comb, a.aux, a.root_row, a.segtable, a.gscal]
+            if hasattr(a, "recs"):  # the suffix screen's
+                tabs += [a.bitmap, a.slots, a.recs]
         return sum(a.numel() * a.element_size() for a in tabs)
 
     def n_live_bytes(sst):
@@ -2922,6 +2945,9 @@ def main() -> int:
          (st5c.streams, st5c.warm, st5c.vend, f5, st5c.plan.overlap), "config 5",
          n_live_bytes(st5c), 4 * S,
          n_live_bytes(st5c) * G5),
+        ("screen_count", K.screen_count, K.screen_count_plain,
+         (st5c.streams, st5c.warm, st5c.vend, eng5._screen, st5c.plan.overlap), "config 5",
+         n_live_bytes(st5c), 4 * S, n_live_bytes(st5c)),
         ("comb16_contains_grouped", K.comb16_contains_grouped, K.comb16_contains_grouped_plain,
          eng5.sticky_args(st5d), "config 5, digits corpus: full scan", need5d, 4 * S,
          need5d * Y5),
@@ -3527,20 +3553,26 @@ def main() -> int:
           f"count {ref30}: B1 dense_count {b1[0]:.4f} / {b1[1]:.4f} ms, B8 comb16_count "
           f"{b8[0]:.4f} / {b8[1]:.4f} ms (turns B1, B8, B8, B1; {card})")
 
-    # B9 against the per-group passes it replaces (the per-group control:
-    # one B15 or B8 launch per group), on the config-5 corpus.
+    # The suffix screen (the main path's count) against B9 and the per-group
+    # passes (the per-group control: one B15 or B8 launch per group), on the
+    # config-5 corpus.
     check(eng5.count_staged(st5c) == want5["count_matches"], "grouped count after timing")
+    screen5 = (st5c.streams, st5c.warm, st5c.vend, eng5._screen, st5c.plan.overlap)
     turns5 = []
     for label, fn in (("B9", lambda: eng5.stream_counts(st5c)),
+                      ("screen", lambda: K.screen_count(*screen5)),
                       ("per-group", lambda: [e.stream_counts(st5c) for e in eng5.engines]),
                       ("per-group", lambda: [e.stream_counts(st5c) for e in eng5.engines]),
+                      ("screen", lambda: K.screen_count(*screen5)),
                       ("B9", lambda: eng5.stream_counts(st5c))):
         turns5.append((label, timed(fn, KERNEL_RUNS)))
     b9 = [ms for label, ms in turns5 if label == "B9"]
+    sc_turns = [ms for label, ms in turns5 if label == "screen"]
     b8s = [ms for label, ms in turns5 if label == "per-group"]
-    print(f"time 1,000 needles, count: B9 over {G5} uniform groups {b9[0]:.4f} / {b9[1]:.4f} ms, "
-          f"per-group passes over {eng5.n_groups} groups {b8s[0]:.4f} / {b8s[1]:.4f} ms (turns B9, "
-          f"per-group, per-group, B9; {card}); host C++ count {host_count_ms:.1f} ms host clock")
+    print(f"time 1,000 needles, count: screen_count {sc_turns[0]:.4f} / {sc_turns[1]:.4f} ms, B9 "
+          f"over {G5} uniform groups {b9[0]:.4f} / {b9[1]:.4f} ms, per-group passes over "
+          f"{eng5.n_groups} groups {b8s[0]:.4f} / {b8s[1]:.4f} ms (turns B9, screen, per-group, "
+          f"per-group, screen, B9; {card}); host C++ count {host_count_ms:.1f} ms host clock")
 
     # The extraction path's stages after the B6 kernel (bitap step).
     _, bits = K.matchbits(*bitap_eng.bits_args(st), overlap=st.plan.overlap)
@@ -3605,6 +3637,7 @@ def main() -> int:
         "matchbits_comb16": ("comb16_grouped.cu", "comb16_scan.py:1382", "config 2, comb16 step"),
         "filter_contains": ("filter_contains.cu", "filter_scan.py:191", "config 2"),
         "comb16_count_grouped": ("comb16_grouped.cu", "comb16_scan.py:682", "config 5"),
+        "screen_count": ("screen_count.cu", None, "config 5"),  # replaces no TPU kernel
         "comb16_contains_grouped": ("comb16_grouped.cu", "comb16_scan.py:778",
                                     "config 5, digits corpus: full scan"),
         "comb16_contains_base": ("comb16_grouped.cu", "comb16_scan.py:778", b11["what"]),
@@ -3635,7 +3668,8 @@ def main() -> int:
         ms, plain_ms, bms, by = timings[(name, what)]
         entry = {
             "name": name, "route": "cuda", "source": f"alfred_margaret_tpu_torch/csrc/{src}",
-            "replaces": f"alfred_margaret_tpu/ops/{where}", "launches": launches.get(name, 0),
+            "replaces": where and f"alfred_margaret_tpu/ops/{where}",
+            "launches": launches.get(name, 0),
             "control_launches": control.get(name, 0),
             "api_launches": api_main.get(name, 0),  # Replacer, Splitter, adopt_staged
             "stream_launches": stream_main.get(name, 0),  # streamed past the budget
@@ -3695,6 +3729,14 @@ def main() -> int:
                          per_group_passes=eng5.n_groups, host_cpp_count_ms=host_count_ms,
                          design=comb16_grouped_design(st5c.streams, f5,
                                                             st5c.plan.overlap).as_dict())
+        if name == "screen_count":
+            sc5 = eng5._screen
+            sc5.passes.zero_()
+            K.screen_count(st5c.streams, st5c.warm, st5c.vend, sc5, st5c.plan.overlap)
+            entry.update(bits=sc5.bits, key_bytes=sc5.key_bytes, ms_turns=sc_turns,
+                         pass_share=int(sc5.passes) / n_live_bytes(st5c),
+                         design=screen_count_design(st5c.streams, sc5,
+                                                    st5c.plan.overlap).as_dict())
         if name == "comb_states":
             t3 = eng3.full_tables
             entry["design"] = comb_count_design(st3c.streams, t3.comb, t3.def_table,

@@ -5,11 +5,13 @@ checks it.
 ``Searcher.build`` of the 1,000 needles, ``stage`` of about 256 KiB drawn
 by ``perfbench/corpus.py``, then ``count_matches``: ``make_engine`` holds
 no single pass for the set, so ``MatchEngine`` builds ``GroupedAcEngine``,
-whose first count builds the uniform table set and runs B9 (its plain
-version here) once over every group.  The count must equal
+whose build plans the suffix screen (``kernels/screen_count.py``: every
+needle of 5 to 11 bytes), and each count runs ``screen_count`` (its plain
+version here) once, in one pass.  The count must equal
 ``perfbench/reference_keyed.py``, ``perfbench/reference.py`` and
-``bytes.find`` (exact), and the per-group route (the groups' own counts,
-summed) the same.  The build runs once, under the profiler, so that the
+``bytes.find`` (exact), and B9 over every group (the fused tables built
+directly) and the per-group route (the groups' own counts, summed) the
+same.  The build runs once, under the profiler, so that the
 grouped engine's spans are read on the normal path too.  The keyed reference is
 held to ``bytes.find`` across block seams and its control to the count of
 independent blocks; ``configs/c1000.json`` to config 5's draw; the reader
@@ -22,9 +24,10 @@ import random
 
 import numpy as np
 import pytest
+import torch
 
 from alfred_margaret_tpu_torch import CASE_SENSITIVE, Searcher
-from alfred_margaret_tpu_torch.kernels import comb16_count_grouped_plain
+from alfred_margaret_tpu_torch.kernels import comb16_count_grouped_plain, screen_count_plain
 from alfred_margaret_tpu_torch.ops import grouped as tgrouped
 from alfred_margaret_tpu_torch.ops.grouped import GroupedAcEngine
 from perfbench import harness, reference, reference_keyed
@@ -68,19 +71,36 @@ def _b9_calls(monkeypatch):
     return calls
 
 
+def _screen_calls(monkeypatch):
+    calls = []
+
+    def screen(*a):
+        calls.append(1)
+        return screen_count_plain(*a[:4])
+
+    monkeypatch.setattr(tgrouped, "screen_count", screen)
+    return calls
+
+
 def test_c1000_count_equals_every_reference(c1000, monkeypatch):
     s, data, st = c1000["s"], c1000["data"], c1000["st"]
     eng = s._engine.device_engine()
     assert isinstance(eng, GroupedAcEngine) and eng.n_groups >= 2
-    assert eng._fused is not None and len(eng._fused.groups) >= 2
+    assert eng._screen is not None and eng._fused is None  # no B9 tables for the count
     want = reference.naive_count(data, NEEDLES)
     assert want > 0
     assert reference_keyed.count(data, NEEDLES, "cpu", block=40_000) == want
     assert reference.count(data, NEEDLES, "cpu") == want
     assert c1000["first"] == want
-    calls = _b9_calls(monkeypatch)
+    calls, screens = _b9_calls(monkeypatch), _screen_calls(monkeypatch)
     assert s.count_matches(st) == want
-    assert calls == [1]  # one fused B9 pass over every group
+    assert (calls, screens) == ([], [1])  # one screen pass, no B9
+    # B9 over every group, its tables built directly: the same count.
+    dst = eng.adopt_staged(st.device)
+    f = eng._fused_setup()
+    assert f is not None and len(f.groups) >= 2
+    assert int(eng.stream_counts(dst)[torch.from_numpy(dst.live_np)].long().sum()) == want
+    assert calls == [1]
 
 
 def test_c1000_per_group_route_is_the_same_count(c1000, monkeypatch):
@@ -93,8 +113,9 @@ def test_c1000_per_group_route_is_the_same_count(c1000, monkeypatch):
 
 
 def test_c1000_spans_on_the_normal_path(c1000):
-    """The grouped engine is built inside the first staging's dispatch,
-    its fused tables and one pass inside the first count."""
+    """The grouped engine (the screen's tables with it) is built inside the
+    first staging's dispatch; the first count holds one pass and, inside
+    it, one screen span, and builds no fused table set."""
     stage = c1000["stage_spans"]
     counts = _check_nesting(stage)
     assert counts["amt.group.build"] == 1 and counts["amt.api.stage"] == 1
@@ -102,10 +123,11 @@ def test_c1000_spans_on_the_normal_path(c1000):
     assert _parent(stage, i) == "amt.prep"
     first = c1000["count_spans"]
     assert _check_nesting(first) == {"amt.api.count_matches": 1, "amt.prep": 1,
-                                     "amt.group.fuse": 1, "amt.group.pass": 1,
+                                     "amt.group.pass": 1, "amt.group.screen": 1,
                                      "amt.readback": 1, "amt.reduce": 1}
     names = [name for name, _, _ in first]
-    assert _parent(first, names.index("amt.group.fuse")) == "amt.api.count_matches"
+    assert _parent(first, names.index("amt.group.pass")) == "amt.api.count_matches"
+    assert _parent(first, names.index("amt.group.screen")) == "amt.group.pass"
     assert _parent(first, names.index("amt.readback")) == "amt.group.pass"
 
 

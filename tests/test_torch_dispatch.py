@@ -56,6 +56,10 @@ def test_path_switches_change_nothing(monkeypatch, name):
                         lambda *a: calls.append(1) or comb16_count_grouped_plain(*a))
     tm = _machine(MID)
     g = GroupedAcEngine(tm, device=CPU, max_rows=5, n_streams=256, t_tile=64)
+    assert g._screen is not None  # the suffix screen counts the set
+    assert g.count(MID_HAY) == ac.count_matches(tm, MID_HAY)
+    assert calls == []
+    g._screen = None  # B9, its fused tables built at this first count
     assert g.count(MID_HAY) == ac.count_matches(tm, MID_HAY)
     assert calls == [1]
     c16 = Comb16AcEngine(_machine(CONFIG2), device=CPU, n_streams=16, t_tile=32)

@@ -430,6 +430,33 @@ def test_grouped_wrappers_count_launches_and_raise(cuda):
         assert fn.launches == before + 1
 
 
+def test_screen_count_matches_plain_and_b9(cuda):
+    """The grouped engine's count on config 5's first 1,000 needles: the
+    suffix screen's kernel equals its plain version per stream, with the
+    same screen passes on the device counter, and B9 over every group (its
+    fused tables built directly); ``count_staged`` launches it once."""
+    from alfred_margaret_tpu_torch.kernels import screen_count, screen_count_plain
+
+    needles = _config5(1000)
+    m = _machine(needles)
+    eng = GroupedAcEngine(m, device=cuda)
+    assert eng._screen is not None and eng._screen.bits == 17
+    data = np.frombuffer(synth_corpus(needles, 1 << 20, hit_fraction=0.01, seed=27), np.uint8)
+    st = eng.stage(data)
+    tables = eng._screen
+    tables.passes.zero_()
+    k = screen_count(st.streams, st.warm, st.vend, tables, st.plan.overlap)
+    torch.cuda.synchronize()
+    k_passes = int(tables.passes)
+    tables.passes.zero_()
+    p = screen_count_plain(st.streams, st.warm, st.vend, tables)
+    assert torch.equal(k, p) and k_passes == int(tables.passes) > 0
+    assert torch.equal(k, eng.stream_counts(st))  # B9
+    before = screen_count.launches
+    assert eng.count_staged(st) == CppAcEngine(m).count(data) > 0
+    assert screen_count.launches == before + 1
+
+
 #: Needle sets that overflow comb16 and take comb32: random needles, config
 #: 5's first 300, counts of up to 5 per state, and NUL-bearing needles (not
 #: zero-inert).
@@ -749,6 +776,49 @@ def _edge_streams(needles, T, S, K, seed, device):
         return torch.from_numpy(np.ascontiguousarray(x)).to(device=device, dtype=dtype)
 
     return dev(streams, torch.uint8), dev(warm, torch.int32), dev(vend, torch.int32)
+
+
+#: Needle sets the screen takes at the edge shapes: config 5's first 300
+#: (keys of 5 bytes), needles of 8 to 16 bytes (keys of 8), and needles
+#: holding NUL (a 4-byte key).
+SCREEN_SETS = {
+    "config5_300": _config5(300),
+    "long": [x * 2 for x in _random_needles(41, 80)] + ["abcdefgh", "0123456789abcdef"],
+    "nul": _random_needles(43, 60) + ["a\x00bc", "\x00\x00\x00\x00", "xy\x00z"],
+}
+
+
+@pytest.mark.parametrize("shape", [(5, 300), (15, 1000), *EDGE_SHAPES])
+def test_screen_count_matches_plain_at_edge_shapes(cuda, shape):
+    """``screen_count`` with the plan's overlap (segments by its rule, short
+    last tiles) and without, on ragged warm-ups and vends, equals its plain
+    version and counts its passes alike; an overlap under the longest needle
+    less one raises before any launch."""
+    from alfred_margaret_tpu_torch.kernels.screen_count import (
+        plan_screen,
+        screen_count,
+        screen_count_plain,
+    )
+
+    T, S = shape
+    for name, needles in SCREEN_SETS.items():
+        m = _machine(needles)
+        tables = plan_screen(m, cuda)
+        assert tables is not None, name
+        K = m.max_needle_bytes - 1
+        streams, warm, vend = _edge_streams(needles, T, S, K, T + S, cuda)
+        tables.passes.zero_()
+        want = screen_count_plain(streams, warm, vend, tables)
+        want_passes = int(tables.passes)
+        before = screen_count.launches
+        for overlap in (K, None):
+            tables.passes.zero_()
+            assert torch.equal(screen_count(streams, warm, vend, tables, overlap), want), name
+            assert int(tables.passes) == want_passes, name
+        assert screen_count.launches == before + 2
+        with pytest.raises(ValueError):
+            screen_count(streams, warm, vend, tables, K - 1)
+        assert screen_count.launches == before + 2
 
 
 @pytest.mark.parametrize("shape", EDGE_SHAPES)

@@ -454,6 +454,7 @@ def test_fused_off_is_the_control(monkeypatch):
     _, tm = _machines(MID)
     eng = GroupedAcEngine(tm, device=CPU, max_rows=5, n_streams=256, t_tile=64)
     eng._filter_tables = None  # the fused scan decides every containsAny
+    eng._screen = None  # and B9 every count (the set suits the suffix screen)
     hays = [MID_HAY, b"ZQ" * 3000, b"ZQ" * 100 + MID[-1].encode()]
     st = [eng._stage(h) for h in hays]
     fused = [(eng.count_staged(s), eng.contains_staged(s)) for s in st]
@@ -467,7 +468,7 @@ def test_fused_off_is_the_control(monkeypatch):
     # Marked tried before its first use, an engine keeps the fused tables
     # unbuilt and runs the groups' own passes.
     fresh = GroupedAcEngine(tm, device=CPU, max_rows=5, n_streams=256, t_tile=64)
-    fresh._filter_tables = None
+    fresh._filter_tables = fresh._screen = None
     fresh._fused_tried = True
     assert [(fresh.count_staged(s), fresh.contains_staged(s)) for s in st] == fused
     assert fresh._fused is None and fresh._fused_sticky_setup() is None
@@ -485,12 +486,67 @@ def test_fused_kernel_error_raises(monkeypatch, recwarn):
 
     monkeypatch.setattr(tgrouped, "comb16_count_grouped", broken)
     monkeypatch.setattr(tgrouped, "comb16_contains_grouped", broken)
+    monkeypatch.setattr(tgrouped, "screen_count", broken)
     with pytest.raises(RuntimeError, match="launch failed"):
-        eng.count_staged(st)
+        eng.count_staged(st)  # the suffix screen's
+    assert eng._screen is not None and eng._fused is None  # no fallback to B9
+    eng._screen = None
+    with pytest.raises(RuntimeError, match="launch failed"):
+        eng.count_staged(st)  # B9's
     with pytest.raises(RuntimeError, match="launch failed"):
         eng.contains_staged(st)
     assert eng._fused is not None and eng._fused_sticky is not None  # still engaged
     assert len(recwarn) == 0
+
+
+#: Sets the suffix screen declines, each beside config-5-like needles whose
+#: count and containsAny fuse: a needle of 3 bytes, one of 17, and nine
+#: distinct needles sharing the key (their last 4 bytes, MID's shortest).
+DECLINED = {
+    "three_bytes": MID + ["qzx"],
+    "seventeen_bytes": MID + ["qzxqzxqzxqzxqzxqz"],
+    "nine_share_a_key": MID + [p + "qxqx" for p in ("a", "b", "c", "d", "e", "f", "g", "h",
+                                                     "i")],
+}
+
+
+@pytest.mark.parametrize("name", sorted(DECLINED))
+def test_screen_declines_and_b9_counts(name, monkeypatch, tmp_path):
+    from test_torch_spans import _check_nesting, _spans
+
+    calls = _counting(monkeypatch)
+    needles = DECLINED[name]
+    _, tm = _machines(needles)
+    eng = GroupedAcEngine(tm, device=CPU, max_rows=5, n_streams=256, t_tile=64)
+    assert eng._screen is None
+    hay = MID_HAY + " ".join(needles[150:]).encode()
+    st = eng._stage(hay)
+    got, spans = _spans(tmp_path, lambda: eng.count_staged(st))
+    assert got == ac.count_matches(tm, hay) > 0
+    assert calls["B9"] == 1 and eng._fused is not None
+    counts = _check_nesting(spans)
+    assert counts["amt.group.pass"] == 1 and "amt.group.screen" not in counts
+
+
+def test_screen_takes_eight_sharing_a_key(monkeypatch, tmp_path):
+    """Eight distinct needles sharing a key are within the screen's bound:
+    one screen span inside one pass a count, and B9 is not launched."""
+    from test_torch_spans import _check_nesting, _parent, _spans
+
+    calls = _counting(monkeypatch)
+    needles = MID + [p + "qxqx" for p in "abcdefgh"]
+    _, tm = _machines(needles)
+    eng = GroupedAcEngine(tm, device=CPU, max_rows=5, n_streams=256, t_tile=64)
+    assert eng._screen is not None and eng._screen.key_bytes == 4
+    hay = MID_HAY + " ".join(needles[150:]).encode()
+    st = eng._stage(hay)
+    got, spans = _spans(tmp_path, lambda: eng.count_staged(st))
+    assert got == ac.count_matches(tm, hay) > 0
+    assert calls["B9"] == 0 and eng._fused is None
+    assert _check_nesting(spans) == {"amt.group.pass": 1, "amt.group.screen": 1,
+                                     "amt.readback": 1, "amt.reduce": 1}
+    names = [n for n, _, _ in spans]
+    assert _parent(spans, names.index("amt.group.screen")) == "amt.group.pass"
 
 
 def test_shared_staging_nul_group():

@@ -7,13 +7,16 @@ more than the JAX plan lets one comb table hold, so neither package has a
 single-pass engine for them and the port's ``MatchEngine`` builds
 ``GroupedAcEngine`` with the JAX engine's groups, engines and fusion
 decisions (three comb32 groups and one comb16 group): ``count_matches``
-runs B9 once over the uniform groups, ``contains_any`` the 12-word stride-2
+runs the suffix screen's count once (``kernels/screen_count.py``; B9's
+fused tables are built for containsAny and compared with the JAX engine's),
+``contains_any`` the 12-word stride-2
 screen (B14) and then B11, ``contains_all`` and ``all_matches`` each group's
 extraction (B15 and B17 for a comb32 group, the hit bitmap with the comb16
 step, B13, for the other), here through the plain torch versions.  Every
 answer must equal the JAX ``Searcher`` on its ``cpp`` backend over the same
 seeded 64 KiB corpus (tolerance: exact equality), with the fused kernels on
-and with the groups' own passes (the fused table sets taken away).
+and with the groups' own passes (the fused table sets and the suffix screen
+taken away).
 """
 
 import numpy as np
@@ -32,6 +35,7 @@ from alfred_margaret_tpu_torch.kernels import (
     comb_count_plain,
     comb_states_plain,
     filter_contains_plain,
+    screen_count_plain,
 )
 from alfred_margaret_tpu_torch.ops import comb_scan as tcomb
 from alfred_margaret_tpu_torch.ops import filter_scan
@@ -62,9 +66,9 @@ def slice_():
 
 
 def _kernel_calls(monkeypatch):
-    """Count the calls of B9, B11, the screen, B15, B16 and B17 (their plain
-    versions run)."""
-    calls = {"B9": 0, "B11": 0, "screen": 0, "B15": 0, "B16": 0, "B17": 0}
+    """Count the calls of B9, B11, the screen, the suffix screen's count
+    (``count_screen``), B15, B16 and B17 (their plain versions run)."""
+    calls = {"B9": 0, "B11": 0, "screen": 0, "count_screen": 0, "B15": 0, "B16": 0, "B17": 0}
 
     def wrap(key, fn):
         def call(*a):
@@ -76,6 +80,8 @@ def _kernel_calls(monkeypatch):
     monkeypatch.setattr(tgrouped, "comb16_contains_grouped",
                         wrap("B11", comb16_contains_grouped_plain))
     monkeypatch.setattr(filter_scan, "filter_kernel", wrap("screen", filter_contains_plain))
+    monkeypatch.setattr(tgrouped, "screen_count",
+                        wrap("count_screen", lambda *a: screen_count_plain(*a[:4])))
     monkeypatch.setattr(tcomb, "comb_count", wrap("B15", comb_count_plain))
     monkeypatch.setattr(tcomb, "comb_contains", wrap("B16", comb_contains_plain))
     monkeypatch.setattr(tcomb, "comb_states", wrap("B17", comb_states_plain))
@@ -116,7 +122,7 @@ def test_config5_operations_match_jax_searcher(slice_, monkeypatch):
     staged = s.stage(CORPUS)
     assert staged.device is not None
     assert s.count_matches(staged) == ref.count_matches(CORPUS) > 0
-    assert calls["B9"] == 1 and calls["B15"] == calls["B17"] == 0
+    assert calls["count_screen"] == 1 and calls["B9"] == calls["B15"] == calls["B17"] == 0
     assert s.contains_all(staged) is ref.contains_all(CORPUS) is False
     # Each comb32 group counted once (B15), and those with matches wrote their
     # packed states (B17).
@@ -142,17 +148,18 @@ def test_config5_contains_any_through_the_screen(slice_, monkeypatch):
     # No chain fires: the screen answers False alone.
     clean = fire_free(32 << 10, seed=3)
     assert s.contains_any(s.stage(clean)) is ref.contains_any(clean) is False
-    assert calls == {"B9": 0, "B11": 0, "screen": 1, "B15": 0, "B16": 0, "B17": 0}
+    assert calls == {"B9": 0, "B11": 0, "screen": 1, "count_screen": 0, "B15": 0, "B16": 0,
+                     "B17": 0}
     # Candidates on the digits corpus of config 2b: B11 decides, False, then
     # True with one needle of the last sticky group in it.
     digits = DIGITS * ((32 << 10) // len(DIGITS))
     last = N500[eng._fused_sticky.groups[-1][-1]].encode()
     hit = digits[: len(digits) // 2] + last + digits[len(digits) // 2:]
     assert s.contains_any(s.stage(digits)) is ref.contains_any(digits) is False
-    assert calls == {"B9": 0, "B11": 1, "screen": 2, "B15": 0, "B16": 0,
+    assert calls == {"B9": 0, "B11": 1, "screen": 2, "count_screen": 0, "B15": 0, "B16": 0,
                      "B17": 0} and eng._filter_strikes == 1
     assert s.contains_any(s.stage(hit)) is ref.contains_any(hit) is True
-    assert calls == {"B9": 0, "B11": 2, "screen": 3, "B15": 0, "B16": 0,
+    assert calls == {"B9": 0, "B11": 2, "screen": 3, "count_screen": 0, "B15": 0, "B16": 0,
                      "B17": 0} and eng._filter_strikes == 2
     assert s.contains_any(s.stage(CORPUS)) is ref.contains_any(CORPUS) is True
     assert calls["B11"] == 3
@@ -163,7 +170,7 @@ def test_config5_fused_off_is_the_control(slice_, monkeypatch):
     calls = _kernel_calls(monkeypatch)
     # The groups' own passes, unscreened: no fused table set, no screen.
     eng = s._engine.device_engine()
-    for name in ("_fused", "_fused_sticky", "_filter_tables"):
+    for name in ("_fused", "_fused_sticky", "_filter_tables", "_screen"):
         monkeypatch.setattr(eng, name, None)
     monkeypatch.setattr(eng, "_fused_tried", True)
     monkeypatch.setattr(eng, "_fused_sticky_tried", True)
@@ -175,4 +182,5 @@ def test_config5_fused_off_is_the_control(slice_, monkeypatch):
     # The per-group passes: B15 for each comb32 group's count, B16 for its
     # containsAny (the first group hits the config-5 corpus; on the digits
     # corpus every group scans).
-    assert calls == {"B9": 0, "B11": 0, "screen": 0, "B15": 3, "B16": 4, "B17": 0}
+    assert calls == {"B9": 0, "B11": 0, "screen": 0, "count_screen": 0, "B15": 3, "B16": 4,
+                     "B17": 0}

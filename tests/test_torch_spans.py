@@ -12,8 +12,10 @@ slice is copied on the intra-op threads and none where it is shorter than
 ``PARALLEL_COPY_BYTES``, one ``amt.stream.cold_prefix`` a chunk after the first, one
 ``amt.host_recount`` a trapped stream, one ``amt.group.build`` a grouped
 engine, one ``amt.group.fuse`` a fused table set built, one
-``amt.group.pass`` a fused count and one a group's own count.  Every name the port emits is in
-``trace.SPANS``, and every name of ``trace.SPANS`` is in ``PERF.md``.  The
+``amt.group.pass`` a fused count and one a group's own count, one
+``amt.group.screen`` inside the pass of a count by the suffix screen.
+Every name the port emits is in ``trace.SPANS``, and every name of
+``trace.SPANS`` is in ``PERF.md``.  The
 kernels' plain versions run here, so ``amt.launch`` is checked on the card
 (``tests/test_torch_gpu.py``).
 """
@@ -73,6 +75,7 @@ PARENTS = {
                        None},
     "amt.group.pass": {"amt.api.count_matches", "amt.api.contains_any", "amt.stream.chunk",
                        None},
+    "amt.group.screen": {"amt.group.pass"},
 }
 
 
@@ -321,35 +324,49 @@ def test_grouped_no_profiler_no_record_function(no_record_function, monkeypatch)
     m, eng, hay = _grouped()
     st = eng._stage(hay)
     want = ac.count_matches(m, hay)
-    assert eng.count_staged(st) == eng.count_staged(st) == want
+    assert eng.count_staged(st) == eng.count_staged(st) == want  # the suffix screen
     assert eng.contains_staged(st) is True
     assert eng._fused is not None and eng._fused_sticky is not None
+    monkeypatch.setattr(eng, "_screen", None)  # B9
+    assert eng.count_staged(st) == want
     monkeypatch.setattr(eng, "_fused", None)  # the groups' own passes
     assert eng.count_staged(st) == want
 
 
 def test_grouped_spans(tmp_path, monkeypatch):
-    """One build, one fused table set for the count and one for
-    containsAny, each built once; one pass a fused count, holding its
-    readback; with the fused table set taken away, one pass a group, each
-    holding the group's own readback."""
+    """One build (the suffix screen's tables in it); one pass a count by the
+    screen, holding one screen span and its readback, and no fused table
+    set; the fused table sets for containsAny, each built once; with the
+    screen taken away, one fused table set for the count, built once, and
+    one pass a fused count; with the fused table set taken away too, one
+    pass a group, each holding the group's own readback."""
     (m, eng, hay), spans = _spans(tmp_path, _grouped)
     assert _check_nesting(spans) == {"amt.group.build": 1}
-    assert eng.n_groups == 3
+    assert eng.n_groups == 3 and eng._screen is not None
     st = eng._stage(hay)
     want = ac.count_matches(m, hay)
-    got, spans = _spans(tmp_path, lambda: eng.count_staged(st))
+    for _ in range(2):
+        got, spans = _spans(tmp_path, lambda: eng.count_staged(st))
+        assert got == want
+        assert _check_nesting(spans) == {"amt.group.pass": 1, "amt.group.screen": 1,
+                                         "amt.readback": 1, "amt.reduce": 1}
+        assert [_parent(spans, i) for i, (n, _, _) in enumerate(spans)
+                if n in ("amt.readback", "amt.group.screen")] == ["amt.group.pass"] * 2
+    got, spans = _spans(tmp_path, lambda: eng.contains_staged(st))
+    assert got is True
+    assert _check_nesting(spans) == {"amt.group.fuse": 2}  # the count view's, then the sticky
+    fresh = _grouped()[1]
+    fresh._screen = None
+    got, spans = _spans(tmp_path, lambda: fresh.count_staged(st))
     assert got == want
     assert _check_nesting(spans) == {"amt.group.fuse": 1, "amt.group.pass": 1,
                                      "amt.readback": 1, "amt.reduce": 1}
-    got, spans = _spans(tmp_path, lambda: eng.count_staged(st))
+    got, spans = _spans(tmp_path, lambda: fresh.count_staged(st))
     assert got == want
     assert _check_nesting(spans) == {"amt.group.pass": 1, "amt.readback": 1, "amt.reduce": 1}
     assert [_parent(spans, i) for i, (n, _, _) in enumerate(spans)
             if n == "amt.readback"] == ["amt.group.pass"]
-    got, spans = _spans(tmp_path, lambda: eng.contains_staged(st))
-    assert got is True
-    assert _check_nesting(spans) == {"amt.group.fuse": 1}
+    monkeypatch.setattr(eng, "_screen", None)
     monkeypatch.setattr(eng, "_fused", None)
     got, spans = _spans(tmp_path, lambda: eng.count_staged(st))
     assert got == want
